@@ -1,0 +1,368 @@
+"""Device MapReduce with a monoid reduce (port of ``engine/device_engine.py``).
+
+The user gives ``map_fn(chunk, chunk_index, cfg) -> (keys [T, 2] int32
+bits, values, payload [T, Q] int32, valid [T] bool, overflow [] int32)``
+— a fixed-capacity batch of hashed records from one input chunk — and a
+``reduce_op``: "sum" / "min" / "max", a tuple of those (one per value
+lane), or an associative + commutative callable (CPU only: the CUDA
+segmented-reduce kernel takes op codes).
+
+Each wave, for each of the ``P`` partitions (:class:`..parallel.mesh.
+Partitions`), runs the JAX wave program's steps in order:
+
+  1. the map loop over the partition's chunks: ``map_fn``, and with
+     ``combine_in_scan`` a per-chunk ``sorted_unique_reduce`` (the
+     on-device combiner), appended to the partition's record buffer;
+  2. the local reduce: one ``sorted_unique_reduce`` over the buffer;
+  3. the exchange of the uniques, with the running accumulator carried
+     in front of the received rows (``partition_exchange``);
+  4. the fold: one more ``sorted_unique_reduce`` into the accumulator.
+
+Capacities are static; overflows are counted, and :meth:`DeviceEngine.
+run` retries with capacities right-sized from the failed attempt's
+measured needs.  A truncated result never escapes unless asked for.
+
+Left out of this port for now (ROADMAP): the compile ledger, tiering,
+autotune and partition maps, obs gauges, staged inputs, multi-process.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, replace
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops.segscan import SENTINEL, ReduceOp, sorted_unique_reduce
+from ..parallel.mesh import Partitions
+from ..parallel.shuffle import partition_exchange
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """Static capacities (each a per-partition row bound) and the JAX
+    package's formulation knobs, with the same names and defaults so a
+    configuration carries over (``convert.engine_config_from_jax``)."""
+
+    local_capacity: int = 1 << 16     # unique keys per partition, pre-shuffle
+    exchange_capacity: int = 1 << 14  # rows per (src, dst) pair
+    out_capacity: int = 1 << 16       # unique keys per partition
+    tile: int = 512                   # positions per compaction tile
+    tile_records: int = 128           # record slots per tile (map side)
+    reduce_op: ReduceOp = "sum"
+    unit_values: bool = False         # values are all 1: count runs instead
+    #: on-device combiner: pre-reduce each chunk's records in the map
+    #: loop (valid only because reduce_op declares an ACI monoid)
+    combine_in_scan: bool = False
+    #: record slots one chunk is combined into (0 = auto: T//4, at least
+    #: 256, at most T); per-chunk uniques beyond it count as overflow
+    combine_capacity: int = 0
+    #: JAX formulation knob, kept for convert.py; unused here
+    rank_sort: bool = True
+    #: accumulate the src x dst exchange traffic matrix into timings
+    exchange_stats: bool = True
+    #: 'variadic' or 'argsort' (same permutation); 'radix' and the tiered
+    #: policies are not ported yet
+    sort_impl: str = "variadic"
+    #: skew-aware partition maps are not ported yet (must stay False)
+    partition_map: bool = False
+    partition_buckets: int = 0
+    #: JAX formulation knobs, kept for convert.py; the device picks the
+    #: route (kernels on CUDA, plain versions on the CPU)
+    segment_impl: str = "lax"
+    segment_block: int = 4096
+    tokenize_impl: str = "lax"
+    tokenize_block: int = 4096
+
+    def scan_combine_slots(self, T: int) -> int:
+        """Buffer slots one chunk's pre-reduced records occupy when the
+        combiner is on, clamped to [1, T]."""
+        cap = self.combine_capacity or max(T // 4, 256)
+        return max(1, min(T, cap))
+
+
+def _stage_ops(cfg: EngineConfig):
+    """``(local_op, local_unit, fin_op)`` — the per-stage reduce algebra.
+    With the combiner on, buffer rows are already per-chunk partial
+    reductions, so the local stage combines them (unit-value run counts
+    combine by sum) instead of counting rows again."""
+    if cfg.combine_in_scan and cfg.unit_values:
+        local_op, local_unit = "sum", False
+    else:
+        local_op, local_unit = cfg.reduce_op, cfg.unit_values
+    fin_op = "sum" if cfg.unit_values else cfg.reduce_op
+    return local_op, local_unit, fin_op
+
+
+class DeviceResult(NamedTuple):
+    keys: torch.Tensor     # [P, width, 2] int32 bits (uint32 key lanes)
+    values: torch.Tensor   # [P, width, ...]
+    payload: torch.Tensor  # [P, width, Q]
+    valid: torch.Tensor    # [P, width] bool
+    overflow: int          # total dropped rows across all stages (0 = exact)
+
+
+class _Wave(NamedTuple):
+    acc: tuple                # fin (keys, values, payload, valid), [P, C, ...]
+    overflow: torch.Tensor    # [P] int32 rows dropped in this wave
+    needs: torch.Tensor       # [P, 5] int32 measured capacity needs
+    counts: torch.Tensor      # [P, P] int32 exchange traffic
+
+
+def _check_impls(cfg: EngineConfig) -> None:
+    if cfg.sort_impl in ("radix", "tiered", "tiered-radix"):
+        raise NotImplementedError(
+            f"sort_impl={cfg.sort_impl!r} is not ported yet (ROADMAP: "
+            "the radix kernels and tiering)")
+    if cfg.sort_impl not in ("variadic", "argsort"):
+        raise ValueError(f"unknown sort_impl {cfg.sort_impl!r}")
+    if cfg.partition_map:
+        raise NotImplementedError(
+            "partition maps are not ported yet (ROADMAP: autotune and "
+            "partition maps)")
+    for field in ("segment_impl", "tokenize_impl"):
+        if getattr(cfg, field) not in ("lax", "pallas"):
+            raise ValueError(f"EngineConfig.{field} must be 'lax' or "
+                             f"'pallas', got {getattr(cfg, field)!r}")
+
+
+class DeviceEngine:
+    """Run-many device MapReduce over ``P`` partitions on one device."""
+
+    #: target host bytes per wave (the JAX engine's wave split, kept so
+    #: both cut a corpus into the same waves)
+    WAVE_BYTES = 48 << 20
+
+    def __init__(self, parts: Partitions, map_fn: Callable,
+                 config: EngineConfig = EngineConfig()) -> None:
+        _check_impls(config)
+        self.device = parts.device
+        self.n_dev = parts.n
+        self.map_fn = map_fn
+        self.config = config
+
+    # -- the wave ------------------------------------------------------------
+
+    def _map_partition(self, cfg: EngineConfig, chunks: torch.Tensor,
+                       first_index: int, n_real: int):
+        """Steps 1-2 for one partition's ``k`` chunks: the map loop (with
+        the in-scan combiner) and the local reduce.  Returns ``(local,
+        local_oflow, map_oflow, comb_max)``."""
+        local_op, local_unit, _ = _stage_ops(cfg)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        map_oflow, comb_oflow, comb_max = zero, zero, zero
+        bk, bv, bp = [], [], []
+        for j in range(chunks.shape[0]):
+            idx = first_index + j
+            keys, vals, pay, valid, m_oflow = self.map_fn(chunks[j], idx, cfg)
+            # chunks past n_real are padding: their records are masked
+            live = idx < n_real
+            if live:
+                map_oflow = map_oflow + m_oflow
+            else:
+                valid = torch.zeros_like(valid)
+            if cfg.combine_in_scan:
+                Tc = cfg.scan_combine_slots(keys.shape[0])
+                cu = sorted_unique_reduce(
+                    keys, vals, pay, valid, Tc, cfg.reduce_op,
+                    unit_values=cfg.unit_values, sort_impl=cfg.sort_impl)
+                keys, vals, pay, valid = (cu.keys, cu.values, cu.payload,
+                                          cu.valid)
+                comb_oflow = comb_oflow + (cu.n_unique - Tc).clamp(min=0)
+                comb_max = torch.maximum(comb_max, cu.n_unique)
+            # a valid record whose key is the sentinel pair becomes (0, 0);
+            # invalid rows become the sentinel pair (they sort last)
+            is_sent = (keys[:, 0] == SENTINEL) & (keys[:, 1] == SENTINEL)
+            keys = torch.where(is_sent[:, None], 0, keys)
+            bk.append(torch.where(valid[:, None], keys, SENTINEL))
+            bv.append(vals)
+            bp.append(pay)
+        buf_k = torch.cat(bk)
+        buf_valid = ~((buf_k[:, 0] == SENTINEL) & (buf_k[:, 1] == SENTINEL))
+        local = sorted_unique_reduce(
+            buf_k, torch.cat(bv), torch.cat(bp), buf_valid,
+            cfg.local_capacity, local_op, unit_values=local_unit,
+            sort_impl=cfg.sort_impl)
+        local_oflow = (map_oflow + comb_oflow
+                       + (local.n_unique - cfg.local_capacity).clamp(min=0))
+        return local, local_oflow, map_oflow, comb_max
+
+    def _wave(self, cfg: EngineConfig, chunks: torch.Tensor, first: int,
+              k: int, n_real: int, acc) -> _Wave:
+        """One wave over ``chunks [k*P, L]`` (global indices from
+        *first*), folding into *acc* (None on the first wave)."""
+        P = self.n_dev
+        _, _, fin_op = _stage_ops(cfg)
+        mapped = [self._map_partition(cfg, chunks[p * k:(p + 1) * k],
+                                      first + p * k, n_real)
+                  for p in range(P)]
+        locals_ = [m[0] for m in mapped]
+
+        def stacked(field):
+            return torch.stack([getattr(u, field) for u in locals_])
+
+        if acc is None:  # all-invalid accumulator shaped like the fold
+            C = cfg.out_capacity
+            lv, lp = locals_[0].values, locals_[0].payload
+            acc = (torch.zeros((P, C, 2), dtype=torch.int32,
+                               device=self.device),
+                   torch.zeros((P, C) + tuple(lv.shape[1:]), dtype=lv.dtype,
+                               device=self.device),
+                   torch.zeros((P, C) + tuple(lp.shape[1:]), dtype=lp.dtype,
+                               device=self.device),
+                   torch.zeros((P, C), dtype=torch.bool, device=self.device))
+        ex = partition_exchange(stacked("keys"), stacked("values"),
+                                stacked("payload"), stacked("valid"),
+                                cfg.exchange_capacity, carry=acc)
+        fins, oflows, needs = [], [], []
+        for p in range(P):
+            fin = sorted_unique_reduce(
+                ex.keys[p], ex.values[p], ex.payload[p], ex.valid[p],
+                cfg.out_capacity, fin_op, unit_values=False,
+                sort_impl=cfg.sort_impl)
+            local, local_oflow, map_oflow, comb_max = mapped[p]
+            fin_oflow = (fin.n_unique - cfg.out_capacity).clamp(min=0)
+            fins.append(fin)
+            oflows.append(local_oflow + ex.overflow[p] + fin_oflow)
+            # capacity needs: [local uniques, exchange per-dest max,
+            # final uniques (cumulative), map drops, combiner max]
+            needs.append(torch.stack([local.n_unique, ex.max_count[p],
+                                      fin.n_unique, map_oflow, comb_max]))
+        new_acc = tuple(torch.stack([getattr(f, n) for f in fins])
+                        for n in ("keys", "values", "payload", "valid"))
+        return _Wave(new_acc, torch.stack(oflows), torch.stack(needs),
+                     ex.counts)
+
+    # -- host driver -----------------------------------------------------------
+
+    def _rows_per_wave(self, row_bytes: int) -> int:
+        return max(1, round(self.WAVE_BYTES / max(1, row_bytes)))
+
+    def _auto_rows(self, chunks: np.ndarray) -> int:
+        """Chunks per partition per wave: a fixed function of the row
+        byte size, shrunk only for inputs smaller than one wave."""
+        S = chunks.shape[0]
+        row_bytes = max(1, chunks.nbytes // max(1, S))
+        return min(self._rows_per_wave(row_bytes), -(-S // self.n_dev))
+
+    @staticmethod
+    def _fit(need: int) -> int:
+        """Round a measured need up to a power of two with ~25% margin."""
+        need = int(need * 1.25) + 16
+        return 1 << max(need - 1, 1).bit_length()
+
+    def _resize(self, cfg: EngineConfig, needs: np.ndarray) -> EngineConfig:
+        """Right-size capacities from a failed attempt's needs ``[W, P,
+        5]``; needs are lower bounds when an earlier stage truncated, so
+        the loop may take another pass.  Never shrinks a capacity."""
+        local_need = int(needs[:, :, 0].max())
+        ex_need = int(needs[:, :, 1].max())
+        fin_need = int(needs[:, :, 2].max())
+        map_dropped = int(needs[:, :, 3].sum())
+        comb_need = int(needs[:, :, 4].max())
+        out = replace(
+            cfg,
+            local_capacity=max(cfg.local_capacity, self._fit(local_need)),
+            exchange_capacity=max(cfg.exchange_capacity, self._fit(ex_need)),
+            out_capacity=max(cfg.out_capacity, self._fit(fin_need)),
+            tile_records=(min(cfg.tile_records * 2, cfg.tile)
+                          if map_dropped else cfg.tile_records))
+        if cfg.combine_in_scan and comb_need > 0:
+            out = replace(out, combine_capacity=max(cfg.combine_capacity,
+                                                    self._fit(comb_need)))
+        return out
+
+    def _upload(self, chunks: np.ndarray, lo: int, rows: int) -> torch.Tensor:
+        """Rows ``[lo, lo+rows)`` of *chunks* on the device, the tail past
+        the corpus zero-filled (masked later by chunk index)."""
+        block = chunks[lo:lo + rows]
+        if block.shape[0] < rows:
+            pad = np.zeros((rows - block.shape[0],) + chunks.shape[1:],
+                           dtype=chunks.dtype)
+            block = np.concatenate([block, pad])
+        return torch.from_numpy(np.ascontiguousarray(block)).to(self.device)
+
+    def run(self, chunks: np.ndarray, max_retries: int = 3,
+            timings: Optional[dict] = None, waves: Optional[int] = None,
+            on_overflow: str = "raise") -> DeviceResult:
+        """Execute over *chunks* (``[S, ...]`` host array), growing
+        capacities until no stage overflowed.
+
+        *waves* (default: auto from the input size) splits the chunks
+        into waves of ``k`` chunks per partition; the accumulator carries
+        each partition's uniques from wave to wave.  Pass ``timings={}``
+        for ``upload_s``, ``compute_s`` (the attempts' wall time minus
+        upload waits, ending in the overflow readback that waits for the
+        device), ``readback_s``, ``total_s``, ``waves``, ``retries`` and,
+        with ``exchange_stats``, ``exchange["matrix"]``: the final
+        attempt's src x dst count of routed rows, summed over waves.
+
+        If capacities still overflow after *max_retries* right-sized
+        retries, raises ``RuntimeError``; ``on_overflow="return"`` returns
+        the truncated result (``overflow`` > 0) instead."""
+        if on_overflow not in ("raise", "return"):
+            raise ValueError(f"on_overflow must be 'raise' or 'return', "
+                             f"got {on_overflow!r}")
+        cfg = self.config
+        P = self.n_dev
+        S = chunks.shape[0]
+        k = (self._auto_rows(chunks) if waves is None
+             else -(-S // (max(1, waves) * P)))
+        rpw = k * P
+        W = -(-S // rpw)
+        t_start = time.monotonic()
+        t_upload = t_compute = 0.0
+        retries = 0
+        for attempt in range(max_retries + 1):
+            t0 = time.monotonic()
+            t_blocked = 0.0
+            acc = None
+            oflows, needs, counts = [], [], []
+            for w in range(W):
+                tb = time.monotonic()
+                block = self._upload(chunks, w * rpw, rpw)
+                t_blocked += time.monotonic() - tb
+                out = self._wave(cfg, block, w * rpw, k, S, acc)
+                del block
+                acc = out.acc
+                oflows.append(out.overflow)
+                needs.append(out.needs)
+                counts.append(out.counts)
+            # the one readback of the attempt: waits for the device
+            total_oflow = int(torch.stack(oflows).sum())
+            t_upload += t_blocked
+            t_compute += time.monotonic() - t0 - t_blocked
+            if total_oflow == 0 or attempt == max_retries:
+                break
+            retries = attempt + 1
+            cfg = self._resize(cfg, torch.stack(needs).cpu().numpy())
+        if total_oflow and on_overflow == "raise":
+            raise RuntimeError(
+                f"device run still overflowed {total_oflow} rows after "
+                f"{retries} right-sized retries; raise EngineConfig "
+                "capacities (or max_retries), or pass on_overflow='return' "
+                "to inspect the truncated result")
+        # sliced readback: only the live prefix of each partition's result
+        t0 = time.monotonic()
+        keys, vals, pay, valid = acc
+        width = max(1, int(valid.sum(dim=1).max()))
+        result = DeviceResult(keys[:, :width].cpu(), vals[:, :width].cpu(),
+                              pay[:, :width].cpu(), valid[:, :width].cpu(),
+                              total_oflow)
+        t_readback = time.monotonic() - t0
+        if timings is not None:
+            timings["waves"] = W
+            timings["retries"] = retries
+            timings["upload_s"] = t_upload
+            timings["compute_s"] = t_compute
+            timings["readback_s"] = t_readback
+            timings["total_s"] = time.monotonic() - t_start
+            if cfg.exchange_stats:
+                matrix = torch.stack(counts).sum(dim=0).cpu()
+                timings["exchange"] = {
+                    "matrix": matrix.tolist(),
+                    "row_sums": matrix.sum(dim=1).tolist(),
+                    "col_sums": matrix.sum(dim=0).tolist()}
+        return result

@@ -1,0 +1,222 @@
+"""Shared kernel plumbing: ONE rule for kernel vs plain, the build, counters.
+
+The counterpart of ``mapreduce_tpu/ops/pallas_compat.py``.  Every
+hand-written CUDA kernel of this package is reached through the same
+three pieces of glue:
+
+* **the rule** — :func:`use_kernel`: a tensor on the CPU takes the
+  kernel's plain PyTorch version; a tensor on a CUDA device launches the
+  kernel, and anything that stops the launch raises.  There is no
+  ``try`` that falls back: a card run that silently ran the plain
+  version would measure the wrong program.
+* **the build** — :func:`library`: ``nvcc`` compiles
+  ``mapreduce_tpu_torch/csrc/<name>.cu`` into a shared library with a
+  plain C interface under ``build/kernels/`` at first use (the file name
+  carries a hash of the sources, so an edited kernel rebuilds), and
+  ``ctypes`` loads it.  :func:`build_all` starts one ``nvcc`` per source
+  at once, so a fresh checkout pays the slowest build, not the sum.
+  Every pointer and the stream cross as ``ctypes.c_void_p``; every C
+  entry returns ``cudaGetLastError()`` and :func:`check` raises on a
+  non-zero code.
+* **the counters** — :data:`LAUNCHES` counts the launches of each
+  kernel (one per wrapper call that launched it) and
+  :data:`PLAIN_CALLS` the calls of each plain version, so a run can show
+  which path it took.  They are plain ints, the package's only global
+  state; :func:`reset_counts` zeroes both.
+
+It also holds the uint32 arithmetic the plain versions share.  torch's
+``uint32`` supports few operations, and an int64 product of two 32-bit
+values overflows, so a uint32 lane is held as int64 in ``[0, 2**32)``
+and multiplied by splitting one factor into 16-bit halves
+(:func:`mul_u32`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+#: the kernels of this package, by the name their counters use
+KERNELS = ("tokenize", "segreduce")
+#: kernel launches per kernel (one per wrapper call that launched it)
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+#: plain-version calls per kernel
+PLAIN_CALLS: Dict[str, int] = {k: 0 for k in KERNELS}
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+#: where the shared libraries are built (listed in .gitignore)
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+MASK32 = 0xFFFFFFFF
+
+
+def reset_counts() -> None:
+    """Zero every launch and plain-call counter."""
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+        PLAIN_CALLS[k] = 0
+
+
+def resolve_device(device=None) -> torch.device:
+    """An entry point's device: ``None`` means ``"cuda"``.  Raises
+    ``RuntimeError`` when CUDA is asked for and absent — the port never
+    falls back to the CPU quietly; the caller asks for it by name."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def use_kernel(t: torch.Tensor, kernel: str) -> bool:
+    """THE rule: True (launch the kernel) for a CUDA tensor, False (take
+    the plain version, counted) for a CPU tensor; raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        PLAIN_CALLS[kernel] += 1
+        return False
+    raise ValueError(f"{kernel}: no kernel or plain version for a tensor "
+                     f"on {t.device}")
+
+
+# -- the build -----------------------------------------------------------------
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                           "CUDA kernels are built from source at first use")
+    return str(path)
+
+
+def _sources(name: str):
+    """The kernel's own source plus every shared header, in a fixed
+    order (all of them feed the build hash)."""
+    return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha1()
+    for src in _sources(name):
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start_build(name: str) -> Optional[subprocess.Popen]:
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish_build(name: str, proc: Optional[subprocess.Popen]) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    out = _lib_path(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> None:
+    """Build every kernel library that is not built yet, one ``nvcc``
+    per source, all started together."""
+    procs = {n: _start_build(n) for n in KERNELS}
+    errors = []
+    for n in KERNELS:
+        try:
+            _finish_build(n, procs[n])
+        except RuntimeError as e:  # collect: every nvcc must be waited on
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The loaded shared library of kernel *name*, built on first use.
+    *signatures* maps each C entry to ``(restype, [argtypes])``, set
+    once at load (ctypes would otherwise pass pointers as 32-bit ints)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        _finish_build(name, _start_build(name))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _LIBS[name] = lib
+    return lib
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check(kernel: str, err: int) -> None:
+    """Raise if a C entry reported a CUDA error (its launches were
+    refused or an earlier asynchronous fault surfaced)."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+
+
+def require(t: torch.Tensor, kernel: str, what: str, dtype: torch.dtype,
+            device: torch.device) -> None:
+    """The wrapper's argument check before pointers cross to C."""
+    if t.dtype != dtype or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{kernel}: {what} must be a contiguous {dtype} "
+                         f"tensor on {device}, got {t.dtype} on {t.device} "
+                         f"(contiguous={t.is_contiguous()})")
+
+
+# -- uint32 arithmetic for the plain versions ------------------------------------
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """A uint32 lane as int64 in ``[0, 2**32)`` (from int32 bit patterns
+    or any integer tensor)."""
+    return x.to(torch.int64) & MASK32
+
+
+def mul_u32(x: torch.Tensor, a) -> torch.Tensor:
+    """``(x * a) mod 2**32`` for uint32 values held as int64, *a* a
+    tensor of the same kind or a Python int: *a* splits into 16-bit
+    halves so no partial product leaves int64."""
+    lo = a & 0xFFFF
+    hi = a >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & MASK32
+
+
+def as_i32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values held as int64 -> their int32 bit patterns."""
+    return (((x & MASK32) ^ 0x80000000) - 0x80000000).to(torch.int32)

@@ -1,0 +1,26 @@
+"""The partition axis (port of ``parallel/mesh.py``'s ``data`` axis).
+
+The JAX engine runs one program per device over a mesh's ``data`` axis:
+device ``p`` maps its share of the chunks and owns reduce partition
+``p``.  Here :class:`Partitions` stands for that axis: ``n`` logical
+partitions held as a leading axis of tensors on ONE device, so the
+exchange between them is a transpose.  On one H100 ``n`` is 1; the CPU
+tests use 8, the JAX tests' virtual mesh size.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.kernel_compat import resolve_device
+
+
+class Partitions:
+    """``n`` reduce partitions on *device* (``None`` means ``"cuda"``;
+    raises ``RuntimeError`` if CUDA is absent)."""
+
+    def __init__(self, n: int = 1, device=None) -> None:
+        if n < 1:
+            raise ValueError(f"need at least one partition, got {n}")
+        self.n = int(n)
+        self.device: torch.device = resolve_device(device)
