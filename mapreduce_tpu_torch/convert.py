@@ -9,7 +9,14 @@ package:
   ``EngineConfig`` (with a string ``reduce_op``);
 * :func:`device_result_from_numpy` turns a JAX ``DeviceResult``'s numpy
   arrays into the port's tensors (uint32 key lanes as int32 bit
-  patterns), and :func:`device_result_to_numpy` goes back.
+  patterns), and :func:`device_result_to_numpy` goes back;
+* :func:`partition_map_from_numpy` takes a JAX engine's bucket->partition
+  table (``DeviceEngine.partition_map()``), checked against the bucket
+  and partition counts, and :func:`partition_map_to_numpy` goes back.
+
+Every field of the JAX ``EngineConfig`` carries over, ``sort_impl=
+'radix'`` and ``partition_map`` included; the port's engine refuses only
+the tiered sort policies, which it has not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .engine.device_engine import DeviceResult, EngineConfig
+from .engine.device_engine import (
+    DeviceResult, EngineConfig, validate_partition_map)
 
 
 def engine_config_from_jax(fields: dict) -> EngineConfig:
@@ -53,3 +61,16 @@ def device_result_to_numpy(result: DeviceResult):
     return (result.keys.cpu().numpy().view(np.uint32),
             result.values.cpu().numpy(), result.payload.cpu().numpy(),
             result.valid.cpu().numpy(), int(result.overflow))
+
+
+def partition_map_from_numpy(pmap, buckets: int,
+                             n_parts: int) -> torch.Tensor:
+    """A bucket->partition table (``[buckets]`` ints in ``[0, n_parts)``)
+    as an int32 CPU tensor; raises on a malformed table."""
+    return torch.from_numpy(
+        validate_partition_map(pmap, buckets, n_parts).copy())
+
+
+def partition_map_to_numpy(pmap: torch.Tensor) -> np.ndarray:
+    """The table as the int32 numpy array the JAX engine takes."""
+    return pmap.cpu().numpy().astype(np.int32)

@@ -22,8 +22,14 @@ Capacities are static; overflows are counted, and :meth:`DeviceEngine.
 run` retries with capacities right-sized from the failed attempt's
 measured needs.  A truncated result never escapes unless asked for.
 
+``sort_impl='radix'`` runs every sort of the wave on the radix kernels
+and the exchange on the radix plan.  ``partition_map`` routes the
+exchange through a bucket->partition table (:meth:`DeviceEngine.
+set_partition_map`, :func:`..autotune.plan_rebalance`), an input of the
+run rather than a constant.
+
 Left out of this port for now (ROADMAP): the compile ledger, tiering,
-autotune and partition maps, obs gauges, staged inputs, multi-process.
+the autotune controllers, obs gauges, staged inputs, multi-process.
 """
 
 from __future__ import annotations
@@ -63,11 +69,15 @@ class EngineConfig:
     rank_sort: bool = True
     #: accumulate the src x dst exchange traffic matrix into timings
     exchange_stats: bool = True
-    #: 'variadic' or 'argsort' (same permutation); 'radix' and the tiered
-    #: policies are not ported yet
+    #: 'variadic' or 'argsort' (torch.sort) or 'radix' (the radix
+    #: kernels, with the radix exchange plan); all give one permutation.
+    #: The tiered policies are not ported yet
     sort_impl: str = "variadic"
-    #: skew-aware partition maps are not ported yet (must stay False)
+    #: route the exchange through a [B] int32 bucket->partition table
+    #: (identity until DeviceEngine.set_partition_map installs another)
     partition_map: bool = False
+    #: buckets in the table (0 = auto: PARTITION_MAP_GRANULARITY per
+    #: partition); a multiple of the partition count
     partition_buckets: int = 0
     #: JAX formulation knobs, kept for convert.py; the device picks the
     #: route (kernels on CUDA, plain versions on the CPU)
@@ -81,6 +91,42 @@ class EngineConfig:
         combiner is on, clamped to [1, T]."""
         cap = self.combine_capacity or max(T // 4, 256)
         return max(1, min(T, cap))
+
+
+#: auto bucket count per partition for the partition-map table
+PARTITION_MAP_GRANULARITY = 8
+
+
+def partition_buckets_for(cfg: EngineConfig, n_dev: int) -> int:
+    """The table's bucket count B (a multiple of the partition count, so
+    the identity table reproduces ``key_hi % P``)."""
+    B = cfg.partition_buckets or PARTITION_MAP_GRANULARITY * n_dev
+    if B % n_dev:
+        raise ValueError(
+            f"partition_buckets {B} must be a multiple of the partition "
+            f"count {n_dev} (the identity table's bit-identity to "
+            "key_hi % P depends on P | B)")
+    return B
+
+
+def identity_pmap(B: int, n_dev: int) -> np.ndarray:
+    """The identity table ``pmap[b] = b % P``: the same routing as
+    ``key_hi % P``."""
+    return (np.arange(B, dtype=np.int64) % n_dev).astype(np.int32)
+
+
+def validate_partition_map(pmap, buckets: int, n_dev: int) -> np.ndarray:
+    """Normalise and check a bucket->partition table; the int32 host
+    copy.  A malformed table would route records into partitions that do
+    not exist, so both faults raise."""
+    pmap = np.asarray(pmap, dtype=np.int32).reshape(-1)
+    if pmap.shape[0] != buckets:
+        raise ValueError(f"partition map has {pmap.shape[0]} buckets, "
+                         f"config says {buckets}")
+    if pmap.size and (pmap.min() < 0 or pmap.max() >= n_dev):
+        raise ValueError(
+            f"partition map routes outside [0, {n_dev})")
+    return pmap
 
 
 def _stage_ops(cfg: EngineConfig):
@@ -112,16 +158,12 @@ class _Wave(NamedTuple):
 
 
 def _check_impls(cfg: EngineConfig) -> None:
-    if cfg.sort_impl in ("radix", "tiered", "tiered-radix"):
+    if cfg.sort_impl in ("tiered", "tiered-radix"):
         raise NotImplementedError(
             f"sort_impl={cfg.sort_impl!r} is not ported yet (ROADMAP: "
-            "the radix kernels and tiering)")
-    if cfg.sort_impl not in ("variadic", "argsort"):
+            "engine/tiering.py, to be ported as a policy)")
+    if cfg.sort_impl not in ("variadic", "argsort", "radix"):
         raise ValueError(f"unknown sort_impl {cfg.sort_impl!r}")
-    if cfg.partition_map:
-        raise NotImplementedError(
-            "partition maps are not ported yet (ROADMAP: autotune and "
-            "partition maps)")
     for field in ("segment_impl", "tokenize_impl"):
         if getattr(cfg, field) not in ("lax", "pallas"):
             raise ValueError(f"EngineConfig.{field} must be 'lax' or "
@@ -142,6 +184,44 @@ class DeviceEngine:
         self.n_dev = parts.n
         self.map_fn = map_fn
         self.config = config
+        #: the bucket->partition table (partition_map configs only):
+        #: host copy, and its device copy made at first use
+        self._pmap_host: Optional[np.ndarray] = None
+        self._pmap_dev: Optional[torch.Tensor] = None
+        if config.partition_map:
+            partition_buckets_for(config, self.n_dev)  # raises if P ∤ B
+
+    # -- the partition map ---------------------------------------------------
+
+    @property
+    def partition_buckets(self) -> int:
+        return partition_buckets_for(self.config, self.n_dev)
+
+    def partition_map(self) -> np.ndarray:
+        """The current bucket->partition table (host copy); identity
+        until :meth:`set_partition_map`."""
+        if self._pmap_host is None:
+            self._pmap_host = identity_pmap(self.partition_buckets,
+                                            self.n_dev)
+        return self._pmap_host
+
+    def set_partition_map(self, pmap) -> None:
+        """Install a table for future runs (needs ``config.
+        partition_map``), checked loudly: the table is the partition
+        function."""
+        if not self.config.partition_map:
+            raise ValueError("set_partition_map needs "
+                             "EngineConfig.partition_map=True")
+        self._pmap_host = validate_partition_map(
+            pmap, self.partition_buckets, self.n_dev)
+        self._pmap_dev = None
+
+    def device_pmap(self) -> torch.Tensor:
+        """The table on the engine's device."""
+        if self._pmap_dev is None:
+            self._pmap_dev = torch.from_numpy(
+                self.partition_map().copy()).to(self.device)
+        return self._pmap_dev
 
     # -- the wave ------------------------------------------------------------
 
@@ -213,9 +293,12 @@ class DeviceEngine:
                    torch.zeros((P, C) + tuple(lp.shape[1:]), dtype=lp.dtype,
                                device=self.device),
                    torch.zeros((P, C), dtype=torch.bool, device=self.device))
-        ex = partition_exchange(stacked("keys"), stacked("values"),
-                                stacked("payload"), stacked("valid"),
-                                cfg.exchange_capacity, carry=acc)
+        ex = partition_exchange(
+            stacked("keys"), stacked("values"), stacked("payload"),
+            stacked("valid"), cfg.exchange_capacity, carry=acc,
+            pmap=self.device_pmap() if cfg.partition_map else None,
+            # the radix program plans the exchange on the radix kernels
+            impl="radix" if cfg.sort_impl == "radix" else "lax")
         fins, oflows, needs = [], [], []
         for p in range(P):
             fin = sorted_unique_reduce(

@@ -21,7 +21,9 @@ from ..ops.tokenize import (
     _WS, HASH_A1, HASH_A2, HASH_A3, shard_text, tokenize_hash,
     word_hashes_host)
 from ..parallel.mesh import Partitions
-from .device_engine import DeviceEngine, DeviceResult, EngineConfig
+from .device_engine import (
+    DeviceEngine, DeviceResult, EngineConfig, partition_buckets_for,
+    validate_partition_map)
 
 #: host materialisation window: words longer than this take a per-row
 #: Python scan (rare in natural language)
@@ -96,12 +98,17 @@ class DeviceWordCount:
     raises ``RuntimeError`` when CUDA is absent).  ``chunk_len`` is the
     per-chunk byte length; capacities grow automatically on overflow.
     ``verify_collisions=True`` carries a third hash lane reduced with
-    (min, max) so a 64-bit key collision is detected, not merged."""
+    (min, max) so a 64-bit key collision is detected, not merged.
+    ``config.sort_impl='radix'`` runs every sort and the exchange plan on
+    the radix kernels.  *partition_map*, a ``[B]`` bucket->partition
+    table, turns ``config.partition_map`` on and routes the exchange
+    through the table (checked here against the bucket count)."""
 
     def __init__(self, parts: Optional[Partitions] = None,
                  chunk_len: int = 1 << 22,
                  config: Optional[EngineConfig] = None,
-                 verify_collisions: bool = False, device=None) -> None:
+                 verify_collisions: bool = False, device=None,
+                 partition_map=None) -> None:
         if parts is not None and device is not None:
             raise ValueError("pass parts or device, not both")
         self.parts = parts if parts is not None else Partitions(1, device)
@@ -117,15 +124,24 @@ class DeviceWordCount:
         else:
             cfg = replace(cfg, unit_values=True, reduce_op="sum",
                           tile=min(cfg.tile, chunk_len))
+        if partition_map is not None:
+            cfg = replace(cfg, partition_map=True)
         self.config = cfg
         self._map_fn = (_wordcount_map_fn_verify if verify_collisions
                         else _wordcount_map_fn)
         self._engines: Dict[int, DeviceEngine] = {}
+        self._pmap = (None if partition_map is None
+                      else validate_partition_map(
+                          partition_map,
+                          partition_buckets_for(cfg, self.parts.n),
+                          self.parts.n))
 
     def _engine_for(self, padded_len: int) -> DeviceEngine:
         if padded_len not in self._engines:
-            self._engines[padded_len] = DeviceEngine(
-                self.parts, self._map_fn, self.config)
+            eng = DeviceEngine(self.parts, self._map_fn, self.config)
+            if self._pmap is not None:
+                eng.set_partition_map(self._pmap)
+            self._engines[padded_len] = eng
         return self._engines[padded_len]
 
     def count_bytes(self, data: bytes, timings: Optional[dict] = None,
@@ -151,10 +167,13 @@ class DeviceWordCount:
         """Host recompute of the exchange traffic matrix a
         ``count_bytes(data, waves=waves)`` run accumulates: per wave,
         entry ``[src][dst]`` counts the distinct word keys of *src*'s
-        chunk block whose hash lands on *dst*, summed over waves."""
+        chunk block whose hash lands on *dst* (``k1 % P``, or through the
+        engine's partition map when the config has one), summed over
+        waves."""
         chunks, L = self._to_chunks(data)
         eng = self._engine_for(L)
         n_dev = eng.n_dev
+        table = eng.partition_map() if self.config.partition_map else None
         S = chunks.shape[0]
         k = (eng._auto_rows(chunks) if waves is None
              else -(-S // (max(1, waves) * n_dev)))
@@ -171,7 +190,9 @@ class DeviceWordCount:
                     words.update(row.tobytes().split())  # join the next's
                 keys = set(word_hashes_host(b" ".join(words)).values())
                 for k1, _k2 in keys:
-                    matrix[d, k1 % n_dev] += 1
+                    dst = (k1 % n_dev if table is None
+                           else int(table[k1 % table.shape[0]]))
+                    matrix[d, dst] += 1
         return matrix
 
     def _row_len(self) -> int:

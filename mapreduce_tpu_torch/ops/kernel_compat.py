@@ -44,7 +44,11 @@ from typing import Dict, Optional
 import torch
 
 #: the kernels of this package, by the name their counters use
-KERNELS = ("tokenize", "segreduce")
+KERNELS = ("tokenize", "segreduce", "radix_hist", "radix_rank",
+           "radix_scatter")
+#: the kernel sources, ``csrc/<name>.cu``: one shared library each
+#: (``radix.cu`` holds the three radix kernels)
+SOURCES = ("tokenize", "segreduce", "radix")
 #: kernel launches per kernel (one per wrapper call that launched it)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 #: plain-version calls per kernel
@@ -150,9 +154,9 @@ def _finish_build(name: str, proc: Optional[subprocess.Popen]) -> None:
 def build_all() -> None:
     """Build every kernel library that is not built yet, one ``nvcc``
     per source, all started together."""
-    procs = {n: _start_build(n) for n in KERNELS}
+    procs = {n: _start_build(n) for n in SOURCES}
     errors = []
-    for n in KERNELS:
+    for n in SOURCES:
         try:
             _finish_build(n, procs[n])
         except RuntimeError as e:  # collect: every nvcc must be waited on
@@ -162,7 +166,7 @@ def build_all() -> None:
 
 
 def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
-    """The loaded shared library of kernel *name*, built on first use.
+    """The loaded shared library of source *name*, built on first use.
     *signatures* maps each C entry to ``(restype, [argtypes])``, set
     once at load (ctypes would otherwise pass pointers as 32-bit ints)."""
     lib = _LIBS.get(name)
@@ -192,12 +196,16 @@ def check(kernel: str, err: int) -> None:
 
 
 def require(t: torch.Tensor, kernel: str, what: str, dtype: torch.dtype,
-            device: torch.device) -> None:
-    """The wrapper's argument check before pointers cross to C."""
+            device: torch.device, shape=None) -> None:
+    """The wrapper's argument check before pointers cross to C (and the
+    shape, where the kernel writes by offsets the wrapper computed)."""
     if t.dtype != dtype or t.device != device or not t.is_contiguous():
         raise ValueError(f"{kernel}: {what} must be a contiguous {dtype} "
                          f"tensor on {device}, got {t.dtype} on {t.device} "
                          f"(contiguous={t.is_contiguous()})")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {what} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
 
 
 # -- uint32 arithmetic for the plain versions ------------------------------------

@@ -1,0 +1,307 @@
+"""LSD radix sort over the hash-key lanes and the fused partition plan
+(port of ``ops/radix_sort.py``).
+
+``radix_sort_pairs(k1, k2) -> (k1s, k2s, perm)``
+    Stable least-significant-digit radix sort of the 64-bit key
+    ``(k1 hi, k2 lo)`` of uint32 values held as int32 bit patterns,
+    bit-identical to ``lax.sort((k1, k2, iota), num_keys=2)`` and so to
+    the JAX package's ``radix_sort_pairs``.  Each pass is one histogram
+    (``radix_hist``) and one stable scatter (``radix_scatter``); the
+    passes run over 8-bit digits, four over ``k2`` and then four over
+    ``k1``.  A stable LSD sort has one output permutation whatever its
+    digit width, so the TPU's 4-bit digits in 16 passes and these 8-bit
+    digits in 8 passes agree bit for bit.
+
+``radix_partition_plan(dest, num_partitions) -> (rank, counts)``
+    The exchange's routing plan from one histogram pass over the
+    destination: ``rank`` is each row's stable input-order index within
+    its bucket (rows of bucket ``P``, the dropped ones, rank among
+    themselves) and ``counts`` the rows per destination before capacity
+    capping (the traffic-matrix row).  ``dest`` may carry a leading batch
+    axis (one plan per source partition, one launch for all).
+
+The three kernels live in ``csrc/radix.cu``.  Each has its plain
+PyTorch version here, with the kernel's arithmetic: the same 4096-row
+tiles, the same digit-major histogram ``[batch, R, tiles]``, the same
+column scan over tiles, the same in-tile stable rank (a one-hot cumsum
+here, a warp match there).  :mod:`.kernel_compat`'s rule picks between
+them by the tensor's device; on the CPU the sort is these plain passes,
+never ``torch.sort``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import kernel_compat as kc
+
+#: digit width of one pass; R = 256 buckets
+RADIX_BITS = 8
+RADIX = 1 << RADIX_BITS
+#: passes over the 64-bit key: 4 over k2, then 4 over k1
+RADIX_PASSES = 2 * (32 // RADIX_BITS)
+#: rows per tile (the kernels' 256 threads x 16 rows)
+RADIX_TILE = 4096
+#: the most partitions a plan takes: P + 1 buckets fit one 8-bit digit
+MAX_PARTITIONS = RADIX - 1
+#: rows of one-hot rank work per plain-version step (bounds its memory)
+_PLAIN_ROWS = 1 << 22
+
+
+def _tiles(n: int) -> int:
+    return -(-n // RADIX_TILE)
+
+
+def _digits(src: torch.Tensor, shift: int, mask: int,
+             nbuckets: int) -> torch.Tensor:
+    """The kernels' digit: ``(uint32(src) >> shift) & mask``, clamped to
+    ``nbuckets - 1``, as int64."""
+    d = (kc.u32(src) >> shift) & mask
+    return d.clamp(max=nbuckets - 1)
+
+
+# -- plain versions ------------------------------------------------------------
+
+def _radix_hist_plain(src: torch.Tensor, shift: int, mask: int,
+                      nbuckets: int) -> torch.Tensor:
+    """``src [b, n]`` -> ``hist [b, nbuckets, tiles]`` int32."""
+    b, n = src.shape
+    tiles = _tiles(n)
+    d = _digits(src, shift, mask, nbuckets)
+    tile = torch.arange(n, device=src.device) // RADIX_TILE
+    row = torch.arange(b, device=src.device)[:, None] * (nbuckets * tiles)
+    flat = (row + d * tiles + tile).reshape(-1)
+    hist = torch.zeros(b * nbuckets * tiles, dtype=torch.int32,
+                       device=src.device)
+    hist.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    return hist.reshape(b, nbuckets, tiles)
+
+
+def _col_scan(hist: torch.Tensor):
+    """``(prefix, totals)``: the exclusive scan of each digit's column
+    over the tiles, and the column sums ``[b, R]``."""
+    cs = torch.cumsum(hist, dim=2, dtype=torch.int32)
+    return cs - hist, cs[..., -1]
+
+
+def _tile_ranks(d: torch.Tensor, nbuckets: int) -> torch.Tensor:
+    """Each row's stable input-order rank among equal digits of its tile:
+    ``d [b, n]`` int64 -> ``[b, n]`` int64, by a one-hot cumsum over the
+    tile, a few tiles at a time."""
+    b, n = d.shape
+    tiles = _tiles(n)
+    pad = tiles * RADIX_TILE - n
+    # the tail pads with an extra bucket, counted by nothing real
+    dp = torch.nn.functional.pad(d, (0, pad), value=nbuckets)
+    rows = dp.reshape(b * tiles, RADIX_TILE)
+    out = torch.empty_like(rows)
+    step = max(1, _PLAIN_ROWS // (RADIX_TILE * (nbuckets + 1)))
+    buckets = torch.arange(nbuckets + 1, device=d.device)
+    for lo in range(0, rows.shape[0], step):
+        r = rows[lo:lo + step]
+        csum = torch.cumsum(r[..., None] == buckets, dim=1,
+                            dtype=torch.int32)
+        out[lo:lo + step] = torch.gather(csum, 2, r[..., None])[..., 0] - 1
+    return out.reshape(b, tiles * RADIX_TILE)[:, :n]
+
+
+def _radix_rank_plain(dest: torch.Tensor, hist: torch.Tensor,
+                      nbuckets: int):
+    """``(rank [b, n] int32, totals [b, nbuckets] int32)``."""
+    b, n = dest.shape
+    prefix, totals = _col_scan(hist)
+    d = _digits(dest, 0, kc.MASK32, nbuckets)
+    tile = (torch.arange(n, device=dest.device) // RADIX_TILE).expand(b, n)
+    off = prefix[torch.arange(b, device=dest.device)[:, None], d, tile]
+    rank = off.to(torch.int64) + _tile_ranks(d, nbuckets)
+    return rank.to(torch.int32), totals
+
+
+def _radix_scatter_plain(k1: torch.Tensor, k2: torch.Tensor,
+                         perm: Optional[torch.Tensor], lane: int, shift: int,
+                         hist: torch.Tensor, out) -> None:
+    """One stable pass into *out* ``(o1, o2, operm)``."""
+    n = k1.shape[0]
+    prefix, totals = _col_scan(hist)
+    base = torch.cumsum(totals[0], dim=0, dtype=torch.int32) - totals[0]
+    d = _digits((k2 if lane else k1)[None], shift, RADIX - 1, RADIX)
+    tile = torch.arange(n, device=k1.device) // RADIX_TILE
+    pos = (base[d[0]].to(torch.int64) + prefix[0, d[0], tile]
+           + _tile_ranks(d, RADIX)[0])
+    if perm is None:
+        perm = torch.arange(n, dtype=torch.int32, device=k1.device)
+    for src, dst in zip((k1, k2, perm), out):
+        dst[pos] = src
+
+
+# -- kernels -------------------------------------------------------------------
+
+_SIGNATURES = {
+    "mr_radix_tile": (ctypes.c_int, []),
+    "mr_radix_hist": (ctypes.c_int,
+                      [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]),
+    "mr_radix_rank": (ctypes.c_int,
+                      [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int] + [ctypes.c_void_p] * 5),
+    "mr_radix_scatter": (ctypes.c_int,
+                         [ctypes.c_void_p] * 3
+                         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                         + [ctypes.c_void_p] * 7),
+}
+
+
+def _lib():
+    lib = kc.library("radix", _SIGNATURES)
+    if lib.mr_radix_tile() != RADIX_TILE:
+        raise RuntimeError(f"csrc/radix.cu tiles {lib.mr_radix_tile()} "
+                           f"rows, the wrappers assume {RADIX_TILE}")
+    return lib
+
+
+def _radix_hist_cuda(src: torch.Tensor, shift: int, mask: int,
+                     nbuckets: int) -> torch.Tensor:
+    dev = src.device
+    kc.require(src, "radix_hist", "src", torch.int32, dev)
+    b, n = src.shape
+    hist = torch.empty((b, nbuckets, _tiles(n)), dtype=torch.int32,
+                       device=dev)
+    err = _lib().mr_radix_hist(kc.ptr(src), n, b, shift, mask & kc.MASK32,
+                               nbuckets, kc.ptr(hist), kc.stream(dev))
+    kc.check("radix_hist", err)
+    kc.LAUNCHES["radix_hist"] += 1
+    return hist
+
+
+def _radix_rank_cuda(dest: torch.Tensor, hist: torch.Tensor,
+                     nbuckets: int):
+    dev = dest.device
+    kc.require(dest, "radix_rank", "dest", torch.int32, dev)
+    b, n = dest.shape
+    kc.require(hist, "radix_rank", "hist", torch.int32, dev,
+               (b, nbuckets, _tiles(n)))
+    prefix = torch.empty_like(hist)
+    totals = torch.empty((b, nbuckets), dtype=torch.int32, device=dev)
+    rank = torch.empty_like(dest)
+    err = _lib().mr_radix_rank(kc.ptr(dest), n, b, nbuckets, kc.ptr(hist),
+                               kc.ptr(prefix), kc.ptr(totals), kc.ptr(rank),
+                               kc.stream(dev))
+    kc.check("radix_rank", err)
+    kc.LAUNCHES["radix_rank"] += 1
+    return rank, totals
+
+
+def _radix_scatter_cuda(k1: torch.Tensor, k2: torch.Tensor,
+                        perm: Optional[torch.Tensor], lane: int, shift: int,
+                        hist: torch.Tensor, out) -> None:
+    dev = k1.device
+    n = k1.shape[0]
+    lanes = [("k1", k1), ("k2", k2)] + [
+        (f"out[{i}]", o) for i, o in enumerate(out)]
+    if perm is not None:
+        lanes.append(("perm", perm))
+    for name, t in lanes:
+        kc.require(t, "radix_scatter", name, torch.int32, dev, (n,))
+    kc.require(hist, "radix_scatter", "hist", torch.int32, dev,
+               (1, RADIX, _tiles(n)))
+    prefix = torch.empty_like(hist)
+    totals = torch.empty(RADIX, dtype=torch.int32, device=dev)
+    err = _lib().mr_radix_scatter(
+        kc.ptr(k1), kc.ptr(k2), kc.ptr(perm) if perm is not None else None,
+        n, lane, shift, kc.ptr(hist), kc.ptr(prefix),
+        kc.ptr(totals), *(kc.ptr(o) for o in out), kc.stream(dev))
+    kc.check("radix_scatter", err)
+    kc.LAUNCHES["radix_scatter"] += 1
+
+
+# -- the wrappers: the kernel on CUDA, the plain version on the CPU -----------
+
+def radix_hist(src: torch.Tensor, shift: int, mask: int,
+               nbuckets: int) -> torch.Tensor:
+    """Per-tile digit histogram of ``src [b, n]`` int32 bit patterns:
+    ``hist [b, nbuckets, tiles]`` int32 (digit-major)."""
+    if kc.use_kernel(src, "radix_hist"):
+        return _radix_hist_cuda(src, shift, mask, nbuckets)
+    return _radix_hist_plain(src, shift, mask, nbuckets)
+
+
+def radix_rank(dest: torch.Tensor, hist: torch.Tensor, nbuckets: int):
+    """Stable ranks within buckets of ``dest [b, n]`` from its histogram:
+    ``(rank [b, n], totals [b, nbuckets])`` int32."""
+    if kc.use_kernel(dest, "radix_rank"):
+        return _radix_rank_cuda(dest, hist, nbuckets)
+    return _radix_rank_plain(dest, hist, nbuckets)
+
+
+def radix_scatter(k1: torch.Tensor, k2: torch.Tensor,
+                  perm: Optional[torch.Tensor], lane: int, shift: int,
+                  hist: torch.Tensor, out) -> None:
+    """One stable LSD pass by the 8-bit digit at *shift* of ``k1`` (lane
+    0) or ``k2`` (lane 1), whose histogram is *hist* ``[1, 256, tiles]``:
+    ``(k1, k2, perm)`` go to ``out = (o1, o2, operm)``.  ``perm=None`` is
+    the identity."""
+    if kc.use_kernel(k1, "radix_scatter"):
+        _radix_scatter_cuda(k1, k2, perm, lane, shift, hist, out)
+    else:
+        _radix_scatter_plain(k1, k2, perm, lane, shift, hist, out)
+
+
+def radix_sort_pairs(k1: torch.Tensor, k2: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stable radix sort by ``(k1 hi, k2 lo)`` as uint32: ``(k1s, k2s,
+    perm)`` with int32 lanes, bit-identical to ``lax.sort((k1, k2,
+    iota), num_keys=2)``.  Every pass is enqueued on the current stream
+    with no host sync; two buffer sets alternate as pass outputs."""
+    return sort_passes(k1, k2, radix_hist, radix_scatter)
+
+
+def sort_passes(k1: torch.Tensor, k2: torch.Tensor, hist_fn, scatter_fn):
+    """The LSD passes of :func:`radix_sort_pairs` over a given histogram
+    and scatter (the wrappers; or the plain versions, which is how a
+    card run times and checks the plain sort on CUDA tensors)."""
+    n = k1.shape[0]
+    if n == 0:
+        return k1, k2, torch.zeros(0, dtype=torch.int32, device=k1.device)
+    a = (k1.to(torch.int32).contiguous(), k2.to(torch.int32).contiguous(),
+         None)
+    bufs = [tuple(torch.empty(n, dtype=torch.int32, device=k1.device)
+                  for _ in range(3)) for _ in range(2)]
+    p = 0
+    for lane in (1, 0):  # low lane first: LSD over the 64-bit key
+        for shift in range(0, 32, RADIX_BITS):
+            hist = hist_fn(a[lane][None], shift, RADIX - 1, RADIX)
+            out = bufs[p % 2]
+            scatter_fn(a[0], a[1], a[2], lane, shift, hist, out)
+            a = out
+            p += 1
+    return a
+
+
+def radix_partition_plan(dest: torch.Tensor, num_partitions: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exchange's plan from one histogram pass.  ``dest`` is int32 in
+    ``[0, P]`` (``P`` marks a dropped row; anything outside clamps to
+    ``P``), shaped ``[n]`` or ``[b, n]`` (one plan per row).  Returns
+    ``(rank, counts)``: ``rank`` like ``dest``, each row's stable index
+    within its bucket; ``counts`` ``[P]`` or ``[b, P]``, rows per
+    destination before capping."""
+    P = int(num_partitions)
+    if not 1 <= P <= MAX_PARTITIONS:
+        raise ValueError(f"radix_partition_plan takes 1..{MAX_PARTITIONS} "
+                         f"partitions (P + 1 buckets in one 8-bit digit), "
+                         f"got {P}")
+    squeeze = dest.dim() == 1
+    d2 = (dest[None] if squeeze else dest).to(torch.int32).contiguous()
+    b, n = d2.shape
+    if n == 0:
+        rank = torch.zeros((b, 0), dtype=torch.int32, device=dest.device)
+        counts = torch.zeros((b, P), dtype=torch.int32, device=dest.device)
+    else:
+        hist = radix_hist(d2, 0, kc.MASK32, P + 1)
+        rank, totals = radix_rank(d2, hist, P + 1)
+        counts = totals[:, :P]
+    return (rank[0], counts[0]) if squeeze else (rank, counts)

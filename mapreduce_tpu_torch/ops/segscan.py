@@ -9,6 +9,8 @@ pair ``(0xFFFFFFFF, 0xFFFFFFFF)`` (int32 ``-1, -1``) marks invalid rows,
 which sort last.  A real key equal to the sentinel pair is remapped to
 ``(0, 0)`` first, as the JAX package does.
 
+The sort is ``torch.sort`` (``sort_impl`` 'variadic' or 'argsort') or
+the port's radix kernels ('radix', :mod:`.radix_sort`).
 The segmented reduce follows :mod:`.kernel_compat`'s one rule: sorted
 lanes on a CUDA device launch the hand-written kernel
 (``csrc/segreduce.cu``, the port of ``_segreduce_kernel``); lanes on the
@@ -25,6 +27,7 @@ from typing import Callable, NamedTuple, Sequence, Tuple, Union
 import torch
 
 from . import kernel_compat as kc
+from .radix_sort import radix_sort_pairs
 
 #: sentinel key lane value marking invalid rows, as an int32 bit pattern
 SENTINEL = -1
@@ -231,15 +234,13 @@ def sorted_unique_reduce(keys: torch.Tensor, values, payload: torch.Tensor,
     "min" / "max", a tuple of those (one per value lane), or an
     associative callable (CPU only).
 
-    ``sort_impl`` is ``"variadic"`` (one sort of the packed key) or
-    ``"argsort"`` (two stable 1-key sorts); both give ``lax.sort``'s
-    permutation.  The segmented reduce is chosen by the keys' device:
-    the kernel on CUDA, the plain version on the CPU."""
-    if sort_impl == "radix":
-        raise NotImplementedError(
-            "sort_impl='radix' needs the radix kernels "
-            "(ROADMAP: TPU kernels to port, items 3-5)")
-    if sort_impl not in ("variadic", "argsort"):
+    ``sort_impl`` is ``"variadic"`` (one sort of the packed key),
+    ``"argsort"`` (two stable 1-key sorts) or ``"radix"`` (the radix
+    kernels, :func:`.radix_sort.radix_sort_pairs`); all three give
+    ``lax.sort``'s permutation.  The segmented reduce (and the radix
+    passes) are chosen by the keys' device: the kernels on CUDA, the
+    plain versions on the CPU."""
+    if sort_impl not in ("variadic", "argsort", "radix"):
         raise ValueError(f"sort_impl must be 'variadic', 'argsort' or "
                          f"'radix', got {sort_impl!r}")
     N = keys.shape[0]
@@ -251,8 +252,14 @@ def sorted_unique_reduce(keys: torch.Tensor, values, payload: torch.Tensor,
     k1 = torch.where(valid, k1, SENTINEL)
     k2 = torch.where(valid, k2, SENTINEL)
 
-    perm = _sort_perm(k1, k2, sort_impl)
-    k1s, k2s = k1[perm], k2[perm]
+    if sort_impl == "radix":
+        # the radix kernels (ops/radix_sort); values and payload ride the
+        # permutation, as in the JAX package
+        k1s, k2s, perm = radix_sort_pairs(k1, k2)
+        perm = perm.to(torch.int64)
+    else:
+        perm = _sort_perm(k1, k2, sort_impl)
+        k1s, k2s = k1[perm], k2[perm]
     if unit_values:
         vals_s = []
     else:

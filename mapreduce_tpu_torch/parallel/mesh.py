@@ -4,8 +4,9 @@ The JAX engine runs one program per device over a mesh's ``data`` axis:
 device ``p`` maps its share of the chunks and owns reduce partition
 ``p``.  Here :class:`Partitions` stands for that axis: ``n`` logical
 partitions held as a leading axis of tensors on ONE device, so the
-exchange between them is a transpose.  On one H100 ``n`` is 1; the CPU
-tests use 8, the JAX tests' virtual mesh size.
+exchange between them is a transpose.  Any ``n`` runs on one H100: 1
+(the exchange is a copy) or 8, the JAX package's 8-way ``data`` axis and
+the CPU tests' mesh size, where the 8 x 8 traffic matrix is real.
 """
 
 from __future__ import annotations

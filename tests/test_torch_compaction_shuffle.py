@@ -109,10 +109,19 @@ def test_partition_exchange_matches_jax_shard_map(with_carry):
 
 
 def test_partition_exchange_leftovers_raise():
-    k = torch.zeros((1, 4, 2), dtype=torch.int32)
-    v = torch.zeros((1, 4), dtype=torch.int32)
-    m = torch.ones((1, 4), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        partition_exchange(k, v, v[..., None], m, 4, impl="radix")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        partition_exchange(k, v, v[..., None], m, 4, pmap=torch.zeros(8))
+    """The radix plan and partition maps, once refused, now run (here on
+    one partition, where every valid row stays home); an unknown plan
+    still raises."""
+    k = torch.tensor([[[5, 1], [7, 2], [9, 3], [4, 4]]], dtype=torch.int32)
+    v = torch.arange(4, dtype=torch.int32)[None]
+    m = torch.tensor([[True, False, True, True]])
+    lax_ex = partition_exchange(k, v, v[..., None], m, 4)
+    table = torch.zeros(8, dtype=torch.int32)
+    for kw in (dict(impl="radix"), dict(pmap=table),
+               dict(impl="radix", pmap=table)):
+        got = partition_exchange(k, v, v[..., None], m, 4, **kw)
+        for f in lax_ex._fields:
+            assert torch.equal(getattr(got, f), getattr(lax_ex, f)), (kw, f)
+    assert lax_ex.counts.tolist() == [[3]]
+    with pytest.raises(ValueError, match="impl"):
+        partition_exchange(k, v, v[..., None], m, 4, impl="onehot")

@@ -9,7 +9,9 @@ machine without it; ``tests/conftest.py`` imports JAX, hence:
 
 Every comparison is integer and exact: the kernels must give the plain
 versions' bits (tokenize: all four TokenStream fields; segreduce: the
-reduced lanes at run-end rows and ``end_csum`` everywhere).
+reduced lanes at run-end rows and ``end_csum`` everywhere; the radix
+kernels: every output, and the whole sort also ``torch.sort``'s stable
+permutation of the packed key).
 """
 
 import numpy as np
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from mapreduce_tpu_torch.ops import kernel_compat as kc
-from mapreduce_tpu_torch.ops import segscan, tokenize
+from mapreduce_tpu_torch.ops import radix_sort, segscan, tokenize
 
 pytestmark = pytest.mark.cuda
 
@@ -138,5 +140,102 @@ def test_launch_counters_count_kernel_launches(dev):
     tokenize.tokenize_hash(chunk)
     k = torch.zeros(10, dtype=torch.int32, device=dev)
     segscan.segment_reduce(k, k, [], "sum", True)
-    assert kc.LAUNCHES == {"tokenize": 1, "segreduce": 1}
-    assert kc.PLAIN_CALLS == {"tokenize": 0, "segreduce": 0}
+    assert kc.LAUNCHES == {"tokenize": 1, "segreduce": 1, "radix_hist": 0,
+                           "radix_rank": 0, "radix_scatter": 0}
+    assert all(v == 0 for v in kc.PLAIN_CALLS.values())
+
+
+#: radix shapes: tiny, around the 4096-row tile, and the main path's
+#: combiner (852,072) and fold (1,310,720) inputs
+RADIX_NS = [1, 2, 4095, 4096, 4097, 100_003, 852_072, 1_310_720]
+EDGES = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF],
+                 dtype=np.uint32)
+
+
+def _radix_keys(case, n, seed):
+    rng = np.random.default_rng(seed)
+    if case == "dup":
+        k1 = rng.integers(0, 7, n).astype(np.uint32)
+        k2 = rng.integers(0, 3, n).astype(np.uint32)
+    elif case == "all-equal":
+        k1 = np.full(n, 0x80000000, np.uint32)
+        k2 = np.full(n, 0xFFFFFFFF, np.uint32)
+    else:  # full range, edges, sentinel rows
+        k1 = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        k2 = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        k1[rng.random(n) < 0.3] = rng.choice(EDGES)
+        k2[rng.random(n) < 0.3] = rng.choice(EDGES)
+        dead = rng.random(n) < 0.2
+        k1[dead] = k2[dead] = np.uint32(0xFFFFFFFF)
+    return (torch.from_numpy(k1.view(np.int32).copy()),
+            torch.from_numpy(k2.view(np.int32).copy()))
+
+
+@pytest.mark.parametrize("n", RADIX_NS)
+def test_radix_hist_and_scatter_kernels_match_plain(dev, n):
+    k1, k2 = _radix_keys("edges", n, seed=n)
+    perm = torch.from_numpy(
+        np.random.default_rng(n).permutation(n).astype(np.int32))
+    for lane, shift in ((1, 0), (0, 24), (1, 16)):
+        src = (k2 if lane else k1)[None]
+        want_h = radix_sort._radix_hist_plain(src, shift, 0xFF, 256)
+        got_h = radix_sort._radix_hist_cuda(src.to(dev), shift, 0xFF, 256)
+        assert torch.equal(got_h.cpu(), want_h), (lane, shift)
+        for p in (None, perm):
+            want = tuple(torch.empty(n, dtype=torch.int32) for _ in range(3))
+            got = tuple(torch.empty(n, dtype=torch.int32, device=dev)
+                        for _ in range(3))
+            radix_sort._radix_scatter_plain(k1, k2, p, lane, shift, want_h,
+                                            want)
+            radix_sort._radix_scatter_cuda(
+                k1.to(dev), k2.to(dev), None if p is None else p.to(dev),
+                lane, shift, got_h, got)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), (lane, shift, p is None)
+
+
+@pytest.mark.parametrize("n", RADIX_NS)
+@pytest.mark.parametrize("case", ["dup", "all-equal", "edges"])
+def test_radix_sort_kernels_match_plain_and_torch_sort(dev, case, n):
+    k1, k2 = _radix_keys(case, n, seed=n + 1)
+    got = radix_sort.radix_sort_pairs(k1.to(dev), k2.to(dev))
+    torch.cuda.synchronize()
+    packed = (kc.u32(k1) - 2 ** 31) * 2 ** 32 + kc.u32(k2)
+    order = torch.sort(packed, stable=True).indices
+    assert torch.equal(got[2].cpu().to(torch.int64), order)
+    assert torch.equal(got[0].cpu(), k1[order])
+    assert torch.equal(got[1].cpu(), k2[order])
+    if n <= 100_003:  # the plain passes, at the smaller shapes
+        want = radix_sort.radix_sort_pairs(k1, k2)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("P,b,n", [(1, 1, 1), (8, 1, 4097), (8, 8, 262_144),
+                                   (255, 2, 100_003), (255, 1, 9000)])
+def test_radix_plan_kernels_match_plain(dev, P, b, n):
+    rng = np.random.default_rng(P + n)
+    dest = torch.from_numpy(rng.integers(0, P + 1, (b, n)).astype(np.int32))
+    dest[:, ::97] = P  # dropped rows rank among themselves
+    want_h = radix_sort._radix_hist_plain(dest, 0, kc.MASK32, P + 1)
+    got_h = radix_sort._radix_hist_cuda(dest.to(dev), 0, kc.MASK32, P + 1)
+    assert torch.equal(got_h.cpu(), want_h)
+    want = radix_sort._radix_rank_plain(dest, want_h, P + 1)
+    got = radix_sort._radix_rank_cuda(dest.to(dev), got_h, P + 1)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    rank, counts = radix_sort.radix_partition_plan(dest.to(dev), P)
+    assert torch.equal(counts.cpu(), want[1][:, :P])
+
+
+def test_radix_launch_counters(dev):
+    kc.reset_counts()
+    k = torch.arange(10_000, dtype=torch.int32, device=dev)
+    radix_sort.radix_sort_pairs(k, k)
+    radix_sort.radix_partition_plan(k[None] % 9, 8)
+    assert kc.LAUNCHES["radix_hist"] == radix_sort.RADIX_PASSES + 1
+    assert kc.LAUNCHES["radix_scatter"] == radix_sort.RADIX_PASSES
+    assert kc.LAUNCHES["radix_rank"] == 1
+    assert all(v == 0 for v in kc.PLAIN_CALLS.values())

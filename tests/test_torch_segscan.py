@@ -8,7 +8,9 @@ against the JAX package's, bit for bit.
 * ``sorted_unique_reduce`` end to end for unit/sum/min/max and the
   stacked (sum, min, max) monoid, with both sort formulations, the
   sentinel pair, (0, 0) keys and overflow (n_unique > capacity);
-* the stable sort permutation against ``lax.sort``.
+* the stable sort permutation against ``lax.sort``;
+* ``sort_impl='radix'`` on the plain radix versions (the radix family
+  itself is pinned in ``test_torch_radix.py``).
 
 Inputs are numpy arrays from fixed seeds; every comparison is exact.
 """
@@ -171,12 +173,20 @@ def test_stable_sort_permutation_matches_lax_sort(seed):
 
 
 def test_radix_sort_not_ported_yet_and_plain_counted():
+    """Once refused, ``sort_impl='radix'`` now runs (the radix family is
+    ported): on the CPU it gives the variadic result through the plain
+    radix versions, each counted, and an unknown sort_impl still
+    raises."""
     keys, vals, pay, valid = _case(5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tseg.sorted_unique_reduce(_t(keys), _t(vals), _t(pay), _t(valid),
-                                  16, "sum", sort_impl="radix")
+    args = (_t(keys), _t(vals), _t(pay), _t(valid), 16, "sum")
     kc.reset_counts()
-    tseg.sorted_unique_reduce(_t(keys), _t(vals), _t(pay), _t(valid), 16,
-                              "sum")
+    got = tseg.sorted_unique_reduce(*args, sort_impl="radix")
+    assert kc.PLAIN_CALLS["radix_hist"] == 8
+    assert kc.PLAIN_CALLS["radix_scatter"] == 8
     assert kc.PLAIN_CALLS["segreduce"] == 1
     assert kc.LAUNCHES["segreduce"] == 0
+    want = tseg.sorted_unique_reduce(*args)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    with pytest.raises(ValueError, match="sort_impl"):
+        tseg.sorted_unique_reduce(*args, sort_impl="bitonic")

@@ -6,9 +6,12 @@ corpus as the JAX ``DeviceWordCount(make_mesh(), chunk_len=1024)`` with
 the lax formulations, over three waves: the ``DeviceResult`` arrays,
 the count dicts (and ``Counter(data.split())``) and the exchange traffic
 matrix (and ``host_exchange_matrix``) must be equal, including through a
-capacity retry.  Also here: collision-verify mode, ``convert``'s round
-trips, the import lint that keeps JAX out of the port, and the
-CUDA-by-default rule of the entry points.
+capacity retry.  The port's radix engine (``sort_impl='radix'``: the
+radix sorts and the radix exchange plan) must give the same bits as the
+JAX lax engine, and so must a partition-map run under the identity
+table and under a ``plan_rebalance`` table.  Also here: collision-verify
+mode, ``convert``'s round trips, the import lint that keeps JAX out of
+the port, and the CUDA-by-default rule of the entry points.
 """
 
 import ast
@@ -26,6 +29,7 @@ from mapreduce_tpu.parallel import make_mesh
 from mapreduce_tpu_torch import convert
 from mapreduce_tpu_torch.engine import device_engine as tde
 from mapreduce_tpu_torch.engine import wordcount as twc
+from mapreduce_tpu_torch.engine.autotune import plan_rebalance
 from mapreduce_tpu_torch.ops import kernel_compat as kc
 from mapreduce_tpu_torch.parallel.mesh import Partitions
 
@@ -61,10 +65,11 @@ def _jax_run(cfg):
     return wc, chunks, res, tm
 
 
-def _port_run(cfg):
+def _port_run(cfg, partition_map=None, **over):
+    tcfg = convert.engine_config_from_jax(dataclasses.asdict(cfg))
     wc = twc.DeviceWordCount(Partitions(8, "cpu"), chunk_len=CHUNK,
-                             config=convert.engine_config_from_jax(
-                                 dataclasses.asdict(cfg)))
+                             config=dataclasses.replace(tcfg, **over),
+                             partition_map=partition_map)
     chunks, L = wc._to_chunks(DATA)
     tm = {}
     res = wc._engine_for(L).run(chunks, timings=tm, waves=WAVES)
@@ -101,6 +106,69 @@ def test_wordcount_slice_matches_jax_engine(jax_ref, cfg_name):
         assert tm["retries"] >= 1
     else:
         assert tm["retries"] == 0 and jtm["retries"] == 0
+
+
+@pytest.mark.parametrize("cfg_name", ["fitting", "retry"])
+def test_radix_slice_matches_jax_lax_engine(jax_ref, cfg_name):
+    """P = 8, three waves, every sort on the radix versions and the
+    exchange on the radix plan: the JAX lax/variadic engine's bits."""
+    jwc_, jchunks, jres, jtm = jax_ref
+    kc.reset_counts()
+    wc, chunks, res, tm = _port_run(CFG if cfg_name == "fitting" else TINY,
+                                    sort_impl="radix")
+    assert kc.PLAIN_CALLS["radix_rank"] >= WAVES
+    assert kc.PLAIN_CALLS["radix_scatter"] > 0
+    _pin_result(res, jres)
+    assert twc.materialize_counts(chunks, res) == Counter(DATA.split())
+    assert tm["exchange"]["matrix"] == jtm["exchange"]["matrix"]
+    assert np.array_equal(np.asarray(tm["exchange"]["matrix"]),
+                          wc.host_exchange_matrix(DATA, waves=WAVES))
+    assert tm["retries"] >= (1 if cfg_name == "retry" else 0)
+
+
+def _rebalanced_table(B):
+    """A plan_rebalance table from the corpus's own bucket weights (word
+    occurrences per bucket ``k1 % B``)."""
+    from mapreduce_tpu_torch.ops.tokenize import word_hashes_host
+
+    hashes = word_hashes_host(DATA)
+    w = np.zeros(B, dtype=np.int64)
+    for word, c in Counter(DATA.split()).items():
+        w[hashes[word][0] % B] += c
+    return plan_rebalance(w, 8)
+
+
+@pytest.mark.parametrize("sort_impl", ["variadic", "radix"])
+@pytest.mark.parametrize("table", ["identity", "rebalanced"])
+def test_partition_map_matches_jax_lax_engine(table, sort_impl):
+    """The same table in both engines: the JAX lax engine's bits, and a
+    traffic matrix that the host recompute routes through the table."""
+    B = jde.PARTITION_MAP_GRANULARITY * 8
+    pmap = (jde.identity_pmap(B, 8) if table == "identity"
+            else _rebalanced_table(B))
+    jcfg = dataclasses.replace(CFG, partition_map=True)
+    jwc_ = jwc.DeviceWordCount(make_mesh(), chunk_len=CHUNK, config=jcfg)
+    jchunks, L = jwc_._to_chunks(DATA)
+    jeng = jwc_._engine_for(L)
+    jeng.set_partition_map(pmap)
+    jtm = {}
+    jres = jeng.run(jchunks, timings=jtm, waves=WAVES)
+    wc, chunks, res, tm = _port_run(
+        CFG, partition_map=convert.partition_map_from_numpy(pmap, B, 8),
+        sort_impl=sort_impl)
+    assert np.array_equal(wc._engine_for(L).partition_map(), pmap)
+    _pin_result(res, jres)
+    assert twc.materialize_counts(chunks, res) == Counter(DATA.split())
+    matrix = np.asarray(tm["exchange"]["matrix"])
+    assert np.array_equal(matrix, np.asarray(jtm["exchange"]["matrix"]))
+    assert np.array_equal(matrix, wc.host_exchange_matrix(DATA,
+                                                          waves=WAVES))
+    if table == "rebalanced":  # the table moved traffic off k1 % P
+        assert not np.array_equal(pmap, jde.identity_pmap(B, 8))
+        assert not np.array_equal(
+            matrix, twc.DeviceWordCount(
+                Partitions(8, "cpu"), chunk_len=CHUNK).host_exchange_matrix(
+                    DATA, waves=WAVES))
 
 
 def test_capacity_retry_matches_jax_retry():
@@ -191,12 +259,32 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_leftover_engine_options_raise():
-    parts = Partitions(1, "cpu")
-    for cfg in (tde.EngineConfig(sort_impl="radix"),
-                tde.EngineConfig(sort_impl="tiered"),
-                tde.EngineConfig(partition_map=True)):
+    """The tiered policies are still refused, pointing at ROADMAP;
+    'radix' and partition maps, once refused, now build, and a table is
+    checked against the bucket and partition counts."""
+    parts = Partitions(8, "cpu")
+    for impl in ("tiered", "tiered-radix"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tde.DeviceEngine(parts, twc._wordcount_map_fn, cfg)
-    with pytest.raises(ValueError):
-        tde.DeviceEngine(parts, twc._wordcount_map_fn,
-                         tde.EngineConfig(segment_impl="mosaic"))
+            tde.DeviceEngine(parts, twc._wordcount_map_fn,
+                             tde.EngineConfig(sort_impl=impl))
+    for bad in (dict(segment_impl="mosaic"), dict(sort_impl="bitonic"),
+                dict(partition_map=True, partition_buckets=12)):
+        with pytest.raises(ValueError):
+            tde.DeviceEngine(parts, twc._wordcount_map_fn,
+                             tde.EngineConfig(**bad))
+    tde.DeviceEngine(parts, twc._wordcount_map_fn,
+                     tde.EngineConfig(sort_impl="radix"))
+    eng = tde.DeviceEngine(parts, twc._wordcount_map_fn,
+                           tde.EngineConfig(partition_map=True))
+    assert eng.partition_buckets == 64
+    assert np.array_equal(eng.partition_map(), np.arange(64) % 8)
+    with pytest.raises(ValueError, match="outside"):
+        eng.set_partition_map(np.full(64, 8))
+    with pytest.raises(ValueError, match="buckets"):
+        eng.set_partition_map(np.zeros(32))
+    with pytest.raises(ValueError, match="partition_map=True"):
+        tde.DeviceEngine(parts, twc._wordcount_map_fn).set_partition_map(
+            np.zeros(64))
+    back = convert.partition_map_to_numpy(
+        convert.partition_map_from_numpy(np.arange(64) % 8, 64, 8))
+    assert back.dtype == np.int32 and np.array_equal(back, np.arange(64) % 8)
