@@ -45,12 +45,35 @@ which raises on failure:
    call, then a profiled run (no ``torch.sort`` device time) and a run
    under a ``plan_rebalance`` partition map (same counts, the matrix
    against the host recompute under that table);
-8. one JSON line of per-kernel numbers, then the result line.
+8. the flash-attention kernels against their plain versions on the card
+   at the transformer slice's shape ``[4, 8, 2048, 128]`` bf16 causal,
+   plus a full (non-causal) case and a ragged ``T = 2000``, ``D = 64``
+   case: out, lse, dq, dk and dv; kernel, plain and bound times at the
+   slice's shape, and ``F.scaled_dot_product_attention`` forward and
+   forward + backward as the library yardstick (timed here only; the
+   port never calls it);
+9. the transformer slice: ``TransformerTrainer`` at the configuration of
+   ``bench_train.bench_transformer`` (vocab 32768, embed 1024, 8 layers,
+   8 heads x 128, ffn 4096, bf16 products on f32 parameters, B = 4, T =
+   2048, SGD at lr 1e-3) on ``np.random.default_rng(0)`` tokens: a first
+   step (loss within 2 of ln(32768) + s2/2, s2 the variance of the
+   step-0 logits over the vocabulary) held against the same step with the
+   flash wrappers swapped for their plain versions, then 5 timed steps
+   with launch counters read around them (all three flash kernels
+   launched, no plain call), step seconds, tokens/s and MFU, one step
+   under ``torch.profiler``, and the logits product's cost three ways
+   (bf16 operands with an f32 result, the port's; bf16 result; f32);
+10. one JSON line of per-kernel numbers, then the result line.
 
-Every comparison is integer and exact (tolerance: none).
+The word-count comparisons are integer and exact (tolerance: none).  The
+flash kernels sum in another order than their plain versions: out, dq,
+dk and dv (bf16) are held to atol = rtol = 2e-2 and lse (f32) to atol
+1e-3; the trainer's first step to a loss within 1e-2 and each
+parameter's update within 5e-2 of its norm.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -62,6 +85,8 @@ from collections import Counter
 HBM_BYTES_PER_S = 3.35e12
 #: int32 ALU rate taken as the fp32 non-tensor peak (H100 SXM, 67 TFLOP/s)
 INT_OPS_PER_S = 67e12
+#: dense bf16 tensor-core rate (H100 SXM data sheet, 989 TFLOP/s)
+BF16_FLOPS_PER_S = 989e12
 CHUNK_LEN = 1 << 22
 #: words of the smoke corpus: 24 chunks of 1<<22 bytes (a cut of
 #: Europarl's 49M words to fit the smoke's time limit)
@@ -70,6 +95,20 @@ REPS = 20
 #: the radix slice: partitions on the one card, and waves
 RADIX_PARTS = 8
 RADIX_WAVES = 2
+#: the kernels of the word-count slices (phases 4 and 7)
+WORDCOUNT_KERNELS = ("tokenize", "segreduce", "radix_hist", "radix_rank",
+                     "radix_scatter")
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+#: the transformer slice: bench_train.bench_transformer's model and batch
+TF_CONFIG = dict(vocab=32768, embed=1024, n_layers=8, n_heads=8,
+                 head_dim=128, ffn=4096)
+TF_B, TF_T, TF_LR, TF_STEPS = 4, 2048, 1e-3, 5
+#: tolerances of the flash kernels against their plain versions
+FLASH_TOL = dict(atol=2e-2, rtol=2e-2)
+LSE_ATOL = 1e-3
+#: the trainer's first step through the kernels against the plain one
+STEP_LOSS_ATOL = 1e-2
+STEP_UPDATE_RTOL = 5e-2
 
 
 def check(cond, msg):
@@ -130,11 +169,11 @@ def kernel_ms(torch, fn):
     return med, (max(times) - min(times)) / med
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, ops_per_s=INT_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the ALU rate."""
+    operations over the ALU rate (or *ops_per_s*)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / INT_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -288,20 +327,18 @@ def _profile_group(name):
     return "other"
 
 
-def profile_phase(torch, wc, chunks, label="profile", waves=None,
-                  need=("tokenize kernel", "segreduce kernel"), forbid=()):
-    """One engine run of a slice under torch.profiler; prints device
-    microseconds by group and the 12 largest device events.  Fails if a
-    group in *need* shows no device time or one in *forbid* shows any."""
+def device_profile(torch, label, run, group_of):
+    """Run *run* once under torch.profiler; prints device microseconds by
+    ``group_of(kernel name)`` and the 12 largest device events under
+    *label*, and returns the groups."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine = wc._engine_for(chunks.shape[1])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        engine.run(chunks, waves=waves)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     groups, rows = {}, []
@@ -315,20 +352,31 @@ def profile_phase(torch, wc, chunks, label="profile", waves=None,
         dev_us = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
         if dev_us <= 0:
             continue
-        g = _profile_group(ev.key)
+        g = group_of(ev.key)
         groups[g] = groups.get(g, 0.0) + dev_us
         rows.append((dev_us, ev.count, ev.key[:100], g))
-    device_us = sum(groups.values())
-    check(all(groups.get(g, 0) > 0 for g in need),
-          f"{label}: profiled run shows no device time in {need}: {groups}")
-    check(all(groups.get(g, 0) == 0 for g in forbid),
-          f"{label}: profiled run shows device time in {forbid}: {groups}")
     rows.sort(reverse=True)
+    device_us = sum(groups.values())
     print(json.dumps({label: {
         "wall_us": wall_us, "device_us_total": device_us,
         "busy_share": device_us / wall_us, "device_us": groups,
         "top": [{"device_us": r[0], "calls": r[1], "name": r[2],
                  "group": r[3]} for r in rows[:12]]}}))
+    return groups
+
+
+def profile_phase(torch, wc, chunks, label="profile", waves=None,
+                  need=("tokenize kernel", "segreduce kernel"), forbid=()):
+    """One engine run of a slice under torch.profiler (printed).  Fails if
+    a group in *need* shows no device time or one in *forbid* shows any."""
+    engine = wc._engine_for(chunks.shape[1])
+    groups = device_profile(torch, label,
+                            lambda: engine.run(chunks, waves=waves),
+                            _profile_group)
+    check(all(groups.get(g, 0) > 0 for g in need),
+          f"{label}: profiled run shows no device time in {need}: {groups}")
+    check(all(groups.get(g, 0) == 0 for g in forbid),
+          f"{label}: profiled run shows device time in {forbid}: {groups}")
 
 
 def radix_inputs(torch, seg, wcmod, chunks_dev, cfg):
@@ -537,7 +585,7 @@ def radix_slice_phase(torch, kc, wcmod, Partitions, data, want):
     plain = dict(kc.PLAIN_CALLS)
     check(got == want, "radix slice: counts differ from Counter")
     check(tm["waves"] == RADIX_WAVES, f"radix slice: {tm['waves']} waves")
-    check(all(launches[k] > 0 for k in kc.KERNELS),
+    check(all(launches[k] > 0 for k in WORDCOUNT_KERNELS),
           f"radix slice: a kernel was never launched: {launches}")
     check(all(v == 0 for v in plain.values()),
           f"radix slice: plain versions ran on the card path: {plain}")
@@ -590,6 +638,260 @@ def partition_map_phase(torch, wcmod, Partitions, tok, plan_rebalance,
         "compute_s": tm["compute_s"]}}))
 
 
+def flash_inputs(torch, fa, B, H, Tq, Tk, D, seed):
+    """(q, k, v, q^, do) bf16 on the card from a seeded generator."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(T):
+        return torch.randn((B, H, T, D), generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = mk(Tq), mk(Tk), mk(Tk), mk(Tq)
+    return q, k, v, fa._prescale(q, D ** -0.5), do
+
+
+def flash_case(torch, fa, label, B, H, Tq, Tk, D, causal):
+    """The three kernels against their plain versions on one shape (the
+    backward ones fed the kernel's own lse, so each is checked alone);
+    returns the inputs and each kernel's max abs error."""
+    q, k, v, qh, do = flash_inputs(torch, fa, B, H, Tq, Tk, D, seed=Tq + D)
+    scale = D ** -0.5
+    out, lse = fa._flash_fwd_cuda(qh, k, v, causal)
+    w_out, w_lse = fa.flash_fwd_plain(qh, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    dq = fa._flash_dq_cuda(qh, k, v, do, lse, delta, causal, scale)
+    w_dq = fa.flash_dq_plain(qh, k, v, do, lse, delta, causal, scale)
+    dk, dv = fa._flash_dkv_cuda(qh, k, v, do, lse, delta, causal)
+    w_dk, w_dv = fa.flash_dkv_plain(qh, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    errs = {}
+    for kern, name, got, want, tol in (
+            ("flash_fwd", "out", out, w_out, FLASH_TOL),
+            ("flash_fwd", "lse", lse, w_lse, dict(atol=LSE_ATOL, rtol=0)),
+            ("flash_dq", "dq", dq, w_dq, FLASH_TOL),
+            ("flash_dkv", "dk", dk, w_dk, FLASH_TOL),
+            ("flash_dkv", "dv", dv, w_dv, FLASH_TOL)):
+        g, w = got.float(), want.float()
+        check(bool(torch.isfinite(g).all()), f"{label}: {name} not finite")
+        check(torch.allclose(g, w, **tol), f"{label}: {name} differs from "
+              f"the plain version beyond {tol}: max abs err "
+              f"{float((g - w).abs().max())}")
+        errs[kern] = max(errs.get(kern, 0.0), float((g - w).abs().max()))
+    print(json.dumps({"flash_case": {
+        "label": label, "shape": [B, H, Tq, Tk, D], "causal": causal,
+        "max_abs_err": errs}}))
+    return (q, k, v, qh, do, lse, delta), errs
+
+
+def flash_phase(torch, fa):
+    """Phase 8: returns the three flash kernels' records."""
+    import torch.nn.functional as F
+
+    B, H, T, D = TF_B, TF_CONFIG["n_heads"], TF_T, TF_CONFIG["head_dim"]
+    (q, k, v, qh, do, lse, delta), errs = flash_case(
+        torch, fa, "slice", B, H, T, T, D, True)
+    for label, shape, causal in (("full", (2, 8, 1024, 1024, 128), False),
+                                 ("ragged", (2, 8, 2000, 2000, 64), True)):
+        _, e = flash_case(torch, fa, label, *shape, causal)
+        for kern in e:
+            errs[kern] = max(errs[kern], e[kern])
+    scale = D ** -0.5
+    # the work: the (query, key) pairs the causal mask keeps, 2*D FLOPs a
+    # pair for each product; bytes of each input read once and each
+    # output written once (one bf16 [B, H, T, D] tensor, one f32 [B, H,
+    # T, 1] row)
+    pairs = B * H * T * (T + 1) // 2
+    tensor, row = 2 * B * H * T * D, 4 * B * H * T
+    work = {  # (FLOPs, bytes)
+        "flash_fwd": (2 * 2 * D * pairs, 4 * tensor + row),
+        "flash_dq": (3 * 2 * D * pairs, 5 * tensor + 2 * row),
+        "flash_dkv": (4 * 2 * D * pairs, 6 * tensor + 2 * row)}
+    calls = {
+        "flash_fwd": (lambda: fa._flash_fwd_cuda(qh, k, v, True),
+                      lambda: fa.flash_fwd_plain(qh, k, v, True)),
+        "flash_dq": (lambda: fa._flash_dq_cuda(qh, k, v, do, lse, delta,
+                                               True, scale),
+                     lambda: fa.flash_dq_plain(qh, k, v, do, lse, delta,
+                                               True, scale)),
+        "flash_dkv": (lambda: fa._flash_dkv_cuda(qh, k, v, do, lse, delta,
+                                                 True),
+                      lambda: fa.flash_dkv_plain(qh, k, v, do, lse, delta,
+                                                 True))}
+    # the library yardstick: SDPA on the unscaled q (it scales itself)
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+
+    lib_fwd_bwd = time_ms(torch, sdpa_fwd_bwd)
+    records = []
+    for name, line in (("flash_fwd", 94), ("flash_dq", 153),
+                       ("flash_dkv", 204)):
+        kern, plain = calls[name]
+        ms, spread = kernel_ms(torch, kern)
+        plain_ms = time_ms(torch, plain, reps=2, rounds=3)
+        flops, nbytes = work[name]
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        print(f"{name} [{B}, {H}, {T}, {D}] causal: kernel {ms:.4f} ms "
+              f"(spread {spread:.3f}, {flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "mapreduce_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"mapreduce_tpu/ops/flash_attention.py:{line}",
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_fwd if name == "flash_fwd" else None})
+    print(json.dumps({"flash_library": {
+        "sdpa_fwd_ms": lib_fwd, "sdpa_fwd_bwd_ms": lib_fwd_bwd,
+        "kernels_fwd_ms": records[0]["ms"],
+        "kernels_bwd_ms": records[1]["ms"] + records[2]["ms"]}}))
+    return records
+
+
+def _tf_group(name):
+    if "mr_flash_kernels" in name:
+        return "flash kernels"
+    low = name.lower()
+    if any(s in low for s in ("gemm", "xmma", "nvjet", "cutlass", "cublas")):
+        return "matmul (cuBLAS)"
+    if "copy" in low:
+        return "copies and casts"
+    if "reduce" in low:
+        return "reductions"
+    return "other elementwise"
+
+
+def logits_phase(torch, cfg):
+    """What the f32-result logits product costs: ``[B*T, E] @ [E, V]``
+    with bf16 operands as one GEMM writing f32 (``torch.mm(out_dtype=)``,
+    the port's choice), as the plain bf16 GEMM (bf16 result), and with
+    both operands upcast to f32 (an f32 GEMM)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((TF_B * TF_T, cfg.embed), generator=g,
+                    device="cuda").to(cfg.dtype)
+    w = torch.randn((cfg.embed, cfg.vocab), generator=g,
+                    device="cuda").to(cfg.dtype)
+    xf, wf = x.float(), w.float()
+    times = {
+        "out_dtype_f32_ms": time_ms(torch, lambda: torch.mm(
+            x, w, out_dtype=torch.float32)),
+        "bf16_ms": time_ms(torch, lambda: torch.mm(x, w)),
+        "upcast_f32_ms": time_ms(torch, lambda: torch.mm(xf, wf), reps=5,
+                                 rounds=3)}
+    print(json.dumps({"logits_matmul": dict(
+        shape=[TF_B * TF_T, cfg.embed, cfg.vocab], **times)}))
+
+
+def trainer_phase(torch, kc, fa, tmod):
+    """Phase 9: the transformer slice; returns the flash launch counts of
+    its counted steps."""
+    import numpy as np
+
+    cfg = tmod.TransformerConfig(**TF_CONFIG)
+    tr = tmod.TransformerTrainer(cfg, learning_rate=TF_LR, seed=0,
+                                 device="cuda")
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(TF_B, TF_T + 1)).astype(np.int32)
+    t0 = time.monotonic()
+    params = tr.init_params()
+    p0 = {n: t.clone() for n, t in params.state_dict().items()}
+    n_params = sum(t.numel() for t in p0.values())
+    init_s = time.monotonic() - t0
+
+    # the step-0 loss on random targets is about ln(vocab) + s2 / 2, s2 the
+    # logits' variance over the vocabulary: the model has no final norm,
+    # so s2 is |hidden|^2 / embed, well above 0 at this depth
+    with torch.no_grad():
+        hidden, _ = tmod.forward_local(params, tr.place_batch(toks)[0], cfg)
+        logits = torch.matmul(hidden.to(cfg.dtype).float(),
+                              params.unembed.to(cfg.dtype).float())
+        s2 = float(logits.var(dim=-1).mean())
+        del hidden, logits
+    expected = math.log(cfg.vocab) + s2 / 2
+
+    # step 0 through the kernels (also the warm step), then the same step
+    # with the flash wrappers swapped for their plain versions
+    t0 = time.monotonic()
+    params, loss = tr.step(params, toks)
+    loss_k = float(loss)
+    first_s = time.monotonic() - t0
+    check(math.isfinite(loss_k) and abs(loss_k - expected) < 2,
+          f"trainer: step-0 loss {loss_k} not within 2 of ln(vocab) + "
+          f"s2/2 = {expected} (s2 = {s2})")
+    ref = tmod.Transformer(cfg, device="cuda")
+    ref.load_state_dict(p0)
+    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+    fa.flash_fwd, fa.flash_dq, fa.flash_dkv = (
+        fa.flash_fwd_plain, fa.flash_dq_plain, fa.flash_dkv_plain)
+    try:
+        ref, loss = tr.step(ref, toks)
+        loss_p = float(loss)
+    finally:
+        fa.flash_fwd, fa.flash_dq, fa.flash_dkv = kernels
+    upd_err = {}
+    pk, pp = params.state_dict(), ref.state_dict()
+    for n in p0:
+        dk, dp = pk[n] - p0[n], pp[n] - p0[n]
+        upd_err[n] = float((dk - dp).norm() / dp.norm().clamp_min(1e-30))
+    worst = max(upd_err, key=upd_err.get)
+    check(abs(loss_k - loss_p) < STEP_LOSS_ATOL,
+          f"trainer: step-0 loss {loss_k} through the kernels, {loss_p} "
+          "through the plain versions")
+    check(upd_err[worst] < STEP_UPDATE_RTOL,
+          f"trainer: {worst}'s update differs by {upd_err[worst]} of its "
+          "norm from the plain-attention step")
+    del ref, pk, pp, p0
+
+    # the counted run: TF_STEPS steps through the kernels
+    kc.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TF_STEPS):
+        t0 = time.monotonic()
+        params, loss = tr.step(params, toks)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        losses.append(float(loss))
+    launches = {k: kc.LAUNCHES[k] for k in FLASH_KERNELS}
+    plain = dict(kc.PLAIN_CALLS)
+    check(all(launches[k] > 0 for k in FLASH_KERNELS),
+          f"trainer: a flash kernel was never launched: {launches}")
+    check(all(v == 0 for v in plain.values()),
+          f"trainer: plain versions ran on the card path: {plain}")
+    check(all(math.isfinite(x) for x in losses), f"trainer: {losses}")
+    step_s = statistics.median(times)
+    flops = tmod.train_flops(cfg, n_params, TF_B, TF_T)
+    print(json.dumps({"slice_transformer": {
+        "config": TF_CONFIG, "batch": TF_B, "seq_len": TF_T,
+        "params": n_params, "init_s": init_s, "first_step_s": first_s,
+        "step0_loss": loss_k, "step0_loss_plain": loss_p,
+        "step0_logit_var": s2, "step0_loss_expected": expected,
+        "step0_update_rel_err_max": upd_err[worst],
+        "step0_update_rel_err_worst": worst,
+        "losses": losses, "step_s": times, "step_s_median": step_s,
+        "tokens_per_s": TF_B * TF_T / step_s, "flops_per_step": flops,
+        "mfu": flops / step_s / BF16_FLOPS_PER_S,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches, "plain_calls": plain}}))
+
+    state = {"params": params}
+
+    def one_step():
+        state["params"], _ = tr.step(state["params"], toks)
+
+    groups = device_profile(torch, "profile_transformer", one_step,
+                            _tf_group)
+    check(groups.get("flash kernels", 0) > 0,
+          f"profile_transformer: no flash-kernel device time: {groups}")
+    logits_phase(torch, cfg)
+    return launches
+
+
 def main():
     import torch
 
@@ -604,6 +906,8 @@ def main():
     from mapreduce_tpu_torch.corpus import make_corpus
     from mapreduce_tpu_torch.engine import wordcount as wcmod
     from mapreduce_tpu_torch.engine.autotune import plan_rebalance
+    from mapreduce_tpu_torch.models import transformer as tmod
+    from mapreduce_tpu_torch.ops import flash_attention as fa
     from mapreduce_tpu_torch.ops import kernel_compat as kc
     from mapreduce_tpu_torch.ops import radix_sort as rs
     from mapreduce_tpu_torch.ops import segscan as seg
@@ -700,11 +1004,19 @@ def main():
     partition_map_phase(torch, wcmod, Partitions, tok, plan_rebalance, rwc,
                         data, want)
 
+    # phases 8-9: the flash kernels, then the transformer slice (the
+    # plain f32 matmuls of the reference stay in full f32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flash_kernels = flash_phase(torch, fa)
+    flaunches = trainer_phase(torch, kc, fa, tmod)
+
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     for kern in radix_kernels:
         kern["launches"] = rlaunches[kern["name"]]
-    kernels += radix_kernels
+    for kern in flash_kernels:
+        kern["launches"] = flaunches[kern["name"]]
+    kernels += radix_kernels + flash_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
-"""Device ops: the tokenizer, tile compaction and sorted-run reduction,
-with the hand-written CUDA kernels behind ``tokenize_hash`` and the
-segmented reduce (``kernel_compat`` holds the one kernel-vs-plain rule)."""
+"""Device ops: the tokenizer, tile compaction, sorted-run reduction and
+flash attention (``ops.flash_attention``, a module: import from it),
+with the hand-written CUDA kernels behind ``tokenize_hash``, the
+segmented reduce, the radix sort and attention (``kernel_compat`` holds
+the one kernel-vs-plain rule)."""
 
 from .compaction import tile_compact  # noqa: F401
 from .segscan import SENTINEL, sorted_unique_reduce  # noqa: F401

@@ -45,10 +45,11 @@ import torch
 
 #: the kernels of this package, by the name their counters use
 KERNELS = ("tokenize", "segreduce", "radix_hist", "radix_rank",
-           "radix_scatter")
+           "radix_scatter", "flash_fwd", "flash_dq", "flash_dkv")
 #: the kernel sources, ``csrc/<name>.cu``: one shared library each
-#: (``radix.cu`` holds the three radix kernels)
-SOURCES = ("tokenize", "segreduce", "radix")
+#: (``radix.cu`` holds the three radix kernels, ``flash_attention.cu``
+#: the three flash-attention kernels)
+SOURCES = ("tokenize", "segreduce", "radix", "flash_attention")
 #: kernel launches per kernel (one per wrapper call that launched it)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 #: plain-version calls per kernel

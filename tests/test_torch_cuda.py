@@ -7,17 +7,24 @@ machine without it; ``tests/conftest.py`` imports JAX, hence:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Every comparison is integer and exact: the kernels must give the plain
-versions' bits (tokenize: all four TokenStream fields; segreduce: the
-reduced lanes at run-end rows and ``end_csum`` everywhere; the radix
-kernels: every output, and the whole sort also ``torch.sort``'s stable
-permutation of the packed key).
+The word-count kernels' comparisons are integer and exact: the kernels
+must give the plain versions' bits (tokenize: all four TokenStream
+fields; segreduce: the reduced lanes at run-end rows and ``end_csum``
+everywhere; the radix kernels: every output, and the whole sort also
+``torch.sort``'s stable permutation of the packed key).  The flash
+kernels accumulate in another order than their plain versions, so they
+are held to atol = rtol = 2e-2 on the bf16/fp16 outputs (out, dq, dk,
+dv: a few units in the last place of the 8-bit mantissa) and atol 1e-3
+on the f32 lse.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mapreduce_tpu_torch.models import TransformerConfig, TransformerTrainer
+from mapreduce_tpu_torch.models import transformer as tmod
+from mapreduce_tpu_torch.ops import flash_attention as fa
 from mapreduce_tpu_torch.ops import kernel_compat as kc
 from mapreduce_tpu_torch.ops import radix_sort, segscan, tokenize
 
@@ -141,7 +148,8 @@ def test_launch_counters_count_kernel_launches(dev):
     k = torch.zeros(10, dtype=torch.int32, device=dev)
     segscan.segment_reduce(k, k, [], "sum", True)
     assert kc.LAUNCHES == {"tokenize": 1, "segreduce": 1, "radix_hist": 0,
-                           "radix_rank": 0, "radix_scatter": 0}
+                           "radix_rank": 0, "radix_scatter": 0,
+                           "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
     assert all(v == 0 for v in kc.PLAIN_CALLS.values())
 
 
@@ -239,3 +247,119 @@ def test_radix_launch_counters(dev):
     assert kc.LAUNCHES["radix_scatter"] == radix_sort.RADIX_PASSES
     assert kc.LAUNCHES["radix_rank"] == 1
     assert all(v == 0 for v in kc.PLAIN_CALLS.values())
+
+
+# -- flash attention -------------------------------------------------------------
+
+#: (B, H, Tq, Tk, D, causal): D 64 and 128 causal and full, ragged T (not
+#: a multiple of the 64-row tile), Tq != Tk both ways, T = 1, and head
+#: dims that fill part of the 64- or 128-wide accumulators
+FLASH_CASES = [
+    (1, 2, 128, 128, 64, True), (1, 2, 128, 128, 64, False),
+    (2, 2, 256, 256, 128, True), (2, 2, 256, 256, 128, False),
+    (1, 3, 200, 200, 64, True), (1, 2, 2000, 2000, 64, True),
+    (1, 2, 130, 70, 128, True), (1, 2, 70, 130, 64, True),
+    (1, 2, 70, 130, 128, False), (1, 1, 1, 1, 16, True),
+    (1, 2, 100, 100, 32, True), (1, 2, 64, 64, 48, False),
+    (1, 2, 96, 96, 112, True)]
+FLASH_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+def _flash_inputs(B, H, Tq, Tk, D, dtype, seed):
+    """(q^, k, v, do) in *dtype* on the CPU, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def mk(T):
+        return torch.from_numpy(
+            rng.standard_normal((B, H, T, D)).astype(np.float32)).to(dtype)
+
+    q, k, v, do = mk(Tq), mk(Tk), mk(Tk), mk(Tq)
+    return fa._prescale(q, D ** -0.5), k, v, do
+
+
+def _close(got, want, name, **tol):
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               msg=lambda m: f"{name}: {m}",
+                               **(tol or FLASH_TOL))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernels_match_plain(dev, case, dtype):
+    B, H, Tq, Tk, D, causal = case
+    qh, k, v, do = _flash_inputs(B, H, Tq, Tk, D, dtype, seed=Tq + D)
+    out, lse = fa.flash_fwd_plain(qh, k, v, causal)
+    g_out, g_lse = fa._flash_fwd_cuda(qh.to(dev), k.to(dev), v.to(dev),
+                                      causal)
+    torch.cuda.synchronize()
+    _close(g_out, out, "out")
+    _close(g_lse, lse, "lse", atol=1e-3, rtol=0)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True) - 0.1
+    scale = D ** -0.5
+    dq = fa.flash_dq_plain(qh, k, v, do, lse, delta, causal, scale)
+    dk, dv = fa.flash_dkv_plain(qh, k, v, do, lse, delta, causal)
+    args = [t.to(dev) for t in (qh, k, v, do, lse, delta)]
+    g_dq = fa._flash_dq_cuda(*args, causal, scale)
+    g_dk, g_dv = fa._flash_dkv_cuda(*args, causal)
+    torch.cuda.synchronize()
+    _close(g_dq, dq, "dq")
+    _close(g_dk, dk, "dk")
+    _close(g_dv, dv, "dv")
+
+
+@pytest.mark.parametrize("dtype,D,msg", [
+    (torch.float32, 64, "bfloat16 or float16"),
+    (torch.bfloat16, 24, "multiple of 16"),
+    (torch.bfloat16, 144, "multiple of 16")])
+def test_flash_kernel_limits_raise(dev, dtype, D, msg):
+    kc.reset_counts()
+    q = torch.zeros((1, 1, 8, D), dtype=dtype, device=dev)
+    with pytest.raises(ValueError, match=msg):
+        fa.flash_attention(q, q, q)
+    assert kc.PLAIN_CALLS["flash_fwd"] == 0  # never the plain version
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16,
+                        device=dev).transpose(1, 2)
+        fa._flash_fwd_cuda(t, t, t, True)
+
+
+def test_flash_launch_counters(dev):
+    kc.reset_counts()
+    q, k, v, _ = (t.to(dev).requires_grad_()
+                  for t in _flash_inputs(1, 2, 128, 128, 64, torch.bfloat16,
+                                         seed=3))
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    (out.float().square().sum() + lse.sum()).backward()
+    assert (kc.LAUNCHES["flash_fwd"], kc.LAUNCHES["flash_dq"],
+            kc.LAUNCHES["flash_dkv"]) == (1, 1, 1)
+    assert all(v == 0 for v in kc.PLAIN_CALLS.values())
+
+
+def test_trainer_step_kernels_match_plain(dev, monkeypatch):
+    """One small SGD step on the card through the kernels, and again with
+    the flash wrappers swapped for their plain versions: the loss within
+    1e-2, each parameter's update within 5e-2 of its norm."""
+    cfg = TransformerConfig(vocab=256, embed=128, n_layers=2, n_heads=2,
+                            head_dim=64, ffn=256)
+    tr = TransformerTrainer(cfg, learning_rate=1e-2, device=dev)
+    toks = np.random.default_rng(0).integers(0, 256, size=(2, 129))
+    p0 = {n: t.clone() for n, t in tr.init_params().state_dict().items()}
+
+    def run():
+        params = tmod.Transformer(cfg, device=dev)
+        params.load_state_dict(p0)
+        params, loss = tr.step(params, toks)
+        return float(loss), params.state_dict()
+
+    kc.reset_counts()
+    loss_k, pk = run()
+    assert kc.LAUNCHES["flash_fwd"] == 2 and kc.LAUNCHES["flash_dkv"] == 2
+    monkeypatch.setattr(fa, "flash_fwd", fa.flash_fwd_plain)
+    monkeypatch.setattr(fa, "flash_dq", fa.flash_dq_plain)
+    monkeypatch.setattr(fa, "flash_dkv", fa.flash_dkv_plain)
+    loss_p, pp = run()
+    assert abs(loss_k - loss_p) < 1e-2, (loss_k, loss_p)
+    for n in p0:
+        dk, dp = pk[n] - p0[n], pp[n] - p0[n]
+        err = float((dk - dp).norm() / dp.norm().clamp_min(1e-30))
+        assert err < 5e-2, (n, err)
