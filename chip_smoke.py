@@ -49,9 +49,13 @@ which raises on failure:
    at the transformer slice's shape ``[4, 8, 2048, 128]`` bf16 causal,
    plus a full (non-causal) case and a ragged ``T = 2000``, ``D = 64``
    case: out, lse, dq, dk and dv; kernel, plain and bound times at the
-   slice's shape, and ``F.scaled_dot_product_attention`` forward and
-   forward + backward as the library yardstick (timed here only; the
-   port never calls it);
+   slice's shape, and ``F.scaled_dot_product_attention`` as the library
+   yardstick: its forward for ``flash_fwd``, its backward alone (one
+   call for dq, dk and dv; its device time under the profiler) for
+   ``flash_dq`` and ``flash_dkv``, and
+   forward + backward (timed here only; the port never calls it); then
+   ``flash_fwd`` and ``flash_dkv`` once more without the causal mask and
+   with 4x the batch (``flash_scaling``: what bounds them);
 9. the transformer slice: ``TransformerTrainer`` at the configuration of
    ``bench_train.bench_transformer`` (vocab 32768, embed 1024, 8 layers,
    8 heads x 128, ffn 4096, bf16 products on f32 parameters, B = 4, T =
@@ -727,6 +731,24 @@ def flash_phase(torch, fa):
         torch.autograd.grad(o, (qg, kg, vg), do)
 
     lib_fwd_bwd = time_ms(torch, sdpa_fwd_bwd)
+    # SDPA's backward alone: one forward kept, the gradient call timed (one
+    # call computes dq, dk and dv together: the yardstick of both
+    # backward kernels).  Events around the calls read host time on a
+    # slow host (the call's host work can exceed its device time), so the
+    # yardstick is its device time under the profiler, like kernel_ms
+    o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def sdpa_bwd():
+        torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)
+
+    lib_bwd = time_ms(torch, sdpa_bwd)
+    groups = device_profile(torch, "profile_sdpa_bwd",
+                            lambda: [sdpa_bwd() for _ in range(REPS)],
+                            lambda name: "sdpa backward")
+    lib_bwd_device = groups["sdpa backward"] / REPS / 1e3
+    del o
+    library = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd_device,
+               "flash_dkv": lib_bwd_device}
     records = []
     for name, line in (("flash_fwd", 94), ("flash_dq", 153),
                        ("flash_dkv", 204)):
@@ -735,8 +757,10 @@ def flash_phase(torch, fa):
         plain_ms = time_ms(torch, plain, reps=2, rounds=3)
         flops, nbytes = work[name]
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        print(f"{name} [{B}, {H}, {T}, {D}] causal: kernel {ms:.4f} ms "
-              f"(spread {spread:.3f}, {flops / ms / 1e9:.1f} TFLOP/s), plain "
+        print(f"{name} [{B}, {H}, {T}, {D}] causal, tiles "
+              f"{fa.TILES[name]}: kernel {ms:.4f} ms (spread {spread:.3f}, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / library[name]:.2f}x "
+              f"the SDPA yardstick {library[name]:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         records.append({
             "name": name, "route": "cuda",
@@ -744,12 +768,41 @@ def flash_phase(torch, fa):
             "replaces": f"mapreduce_tpu/ops/flash_attention.py:{line}",
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_fwd if name == "flash_fwd" else None})
+            "library_ms": library[name]})
     print(json.dumps({"flash_library": {
         "sdpa_fwd_ms": lib_fwd, "sdpa_fwd_bwd_ms": lib_fwd_bwd,
+        "sdpa_bwd_ms": lib_bwd, "sdpa_bwd_device_ms": lib_bwd_device,
         "kernels_fwd_ms": records[0]["ms"],
         "kernels_bwd_ms": records[1]["ms"] + records[2]["ms"]}}))
     return records
+
+
+def flash_scaling(torch, fa):
+    """What bounds the wgmma kernels: flash_fwd and flash_dkv timed at the
+    slice's shape without the causal mask (every CTA does the same work,
+    so no tail of uneven tiles) and causal with 4x the batch (4x the CTAs
+    over the same SMs, so the last wave is a smaller share).  Prints one
+    JSON line of ms and TFLOP/s."""
+    D = TF_CONFIG["head_dim"]
+    out = {}
+    for label, B, causal in (("causal", TF_B, True),
+                             ("full", TF_B, False),
+                             ("causal_4x_batch", 4 * TF_B, True)):
+        H, T = TF_CONFIG["n_heads"], TF_T
+        _, k, v, qh, do = flash_inputs(torch, fa, B, H, T, T, D, seed=7)
+        o, lse = fa._flash_fwd_cuda(qh, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+        for name, fn, flops in (
+                ("flash_fwd", lambda: fa._flash_fwd_cuda(qh, k, v, causal),
+                 4 * D * pairs),
+                ("flash_dkv", lambda: fa._flash_dkv_cuda(
+                    qh, k, v, do, lse, delta, causal), 8 * D * pairs)):
+            ms, _ = kernel_ms(torch, fn)
+            out[f"{name}/{label}"] = {"shape": [B, H, T, D], "ms": ms,
+                                      "tflops": flops / ms / 1e9}
+        del k, v, qh, do, o, lse, delta
+    print(json.dumps({"flash_scaling": out}))
 
 
 def _tf_group(name):
@@ -1008,6 +1061,7 @@ def main():
     # plain f32 matmuls of the reference stay in full f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     flash_kernels = flash_phase(torch, fa)
+    flash_scaling(torch, fa)
     flaunches = trainer_phase(torch, kc, fa, tmod)
 
     for kern in kernels:

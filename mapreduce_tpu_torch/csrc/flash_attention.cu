@@ -17,36 +17,72 @@
 //   flash_dkv  dv = p^T . do, dk = ds^T . q^ (no scale: q^ carries it).
 // delta = rowsum(do * out) - dlse comes from the caller (torch).
 //
+// Bound on the card: the tensor cores, for all three.  At the transformer
+// slice's shape (B*H = 32, T = 2048, D = 128, causal) the forward does
+// 4 * D FLOPs for each (query, key) pair the mask keeps, 34.4 GFLOP,
+// against 4 * B*H * T * D * 2 bytes of q, k, v and out: some 500 FLOP per
+// byte, well above the card's ~295 bf16 FLOP per byte of device memory.
+// dQ and dK/dV do 1.5x and 2x the forward's FLOPs on 1.25x and 1.5x its
+// bytes.
+//
 // Grid.  The TPU runs its grid in order and carries state across the KV
-// (or Q) axis in VMEM scratch.  Here one CTA owns one (b*h, q tile) for
-// flash_fwd and flash_dq and loops over the K/V tiles itself, and one
-// CTA owns one (b*h, kv tile) for flash_dkv and loops over the Q tiles,
-// so every output tile has a single writer and no atomics are needed.
-// Tiles are 64 x 64 (kBlock), fixed at compile time; four warps each own
-// 16 rows of the CTA's tile.  Causal tiles wholly above the diagonal are
-// never visited (the loop bounds), and only tiles that cross the
-// diagonal, or hold the ragged end of T, take the mask.  Rows past T are
-// zero-filled in shared memory and never stored, so any T >= 1 works.
+// (or Q) axis in VMEM scratch.  Here a CTA owns one (b*h, q tile) for
+// flash_fwd and flash_dq and loops over the K/V tiles itself, and one CTA
+// owns one (b*h, kv tile) for flash_dkv and loops over the Q tiles, so
+// every output tile has a single writer and no atomics are needed.
+// Causal tiles wholly above the diagonal are never visited (the loop
+// bounds), and only tiles that cross the diagonal, or hold the ragged end
+// of T, take the mask.  Rows past T are zero-filled in shared memory and
+// never stored, so any T >= 1 works.  Every row's first K/V tile holds
+// its column 0, so its running max is finite before any masked tile.
 //
-// Products: mma.sync m16n8k16 (bf16 or fp16 in, f32 accumulate).  The
-// operand tiles are staged in shared memory with rows padded by 8
-// elements, which makes the fragment loads conflict-free; the softmax
-// tile p (and ds) goes from the accumulator fragments straight into the
-// A operand of the next product, never through memory.
-//
-// Bound on the card: the tensor cores.  At T = 2048, D = 128 the causal
-// forward does 2*B*H*T^2*D FLOPs against 4*B*H*T*D*2 bytes of q, k, v,
-// out (some 500 FLOP per byte), well above the card's ~295 bf16 FLOP per
-// byte of device memory.  This first version uses mma.sync from scalar
-// shared-memory loads with no copy/compute overlap; wgmma, TMA and
-// pipelining are later work.
+// flash_fwd and flash_dkv: warpgroup MMA fed by TMA (hopper.cuh).  A CTA
+// is two warpgroups (256 threads), each issuing 64-row wgmmas, so the
+// tensor cores see m64n128 / m64n64 products read straight from shared
+// memory instead of mma.sync fragments gathered by scalar loads.
+//   flash_fwd: 128 query rows against K/V tiles of 128 keys.  S = q^ . k^T
+//   is an SS wgmma (q^ and k K-major, their natural [row][d] layout); P is
+//   rounded to the element type in registers, where the accumulator's
+//   layout already is the A fragment's, and O += P . V is an RS wgmma with
+//   V read MN-major through the transpose bit.  Grid order: the last Q
+//   tiles (the most K/V tiles under the causal mask) start first, so the
+//   heavy CTAs do not form the tail, within groups of heads whose K and V
+//   fit in L2 together (cta_tile), so the CTAs in flight read K/V from L2.
+//   flash_dkv: 128 keys against Q tiles of 64 rows.  S^T = k . q^T and
+//   dP^T = v . dO^T are SS wgmmas, dV += P^T . dO and dK += dS^T . q^ RS
+//   wgmmas (dO and q^ MN-major); dK and dV for 64 x D stay in registers
+//   per warpgroup (192 f32 a thread at D = 128 with S^T and dP^T).  Grid
+//   order: the first key tiles (the most Q tiles under the mask) first,
+//   by groups of heads as above.
+//   A warpgroup skips a causal Q tile that lies wholly before its keys.
+//   Copies: TMA with the 128-byte swizzle the wgmma descriptors read, from
+//   3-D maps over [B*H, T, D] (rows past T read as zeros, not as the next
+//   head's rows), into a ring of kStages stages under mbarriers.  Thread 0
+//   issues the loads of tile j + 1 once every warp has released that
+//   stage, while both warpgroups compute on tile j.  No producer warp:
+//   with 256 threads a thread may hold 255 registers, which dK/dV needs
+//   without setmaxnreg; one more warp would cap every thread at 224.  lse
+//   and delta of a Q tile come by a 1-D TMA over the flat [B*H, ld] rows.
+//   A TMA box must start on 16 bytes, so ld is T rounded up to a multiple
+//   of 4 (the wrapper pads the rows where T is not); entries past a row's
+//   T fall on masked columns.  exp is exp2 with a log2(e) pre-scale.
+// flash_dq: mma.sync m16n8k16 from scalar shared-memory loads, 64 x 64
+//   tiles and four warps, synchronous tile loads: the first port's design,
+//   next to move onto hopper.cuh.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "hopper.cuh"
+
 namespace mr_flash_kernels {
 
+using namespace mr_hopper;
+
+// flash_dq (mma.sync)
 constexpr int kBlock = 64;             // rows of a Q tile and of a K/V tile
 constexpr int kWarps = 4;              // each warp owns 16 rows of the tile
 constexpr int kThreads = 32 * kWarps;
@@ -56,9 +92,27 @@ constexpr float kNegInf = -1e30f;      // as the TPU kernel: exp stays NaN-free
 constexpr float kDenFloor = 1e-30f;
 constexpr unsigned kFull = 0xffffffffu;
 
+// flash_fwd and flash_dkv (wgmma + TMA)
+constexpr int kRowsFwd = 128;    // query rows of a forward CTA, 64 a warpgroup
+constexpr int kKeysFwd = 128;    // keys of a forward K/V tile
+constexpr int kKeysDkv = 128;    // keys of a dK/dV CTA, 64 a warpgroup
+constexpr int kRowsDkv = 64;     // query rows of a dK/dV Q tile
+constexpr int kStages = 2;       // depth of the K/V (forward) or Q (dK/dV) ring
+constexpr int kWgThreads = 256;  // two consumer warpgroups
+constexpr int kWgWarps = kWgThreads / 32;
+constexpr uint32_t kHalfRow = 128;  // bytes of a row of a 64-column half
+// of the card's 50 MB L2, what the CTAs in flight may stream: the K/V (or
+// q^ and dO) of a group of heads
+constexpr long long kL2Budget = 32ll << 20;
+constexpr float kLog2e = 1.4426950408889634f;
+
 struct Bf16 {
-  static __device__ __forceinline__ uint32_t bits(float x) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  static constexpr bool kFp16 = false;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // (lo, hi) rounded to nearest, lo (the lower column) in the low half
+  static __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
   }
   // c += a . b, one 16 x 8 x 16 step
   static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
@@ -72,8 +126,11 @@ struct Bf16 {
 };
 
 struct Fp16 {
-  static __device__ __forceinline__ uint32_t bits(float x) {
-    return __half_as_ushort(__float2half_rn(x));
+  static constexpr bool kFp16 = true;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
   }
   static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
                                              const uint32_t* b) {
@@ -84,12 +141,6 @@ struct Fp16 {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
   }
 };
-
-// Two floats rounded to the element type, the lower column in the low half.
-template <class E>
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  return E::bits(lo) | (E::bits(hi) << 16);
-}
 
 __device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -133,10 +184,10 @@ __device__ __forceinline__ void load_b_kn(uint32_t* b, const uint16_t* s,
 template <class E>
 __device__ __forceinline__ void frag_to_a(uint32_t* a, const float* c0,
                                           const float* c1) {
-  a[0] = pack<E>(c0[0], c0[1]);
-  a[1] = pack<E>(c0[2], c0[3]);
-  a[2] = pack<E>(c1[0], c1[1]);
-  a[3] = pack<E>(c1[2], c1[3]);
+  a[0] = E::pack2(c0[0], c0[1]);
+  a[1] = E::pack2(c0[2], c0[3]);
+  a[2] = E::pack2(c1[0], c1[1]);
+  a[3] = E::pack2(c1[2], c1[3]);
 }
 
 // Rows [row0, row0 + kBlock) of a [T, D] matrix into shared memory (row
@@ -223,94 +274,7 @@ __device__ __forceinline__ void store_row(uint16_t* dst, float (*acc)[4],
   for (int i = 0; i < DM / 8; ++i) {
     if (i * 8 < D)
       *reinterpret_cast<uint32_t*>(dst + i * 8 + 2 * t) =
-          pack<E>(acc[i][2 * hr] * mul, acc[i][2 * hr + 1] * mul);
-  }
-}
-
-// -- forward: grid (q tiles, B*H) ---------------------------------------------
-
-template <class E, int DM>
-__global__ void __launch_bounds__(kThreads)
-    fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-               const uint16_t* __restrict__ v, uint16_t* __restrict__ out,
-               float* __restrict__ lse, int Tq, int Tk, int D, int causal) {
-  extern __shared__ uint4 smem_raw[];
-  const int ld = D + kPad;
-  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* sK = sQ + kBlock * ld;
-  uint16_t* sV = sK + kBlock * ld;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlock;
-  const uint16_t* kb = k + bh * Tk * D;
-  const uint16_t* vb = v + bh * Tk * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-
-  load_tile(sQ, q + bh * Tq * D, q0, Tq, D, ld);
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[DM / 8][4];
-#pragma unroll
-  for (int i = 0; i < DM / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-
-  const int n_kv = (Tk + kBlock - 1) / kBlock;
-  const int kv_end = causal ? min(n_kv, (q0 + kBlock - 1) / kBlock + 1) : n_kv;
-  for (int j = 0; j < kv_end; ++j) {
-    const int k0 = j * kBlock;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(sK, kb, k0, Tk, D, ld);
-    load_tile(sV, vb, k0, Tk, D, ld);
-    __syncthreads();
-    float s[8][4];
-    qk_tile<E, 8, DM>(s, sQ, sK, ld, r0, 0, D, g, t);
-    if ((causal && k0 + kBlock - 1 > q0) || k0 + kBlock > Tk)
-      mask_qk(s, q0 + r0 + g, k0, Tk, causal, t);
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb)
-        mx = fmaxf(mx, fmaxf(s[nb][2 * hr], s[nb][2 * hr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m[hr], mx);
-      const float corr = expf(m[hr] - m_new);
-      m[hr] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
-          const float p = expf(s[nb][e] - m_new);  // masked columns -> 0
-          s[nb][e] = p;
-          sum += p;
-        }
-      }
-      l[hr] = l[hr] * corr + sum;  // this thread's columns; summed at the end
-#pragma unroll
-      for (int i = 0; i < DM / 8; ++i) {
-        o[i][2 * hr] *= corr;
-        o[i][2 * hr + 1] *= corr;
-      }
-    }
-    pv_tile<E, 4, DM>(o, s, sV, ld, 0, D, g, t);
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    float den = l[hr] + __shfl_xor_sync(kFull, l[hr], 1);
-    den += __shfl_xor_sync(kFull, den, 2);
-    den = fmaxf(den, kDenFloor);
-    const int row = q0 + r0 + g + 8 * hr;
-    if (row < Tq) {
-      uint16_t* orow = out + (bh * Tq + row) * D;
-#pragma unroll
-      for (int i = 0; i < DM / 8; ++i) {
-        if (i * 8 < D)
-          *reinterpret_cast<uint32_t*>(orow + i * 8 + 2 * t) = pack<E>(
-              o[i][2 * hr] / den, o[i][2 * hr + 1] / den);
-      }
-      if (t == 0) lse[bh * Tq + row] = m[hr] + logf(den);
-    }
+          E::pack2(acc[i][2 * hr] * mul, acc[i][2 * hr + 1] * mul);
   }
 }
 
@@ -382,86 +346,412 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// -- backward, dK and dV: grid (kv tiles, B*H) ---------------------------------
+// -- flash_fwd and flash_dkv: wgmma fed by a TMA ring ---------------------------
 
+// The dynamic shared memory, its start rounded up to the 1024 bytes that
+// the 128-byte swizzle repeats over (the launch asks for 1 KB more).
+__device__ __forceinline__ uint8_t* swizzle_smem() {
+  extern __shared__ uint8_t smem_tma[];
+  return smem_tma + ((1024u - (smem_addr(smem_tma) & 1023u)) & 1023u);
+}
+
+// Descriptor offset (16-byte units) of the k16 step kk of a K-major
+// operand whose 64-column halves lie `half` bytes apart.
+__device__ __forceinline__ uint64_t kmajor_step(int kk, uint32_t half) {
+  return ((kk / 4) * half + (kk % 4) * 32) >> 4;
+}
+
+// ... and of an MN-major one: 16 rows of 128 bytes further down.
+__device__ __forceinline__ uint64_t mnmajor_step(int kk) {
+  return (kk * 16 * kHalfRow) >> 4;
+}
+
+// The (b*h, tile rank) this CTA owns.  Heads go in groups of `group`
+// (sized so that the group's streamed tensors fit in L2) one group after
+// the other; within a group, tile rank 0 (the caller's heaviest tile) of
+// every head first, then rank 1, and so on.
+__device__ __forceinline__ void cta_tile(int n_bh, int n_tiles, int group,
+                                         int* bh, int* rank) {
+  const int idx = blockIdx.x;
+  const int g0 = idx / (group * n_tiles) * group;
+  const int size = min(group, n_bh - g0);
+  const int within = idx - g0 * n_tiles;
+  *bh = g0 + within % size;
+  *rank = within / size;
+}
+
+// Rows [row0, row0 + box rows) of head bh, all DM columns, as DM / 64
+// boxes of the 3-D map, one per half.
+template <int DM>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int row0, int bh,
+                                          uint32_t half) {
+#pragma unroll
+  for (int h = 0; h < DM / 64; ++h)
+    tma_load_3d(dst + h * half, map, bar, h * 64, row0, bh);
+}
+
+// The A operand of the k16 step kk from a [64, 16 * KS] accumulator,
+// rounded to E: accumulator columns 16kk..16kk + 15.
+template <class E, int KS>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[KS][4],
+                                         const float (&c)[8 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = E::pack2(c[8 * kk], c[8 * kk + 1]);
+    a[kk][1] = E::pack2(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = E::pack2(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = E::pack2(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+// One row (g, or g + 8 when hr = 1) of a warp's [16, DM] accumulator
+// rows, divided by den and rounded to E, to dst (columns below D only).
 template <class E, int DM>
-__global__ void __launch_bounds__(kThreads)
-    dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-               const uint16_t* __restrict__ v,
-               const uint16_t* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int Tq,
-               int Tk, int D, int causal) {
-  extern __shared__ uint4 smem_raw[];
-  const int ld = D + kPad;
-  uint16_t* sK = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* sV = sK + kBlock * ld;
-  uint16_t* sQ = sV + kBlock * ld;
-  uint16_t* sO = sQ + kBlock * ld;  // dO
-  float* sL = reinterpret_cast<float*>(sO + kBlock * ld);
-  float* sD = sL + kBlock;
-  const size_t bh = blockIdx.y;
-  const int k0 = blockIdx.x * kBlock;
-  const uint16_t* qb = q + bh * Tq * D;
-  const uint16_t* ob = dout + bh * Tq * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-
-  load_tile(sK, k + bh * Tk * D, k0, Tk, D, ld);
-  load_tile(sV, v + bh * Tk * D, k0, Tk, D, ld);
-  float ak[DM / 8][4], av[DM / 8][4];
+__device__ __forceinline__ void store_acc_row(uint16_t* dst,
+                                              const float (&acc)[DM / 2],
+                                              int hr, float den, int D,
+                                              int t) {
 #pragma unroll
   for (int i = 0; i < DM / 8; ++i) {
-    ak[i][0] = ak[i][1] = ak[i][2] = ak[i][3] = 0.f;
-    av[i][0] = av[i][1] = av[i][2] = av[i][3] = 0.f;
+    if (i * 8 < D)
+      *reinterpret_cast<uint32_t*>(dst + i * 8 + 2 * t) = E::pack2(
+          acc[4 * i + 2 * hr] / den, acc[4 * i + 2 * hr + 1] / den);
+  }
+}
+
+template <int DM>
+constexpr size_t fwd_smem() {
+  return 1024 + static_cast<size_t>(kRowsFwd + 2 * kStages * kKeysFwd) * DM *
+                    2 + (1 + 2 * kStages) * sizeof(uint64_t);
+}
+
+template <int DM>
+constexpr size_t dkv_smem() {
+  return 1024 + static_cast<size_t>(2 * kKeysDkv + 2 * kStages * kRowsDkv) *
+                    DM * 2 + 2 * kStages * kRowsDkv * sizeof(float) +
+         (1 + 2 * kStages) * sizeof(uint64_t);
+}
+
+// -- forward: grid (q tiles x B*H), heaviest causal tiles first ------------
+
+template <class E, int DM>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               uint16_t* __restrict__ out, float* __restrict__ lse, int n_bh,
+               int Tq, int Tk, int D, int causal, int group) {
+  constexpr uint32_t kQBytes = kRowsFwd * DM * 2, kQHalf = kRowsFwd * kHalfRow;
+  constexpr uint32_t kKVBytes = kKeysFwd * DM * 2,
+                     kKVHalf = kKeysFwd * kHalfRow;
+  uint8_t* sQ = swizzle_smem();
+  uint8_t* sK = sQ + kQBytes;  // stage s at sK + s * kKVBytes
+  uint8_t* sV = sK + kStages * kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * kKVBytes);
+  uint64_t* full = q_full + 1;      // [kStages]: the stage's K and V landed
+  uint64_t* empty = full + kStages;  // [kStages]: every warp is done with it
+
+  const int n_q = (Tq + kRowsFwd - 1) / kRowsFwd;
+  int bh, rank;
+  cta_tile(n_bh, n_q, group, &bh, &rank);
+  const int q0 = (n_q - 1 - rank) * kRowsFwd;  // the last Q tiles first
+  const int n_kv = (Tk + kKeysFwd - 1) / kKeysFwd;
+  const int last_row = min(q0 + kRowsFwd, Tq) - 1;
+  const int kv_end = causal ? min(n_kv, last_row / kKeysFwd + 1) : n_kv;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_full, kQBytes);
+    load_rows<DM>(sQ, &map_q, q_full, q0, bh, kQHalf);
+    mbar_expect_tx(&full[0], 2 * kKVBytes);
+    load_rows<DM>(sK, &map_k, &full[0], 0, bh, kKVHalf);
+    load_rows<DM>(sV, &map_v, &full[0], 0, bh, kKVHalf);
   }
 
-  const int n_q = (Tq + kBlock - 1) / kBlock;
-  // causal: Q tiles wholly before this K/V tile see none of it
-  for (int i = causal ? k0 / kBlock : 0; i < n_q; ++i) {
-    const int q0 = i * kBlock;
-    __syncthreads();
-    load_tile(sQ, qb, q0, Tq, D, ld);
-    load_tile(sO, ob, q0, Tq, D, ld);
-    if (threadIdx.x < kBlock) {
-      const int row = q0 + threadIdx.x;
-      sL[threadIdx.x] = row < Tq ? lse[bh * Tq + row] : 0.f;
-      sD[threadIdx.x] = row < Tq ? delta[bh * Tq + row] : 0.f;
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = q0 + wg * 64 + warp * 16 + g;  // and row + 8
+  const uint64_t dq = desc_sw128(sQ + wg * 64 * kHalfRow, 0, 1024);
+  float o[DM / 2], sc[kKeysFwd / 2];
+#pragma unroll
+  for (int i = 0; i < DM / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kKeysFwd / 2; ++i) sc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+
+  for (int j = 0; j < kv_end; ++j) {
+    const int s = j % kStages;
+    // thread 0 refills the other stage once every warp has released it
+    if (tid == 0 && j + 1 < kv_end) {
+      const int s1 = (j + 1) % kStages;
+      if (j + 1 >= kStages)
+        mbar_wait(&empty[s1], ((j + 1) / kStages - 1) & 1);
+      mbar_expect_tx(&full[s1], 2 * kKVBytes);
+      load_rows<DM>(sK + s1 * kKVBytes, &map_k, &full[s1],
+                    (j + 1) * kKeysFwd, bh, kKVHalf);
+      load_rows<DM>(sV + s1 * kKVBytes, &map_v, &full[s1],
+                    (j + 1) * kKeysFwd, bh, kKVHalf);
     }
-    __syncthreads();
-    const bool masked = (causal && k0 + kBlock - 1 > q0) || q0 + kBlock > Tq;
-    // the warp's [16 keys, 64 queries] tile, 32 query columns at a time
+    __syncwarp();
+    mbar_wait(&full[s], (j / kStages) & 1);
+
+    // S = q^ . k^T, this warpgroup's [64, 128] tile
+    const uint64_t dk = desc_sw128(sK + s * kKVBytes, 0, 1024);
+    fence_regs(sc);
+    wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * 32;
-      float s[4][4], dp[4][4];
-      qk_tile<E, 4, DM>(s, sK, sQ, ld, r0, c0, D, g, t);  // (q^ . k^T)^T
-      qk_tile<E, 4, DM>(dp, sV, sO, ld, r0, c0, D, g, t);  // (dO . V^T)^T
+    for (int kk = 0; kk < DM / 16; ++kk)
+      wgmma_ss<E::kFp16, kKeysFwd>(sc, dq + kmajor_step(kk, kQHalf),
+                                   dk + kmajor_step(kk, kKVHalf), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    const int k0 = j * kKeysFwd;
+    if ((causal && k0 + kKeysFwd - 1 > q0) || k0 + kKeysFwd > Tk) {
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
+      for (int i = 0; i < kKeysFwd / 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int cl = c0 + nb * 8 + 2 * t + (e & 1);  // query, in tile
-          const int key = k0 + r0 + g + 8 * (e >> 1);
-          const int qpos = q0 + cl;
-          float x = s[nb][e];
-          if (masked && (qpos >= Tq || (causal && key > qpos))) x = kNegInf;
-          const float p = expf(x - sL[cl]);
-          s[nb][e] = p;
-          dp[nb][e] = p * (dp[nb][e] - sD[cl]);  // ds
+          const int r = row + 8 * (e >> 1);
+          const int c = k0 + i * 8 + 2 * t + (e & 1);
+          if (c >= Tk || (causal && c > r)) sc[4 * i + e] = kNegInf;
         }
       }
-      pv_tile<E, 2, DM>(av, s, sO, ld, c0, D, g, t);   // dV += P^T . dO
-      pv_tile<E, 2, DM>(ak, dp, sQ, ld, c0, D, g, t);  // dK += dS^T . q^
     }
+    // online softmax; exp(x) as exp2(x * log2 e)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int i = 0; i < kKeysFwd / 8; ++i)
+        mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * hr], sc[4 * i + 2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      const float corr = exp2f((m[hr] - m_new) * kLog2e);
+      const float mb = m_new * kLog2e;
+      m[hr] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kKeysFwd / 8; ++i) {
+#pragma unroll
+        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+          const float p = exp2f(fmaf(sc[4 * i + e], kLog2e, -mb));
+          sc[4 * i + e] = p;  // masked columns -> 0
+          sum += p;
+        }
+      }
+      l[hr] = l[hr] * corr + sum;  // this thread's columns; summed at the end
+#pragma unroll
+      for (int i = 0; i < DM / 8; ++i) {
+        o[4 * i + 2 * hr] *= corr;
+        o[4 * i + 2 * hr + 1] *= corr;
+      }
+    }
+
+    // O += P . V, P rounded to E in registers
+    uint32_t a[kKeysFwd / 16][4];
+    acc_to_a<E, kKeysFwd / 16>(a, sc);
+    const uint64_t dv = desc_sw128(sV + s * kKVBytes, kKVHalf, 1024);
+#pragma unroll
+    for (int kk = 0; kk < kKeysFwd / 16; ++kk) fence_regs(a[kk]);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeysFwd / 16; ++kk)
+      wgmma_rs<E::kFp16, DM>(o, a[kk], dv + mnmajor_step(kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int row = k0 + r0 + g + 8 * hr;
-    if (row < Tk) {
-      store_row<E, DM>(dk + (bh * Tk + row) * D, ak, hr, 1.f, D, t);
-      store_row<E, DM>(dv + (bh * Tk + row) * D, av, hr, 1.f, D, t);
+    float den = l[hr] + __shfl_xor_sync(kFull, l[hr], 1);
+    den += __shfl_xor_sync(kFull, den, 2);
+    den = fmaxf(den, kDenFloor);
+    const int r = row + 8 * hr;
+    if (r < Tq) {
+      const size_t at = static_cast<size_t>(bh) * Tq + r;
+      store_acc_row<E, DM>(out + at * D, o, hr, den, D, t);
+      if (t == 0) lse[at] = m[hr] + logf(den);
+    }
+  }
+}
+
+// -- backward, dK and dV: grid (kv tiles x B*H), low key tiles first --------
+
+template <class E, int DM>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_do,
+               const __grid_constant__ CUtensorMap map_lse,
+               const __grid_constant__ CUtensorMap map_delta,
+               uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int n_bh,
+               int Tq, int Tk, int D, int causal, int ld, int group) {
+  constexpr uint32_t kKBytes = kKeysDkv * DM * 2, kKHalf = kKeysDkv * kHalfRow;
+  constexpr uint32_t kQBytes = kRowsDkv * DM * 2, kQHalf = kRowsDkv * kHalfRow;
+  constexpr uint32_t kStageTx = 2 * kQBytes + 2 * kRowsDkv * sizeof(float);
+  uint8_t* sK = swizzle_smem();
+  uint8_t* sV = sK + kKBytes;
+  uint8_t* sQ = sV + kKBytes;           // stage s at sQ + s * kQBytes
+  uint8_t* sO = sQ + kStages * kQBytes;  // dO, likewise
+  float* sL = reinterpret_cast<float*>(sO + kStages * kQBytes);  // lse rows
+  float* sD = sL + kStages * kRowsDkv;                            // delta rows
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sD + kStages * kRowsDkv);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  int bh, rank;
+  cta_tile(n_bh, (Tk + kKeysDkv - 1) / kKeysDkv, group, &bh, &rank);
+  const int k0 = rank * kKeysDkv;  // the first key tiles first
+  const int n_qt = (Tq + kRowsDkv - 1) / kRowsDkv;
+  // causal: Q tiles wholly before this key tile see none of it
+  const int i0 = causal ? k0 / kRowsDkv : 0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // Q tile i into stage s: q^, dO, and their lse and delta rows
+  const CUtensorMap *mq = &map_q, *mo = &map_do;
+  const CUtensorMap *ml = &map_lse, *md = &map_delta;
+  auto load_q = [=](int i, int s) {
+    mbar_expect_tx(&full[s], kStageTx);
+    load_rows<DM>(sQ + s * kQBytes, mq, &full[s], i * kRowsDkv, bh, kQHalf);
+    load_rows<DM>(sO + s * kQBytes, mo, &full[s], i * kRowsDkv, bh, kQHalf);
+    tma_load_1d(sL + s * kRowsDkv, ml, &full[s], bh * ld + i * kRowsDkv);
+    tma_load_1d(sD + s * kRowsDkv, md, &full[s], bh * ld + i * kRowsDkv);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(kv_full, 2 * kKBytes);
+    load_rows<DM>(sK, &map_k, kv_full, k0, bh, kKHalf);
+    load_rows<DM>(sV, &map_v, kv_full, k0, bh, kKHalf);
+    if (i0 < n_qt) load_q(i0, 0);
+  }
+
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kw0 = k0 + wg * 64;             // this warpgroup's first key
+  const int key = kw0 + warp * 16 + g;      // and key + 8
+  const uint64_t da_k = desc_sw128(sK + wg * 64 * kHalfRow, 0, 1024);
+  const uint64_t da_v = desc_sw128(sV + wg * 64 * kHalfRow, 0, 1024);
+  float ak[DM / 2], av[DM / 2], st[kRowsDkv / 2], dpt[kRowsDkv / 2];
+#pragma unroll
+  for (int i = 0; i < DM / 2; ++i) ak[i] = av[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRowsDkv / 2; ++i) st[i] = dpt[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int i = i0; i < n_qt; ++i) {
+    const int j = i - i0, s = j % kStages;
+    if (tid == 0 && i + 1 < n_qt) {
+      const int s1 = (j + 1) % kStages;
+      if (j + 1 >= kStages)
+        mbar_wait(&empty[s1], ((j + 1) / kStages - 1) & 1);
+      load_q(i + 1, s1);
+    }
+    __syncwarp();
+    mbar_wait(&full[s], (j / kStages) & 1);
+    const int q0 = i * kRowsDkv;
+    // causal: skip a tile whose every query precedes this warpgroup's keys
+    if (!causal || q0 + kRowsDkv - 1 >= kw0) {
+      // S^T = k . q^T and dP^T = v . dO^T, [64 keys, 64 queries] each
+      const uint64_t bq = desc_sw128(sQ + s * kQBytes, 0, 1024);
+      const uint64_t bo = desc_sw128(sO + s * kQBytes, 0, 1024);
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)
+        wgmma_ss<E::kFp16, kRowsDkv>(st, da_k + kmajor_step(kk, kKHalf),
+                                     bq + kmajor_step(kk, kQHalf), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)
+        wgmma_ss<E::kFp16, kRowsDkv>(dpt, da_v + kmajor_step(kk, kKHalf),
+                                     bo + kmajor_step(kk, kQHalf), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // p = exp(s - lse), ds = p * (dp - delta), both transposed
+      const float* lrow = sL + s * kRowsDkv;
+      const float* drow = sD + s * kRowsDkv;
+      const bool masked = (causal && kw0 + 63 > q0) || q0 + kRowsDkv > Tq;
+#pragma unroll
+      for (int n = 0; n < kRowsDkv / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t + (e & 1);  // query, in the tile
+          const int kr = key + 8 * (e >> 1);
+          float x = st[4 * n + e];
+          if (masked && (q0 + c >= Tq || (causal && kr > q0 + c)))
+            x = kNegInf;
+          const float p = exp2f((x - lrow[c]) * kLog2e);
+          st[4 * n + e] = p;
+          dpt[4 * n + e] = p * (dpt[4 * n + e] - drow[c]);
+        }
+      }
+
+      // dV += P^T . dO and dK += dS^T . q^, P^T and dS^T rounded to E
+      uint32_t ap[kRowsDkv / 16][4], as[kRowsDkv / 16][4];
+      acc_to_a<E, kRowsDkv / 16>(ap, st);
+      acc_to_a<E, kRowsDkv / 16>(as, dpt);
+      const uint64_t bo_t = desc_sw128(sO + s * kQBytes, kQHalf, 1024);
+      const uint64_t bq_t = desc_sw128(sQ + s * kQBytes, kQHalf, 1024);
+#pragma unroll
+      for (int kk = 0; kk < kRowsDkv / 16; ++kk) {
+        fence_regs(ap[kk]);
+        fence_regs(as[kk]);
+      }
+      fence_regs(av);
+      fence_regs(ak);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRowsDkv / 16; ++kk)
+        wgmma_rs<E::kFp16, DM>(av, ap[kk], bo_t + mnmajor_step(kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kRowsDkv / 16; ++kk)
+        wgmma_rs<E::kFp16, DM>(ak, as[kk], bq_t + mnmajor_step(kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(av);
+      fence_regs(ak);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = key + 8 * hr;
+    if (r < Tk) {
+      const size_t at = (static_cast<size_t>(bh) * Tk + r) * D;
+      store_acc_row<E, DM>(dk + at, ak, hr, 1.f, D, t);
+      store_acc_row<E, DM>(dv + at, av, hr, 1.f, D, t);
     }
   }
 }
@@ -483,18 +773,30 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
   return err;
 }
 
+// Heads a group of CTAs walks together: as many as keep the two [T, d]
+// tensors each CTA streams (k and v, or q^ and dO) within kL2Budget.
+inline int head_group(int bh, int t, int d) {
+  const long long per_head = 2ll * t * d * 2;
+  return static_cast<int>(
+      std::max(1ll, std::min<long long>(bh, kL2Budget / per_head)));
+}
+
 template <class E, int DM>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                        void* lse, int bh, int tq, int tk, int d, int causal,
                        cudaStream_t st) {
+  CUtensorMap mq, mk, mv;
+  if (!encode_rows(&mq, E::kTma, q, bh, tq, d, kRowsFwd) ||
+      !encode_rows(&mk, E::kTma, k, bh, tk, d, kKeysFwd) ||
+      !encode_rows(&mv, E::kTma, v, bh, tk, d, kKeysFwd))
+    return cudaErrorInvalidValue;
   static bool attr = false;
-  cudaError_t err = allow_smem(fwd_kernel<E, DM>, 3 * tile_bytes(DM), &attr);
+  cudaError_t err = allow_smem(fwd_kernel<E, DM>, fwd_smem<DM>(), &attr);
   if (err != cudaSuccess) return err;
-  fwd_kernel<E, DM><<<dim3((tq + kBlock - 1) / kBlock, bh), kThreads,
-                      3 * tile_bytes(d), st>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out),
-      static_cast<float*>(lse), tq, tk, d, causal);
+  const int n_q = (tq + kRowsFwd - 1) / kRowsFwd;
+  fwd_kernel<E, DM><<<n_q * bh, kWgThreads, fwd_smem<DM>(), st>>>(
+      mq, mk, mv, static_cast<uint16_t*>(out), static_cast<float*>(lse), bh,
+      tq, tk, d, causal, head_group(bh, tk, d));
   return cudaGetLastError();
 }
 
@@ -519,25 +821,34 @@ template <class E, int DM>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int bh, int tq, int tk, int d,
-                       int causal, cudaStream_t st) {
+                       int causal, int ld, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mo, ml, md;
+  if (!encode_rows(&mq, E::kTma, q, bh, tq, d, kRowsDkv) ||
+      !encode_rows(&mk, E::kTma, k, bh, tk, d, kKeysDkv) ||
+      !encode_rows(&mv, E::kTma, v, bh, tk, d, kKeysDkv) ||
+      !encode_rows(&mo, E::kTma, dout, bh, tq, d, kRowsDkv) ||
+      !encode_f32_vector(&ml, lse, static_cast<long long>(bh) * ld,
+                         kRowsDkv) ||
+      !encode_f32_vector(&md, delta, static_cast<long long>(bh) * ld,
+                         kRowsDkv))
+    return cudaErrorInvalidValue;
   static bool attr = false;
-  const size_t rows = 2 * kBlock * sizeof(float);
-  cudaError_t err =
-      allow_smem(dkv_kernel<E, DM>, 4 * tile_bytes(DM) + rows, &attr);
+  cudaError_t err = allow_smem(dkv_kernel<E, DM>, dkv_smem<DM>(), &attr);
   if (err != cudaSuccess) return err;
-  dkv_kernel<E, DM><<<dim3((tk + kBlock - 1) / kBlock, bh), kThreads,
-                      4 * tile_bytes(d) + rows, st>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), tq, tk, d,
-      causal);
+  const int n_k = (tk + kKeysDkv - 1) / kKeysDkv;
+  dkv_kernel<E, DM><<<n_k * bh, kWgThreads, dkv_smem<DM>(), st>>>(
+      mq, mk, mv, mo, ml, md, static_cast<uint16_t*>(dk),
+      static_cast<uint16_t*>(dv), bh, tq, tk, d, causal, ld,
+      head_group(bh, tq, d));
   return cudaGetLastError();
 }
 
+// B*H*T stays below 2^31: TMA coordinates and the flat lse rows are int32.
 inline bool bad_args(int bh, int tq, int tk, int d, int dtype) {
   return bh < 1 || bh > 65535 || tq < 1 || tk < 1 || d < 16 ||
-         d > kMaxHeadDim || d % 16 != 0 || (dtype != 0 && dtype != 1);
+         d > kMaxHeadDim || d % 16 != 0 || (dtype != 0 && dtype != 1) ||
+         static_cast<long long>(bh) * tq >= (1ll << 31) ||
+         static_cast<long long>(bh) * tk >= (1ll << 31);
 }
 
 // The instantiation for (dtype, head dim): 0 = bf16, 1 = fp16; head dims
@@ -554,8 +865,14 @@ using namespace mr_flash_kernels;
 
 extern "C" {
 
-// Rows of a tile (the Python side checks it against its own constant).
-int mr_flash_block() { return kBlock; }
+// The tiles the kernels are built with (the Python side checks them
+// against its own constants): forward (query rows, keys), dQ (query rows,
+// keys), dK/dV (keys, query rows).  Returns how many it wrote.
+int mr_flash_tiles(int* tiles) {
+  const int t[6] = {kRowsFwd, kKeysFwd, kBlock, kBlock, kKeysDkv, kRowsDkv};
+  for (int i = 0; i < 6; ++i) tiles[i] = t[i];
+  return 6;
+}
 
 // out [bh, tq, d] and lse [bh, tq] f32 from q^ [bh, tq, d], k, v [bh, tk, d].
 int mr_flash_fwd(const void* q, const void* k, const void* v, void* out,
@@ -578,15 +895,17 @@ int mr_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                     causal, scale, st);
 }
 
-// dk, dv [bh, tk, d] from the same inputs.
+// dk, dv [bh, tk, d] from the same inputs, lse and delta here as [bh, ld]
+// rows (ld >= tq, a multiple of 4: each row starts on 16 bytes).
 int mr_flash_dkv(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  void* dk, void* dv, int bh, int tq, int tk, int d,
-                 int causal, int dtype, void* stream) {
-  if (bad_args(bh, tq, tk, d, dtype)) return cudaErrorInvalidValue;
+                 int causal, int ld, int dtype, void* stream) {
+  if (bad_args(bh, ld, tk, d, dtype) || ld < tq || ld % 4 != 0)
+    return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   MR_FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
-                    d, causal, st);
+                    d, causal, ld, st);
 }
 
 }  // extern "C"

@@ -13,7 +13,9 @@
 The three kernels live in ``csrc/flash_attention.cu``: ``flash_fwd``
 (online softmax over K/V tiles), ``flash_dq`` (dQ over K/V tiles) and
 ``flash_dkv`` (dK and dV over Q tiles), each on q^ = q / sqrt(D) rounded
-back to the input type, as the TPU kernels take it.  Each has its plain
+back to the input type, as the TPU kernels take it.  ``flash_fwd`` and
+``flash_dkv`` run warpgroup MMA (wgmma) on tiles that TMA brings into a
+ring of shared-memory stages; ``flash_dq`` runs mma.sync.  Each has its plain
 PyTorch version here (``flash_fwd_plain`` and so on): whole-matrix f32
 softmax with the TPU kernel's rounding points (the ``-1e30`` mask, the
 ``den >= 1e-30`` guard, p rounded to v's type before ``p . v``, ds rounded
@@ -28,9 +30,10 @@ the backward computes ``delta = rowsum(do * out) - dlse`` in torch (the
 lse cotangent folds into delta: d lse / d s is the softmax row) and runs
 the two backward kernels.
 
-The CUDA tiles are 64 x 64, fixed at compile time.  ``block_q`` and
-``block_kv`` are accepted for the JAX signature and not read; a ragged
-last tile is masked in the kernel, so T need not divide by anything.
+The CUDA tiles are fixed at compile time (:data:`TILES`).  ``block_q``
+and ``block_kv`` are accepted for the JAX signature and not read; a
+ragged last tile is masked in the kernel, so T need not divide by
+anything.
 """
 
 from __future__ import annotations
@@ -43,8 +46,11 @@ import torch
 from . import kernel_compat as kc
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps exp/max NaN-free
-#: rows of a CUDA tile (Q and K/V alike)
-BLOCK = 64
+#: the CUDA tiles, (query rows, keys) for the forward and dQ kernels and
+#: (keys, query rows) for dK/dV: a CTA owns the first and loops over the
+#: second
+TILES = {"flash_fwd": (128, 128), "flash_dq": (64, 64),
+         "flash_dkv": (128, 64)}
 MAX_HEAD_DIM = 128
 #: the kernels' element types, by the code the C entries take
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
@@ -107,19 +113,21 @@ def flash_dkv_plain(qh: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "mr_flash_block": (_I, []),
+    "mr_flash_tiles": (_I, [ctypes.POINTER(_I)]),
     "mr_flash_fwd": (_I, [_P] * 5 + [_I] * 6 + [_P]),
     "mr_flash_dq": (_I, [_P] * 7 + [_I] * 5 + [ctypes.c_float, _I, _P]),
-    "mr_flash_dkv": (_I, [_P] * 8 + [_I] * 6 + [_P]),
+    "mr_flash_dkv": (_I, [_P] * 8 + [_I] * 7 + [_P]),
 }
 
 
 def _lib():
     lib = kc.library("flash_attention", _SIGNATURES)
-    if lib.mr_flash_block() != BLOCK:
-        raise RuntimeError(f"csrc/flash_attention.cu tiles "
-                           f"{lib.mr_flash_block()} rows, the wrappers "
-                           f"assume {BLOCK}")
+    buf = (_I * 6)()
+    built = tuple(buf[:lib.mr_flash_tiles(buf)])
+    want = sum(TILES.values(), ())
+    if built != want:
+        raise RuntimeError(f"csrc/flash_attention.cu tiles {built}, the "
+                           f"wrappers assume {want}")
     return lib
 
 
@@ -160,6 +168,9 @@ def _check(kernel: str, qh: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("lse", lse), ("delta", delta)):
         if t is not None:
             kc.require(t, kernel, name, torch.float32, dev, (b, h, tq, 1))
+            if t.data_ptr() % 16:
+                raise ValueError(f"{kernel}: {name} must start on a "
+                                 f"16-byte boundary")
     return b * h, tq, tk, d
 
 
@@ -190,11 +201,17 @@ def _flash_dq_cuda(qh, k, v, do, lse, delta, causal, scale):
 
 def _flash_dkv_cuda(qh, k, v, do, lse, delta, causal):
     bh, tq, tk, d = _check("flash_dkv", qh, k, v, do, lse, delta)
+    # the kernel's TMA reads lse and delta rows that start on 16 bytes:
+    # rows of a length not a multiple of 4 are padded
+    ld = -(-tq // 4) * 4
+    if ld != tq:
+        lse, delta = (torch.nn.functional.pad(t.view(bh, tq), (0, ld - tq))
+                      for t in (lse, delta))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     err = _lib().mr_flash_dkv(kc.ptr(qh), kc.ptr(k), kc.ptr(v), kc.ptr(do),
                               kc.ptr(lse), kc.ptr(delta), kc.ptr(dk),
-                              kc.ptr(dv), bh, tq, tk, d, int(causal),
+                              kc.ptr(dv), bh, tq, tk, d, int(causal), ld,
                               _DTYPES[qh.dtype], kc.stream(qh.device))
     kc.check("flash_dkv", err)
     kc.LAUNCHES["flash_dkv"] += 1
@@ -265,7 +282,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel-layout (``[B, H, T, D]``) attention returning ``(out, lse
     [B, H, Tq, 1] f32)``, differentiable through both.  ``scale=None`` is
     ``D ** -0.5``; ``block_q``/``block_kv`` are not read (the CUDA tiles
-    are fixed at 64 x 64)."""
+    are fixed, :data:`TILES`)."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, T, D], got {tuple(q.shape)}")
     if scale is None:

@@ -261,7 +261,25 @@ FLASH_CASES = [
     (1, 2, 130, 70, 128, True), (1, 2, 70, 130, 64, True),
     (1, 2, 70, 130, 128, False), (1, 1, 1, 1, 16, True),
     (1, 2, 100, 100, 32, True), (1, 2, 64, 64, 48, False),
-    (1, 2, 96, 96, 112, True)]
+    (1, 2, 96, 96, 112, True),
+    # one row either side of the 128-row tiles (TMA zero-fills the rest)
+    (1, 2, 127, 127, 64, True), (1, 2, 129, 129, 128, True),
+    (1, 2, 255, 255, 128, False), (1, 2, 257, 257, 64, True),
+    (1, 1, 2049, 2049, 128, True),
+    # Tq != Tk with one side below one tile
+    (1, 2, 50, 300, 128, True), (1, 2, 300, 50, 64, True),
+    (1, 2, 100, 257, 128, False),
+    # head dims that fill part of the 64-wide (16, 48) and 128-wide (80,
+    # 112) instantiations, where TMA zero-fills the columns past D
+    (1, 2, 200, 200, 16, False), (1, 2, 200, 200, 48, True),
+    (1, 2, 200, 200, 80, True), (1, 2, 200, 200, 112, False),
+    # 300 heads x 3 tiles: the heaviest-first tile order wraps over B*H
+    (2, 150, 300, 300, 64, True),
+    # 70 heads whose K/V (1100 x 128) fill L2 by 59: a group of 59 heads
+    # and a last group of 11
+    (7, 10, 1100, 1100, 128, True),
+    # the transformer slice's shape
+    (4, 8, 2048, 2048, 128, True)]
 FLASH_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
