@@ -8,7 +8,9 @@ that holds this script and nothing else of the repo).  Phases, each of
 which raises on failure:
 
 1. build the CUDA kernels from ``mapreduce_tpu_torch/csrc`` (one nvcc per
-   source, started together) and print the card's name and power limit;
+   source, started together), print each kernel's registers and spill
+   bytes as ptxas reports them (``ptxas`` line; a flash kernel that
+   spills fails the run) and the card's name and power limit;
 2. the tokenize kernel against its plain PyTorch version on one
    full-width chunk (4,194,816 bytes of the synthetic corpus): bit
    equality, then kernel / plain times beside the memory bound (the
@@ -54,8 +56,8 @@ which raises on failure:
    call for dq, dk and dv; its device time under the profiler) for
    ``flash_dq`` and ``flash_dkv``, and
    forward + backward (timed here only; the port never calls it); then
-   ``flash_fwd`` and ``flash_dkv`` once more without the causal mask and
-   with 4x the batch (``flash_scaling``: what bounds them);
+   the three kernels once more without the causal mask and with 4x the
+   batch (``flash_scaling``: what bounds them);
 9. the transformer slice: ``TransformerTrainer`` at the configuration of
    ``bench_train.bench_transformer`` (vocab 32768, embed 1024, 8 layers,
    8 heads x 128, ffn 4096, bf16 products on f32 parameters, B = 4, T =
@@ -778,12 +780,13 @@ def flash_phase(torch, fa):
 
 
 def flash_scaling(torch, fa):
-    """What bounds the wgmma kernels: flash_fwd and flash_dkv timed at the
-    slice's shape without the causal mask (every CTA does the same work,
-    so no tail of uneven tiles) and causal with 4x the batch (4x the CTAs
-    over the same SMs, so the last wave is a smaller share).  Prints one
-    JSON line of ms and TFLOP/s."""
+    """What bounds the wgmma kernels: each timed at the slice's shape
+    without the causal mask (every CTA does the same work, so no tail of
+    uneven tiles) and causal with 4x the batch (4x the CTAs over the same
+    SMs, so the last wave is a smaller share).  Prints one JSON line of ms
+    and TFLOP/s."""
     D = TF_CONFIG["head_dim"]
+    scale = D ** -0.5
     out = {}
     for label, B, causal in (("causal", TF_B, True),
                              ("full", TF_B, False),
@@ -796,6 +799,8 @@ def flash_scaling(torch, fa):
         for name, fn, flops in (
                 ("flash_fwd", lambda: fa._flash_fwd_cuda(qh, k, v, causal),
                  4 * D * pairs),
+                ("flash_dq", lambda: fa._flash_dq_cuda(
+                    qh, k, v, do, lse, delta, causal, scale), 6 * D * pairs),
                 ("flash_dkv", lambda: fa._flash_dkv_cuda(
                     qh, k, v, do, lse, delta, causal), 8 * D * pairs)):
             ms, _ = kernel_ms(torch, fn)
@@ -803,6 +808,26 @@ def flash_scaling(torch, fa):
                                       "tflops": flops / ms / 1e9}
         del k, v, qh, do, o, lse, delta
     print(json.dumps({"flash_scaling": out}))
+
+
+def ptxas_report(kc):
+    """Phase 1: each kernel's registers and spill bytes from this run's
+    build (``nvcc -Xptxas -v``), one JSON line.  Fails if a flash kernel
+    instantiation spills.  A library built by an earlier process left no
+    log here, and is not checked."""
+    usage = {name: kc.ptxas_usage(log)
+             for name, log in kc.BUILD_LOGS.items()}
+    print(json.dumps({"ptxas": usage}))
+    flash = usage.get("flash_attention")
+    if flash is None:
+        print("ptxas: flash_attention.cu was built earlier; spills not "
+              "checked")
+        return
+    # three kernels, each for bf16 and fp16 and 64- and 128-wide heads
+    check(len(flash) == 12 and all(
+        u.get("spill_stores") == 0 and u.get("spill_loads") == 0
+        and u.get("registers", 0) > 0 for u in flash.values()),
+        f"ptxas: a flash kernel spills or was not reported: {flash}")
 
 
 def _tf_group(name):
@@ -972,6 +997,7 @@ def main():
     kc.build_all()
     print(f"build: {time.monotonic() - t0:.2f} s (nvcc, sm_90a, "
           f"{len(kc.SOURCES)} sources in parallel)")
+    ptxas_report(kc)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

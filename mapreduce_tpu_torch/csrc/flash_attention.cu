@@ -36,10 +36,9 @@
 // never stored, so any T >= 1 works.  Every row's first K/V tile holds
 // its column 0, so its running max is finite before any masked tile.
 //
-// flash_fwd and flash_dkv: warpgroup MMA fed by TMA (hopper.cuh).  A CTA
-// is two warpgroups (256 threads), each issuing 64-row wgmmas, so the
-// tensor cores see m64n128 / m64n64 products read straight from shared
-// memory instead of mma.sync fragments gathered by scalar loads.
+// All three: warpgroup MMA fed by TMA (hopper.cuh).  A CTA is two
+// warpgroups (256 threads), each issuing 64-row wgmmas, so the tensor cores
+// see m64n128 / m64n64 products read straight from shared memory.
 //   flash_fwd: 128 query rows against K/V tiles of 128 keys.  S = q^ . k^T
 //   is an SS wgmma (q^ and k K-major, their natural [row][d] layout); P is
 //   rounded to the element type in registers, where the accumulator's
@@ -48,6 +47,13 @@
 //   tiles (the most K/V tiles under the causal mask) start first, so the
 //   heavy CTAs do not form the tail, within groups of heads whose K and V
 //   fit in L2 together (cta_tile), so the CTAs in flight read K/V from L2.
+//   flash_dq: the forward's tiles and grid order.  S = q^ . k^T and dP =
+//   dO . v^T are SS wgmmas (one commit group), p and ds are computed in
+//   registers and ds rounded there, and dQ += dS . K is an RS wgmma
+//   reading the same K tile MN-major; dQ (64 x D a warpgroup) stays in
+//   registers, 192 f32 a thread at D = 128 with S and dP.  lse and delta
+//   are read once: each thread owns two rows for the whole CTA.  A
+//   warpgroup whose rows all lie past Tq skips the products.
 //   flash_dkv: 128 keys against Q tiles of 64 rows.  S^T = k . q^T and
 //   dP^T = v . dO^T are SS wgmmas, dV += P^T . dO and dK += dS^T . q^ RS
 //   wgmmas (dO and q^ MN-major); dK and dV for 64 x D stay in registers
@@ -62,13 +68,11 @@
 //   stage, while both warpgroups compute on tile j.  No producer warp:
 //   with 256 threads a thread may hold 255 registers, which dK/dV needs
 //   without setmaxnreg; one more warp would cap every thread at 224.  lse
-//   and delta of a Q tile come by a 1-D TMA over the flat [B*H, ld] rows.
-//   A TMA box must start on 16 bytes, so ld is T rounded up to a multiple
-//   of 4 (the wrapper pads the rows where T is not); entries past a row's
-//   T fall on masked columns.  exp is exp2 with a log2(e) pre-scale.
-// flash_dq: mma.sync m16n8k16 from scalar shared-memory loads, 64 x 64
-//   tiles and four warps, synchronous tile loads: the first port's design,
-//   next to move onto hopper.cuh.
+//   and delta of a dK/dV Q tile come by a 1-D TMA over the flat [B*H, ld]
+//   rows.  A TMA box must start on 16 bytes, so ld is T rounded up to a
+//   multiple of 4 (the wrapper pads the rows where T is not); entries past
+//   a row's T fall on masked columns.  exp is exp2 with a log2(e)
+//   pre-scale.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -82,22 +86,18 @@ namespace mr_flash_kernels {
 
 using namespace mr_hopper;
 
-// flash_dq (mma.sync)
-constexpr int kBlock = 64;             // rows of a Q tile and of a K/V tile
-constexpr int kWarps = 4;              // each warp owns 16 rows of the tile
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 8;                // shared-memory row padding, elements
 constexpr int kMaxHeadDim = 128;
-constexpr float kNegInf = -1e30f;      // as the TPU kernel: exp stays NaN-free
+constexpr float kNegInf = -1e30f;  // as the TPU kernel: exp stays NaN-free
 constexpr float kDenFloor = 1e-30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-// flash_fwd and flash_dkv (wgmma + TMA)
 constexpr int kRowsFwd = 128;    // query rows of a forward CTA, 64 a warpgroup
 constexpr int kKeysFwd = 128;    // keys of a forward K/V tile
+constexpr int kRowsDq = 128;     // query rows of a dQ CTA, 64 a warpgroup
+constexpr int kKeysDq = 128;     // keys of a dQ K/V tile
 constexpr int kKeysDkv = 128;    // keys of a dK/dV CTA, 64 a warpgroup
 constexpr int kRowsDkv = 64;     // query rows of a dK/dV Q tile
-constexpr int kStages = 2;       // depth of the K/V (forward) or Q (dK/dV) ring
+constexpr int kStages = 2;       // K/V ring (forward, dQ), Q ring (dK/dV)
 constexpr int kWgThreads = 256;  // two consumer warpgroups
 constexpr int kWgWarps = kWgThreads / 32;
 constexpr uint32_t kHalfRow = 128;  // bytes of a row of a 64-column half
@@ -114,15 +114,6 @@ struct Bf16 {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&v);
   }
-  // c += a . b, one 16 x 8 x 16 step
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
 };
 
 struct Fp16 {
@@ -132,221 +123,7 @@ struct Fp16 {
     const __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&v);
   }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
 };
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A 16 x 16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B 16 x 8:  b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
-//   C 16 x 8:  c0, c1 (g, 2t and 2t+1), c2, c3 (g+8, 2t and 2t+1)
-
-// A from a row-major tile s[row * ld + col]: rows r0.., columns c0..
-__device__ __forceinline__ void load_a(uint32_t* a, const uint16_t* s, int ld,
-                                       int r0, int c0, int g, int t) {
-  const uint16_t* p = s + (r0 + g) * ld + c0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B from a tile stored [n][k] (B^T row-major): n0.., k0..
-__device__ __forceinline__ void load_b_nk(uint32_t* b, const uint16_t* s,
-                                          int ld, int n0, int k0, int g,
-                                          int t) {
-  const uint16_t* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// B from a tile stored [k][n] (row-major): k0.., n0..
-__device__ __forceinline__ void load_b_kn(uint32_t* b, const uint16_t* s,
-                                          int ld, int k0, int n0, int g,
-                                          int t) {
-  const uint16_t* p = s + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[ld]) << 16);
-  b[1] = static_cast<uint32_t>(p[8 * ld]) |
-         (static_cast<uint32_t>(p[9 * ld]) << 16);
-}
-
-// The A operand of a k16 step from two C fragments (columns 16kk..16kk+15)
-template <class E>
-__device__ __forceinline__ void frag_to_a(uint32_t* a, const float* c0,
-                                          const float* c1) {
-  a[0] = E::pack2(c0[0], c0[1]);
-  a[1] = E::pack2(c0[2], c0[3]);
-  a[2] = E::pack2(c1[0], c1[1]);
-  a[3] = E::pack2(c1[2], c1[3]);
-}
-
-// Rows [row0, row0 + kBlock) of a [T, D] matrix into shared memory (row
-// stride ld), 16 bytes a thread at a time; rows at or past T are zeros.
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
-                                          int row0, int T, int D, int ld) {
-  const int chunks = D / 8;
-  for (int i = threadIdx.x; i < kBlock * chunks; i += kThreads) {
-    const int r = i / chunks;
-    const int c = (i - r * chunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// s = A[rows r0..r0+15 of sa] . B^T over the head dim, B = 8*NB rows of sb
-// from n0; s is the warp's [16, 8*NB] f32 tile as C fragments.
-template <class E, int NB, int DM>
-__device__ __forceinline__ void qk_tile(float (*s)[4], const uint16_t* sa,
-                                        const uint16_t* sb, int ld, int r0,
-                                        int n0, int D, int g, int t) {
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DM / 16; ++kk) {
-    if (kk * 16 < D) {
-      uint32_t a[4];
-      load_a(a, sa, ld, r0, kk * 16, g, t);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        uint32_t b[2];
-        load_b_nk(b, sb, ld, n0 + nb * 8, kk * 16, g, t);
-        E::mma(s[nb], a, b);
-      }
-    }
-  }
-}
-
-// acc[16, D] += p[16, 16*KS] (C fragments, rounded to E) . sv[k0.., :D]
-template <class E, int KS, int DM>
-__device__ __forceinline__ void pv_tile(float (*acc)[4], float (*p)[4],
-                                        const uint16_t* sv, int ld, int k0,
-                                        int D, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    uint32_t a[4];
-    frag_to_a<E>(a, p[2 * kk], p[2 * kk + 1]);
-#pragma unroll
-    for (int i = 0; i < DM / 8; ++i) {
-      if (i * 8 < D) {
-        uint32_t b[2];
-        load_b_kn(b, sv, ld, k0 + kk * 16, i * 8, g, t);
-        E::mma(acc[i], a, b);
-      }
-    }
-  }
-}
-
-// Mask of a [16, 64] score tile whose rows are query positions (rows g
-// and g + 8 of the warp's block from qrow) and columns key positions
-// from kcol0: keys at or past Tk, and (causal) keys after the query.
-__device__ __forceinline__ void mask_qk(float (*s)[4], int qrow, int kcol0,
-                                        int Tk, int causal, int t) {
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = qrow + 8 * (e >> 1);
-      const int col = kcol0 + nb * 8 + 2 * t + (e & 1);
-      if (col >= Tk || (causal && col > row)) s[nb][e] = kNegInf;
-    }
-  }
-}
-
-// One row (g, or g + 8 when hr = 1) of a warp's [16, D] accumulator,
-// times mul, rounded to E.
-template <class E, int DM>
-__device__ __forceinline__ void store_row(uint16_t* dst, float (*acc)[4],
-                                          int hr, float mul, int D, int t) {
-#pragma unroll
-  for (int i = 0; i < DM / 8; ++i) {
-    if (i * 8 < D)
-      *reinterpret_cast<uint32_t*>(dst + i * 8 + 2 * t) =
-          E::pack2(acc[i][2 * hr] * mul, acc[i][2 * hr + 1] * mul);
-  }
-}
-
-// -- backward, dQ: grid (q tiles, B*H) ----------------------------------------
-
-template <class E, int DM>
-__global__ void __launch_bounds__(kThreads)
-    dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-              const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              uint16_t* __restrict__ dq, int Tq, int Tk, int D, int causal,
-              float scale) {
-  extern __shared__ uint4 smem_raw[];
-  const int ld = D + kPad;
-  uint16_t* sQ = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* sO = sQ + kBlock * ld;  // dO
-  uint16_t* sK = sO + kBlock * ld;
-  uint16_t* sV = sK + kBlock * ld;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlock;
-  const uint16_t* kb = k + bh * Tk * D;
-  const uint16_t* vb = v + bh * Tk * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-
-  load_tile(sQ, q + bh * Tq * D, q0, Tq, D, ld);
-  load_tile(sO, dout + bh * Tq * D, q0, Tq, D, ld);
-  float lr[2], dr[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + r0 + g + 8 * hr;
-    lr[hr] = row < Tq ? lse[bh * Tq + row] : 0.f;
-    dr[hr] = row < Tq ? delta[bh * Tq + row] : 0.f;
-  }
-  float acc[DM / 8][4];
-#pragma unroll
-  for (int i = 0; i < DM / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  const int n_kv = (Tk + kBlock - 1) / kBlock;
-  const int kv_end = causal ? min(n_kv, (q0 + kBlock - 1) / kBlock + 1) : n_kv;
-  for (int j = 0; j < kv_end; ++j) {
-    const int k0 = j * kBlock;
-    __syncthreads();
-    load_tile(sK, kb, k0, Tk, D, ld);
-    load_tile(sV, vb, k0, Tk, D, ld);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    qk_tile<E, 8, DM>(s, sQ, sK, ld, r0, 0, D, g, t);
-    if ((causal && k0 + kBlock - 1 > q0) || k0 + kBlock > Tk)
-      mask_qk(s, q0 + r0 + g, k0, Tk, causal, t);
-    qk_tile<E, 8, DM>(dp, sO, sV, ld, r0, 0, D, g, t);  // dO . V^T
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nb][e] - lr[e >> 1]);  // recomputed softmax
-        s[nb][e] = p * (dp[nb][e] - dr[e >> 1]);      // ds
-      }
-    }
-    pv_tile<E, 4, DM>(acc, s, sK, ld, 0, D, g, t);  // dq^ += ds . K
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + r0 + g + 8 * hr;
-    if (row < Tq)
-      store_row<E, DM>(dq + (bh * Tq + row) * D, acc, hr, scale, D, t);
-  }
-}
-
-// -- flash_fwd and flash_dkv: wgmma fed by a TMA ring ---------------------------
 
 // The dynamic shared memory, its start rounded up to the 1024 bytes that
 // the 128-byte swizzle repeats over (the launch asks for 1 KB more).
@@ -406,24 +183,65 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[KS][4],
 }
 
 // One row (g, or g + 8 when hr = 1) of a warp's [16, DM] accumulator
-// rows, divided by den and rounded to E, to dst (columns below D only).
-template <class E, int DM>
+// rows, each value through f and rounded to E, to dst (columns below D
+// only).
+template <class E, int DM, class F>
 __device__ __forceinline__ void store_acc_row(uint16_t* dst,
                                               const float (&acc)[DM / 2],
-                                              int hr, float den, int D,
-                                              int t) {
+                                              int hr, int D, int t, F f) {
 #pragma unroll
   for (int i = 0; i < DM / 8; ++i) {
     if (i * 8 < D)
       *reinterpret_cast<uint32_t*>(dst + i * 8 + 2 * t) = E::pack2(
-          acc[4 * i + 2 * hr] / den, acc[4 * i + 2 * hr + 1] / den);
+          f(acc[4 * i + 2 * hr]), f(acc[4 * i + 2 * hr + 1]));
   }
+}
+
+// The CTA's barriers: `once` for the tiles it loads once (one arrival,
+// with their bytes), and for each stage s of the ring full[s] (the
+// stage's tiles landed) and empty[s] (all kWgWarps warps are done with
+// them).  Ends in __syncthreads, so every thread sees them initialised.
+__device__ __forceinline__ void init_barriers(uint64_t* once, uint64_t* full,
+                                              uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    mbar_init(once, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// Thread 0's part of the K/V ring of the forward and dQ kernels: keys
+// [j * kKeys, (j + 1) * kKeys) of head bh, from K and from V, into stage
+// j % kStages, once every warp has released that stage (its tile j -
+// kStages).
+template <int DM, int kKeys>
+__device__ __forceinline__ void load_kv(uint8_t* sK, uint8_t* sV,
+                                        const CUtensorMap* map_k,
+                                        const CUtensorMap* map_v,
+                                        uint64_t* full, uint64_t* empty,
+                                        int j, int bh) {
+  constexpr uint32_t kBytes = kKeys * DM * 2, kHalf = kKeys * kHalfRow;
+  const int s = j % kStages;
+  if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+  mbar_expect_tx(&full[s], 2 * kBytes);
+  load_rows<DM>(sK + s * kBytes, map_k, &full[s], j * kKeys, bh, kHalf);
+  load_rows<DM>(sV + s * kBytes, map_v, &full[s], j * kKeys, bh, kHalf);
 }
 
 template <int DM>
 constexpr size_t fwd_smem() {
   return 1024 + static_cast<size_t>(kRowsFwd + 2 * kStages * kKeysFwd) * DM *
                     2 + (1 + 2 * kStages) * sizeof(uint64_t);
+}
+
+template <int DM>
+constexpr size_t dq_smem() {
+  return 1024 + static_cast<size_t>(2 * kRowsDq + 2 * kStages * kKeysDq) *
+                    DM * 2 + (1 + 2 * kStages) * sizeof(uint64_t);
 }
 
 template <int DM>
@@ -461,21 +279,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int kv_end = causal ? min(n_kv, last_row / kKeysFwd + 1) : n_kv;
   const int tid = threadIdx.x;
 
-  if (tid == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kWgWarps);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
+  init_barriers(q_full, full, empty);
   if (tid == 0) {
     mbar_expect_tx(q_full, kQBytes);
     load_rows<DM>(sQ, &map_q, q_full, q0, bh, kQHalf);
-    mbar_expect_tx(&full[0], 2 * kKVBytes);
-    load_rows<DM>(sK, &map_k, &full[0], 0, bh, kKVHalf);
-    load_rows<DM>(sV, &map_v, &full[0], 0, bh, kKVHalf);
+    load_kv<DM, kKeysFwd>(sK, sV, &map_k, &map_v, full, empty, 0, bh);
   }
 
   const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
@@ -493,16 +301,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   for (int j = 0; j < kv_end; ++j) {
     const int s = j % kStages;
     // thread 0 refills the other stage once every warp has released it
-    if (tid == 0 && j + 1 < kv_end) {
-      const int s1 = (j + 1) % kStages;
-      if (j + 1 >= kStages)
-        mbar_wait(&empty[s1], ((j + 1) / kStages - 1) & 1);
-      mbar_expect_tx(&full[s1], 2 * kKVBytes);
-      load_rows<DM>(sK + s1 * kKVBytes, &map_k, &full[s1],
-                    (j + 1) * kKeysFwd, bh, kKVHalf);
-      load_rows<DM>(sV + s1 * kKVBytes, &map_v, &full[s1],
-                    (j + 1) * kKeysFwd, bh, kKVHalf);
-    }
+    if (tid == 0 && j + 1 < kv_end)
+      load_kv<DM, kKeysFwd>(sK, sV, &map_k, &map_v, full, empty, j + 1, bh);
     __syncwarp();
     mbar_wait(&full[s], (j / kStages) & 1);
 
@@ -587,9 +387,149 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int r = row + 8 * hr;
     if (r < Tq) {
       const size_t at = static_cast<size_t>(bh) * Tq + r;
-      store_acc_row<E, DM>(out + at * D, o, hr, den, D, t);
+      store_acc_row<E, DM>(out + at * D, o, hr, D, t,
+                           [den](float x) { return x / den; });
       if (t == 0) lse[at] = m[hr] + logf(den);
     }
+  }
+}
+
+// -- backward, dQ: grid (q tiles x B*H), heaviest causal tiles first ---------
+
+template <class E, int DM>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap map_q,
+              const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v,
+              const __grid_constant__ CUtensorMap map_do,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              uint16_t* __restrict__ dq, int n_bh, int Tq, int Tk, int D,
+              int causal, float scale, int group) {
+  constexpr uint32_t kQBytes = kRowsDq * DM * 2, kQHalf = kRowsDq * kHalfRow;
+  constexpr uint32_t kKVBytes = kKeysDq * DM * 2,
+                     kKVHalf = kKeysDq * kHalfRow;
+  uint8_t* sQ = swizzle_smem();
+  uint8_t* sO = sQ + kQBytes;  // dO
+  uint8_t* sK = sO + kQBytes;  // stage s at sK + s * kKVBytes
+  uint8_t* sV = sK + kStages * kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * kKVBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int n_q = (Tq + kRowsDq - 1) / kRowsDq;
+  int bh, rank;
+  cta_tile(n_bh, n_q, group, &bh, &rank);
+  const int q0 = (n_q - 1 - rank) * kRowsDq;  // the last Q tiles first
+  const int n_kv = (Tk + kKeysDq - 1) / kKeysDq;
+  const int last_row = min(q0 + kRowsDq, Tq) - 1;
+  const int kv_end = causal ? min(n_kv, last_row / kKeysDq + 1) : n_kv;
+  const int tid = threadIdx.x;
+
+  init_barriers(q_full, full, empty);
+  if (tid == 0) {
+    mbar_expect_tx(q_full, 2 * kQBytes);
+    load_rows<DM>(sQ, &map_q, q_full, q0, bh, kQHalf);
+    load_rows<DM>(sO, &map_do, q_full, q0, bh, kQHalf);
+    load_kv<DM, kKeysDq>(sK, sV, &map_k, &map_v, full, empty, 0, bh);
+  }
+
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = q0 + wg * 64 + warp * 16 + g;  // and row + 8
+  // a warpgroup whose rows all lie past Tq computes nothing; under the
+  // mask both warpgroups end on the CTA's last tile, as a key tile is as
+  // wide as the CTA's rows
+  static_assert(kKeysDq == kRowsDq, "dq: one causal end per CTA");
+  const bool active = q0 + wg * 64 < Tq;
+  float lr[2], dr[2];  // lse and delta of rows row and row + 8
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row + 8 * hr;
+    const size_t at = static_cast<size_t>(bh) * Tq + r;
+    lr[hr] = r < Tq ? lse[at] : 0.f;
+    dr[hr] = r < Tq ? delta[at] : 0.f;
+  }
+  const uint64_t aq = desc_sw128(sQ + wg * 64 * kHalfRow, 0, 1024);
+  const uint64_t ao = desc_sw128(sO + wg * 64 * kHalfRow, 0, 1024);
+  float acc[DM / 2], sc[kKeysDq / 2], dp[kKeysDq / 2];
+#pragma unroll
+  for (int i = 0; i < DM / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kKeysDq / 2; ++i) sc[i] = dp[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int j = 0; j < kv_end; ++j) {
+    const int s = j % kStages;
+    // thread 0 refills the other stage once every warp has released it
+    if (tid == 0 && j + 1 < kv_end)
+      load_kv<DM, kKeysDq>(sK, sV, &map_k, &map_v, full, empty, j + 1, bh);
+    __syncwarp();
+    mbar_wait(&full[s], (j / kStages) & 1);
+    if (active) {
+      uint8_t* kt = sK + s * kKVBytes;
+      // S = q^ . k^T and dP = dO . v^T, this warpgroup's [64, 128] tiles
+      const uint64_t bk = desc_sw128(kt, 0, 1024);
+      const uint64_t bv = desc_sw128(sV + s * kKVBytes, 0, 1024);
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)
+        wgmma_ss<E::kFp16, kKeysDq>(sc, aq + kmajor_step(kk, kQHalf),
+                                    bk + kmajor_step(kk, kKVHalf), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DM / 16; ++kk)
+        wgmma_ss<E::kFp16, kKeysDq>(dp, ao + kmajor_step(kk, kQHalf),
+                                    bv + kmajor_step(kk, kKVHalf), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // p = exp(s - lse) on the masked scores, ds = p * (dp - delta), f32
+      const int k0 = j * kKeysDq;
+      const bool masked =
+          (causal && k0 + kKeysDq - 1 > q0) || k0 + kKeysDq > Tk;
+#pragma unroll
+      for (int i = 0; i < kKeysDq / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          const int c = k0 + i * 8 + 2 * t + (e & 1);
+          float x = sc[4 * i + e];
+          if (masked && (c >= Tk || (causal && c > row + 8 * hr)))
+            x = kNegInf;
+          const float p = exp2f((x - lr[hr]) * kLog2e);
+          sc[4 * i + e] = p * (dp[4 * i + e] - dr[hr]);
+        }
+      }
+
+      // dQ += dS . K, dS rounded to E, K read MN-major
+      uint32_t a[kKeysDq / 16][4];
+      acc_to_a<E, kKeysDq / 16>(a, sc);
+      const uint64_t bk_t = desc_sw128(kt, kKVHalf, 1024);
+#pragma unroll
+      for (int kk = 0; kk < kKeysDq / 16; ++kk) fence_regs(a[kk]);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeysDq / 16; ++kk)
+        wgmma_rs<E::kFp16, DM>(acc, a[kk], bk_t + mnmajor_step(kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // dq = scale * acc, rounded once (the TPU kernel's (dq * scale).astype)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row + 8 * hr;
+    if (r < Tq)
+      store_acc_row<E, DM>(dq + (static_cast<size_t>(bh) * Tq + r) * D, acc,
+                           hr, D, t, [scale](float x) { return x * scale; });
   }
 }
 
@@ -626,15 +566,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int i0 = causal ? k0 / kRowsDkv : 0;
   const int tid = threadIdx.x;
 
-  if (tid == 0) {
-    mbar_init(kv_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kWgWarps);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
+  init_barriers(kv_full, full, empty);
   // Q tile i into stage s: q^, dO, and their lse and delta rows
   const CUtensorMap *mq = &map_q, *mo = &map_do;
   const CUtensorMap *ml = &map_lse, *md = &map_delta;
@@ -750,17 +682,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int r = key + 8 * hr;
     if (r < Tk) {
       const size_t at = (static_cast<size_t>(bh) * Tk + r) * D;
-      store_acc_row<E, DM>(dk + at, ak, hr, 1.f, D, t);
-      store_acc_row<E, DM>(dv + at, av, hr, 1.f, D, t);
+      const auto same = [](float x) { return x; };
+      store_acc_row<E, DM>(dk + at, ak, hr, D, t, same);
+      store_acc_row<E, DM>(dv + at, av, hr, D, t, same);
     }
   }
 }
 
 // -- launches --------------------------------------------------------------------
-
-inline size_t tile_bytes(int D) {
-  return static_cast<size_t>(kBlock) * (D + kPad) * sizeof(uint16_t);
-}
 
 // Opt a kernel in to its largest dynamic shared memory once.
 template <class K>
@@ -805,15 +734,20 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int tq, int tk, int d, int causal,
                       float scale, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mo;
+  if (!encode_rows(&mq, E::kTma, q, bh, tq, d, kRowsDq) ||
+      !encode_rows(&mk, E::kTma, k, bh, tk, d, kKeysDq) ||
+      !encode_rows(&mv, E::kTma, v, bh, tk, d, kKeysDq) ||
+      !encode_rows(&mo, E::kTma, dout, bh, tq, d, kRowsDq))
+    return cudaErrorInvalidValue;
   static bool attr = false;
-  cudaError_t err = allow_smem(dq_kernel<E, DM>, 4 * tile_bytes(DM), &attr);
+  cudaError_t err = allow_smem(dq_kernel<E, DM>, dq_smem<DM>(), &attr);
   if (err != cudaSuccess) return err;
-  dq_kernel<E, DM><<<dim3((tq + kBlock - 1) / kBlock, bh), kThreads,
-                     4 * tile_bytes(d), st>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<uint16_t*>(dq), tq, tk, d, causal, scale);
+  const int n_q = (tq + kRowsDq - 1) / kRowsDq;
+  dq_kernel<E, DM><<<n_q * bh, kWgThreads, dq_smem<DM>(), st>>>(
+      mq, mk, mv, mo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<uint16_t*>(dq), bh, tq,
+      tk, d, causal, scale, head_group(bh, tk, d));
   return cudaGetLastError();
 }
 
@@ -869,7 +803,7 @@ extern "C" {
 // against its own constants): forward (query rows, keys), dQ (query rows,
 // keys), dK/dV (keys, query rows).  Returns how many it wrote.
 int mr_flash_tiles(int* tiles) {
-  const int t[6] = {kRowsFwd, kKeysFwd, kBlock, kBlock, kKeysDkv, kRowsDkv};
+  const int t[6] = {kRowsFwd, kKeysFwd, kRowsDq, kKeysDq, kKeysDkv, kRowsDkv};
   for (int i = 0; i < 6; ++i) tiles[i] = t[i];
   return 6;
 }

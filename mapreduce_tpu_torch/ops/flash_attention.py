@@ -13,9 +13,11 @@
 The three kernels live in ``csrc/flash_attention.cu``: ``flash_fwd``
 (online softmax over K/V tiles), ``flash_dq`` (dQ over K/V tiles) and
 ``flash_dkv`` (dK and dV over Q tiles), each on q^ = q / sqrt(D) rounded
-back to the input type, as the TPU kernels take it.  ``flash_fwd`` and
-``flash_dkv`` run warpgroup MMA (wgmma) on tiles that TMA brings into a
-ring of shared-memory stages; ``flash_dq`` runs mma.sync.  Each has its plain
+back to the input type, as the TPU kernels take it.  All three run
+warpgroup MMA (wgmma) on tiles that TMA brings into a ring of
+shared-memory stages under mbarriers; ``flash_dq`` reads each K tile
+twice from the ring, K-major for ``q^ . k^T`` and MN-major for ``ds .
+k``, with ``ds`` rounded in registers.  Each has its plain
 PyTorch version here (``flash_fwd_plain`` and so on): whole-matrix f32
 softmax with the TPU kernel's rounding points (the ``-1e30`` mask, the
 ``den >= 1e-30`` guard, p rounded to v's type before ``p . v``, ds rounded
@@ -49,7 +51,7 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps exp/max NaN-free
 #: the CUDA tiles, (query rows, keys) for the forward and dQ kernels and
 #: (keys, query rows) for dK/dV: a CTA owns the first and loops over the
 #: second
-TILES = {"flash_fwd": (128, 128), "flash_dq": (64, 64),
+TILES = {"flash_fwd": (128, 128), "flash_dq": (128, 128),
          "flash_dkv": (128, 64)}
 MAX_HEAD_DIM = 128
 #: the kernels' element types, by the code the C entries take

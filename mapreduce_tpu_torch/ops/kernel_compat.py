@@ -17,7 +17,9 @@ three pieces of glue:
   at once, so a fresh checkout pays the slowest build, not the sum.
   Every pointer and the stream cross as ``ctypes.c_void_p``; every C
   entry returns ``cudaGetLastError()`` and :func:`check` raises on a
-  non-zero code.
+  non-zero code.  ``nvcc`` runs with ``-Xptxas -v``: :data:`BUILD_LOGS`
+  keeps each build's output and :func:`ptxas_usage` reads every
+  kernel's registers and spill bytes from it.
 * **the counters** — :data:`LAUNCHES` counts the launches of each
   kernel (one per wrapper call that launched it) and
   :data:`PLAIN_CALLS` the calls of each plain version, so a run can show
@@ -36,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -60,9 +63,11 @@ CSRC = _PKG / "csrc"
 #: where the shared libraries are built (listed in .gitignore)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: the output of each source's nvcc, for the sources this process built
+BUILD_LOGS: Dict[str, str] = {}
 
 MASK32 = 0xFFFFFFFF
 
@@ -150,6 +155,53 @@ def _finish_build(name: str, proc: Optional[subprocess.Popen]) -> None:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    BUILD_LOGS[name] = log
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PROPS = re.compile(r"Function properties for (\w+)")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def _demangle(names):
+    """``kernel<args>`` for each mangled name, through ``c++filt`` (the
+    mangled names where it is missing)."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), text=True,
+                         capture_output=True, check=True).stdout.split("\n")
+    return [re.sub(r"\w+::", "", n.split("(")[0]).replace("void ", "")
+            for n in out[:len(names)]]
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` (spills
+    in bytes) from an ``nvcc -Xptxas -v`` log, one entry per kernel
+    instantiation."""
+    usage: Dict[str, Dict[str, int]] = {}
+    entry = props = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            usage[entry] = {}
+            continue
+        m = _PROPS.search(line)
+        if m:
+            props = m.group(1)
+            continue
+        m = _SPILLS.search(line)
+        if m and entry is not None and props == entry:
+            usage[entry]["spill_stores"] = int(m.group(1))
+            usage[entry]["spill_loads"] = int(m.group(2))
+            continue
+        m = _REGS.search(line)
+        if m and entry is not None:
+            usage[entry]["registers"] = int(m.group(1))
+    names = list(usage)
+    return dict(zip(_demangle(names), (usage[n] for n in names)))
 
 
 def build_all() -> None:

@@ -273,6 +273,14 @@ FLASH_CASES = [
     # 112) instantiations, where TMA zero-fills the columns past D
     (1, 2, 200, 200, 16, False), (1, 2, 200, 200, 48, True),
     (1, 2, 200, 200, 80, True), (1, 2, 200, 200, 112, False),
+    # under 129 query rows (one past a 128-row tile), Tk one below, at
+    # and one past 64 keys, and one below and at a 128-key tile
+    (1, 2, 129, 63, 128, True), (1, 2, 129, 64, 64, False),
+    (1, 2, 129, 65, 128, True), (1, 2, 129, 127, 128, True),
+    (1, 2, 129, 128, 64, False),
+    # one query row against many keys; a causal Tq > Tk whose last Q
+    # tiles run past every key tile
+    (1, 2, 1, 300, 128, True), (1, 2, 300, 129, 128, True),
     # 300 heads x 3 tiles: the heaviest-first tile order wraps over B*H
     (2, 150, 300, 300, 64, True),
     # 70 heads whose K/V (1100 x 128) fill L2 by 59: a group of 59 heads

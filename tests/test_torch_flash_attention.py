@@ -57,7 +57,7 @@ def _assert_close(got, want, name, tol):
 @pytest.mark.parametrize("causal", [True, False])
 def test_forward_matches_jax(causal, T):
     """out and lse in the kernel layout, and out in the ``bthd`` layout;
-    T = 96 is ragged for the CUDA kernels' 64-row tiles."""
+    T = 96 is ragged for every CUDA tile (64 and 128 rows or keys)."""
     q, k, v, _ = _inputs(Tq=T, seed=T)
     with jax.default_matmul_precision("float32"):
         j_out, j_lse = jfa.flash_attention_lse(
@@ -145,6 +145,42 @@ def test_bf16_matches_jax():
     for name, a, b in zip(("dq", "dk", "dv"), gt, gj):
         assert a.dtype == torch.bfloat16
         _assert_close(a, b, name, BF16)
+
+
+@pytest.mark.parametrize("D", [48, 80])
+def test_bf16_gradients_at_inexact_scales_match_jax(D):
+    """Head dims whose 1/sqrt(D) is inexact and which fill part of the
+    64- and 128-wide kernel instantiations: dq is scale * acc rounded
+    once, as the TPU kernel emits it."""
+    q, k, v, w = _inputs(Tq=64, D=D, seed=D)
+    gj = _grads_jax(q, k, v, w, True, True, jnp.bfloat16)
+    gt = _grads_torch(q, k, v, w, True, True, torch.bfloat16)
+    for name, a, b in zip(("dq", "dk", "dv"), gt, gj):
+        _assert_close(a, b, f"{name} (D={D})", BF16)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN16mr_flash_kernels9dq_kernelINS_4Bf16ELi128EEEv14CUtensorMap_stS2_S2_S2_PKfS4_Ptiiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN16mr_flash_kernels9dq_kernelINS_4Bf16ELi128EEEv14CUtensorMap_stS2_S2_S2_PKfS4_Ptiiiiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z6kernelPi' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPi
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, 356 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_reads_each_kernel():
+    """The build's ``-Xptxas -v`` log -> registers and spill bytes per
+    kernel instantiation (what ``chip_smoke.py`` checks the flash kernels
+    against), whether or not a demangler is installed."""
+    usage = kc.ptxas_usage(PTXAS_LOG)
+    assert sorted(u["registers"] for u in usage.values()) == [168, 255]
+    assert sorted((u["spill_stores"], u["spill_loads"])
+                  for u in usage.values()) == [(0, 0), (4, 8)]
+    assert kc.ptxas_usage("") == {}
 
 
 @pytest.mark.parametrize("causal", [True, False])
