@@ -8,9 +8,11 @@ that holds this script and nothing else of the repo).  Phases, each of
 which raises on failure:
 
 1. build the CUDA kernels from ``mapreduce_tpu_torch/csrc`` (one nvcc per
-   source, started together), print each kernel's registers and spill
-   bytes as ptxas reports them (``ptxas`` line; a flash kernel that
-   spills fails the run) and the card's name and power limit;
+   source, and one per variant of the radix sort's tile for the A/B of
+   phase 6, all started together), print each kernel's registers and
+   spill bytes as ptxas reports them (``ptxas`` line; a flash or onesweep
+   kernel that spills fails the run) and the card's name and power
+   limit;
 2. the tokenize kernel against its plain PyTorch version on one
    full-width chunk (4,194,816 bytes of the synthetic corpus): bit
    equality, then kernel / plain times beside the memory bound (the
@@ -33,17 +35,24 @@ which raises on failure:
    (device time over the profiled run's wall time, a floor, since the
    profiler lengthens that wall time);
 6. the radix kernels against their plain versions on inputs the radix
-   path makes from the corpus: ``radix_sort_pairs`` at the combiner's
-   852,072 rows, the local sort's 262,144 and the fold's 1,310,720 (also
-   against ``torch.sort``'s stable permutation of the packed key, the
-   library yardstick), one pass's hist and scatter at the combiner and
-   fold shapes, and ``radix_partition_plan`` over ``[8, 262,144]`` with
-   9 buckets; kernel, plain and library times beside the memory bound;
+   path makes from the corpus: ``radix_sort_pairs`` (one C call: a
+   memset, the upfront kernel and 8 onesweep passes) at the combiner's
+   852,072 rows, the local sort's 262,144 and the fold's 1,310,720, also
+   against ``torch.sort``'s stable permutation of the packed key (the
+   library yardstick), with the function bound (20 B a row), the
+   traffic bound (196 B a row), the tile count and an A/B of the sort's
+   tile size (variant builds, timed in turns); the fold-shape sort
+   replayed 50 times from one CUDA graph, every output bit-equal to the
+   first; the upfront kernel and one onesweep pass at the combiner and
+   fold shapes; and ``radix_partition_plan`` over ``[8, 262,144]`` with
+   9 buckets (hist and rank); kernel, plain and library times beside
+   the memory bound;
 7. the radix slice: ``DeviceWordCount(Partitions(8, "cuda"),
    chunk_len=1<<22, config=replace(bench_engine_config(),
    sort_impl="radix"))`` over the same corpus with ``waves=2``: counts
    against ``Counter(data.split())``, the 8 x 8 traffic matrix against
-   ``host_exchange_matrix``, launches of all five kernels and no plain
+   ``host_exchange_matrix``, launches of all six kernels (8 onesweep
+   launches for each upfront one: a sort is one C call) and no plain
    call, then a profiled run (no ``torch.sort`` device time) and a run
    under a ``plan_rebalance`` partition map (same counts, the matrix
    against the host recompute under that table);
@@ -103,7 +112,12 @@ RADIX_PARTS = 8
 RADIX_WAVES = 2
 #: the kernels of the word-count slices (phases 4 and 7)
 WORDCOUNT_KERNELS = ("tokenize", "segreduce", "radix_hist", "radix_rank",
-                     "radix_scatter")
+                     "radix_upfront", "radix_onesweep")
+#: the sort's tile sizes timed against each other (phase 6): the build's
+#: own and variant builds of csrc/radix.cu with MR_ONESWEEP_TILE
+SORT_TILE_AB = (1024, 2048, 4096)
+#: replays of one captured fold-shape sort in the determinism check
+SORT_REPLAYS = 50
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 #: the transformer slice: bench_train.bench_transformer's model and batch
 TF_CONFIG = dict(vocab=32768, embed=1024, n_layers=8, n_heads=8,
@@ -324,8 +338,14 @@ def _profile_group(name):
     if "mr_segreduce_kernels" in name:
         return "segreduce kernel"
     if "mr_radix_kernels" in name:
-        return "radix kernels"
+        if "onesweep_kernel" in name:
+            return "radix onesweep"
+        if "upfront_kernel" in name:
+            return "radix upfront"
+        return "radix plan (hist, colscan, rank)"
     low = name.lower()
+    if "memset" in low:
+        return "memset"
     if "sort" in low and "searchsorted" not in low:
         return "torch.sort"
     if "memcpy htod" in low:
@@ -431,62 +451,117 @@ def radix_inputs(torch, seg, wcmod, chunks_dev, cfg):
 
 
 def radix_pass_case(torch, rs, label, k1, k2):
-    """One LSD pass's hist and scatter (the digit of a second pass, with
-    a permutation lane) against the plain versions, and their times."""
+    """The upfront kernel and one onesweep pass (the digit of a second
+    pass, with a permutation lane) against the plain versions, and their
+    times."""
     n = k1.numel()
-    tiles = -(-n // rs.RADIX_TILE)
     perm = torch.randperm(n, device=k1.device).to(torch.int32)
-    src = k2[None]
-    got_h = rs._radix_hist_cuda(src, 8, 0xFF, rs.RADIX)
-    want_h = rs._radix_hist_plain(src, 8, 0xFF, rs.RADIX)
-    check(torch.equal(got_h, want_h), f"radix_hist {label} differs")
+    got_t = rs._radix_upfront_cuda(k1, k2)
+    want_t = rs._radix_upfront_plain(k1, k2)
+    check(torch.equal(got_t, want_t), f"radix_upfront {label} differs")
+    err = max_abs_err(torch, got_t, want_t)
+    lane, shift = 1, 8
+    counts = want_t[rs.PASSES.index((lane, shift))].contiguous()
     got = tuple(torch.empty(n, dtype=torch.int32, device=k1.device)
                 for _ in range(3))
     want = tuple(torch.empty_like(g) for g in got)
-    rs._radix_scatter_cuda(k1, k2, perm, 1, 8, got_h, got)
-    rs._radix_scatter_plain(k1, k2, perm, 1, 8, want_h, want)
+    rs._radix_onesweep_cuda(k1, k2, perm, lane, shift, counts, got)
+    rs._radix_onesweep_plain(k1, k2, perm, lane, shift, counts, want)
     torch.cuda.synchronize()
-    err = 0
     for g, w in zip(got, want):
-        check(torch.equal(g, w), f"radix_scatter {label} differs")
+        check(torch.equal(g, w), f"radix_onesweep {label} differs")
         err = max(err, max_abs_err(torch, g, w))
-    h_ms, h_spread = kernel_ms(torch, lambda: rs._radix_hist_cuda(
-        src, 8, 0xFF, rs.RADIX))
-    h_plain = time_ms(torch, lambda: rs._radix_hist_plain(
-        src, 8, 0xFF, rs.RADIX), reps=5, rounds=3)
-    # library yardstick: one bincount over tile * R + digit (the index
-    # made beforehand; the port never calls bincount)
-    idx = ((torch.arange(n, device=k1.device) // rs.RADIX_TILE) * rs.RADIX
-           + ((k2.to(torch.int64) & 0xFFFFFFFF) >> 8) % rs.RADIX)
-    h_lib = time_ms(torch, lambda: torch.bincount(
-        idx, minlength=tiles * rs.RADIX))
-    s_ms, s_spread = kernel_ms(torch, lambda: rs._radix_scatter_cuda(
-        k1, k2, perm, 1, 8, got_h, got))
-    s_plain = time_ms(torch, lambda: rs._radix_scatter_plain(
-        k1, k2, perm, 1, 8, want_h, want), reps=2, rounds=3)
-    # bytes, each input read once and each output written once: hist
-    # reads the digit lane and writes R x tiles counts; scatter reads
-    # (k1, k2, perm) and the counts, writes (k1, k2, perm)
-    hist_bytes = 4 * rs.RADIX * tiles
-    hb_ms, hb_by = bound(4 * n + hist_bytes, 4 * n)
-    sb_ms, sb_by = bound(24 * n + hist_bytes, 12 * n)
+    u_ms, u_spread = kernel_ms(torch, lambda: rs._radix_upfront_cuda(k1, k2))
+    u_plain = time_ms(torch, lambda: rs._radix_upfront_plain(k1, k2),
+                      reps=5, rounds=3)
+    # library yardstick: one bincount over pass * R + digit (the index
+    # made beforehand; the port never calls bincount on the card)
+    idx = torch.cat([p * rs.RADIX + rs._pass_digits(k1, k2, ln, sh)
+                     for p, (ln, sh) in enumerate(rs.PASSES)])
+    u_lib = time_ms(torch, lambda: torch.bincount(
+        idx, minlength=rs.RADIX_PASSES * rs.RADIX))
+    o_ms, o_spread = kernel_ms(torch, lambda: rs._radix_onesweep_cuda(
+        k1, k2, perm, lane, shift, counts, got))
+    o_plain = time_ms(torch, lambda: rs._radix_onesweep_plain(
+        k1, k2, perm, lane, shift, counts, want), reps=2, rounds=3)
+    # the same pass (the sort's second) on the sort's own inputs, pass 0's
+    # outputs, instead of the input order and a random perm
+    p0 = tuple(torch.empty_like(g) for g in got)
+    rs._radix_onesweep_cuda(k1, k2, None, *rs.PASSES[0], want_t[0], p0)
+    rs._radix_onesweep_plain(*p0, lane, shift, counts, want)
+    rs._radix_onesweep_cuda(*p0, lane, shift, counts, got)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"radix_onesweep {label} differs on pass 0's outputs")
+    o_sort_ms, _ = kernel_ms(torch, lambda: rs._radix_onesweep_cuda(
+        *p0, lane, shift, counts, got))
+    # bytes, each input read once and each output written once: upfront
+    # reads (k1, k2) and writes the [8, 256] table; a pass reads (k1, k2,
+    # perm) and the 256 counts and writes (k1, k2, perm).  ops: 8 digits
+    # and 8 counts a row up front; ~12 a row in a pass
+    table_bytes = 4 * rs.RADIX_PASSES * rs.RADIX
+    ub_ms, ub_by = bound(8 * n + table_bytes, 16 * n)
+    ob_ms, ob_by = bound(24 * n + 4 * rs.RADIX, 12 * n)
     case = {"label": label, "n": n, "max_abs_err": err,
-            "hist": {"ms": h_ms, "spread": h_spread, "plain_ms": h_plain,
-                     "library_ms": h_lib, "bound_ms": hb_ms,
-                     "bound_by": hb_by},
-            "scatter": {"ms": s_ms, "spread": s_spread, "plain_ms": s_plain,
-                        "library_ms": None, "bound_ms": sb_ms,
-                        "bound_by": sb_by}}
+            "tiles": -(-n // rs.RADIX_SORT_TILE),
+            "upfront": {"ms": u_ms, "spread": u_spread, "plain_ms": u_plain,
+                        "library_ms": u_lib, "bound_ms": ub_ms,
+                        "bound_by": ub_by},
+            "onesweep": {"ms": o_ms, "spread": o_spread, "plain_ms": o_plain,
+                         "library_ms": None, "bound_ms": ob_ms,
+                         "bound_by": ob_by,
+                         "ms_on_pass0_outputs": o_sort_ms}}
     print(json.dumps({"radix_pass_case": case}))
     return case
 
 
-def radix_sort_case(torch, rs, label, k1, k2):
-    """The whole sort against the plain passes and torch.sort."""
+def sort_variants(rs):
+    """``{label: defines}`` of the sort's tile A/B: the build's own tile is
+    the default library, ``()``; each other tile a variant build."""
+    return {f"tile={t}": (() if t == rs.RADIX_SORT_TILE
+                          else (("MR_ONESWEEP_TILE", t),))
+            for t in SORT_TILE_AB}
+
+
+def variant_sort(torch, kc, rs, defines, k1, k2):
+    """The whole sort through the radix library built with *defines*: the
+    C call of ``rs._radix_sort_cuda``, uncounted (an A/B launch is not
+    the path's)."""
+    lib = kc.library("radix", rs._SIGNATURES, defines)
+    n = k1.numel()
+    a = torch.empty((3, n), dtype=torch.int32, device=k1.device)
+    b = torch.empty((3, n), dtype=torch.int32, device=k1.device)
+    scratch = torch.empty(lib.mr_radix_sort_scratch_words(n),
+                          dtype=torch.int32, device=k1.device)
+    kc.check("radix_sort_pairs", lib.mr_radix_sort_pairs(
+        kc.ptr(k1), kc.ptr(k2), n, *(kc.ptr(t) for t in a),
+        *(kc.ptr(t) for t in b), kc.ptr(scratch), kc.stream(k1.device)))
+    return b[0], b[1], b[2]
+
+
+def sort_ab(torch, kc, rs, label, k1, k2, want):
+    """Each tile's whole sort, checked bit-equal to *want*, then timed in
+    turns (A B C C B A): ``{label: [ms, ms]}``."""
+    variants = sort_variants(rs)
+    names = list(variants)
+    ab = {v: [] for v in names}
+    for v in names + names[::-1]:
+        d = variants[v]
+        res = variant_sort(torch, kc, rs, d, k1, k2)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(res, want)),
+              f"radix sort {label}: the {v} build differs")
+        ab[v].append(kernel_ms(torch, lambda: variant_sort(
+            torch, kc, rs, d, k1, k2))[0])
+    return ab
+
+
+def radix_sort_case(torch, kc, rs, label, k1, k2):
+    """The whole sort against the plain passes and torch.sort, its time
+    beside both bounds, and the A/B of the sort's tile size."""
     n = k1.numel()
     got = rs.radix_sort_pairs(k1, k2)
-    want = rs.sort_passes(k1, k2, rs._radix_hist_plain,
-                          rs._radix_scatter_plain)
+    want = rs._radix_sort_plain(k1, k2)
     packed = ((k1.to(torch.int64) & 0xFFFFFFFF) - 2 ** 31) * 2 ** 32 + (
         k2.to(torch.int64) & 0xFFFFFFFF)
     order = torch.sort(packed, stable=True).indices
@@ -497,18 +572,49 @@ def radix_sort_case(torch, rs, label, k1, k2):
     check(torch.equal(got[2].to(torch.int64), order),
           f"radix sort {label}: perm differs from torch.sort's")
     ms, spread = kernel_ms(torch, lambda: rs.radix_sort_pairs(k1, k2))
-    plain_ms = time_ms(torch, lambda: rs.sort_passes(
-        k1, k2, rs._radix_hist_plain, rs._radix_scatter_plain),
-        reps=1, rounds=3)
+    plain_ms = time_ms(torch, lambda: rs._radix_sort_plain(k1, k2),
+                       reps=1, rounds=3)
     lib_ms = time_ms(torch, lambda: torch.sort(packed, stable=True))
     # the sort as a function: reads (k1, k2), writes (k1s, k2s, perm)
     b_ms, b_by = bound(20 * n, 0)
+    # the onesweep traffic: 8 B a row up front, 20 B in pass 0 (perm is
+    # the row index), 24 B in each of passes 1-7
+    t_ms, t_by = bound((8 + 20 + 24 * (rs.RADIX_PASSES - 1)) * n, 0)
+    ab = sort_ab(torch, kc, rs, label, k1, k2, got)
     case = {"label": label, "n": n, "ms": ms, "spread": spread,
             "plain_ms": plain_ms, "torch_sort_ms": lib_ms,
+            "vs_torch_sort": ms / lib_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            "passes": rs.RADIX_PASSES}
+            "traffic_bound_ms": t_ms, "tile": rs.RADIX_SORT_TILE,
+            "tiles": -(-n // rs.RADIX_SORT_TILE),
+            "passes": rs.RADIX_PASSES,
+            "tile_ab_ms": ab}
     print(json.dumps({"radix_sort_case": case}))
     return case
+
+
+def radix_replay_check(torch, rs, k1, k2):
+    """The sort captured once in a CUDA graph and replayed SORT_REPLAYS
+    times: every replay's outputs bit-equal to the first (the look-back
+    flags and tile counters are zeroed inside each replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rs.radix_sort_pairs(k1, k2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rs.radix_sort_pairs(k1, k2)
+    graph.replay()
+    first = [t.clone() for t in out]
+    for i in range(SORT_REPLAYS):
+        graph.replay()
+        check(all(torch.equal(a, b) for a, b in zip(out, first)),
+              f"radix sort replay {i + 1} differs from the first")
+    del graph
+    print(json.dumps({"radix_replay": {"n": k1.numel(),
+                                       "replays": SORT_REPLAYS,
+                                       "bit_equal": True}}))
 
 
 def radix_plan_case(torch, rs, dest):
@@ -529,6 +635,15 @@ def radix_plan_case(torch, rs, dest):
         err = max(err, max_abs_err(torch, g, w))
     h_ms, h_spread = kernel_ms(torch, lambda: rs._radix_hist_cuda(
         dest, 0, 0xFFFFFFFF, nb))
+    h_plain = time_ms(torch, lambda: rs._radix_hist_plain(
+        dest, 0, 0xFFFFFFFF, nb), reps=5, rounds=3)
+    # library yardstick: one bincount over (row, bucket, tile) (the index
+    # made beforehand)
+    idx = ((torch.arange(b, device=dest.device)[:, None] * nb
+            + dest.to(torch.int64)) * tiles
+           + torch.arange(n, device=dest.device) // rs.RADIX_TILE).reshape(-1)
+    h_lib = time_ms(torch, lambda: torch.bincount(idx,
+                                                  minlength=b * nb * tiles))
     r_ms, r_spread = kernel_ms(torch, lambda: rs._radix_rank_cuda(
         dest, got_h, nb))
     r_plain = time_ms(torch, lambda: rs._radix_rank_plain(dest, want_h, nb),
@@ -538,7 +653,8 @@ def radix_plan_case(torch, rs, dest):
     rb_ms, rb_by = bound(8 * b * n + hist_bytes + 4 * b * nb, 12 * b * n)
     case = {"label": "plan", "shape": [b, n], "buckets": nb,
             "max_abs_err": err,
-            "hist": {"ms": h_ms, "spread": h_spread, "bound_ms": hb_ms,
+            "hist": {"ms": h_ms, "spread": h_spread, "plain_ms": h_plain,
+                     "library_ms": h_lib, "bound_ms": hb_ms,
                      "bound_by": hb_by},
             "rank": {"ms": r_ms, "spread": r_spread, "plain_ms": r_plain,
                      "library_ms": None, "bound_ms": rb_ms,
@@ -547,10 +663,11 @@ def radix_plan_case(torch, rs, dest):
     return case
 
 
-def radix_phase(torch, rs, inputs, dest):
-    """Phase 6: returns the three radix kernels' records."""
-    sorts = [radix_sort_case(torch, rs, label, *inputs[label])
+def radix_phase(torch, kc, rs, inputs, dest):
+    """Phase 6: returns the four radix kernels' records."""
+    sorts = [radix_sort_case(torch, kc, rs, label, *inputs[label])
              for label in ("combiner", "local", "fold")]
+    radix_replay_check(torch, rs, *inputs["fold"])
     passes = [radix_pass_case(torch, rs, label, *inputs[label])
               for label in ("combiner", "fold")]
     plan = radix_plan_case(torch, rs, dest)
@@ -565,13 +682,14 @@ def radix_phase(torch, rs, inputs, dest):
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
-    return ([record("radix_hist", 96, head["hist"], err),
+    return ([record("radix_hist", 96, plan["hist"], plan["max_abs_err"]),
              record("radix_rank", 112, plan["rank"], plan["max_abs_err"]),
-             record("radix_scatter", 119, head["scatter"], err)],
+             record("radix_upfront", 96, head["upfront"], err),
+             record("radix_onesweep", 119, head["onesweep"], err)],
             {"sorts": sorts, "passes": passes, "plan": plan})
 
 
-def radix_slice_phase(torch, kc, wcmod, Partitions, data, want):
+def radix_slice_phase(torch, kc, rs, wcmod, Partitions, data, want):
     """Phase 7: the radix slice over 8 partitions; returns the word count
     and the launch counts of its counted run."""
     from dataclasses import replace
@@ -593,6 +711,10 @@ def radix_slice_phase(torch, kc, wcmod, Partitions, data, want):
     check(tm["waves"] == RADIX_WAVES, f"radix slice: {tm['waves']} waves")
     check(all(launches[k] > 0 for k in WORDCOUNT_KERNELS),
           f"radix slice: a kernel was never launched: {launches}")
+    check(launches["radix_onesweep"]
+          == rs.RADIX_PASSES * launches["radix_upfront"],
+          f"radix slice: a sort is not one upfront and "
+          f"{rs.RADIX_PASSES} onesweep launches: {launches}")
     check(all(v == 0 for v in plain.values()),
           f"radix slice: plain versions ran on the card path: {plain}")
     matrix = tm["exchange"]["matrix"]
@@ -810,14 +932,27 @@ def flash_scaling(torch, fa):
     print(json.dumps({"flash_scaling": out}))
 
 
-def ptxas_report(kc):
+def ptxas_report(kc, rs):
     """Phase 1: each kernel's registers and spill bytes from this run's
-    build (``nvcc -Xptxas -v``), one JSON line.  Fails if a flash kernel
-    instantiation spills.  A library built by an earlier process left no
-    log here, and is not checked."""
+    builds (``nvcc -Xptxas -v``), one JSON line.  Fails if a flash kernel
+    instantiation or the onesweep kernel of the radix library or of its
+    tile-size variants spills.  A library built by an earlier process
+    left no log here, and is not checked."""
     usage = {name: kc.ptxas_usage(log)
              for name, log in kc.BUILD_LOGS.items()}
     print(json.dumps({"ptxas": usage}))
+    checked = {kc.build_label("radix", d)
+               for d in sort_variants(rs).values()}
+    radix = {f"{lib}/{k}": u for lib, kernels in usage.items()
+             if lib in checked for k, u in kernels.items()}
+    if radix:
+        sweep = {k: u for k, u in radix.items() if "onesweep_kernel" in k}
+        check(sweep and all(
+            u.get("spill_stores") == 0 and u.get("spill_loads") == 0
+            and u.get("registers", 0) > 0 for u in sweep.values()),
+            f"ptxas: an onesweep kernel spills or was not reported: {sweep}")
+    else:
+        print("ptxas: radix.cu was built earlier; spills not checked")
     flash = usage.get("flash_attention")
     if flash is None:
         print("ptxas: flash_attention.cu was built earlier; spills not "
@@ -994,10 +1129,12 @@ def main():
 
     # phase 1: build, and the card
     t0 = time.monotonic()
-    kc.build_all()
+    variants = [("radix", d) for d in sort_variants(rs).values() if d]
+    kc.build_all(variants)
     print(f"build: {time.monotonic() - t0:.2f} s (nvcc, sm_90a, "
-          f"{len(kc.SOURCES)} sources in parallel)")
-    ptxas_report(kc)
+          f"{len(kc.SOURCES)} sources and {len(variants)} variants in "
+          "parallel)")
+    ptxas_report(kc, rs)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1067,18 +1204,19 @@ def main():
     profile_phase(torch, wc, chunks)
 
     # phase 6: the radix kernels against their plain versions
-    radix_kernels, _ = radix_phase(torch, rs, radix_in, radix_dest)
+    radix_kernels, _ = radix_phase(torch, kc, rs, radix_in, radix_dest)
     del radix_in, radix_dest
 
     # phase 7: the radix slice over 8 partitions, profiled, and under a
     # partition map
-    rwc, rlaunches = radix_slice_phase(torch, kc, wcmod, Partitions, data,
-                                       want)
+    rwc, rlaunches = radix_slice_phase(torch, kc, rs, wcmod, Partitions,
+                                       data, want)
     rchunks, _ = rwc._to_chunks(data)
     profile_phase(torch, rwc, rchunks, label="profile_radix",
                   waves=RADIX_WAVES,
                   need=("tokenize kernel", "segreduce kernel",
-                        "radix kernels"),
+                        "radix upfront", "radix onesweep",
+                        "radix plan (hist, colscan, rank)"),
                   forbid=("torch.sort",))
     partition_map_phase(torch, wcmod, Partitions, tok, plan_rebalance, rwc,
                         data, want)

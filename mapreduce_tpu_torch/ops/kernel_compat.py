@@ -14,7 +14,10 @@ three pieces of glue:
   plain C interface under ``build/kernels/`` at first use (the file name
   carries a hash of the sources, so an edited kernel rebuilds), and
   ``ctypes`` loads it.  :func:`build_all` starts one ``nvcc`` per source
-  at once, so a fresh checkout pays the slowest build, not the sum.
+  at once, so a fresh checkout pays the slowest build, not the sum.  A
+  *variant* is a source built with extra ``-D`` defines into a library of
+  its own (a timed A/B of a compile-time constant); the package's
+  wrappers load only the default build.
   Every pointer and the stream cross as ``ctypes.c_void_p``; every C
   entry returns ``cudaGetLastError()`` and :func:`check` raises on a
   non-zero code.  ``nvcc`` runs with ``-Xptxas -v``: :data:`BUILD_LOGS`
@@ -42,16 +45,18 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 #: the kernels of this package, by the name their counters use
 KERNELS = ("tokenize", "segreduce", "radix_hist", "radix_rank",
-           "radix_scatter", "flash_fwd", "flash_dq", "flash_dkv")
+           "radix_upfront", "radix_onesweep", "flash_fwd", "flash_dq",
+           "flash_dkv")
 #: the kernel sources, ``csrc/<name>.cu``: one shared library each
-#: (``radix.cu`` holds the three radix kernels, ``flash_attention.cu``
-#: the three flash-attention kernels)
+#: (``radix.cu`` holds the sort's upfront and onesweep kernels and the
+#: plan's hist and rank, ``flash_attention.cu`` the three flash-attention
+#: kernels)
 SOURCES = ("tokenize", "segreduce", "radix", "flash_attention")
 #: kernel launches per kernel (one per wrapper call that launched it)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -65,8 +70,12 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
-#: the output of each source's nvcc, for the sources this process built
+#: ``-D`` defines of a variant build, as ``((name, value), ...)``
+Defines = Tuple[Tuple[str, int], ...]
+
+_LIBS: Dict[Tuple[str, Defines], ctypes.CDLL] = {}
+#: the output of each build's nvcc, for the builds this process made, by
+#: :func:`build_label`
 BUILD_LOGS: Dict[str, str] = {}
 
 MASK32 = 0xFFFFFFFF
@@ -126,36 +135,51 @@ def _sources(name: str):
     return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
 
 
-def _lib_path(name: str) -> Path:
+def build_label(name: str, defines: Defines = ()) -> str:
+    """``name``, or ``name[K=V,...]`` for a variant build."""
+    if not defines:
+        return name
+    return f"{name}[{','.join(f'{k}={v}' for k, v in defines)}]"
+
+
+def _flags(defines: Defines):
+    return NVCC_FLAGS + tuple(f"-D{k}={v}" for k, v in defines)
+
+
+def _lib_path(name: str, defines: Defines = ()) -> Path:
     h = hashlib.sha1()
     for src in _sources(name):
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def _start_build(name: str) -> Optional[subprocess.Popen]:
-    out = _lib_path(name)
+def _start_build(name: str, defines: Defines = ()
+                 ) -> Optional[subprocess.Popen]:
+    out = _lib_path(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
-def _finish_build(name: str, proc: Optional[subprocess.Popen]) -> None:
+def _finish_build(name: str, proc: Optional[subprocess.Popen],
+                  defines: Defines = ()) -> None:
     if proc is None:
         return
     log, _ = proc.communicate()
-    out = _lib_path(name)
+    out = _lib_path(name, defines)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    label = build_label(name, defines)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu "
+        raise RuntimeError(f"nvcc failed for {label} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
-    BUILD_LOGS[name] = log
+    BUILD_LOGS[label] = log
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
@@ -204,32 +228,38 @@ def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
     return dict(zip(_demangle(names), (usage[n] for n in names)))
 
 
-def build_all() -> None:
-    """Build every kernel library that is not built yet, one ``nvcc``
-    per source, all started together."""
-    procs = {n: _start_build(n) for n in SOURCES}
+def build_all(variants: Sequence[Tuple[str, Defines]] = ()) -> None:
+    """Build every kernel library that is not built yet, and each
+    ``(source, defines)`` of *variants*: one ``nvcc`` per build, all
+    started together."""
+    builds = [(n, ()) for n in SOURCES] + [(n, tuple(d))
+                                          for n, d in variants]
+    procs = [_start_build(n, d) for n, d in builds]
     errors = []
-    for n in SOURCES:
+    for (n, d), proc in zip(builds, procs):
         try:
-            _finish_build(n, procs[n])
+            _finish_build(n, proc, d)
         except RuntimeError as e:  # collect: every nvcc must be waited on
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
 
 
-def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
-    """The loaded shared library of source *name*, built on first use.
-    *signatures* maps each C entry to ``(restype, [argtypes])``, set
-    once at load (ctypes would otherwise pass pointers as 32-bit ints)."""
-    lib = _LIBS.get(name)
+def library(name: str, signatures: Dict[str, tuple],
+            defines: Defines = ()) -> ctypes.CDLL:
+    """The loaded shared library of source *name* (built with *defines*,
+    a variant, when given), built on first use.  *signatures* maps each
+    C entry to ``(restype, [argtypes])``, set once at load (ctypes would
+    otherwise pass pointers as 32-bit ints)."""
+    key = (name, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        _finish_build(name, _start_build(name))
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        _finish_build(name, _start_build(name, key[1]), key[1])
+        lib = ctypes.CDLL(str(_lib_path(name, key[1])))
         for fn, (restype, argtypes) in signatures.items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib
 
 

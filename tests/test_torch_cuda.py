@@ -11,11 +11,11 @@ The word-count kernels' comparisons are integer and exact: the kernels
 must give the plain versions' bits (tokenize: all four TokenStream
 fields; segreduce: the reduced lanes at run-end rows and ``end_csum``
 everywhere; the radix kernels: every output, and the whole sort also
-``torch.sort``'s stable permutation of the packed key).  The flash
-kernels accumulate in another order than their plain versions, so they
-are held to atol = rtol = 2e-2 on the bf16/fp16 outputs (out, dq, dk,
-dv: a few units in the last place of the 8-bit mantissa) and atol 1e-3
-on the f32 lse.
+``torch.sort``'s stable permutation of the packed key and its own bits
+on a repeat).  The flash kernels accumulate in another order than their
+plain versions, so they are held to atol = rtol = 2e-2 on the bf16/fp16
+outputs (out, dq, dk, dv: a few units in the last place of the 8-bit
+mantissa) and atol 1e-3 on the f32 lse.
 """
 
 import numpy as np
@@ -148,14 +148,19 @@ def test_launch_counters_count_kernel_launches(dev):
     k = torch.zeros(10, dtype=torch.int32, device=dev)
     segscan.segment_reduce(k, k, [], "sum", True)
     assert kc.LAUNCHES == {"tokenize": 1, "segreduce": 1, "radix_hist": 0,
-                           "radix_rank": 0, "radix_scatter": 0,
-                           "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+                           "radix_rank": 0, "radix_upfront": 0,
+                           "radix_onesweep": 0, "flash_fwd": 0,
+                           "flash_dq": 0, "flash_dkv": 0}
     assert all(v == 0 for v in kc.PLAIN_CALLS.values())
 
 
-#: radix shapes: tiny, around the 4096-row tile, and the main path's
-#: combiner (852,072) and fold (1,310,720) inputs
+#: radix shapes: tiny, around the plan's 4096-row tile, and the main
+#: path's combiner (852,072) and fold (1,310,720) inputs
 RADIX_NS = [1, 2, 4095, 4096, 4097, 100_003, 852_072, 1_310_720]
+#: and around the sort's onesweep tile (one tile, and two and a row)
+SORT_NS = sorted(set(RADIX_NS) | {radix_sort.RADIX_SORT_TILE + d
+                                  for d in (-1, 0, 1)}
+                 | {2 * radix_sort.RADIX_SORT_TILE + 1})
 EDGES = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF],
                  dtype=np.uint32)
 
@@ -179,31 +184,31 @@ def _radix_keys(case, n, seed):
             torch.from_numpy(k2.view(np.int32).copy()))
 
 
-@pytest.mark.parametrize("n", RADIX_NS)
-def test_radix_hist_and_scatter_kernels_match_plain(dev, n):
+@pytest.mark.parametrize("n", SORT_NS)
+def test_radix_upfront_and_onesweep_kernels_match_plain(dev, n):
     k1, k2 = _radix_keys("edges", n, seed=n)
     perm = torch.from_numpy(
         np.random.default_rng(n).permutation(n).astype(np.int32))
+    want_t = radix_sort._radix_upfront_plain(k1, k2)
+    got_t = radix_sort._radix_upfront_cuda(k1.to(dev), k2.to(dev))
+    assert torch.equal(got_t.cpu(), want_t)
     for lane, shift in ((1, 0), (0, 24), (1, 16)):
-        src = (k2 if lane else k1)[None]
-        want_h = radix_sort._radix_hist_plain(src, shift, 0xFF, 256)
-        got_h = radix_sort._radix_hist_cuda(src.to(dev), shift, 0xFF, 256)
-        assert torch.equal(got_h.cpu(), want_h), (lane, shift)
+        counts = want_t[radix_sort.PASSES.index((lane, shift))]
         for p in (None, perm):
             want = tuple(torch.empty(n, dtype=torch.int32) for _ in range(3))
             got = tuple(torch.empty(n, dtype=torch.int32, device=dev)
                         for _ in range(3))
-            radix_sort._radix_scatter_plain(k1, k2, p, lane, shift, want_h,
-                                            want)
-            radix_sort._radix_scatter_cuda(
+            radix_sort._radix_onesweep_plain(k1, k2, p, lane, shift, counts,
+                                             want)
+            radix_sort._radix_onesweep_cuda(
                 k1.to(dev), k2.to(dev), None if p is None else p.to(dev),
-                lane, shift, got_h, got)
+                lane, shift, counts.to(dev), got)
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g.cpu(), w), (lane, shift, p is None)
 
 
-@pytest.mark.parametrize("n", RADIX_NS)
+@pytest.mark.parametrize("n", SORT_NS)
 @pytest.mark.parametrize("case", ["dup", "all-equal", "edges"])
 def test_radix_sort_kernels_match_plain_and_torch_sort(dev, case, n):
     k1, k2 = _radix_keys(case, n, seed=n + 1)
@@ -218,6 +223,24 @@ def test_radix_sort_kernels_match_plain_and_torch_sort(dev, case, n):
         want = radix_sort.radix_sort_pairs(k1, k2)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+
+
+def test_radix_sort_repeats_bit_for_bit(dev):
+    """The look-back's flags start from zero on every call: 20 sorts of
+    one input in a row give the first one's bits."""
+    k1, k2 = (t.to(dev) for t in _radix_keys("edges", 1_310_720, seed=5))
+    first = radix_sort.radix_sort_pairs(k1, k2)
+    for _ in range(20):
+        again = radix_sort.radix_sort_pairs(k1, k2)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+def test_radix_sort_limits_raise(dev):
+    k = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        radix_sort._radix_upfront_cuda(k, k.to(torch.int64))
+    with pytest.raises(ValueError, match="shape"):
+        radix_sort._radix_onesweep_cuda(k, k, None, 1, 0, k, (k, k, k))
 
 
 @pytest.mark.parametrize("P,b,n", [(1, 1, 1), (8, 1, 4097), (8, 8, 262_144),
@@ -243,8 +266,9 @@ def test_radix_launch_counters(dev):
     k = torch.arange(10_000, dtype=torch.int32, device=dev)
     radix_sort.radix_sort_pairs(k, k)
     radix_sort.radix_partition_plan(k[None] % 9, 8)
-    assert kc.LAUNCHES["radix_hist"] == radix_sort.RADIX_PASSES + 1
-    assert kc.LAUNCHES["radix_scatter"] == radix_sort.RADIX_PASSES
+    assert kc.LAUNCHES["radix_upfront"] == 1
+    assert kc.LAUNCHES["radix_onesweep"] == radix_sort.RADIX_PASSES
+    assert kc.LAUNCHES["radix_hist"] == 1
     assert kc.LAUNCHES["radix_rank"] == 1
     assert all(v == 0 for v in kc.PLAIN_CALLS.values())
 

@@ -98,6 +98,51 @@ def test_plain_sort_matches_lax_sort_over_many_tiles(case):
     _pin_sorted(rs.radix_sort_pairs(_t(k1), _t(k2)), want, case)
 
 
+#: rows of the pass-level cases: 13 JAX tiles of 512, and 2 sort tiles
+#: of the port (the last one ragged)
+PASS_N = 13 * JBLOCK
+
+
+@pytest.mark.parametrize("case", ["dup", "sentinel", "edges"])
+def test_upfront_table_matches_jax_tile_hist(case):
+    """Each row of the plain upfront table is the JAX histogram kernel's
+    per-tile counts of that pass's 8-bit digit (256 buckets), summed
+    over the tiles."""
+    k1, k2 = _keys(case, PASS_N, seed=11)
+    table = rs._radix_upfront_plain(_t(k1), _t(k2))
+    assert table.shape == (rs.RADIX_PASSES, rs.RADIX)
+    assert table.dtype == torch.int32
+    for p, (lane, shift) in enumerate(rs.PASSES):
+        src = k2 if lane else k1
+        d2 = ((src >> np.uint32(shift)) & np.uint32(0xFF)).astype(
+            np.int32).reshape(-1, JBLOCK)
+        want = np.asarray(jrs._tile_hist(jnp.asarray(d2), rs.RADIX,
+                                         True)).sum(axis=0)
+        assert np.array_equal(table[p].numpy(), want), (case, p)
+
+
+@pytest.mark.parametrize("lane,shift", [(1, 0), (1, 24), (0, 8), (0, 24)])
+def test_onesweep_pass_matches_two_jax_radix_passes(lane, shift):
+    """One plain 8-bit pass at *shift* against two stable JAX 4-bit passes
+    (the Pallas hist and scatter kernels, interpreted) at *shift* and
+    *shift* + 4, with a non-identity perm: two stable 4-bit passes are
+    exactly one stable 8-bit pass."""
+    k1, k2 = _keys("edges", PASS_N, seed=shift + lane)
+    # few distinct digits: long equal runs, so stability shows in perm
+    k1[::3] &= np.uint32(0x0F0F0F0F)
+    perm = np.random.default_rng(lane).permutation(PASS_N).astype(np.int32)
+    a = (jnp.asarray(k1), jnp.asarray(k2), jnp.asarray(perm))
+    tiles = PASS_N // JBLOCK
+    for s4 in (shift, shift + 4):
+        digits = ((a[lane] >> s4) & 0xF).astype(jnp.int32)
+        a = jrs._radix_pass(digits, *a, tiles, JBLOCK, True)
+    table = rs._radix_upfront_plain(_t(k1), _t(k2))
+    out = tuple(torch.empty(PASS_N, dtype=torch.int32) for _ in range(3))
+    rs._radix_onesweep_plain(_t(k1), _t(k2), _t(perm), lane, shift,
+                             table[rs.PASSES.index((lane, shift))], out)
+    _pin_sorted(out, a, (lane, shift))
+
+
 def test_sort_of_nothing():
     e = torch.zeros(0, dtype=torch.int32)
     k1s, k2s, perm = rs.radix_sort_pairs(e, e)
@@ -280,11 +325,12 @@ def test_cpu_radix_path_runs_plain_versions_and_no_torch_sort(monkeypatch):
     keys, vals, pay, valid = _case(5)
     tseg.sorted_unique_reduce(_t(keys), _t(vals), _t(pay), _t(valid), 64,
                               "sum", sort_impl="radix")
-    assert kc.PLAIN_CALLS["radix_hist"] == rs.RADIX_PASSES
-    assert kc.PLAIN_CALLS["radix_scatter"] == rs.RADIX_PASSES
+    assert kc.PLAIN_CALLS["radix_upfront"] == 1
+    assert kc.PLAIN_CALLS["radix_onesweep"] == rs.RADIX_PASSES
+    assert kc.PLAIN_CALLS["radix_hist"] == 0
     keys, vals, pay, valid, _, _ = _exchange_inputs(9)
     partition_exchange(_t(keys), _t(vals), _t(pay), _t(valid), 6,
                        impl="radix")
-    assert kc.PLAIN_CALLS["radix_hist"] == rs.RADIX_PASSES + 1
+    assert kc.PLAIN_CALLS["radix_hist"] == 1
     assert kc.PLAIN_CALLS["radix_rank"] == 1
     assert all(v == 0 for v in kc.LAUNCHES.values())

@@ -181,8 +181,8 @@ def test_radix_sort_not_ported_yet_and_plain_counted():
     args = (_t(keys), _t(vals), _t(pay), _t(valid), 16, "sum")
     kc.reset_counts()
     got = tseg.sorted_unique_reduce(*args, sort_impl="radix")
-    assert kc.PLAIN_CALLS["radix_hist"] == 8
-    assert kc.PLAIN_CALLS["radix_scatter"] == 8
+    assert kc.PLAIN_CALLS["radix_upfront"] == 1
+    assert kc.PLAIN_CALLS["radix_onesweep"] == 8
     assert kc.PLAIN_CALLS["segreduce"] == 1
     assert kc.LAUNCHES["segreduce"] == 0
     want = tseg.sorted_unique_reduce(*args)

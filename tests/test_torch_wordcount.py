@@ -117,7 +117,7 @@ def test_radix_slice_matches_jax_lax_engine(jax_ref, cfg_name):
     wc, chunks, res, tm = _port_run(CFG if cfg_name == "fitting" else TINY,
                                     sort_impl="radix")
     assert kc.PLAIN_CALLS["radix_rank"] >= WAVES
-    assert kc.PLAIN_CALLS["radix_scatter"] > 0
+    assert kc.PLAIN_CALLS["radix_onesweep"] > 0
     _pin_result(res, jres)
     assert twc.materialize_counts(chunks, res) == Counter(DATA.split())
     assert tm["exchange"]["matrix"] == jtm["exchange"]["matrix"]
