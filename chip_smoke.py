@@ -8,19 +8,24 @@ that holds this script and nothing else of the repo).  Phases, each of
 which raises on failure:
 
 1. build the CUDA kernels from ``mapreduce_tpu_torch/csrc`` (one nvcc per
-   source, and one per variant of the radix sort's tile for the A/B of
-   phase 6, all started together), print each kernel's registers and
-   spill bytes as ptxas reports them (``ptxas`` line; a flash or onesweep
-   kernel that spills fails the run) and the card's name and power
-   limit;
+   source and one per variant of a tile size for the A/Bs of phases 2, 3
+   and 6, all started together), print each kernel's registers and
+   spill bytes as ptxas reports them (``ptxas`` line; a flash, onesweep,
+   tokenize or segreduce kernel that spills fails the run) and the
+   card's name and power limit;
 2. the tokenize kernel against its plain PyTorch version on one
    full-width chunk (4,194,816 bytes of the synthetic corpus): bit
    equality, then kernel / plain times beside the memory bound (the
    kernel as 20 launches replayed from one CUDA graph, see
-   :func:`kernel_ms`);
+   :func:`kernel_ms`), an A/B of its tile size (variant builds with
+   ``-DMR_TOKENIZE_TILE``, each bit-equal, timed in turns) and one call
+   captured in a CUDA graph and replayed 50 times, every output
+   bit-equal to the first;
 3. the segmented-reduce kernel against its plain version at the main
    path's shapes (the per-chunk combiner, the local reduce, the fold,
-   and the 3-lane collision-verify monoid), with the same timings and
+   and the 3-lane collision-verify monoid), with the same timings, tile
+   A/B (``-DMR_SEGREDUCE_TILE``) and replay check for each shape, the
+   time of the wrapper's packing of the value lanes alone, and
    ``torch.unique_consecutive`` as the library yardstick of the unit
    case (timed here only; the port never calls it);
 4. the slice: ``DeviceWordCount(device="cuda", chunk_len=1<<22,
@@ -29,11 +34,12 @@ which raises on failure:
    accumulator carries across waves), counts held against
    ``collections.Counter(data.split())``, launch counters read around
    the run; then a small collision-verify count;
-5. one more slice run under ``torch.profiler``: device time by group
-   (the kernels, the library sort, host-to-device copies, the rest),
-   counted over device-side events only, and the device busy share
-   (device time over the profiled run's wall time, a floor, since the
-   profiler lengthens that wall time);
+5. one more slice run under ``torch.profiler``: device time and events
+   by group (the kernels, the library sort, host-to-device copies,
+   memsets, the rest), counted over device-side events only, and the
+   device busy share (device time over the profiled run's wall time, a
+   floor, since the profiler lengthens that wall time); each tokenize
+   and segreduce wrapper call must show as exactly one kernel event;
 6. the radix kernels against their plain versions on inputs the radix
    path makes from the corpus: ``radix_sort_pairs`` (one C call: a
    memset, the upfront kernel and 8 onesweep passes) at the combiner's
@@ -90,6 +96,7 @@ parameter's update within 5e-2 of its norm.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -116,8 +123,15 @@ WORDCOUNT_KERNELS = ("tokenize", "segreduce", "radix_hist", "radix_rank",
 #: the sort's tile sizes timed against each other (phase 6): the build's
 #: own and variant builds of csrc/radix.cu with MR_ONESWEEP_TILE
 SORT_TILE_AB = (1024, 2048, 4096)
-#: replays of one captured fold-shape sort in the determinism check
-SORT_REPLAYS = 50
+#: replays of one captured call in each determinism check (the radix
+#: sort, tokenize, segreduce)
+REPLAYS = 50
+#: the tile sizes of the tokenize and segreduce A/Bs (phases 2-3): the
+#: source's own build and variant builds with its define set to each other
+#: size
+SCAN_TILE_AB = (1024, 2048, 4096)
+SCAN_TILE_DEFINES = {"tokenize": "MR_TOKENIZE_TILE",
+                     "segreduce": "MR_SEGREDUCE_TILE"}
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 #: the transformer slice: bench_train.bench_transformer's model and batch
 TF_CONFIG = dict(vocab=32768, embed=1024, n_layers=8, n_heads=8,
@@ -203,7 +217,59 @@ def max_abs_err(torch, got, want):
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def tokenize_phase(torch, tok, chunk):
+def scan_variants(kc, source):
+    """``{label: defines}`` of *source*'s tile A/B (tokenize or
+    segreduce): the tile the source defines is its own build, ``()``;
+    each other tile of SCAN_TILE_AB a variant build."""
+    define = SCAN_TILE_DEFINES[source]
+    own = re.search(rf"#define {define} (\d+)",
+                    (kc.CSRC / f"{source}.cu").read_text())
+    check(own is not None, f"{source}.cu defines no {define}")
+    return {f"tile={t}": (() if t == int(own.group(1)) else ((define, t),))
+            for t in SCAN_TILE_AB}
+
+
+def tile_libraries(kc, source, signatures):
+    """``{"tile=T": library}``: *source*'s build for each tile of
+    SCAN_TILE_AB (phase 1's builds)."""
+    return {v: kc.library(source, signatures, d)
+            for v, d in scan_variants(kc, source).items()}
+
+
+def timed_turns(torch, libs, label, call, same):
+    """Each build of *libs* called through ``call(lib)``, its outputs
+    checked by *same*, then timed in turns (A B C C B A): ``{name: [ms,
+    ms]}``.  These launches are the A/B's, not the path's: uncounted."""
+    names = list(libs)
+    out = {v: [] for v in names}
+    for v in names + names[::-1]:
+        res = call(libs[v])
+        torch.cuda.synchronize()
+        check(same(res), f"{label}: the {v} build differs")
+        out[v].append(kernel_ms(torch, lambda: call(libs[v]))[0])
+    return out
+
+
+def tokenize_call(torch, kc, tok, lib, chunk, mults):
+    """One C call of ``mr_tokenize`` through *lib* (a tile variant's
+    build), as ``tok._tokenize_cuda`` makes it, uncounted."""
+    dev = chunk.device
+    n, nl = chunk.numel(), len(mults)
+    keys = torch.empty((n, nl), dtype=torch.int32, device=dev)
+    is_end = torch.empty(n, dtype=torch.bool, device=dev)
+    start = torch.empty(n, dtype=torch.int32, device=dev)
+    length = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.mr_tokenize_scratch_bytes(n, nl),
+                          dtype=torch.uint8, device=dev)
+    a = [int(x) & kc.MASK32 for x in mults] + [0] * (3 - nl)
+    kc.check("tokenize", lib.mr_tokenize(
+        kc.ptr(chunk), n, nl, a[0], a[1], a[2], kc.ptr(keys),
+        kc.ptr(is_end), kc.ptr(start), kc.ptr(length), kc.ptr(scratch),
+        kc.stream(dev)))
+    return tok.TokenStream(is_end, keys, start, length)
+
+
+def tokenize_phase(torch, kc, tok, chunk):
     """Phase 2: returns the kernel's record for the JSON line."""
     mults = (tok.HASH_A1, tok.HASH_A2)
     got = tok._tokenize_cuda(chunk, mults)
@@ -220,9 +286,22 @@ def tokenize_phase(torch, tok, chunk):
     # bytes: 1 in; keys 4*lanes + is_end 1 + start 4 + length 4 out.
     # ops: ~12 classify/flag ops per byte plus 3 per byte and lane
     b_ms, b_by = bound(n * (1 + 4 * nl + 9), n * (12 + 3 * nl))
+    libs = tile_libraries(kc, "tokenize", tok._SIGNATURES)
+    def call(lib):
+        return tokenize_call(torch, kc, tok, lib, chunk, mults)
+
+    ab = timed_turns(torch, libs, "tokenize", call,
+                     lambda out: all(torch.equal(getattr(out, f),
+                                                 getattr(want, f))
+                                     for f in want._fields))
+    replay_check(torch, "tokenize_replay",
+                 lambda: tok._tokenize_cuda(chunk, mults), n)
     print(f"tokenize n={n} lanes={nl}: equal; kernel {ms:.4f} ms (spread "
           f"{spread:.3f}), plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(json.dumps({"tokenize_case": {
+        "n": n, "lanes": nl, "ms": ms, "spread": spread, "bound_ms": b_ms,
+        "tile_ab_ms": ab}}))
     return {"name": "tokenize", "route": "cuda",
             "source": "mapreduce_tpu_torch/csrc/tokenize.cu",
             "replaces": "mapreduce_tpu/ops/tokenize.py:197",
@@ -230,13 +309,41 @@ def tokenize_phase(torch, tok, chunk):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def segreduce_case(torch, seg, label, k1s, k2s, vals, op, unit):
+def segreduce_call(torch, kc, seg, lib, k1s, k2s, vals, op, unit):
+    """One C call of ``mr_segreduce`` through *lib* (a tile variant's
+    build), as ``seg._segment_reduce_cuda`` makes it, uncounted."""
+    dev, n = k1s.device, k1s.numel()
+    if unit:
+        d, codes, v = 1, [0, 0, 0], None
+    else:
+        d = len(vals)
+        codes = ([seg._OP_CODES[o] for o in seg._lane_ops(op, d)]
+                 + [0] * (3 - d))
+        v = torch.stack(list(vals), dim=-1).contiguous()
+    reduced = torch.empty((n, d), dtype=torch.int32, device=dev)
+    end_csum = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.mr_segreduce_scratch_bytes(n, d),
+                          dtype=torch.uint8, device=dev)
+    kc.check("segreduce", lib.mr_segreduce(
+        kc.ptr(k1s), kc.ptr(k2s), kc.ptr(v) if v is not None else None, n,
+        d, int(unit), *codes, kc.ptr(reduced), kc.ptr(end_csum),
+        kc.ptr(scratch), kc.stream(dev)))
+    return [reduced[:, i] for i in range(d)], end_csum
+
+
+def segreduce_case(torch, kc, seg, libs, label, k1s, k2s, vals, op, unit):
     """One segreduce shape: equality on the surface (reduced lanes at run
-    ends, end_csum everywhere) and timings."""
+    ends, end_csum everywhere), timings, the tile A/B and the replay
+    check."""
     got = seg._segment_reduce_cuda(k1s, k2s, vals, op, unit)
     want = seg._segment_reduce_plain(k1s, k2s, vals, op, unit)
     torch.cuda.synchronize()
     _, _, is_end = seg._run_flags(k1s, k2s)
+
+    def same(out):
+        return torch.equal(out[1], want[1]) and all(
+            torch.equal(g[is_end], w[is_end]) for g, w in zip(out[0], want[0]))
+
     check(torch.equal(got[1], want[1]), f"segreduce {label}: end_csum")
     err = max_abs_err(torch, got[1], want[1])
     for g, w in zip(got[0], want[0]):
@@ -252,15 +359,25 @@ def segreduce_case(torch, seg, label, k1s, k2s, vals, op, unit):
     # end_csum 4 out.  ops: ~10 compare/flag ops per row plus 2 per lane
     in_lanes = 0 if unit else d
     b_ms, b_by = bound(n * (8 + 4 * in_lanes + 4 * d + 4), n * (10 + 2 * d))
+    ab = timed_turns(torch, libs, f"segreduce {label}",
+                     lambda lib: segreduce_call(torch, kc, seg, lib, k1s, k2s,
+                                                vals, op, unit), same)
+    replay_check(torch, f"segreduce_replay {label}",
+                 lambda: seg._segment_reduce_cuda(k1s, k2s, vals, op, unit),
+                 n)
     print(f"segreduce {label} n={n}: equal; kernel {ms:.4f} ms (spread "
           f"{spread:.3f}), plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return {"label": label, "n": n, "max_abs_err": err, "ms": ms,
+    case = {"label": label, "n": n, "max_abs_err": err, "ms": ms,
             "spread": spread, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "bound_by": b_by, "tile_ab_ms": ab}
+    if not unit:  # the wrapper's packing of the value lanes, part of ms
+        case["pack_ms"] = kernel_ms(torch, lambda: torch.stack(
+            list(vals), dim=-1).contiguous())[0]
+    return case
 
 
-def segreduce_phase(torch, seg, wcmod, chunks_dev, cfg):
+def segreduce_phase(torch, kc, seg, wcmod, chunks_dev, cfg):
     """Phase 3 at the main path's shapes, on inputs the path itself
     makes from the corpus: the combiner's input (one chunk's records),
     the local reduce's (12 combined chunks), the fold's (accumulator +
@@ -274,12 +391,13 @@ def segreduce_phase(torch, seg, wcmod, chunks_dev, cfg):
         return (k1[perm].contiguous(), k2[perm].contiguous(),
                 [v[perm].contiguous() for v in vals])
 
+    libs = tile_libraries(kc, "segreduce", seg._SIGNATURES)
     ucfg = replace(cfg, unit_values=True, reduce_op="sum")
     keys, vals, pay, valid, _ = wcmod._wordcount_map_fn(chunks_dev[0], 0,
                                                         ucfg)
     k1s, k2s, _ = sorted_lanes(keys, valid, [])
-    cases = [segreduce_case(torch, seg, "combiner/unit", k1s, k2s, [],
-                            "sum", True)]
+    cases = [segreduce_case(torch, kc, seg, libs, "combiner/unit", k1s, k2s,
+                            [], "sum", True)]
     # library yardstick of the unit case: runs and their lengths of the
     # sorted packed key
     packed = ((k1s.to(torch.int64) & 0xFFFFFFFF) << 32) | (
@@ -298,8 +416,8 @@ def segreduce_phase(torch, seg, wcmod, chunks_dev, cfg):
         bvalid.append(cu.valid)
     buf_k, buf_v, buf_valid = torch.cat(bk), torch.cat(bv), torch.cat(bvalid)
     k1s, k2s, vs = sorted_lanes(buf_k, buf_valid, [buf_v])
-    cases.append(segreduce_case(torch, seg, "local/sum", k1s, k2s, vs,
-                                "sum", False))
+    cases.append(segreduce_case(torch, kc, seg, libs, "local/sum", k1s, k2s,
+                                vs, "sum", False))
 
     local = seg.sorted_unique_reduce(
         buf_k, buf_v, torch.zeros((buf_k.shape[0], 1), dtype=torch.int32,
@@ -310,16 +428,16 @@ def segreduce_phase(torch, seg, wcmod, chunks_dev, cfg):
     fv = torch.cat([local.values, local.values[:ex]])
     fvalid = torch.cat([local.valid, local.valid[:ex]])
     k1s, k2s, vs = sorted_lanes(fk, fvalid, [fv])
-    cases.append(segreduce_case(torch, seg, "fold/sum", k1s, k2s, vs,
-                                "sum", False))
+    cases.append(segreduce_case(torch, kc, seg, libs, "fold/sum", k1s, k2s,
+                                vs, "sum", False))
 
     vcfg = replace(cfg, unit_values=False, reduce_op=wcmod.VERIFY_REDUCE_OP)
     keys, vals, pay, valid, _ = wcmod._wordcount_map_fn_verify(
         chunks_dev[0], 0, vcfg)
     k1s, k2s, vs = sorted_lanes(keys, valid,
                                 [vals[:, i] for i in range(3)])
-    cases.append(segreduce_case(torch, seg, "verify/(sum,min,max)", k1s, k2s,
-                                vs, wcmod.VERIFY_REDUCE_OP, False))
+    cases.append(segreduce_case(torch, kc, seg, libs, "verify/(sum,min,max)",
+                                k1s, k2s, vs, wcmod.VERIFY_REDUCE_OP, False))
     for c in cases:
         print(json.dumps({"segreduce_case": c}))
     head = cases[0]
@@ -354,9 +472,9 @@ def _profile_group(name):
 
 
 def device_profile(torch, label, run, group_of):
-    """Run *run* once under torch.profiler; prints device microseconds by
-    ``group_of(kernel name)`` and the 12 largest device events under
-    *label*, and returns the groups."""
+    """Run *run* once under torch.profiler; prints device microseconds and
+    events by ``group_of(kernel name)`` and the 12 largest device events
+    under *label*, and returns both by group: ``(us, events)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -367,7 +485,7 @@ def device_profile(torch, label, run, group_of):
         run()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    groups, rows = {}, []
+    groups, calls, rows = {}, {}, []
     for ev in prof.key_averages():
         # device-side events only: a CPU op also reports its kernels'
         # time, which would count them twice; the profiler's own buffer
@@ -380,29 +498,38 @@ def device_profile(torch, label, run, group_of):
             continue
         g = group_of(ev.key)
         groups[g] = groups.get(g, 0.0) + dev_us
+        calls[g] = calls.get(g, 0) + ev.count
         rows.append((dev_us, ev.count, ev.key[:100], g))
     rows.sort(reverse=True)
     device_us = sum(groups.values())
     print(json.dumps({label: {
         "wall_us": wall_us, "device_us_total": device_us,
         "busy_share": device_us / wall_us, "device_us": groups,
+        "device_calls": calls,
         "top": [{"device_us": r[0], "calls": r[1], "name": r[2],
                  "group": r[3]} for r in rows[:12]]}}))
-    return groups
+    return groups, calls
 
 
-def profile_phase(torch, wc, chunks, label="profile", waves=None,
+def profile_phase(torch, kc, wc, chunks, label="profile", waves=None,
                   need=("tokenize kernel", "segreduce kernel"), forbid=()):
     """One engine run of a slice under torch.profiler (printed).  Fails if
-    a group in *need* shows no device time or one in *forbid* shows any."""
+    a group in *need* shows no device time or one in *forbid* shows any,
+    or if the tokenize or segreduce kernel events differ in number from
+    their wrappers' launches in the run (one kernel a call)."""
     engine = wc._engine_for(chunks.shape[1])
-    groups = device_profile(torch, label,
-                            lambda: engine.run(chunks, waves=waves),
-                            _profile_group)
+    kc.reset_counts()
+    groups, calls = device_profile(torch, label,
+                                   lambda: engine.run(chunks, waves=waves),
+                                   _profile_group)
     check(all(groups.get(g, 0) > 0 for g in need),
           f"{label}: profiled run shows no device time in {need}: {groups}")
     check(all(groups.get(g, 0) == 0 for g in forbid),
           f"{label}: profiled run shows device time in {forbid}: {groups}")
+    for k in ("tokenize", "segreduce"):
+        check(calls.get(f"{k} kernel") == kc.LAUNCHES[k],
+              f"{label}: {calls.get(f'{k} kernel')} {k} kernel events for "
+              f"{kc.LAUNCHES[k]} wrapper launches")
 
 
 def radix_inputs(torch, seg, wcmod, chunks_dev, cfg):
@@ -593,28 +720,41 @@ def radix_sort_case(torch, kc, rs, label, k1, k2):
     return case
 
 
-def radix_replay_check(torch, rs, k1, k2):
-    """The sort captured once in a CUDA graph and replayed SORT_REPLAYS
-    times: every replay's outputs bit-equal to the first (the look-back
-    flags and tile counters are zeroed inside each replay)."""
+def replay_check(torch, label, fn, n):
+    """*fn* (a kernel wrapper call) captured once in a CUDA graph and
+    replayed REPLAYS times: every replay's outputs (a tensor or nested
+    tuples and lists of them) bit-equal to the first.  A look-back race,
+    or a flag or tile counter not zeroed inside the replay, shows here."""
+    def flat(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        return [t for o in out for t in flat(o)]
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        rs.radix_sort_pairs(k1, k2)
+        fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = rs.radix_sort_pairs(k1, k2)
+        out = flat(fn())
     graph.replay()
     first = [t.clone() for t in out]
-    for i in range(SORT_REPLAYS):
+    for i in range(REPLAYS):
         graph.replay()
         check(all(torch.equal(a, b) for a, b in zip(out, first)),
-              f"radix sort replay {i + 1} differs from the first")
+              f"{label} replay {i + 1} differs from the first")
     del graph
-    print(json.dumps({"radix_replay": {"n": k1.numel(),
-                                       "replays": SORT_REPLAYS,
-                                       "bit_equal": True}}))
+    print(json.dumps({label: {"n": n, "replays": REPLAYS,
+                              "bit_equal": True}}))
+
+
+def radix_replay_check(torch, rs, k1, k2):
+    """The sort captured once in a CUDA graph and replayed REPLAYS
+    times: every replay's outputs bit-equal to the first (the look-back
+    flags and tile counters are zeroed inside each replay)."""
+    replay_check(torch, "radix_replay", lambda: rs.radix_sort_pairs(k1, k2),
+                 k1.numel())
 
 
 def radix_plan_case(torch, rs, dest):
@@ -866,9 +1006,9 @@ def flash_phase(torch, fa):
         torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)
 
     lib_bwd = time_ms(torch, sdpa_bwd)
-    groups = device_profile(torch, "profile_sdpa_bwd",
-                            lambda: [sdpa_bwd() for _ in range(REPS)],
-                            lambda name: "sdpa backward")
+    groups, _ = device_profile(torch, "profile_sdpa_bwd",
+                               lambda: [sdpa_bwd() for _ in range(REPS)],
+                               lambda name: "sdpa backward")
     lib_bwd_device = groups["sdpa backward"] / REPS / 1e3
     del o
     library = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd_device,
@@ -935,34 +1075,49 @@ def flash_scaling(torch, fa):
 def ptxas_report(kc, rs):
     """Phase 1: each kernel's registers and spill bytes from this run's
     builds (``nvcc -Xptxas -v``), one JSON line.  Fails if a flash kernel
-    instantiation or the onesweep kernel of the radix library or of its
-    tile-size variants spills.  A library built by an earlier process
-    left no log here, and is not checked."""
+    instantiation, the onesweep kernel of the radix library or of its
+    tile-size variants, or a tokenize or segreduce kernel of the default
+    build or of a tile variant spills.  A library built by an earlier
+    process left no log here, and is not checked."""
     usage = {name: kc.ptxas_usage(log)
              for name, log in kc.BUILD_LOGS.items()}
     print(json.dumps({"ptxas": usage}))
+
+    def no_spills(kernels):
+        return kernels and all(
+            u.get("spill_stores") == 0 and u.get("spill_loads") == 0
+            and u.get("registers", 0) > 0 for u in kernels.values())
+
     checked = {kc.build_label("radix", d)
                for d in sort_variants(rs).values()}
     radix = {f"{lib}/{k}": u for lib, kernels in usage.items()
              if lib in checked for k, u in kernels.items()}
     if radix:
         sweep = {k: u for k, u in radix.items() if "onesweep_kernel" in k}
-        check(sweep and all(
-            u.get("spill_stores") == 0 and u.get("spill_loads") == 0
-            and u.get("registers", 0) > 0 for u in sweep.values()),
-            f"ptxas: an onesweep kernel spills or was not reported: {sweep}")
+        check(no_spills(sweep),
+              f"ptxas: an onesweep kernel spills or was not reported: {sweep}")
     else:
         print("ptxas: radix.cu was built earlier; spills not checked")
+    # the scan kernels: tokenize for 1-3 lanes, segreduce for 1-3 lanes
+    # and unit mode, in the default build and each tile variant
+    for src, count in (("tokenize", 3), ("segreduce", 4)):
+        for lib in [kc.build_label(src, d)
+                    for d in scan_variants(kc, src).values()]:
+            kernels = usage.get(lib)
+            if kernels is None:
+                print(f"ptxas: {lib} was built earlier; spills not checked")
+                continue
+            check(len(kernels) == count and no_spills(kernels),
+                  f"ptxas: a {lib} kernel spills or was not reported: "
+                  f"{kernels}")
     flash = usage.get("flash_attention")
     if flash is None:
         print("ptxas: flash_attention.cu was built earlier; spills not "
               "checked")
         return
     # three kernels, each for bf16 and fp16 and 64- and 128-wide heads
-    check(len(flash) == 12 and all(
-        u.get("spill_stores") == 0 and u.get("spill_loads") == 0
-        and u.get("registers", 0) > 0 for u in flash.values()),
-        f"ptxas: a flash kernel spills or was not reported: {flash}")
+    check(len(flash) == 12 and no_spills(flash),
+          f"ptxas: a flash kernel spills or was not reported: {flash}")
 
 
 def _tf_group(name):
@@ -1097,8 +1252,8 @@ def trainer_phase(torch, kc, fa, tmod):
     def one_step():
         state["params"], _ = tr.step(state["params"], toks)
 
-    groups = device_profile(torch, "profile_transformer", one_step,
-                            _tf_group)
+    groups, _ = device_profile(torch, "profile_transformer", one_step,
+                               _tf_group)
     check(groups.get("flash kernels", 0) > 0,
           f"profile_transformer: no flash-kernel device time: {groups}")
     logits_phase(torch, cfg)
@@ -1130,6 +1285,8 @@ def main():
     # phase 1: build, and the card
     t0 = time.monotonic()
     variants = [("radix", d) for d in sort_variants(rs).values() if d]
+    variants += [(src, d) for src in SCAN_TILE_DEFINES
+                 for d in scan_variants(kc, src).values() if d]
     kc.build_all(variants)
     print(f"build: {time.monotonic() - t0:.2f} s (nvcc, sm_90a, "
           f"{len(kc.SOURCES)} sources and {len(variants)} variants in "
@@ -1155,8 +1312,9 @@ def main():
     chunks_dev = torch.from_numpy(chunks[:2 * RADIX_PARTS]).to(dev)
 
     # phases 2-3: each kernel against its plain version
-    kernels = [tokenize_phase(torch, tok, chunks_dev[0]),
-               segreduce_phase(torch, seg, wcmod, chunks_dev, wc.config)]
+    kernels = [tokenize_phase(torch, kc, tok, chunks_dev[0]),
+               segreduce_phase(torch, kc, seg, wcmod, chunks_dev,
+                               wc.config)]
     # the radix phase's inputs, made by the path from the same chunks
     radix_in, radix_dest = radix_inputs(torch, seg, wcmod, chunks_dev,
                                         wc.config)
@@ -1201,7 +1359,7 @@ def main():
           "verify-mode counts differ")
     print("verify_collisions count: equal")
 
-    profile_phase(torch, wc, chunks)
+    profile_phase(torch, kc, wc, chunks)
 
     # phase 6: the radix kernels against their plain versions
     radix_kernels, _ = radix_phase(torch, kc, rs, radix_in, radix_dest)
@@ -1212,7 +1370,7 @@ def main():
     rwc, rlaunches = radix_slice_phase(torch, kc, rs, wcmod, Partitions,
                                        data, want)
     rchunks, _ = rwc._to_chunks(data)
-    profile_phase(torch, rwc, rchunks, label="profile_radix",
+    profile_phase(torch, kc, rwc, rchunks, label="profile_radix",
                   waves=RADIX_WAVES,
                   need=("tokenize kernel", "segreduce kernel",
                         "radix upfront", "radix onesweep",

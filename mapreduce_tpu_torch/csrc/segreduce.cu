@@ -19,25 +19,53 @@
 // running combine and the running end count across blocks in SMEM.  Here
 // the carry is the segmented monoid (head, value) with
 // (fl, vl) . (fr, vr) = (fl | fr, fr ? vr : op(vl, vr)) plus an int32 sum
-// of run ends, scanned in two phases (scan.cuh); the neighbour keys that
-// decide heads and ends are read from device memory directly.
+// of run ends, scanned in one pass with a decoupled look-back (scan.cuh).
 //
 // Bound on the card: memory.  Per row it reads 8 + 4*D bytes and writes
 // 4*D + 4 (unit mode: 8 in, 8 out); a few integer ops per row and lane.
-// Each thread walks 8 consecutive rows, and each tile is read twice
-// (phases a and c; the second read mostly hits L2).  Wider loads and a
-// one-pass decoupled look-back are left for a later change.
+// At the path's sizes (up to 1.6M rows) the data fits in L2 and the
+// tiles run in one wave, so launches and each CTA's chain of dependent
+// phases, not bytes, set the pace.  The design:
+//   - one launch a call (plus the memset of the look-back records inside
+//     the C entry, so a CUDA-graph replay starts clean), in place of
+//     tile sums, a one-block scan of them and a second read of the tile;
+//   - each CTA takes its tile id from an atomic counter and copies its
+//     k1, k2 (each with one halo row on each side) and values into
+//     shared memory with 16-byte cp.async copies; heads and ends are
+//     decided there, so each key is read once, not three times (rows past
+//     n and the row before row 0 read as the sentinel: a valid row next
+//     to one heads or ends its run);
+//   - each thread folds kItems consecutive rows, 4 at a time, the block
+//     scans the folds and the tile's carry comes by decoupled look-back
+//     (scan.cuh).  The end count is a true sum, so the walk runs to the
+//     nearest inclusive prefix; when all tiles start together that takes
+//     a few steps of 32 records, one L2 trip each;
+//   - reduced and end_csum are staged in shared memory over the tile's
+//     inputs and stored with 16-byte stores, neighbouring threads on
+//     neighbouring addresses.
+// PERF.md (PR 7) has the tile A/B and where the time goes.
 #include <climits>
 
 #include "scan.cuh"
 
+#ifndef MR_SEGREDUCE_TILE
+#define MR_SEGREDUCE_TILE 2048
+#endif
+
 namespace mr_segreduce_kernels {
 
-using mr::kItems;
-using mr::kThreads;
-using mr::kTile;
+constexpr int kThreads = 256;
+constexpr int kTile = MR_SEGREDUCE_TILE;  // rows a CTA
+constexpr int kItems = kTile / kThreads;   // consecutive rows a thread
+static_assert(kTile % kThreads == 0 && kItems % 4 == 0 && kItems <= 32,
+              "a tile is 1,024 to 8,192 rows");
+// words of shared memory before and after each key lane's tile (the row
+// on each side of the tile is the nearest one)
+constexpr int kHalo = 4;
 
 enum : int { kSum = 0, kMin = 1, kMax = 2 };
+// either lane of the sentinel pair, as a uint32
+constexpr uint32_t kSentinel = 0xffffffffu;
 
 __device__ __forceinline__ int32_t apply_op(int op, int32_t a, int32_t b) {
   switch (op) {
@@ -78,6 +106,8 @@ struct SegOp {
     o.ends = x.ends + y.ends;
     return o;
   }
+  // the end count is a sum: nothing before a span is ever dropped
+  __device__ bool absorbing(const T&) const { return false; }
   static __device__ T shfl_up(const T& x, int off) {
     T y;
 #pragma unroll
@@ -89,113 +119,166 @@ struct SegOp {
   }
 };
 
-struct Rows {
-  const int32_t* k1;
-  const int32_t* k2;
-  const int32_t* vals;  // [n, D]; unused in unit mode
-  int n;
-};
-
-__device__ __forceinline__ bool valid_at(const Rows& r, int i) {
-  return !(r.k1[i] == -1 && r.k2[i] == -1);
-}
-
-// Row i as a one-element span: (head, value, end).
+// Dynamic shared memory: k1 and k2 [kHalo + kTile + kHalo] int32 each,
+// then (not in unit mode) the values [kTile][D].  The outputs are staged
+// over them: end_csum over k1, reduced over the values (unit mode: k2).
 template <int D, bool UNIT>
-__device__ __forceinline__ typename SegOp<D>::T row(const Rows& r, int i) {
-  typename SegOp<D>::T e;
-  const int32_t a1 = r.k1[i], a2 = r.k2[i];
-  const bool valid = !(a1 == -1 && a2 == -1);
-  const bool head = valid && (i == 0 || a1 != r.k1[i - 1] ||
-                              a2 != r.k2[i - 1]);
-  const bool end = valid && (i == r.n - 1 || !valid_at(r, i + 1) ||
-                             a1 != r.k1[i + 1] || a2 != r.k2[i + 1]);
-#pragma unroll
-  for (int d = 0; d < D; ++d)
-    e.v[d] = UNIT ? 1 : r.vals[static_cast<int64_t>(i) * D + d];
-  e.head = head ? 1 : 0;
-  e.ends = end ? 1 : 0;
-  return e;
+constexpr int stage_bytes() {
+  return 4 * (2 * (kHalo + kTile + kHalo) + (UNIT ? 0 : kTile * D));
 }
 
-template <int D, bool UNIT>
-__device__ typename SegOp<D>::T thread_fold(const SegOp<D>& op,
-                                            const Rows& r, int base) {
-  typename SegOp<D>::T agg = op.identity();
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    if (base + j >= r.n) break;
-    agg = op.combine(agg, row<D, UNIT>(r, base + j));
-  }
-  return agg;
-}
-
-// Phase (a): one summary per tile.
+// One tile of kTile rows a CTA, in tile-id order from lb.counter.
 template <int D, bool UNIT>
 __global__ void __launch_bounds__(kThreads)
-    tile_sums(Rows r, SegOp<D> op, typename SegOp<D>::T* sums) {
+    segreduce_kernel(const int32_t* k1, const int32_t* k2,
+                     const int32_t* vals, int n, SegOp<D> op,
+                     mr::LookBack<typename SegOp<D>::T> lb, bool vec,
+                     int32_t* reduced, int32_t* end_csum) {
   using T = typename SegOp<D>::T;
-  __shared__ T shared[32];
-  const int base = blockIdx.x * kTile + threadIdx.x * kItems;
+  extern __shared__ __align__(16) uint8_t smem[];
+  int32_t* k1_s = reinterpret_cast<int32_t*>(smem) + kHalo;
+  int32_t* k2_s = k1_s + kTile + 2 * kHalo;
+  int32_t* v_s = k2_s + kTile + kHalo;
+  __shared__ T scan[32];
+  __shared__ T carry;
+  __shared__ int tile_id;
+  if (threadIdx.x == 0) tile_id = atomicAdd(lb.counter, 1);
+  __syncthreads();
+  const int tile = tile_id;
+  const int base = tile * kTile;
+  const int rows = min(n - base, kTile);
+  const size_t at = static_cast<size_t>(base);
+  // the tile's rows (the sentinel past n) and the row on each side
+  mr::load_tile(reinterpret_cast<uint8_t*>(k1_s),
+                reinterpret_cast<const uint8_t*>(k1 + at), rows * 4,
+                kTile * 4, 0xff, vec);
+  mr::load_tile(reinterpret_cast<uint8_t*>(k2_s),
+                reinterpret_cast<const uint8_t*>(k2 + at), rows * 4,
+                kTile * 4, 0xff, vec);
+  if constexpr (!UNIT)
+    mr::load_tile(reinterpret_cast<uint8_t*>(v_s),
+                  reinterpret_cast<const uint8_t*>(vals + at * D),
+                  rows * D * 4, kTile * D * 4, 0, vec);
+  if (threadIdx.x == 0) {
+    k1_s[-1] = base > 0 ? k1[base - 1] : -1;
+    k2_s[-1] = base > 0 ? k2[base - 1] : -1;
+  }
+  if (threadIdx.x == kThreads - 1) {
+    const bool more = kTile < n - base;
+    k1_s[kTile] = more ? k1[base + kTile] : -1;
+    k2_s[kTile] = more ? k2[base + kTile] : -1;
+  }
+  mr::load_wait();
+  __syncthreads();
+
+  // this thread's kItems rows, 4 at a time: heads and ends from the
+  // neighbours' keys (a valid key never equals the sentinel pair, so a
+  // differing key also covers an invalid neighbour), then their fold
+  const int first = threadIdx.x * kItems;
+  uint32_t heads = 0, ends = 0;
+  uint32_t p1 = k1_s[first - 1], p2 = k2_s[first - 1];
+#pragma unroll
+  for (int g = 0; g < kItems; g += 4) {
+    uint32_t a1[5], a2[5];
+    mr::unstage_words<4>(a1, k1_s + first + g);
+    mr::unstage_words<4>(a2, k2_s + first + g);
+    a1[4] = k1_s[first + g + 4];
+    a2[4] = k2_s[first + g + 4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool valid = !(a1[k] == kSentinel && a2[k] == kSentinel);
+      if (valid && (a1[k] != p1 || a2[k] != p2)) heads |= 1u << (g + k);
+      if (valid && (a1[k] != a1[k + 1] || a2[k] != a2[k + 1]))
+        ends |= 1u << (g + k);
+      p1 = a1[k];
+      p2 = a2[k];
+    }
+  }
+  // row j of the thread (its values vw, the 4 rows of its group)
+  auto row = [&](int j, const uint32_t* vw) {
+    T e;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if constexpr (UNIT)
+        e.v[d] = 1;
+      else
+        e.v[d] = static_cast<int32_t>(vw[(j & 3) * D + d]);
+    }
+    e.head = (heads >> j) & 1u;
+    e.ends = (ends >> j) & 1u;
+    return e;
+  };
+  T agg = op.identity();
+#pragma unroll
+  for (int g = 0; g < kItems; g += 4) {
+    uint32_t vw[4 * D];
+    if constexpr (!UNIT) mr::unstage_words<4 * D>(vw, v_s + (first + g) * D);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) agg = op.combine(agg, row(g + k, vw));
+  }
   T total;
-  mr::block_exclusive(op, thread_fold<D, UNIT>(op, r, base), shared, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
+  const T excl = mr::block_exclusive(op, agg, scan, &total);
+  if (threadIdx.x < 32) mr::tile_carry(op, lb, tile, total, &carry);
+  __syncthreads();
 
-// Phase (b).
-template <int D>
-__global__ void __launch_bounds__(mr::kScanThreads)
-    scan_tile_sums(SegOp<D> op, const typename SegOp<D>::T* sums,
-                   typename SegOp<D>::T* prefix, int nt) {
-  mr::scan_tiles(op, sums, prefix, nt);
-}
-
-// Phase (c): rescan each tile from its prefix and write the outputs.
-template <int D, bool UNIT>
-__global__ void __launch_bounds__(kThreads)
-    apply(Rows r, SegOp<D> op, const typename SegOp<D>::T* prefix,
-          int32_t* reduced, int32_t* end_csum) {
-  using T = typename SegOp<D>::T;
-  __shared__ T shared[32];
-  const int base = blockIdx.x * kTile + threadIdx.x * kItems;
-  const T excl = mr::block_exclusive(op, thread_fold<D, UNIT>(op, r, base),
-                                     shared, static_cast<T*>(nullptr));
-  T run = op.combine(prefix[blockIdx.x], excl);
+  // rescan from the carry, 4 rows at a time, and stage the outputs over
+  // the inputs: each thread overwrites only its own rows, read just before
+  T run = op.combine(carry, excl);
+  int32_t* red_s = UNIT ? k2_s : v_s;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int i = base + j;
-    if (i >= r.n) break;
-    run = op.combine(run, row<D, UNIT>(r, i));
+  for (int g = 0; g < kItems; g += 4) {
+    uint32_t vw[4 * D], cw[4];
+    if constexpr (!UNIT) mr::unstage_words<4 * D>(vw, v_s + (first + g) * D);
 #pragma unroll
-    for (int d = 0; d < D; ++d)
-      reduced[static_cast<int64_t>(i) * D + d] = run.v[d];
-    end_csum[i] = run.ends;
+    for (int k = 0; k < 4; ++k) {
+      run = op.combine(run, row(g + k, vw));
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        vw[k * D + d] = static_cast<uint32_t>(run.v[d]);
+      cw[k] = static_cast<uint32_t>(run.ends);
+    }
+    mr::stage_words<4>(k1_s + first + g, cw);
+    mr::stage_words<4 * D>(red_s + (first + g) * D, vw);
   }
+  __syncthreads();
+  mr::store_tile(reinterpret_cast<uint8_t*>(end_csum + at),
+                 reinterpret_cast<const uint8_t*>(k1_s), rows * 4, vec);
+  mr::store_tile(reinterpret_cast<uint8_t*>(reduced + at * D),
+                 reinterpret_cast<const uint8_t*>(red_s), rows * D * 4, vec);
+}
+
+inline int num_tiles(int n) { return (n + kTile - 1) / kTile; }
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 template <int D>
 size_t scratch_bytes(int n) {
-  return 2 * static_cast<size_t>(mr::num_tiles(n)) *
-         sizeof(typename SegOp<D>::T);
+  return mr::lookback_bytes<typename SegOp<D>::T>(num_tiles(n));
 }
 
 template <int D, bool UNIT>
-int launch(const Rows& r, const int* ops, int32_t* reduced,
-           int32_t* end_csum, void* scratch, cudaStream_t stream) {
+int launch(const int32_t* k1, const int32_t* k2, const int32_t* vals, int n,
+           const int* ops, int32_t* reduced, int32_t* end_csum,
+           void* scratch, cudaStream_t stream) {
   using T = typename SegOp<D>::T;
   SegOp<D> op;
   for (int d = 0; d < D; ++d) op.ops[d] = UNIT ? kSum : ops[d];
-  const int nt = mr::num_tiles(r.n);
-  T* sums = static_cast<T*>(scratch);
-  T* prefix = sums + nt;
-  tile_sums<D, UNIT><<<nt, kThreads, 0, stream>>>(r, op, sums);
-  cudaError_t err = cudaGetLastError();
+  const int tiles = num_tiles(n);
+  cudaError_t err =
+      cudaMemsetAsync(scratch, 0, mr::lookback_bytes<T>(tiles), stream);
   if (err != cudaSuccess) return err;
-  scan_tile_sums<D><<<1, mr::kScanThreads, 0, stream>>>(op, sums, prefix, nt);
-  err = cudaGetLastError();
+  constexpr int smem = stage_bytes<D, UNIT>();
+  static std::atomic<unsigned long long> smem_set{0};
+  err = mr::allow_smem(segreduce_kernel<D, UNIT>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  apply<D, UNIT><<<nt, kThreads, 0, stream>>>(r, op, prefix, reduced,
-                                              end_csum);
+  const bool vec = aligned16(k1) && aligned16(k2) &&
+                   (UNIT || aligned16(vals)) && aligned16(reduced) &&
+                   aligned16(end_csum);
+  segreduce_kernel<D, UNIT><<<tiles, kThreads, smem, stream>>>(
+      k1, k2, vals, n, op, mr::lookback_at<T>(scratch), vec, reduced,
+      end_csum);
   return cudaGetLastError();
 }
 
@@ -216,32 +299,34 @@ long long mr_segreduce_scratch_bytes(int n, int d) {
   }
 }
 
-// Segmented reduce of n > 0 sorted rows.  unit != 0 counts run lengths
-// into one lane (d must be 1, vals may be null); otherwise d value lanes
-// in vals [n, d] are combined with op0..op2 (0 sum, 1 min, 2 max) per
-// lane.  reduced is [n, d] int32, end_csum [n] int32.  Returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue for bad
-// arguments).
+// Segmented reduce of 0 < n < 2^30 sorted rows.  unit != 0 counts run
+// lengths into one lane (d must be 1, vals may be null); otherwise d
+// value lanes in vals [n, d] are combined with op0..op2 (0 sum, 1 min, 2
+// max) per lane.  reduced is [n, d] int32, end_csum [n] int32; scratch
+// holds mr_segreduce_scratch_bytes(n, d) bytes, and its flags are zeroed
+// here.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for bad arguments).
 int mr_segreduce(const void* k1, const void* k2, const void* vals, int n,
                  int d, int unit, int op0, int op1, int op2, void* reduced,
                  void* end_csum, void* scratch, void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
+  if (n <= 0 || n >= (1 << 30)) return cudaErrorInvalidValue;
   const int ops[3] = {op0, op1, op2};
   for (int i = 0; i < d && i < 3; ++i)
     if (ops[i] < kSum || ops[i] > kMax) return cudaErrorInvalidValue;
-  Rows r{static_cast<const int32_t*>(k1), static_cast<const int32_t*>(k2),
-         static_cast<const int32_t*>(vals), n};
+  const auto* a = static_cast<const int32_t*>(k1);
+  const auto* b = static_cast<const int32_t*>(k2);
+  const auto* v = static_cast<const int32_t*>(vals);
   auto* red = static_cast<int32_t*>(reduced);
   auto* csum = static_cast<int32_t*>(end_csum);
   auto st = static_cast<cudaStream_t>(stream);
   if (unit) {
     if (d != 1) return cudaErrorInvalidValue;
-    return launch<1, true>(r, ops, red, csum, scratch, st);
+    return launch<1, true>(a, b, v, n, ops, red, csum, scratch, st);
   }
   switch (d) {
-    case 1: return launch<1, false>(r, ops, red, csum, scratch, st);
-    case 2: return launch<2, false>(r, ops, red, csum, scratch, st);
-    case 3: return launch<3, false>(r, ops, red, csum, scratch, st);
+    case 1: return launch<1, false>(a, b, v, n, ops, red, csum, scratch, st);
+    case 2: return launch<2, false>(a, b, v, n, ops, red, csum, scratch, st);
+    case 3: return launch<3, false>(a, b, v, n, ops, red, csum, scratch, st);
     default: return cudaErrorInvalidValue;
   }
 }

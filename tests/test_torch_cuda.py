@@ -82,6 +82,90 @@ def test_tokenize_kernel_edges(dev):
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
 
 
+#: the tile sizes the tokenize and segreduce kernels are built with in
+#: chip_smoke.py's A/B (the default build is one of them)
+SCAN_TILES = (1024, 2048, 4096)
+M3 = (tokenize.HASH_A1, tokenize.HASH_A2, tokenize.HASH_A3)
+
+
+def _pin_tokens(chunk, mults, dev):
+    want = tokenize._tokenize_plain(chunk, mults)
+    got = tokenize._tokenize_cuda(chunk.to(dev), mults)
+    torch.cuda.synchronize()
+    for f in want._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+#: inputs that walk the look-back chain: no tile but the first holds a
+#: whitespace byte, or whole tiles of whitespace hold no word start
+CHAIN_TEXTS = {
+    "one-word-300k": b"w" * 300_000,
+    "word-200k-spaces-word": b"first" + b" " * 200_000 + b"last",
+    "whitespace-only-300k": b" \t\n\r\x0b\x0c" * 50_000,
+    "mixed-runs": (b"ab" * 5000 + b" " * 9000) * 20,
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHAIN_TEXTS))
+@pytest.mark.parametrize("lanes", [2, 3])
+def test_tokenize_kernel_look_back_chains(dev, name, lanes):
+    chunk = torch.frombuffer(bytearray(CHAIN_TEXTS[name]), dtype=torch.uint8)
+    _pin_tokens(chunk, M3[:lanes], dev)
+
+
+@pytest.mark.parametrize("n", sorted(t + d for t in SCAN_TILES
+                                     for d in (-1, 0, 1)))
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_tokenize_kernel_around_tiles(dev, n, lanes):
+    _pin_tokens(torch.from_numpy(_text(n, seed=n)), M3[:lanes], dev)
+
+
+def test_tokenize_kernel_unaligned_chunk(dev):
+    """A chunk that starts off a 16-byte boundary takes the byte loads."""
+    chunk = torch.from_numpy(_text(100_003, seed=3))
+    whole = chunk.to(dev)
+    want = tokenize._tokenize_plain(chunk[3:], M3[:2])
+    got = tokenize._tokenize_cuda(whole[3:], M3[:2])
+    for f in want._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+def _flat(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat(o)]
+
+
+def _repeats_and_replays(fn):
+    """20 calls in a row, then 50 replays of one call captured in a CUDA
+    graph: every output bit-equal to the first call's.  The look-back's
+    counter and flags are zeroed inside each call, and a race in the
+    walk shows as a run-to-run difference."""
+    first = [t.clone() for t in _flat(fn())]
+    for _ in range(20):
+        assert all(torch.equal(a, b) for a, b in zip(_flat(fn()), first))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _flat(fn())
+    for _ in range(50):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, first))
+
+
+@pytest.mark.parametrize("name", ["text", "one-word-300k"])
+def test_tokenize_kernel_repeats_and_replays_bit_for_bit(dev, name):
+    text = (_text(4_194_816, seed=9).tobytes() if name == "text"
+            else CHAIN_TEXTS[name])
+    chunk = torch.frombuffer(bytearray(text), dtype=torch.uint8).to(dev)
+    _repeats_and_replays(lambda: tokenize._tokenize_cuda(chunk, M3[:2]))
+
+
 def _sorted_lanes(n, seed, key_range, n_lanes, invalid_frac=0.1):
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, key_range, size=(n, 2)).astype(np.uint32)
@@ -133,6 +217,95 @@ def test_segreduce_kernel_all_invalid_and_one_run(dev):
     got = segscan._segment_reduce_cuda(one.to(dev), one.to(dev), [],
                                        "sum", True)
     assert int(got[1][-1]) == 1 and int(got[0][0][-1]) == n
+
+
+def _one_run_lanes(n, seed):
+    """n rows of one key, values across the int32 range (the sum wraps)."""
+    rng = np.random.default_rng(seed)
+    k = torch.full((n,), 0x1234, dtype=torch.int32)
+    vals = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, (n, 3))
+                            .astype(np.int32))
+    return k, k.clone(), [vals[:, i].contiguous() for i in range(3)]
+
+
+def _sentinel_tail_lanes(n, valid, seed):
+    """Sorted runs over the first *valid* rows, then the sentinel."""
+    k1, k2, vals = _sorted_lanes(valid, seed, key_range=valid // 50,
+                                 n_lanes=3, invalid_frac=0.0)
+    tail = torch.full((n - valid,), -1, dtype=torch.int32)
+    rng = np.random.default_rng(seed + 1)
+    vtail = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, n - valid)
+                             .astype(np.int32))
+    return (torch.cat([k1, tail]), torch.cat([k2, tail]),
+            [torch.cat([v, vtail]) for v in vals])
+
+
+def _single_row_runs(n, seed):
+    k1 = torch.arange(n, dtype=torch.int32) * 7 - 2 ** 31 + 5
+    rng = np.random.default_rng(seed)
+    vals = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, (n, 3))
+                            .astype(np.int32))
+    return k1, k1 ^ 0x5A5A, [vals[:, i].contiguous() for i in range(3)]
+
+
+#: inputs that walk the look-back chain (a run, or invalid rows, over
+#: many tiles) or end a run on every row
+CHAIN_LANES = {
+    "one-run-500k": lambda: _one_run_lanes(500_000, 1),
+    "sentinel-tail": lambda: _sentinel_tail_lanes(600_000, 20_000, 2),
+    "single-row-runs": lambda: _single_row_runs(300_001, 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHAIN_LANES))
+@pytest.mark.parametrize("op", ["unit", "sum", "min", "max",
+                                ("sum", "min", "max")])
+def test_segreduce_kernel_look_back_chains(dev, name, op):
+    k1, k2, vals = CHAIN_LANES[name]()
+    unit = op == "unit"
+    rop = "sum" if unit else op
+    vals = [] if unit else vals[:3 if isinstance(op, tuple) else 1]
+    want = segscan._segment_reduce_plain(k1, k2, vals, rop, unit)
+    got = segscan._segment_reduce_cuda(
+        k1.to(dev), k2.to(dev), [v.to(dev) for v in vals], rop, unit)
+    torch.cuda.synchronize()
+    _pin_surface(k1, k2, got, want)
+
+
+@pytest.mark.parametrize("n", sorted(t + d for t in SCAN_TILES
+                                     for d in (-1, 0, 1)))
+def test_segreduce_kernel_around_tiles(dev, n):
+    k1, k2, vals = _sorted_lanes(n, seed=n, key_range=max(2, n // 8),
+                                 n_lanes=3)
+    for op, lanes in (("sum", vals[:1]), (("sum", "min", "max"), vals)):
+        want = segscan._segment_reduce_plain(k1, k2, lanes, op, False)
+        got = segscan._segment_reduce_cuda(
+            k1.to(dev), k2.to(dev), [v.to(dev) for v in lanes], op, False)
+        _pin_surface(k1, k2, got, want)
+
+
+def test_segreduce_kernel_unaligned_lanes(dev):
+    """Key lanes that start off a 16-byte boundary take the word loads."""
+    k1, k2, vals = _sorted_lanes(100_003, seed=4, key_range=9000, n_lanes=1)
+    k1d, k2d = k1.to(dev), k2.to(dev)
+    want = segscan._segment_reduce_plain(k1[1:], k2[1:], [vals[0][1:]],
+                                         "sum", False)
+    got = segscan._segment_reduce_cuda(k1d[1:], k2d[1:],
+                                       [vals[0][1:].to(dev)], "sum", False)
+    _pin_surface(k1[1:], k2[1:], got, want)
+
+
+@pytest.mark.parametrize("name", ["sorted-852k", "one-run-500k"])
+@pytest.mark.parametrize("unit", [True, False])
+def test_segreduce_kernel_repeats_and_replays_bit_for_bit(dev, name, unit):
+    k1, k2, vals = (_sorted_lanes(852_072, seed=8, key_range=80_000,
+                                  n_lanes=3)
+                    if name == "sorted-852k" else CHAIN_LANES[name]())
+    k1, k2 = k1.to(dev), k2.to(dev)
+    vals = [] if unit else [v.to(dev) for v in vals]
+    op = "sum" if unit else ("sum", "min", "max")
+    _repeats_and_replays(
+        lambda: segscan._segment_reduce_cuda(k1, k2, vals, op, unit))
 
 
 def test_callable_op_on_cuda_raises(dev):

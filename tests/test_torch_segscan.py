@@ -100,6 +100,35 @@ def test_segment_reduce_plain_matches_pallas_kernel(op):
         assert np.array_equal(t.numpy()[ends], np.asarray(j)[ends])
 
 
+@pytest.mark.parametrize("op", ["unit", "sum", "min", "max", "stacked"])
+def test_segment_reduce_plain_matches_pallas_kernel_long_run_and_tail(op):
+    """One run across several kernel blocks (its sum wraps around int32),
+    a few short runs, then a sentinel tail over several blocks: the carry
+    chains of the card kernel's look-back."""
+    unit = op == "unit"
+    jop, top, lanes = OPS["sum" if unit else op]
+    n, run, live = 2000, 1100, 1300
+    rng = np.random.default_rng(11)
+    k1 = np.full(n, 0xFFFFFFFF, np.uint32)
+    k2 = np.full(n, 0xFFFFFFFF, np.uint32)
+    k1[:run] = k2[:run] = 0x80000007
+    k1[run:live] = 0x90000000 + np.arange(live - run, dtype=np.uint32) // 3
+    k2[run:live] = 5
+    vals = rng.integers(-2 ** 31, 2 ** 31 - 1, (n, lanes)).astype(np.int32)
+    vl = [] if unit else [vals[:, i] for i in range(lanes)]
+    j_red, j_csum = jseg._segment_reduce_pallas(
+        jnp.asarray(k1), jnp.asarray(k2), [jnp.asarray(v) for v in vl], jop,
+        unit, BLOCK, True)
+    t_red, t_csum = tseg.segment_reduce(_t(k1), _t(k2), [_t(v) for v in vl],
+                                        top, unit)
+    assert np.array_equal(t_csum.numpy(), np.asarray(j_csum))
+    _, _, is_end = tseg._run_flags(_t(k1), _t(k2))
+    ends = is_end.numpy()
+    assert ends.sum() == 1 + -(-(live - run) // 3)
+    for t, j in zip(t_red, j_red):
+        assert np.array_equal(t.numpy()[ends], np.asarray(j)[ends])
+
+
 def _pin(port, ref, ctx):
     assert np.array_equal(port.keys.numpy().view(np.uint32),
                           np.asarray(ref.keys)), ctx
@@ -172,7 +201,7 @@ def test_stable_sort_permutation_matches_lax_sort(seed):
         assert np.array_equal(got.numpy(), np.asarray(perm)), impl
 
 
-def test_radix_sort_not_ported_yet_and_plain_counted():
+def test_radix_sort_impl_runs_counted_plain_radix_versions_on_cpu():
     """Once refused, ``sort_impl='radix'`` now runs (the radix family is
     ported): on the CPU it gives the variadic result through the plain
     radix versions, each counted, and an unknown sort_impl still

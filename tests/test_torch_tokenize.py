@@ -51,6 +51,11 @@ CASES = {
     "word-at-0-and-to-the-end": (b"first" + b" " * 4090 + b"lastword", M2),
     "word-across-block": (b" " * 4090 + b"straddling-word" + b" x", M2),
     "utf8": ("naïve café 数据 Ωmega ".encode() * 300, M2),
+    # the carry chains of the card kernel's look-back: one word over five
+    # 4096-byte blocks, and a word, a whitespace run longer than a block
+    # (no word starts in it) and a word
+    "one-word-20000": (b"w" * 20_000, M2),
+    "word-long-space-run-word": (b"first" + b" \t" * 5000 + b"last", M3),
 }
 
 
