@@ -11,8 +11,8 @@ which raises on failure:
    source and one per variant of a tile size for the A/Bs of phases 2, 3
    and 6, all started together), print each kernel's registers and
    spill bytes as ptxas reports them (``ptxas`` line; a flash, onesweep,
-   tokenize or segreduce kernel that spills fails the run) and the
-   card's name and power limit;
+   plan, tokenize or segreduce kernel that spills fails the run) and
+   the card's name and power limit;
 2. the tokenize kernel against its plain PyTorch version on one
    full-width chunk (4,194,816 bytes of the synthetic corpus): bit
    equality, then kernel / plain times beside the memory bound (the
@@ -39,7 +39,8 @@ which raises on failure:
    memsets, the rest), counted over device-side events only, and the
    device busy share (device time over the profiled run's wall time, a
    floor, since the profiler lengthens that wall time); each tokenize
-   and segreduce wrapper call must show as exactly one kernel event;
+   and segreduce wrapper call (and, in phase 7, each exchange plan) must
+   show as exactly one kernel event;
 6. the radix kernels against their plain versions on inputs the radix
    path makes from the corpus: ``radix_sort_pairs`` (one C call: a
    memset, the upfront kernel and 8 onesweep passes) at the combiner's
@@ -51,13 +52,15 @@ which raises on failure:
    replayed 50 times from one CUDA graph, every output bit-equal to the
    first; the upfront kernel and one onesweep pass at the combiner and
    fold shapes; and ``radix_partition_plan`` over ``[8, 262,144]`` with
-   9 buckets (hist and rank); kernel, plain and library times beside
-   the memory bound;
+   9 buckets (one C call: a memset and ``plan_kernel``): kernel, plain
+   and library (``torch.bincount``, the counts alone) times beside the
+   memory bound, 50 replays from one CUDA graph bit-equal, and an A/B
+   of the plan's tile size (variant builds with ``-DMR_PLAN_TILE``);
 7. the radix slice: ``DeviceWordCount(Partitions(8, "cuda"),
    chunk_len=1<<22, config=replace(bench_engine_config(),
    sort_impl="radix"))`` over the same corpus with ``waves=2``: counts
    against ``Counter(data.split())``, the 8 x 8 traffic matrix against
-   ``host_exchange_matrix``, launches of all six kernels (8 onesweep
+   ``host_exchange_matrix``, launches of all five kernels (8 onesweep
    launches for each upfront one: a sort is one C call) and no plain
    call, then a profiled run (no ``torch.sort`` device time) and a run
    under a ``plan_rebalance`` partition map (same counts, the matrix
@@ -118,13 +121,16 @@ REPS = 20
 RADIX_PARTS = 8
 RADIX_WAVES = 2
 #: the kernels of the word-count slices (phases 4 and 7)
-WORDCOUNT_KERNELS = ("tokenize", "segreduce", "radix_hist", "radix_rank",
-                     "radix_upfront", "radix_onesweep")
+WORDCOUNT_KERNELS = ("tokenize", "segreduce", "radix_plan", "radix_upfront",
+                     "radix_onesweep")
 #: the sort's tile sizes timed against each other (phase 6): the build's
 #: own and variant builds of csrc/radix.cu with MR_ONESWEEP_TILE
 SORT_TILE_AB = (1024, 2048, 4096)
+#: the exchange plan's tile sizes timed against each other (phase 6): the
+#: source's own and a variant build of csrc/radix.cu with MR_PLAN_TILE
+PLAN_TILE_AB = (2048, 4096)
 #: replays of one captured call in each determinism check (the radix
-#: sort, tokenize, segreduce)
+#: sort and plan, tokenize, segreduce)
 REPLAYS = 50
 #: the tile sizes of the tokenize and segreduce A/Bs (phases 2-3): the
 #: source's own build and variant builds with its define set to each other
@@ -217,16 +223,25 @@ def max_abs_err(torch, got, want):
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def scan_variants(kc, source):
-    """``{label: defines}`` of *source*'s tile A/B (tokenize or
-    segreduce): the tile the source defines is its own build, ``()``;
-    each other tile of SCAN_TILE_AB a variant build."""
-    define = SCAN_TILE_DEFINES[source]
+def tile_variants(kc, source, define, tiles):
+    """``{label: defines}`` of a tile A/B over *tiles*: the tile that
+    *source* sets with ``#define`` *define* is its own build, ``()``;
+    each other tile a variant build."""
     own = re.search(rf"#define {define} (\d+)",
                     (kc.CSRC / f"{source}.cu").read_text())
     check(own is not None, f"{source}.cu defines no {define}")
     return {f"tile={t}": (() if t == int(own.group(1)) else ((define, t),))
-            for t in SCAN_TILE_AB}
+            for t in tiles}
+
+
+def scan_variants(kc, source):
+    """The tile A/B of tokenize or segreduce over SCAN_TILE_AB."""
+    return tile_variants(kc, source, SCAN_TILE_DEFINES[source], SCAN_TILE_AB)
+
+
+def plan_variants(kc):
+    """The tile A/B of the exchange plan over PLAN_TILE_AB."""
+    return tile_variants(kc, "radix", "MR_PLAN_TILE", PLAN_TILE_AB)
 
 
 def tile_libraries(kc, source, signatures):
@@ -460,7 +475,7 @@ def _profile_group(name):
             return "radix onesweep"
         if "upfront_kernel" in name:
             return "radix upfront"
-        return "radix plan (hist, colscan, rank)"
+        return "radix plan"
     low = name.lower()
     if "memset" in low:
         return "memset"
@@ -515,8 +530,8 @@ def profile_phase(torch, kc, wc, chunks, label="profile", waves=None,
                   need=("tokenize kernel", "segreduce kernel"), forbid=()):
     """One engine run of a slice under torch.profiler (printed).  Fails if
     a group in *need* shows no device time or one in *forbid* shows any,
-    or if the tokenize or segreduce kernel events differ in number from
-    their wrappers' launches in the run (one kernel a call)."""
+    or if the tokenize, segreduce or plan kernel events differ in number
+    from their wrappers' launches in the run (one kernel a call)."""
     engine = wc._engine_for(chunks.shape[1])
     kc.reset_counts()
     groups, calls = device_profile(torch, label,
@@ -526,9 +541,11 @@ def profile_phase(torch, kc, wc, chunks, label="profile", waves=None,
           f"{label}: profiled run shows no device time in {need}: {groups}")
     check(all(groups.get(g, 0) == 0 for g in forbid),
           f"{label}: profiled run shows device time in {forbid}: {groups}")
-    for k in ("tokenize", "segreduce"):
-        check(calls.get(f"{k} kernel") == kc.LAUNCHES[k],
-              f"{label}: {calls.get(f'{k} kernel')} {k} kernel events for "
+    for k, group in (("tokenize", "tokenize kernel"),
+                     ("segreduce", "segreduce kernel"),
+                     ("radix_plan", "radix plan")):
+        check(calls.get(group, 0) == kc.LAUNCHES[k],
+              f"{label}: {calls.get(group, 0)} {group} events for "
               f"{kc.LAUNCHES[k]} wrapper launches")
 
 
@@ -757,75 +774,86 @@ def radix_replay_check(torch, rs, k1, k2):
                  k1.numel())
 
 
-def radix_plan_case(torch, rs, dest):
-    """The plan over [8, 262,144] with 9 buckets: hist and rank against
-    their plain versions, and their times."""
+def plan_call(torch, kc, lib, dest, nb):
+    """One C call of ``mr_radix_plan`` through *lib* (a tile variant's
+    build), as ``rs._radix_plan_cuda`` makes it, uncounted."""
+    b, n = dest.shape
+    scratch = torch.empty(lib.mr_radix_plan_scratch_words(n, b, nb),
+                          dtype=torch.int32, device=dest.device)
+    rank = torch.empty_like(dest)
+    totals = torch.empty((b, nb), dtype=torch.int32, device=dest.device)
+    kc.check("radix_plan", lib.mr_radix_plan(
+        kc.ptr(dest), n, b, nb, kc.ptr(scratch), kc.ptr(rank),
+        kc.ptr(totals), kc.stream(dest.device)))
+    return rank, totals
+
+
+def radix_plan_case(torch, kc, rs, dest):
+    """The plan over [8, 262,144] with 9 buckets, one C call: rank and
+    totals against the plain version, its time beside the memory bound,
+    the plain version's and torch.bincount's (the counts alone), 50
+    graph replays bit-equal, and the A/B of the plan's tile size."""
     b, n = dest.shape
     nb = RADIX_PARTS + 1
-    tiles = -(-n // rs.RADIX_TILE)
-    got_h = rs._radix_hist_cuda(dest, 0, 0xFFFFFFFF, nb)
-    want_h = rs._radix_hist_plain(dest, 0, 0xFFFFFFFF, nb)
-    check(torch.equal(got_h, want_h), "radix_hist (plan) differs")
-    got = rs._radix_rank_cuda(dest, got_h, nb)
-    want = rs._radix_rank_plain(dest, want_h, nb)
+    got = rs._radix_plan_cuda(dest, nb)
+    want = rs._radix_plan_plain(dest, nb)
     torch.cuda.synchronize()
     err = 0
-    for g, w in zip(got, want):
-        check(torch.equal(g, w), "radix_rank differs")
+    for g, w, what in zip(got, want, ("rank", "totals")):
+        check(torch.equal(g, w), f"radix_plan: {what} differs from the "
+              "plain version")
         err = max(err, max_abs_err(torch, g, w))
-    h_ms, h_spread = kernel_ms(torch, lambda: rs._radix_hist_cuda(
-        dest, 0, 0xFFFFFFFF, nb))
-    h_plain = time_ms(torch, lambda: rs._radix_hist_plain(
-        dest, 0, 0xFFFFFFFF, nb), reps=5, rounds=3)
-    # library yardstick: one bincount over (row, bucket, tile) (the index
-    # made beforehand)
-    idx = ((torch.arange(b, device=dest.device)[:, None] * nb
-            + dest.to(torch.int64)) * tiles
-           + torch.arange(n, device=dest.device) // rs.RADIX_TILE).reshape(-1)
-    h_lib = time_ms(torch, lambda: torch.bincount(idx,
-                                                  minlength=b * nb * tiles))
-    r_ms, r_spread = kernel_ms(torch, lambda: rs._radix_rank_cuda(
-        dest, got_h, nb))
-    r_plain = time_ms(torch, lambda: rs._radix_rank_plain(dest, want_h, nb),
-                      reps=5, rounds=3)
-    hist_bytes = 4 * b * nb * tiles
-    hb_ms, hb_by = bound(4 * b * n + hist_bytes, 4 * b * n)
-    rb_ms, rb_by = bound(8 * b * n + hist_bytes + 4 * b * nb, 12 * b * n)
+    ms, spread = kernel_ms(torch, lambda: rs._radix_plan_cuda(dest, nb))
+    plain_ms = time_ms(torch, lambda: rs._radix_plan_plain(dest, nb),
+                       reps=5, rounds=3)
+    # library yardstick: the counts alone, one bincount over row * nb +
+    # bucket (the index made beforehand)
+    idx = (torch.arange(b, device=dest.device)[:, None] * nb
+           + dest.to(torch.int64)).reshape(-1)
+    lib_ms = time_ms(torch, lambda: torch.bincount(idx, minlength=b * nb))
+    # reads dest and writes rank, 4 B a row each, and writes the totals
+    b_ms, b_by = bound(8 * b * n + 4 * b * nb, 12 * b * n)
+    replay_check(torch, "radix_plan_replay",
+                 lambda: rs.radix_partition_plan(dest, RADIX_PARTS), b * n)
+    libs = {v: kc.library("radix", rs._SIGNATURES, d)
+            for v, d in plan_variants(kc).items()}
+    ab = timed_turns(torch, libs, "radix plan",
+                     lambda lib: plan_call(torch, kc, lib, dest, nb),
+                     lambda res: all(torch.equal(g, w)
+                                     for g, w in zip(res, want)))
     case = {"label": "plan", "shape": [b, n], "buckets": nb,
-            "max_abs_err": err,
-            "hist": {"ms": h_ms, "spread": h_spread, "plain_ms": h_plain,
-                     "library_ms": h_lib, "bound_ms": hb_ms,
-                     "bound_by": hb_by},
-            "rank": {"ms": r_ms, "spread": r_spread, "plain_ms": r_plain,
-                     "library_ms": None, "bound_ms": rb_ms,
-                     "bound_by": rb_by}}
+            "max_abs_err": err, "ms": ms, "spread": spread,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "tile": rs.RADIX_TILE,
+            "ctas": b * -(-n // rs.RADIX_TILE), "tile_ab_ms": ab}
     print(json.dumps({"radix_plan_case": case}))
     return case
 
 
 def radix_phase(torch, kc, rs, inputs, dest):
-    """Phase 6: returns the four radix kernels' records."""
+    """Phase 6: returns the three radix kernels' records."""
     sorts = [radix_sort_case(torch, kc, rs, label, *inputs[label])
              for label in ("combiner", "local", "fold")]
     radix_replay_check(torch, rs, *inputs["fold"])
     passes = [radix_pass_case(torch, rs, label, *inputs[label])
               for label in ("combiner", "fold")]
-    plan = radix_plan_case(torch, rs, dest)
+    plan = radix_plan_case(torch, kc, rs, dest)
     err = max(c["max_abs_err"] for c in passes)
     head = passes[0]  # the combiner shape: 32 of the 64 sorts per run
 
-    def record(name, line, t, error):
+    def record(name, lines, t, error):
         return {"name": name, "route": "cuda",
                 "source": "mapreduce_tpu_torch/csrc/radix.cu",
-                "replaces": f"mapreduce_tpu/ops/radix_sort.py:{line}",
+                "replaces": ", ".join(f"mapreduce_tpu/ops/radix_sort.py:{ln}"
+                                      for ln in lines),
                 "max_abs_err": error, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
-    return ([record("radix_hist", 96, plan["hist"], plan["max_abs_err"]),
-             record("radix_rank", 112, plan["rank"], plan["max_abs_err"]),
-             record("radix_upfront", 96, head["upfront"], err),
-             record("radix_onesweep", 119, head["onesweep"], err)],
+    # the plan replaces the plan's use of _hist_kernel and _rank_kernel
+    return ([record("radix_plan", (96, 112), plan, plan["max_abs_err"]),
+             record("radix_upfront", (96,), head["upfront"], err),
+             record("radix_onesweep", (119,), head["onesweep"], err)],
             {"sorts": sorts, "passes": passes, "plan": plan})
 
 
@@ -1076,7 +1104,8 @@ def ptxas_report(kc, rs):
     """Phase 1: each kernel's registers and spill bytes from this run's
     builds (``nvcc -Xptxas -v``), one JSON line.  Fails if a flash kernel
     instantiation, the onesweep kernel of the radix library or of its
-    tile-size variants, or a tokenize or segreduce kernel of the default
+    tile-size variants, the plan kernel of the radix library or of its
+    tile-size variant, or a tokenize or segreduce kernel of the default
     build or of a tile variant spills.  A library built by an earlier
     process left no log here, and is not checked."""
     usage = {name: kc.ptxas_usage(log)
@@ -1089,13 +1118,15 @@ def ptxas_report(kc, rs):
             and u.get("registers", 0) > 0 for u in kernels.values())
 
     checked = {kc.build_label("radix", d)
-               for d in sort_variants(rs).values()}
+               for d in [*sort_variants(rs).values(),
+                         *plan_variants(kc).values()]}
     radix = {f"{lib}/{k}": u for lib, kernels in usage.items()
              if lib in checked for k, u in kernels.items()}
     if radix:
-        sweep = {k: u for k, u in radix.items() if "onesweep_kernel" in k}
-        check(no_spills(sweep),
-              f"ptxas: an onesweep kernel spills or was not reported: {sweep}")
+        for kernel in ("onesweep_kernel", "plan_kernel"):
+            hot = {k: u for k, u in radix.items() if kernel in k}
+            check(no_spills(hot), f"ptxas: a {kernel} spills or was not "
+                  f"reported: {hot}")
     else:
         print("ptxas: radix.cu was built earlier; spills not checked")
     # the scan kernels: tokenize for 1-3 lanes, segreduce for 1-3 lanes
@@ -1284,7 +1315,8 @@ def main():
 
     # phase 1: build, and the card
     t0 = time.monotonic()
-    variants = [("radix", d) for d in sort_variants(rs).values() if d]
+    variants = [("radix", d) for d in [*sort_variants(rs).values(),
+                                       *plan_variants(kc).values()] if d]
     variants += [(src, d) for src in SCAN_TILE_DEFINES
                  for d in scan_variants(kc, src).values() if d]
     kc.build_all(variants)
@@ -1373,8 +1405,7 @@ def main():
     profile_phase(torch, kc, rwc, rchunks, label="profile_radix",
                   waves=RADIX_WAVES,
                   need=("tokenize kernel", "segreduce kernel",
-                        "radix upfront", "radix onesweep",
-                        "radix plan (hist, colscan, rank)"),
+                        "radix upfront", "radix onesweep", "radix plan"),
                   forbid=("torch.sort",))
     partition_map_phase(torch, wcmod, Partitions, tok, plan_rebalance, rwc,
                         data, want)

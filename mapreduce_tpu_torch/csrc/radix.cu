@@ -1,10 +1,10 @@
 // The LSD radix sort (onesweep) and the partition plan for Hopper (sm_90a).
 //
-// Replaces: mapreduce_tpu/ops/radix_sort.py:_hist_kernel (radix_hist; in
-// the sort, radix_upfront), _rank_kernel (radix_rank) and _scatter_kernel
-// (radix_onesweep), the Pallas TPU kernels behind radix_sort_pairs
-// (sort_impl='radix') and radix_partition_plan (the exchange's
-// impl='radix').
+// Replaces: mapreduce_tpu/ops/radix_sort.py:_hist_kernel (in the sort,
+// radix_upfront; in the plan, part of radix_plan), _rank_kernel
+// (radix_plan) and _scatter_kernel (radix_onesweep), the Pallas TPU
+// kernels behind radix_sort_pairs (sort_impl='radix') and
+// radix_partition_plan (the exchange's impl='radix').
 //
 // What they compute.  A digit is ((uint32)v >> shift) & mask, clamped to
 // nb - 1.  The sort's key is (k1 hi, k2 lo); its 8 passes take the 8-bit
@@ -19,12 +19,11 @@
 //                   tile's rows of digit d, out of place, where base is
 //                   the exclusive scan of table[p] over digits and
 //                   prefix[t][d] the rows of digit d in tiles before t.
-//   radix_hist      (plan) hist[b][d][t]: rows of tile t (kPlanTile rows)
-//                   of batch row b with digit d, digit-major.
-//   radix_rank      (plan) prefix[b][d][t] and totals[b][d] (the column
-//                   scan), then for every row rank = prefix[b][d][t] + its
-//                   in-tile rank: its stable input-order index in its
-//                   bucket.
+//   radix_plan      (the exchange plan) for each batch row b of dest, cut
+//                   into tiles of kPlanTile rows: rank = prefix[b][t][d]
+//                   + the row's in-tile rank, its stable input-order
+//                   index in its bucket d, and totals[b][d], the rows of
+//                   bucket d (the counts before capping).
 // A stable LSD sort has exactly one output permutation whatever its
 // digit width, so 8-bit digits in 8 passes give lax.sort((k1, k2, iota),
 // num_keys=2)'s bits, as the TPU's 4-bit digits in 16 passes do.  Keys
@@ -36,12 +35,16 @@
 // one-hot cumsum over 16 digit lanes and scatters into a full-array block
 // that every grid step revisits; its grid is sequential, so the tile
 // prefix is a scan over a histogram it wrote first.  Here tiles run in
-// parallel and the sort is onesweep: one upfront histogram of all 8
+// parallel.  The sort is onesweep: one upfront histogram of all 8
 // digits, then one kernel a pass that ranks its tile, finds its tile's
 // prefix by decoupled look-back, and scatters through shared memory.
+// The plan is one kernel of the same shape: rank the tile, look back,
+// write the ranks (no histogram pass, no column scan).
 //   - The tile id comes from an atomic counter, not blockIdx.x: a CTA
 //     that waits on its predecessors then knows they are running, and
-//     tile ids follow input order, which keeps the pass stable.
+//     tile ids follow input order, which keeps the pass stable.  The
+//     plan's ids run over batch x tiles, row-major, so a tile's
+//     predecessors in its batch row hold smaller ids.
 //   - The in-tile rank comes from input order, never from atomic order
 //     (an atomicAdd slot still sorts the keys but scrambles perm among
 //     equal keys, and the payload that sorted_unique_reduce keeps is the
@@ -50,21 +53,25 @@
 //     digit, a lane's rank is the warp's running count of its digit plus
 //     the lower lanes of its group, and an exclusive scan over the 8
 //     warps per digit finishes the tile.
-//   - Look-back: thread d publishes its digit's tile count as a word
-//     flag << 30 | count (flag 1 = aggregate, 2 = inclusive prefix, 0 =
-//     not yet), walks back over the preceding tiles adding aggregates
-//     until it meets an inclusive prefix, then publishes its own.  Flag
-//     and count share one 32-bit word, so no reader can see a flag
-//     before its count (hence n < 2^30) and the words need no fence.
-//     When a pass's tiles start together, the walks are serial chains of
-//     L2 reads (about sqrt(2 t) of them for tile t), so each step reads
-//     kWindow tiles at once.
-//   - Staged stores: the three lanes are written to shared memory in the
-//     tile's sorted order (before the look-back, which they overlap),
-//     then stored from there in one loop, so consecutive threads write
-//     consecutive addresses inside each digit's run (a direct scatter
-//     lands each row at its digit's cursor: up to 32 sectors a warp).
-//     The staged digits (one byte a row) serve all three lanes.
+//   - Look-back: thread d publishes its digit's tile count in a word that
+//     holds a status beside the count (aggregate, inclusive prefix, or 0
+//     = not yet), walks back over the preceding tiles adding aggregates
+//     until it meets an inclusive prefix, then publishes its own.  Status
+//     and count share one word, so no reader can see a status before its
+//     count and the words need no fence.  The sort's words are 32 bits,
+//     the status in the top two (hence n < 2^30); the plan's are 64 bits,
+//     the status in the high half, so a batch row takes up to 2^31 - 1
+//     rows.  When a launch's tiles start together, the walks are serial
+//     chains of L2 reads (about sqrt(2 t) of them for tile t), so each
+//     step reads kWindow tiles at once.
+//   - Staged stores (the sort): the three lanes are written to shared
+//     memory in the tile's sorted order (before the look-back, which they
+//     overlap), then stored from there in one loop, so consecutive
+//     threads write consecutive addresses inside each digit's run (a
+//     direct scatter lands each row at its digit's cursor: up to 32
+//     sectors a warp).  The staged digits (one byte a row) serve all
+//     three lanes.  The plan writes its ranks in input order: a warp's 32
+//     stores are already one 128-byte line.
 //   - The upfront counts commute: plain shared atomics, one add of 32
 //     where a warp's 32 rows hold one key (the sentinel rows, a constant
 //     key); a hash key's digits rarely repeat within a warp.
@@ -73,12 +80,16 @@
 // a row), then each pass reads and writes (k1, k2, perm): 20 B a row in
 // pass 0 (perm is the row index), 24 B after.  Both buffer sets fit the
 // 50 MB L2 at the path's sizes, so the HBM figure is a ceiling.  The
-// plan reads dest twice and writes the rank.  Nothing skips a pass whose
-// digit is constant: on hash keys every digit varies.
+// plan reads dest and writes the rank, 8 B a row, plus the totals.
+// Nothing skips a pass whose digit is constant: on hash keys every digit
+// varies.
 #include "scan.cuh"
 
 #ifndef MR_ONESWEEP_TILE
 #define MR_ONESWEEP_TILE 4096
+#endif
+#ifndef MR_PLAN_TILE
+#define MR_PLAN_TILE 4096
 #endif
 
 namespace mr_radix_kernels {
@@ -87,9 +98,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBuckets = 256;            // 8-bit digits; P + 1 <= 256
 static_assert(kThreads == kMaxBuckets, "one thread per digit");
-// the plan's tiles: 16 rows a lane
-constexpr int kPlanRounds = 16;
-constexpr int kPlanTile = kThreads * kPlanRounds;  // 4096 rows
+// the plan's tiles
+constexpr int kPlanTile = MR_PLAN_TILE;
+constexpr int kPlanRounds = kPlanTile / kThreads;
+static_assert(kPlanTile % kThreads == 0 && kPlanRounds >= 1 &&
+              kPlanRounds <= 16, "a plan tile is 256 to 4096 rows");
+// CTAs an SM (64 registers a thread): the slice's 512 tiles of 4,096 rows
+// in one wave of 132 x 4
+constexpr int kPlanCtas = 4;
 // the sort's tiles
 constexpr int kSortTile = MR_ONESWEEP_TILE;
 constexpr int kSortRounds = kSortTile / kThreads;
@@ -101,12 +117,11 @@ constexpr int kPasses = 8;
 // the upfront histogram: one CTA per SM, 2 rows a thread per round
 constexpr int kUpThreads = 1024;
 constexpr int kUpRows = 2;
-// look-back words
-constexpr uint32_t kAggregate = 1u << 30;
-constexpr uint32_t kInclusive = 2u << 30;
-constexpr uint32_t kCountMask = kAggregate - 1u;
-// scratch words of one pass: its tile counter (padded to 128 bytes),
-// then its look-back words [tiles][256]
+// look-back statuses (0: not published yet)
+constexpr uint32_t kAggregate = 1;
+constexpr uint32_t kInclusive = 2;
+// scratch words of one pass (and of the plan): its tile counter (padded
+// to 128 bytes), then its look-back words
 constexpr long long kCounterWords = 32;
 
 struct AddOp {
@@ -124,8 +139,42 @@ __device__ __forceinline__ int digit_of(int32_t v, int shift, uint32_t mask,
   return d < static_cast<uint32_t>(nb) ? static_cast<int>(d) : nb - 1;
 }
 
+// A look-back word: a status beside a count.  The sort's are 32 bits
+// (the status in the top two, so a pass takes fewer than 2^30 rows), the
+// plan's 64 (the status in the high half, the count in the low half).
+template <class W>
+struct LookWord;
+
+template <>
+struct LookWord<uint32_t> {
+  static __device__ uint32_t make(uint32_t status, int32_t count) {
+    return status << 30 | static_cast<uint32_t>(count);
+  }
+  static __device__ uint32_t status(uint32_t w) { return w >> 30; }
+  static __device__ int32_t count(uint32_t w) {
+    return static_cast<int32_t>(w & ((1u << 30) - 1u));
+  }
+};
+
+template <>
+struct LookWord<uint64_t> {
+  static __device__ uint64_t make(uint32_t status, int32_t count) {
+    return static_cast<uint64_t>(status) << 32 | static_cast<uint32_t>(count);
+  }
+  static __device__ uint32_t status(uint64_t w) {
+    return static_cast<uint32_t>(w >> 32);
+  }
+  static __device__ int32_t count(uint64_t w) {
+    return static_cast<int32_t>(static_cast<uint32_t>(w));
+  }
+};
+
 // Look-back words at GPU scope, without fences: a word carries its own
-// flag and count, and nothing else is published through it.
+// status and count, and nothing else is published through it (the 64-bit
+// loads and stores are scan.cuh's).
+using mr::load_relaxed;
+using mr::store_relaxed;
+
 __device__ __forceinline__ void store_relaxed(uint32_t* p, uint32_t v) {
   asm volatile("st.relaxed.gpu.u32 [%0], %1;" ::"l"(p), "r"(v)
                : "memory");
@@ -141,32 +190,34 @@ __device__ __forceinline__ uint32_t load_relaxed(const uint32_t* p) {
 }
 
 // Decoupled look-back for this thread's digit: the rows of the digit in
-// the tiles before `tile`, whose words lie kMaxBuckets apart below
-// `mine`.  Each step reads kWindow tiles at once (independent loads, one
-// latency) and sums them nearest first until an inclusive prefix; a tile
-// not yet published ends the step, and the next one starts there.
-__device__ __forceinline__ int32_t look_back(const uint32_t* mine,
-                                             int tile) {
+// the tiles before `tile`, whose words lie `stride` apart below `mine`.
+// Each step reads kWindow tiles at once (independent loads, one latency)
+// and sums them nearest first until an inclusive prefix; a tile not yet
+// published ends the step, and the next one starts there.
+template <class W>
+__device__ __forceinline__ int32_t look_back(const W* mine, int tile,
+                                             int stride) {
+  using Word = LookWord<W>;
   int32_t before = 0;
   int next = tile - 1;  // the nearest tile not summed yet
   for (;;) {
-    uint32_t w[kWindow];
+    W w[kWindow];
 #pragma unroll
     for (int j = 0; j < kWindow; ++j)  // past tile 0: an empty prefix
       w[j] = next - j >= 0
                  ? load_relaxed(mine - static_cast<long long>(tile - next +
                                                               j) *
-                                           kMaxBuckets)
-                 : kInclusive;
+                                           stride)
+                 : Word::make(kInclusive, 0);
     int summed = 0;
     bool stop = false;
 #pragma unroll
     for (int j = 0; j < kWindow; ++j) {
-      const uint32_t flag = w[j] & ~kCountMask;
-      stop = stop || flag == 0;
+      const uint32_t status = Word::status(w[j]);
+      stop = stop || status == 0;
       if (!stop) {
-        before += static_cast<int32_t>(w[j] & kCountMask);
-        if (flag == kInclusive) return before;
+        before += Word::count(w[j]);
+        if (status == kInclusive) return before;
         summed = j + 1;
       }
     }
@@ -174,64 +225,17 @@ __device__ __forceinline__ int32_t look_back(const uint32_t* mine,
   }
 }
 
-// Per-tile digit histogram (the plan): grid (tiles, batch).
-__global__ void __launch_bounds__(kThreads)
-    hist_kernel(const int32_t* src, long long n, int shift, uint32_t mask,
-                int nb, int tiles, int32_t* hist) {
-  __shared__ int32_t counts[kMaxBuckets];
-  const int lane = threadIdx.x & 31;
-  if (threadIdx.x < nb) counts[threadIdx.x] = 0;
-  __syncthreads();
-  const int32_t* s = src + blockIdx.y * n;
-  const long long base = static_cast<long long>(blockIdx.x) * kPlanTile;
-#pragma unroll 4
-  for (int r = 0; r < kPlanRounds; ++r) {
-    const long long i = base + r * kThreads + threadIdx.x;
-    const int d = i < n ? digit_of(s[i], shift, mask, nb) : -1;
-    const unsigned peers = __match_any_sync(mr::kFull, d);
-    if (d >= 0 && lane == __ffs(peers) - 1)
-      atomicAdd(&counts[d], __popc(peers));
-  }
-  __syncthreads();
-  if (threadIdx.x < nb)
-    hist[(static_cast<long long>(blockIdx.y) * nb + threadIdx.x) * tiles +
-         blockIdx.x] = counts[threadIdx.x];
-}
-
-// Column scan (the plan): grid (nb, batch).  prefix = exclusive scan of
-// one digit's column over the tiles, totals = the column's sum.
-__global__ void __launch_bounds__(kThreads)
-    colscan_kernel(const int32_t* hist, int nb, int tiles, int32_t* prefix,
-                   int32_t* totals) {
-  __shared__ int32_t shared[32];
-  const long long col =
-      (static_cast<long long>(blockIdx.y) * nb + blockIdx.x) * tiles;
-  const int32_t* h = hist + col;
-  int32_t* p = prefix + col;
-  const int per = (tiles + kThreads - 1) / kThreads;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, tiles);
-  const int hi = min(lo + per, tiles);
-  int32_t agg = 0;
-  for (int t = lo; t < hi; ++t) agg += h[t];
-  int32_t total;
-  int32_t run = mr::block_exclusive(AddOp{}, agg, shared, &total);
-  for (int t = lo; t < hi; ++t) {
-    p[t] = run;
-    run += h[t];
-  }
-  if (threadIdx.x == 0) totals[blockIdx.y * nb + blockIdx.x] = total;
-}
-
 // The stable in-tile rank of the rows a lane holds: dig[r] is the digit
 // of its row in round r (-1 past n); each warp owns 32 * Rounds
 // consecutive rows, round r at lane l being row r * 32 + l of the span.
-// On return local[r] is the row's rank among equal digits in the warp's
-// span, wcount[w][d] the count of digit d in the spans of warps before w,
+// rank(r, local) takes round r's rank among equal digits in the warp's
+// span, once dig[r] is read (it may overwrite dig[r]).  On return
+// wcount[w][d] is the count of digit d in the spans of warps before w,
 // and the result (threads d < nb) the tile's count of digit d.
-template <int Rounds>
+template <int Rounds, class Rank>
 __device__ __forceinline__ int32_t tile_ranks(const int* dig, int nb,
                                               int32_t (*wcount)[kMaxBuckets],
-                                              int* local) {
+                                              Rank rank) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int k = threadIdx.x; k < kWarps * kMaxBuckets; k += kThreads)
@@ -243,7 +247,7 @@ __device__ __forceinline__ int32_t tile_ranks(const int* dig, int nb,
     const int d = dig[r];
     const unsigned peers = __match_any_sync(mr::kFull, d);
     const int seen = d >= 0 ? wcount[warp][d] : 0;
-    local[r] = seen + __popc(peers & below);
+    rank(r, seen + __popc(peers & below));
     __syncwarp();
     if (d >= 0 && lane == 31 - __clz(peers))
       wcount[warp][d] = seen + __popc(peers);
@@ -262,35 +266,57 @@ __device__ __forceinline__ int32_t tile_ranks(const int* dig, int nb,
   return run;
 }
 
-// Plan ranks: grid (tiles, batch).
-__global__ void __launch_bounds__(kThreads)
-    rank_kernel(const int32_t* dest, long long n, int nb, int tiles,
-                const int32_t* prefix, int32_t* rank) {
+// The exchange plan: one tile a CTA, grid (batch * tiles).  tile_counter
+// and look [batch][tiles][nb] (zeroed) are the scratch; rank [batch, n]
+// and totals [batch, nb] the outputs (totals written by each row's last
+// tile).
+__global__ void __launch_bounds__(kThreads, kPlanCtas)
+    plan_kernel(const int32_t* dest, long long n, int nb, int tiles,
+                int32_t* tile_counter, uint64_t* look, int32_t* rank,
+                int32_t* totals) {
   __shared__ int32_t wcount[kWarps][kMaxBuckets];
-  __shared__ int32_t tile_off[kMaxBuckets];
-  const int32_t* d_in = dest + blockIdx.y * n;
-  int32_t* r_out = rank + blockIdx.y * n;
-  if (threadIdx.x < nb)
-    tile_off[threadIdx.x] =
-        prefix[(static_cast<long long>(blockIdx.y) * nb + threadIdx.x) *
-                   tiles + blockIdx.x];
+  __shared__ int tile_id;
+  if (threadIdx.x == 0) tile_id = atomicAdd(tile_counter, 1);
+  __syncthreads();
+  const int id = tile_id;
+  const int row = id / tiles;
+  const int tile = id - row * tiles;
+  const int32_t* d_in = dest + row * n;
+  int32_t* r_out = rank + row * n;
+  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long span = static_cast<long long>(blockIdx.x) * kPlanTile +
+  const long long span = static_cast<long long>(tile) * kPlanTile +
                          static_cast<long long>(warp) * 32 * kPlanRounds;
-  int dig[kPlanRounds], local[kPlanRounds];
+  // a row's digit, then its in-warp rank << 8 | its digit: one register
+  // a row fits kPlanCtas CTAs an SM without spills
+  int key[kPlanRounds];
 #pragma unroll
   for (int r = 0; r < kPlanRounds; ++r) {
-    const long long i = span + r * 32 + (threadIdx.x & 31);
-    dig[r] = i < n ? digit_of(d_in[i], 0, 0xffffffffu, nb) : -1;
+    const long long i = span + r * 32 + lane;
+    key[r] = i < n ? digit_of(d_in[i], 0, 0xffffffffu, nb) : -1;
   }
-  tile_ranks<kPlanRounds>(dig, nb, wcount, local);
+  const int32_t count = tile_ranks<kPlanRounds>(
+      key, nb, wcount,
+      [&](int r, int local) { key[r] = local << 8 | (key[r] & 0xff); });
+  if (threadIdx.x < nb) {
+    using Word = LookWord<uint64_t>;
+    uint64_t* mine = look + static_cast<long long>(id) * nb + threadIdx.x;
+    int32_t before = 0;
+    if (tile == 0) {
+      store_relaxed(mine, Word::make(kInclusive, count));
+    } else {
+      store_relaxed(mine, Word::make(kAggregate, count));
+      before = look_back(mine, tile, nb);
+      store_relaxed(mine, Word::make(kInclusive, before + count));
+    }
+    if (tile == tiles - 1) totals[row * nb + threadIdx.x] = before + count;
+    for (int w = 0; w < kWarps; ++w) wcount[w][threadIdx.x] += before;
+  }
+  __syncthreads();
 #pragma unroll
   for (int r = 0; r < kPlanRounds; ++r) {
-    const long long i = span + r * 32 + (threadIdx.x & 31);
-    if (i < n) {
-      const int d = dig[r];
-      r_out[i] = tile_off[d] + wcount[warp][d] + local[r];
-    }
+    const long long i = span + r * 32 + lane;
+    if (i < n) r_out[i] = wcount[warp][key[r] & 0xff] + (key[r] >> 8);
   }
 }
 
@@ -397,12 +423,13 @@ __global__ void __launch_bounds__(kThreads)
       dig[r] = digit_of(lane_sel ? v2[r] : v1[r], shift, 0xffu, kMaxBuckets);
     }
   }
-  const int32_t count = tile_ranks<kSortRounds>(dig, kMaxBuckets, wcount,
-                                                slot);
+  const int32_t count = tile_ranks<kSortRounds>(
+      dig, kMaxBuckets, wcount, [&](int r, int local) { slot[r] = local; });
+  using Word = LookWord<uint32_t>;
   uint32_t* mine = look + static_cast<long long>(tile) * kMaxBuckets +
                    threadIdx.x;
-  store_relaxed(mine, (tile == 0 ? kInclusive : kAggregate) |
-                          static_cast<uint32_t>(count));
+  store_relaxed(mine, Word::make(tile == 0 ? kInclusive : kAggregate,
+                                 count));
   // the tile's sorted order: digit d's rows start at tile_start
   const int32_t tile_start = mr::block_exclusive(
       AddOp{}, count, scan, static_cast<int32_t*>(nullptr));
@@ -420,9 +447,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   // decoupled look-back over the tiles before this one
-  const int32_t before = tile > 0 ? look_back(mine, tile) : 0;
-  if (tile > 0)
-    store_relaxed(mine, kInclusive | static_cast<uint32_t>(before + count));
+  const int32_t before = tile > 0 ? look_back(mine, tile, kMaxBuckets) : 0;
+  if (tile > 0) store_relaxed(mine, Word::make(kInclusive, before + count));
   digit_off[threadIdx.x] = digit_base + before - tile_start;
   __syncthreads();
   const int rows = n - base < kSortTile ? static_cast<int>(n - base)
@@ -437,6 +463,12 @@ __global__ void __launch_bounds__(kThreads)
 
 inline long long plan_tiles(long long n) {
   return (n + kPlanTile - 1) / kPlanTile;
+}
+
+// the plan's scratch: the tile counter, then look [batch][tiles][nb] of
+// 64-bit words
+inline long long plan_words(long long n, int batch, int nb) {
+  return kCounterWords + 2 * plan_tiles(n) * batch * nb;
 }
 
 inline long long sort_tiles(long long n) {
@@ -509,41 +541,32 @@ long long mr_radix_sort_scratch_words(long long n) {
   return kPasses * kMaxBuckets + kPasses * pass_words(n);
 }
 
-// Histogram of batch x n rows src [batch, n] (int32 bit patterns) into
-// hist [batch, nb, tiles] int32.  1 <= nb <= 256.
-int mr_radix_hist(const void* src, long long n, int batch, int shift,
-                  unsigned mask, int nb, void* hist, void* stream) {
-  if (n <= 0 || batch <= 0 || batch > 65535 || nb < 1 || nb > kMaxBuckets ||
-      shift < 0 || shift > 31 || n >= (1LL << 31))
-    return cudaErrorInvalidValue;
-  const int tiles = static_cast<int>(plan_tiles(n));
-  hist_kernel<<<dim3(tiles, batch), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(src), n, shift, mask, nb, tiles,
-      static_cast<int32_t*>(hist));
-  return cudaGetLastError();
+// int32 words of scratch for the plan of dest [batch, n] over nb buckets.
+long long mr_radix_plan_scratch_words(long long n, int batch, int nb) {
+  return plan_words(n, batch, nb);
 }
 
-// Plan ranks of dest [batch, n] (buckets [0, nb)) from its histogram:
-// prefix [batch, nb, tiles] and totals [batch, nb] are written on the
-// way (totals are the bucket counts), rank [batch, n] int32.
-int mr_radix_rank(const void* dest, long long n, int batch, int nb,
-                  const void* hist, void* prefix, void* totals, void* rank,
-                  void* stream) {
-  if (n <= 0 || batch <= 0 || batch > 65535 || nb < 1 || nb > kMaxBuckets ||
-      n >= (1LL << 31))
+// The exchange plan of dest [batch, n] (buckets [0, nb); other values
+// clamp to nb - 1): rank [batch, n] int32, each row's stable index in
+// its bucket, and totals [batch, nb] int32, the rows of each bucket.
+// One memset of scratch (mr_radix_plan_scratch_words words), then one
+// launch.  1 <= nb <= 256, batch <= 65535, n < 2^31.
+int mr_radix_plan(const void* dest, long long n, int batch, int nb,
+                  void* scratch, void* rank, void* totals, void* stream) {
+  if (n <= 0 || n >= (1LL << 31) || batch <= 0 || batch > 65535 ||
+      nb < 1 || nb > kMaxBuckets)
     return cudaErrorInvalidValue;
-  const int tiles = static_cast<int>(plan_tiles(n));
+  const long long tiles = plan_tiles(n);
+  if (tiles * batch > 0x7fffffffLL) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  auto* pre = static_cast<int32_t*>(prefix);
-  colscan_kernel<<<dim3(nb, batch), kThreads, 0, st>>>(
-      static_cast<const int32_t*>(hist), nb, tiles, pre,
-      static_cast<int32_t*>(totals));
-  cudaError_t err = cudaGetLastError();
+  auto* s = static_cast<int32_t*>(scratch);
+  cudaError_t err = cudaMemsetAsync(
+      s, 0, sizeof(int32_t) * plan_words(n, batch, nb), st);
   if (err != cudaSuccess) return err;
-  rank_kernel<<<dim3(tiles, batch), kThreads, 0, st>>>(
-      static_cast<const int32_t*>(dest), n, nb, tiles, pre,
-      static_cast<int32_t*>(rank));
+  plan_kernel<<<static_cast<int>(tiles * batch), kThreads, 0, st>>>(
+      static_cast<const int32_t*>(dest), n, nb, static_cast<int>(tiles), s,
+      reinterpret_cast<uint64_t*>(s + kCounterWords),
+      static_cast<int32_t*>(rank), static_cast<int32_t*>(totals));
   return cudaGetLastError();
 }
 

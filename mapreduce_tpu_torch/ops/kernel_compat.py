@@ -50,13 +50,12 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 #: the kernels of this package, by the name their counters use
-KERNELS = ("tokenize", "segreduce", "radix_hist", "radix_rank",
-           "radix_upfront", "radix_onesweep", "flash_fwd", "flash_dq",
-           "flash_dkv")
+KERNELS = ("tokenize", "segreduce", "radix_plan", "radix_upfront",
+           "radix_onesweep", "flash_fwd", "flash_dq", "flash_dkv")
 #: the kernel sources, ``csrc/<name>.cu``: one shared library each
 #: (``radix.cu`` holds the sort's upfront and onesweep kernels and the
-#: plan's hist and rank, ``flash_attention.cu`` the three flash-attention
-#: kernels)
+#: exchange plan's kernel, ``flash_attention.cu`` the three
+#: flash-attention kernels)
 SOURCES = ("tokenize", "segreduce", "radix", "flash_attention")
 #: kernel launches per kernel (one per wrapper call that launched it)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

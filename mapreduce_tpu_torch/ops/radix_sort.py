@@ -16,21 +16,23 @@
     and 8 onesweep launches on the current stream).
 
 ``radix_partition_plan(dest, num_partitions) -> (rank, counts)``
-    The exchange's routing plan from one histogram pass over the
-    destination: ``rank`` is each row's stable input-order index within
-    its bucket (rows of bucket ``P``, the dropped ones, rank among
-    themselves) and ``counts`` the rows per destination before capacity
-    capping (the traffic-matrix row).  ``dest`` may carry a leading batch
-    axis (one plan per source partition, one launch for all).
+    The exchange's routing plan from one pass over the destination:
+    ``rank`` is each row's stable input-order index within its bucket
+    (rows of bucket ``P``, the dropped ones, rank among themselves) and
+    ``counts`` the rows per destination before capacity capping (the
+    traffic-matrix row).  ``dest`` may carry a leading batch axis (one
+    plan per source partition).  On the card the plan is one C call (a
+    memset and one ``radix_plan`` launch for all rows): each tile ranks
+    its rows and finds its prefix by decoupled look-back.
 
-The four kernels live in ``csrc/radix.cu``.  Each has its plain PyTorch
-version here, with the kernel's arithmetic: the sort's ``[8, 256]``
-upfront table, its passes over tiles of :data:`RADIX_SORT_TILE` rows
-(the digit base, the tile prefix in tile order that the look-back
-finds, the in-tile stable rank), the plan's digit-major histogram
-``[batch, R, tiles]`` over tiles of :data:`RADIX_TILE` rows and its
-column scan (the in-tile rank is a one-hot cumsum here, a warp match
-there).  :mod:`.kernel_compat`'s rule picks between them by the
+The three kernels live in ``csrc/radix.cu``.  Each has its plain
+PyTorch version here, with the kernel's arithmetic: the sort's ``[8,
+256]`` upfront table, its passes over tiles of :data:`RADIX_SORT_TILE`
+rows (the digit base, the tile prefix in tile order that the look-back
+finds, the in-tile stable rank), and the plan as a digit-major
+histogram ``[batch, R, tiles]`` over tiles of :data:`RADIX_TILE` rows,
+its column scan and the in-tile rank (a one-hot cumsum here, a warp
+match there).  :mod:`.kernel_compat`'s rule picks between them by the
 tensor's device; on the CPU the sort is these plain passes, never
 ``torch.sort``.
 """
@@ -52,7 +54,8 @@ RADIX_PASSES = 2 * (32 // RADIX_BITS)
 #: ``(lane, shift)`` of each pass: lane 1 is k2, the low word, first
 PASSES = tuple((lane, shift) for lane in (1, 0)
                for shift in range(0, 32, RADIX_BITS))
-#: rows per tile of the plan (the kernels' 256 threads x 16 rows)
+#: rows per tile of the plan (``MR_PLAN_TILE`` of ``csrc/radix.cu``; no
+#: output of the plain version depends on it)
 RADIX_TILE = 4096
 #: rows per tile of the sort's onesweep passes (256 threads x 16 rows)
 RADIX_SORT_TILE = 4096
@@ -60,6 +63,10 @@ RADIX_SORT_TILE = 4096
 MAX_PARTITIONS = RADIX - 1
 #: the most rows a sort takes: a look-back word holds a count below 2^30
 MAX_SORT_ROWS = (1 << 30) - 1
+#: the most rows a plan's batch row takes on the card (rank is int32),
+#: and the most batch rows
+MAX_PLAN_ROWS = (1 << 31) - 1
+MAX_PLAN_BATCH = 65535
 #: rows of one-hot rank work per plain-version step (bounds its memory)
 _PLAIN_ROWS = 1 << 22
 
@@ -134,6 +141,14 @@ def _radix_rank_plain(dest: torch.Tensor, hist: torch.Tensor,
     return rank.to(torch.int32), totals
 
 
+def _radix_plan_plain(dest: torch.Tensor, nbuckets: int):
+    """The plan of ``dest [b, n]`` int32 over *nbuckets* buckets: ``(rank
+    [b, n], totals [b, nbuckets])`` int32, from the histogram and the
+    ranks above."""
+    hist = _radix_hist_plain(dest, 0, kc.MASK32, nbuckets)
+    return _radix_rank_plain(dest, hist, nbuckets)
+
+
 def _pass_digits(k1: torch.Tensor, k2: torch.Tensor, lane: int,
                  shift: int) -> torch.Tensor:
     """The 8-bit digit at *shift* of k1 (lane 0) or k2 (lane 1), int64."""
@@ -198,13 +213,12 @@ _SIGNATURES = {
     "mr_radix_sort_tile": (ctypes.c_int, []),
     "mr_radix_pass_scratch_words": (ctypes.c_longlong, [ctypes.c_longlong]),
     "mr_radix_sort_scratch_words": (ctypes.c_longlong, [ctypes.c_longlong]),
-    "mr_radix_hist": (ctypes.c_int,
+    "mr_radix_plan_scratch_words": (ctypes.c_longlong,
+                                    [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int]),
+    "mr_radix_plan": (ctypes.c_int,
                       [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_uint, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]),
-    "mr_radix_rank": (ctypes.c_int,
-                      [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int] + [ctypes.c_void_p] * 5),
+                       ctypes.c_int] + [ctypes.c_void_p] * 4),
     "mr_radix_upfront": (ctypes.c_int,
                          [ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                          + [ctypes.c_void_p] * 2),
@@ -229,35 +243,27 @@ def _lib():
     return lib
 
 
-def _radix_hist_cuda(src: torch.Tensor, shift: int, mask: int,
-                     nbuckets: int) -> torch.Tensor:
-    dev = src.device
-    kc.require(src, "radix_hist", "src", torch.int32, dev)
-    b, n = src.shape
-    hist = torch.empty((b, nbuckets, _tiles(n)), dtype=torch.int32,
-                       device=dev)
-    err = _lib().mr_radix_hist(kc.ptr(src), n, b, shift, mask & kc.MASK32,
-                               nbuckets, kc.ptr(hist), kc.stream(dev))
-    kc.check("radix_hist", err)
-    kc.LAUNCHES["radix_hist"] += 1
-    return hist
-
-
-def _radix_rank_cuda(dest: torch.Tensor, hist: torch.Tensor,
-                     nbuckets: int):
+def _radix_plan_cuda(dest: torch.Tensor, nbuckets: int):
+    """The plan in one C call: a memset of the look-back scratch and one
+    launch of ``plan_kernel`` over every tile of every batch row."""
     dev = dest.device
-    kc.require(dest, "radix_rank", "dest", torch.int32, dev)
     b, n = dest.shape
-    kc.require(hist, "radix_rank", "hist", torch.int32, dev,
-               (b, nbuckets, _tiles(n)))
-    prefix = torch.empty_like(hist)
-    totals = torch.empty((b, nbuckets), dtype=torch.int32, device=dev)
+    if n > MAX_PLAN_ROWS:
+        raise ValueError(f"radix_plan: at most {MAX_PLAN_ROWS} rows a batch "
+                         f"row (the rank is int32), got {n}")
+    if b > MAX_PLAN_BATCH:
+        raise ValueError(f"radix_plan: at most {MAX_PLAN_BATCH} batch rows, "
+                         f"got {b}")
+    kc.require(dest, "radix_plan", "dest", torch.int32, dev)
+    lib = _lib()
+    scratch = torch.empty(lib.mr_radix_plan_scratch_words(n, b, nbuckets),
+                          dtype=torch.int32, device=dev)
     rank = torch.empty_like(dest)
-    err = _lib().mr_radix_rank(kc.ptr(dest), n, b, nbuckets, kc.ptr(hist),
-                               kc.ptr(prefix), kc.ptr(totals), kc.ptr(rank),
-                               kc.stream(dev))
-    kc.check("radix_rank", err)
-    kc.LAUNCHES["radix_rank"] += 1
+    totals = torch.empty((b, nbuckets), dtype=torch.int32, device=dev)
+    err = lib.mr_radix_plan(kc.ptr(dest), n, b, nbuckets, kc.ptr(scratch),
+                            kc.ptr(rank), kc.ptr(totals), kc.stream(dev))
+    kc.check("radix_plan", err)
+    kc.LAUNCHES["radix_plan"] += 1
     return rank, totals
 
 
@@ -332,23 +338,6 @@ def _radix_sort_cuda(k1: torch.Tensor, k2: torch.Tensor):
 
 # -- the wrappers: the kernel on CUDA, the plain version on the CPU -----------
 
-def radix_hist(src: torch.Tensor, shift: int, mask: int,
-               nbuckets: int) -> torch.Tensor:
-    """Per-tile digit histogram of ``src [b, n]`` int32 bit patterns:
-    ``hist [b, nbuckets, tiles]`` int32 (digit-major)."""
-    if kc.use_kernel(src, "radix_hist"):
-        return _radix_hist_cuda(src, shift, mask, nbuckets)
-    return _radix_hist_plain(src, shift, mask, nbuckets)
-
-
-def radix_rank(dest: torch.Tensor, hist: torch.Tensor, nbuckets: int):
-    """Stable ranks within buckets of ``dest [b, n]`` from its histogram:
-    ``(rank [b, n], totals [b, nbuckets])`` int32."""
-    if kc.use_kernel(dest, "radix_rank"):
-        return _radix_rank_cuda(dest, hist, nbuckets)
-    return _radix_rank_plain(dest, hist, nbuckets)
-
-
 def radix_sort_pairs(k1: torch.Tensor, k2: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stable radix sort by ``(k1 hi, k2 lo)`` as uint32: ``(k1s, k2s,
@@ -369,12 +358,14 @@ def radix_sort_pairs(k1: torch.Tensor, k2: torch.Tensor
 
 def radix_partition_plan(dest: torch.Tensor, num_partitions: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The exchange's plan from one histogram pass.  ``dest`` is int32 in
-    ``[0, P]`` (``P`` marks a dropped row; anything outside clamps to
-    ``P``), shaped ``[n]`` or ``[b, n]`` (one plan per row).  Returns
-    ``(rank, counts)``: ``rank`` like ``dest``, each row's stable index
-    within its bucket; ``counts`` ``[P]`` or ``[b, P]``, rows per
-    destination before capping."""
+    """The exchange's plan.  ``dest`` is int32 in ``[0, P]`` (``P`` marks a
+    dropped row; anything outside clamps to ``P``), shaped ``[n]`` or
+    ``[b, n]`` (one plan per row).  Returns ``(rank, counts)``: ``rank``
+    like ``dest``, each row's stable index within its bucket; ``counts``
+    ``[P]`` or ``[b, P]``, rows per destination before capping.  On the
+    card: one C call on the current stream with no host sync, which takes
+    at most :data:`MAX_PLAN_BATCH` rows of at most :data:`MAX_PLAN_ROWS`;
+    on the CPU: :func:`_radix_plan_plain`."""
     P = int(num_partitions)
     if not 1 <= P <= MAX_PARTITIONS:
         raise ValueError(f"radix_partition_plan takes 1..{MAX_PARTITIONS} "
@@ -383,11 +374,13 @@ def radix_partition_plan(dest: torch.Tensor, num_partitions: int
     squeeze = dest.dim() == 1
     d2 = (dest[None] if squeeze else dest).to(torch.int32).contiguous()
     b, n = d2.shape
-    if n == 0:
-        rank = torch.zeros((b, 0), dtype=torch.int32, device=dest.device)
+    if d2.numel() == 0:
+        rank = torch.zeros((b, n), dtype=torch.int32, device=dest.device)
         counts = torch.zeros((b, P), dtype=torch.int32, device=dest.device)
     else:
-        hist = radix_hist(d2, 0, kc.MASK32, P + 1)
-        rank, totals = radix_rank(d2, hist, P + 1)
+        if kc.use_kernel(d2, "radix_plan"):
+            rank, totals = _radix_plan_cuda(d2, P + 1)
+        else:
+            rank, totals = _radix_plan_plain(d2, P + 1)
         counts = totals[:, :P]
     return (rank[0], counts[0]) if squeeze else (rank, counts)

@@ -320,15 +320,14 @@ def test_launch_counters_count_kernel_launches(dev):
     tokenize.tokenize_hash(chunk)
     k = torch.zeros(10, dtype=torch.int32, device=dev)
     segscan.segment_reduce(k, k, [], "sum", True)
-    assert kc.LAUNCHES == {"tokenize": 1, "segreduce": 1, "radix_hist": 0,
-                           "radix_rank": 0, "radix_upfront": 0,
-                           "radix_onesweep": 0, "flash_fwd": 0,
-                           "flash_dq": 0, "flash_dkv": 0}
+    assert kc.LAUNCHES == {"tokenize": 1, "segreduce": 1, "radix_plan": 0,
+                           "radix_upfront": 0, "radix_onesweep": 0,
+                           "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
     assert all(v == 0 for v in kc.PLAIN_CALLS.values())
 
 
-#: radix shapes: tiny, around the plan's 4096-row tile, and the main
-#: path's combiner (852,072) and fold (1,310,720) inputs
+#: radix shapes: tiny, around 4,096 rows, and the main path's combiner
+#: (852,072) and fold (1,310,720) inputs
 RADIX_NS = [1, 2, 4095, 4096, 4097, 100_003, 852_072, 1_310_720]
 #: and around the sort's onesweep tile (one tile, and two and a row)
 SORT_NS = sorted(set(RADIX_NS) | {radix_sort.RADIX_SORT_TILE + d
@@ -416,33 +415,100 @@ def test_radix_sort_limits_raise(dev):
         radix_sort._radix_onesweep_cuda(k, k, None, 1, 0, k, (k, k, k))
 
 
-@pytest.mark.parametrize("P,b,n", [(1, 1, 1), (8, 1, 4097), (8, 8, 262_144),
-                                   (255, 2, 100_003), (255, 1, 9000)])
-def test_radix_plan_kernels_match_plain(dev, P, b, n):
-    rng = np.random.default_rng(P + n)
-    dest = torch.from_numpy(rng.integers(0, P + 1, (b, n)).astype(np.int32))
-    dest[:, ::97] = P  # dropped rows rank among themselves
-    want_h = radix_sort._radix_hist_plain(dest, 0, kc.MASK32, P + 1)
-    got_h = radix_sort._radix_hist_cuda(dest.to(dev), 0, kc.MASK32, P + 1)
-    assert torch.equal(got_h.cpu(), want_h)
-    want = radix_sort._radix_rank_plain(dest, want_h, P + 1)
-    got = radix_sort._radix_rank_cuda(dest.to(dev), got_h, P + 1)
+#: the plan's tile
+PTILE = radix_sort.RADIX_TILE
+
+
+def _plan_dest(case, P, b, n, seed):
+    """``[b, n]`` int32 destinations in ``[0, P]``: uniform, with one batch
+    row wholly dropped, with a one-bucket head (the early tiles), with one
+    row all in one bucket, or skewed to one bucket and the dropped one."""
+    rng = np.random.default_rng(seed)
+    dest = rng.integers(0, P + 1, (b, n)).astype(np.int32)
+    if case == "row-dropped":
+        dest[b // 2] = P
+    elif case == "one-bucket-head":
+        dest[:, : 2 * PTILE + 7] = P // 2
+    elif case == "row-one-bucket":
+        dest[0] = P // 2
+    elif case == "skewed":
+        dest[rng.random((b, n)) < 0.9] = 0
+        dest[:, ::97] = P
+    return torch.from_numpy(dest)
+
+
+#: (case, P, batch, n): n around the tile, several tiles with a dropped
+#: row or a one-bucket head, the partition limits, batch 1 and 8, the
+#: slice's [8, 262,144], and look-back chains of 64+ tiles a row
+PLAN_CASES = [("uniform", 3, 1, 1), ("uniform", 8, 1, PTILE - 1),
+              ("uniform", 8, 1, PTILE), ("uniform", 8, 8, PTILE + 1),
+              ("row-dropped", 8, 8, 3 * PTILE + 5),
+              ("one-bucket-head", 8, 1, 4 * PTILE - 3),
+              ("uniform", 1, 8, 2 * PTILE + 1),
+              ("uniform", 255, 1, PTILE + 100),
+              ("one-bucket-head", 255, 8, 3 * PTILE),
+              ("skewed", 8, 8, 262_144), ("uniform", 8, 8, 262_144),
+              ("row-one-bucket", 8, 2, 70 * PTILE + 3),
+              ("row-dropped", 8, 3, 64 * PTILE),
+              ("skewed", 255, 2, 1_310_720), ("uniform", 8, 1, 5_000_000)]
+
+
+@pytest.mark.parametrize("case,P,b,n", PLAN_CASES)
+def test_radix_plan_kernel_matches_plain(dev, case, P, b, n):
+    dest = _plan_dest(case, P, b, n, seed=P + b + n)
+    want_rank, want_totals = radix_sort._radix_plan_plain(dest, P + 1)
+    got_rank, got_totals = radix_sort._radix_plan_cuda(dest.to(dev), P + 1)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got_rank.cpu(), want_rank)
+    assert torch.equal(got_totals.cpu(), want_totals)
     rank, counts = radix_sort.radix_partition_plan(dest.to(dev), P)
-    assert torch.equal(counts.cpu(), want[1][:, :P])
+    assert torch.equal(rank.cpu(), want_rank)
+    assert torch.equal(counts.cpu(), want_totals[:, :P])
+    if b == 1:  # the unbatched form
+        r1, c1 = radix_sort.radix_partition_plan(dest[0].to(dev), P)
+        assert torch.equal(r1.cpu(), want_rank[0])
+        assert torch.equal(c1.cpu(), want_totals[0, :P])
+
+
+@pytest.mark.parametrize("case,P,b,n", [("uniform", 8, 8, 262_144),
+                                        ("row-one-bucket", 8, 2,
+                                         70 * PTILE + 3)])
+def test_radix_plan_repeats_and_replays_bit_for_bit(dev, case, P, b, n):
+    """The scratch (tile counter, look-back words) is zeroed by the memset
+    inside the C call, so 20 calls and 50 graph replays give the first
+    call's bits."""
+    dest = _plan_dest(case, P, b, n, seed=1).to(dev)
+    _repeats_and_replays(lambda: radix_sort.radix_partition_plan(dest, P))
+
+
+def test_radix_plan_limits_raise(dev):
+    d = torch.zeros((1, 10), dtype=torch.int32, device=dev)
+    for P in (0, radix_sort.MAX_PARTITIONS + 1):
+        with pytest.raises(ValueError, match="partitions"):
+            radix_sort.radix_partition_plan(d, P)
+    wide = torch.zeros((radix_sort.MAX_PLAN_BATCH + 1, 1),
+                       dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="batch rows"):
+        radix_sort.radix_partition_plan(wide, 8)
+    long_row = torch.empty((1, radix_sort.MAX_PLAN_ROWS + 1),
+                           dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="rows a batch row"):
+        radix_sort.radix_partition_plan(long_row, 8)
+    del long_row
+    with pytest.raises(ValueError, match="contiguous"):
+        radix_sort._radix_plan_cuda(d.to(torch.int64), 9)
 
 
 def test_radix_launch_counters(dev):
     kc.reset_counts()
     k = torch.arange(10_000, dtype=torch.int32, device=dev)
     radix_sort.radix_sort_pairs(k, k)
-    radix_sort.radix_partition_plan(k[None] % 9, 8)
+    assert kc.LAUNCHES["radix_plan"] == 0
+    for calls in (1, 2, 3):
+        radix_sort.radix_partition_plan(k[None] % 9, 8)
+        assert kc.LAUNCHES["radix_plan"] == calls
     assert kc.LAUNCHES["radix_upfront"] == 1
     assert kc.LAUNCHES["radix_onesweep"] == radix_sort.RADIX_PASSES
-    assert kc.LAUNCHES["radix_hist"] == 1
-    assert kc.LAUNCHES["radix_rank"] == 1
     assert all(v == 0 for v in kc.PLAIN_CALLS.values())
 
 

@@ -150,18 +150,50 @@ def test_sort_of_nothing():
     assert perm.dtype == torch.int32
 
 
-@pytest.mark.parametrize("P", [1, 3, 8])
-def test_plain_plan_matches_jax_plan(P):
-    rng = np.random.default_rng(P)
-    n = 2 * JBLOCK + 31
-    dest = rng.integers(0, P + 1, n).astype(np.int32)
-    j_rank, j_counts = jrs.radix_partition_plan(
-        jnp.asarray(dest), P, block=JBLOCK, interpret=True)
+#: the port's plan tile
+PTILE = rs.RADIX_TILE
+
+
+def _plan_dest(case, P, b, n, seed):
+    """``[b, n]`` int32 destinations in ``[0, P]`` for a plan case."""
+    rng = np.random.default_rng(seed)
+    dest = rng.integers(0, P + 1, (b, n)).astype(np.int32)
+    if case == "row-dropped":  # a whole batch row in the dropped bucket
+        dest[b // 2] = P
+    elif case == "one-bucket-head":  # the early tiles hold one bucket
+        dest[:, : 2 * PTILE + 7] = P // 2
+    return dest
+
+
+#: (case, P, batch, n): n around the port's tile, several tiles with a
+#: dropped row or a one-bucket head (look-back chains on the card), the
+#: partition limits, batch 1 and 8
+PLAN_CASES = [("uniform", 3, 1, 1), ("uniform", 8, 1, PTILE - 1),
+              ("uniform", 8, 1, PTILE), ("uniform", 8, 8, PTILE + 1),
+              ("uniform", 1, 1, 2 * JBLOCK + 31),
+              ("row-dropped", 8, 8, 3 * PTILE + 5),
+              ("one-bucket-head", 8, 1, 4 * PTILE - 3),
+              ("uniform", 1, 8, 2 * PTILE + 1),
+              ("uniform", rs.MAX_PARTITIONS, 1, PTILE + 100),
+              ("one-bucket-head", rs.MAX_PARTITIONS, 8, 3 * PTILE)]
+
+
+@pytest.mark.parametrize("case,P,b,n", PLAN_CASES)
+def test_plain_plan_matches_jax_plan(case, P, b, n):
+    """The plain plan (the kernel's arithmetic) against the JAX plan, one
+    JAX call a batch row: every row's rank, the dropped bucket P's
+    included, and the counts, bit for bit."""
+    dest = _plan_dest(case, P, b, n, seed=P + b + n)
     rank, counts = rs.radix_partition_plan(_t(dest), P)
-    # every row, the dropped bucket P's ranks included
-    assert np.array_equal(rank.numpy(), np.asarray(j_rank))
-    assert np.array_equal(counts.numpy(), np.asarray(j_counts))
+    assert rank.shape == (b, n) and counts.shape == (b, P)
     assert rank.dtype == counts.dtype == torch.int32
+    p_rank, p_totals = rs._radix_plan_plain(_t(dest), P + 1)
+    assert torch.equal(p_rank, rank) and torch.equal(p_totals[:, :P], counts)
+    for row in range(b):
+        j_rank, j_counts = jrs.radix_partition_plan(
+            jnp.asarray(dest[row]), P, block=JBLOCK, interpret=True)
+        assert np.array_equal(rank[row].numpy(), np.asarray(j_rank)), row
+        assert np.array_equal(counts[row].numpy(), np.asarray(j_counts)), row
 
 
 def test_batched_plan_is_one_plan_per_row():
@@ -327,10 +359,9 @@ def test_cpu_radix_path_runs_plain_versions_and_no_torch_sort(monkeypatch):
                               "sum", sort_impl="radix")
     assert kc.PLAIN_CALLS["radix_upfront"] == 1
     assert kc.PLAIN_CALLS["radix_onesweep"] == rs.RADIX_PASSES
-    assert kc.PLAIN_CALLS["radix_hist"] == 0
+    assert kc.PLAIN_CALLS["radix_plan"] == 0
     keys, vals, pay, valid, _, _ = _exchange_inputs(9)
     partition_exchange(_t(keys), _t(vals), _t(pay), _t(valid), 6,
                        impl="radix")
-    assert kc.PLAIN_CALLS["radix_hist"] == 1
-    assert kc.PLAIN_CALLS["radix_rank"] == 1
+    assert kc.PLAIN_CALLS["radix_plan"] == 1
     assert all(v == 0 for v in kc.LAUNCHES.values())

@@ -116,7 +116,7 @@ def test_radix_slice_matches_jax_lax_engine(jax_ref, cfg_name):
     kc.reset_counts()
     wc, chunks, res, tm = _port_run(CFG if cfg_name == "fitting" else TINY,
                                     sort_impl="radix")
-    assert kc.PLAIN_CALLS["radix_rank"] >= WAVES
+    assert kc.PLAIN_CALLS["radix_plan"] >= WAVES
     assert kc.PLAIN_CALLS["radix_onesweep"] > 0
     _pin_result(res, jres)
     assert twc.materialize_counts(chunks, res) == Counter(DATA.split())
@@ -224,11 +224,12 @@ def test_convert_round_trips(jax_ref):
 
 def _port_sources():
     files = sorted((ROOT / "mapreduce_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "probe_plan.py"]
 
 
 def test_port_imports_no_jax():
-    """An AST walk over the port and chip_smoke.py: no ``import jax``, no
+    """An AST walk over the port, chip_smoke.py and probe_plan.py: no
+    ``import jax``, no
     ``from jax...``, nothing of the JAX package ``mapreduce_tpu``."""
     def banned(name):
         top = name.split(".")[0]
