@@ -33,14 +33,23 @@ which raises on failure:
    Europarl-shaped corpus (24 chunks, two 12-chunk waves, so the
    accumulator carries across waves), counts held against
    ``collections.Counter(data.split())``, launch counters read around
-   the run; then a small collision-verify count;
+   each run: first the flagship bench's staged path (``stage``, timed
+   as ``ingress_s`` with residency included, ``warm``, then
+   ``count_staged``: no ``upload_s``, and ``memory_allocated()`` falls
+   by the staged bytes once the handle is consumed; the ``staged``
+   line), then the streaming ``count_bytes`` (input bytes held at once
+   at most ``STREAM_PREFETCH`` waves); then a small collision-verify
+   count;
 5. one more slice run under ``torch.profiler``: device time and events
    by group (the kernels, the library sort, host-to-device copies,
    memsets, the rest), counted over device-side events only, and the
    device busy share (device time over the profiled run's wall time, a
    floor, since the profiler lengthens that wall time); each tokenize
    and segreduce wrapper call (and, in phase 7, each exchange plan) must
-   show as exactly one kernel event;
+   show as exactly one kernel event; from the run's Chrome trace, every
+   host-to-device copy must be pinned (``Memcpy HtoD (Pinned ->
+   Device)``) and on another stream than the kernels (the ``*_upload``
+   line: the copies' device ms and the share overlapping kernel time);
 6. the radix kernels against their plain versions on inputs the radix
    path makes from the corpus: ``radix_sort_pairs`` (one C call: a
    memset, the upfront kernel and 8 onesweep passes) at the combiner's
@@ -64,7 +73,17 @@ which raises on failure:
    launches for each upfront one: a sort is one C call) and no plain
    call, then a profiled run (no ``torch.sort`` device time) and a run
    under a ``plan_rebalance`` partition map (same counts, the matrix
-   against the host recompute under that table);
+   against the host recompute under that table); then the tier policy
+   ``sort_impl='tiered-radix'`` at the same shape (the ``tiered``
+   line): (a) warm, tier ``radix`` from the first wave, no swap, the
+   radix kernels launched; (b) under ``tiering.force_cold()``, wave 0
+   on tier 0 (``torch.sort`` calls, no radix launch), at most one swap,
+   then, once the specializer is done, a run served by ``radix``; (c)
+   truly cold: ``python3 chip_smoke.py --cold tiered-radix`` and
+   ``--cold radix`` each in a subprocess with an empty temporary
+   ``kernel_compat.BUILD_DIR`` over 1M words (``first_dispatch_s`` and
+   each library's build seconds); counts and matrices equal everywhere,
+   and no tier-1 build may fail;
 8. the flash-attention kernels against their plain versions on the card
    at the transformer slice's shape ``[4, 8, 2048, 128]`` bf16 causal,
    plus a full (non-causal) case and a ragged ``T = 2000``, ``D = 64``
@@ -486,10 +505,71 @@ def _profile_group(name):
     return "other"
 
 
-def device_profile(torch, label, run, group_of):
+def trace_events(prof):
+    """The device events (kernels, copies, memsets) of a finished
+    profile, from its Chrome trace: ``[{"cat", "name", "stream", "ts",
+    "dur"}]`` in microseconds."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    return [{"cat": e["cat"], "name": e["name"],
+             "stream": (e.get("args") or {}).get("stream", e.get("tid")),
+             "ts": float(e["ts"]), "dur": float(e.get("dur", 0.0))}
+            for e in events
+            if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def _covered(intervals, lo, hi):
+    """Microseconds of [lo, hi) inside the union of sorted *intervals*."""
+    return sum(max(0.0, min(hi, b) - max(lo, a)) for a, b in intervals)
+
+
+def upload_report(label, events):
+    """Phase 5's check of a run's uploads: every host-to-device copy
+    pinned and on another stream than the port's kernels; prints the
+    copies' device ms and the share of it that overlaps kernel time."""
+    h2d = [e for e in events
+           if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    ours = [e for e in events if e["cat"] == "kernel"
+            and _profile_group(e["name"]) != "other"]
+    check(h2d and ours, f"{label}: no uploads or no kernels in the trace")
+    pageable = sorted({e["name"] for e in h2d if "Pinned" not in e["name"]})
+    check(not pageable, f"{label}: pageable host-to-device copies: "
+          f"{pageable}")
+    kernel_streams = {e["stream"] for e in ours}
+    copy_streams = {e["stream"] for e in h2d}
+    check(not kernel_streams & copy_streams,
+          f"{label}: uploads on the kernels' stream {kernel_streams}")
+    # the union of every kernel's interval on the kernels' streams
+    busy = []
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e["cat"] == "kernel"
+                       and e["stream"] in kernel_streams):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    h2d_us = sum(e["dur"] for e in h2d)
+    overlap_us = sum(_covered(busy, e["ts"], e["ts"] + e["dur"])
+                     for e in h2d)
+    print(json.dumps({f"{label}_upload": {
+        "h2d_ms": h2d_us / 1e3, "copies": len(h2d),
+        "overlap_share": overlap_us / h2d_us,
+        "copy_streams": sorted(copy_streams),
+        "kernel_streams": sorted(kernel_streams)}}))
+
+
+def device_profile(torch, label, run, group_of, on_trace=None):
     """Run *run* once under torch.profiler; prints device microseconds and
     events by ``group_of(kernel name)`` and the 12 largest device events
-    under *label*, and returns both by group: ``(us, events)``."""
+    under *label*, and returns both by group: ``(us, events)``.  With
+    *on_trace*, calls it with the run's :func:`trace_events`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -500,6 +580,8 @@ def device_profile(torch, label, run, group_of):
         run()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
+    if on_trace is not None:
+        on_trace(trace_events(prof))
     groups, calls, rows = {}, {}, []
     for ev in prof.key_averages():
         # device-side events only: a CPU op also reports its kernels'
@@ -530,13 +612,15 @@ def profile_phase(torch, kc, wc, chunks, label="profile", waves=None,
                   need=("tokenize kernel", "segreduce kernel"), forbid=()):
     """One engine run of a slice under torch.profiler (printed).  Fails if
     a group in *need* shows no device time or one in *forbid* shows any,
-    or if the tokenize, segreduce or plan kernel events differ in number
-    from their wrappers' launches in the run (one kernel a call)."""
+    if the tokenize, segreduce or plan kernel events differ in number
+    from their wrappers' launches in the run (one kernel a call), or if
+    an upload is pageable or on the kernels' stream (:func:`
+    upload_report`)."""
     engine = wc._engine_for(chunks.shape[1])
     kc.reset_counts()
-    groups, calls = device_profile(torch, label,
-                                   lambda: engine.run(chunks, waves=waves),
-                                   _profile_group)
+    groups, calls = device_profile(
+        torch, label, lambda: engine.run(chunks, waves=waves),
+        _profile_group, on_trace=lambda ev: upload_report(label, ev))
     check(all(groups.get(g, 0) > 0 for g in need),
           f"{label}: profiled run shows no device time in {need}: {groups}")
     check(all(groups.get(g, 0) == 0 for g in forbid),
@@ -901,7 +985,7 @@ def radix_slice_phase(torch, kc, rs, wcmod, Partitions, data, want):
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "matrix": matrix, "host_matrix_s": host_s,
         "launches": launches, "plain_calls": plain}}))
-    return wc, launches
+    return wc, launches, matrix
 
 
 def partition_map_phase(torch, wcmod, Partitions, tok, plan_rebalance,
@@ -932,6 +1016,223 @@ def partition_map_phase(torch, wcmod, Partitions, tok, plan_rebalance,
         "buckets": B, "table": table.tolist(),
         "col_sums": tm["exchange"]["col_sums"],
         "compute_s": tm["compute_s"]}}))
+
+
+def staged_phase(torch, kc, wc, data, want):
+    """Phase 4's staged run in the flagship bench's order: ``stage``
+    (ingress, residency included), ``warm``, then ``count_staged``: the
+    counts, no upload charged, no plain call, and the staged bytes freed
+    once the handle is consumed."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    handle = wc.stage(data)
+    ingress_s = time.monotonic() - t0
+    staged_bytes = sum(t.numel() * t.element_size() for t in handle[2][0])
+    mem_staged = torch.cuda.memory_allocated()
+    warm_s = wc.warm()
+    kc.reset_counts()
+    tm = {}
+    t0 = time.monotonic()
+    got = wc.count_staged(handle, timings=tm)
+    wall = time.monotonic() - t0
+    launches = dict(kc.LAUNCHES)
+    plain = dict(kc.PLAIN_CALLS)
+    del handle
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    check(got == want, "staged: counts differ from Counter")
+    check("upload_s" not in tm, f"staged: upload charged: {tm}")
+    check(all(v == 0 for v in plain.values()),
+          f"staged: plain versions ran on the card path: {plain}")
+    check(launches["tokenize"] > 0 and launches["segreduce"] > 0,
+          f"staged: kernels not launched: {launches}")
+    check(mem_staged - mem_after >= staged_bytes,
+          f"staged: memory fell {mem_staged - mem_after} bytes, the "
+          f"handle held {staged_bytes}")
+    print(json.dumps({"staged": {
+        "ingress_s": ingress_s, "warm_s": warm_s,
+        "compute_s": tm["compute_s"], "readback_s": tm["readback_s"],
+        "materialize_s": tm["materialize_s"], "wall_s": wall,
+        "first_dispatch_s": tm["first_dispatch_s"], "waves": tm["waves"],
+        "staged_bytes": staged_bytes, "memory_allocated_staged": mem_staged,
+        "memory_allocated_after": mem_after,
+        "launches": launches}}))
+
+
+def count_sorts(torch):
+    """Wrap ``torch.sort`` with a call counter (``tiered_phase``);
+    returns ``(counter list, restore)``."""
+    orig = torch.sort
+    n = [0]
+
+    def counted(*args, **kwargs):
+        n[0] += 1
+        return orig(*args, **kwargs)
+
+    torch.sort = counted
+
+    def restore():
+        torch.sort = orig
+    return n, restore
+
+
+def tiered_phase(torch, kc, wcmod, tiering, Partitions, data, want,
+                 matrix):
+    """Phase 7b: ``sort_impl='tiered-radix'`` over 8 partitions, (a) warm,
+    (b) forced cold, (c) truly cold in a subprocess; *matrix* is the
+    radix slice's traffic matrix (already held against the host)."""
+    from dataclasses import replace
+
+    cfg = replace(wcmod.bench_engine_config(), sort_impl="tiered-radix")
+    wc = wcmod.DeviceWordCount(Partitions(RADIX_PARTS, "cuda"),
+                               chunk_len=CHUNK_LEN, config=cfg)
+    out = {}
+    # (a) warm: every library built, tier 1 (radix) from the first wave
+    kc.reset_counts()
+    tm = {}
+    got = wc.count_bytes(data, timings=tm, waves=RADIX_WAVES)
+    launches = dict(kc.LAUNCHES)
+    check(got == want, "tiered warm: counts differ from Counter")
+    check(tm["exchange"]["matrix"] == matrix,
+          "tiered warm: traffic matrix differs")
+    check((tm["serving_tier"], tm["tier_cold_start"], tm["tier_swaps"])
+          == ("radix", False, 0), f"tiered warm: {tm}")
+    check(all(launches[k] > 0 for k in WORDCOUNT_KERNELS),
+          f"tiered warm: a kernel was never launched: {launches}")
+    check(not any(kc.PLAIN_CALLS.values()), "tiered warm: plain calls")
+    out["warm"] = {k: tm[k] for k in ("serving_tier", "tier_cold_start",
+                                      "tier_swaps", "first_dispatch_s",
+                                      "compute_s")}
+    # (b) forced cold: tier 0 (torch.sort, no radix launch) serves wave 0
+    engine = wc.engine
+    orig_wave = engine._wave
+    per_wave = []
+    sorts, restore = count_sorts(torch)
+
+    def spy(wave_cfg, *args):
+        res = orig_wave(wave_cfg, *args)
+        per_wave.append((wave_cfg.sort_impl, sorts[0],
+                         kc.LAUNCHES["radix_upfront"]
+                         + kc.LAUNCHES["radix_plan"]))
+        return res
+
+    engine._wave = spy
+    kc.reset_counts()
+    tm = {}
+    try:
+        with tiering.force_cold():
+            got = wc.count_bytes(data, timings=tm, waves=RADIX_WAVES)
+    finally:
+        del engine._wave
+        restore()
+    check(got == want, "tiered cold: counts differ from Counter")
+    check(tm["exchange"]["matrix"] == matrix,
+          "tiered cold: traffic matrix differs")
+    check(tm["tier_cold_start"] and tm["tier_swaps"] <= 1,
+          f"tiered cold: {tm}")
+    check(per_wave[0][0] == "argsort" and per_wave[0][1] > 0
+          and per_wave[0][2] == 0,
+          f"tiered cold: wave 0 did not run on tier 0 alone: {per_wave}")
+    check(tm["tier_specialize_failed"] is None,
+          f"tiered cold: {tm['tier_specialize_failed']}")
+    check(not any(kc.PLAIN_CALLS.values()), "tiered cold: plain calls")
+    key = kc.sources_for(replace(cfg, sort_impl="radix"))
+    check(engine.specializer.wait(key, timeout=120),
+          "tiered cold: the specializer did not finish")
+    tm2 = {}
+    check(wc.count_bytes(data, timings=tm2, waves=RADIX_WAVES) == want,
+          "tiered after the build: counts differ")
+    check(tm2["serving_tier"] == "radix",
+          f"tiered after the build: served {tm2['serving_tier']}")
+    out["forced_cold"] = {
+        "per_wave": per_wave, "tier_swaps": tm["tier_swaps"],
+        "serving_tier": tm["serving_tier"],
+        "first_dispatch_s": tm["first_dispatch_s"],
+        "compute_s": tm["compute_s"],
+        "next_run_serving_tier": tm2["serving_tier"]}
+    # (c) truly cold: fresh build directories, one subprocess each
+    for impl in ("tiered-radix", "radix"):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--cold", impl],
+            capture_output=True, text=True, timeout=COLD_TIMEOUT_S)
+        check(proc.returncode == 0, f"cold {impl} run failed "
+              f"({proc.returncode}):\n{proc.stdout[-4000:]}"
+              f"\n{proc.stderr[-4000:]}")
+        out[f"cold_{impl}"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(TIER_FAILED_KEY not in json.dumps(out)
+          and not tiering.TIER_COUNTS["specialize_failed"],
+          "tiered: a specialization failed")
+    out["tier_counts"] = dict(tiering.TIER_COUNTS)
+    print(json.dumps({"tiered": out}))
+
+
+#: what a cold child prints when its tier-1 build failed
+TIER_FAILED_KEY = "specialize_failed_message"
+#: words of the truly cold tiered count (phase 7b (c))
+COLD_WORDS = 1_000_000
+COLD_CHUNK_LEN = 1 << 18
+COLD_TIMEOUT_S = 300
+
+
+def cold_child(impl):
+    """Phase 7b (c), in a process of its own: a fresh, empty build
+    directory, then a ``COLD_WORDS`` count with ``sort_impl=impl`` at P =
+    8, which builds what its first wave needs; prints one JSON line."""
+    import tempfile
+    from dataclasses import replace
+    from pathlib import Path
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mapreduce_tpu_torch.corpus import N_LINES
+    from mapreduce_tpu_torch.corpus import N_WORDS as EUROPARL_WORDS
+    from mapreduce_tpu_torch.corpus import make_corpus
+    from mapreduce_tpu_torch.engine import tiering
+    from mapreduce_tpu_torch.engine import wordcount as wcmod
+    from mapreduce_tpu_torch.ops import kernel_compat as kc
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+
+    torch.zeros(1, device="cuda")  # the context, outside the timed run
+    data = make_corpus(COLD_WORDS, COLD_WORDS * N_LINES // EUROPARL_WORDS,
+                       seed=1)
+    want = Counter(data.split())
+    with tempfile.TemporaryDirectory() as tmp:
+        kc.BUILD_DIR = Path(tmp)
+        cfg = replace(wcmod.bench_engine_config(), sort_impl=impl)
+        wc = wcmod.DeviceWordCount(Partitions(RADIX_PARTS, "cuda"),
+                                   chunk_len=COLD_CHUNK_LEN, config=cfg)
+        tm = {}
+        t0 = time.monotonic()
+        got = wc.count_bytes(data, timings=tm, waves=3)
+        wall = time.monotonic() - t0
+        check(got == want, f"cold {impl}: counts differ from Counter")
+        out = {"impl": impl, "words": COLD_WORDS, "wall_s": wall,
+               "first_dispatch_s": tm["first_dispatch_s"],
+               "compute_s": tm["compute_s"], "waves": tm["waves"],
+               "build_s": dict(kc.BUILD_SECONDS)}
+        if impl == "tiered-radix":
+            key = kc.sources_for(replace(cfg, sort_impl="radix"))
+            check(wc.engine.specializer.wait(key, timeout=COLD_TIMEOUT_S),
+                  "cold: the specializer did not finish")
+            failed = wc.engine.specializer.failed(key)
+            if failed:
+                out[TIER_FAILED_KEY] = failed
+            check(not failed, f"cold: the tier-1 build failed: {failed}")
+            out.update(
+                serving_tier=tm["serving_tier"],
+                tier_cold_start=tm["tier_cold_start"],
+                tier_swaps=tm["tier_swaps"],
+                build_s=dict(kc.BUILD_SECONDS),
+                specializer_s=wc.engine.specializer.seconds[key])
+            tm2 = {}
+            check(wc.count_bytes(data, timings=tm2, waves=3) == want,
+                  "cold: the second run's counts differ")
+            out["next_run_serving_tier"] = tm2["serving_tier"]
+            check(tm2["serving_tier"] == "radix",
+                  f"cold: the second run served {tm2['serving_tier']}")
+    print(json.dumps(out))
+    return 0
 
 
 def flash_inputs(torch, fa, B, H, Tq, Tk, D, seed):
@@ -1303,6 +1604,7 @@ def main():
     from mapreduce_tpu_torch.corpus import N_LINES
     from mapreduce_tpu_torch.corpus import N_WORDS as EUROPARL_WORDS
     from mapreduce_tpu_torch.corpus import make_corpus
+    from mapreduce_tpu_torch.engine import tiering
     from mapreduce_tpu_torch.engine import wordcount as wcmod
     from mapreduce_tpu_torch.engine.autotune import plan_rebalance
     from mapreduce_tpu_torch.models import transformer as tmod
@@ -1352,9 +1654,11 @@ def main():
                                         wc.config)
     del chunks_dev
 
-    # phase 4: the slice, warm once, then the counted run
+    # phase 4: the slice, warm once; the bench's staged path; then the
+    # counted streaming run
     want = Counter(data.split())
     wc.count_bytes(data)
+    staged_phase(torch, kc, wc, data, want)
     kc.reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1373,6 +1677,12 @@ def main():
           f"segreduce launches {launches}")
     check(all(v == 0 for v in plain.values()),
           f"plain versions ran on the card path: {plain}")
+    engine = wc.engine
+    wave_bytes = k * engine.n_dev * chunks.nbytes // chunks.shape[0]
+    check(tm["peak_input_wave_bytes"]
+          <= engine.STREAM_PREFETCH * wave_bytes,
+          f"streaming run held {tm['peak_input_wave_bytes']} input bytes, "
+          f"over {engine.STREAM_PREFETCH} waves of {wave_bytes}")
     n_words = sum(want.values())
     print(json.dumps({"slice": {
         "words": n_words, "unique": len(want), "bytes": len(data),
@@ -1380,6 +1690,9 @@ def main():
         "compute_s": tm["compute_s"], "upload_s": tm["upload_s"],
         "readback_s": tm["readback_s"], "materialize_s": tm["materialize_s"],
         "wall_s": wall, "words_per_s_compute": n_words / tm["compute_s"],
+        "first_dispatch_s": tm["first_dispatch_s"],
+        "peak_input_wave_bytes": tm["peak_input_wave_bytes"],
+        "input_bytes": tm["input_bytes"],
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": launches, "plain_calls": plain}}))
 
@@ -1399,8 +1712,8 @@ def main():
 
     # phase 7: the radix slice over 8 partitions, profiled, and under a
     # partition map
-    rwc, rlaunches = radix_slice_phase(torch, kc, rs, wcmod, Partitions,
-                                       data, want)
+    rwc, rlaunches, rmatrix = radix_slice_phase(torch, kc, rs, wcmod,
+                                                Partitions, data, want)
     rchunks, _ = rwc._to_chunks(data)
     profile_phase(torch, kc, rwc, rchunks, label="profile_radix",
                   waves=RADIX_WAVES,
@@ -1409,6 +1722,7 @@ def main():
                   forbid=("torch.sort",))
     partition_map_phase(torch, wcmod, Partitions, tok, plan_rebalance, rwc,
                         data, want)
+    tiered_phase(torch, kc, wcmod, tiering, Partitions, data, want, rmatrix)
 
     # phases 8-9: the flash kernels, then the transformer slice (the
     # plain f32 matmuls of the reference stay in full f32)
@@ -1433,4 +1747,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cold"]:
+        sys.exit(cold_child(sys.argv[2]))
     sys.exit(main())

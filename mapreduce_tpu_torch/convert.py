@@ -23,8 +23,7 @@ the JAX package:
   :func:`transformer_params_to_numpy` goes back.
 
 Every field of the JAX ``EngineConfig`` carries over, ``sort_impl=
-'radix'`` and ``partition_map`` included; the port's engine refuses only
-the tiered sort policies, which it has not ported.
+'radix'``, the tiered sort policies and ``partition_map`` included.
 """
 
 from __future__ import annotations

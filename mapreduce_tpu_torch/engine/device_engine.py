@@ -23,17 +23,27 @@ run` retries with capacities right-sized from the failed attempt's
 measured needs.  A truncated result never escapes unless asked for.
 
 ``sort_impl='radix'`` runs every sort of the wave on the radix kernels
-and the exchange on the radix plan.  ``partition_map`` routes the
-exchange through a bucket->partition table (:meth:`DeviceEngine.
-set_partition_map`, :func:`..autotune.plan_rebalance`), an input of the
-run rather than a constant.
+and the exchange on the radix plan; ``'tiered'`` and ``'tiered-radix'``
+are policies that serve a cold start on ``'argsort'`` while the steady
+tier's libraries build, then swap at a wave boundary
+(:mod:`.tiering`).  ``partition_map`` routes the exchange through a
+bucket->partition table (:meth:`DeviceEngine.set_partition_map`,
+:func:`..autotune.plan_rebalance`), an input of the run rather than a
+constant.
 
-Left out of this port for now (ROADMAP): the compile ledger, tiering,
-the autotune controllers, obs gauges, staged inputs, multi-process.
+Input reaches the device through :class:`_WaveFeeder` (pinned staging
+buffers and a copy stream of its own on CUDA, at most
+:attr:`DeviceEngine.STREAM_PREFETCH` waves ahead), or all at once
+through :meth:`DeviceEngine.stage_inputs`, whose handle
+``run(staged=...)`` consumes.
+
+Left out of this port for now (ROADMAP): the compile ledger, the
+autotune controllers, obs gauges, multi-process.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import time
 from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple, Optional
@@ -41,9 +51,11 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import kernel_compat as kc
 from ..ops.segscan import SENTINEL, ReduceOp, sorted_unique_reduce
 from ..parallel.mesh import Partitions
 from ..parallel.shuffle import partition_exchange
+from .tiering import TierSpecializer, TieredWaveDispatcher
 
 
 @dataclass(frozen=True)
@@ -71,7 +83,8 @@ class EngineConfig:
     exchange_stats: bool = True
     #: 'variadic' or 'argsort' (torch.sort) or 'radix' (the radix
     #: kernels, with the radix exchange plan); all give one permutation.
-    #: The tiered policies are not ported yet
+    #: 'tiered' / 'tiered-radix': serve 'argsort' while 'variadic' /
+    #: 'radix' is not built, then swap (engine/tiering.py)
     sort_impl: str = "variadic"
     #: route the exchange through a [B] int32 bucket->partition table
     #: (identity until DeviceEngine.set_partition_map installs another)
@@ -157,17 +170,186 @@ class _Wave(NamedTuple):
     counts: torch.Tensor      # [P, P] int32 exchange traffic
 
 
+def _is_tiered(sort_impl: str) -> bool:
+    """True for the tier policies, which the engine resolves into a
+    concrete config per wave."""
+    return sort_impl in ("tiered", "tiered-radix")
+
+
+def _tier_cfgs(cfg: EngineConfig):
+    """``(tier-0 config, tier-1 config)`` of a tier policy: 'argsort',
+    then 'variadic' under 'tiered' or 'radix' under 'tiered-radix'.
+    Their accumulator layouts are equal, so the carry threads through a
+    swap."""
+    steady = "radix" if cfg.sort_impl == "tiered-radix" else "variadic"
+    return (replace(cfg, sort_impl="argsort"),
+            replace(cfg, sort_impl=steady))
+
+
 def _check_impls(cfg: EngineConfig) -> None:
-    if cfg.sort_impl in ("tiered", "tiered-radix"):
-        raise NotImplementedError(
-            f"sort_impl={cfg.sort_impl!r} is not ported yet (ROADMAP: "
-            "engine/tiering.py, to be ported as a policy)")
-    if cfg.sort_impl not in ("variadic", "argsort", "radix"):
+    if cfg.sort_impl not in ("variadic", "argsort", "radix", "tiered",
+                             "tiered-radix"):
         raise ValueError(f"unknown sort_impl {cfg.sort_impl!r}")
     for field in ("segment_impl", "tokenize_impl"):
         if getattr(cfg, field) not in ("lax", "pallas"):
             raise ValueError(f"EngineConfig.{field} must be 'lax' or "
                              f"'pallas', got {getattr(cfg, field)!r}")
+
+
+class _WaveFeeder:
+    """Streams the chunk batch to the device wave by wave (the JAX
+    engine's ``_WaveFeeder``).
+
+    Waves are contiguous blocks of ``rpw = k * P`` rows (``k`` from
+    *k*, or from *waves*); a wave that would hold only padding is
+    dropped, and the final partial wave is zero-padded (its rows are
+    masked later by chunk index).  The JAX feeder uploads each wave's
+    global chunk indices beside it; a port wave carries its first index
+    as a Python int, so there is no index tensor.
+
+    ``get(w)`` returns wave *w* on the device, submitting uploads for at
+    most *prefetch* waves ahead to one worker thread.  ``release(w)``
+    drops the feeder's reference to wave *w*, ``reset()`` forgets every
+    wave so a capacity retry re-uploads, and ``close()`` cancels the
+    outstanding uploads and joins the worker.  ``held_bytes`` /
+    ``peak_held_bytes`` count the bytes of waves submitted and not yet
+    released: the input's device-memory bound (~*prefetch* waves, never
+    the corpus).
+
+    On CUDA the worker copies each wave into one of
+    :attr:`STAGING_BUFFERS` pinned host buffers (after the buffer's
+    previous host-to-device copy has finished: ``event.synchronize()``)
+    and from there to the device on a copy stream of its own.  ``get``
+    makes the caller's current stream (the kernels') wait on that copy's
+    event, with no host block, and records the wave as used on that
+    stream: the wave was allocated on the copy stream, and without the
+    record the allocator could hand its memory to a later wave's copy
+    while the kernels still read it.  On the CPU nothing is pinned and
+    no stream is used; the wave split and the byte accounting are the
+    same.
+    """
+
+    #: pinned host buffers a CUDA feeder cycles through
+    STAGING_BUFFERS = 2
+
+    def __init__(self, engine: "DeviceEngine", chunks: np.ndarray,
+                 waves: Optional[int] = None, prefetch: Optional[int] = None,
+                 k: Optional[int] = None) -> None:
+        self._chunks = chunks
+        self.device = engine.device
+        S = chunks.shape[0]
+        if k is None:  # explicit wave count (tests, user tuning)
+            k = -(-S // (max(1, waves) * engine.n_dev))
+        self.rpw = k * engine.n_dev
+        self.waves = -(-S // self.rpw)  # all-pad waves are dropped
+        self.S = S
+        self.prefetch = (self.waves if prefetch is None
+                         else max(1, prefetch))
+        self._shape = (self.rpw,) + tuple(chunks.shape[1:])
+        self._dtype = torch.from_numpy(chunks[:0]).dtype
+        self._wave_nbytes = int(np.prod(self._shape, dtype=np.int64)
+                                * chunks.dtype.itemsize)
+        self._pool: Optional[cf.ThreadPoolExecutor] = None
+        self._futs: dict = {}
+        self._ready: dict = {}
+        self._submitted = 0
+        self._accounted: set = set()
+        self.held_bytes = 0
+        self.peak_held_bytes = 0
+        self._cuda = self.device.type == "cuda"
+        if self._cuda:
+            self._stream = torch.cuda.Stream(self.device)
+            self._staging: list = [None] * self.STAGING_BUFFERS
+            #: per buffer, the event of the last copy out of it
+            self._copied: list = [None] * self.STAGING_BUFFERS
+
+    def _put_wave(self, w: int):
+        """Wave *w* on the device (on CUDA with its copy's event)."""
+        lo = w * self.rpw
+        n = min(self.rpw, self.S - lo)
+        src = torch.from_numpy(self._chunks[lo:lo + n])
+        if not self._cuda:
+            if n == self.rpw:
+                return src  # a view of the caller's array
+            block = torch.zeros(self._shape, dtype=self._dtype)
+            block[:n] = src
+            return block
+        i = w % self.STAGING_BUFFERS
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()  # its last copy has finished
+        buf = self._staging[i]
+        if buf is None:
+            buf = self._staging[i] = torch.empty(
+                self._shape, dtype=self._dtype, pin_memory=True)
+        buf[:n].copy_(src)
+        buf[n:].zero_()
+        with torch.cuda.stream(self._stream):
+            dev = torch.empty(self._shape, dtype=self._dtype,
+                              device=self.device)
+            dev.copy_(buf, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        self._copied[i] = done
+        return dev, done
+
+    def _ensure_submitted(self, upto: int) -> None:
+        upto = min(upto, self.waves - 1)
+        if self._submitted > upto:
+            return
+        if self._pool is None:
+            self._pool = cf.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="mrtorch-feeder")
+        for w in range(self._submitted, upto + 1):
+            self._futs[w] = self._pool.submit(self._put_wave, w)
+            if w not in self._accounted:
+                self._accounted.add(w)
+                self.held_bytes += self._wave_nbytes
+                self.peak_held_bytes = max(self.peak_held_bytes,
+                                           self.held_bytes)
+        self._submitted = upto + 1
+
+    def start(self) -> None:
+        """Submit the first *prefetch* uploads without waiting."""
+        self._ensure_submitted(self.prefetch - 1)
+
+    def get(self, w: int) -> torch.Tensor:
+        """Wave *w*, ``[k * P, ...]``, ready for the caller's stream."""
+        self._ensure_submitted(w + self.prefetch - 1)
+        if w not in self._ready:
+            wave = self._futs.pop(w).result()
+            if self._cuda:
+                wave, done = wave
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(done)
+                wave.record_stream(compute)
+            self._ready[w] = wave
+        return self._ready[w]
+
+    def synchronize(self) -> None:
+        """Return once every copy issued so far has landed."""
+        if self._cuda:
+            self._stream.synchronize()
+
+    def release(self, w: int) -> None:
+        self._ready.pop(w, None)
+        if w in self._accounted:
+            self._accounted.discard(w)
+            self.held_bytes -= self._wave_nbytes
+
+    def reset(self) -> None:
+        self.close()
+        self._submitted = 0
+
+    def close(self) -> None:
+        for f in self._futs.values():
+            f.cancel()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+        self._futs.clear()
+        self._ready.clear()
+        self._accounted.clear()
+        self.held_bytes = 0
 
 
 class DeviceEngine:
@@ -176,6 +358,8 @@ class DeviceEngine:
     #: target host bytes per wave (the JAX engine's wave split, kept so
     #: both cut a corpus into the same waves)
     WAVE_BYTES = 48 << 20
+    #: waves a streaming run uploads ahead of the one it computes
+    STREAM_PREFETCH = 2
 
     def __init__(self, parts: Partitions, map_fn: Callable,
                  config: EngineConfig = EngineConfig()) -> None:
@@ -190,6 +374,15 @@ class DeviceEngine:
         self._pmap_dev: Optional[torch.Tensor] = None
         if config.partition_map:
             partition_buckets_for(config, self.n_dev)  # raises if P ∤ B
+        self._tier_spec: Optional[TierSpecializer] = None
+
+    @property
+    def specializer(self) -> TierSpecializer:
+        """The engine's one background tier-1 build thread (made at first
+        use)."""
+        if self._tier_spec is None:
+            self._tier_spec = TierSpecializer()
+        return self._tier_spec
 
     # -- the partition map ---------------------------------------------------
 
@@ -357,70 +550,188 @@ class DeviceEngine:
                                                     self._fit(comb_need)))
         return out
 
-    def _upload(self, chunks: np.ndarray, lo: int, rows: int) -> torch.Tensor:
-        """Rows ``[lo, lo+rows)`` of *chunks* on the device, the tail past
-        the corpus zero-filled (masked later by chunk index)."""
-        block = chunks[lo:lo + rows]
-        if block.shape[0] < rows:
-            pad = np.zeros((rows - block.shape[0],) + chunks.shape[1:],
-                           dtype=chunks.dtype)
-            block = np.concatenate([block, pad])
-        return torch.from_numpy(np.ascontiguousarray(block)).to(self.device)
+    def _libraries(self, cfg: EngineConfig):
+        """The libraries a run of *cfg* launches: both tiers' under a
+        tier policy."""
+        cfgs = _tier_cfgs(cfg) if _is_tiered(cfg.sort_impl) else (cfg,)
+        return tuple(dict.fromkeys(n for c in cfgs
+                                   for n in kc.sources_for(c)))
 
-    def run(self, chunks: np.ndarray, max_retries: int = 3,
+    def precompile(self, row_shape, row_dtype=np.uint8,
+                   k: Optional[int] = None) -> float:
+        """Build and load the CUDA libraries of the config's path (both
+        tiers' under a tier policy; one ``nvcc`` per source, in
+        parallel), returning the seconds spent.  The counterpart of the
+        JAX engine's AOT compile: CUDA has no program to compile per
+        shape, so *row_shape*, *row_dtype* and *k* name the run it
+        prepares but change nothing, and nothing of the corpus is
+        launched.  On the CPU there is nothing to build."""
+        t0 = time.monotonic()
+        if self.device.type == "cuda":
+            kc.load(self._libraries(self.config))
+        return time.monotonic() - t0
+
+    def stage_inputs(self, chunks: np.ndarray, waves: Optional[int] = None):
+        """Upload every wave of *chunks* now, returning once the bytes
+        are resident on the device (on CUDA a synchronize of the copy
+        stream proves it), with a handle for ``run(staged=...)``: the
+        list of wave tensors and the true chunk count.
+
+        The handle holds the whole corpus in device memory, unlike a
+        streaming run (~:attr:`STREAM_PREFETCH` waves); it is single-use:
+        :meth:`run` empties its list and frees each wave after its
+        fold."""
+        if waves is None:
+            feeder = _WaveFeeder(self, chunks, k=self._auto_rows(chunks))
+        else:
+            feeder = _WaveFeeder(self, chunks, max(1, waves))
+        try:
+            staged = [feeder.get(w) for w in range(feeder.waves)]
+            feeder.synchronize()
+        finally:
+            feeder.close()
+        return staged, feeder.S
+
+    def run(self, chunks: Optional[np.ndarray], max_retries: int = 3,
             timings: Optional[dict] = None, waves: Optional[int] = None,
-            on_overflow: str = "raise") -> DeviceResult:
+            staged=None, on_overflow: str = "raise") -> DeviceResult:
         """Execute over *chunks* (``[S, ...]`` host array), growing
         capacities until no stage overflowed.
 
         *waves* (default: auto from the input size) splits the chunks
         into waves of ``k`` chunks per partition; the accumulator carries
-        each partition's uniques from wave to wave.  Pass ``timings={}``
-        for ``upload_s``, ``compute_s`` (the attempts' wall time minus
-        upload waits, ending in the overflow readback that waits for the
-        device), ``readback_s``, ``total_s``, ``waves``, ``retries`` and,
+        each partition's uniques from wave to wave.  A streaming run
+        uploads through :class:`_WaveFeeder`, at most
+        :attr:`STREAM_PREFETCH` waves ahead, so copies overlap the
+        previous wave's kernels.  With *staged* (from
+        :meth:`stage_inputs`) the handle fixes the data and its wave
+        split (passing *waves* too raises ``ValueError``); the handle is
+        consumed (a consumed one raises ``RuntimeError``), each wave
+        freed after its fold, and a capacity retry re-uploads from
+        *chunks*, which must then be the handle's source array.
+
+        Pass ``timings={}`` for, by the JAX package's names:
+        ``upload_s`` (host time blocked waiting for a wave) and
+        ``total_s``, streaming runs only; ``retry_upload_s`` when a
+        staged run re-uploaded; ``compute_s`` (the attempts' wall time
+        minus upload waits, ending in the overflow readback that waits
+        for the device), ``readback_s``, ``waves``, ``retries``;
+        ``first_dispatch_s`` (run entry to the first wave's first launch,
+        including any library build the serving tier waited for);
+        ``peak_input_wave_bytes`` and ``input_bytes`` when a feeder ran;
+        under a tier policy ``tier_swaps``, ``tier_cold_start``,
+        ``serving_tier`` (``"0"``, ``"1"`` or ``"radix"``) and
+        ``tier_specialize_failed`` (the failure message or None); and,
         with ``exchange_stats``, ``exchange["matrix"]``: the final
         attempt's src x dst count of routed rows, summed over waves.
 
         If capacities still overflow after *max_retries* right-sized
         retries, raises ``RuntimeError``; ``on_overflow="return"`` returns
         the truncated result (``overflow`` > 0) instead."""
+        if staged is not None and waves is not None:
+            raise ValueError("run(staged=...) uses the handle's wave "
+                             "split; pass waves to stage_inputs instead")
         if on_overflow not in ("raise", "return"):
             raise ValueError(f"on_overflow must be 'raise' or 'return', "
                              f"got {on_overflow!r}")
         cfg = self.config
         P = self.n_dev
-        S = chunks.shape[0]
-        k = (self._auto_rows(chunks) if waves is None
-             else -(-S // (max(1, waves) * P)))
-        rpw = k * P
-        W = -(-S // rpw)
         t_start = time.monotonic()
+        feeder = None
+        pairs = None  # the staged waves, consumed in place
+        if staged is not None:
+            staged_list, S = staged
+            W = len(staged_list)
+            if W == 0:
+                raise RuntimeError(
+                    "staged handle already consumed (handles are "
+                    "single-use: each wave is freed as it is folded); "
+                    "stage_inputs again for another run")
+            pairs = dict(enumerate(staged_list))
+            k = staged_list[0].shape[0] // P
+            staged_list.clear()
+        else:
+            S = chunks.shape[0]
+            k = (self._auto_rows(chunks) if waves is None
+                 else -(-S // (max(1, waves) * P)))
+            feeder = _WaveFeeder(self, chunks, k=k,
+                                 prefetch=self.STREAM_PREFETCH)
+            W = feeder.waves
+        rpw = k * P
+        tiered = _is_tiered(cfg.sort_impl)
+        cuda = self.device.type == "cuda"
         t_upload = t_compute = 0.0
+        t_first_dispatch = None
+        reuploaded = False
         retries = 0
-        for attempt in range(max_retries + 1):
-            t0 = time.monotonic()
-            t_blocked = 0.0
-            acc = None
-            oflows, needs, counts = [], [], []
-            for w in range(W):
-                tb = time.monotonic()
-                block = self._upload(chunks, w * rpw, rpw)
-                t_blocked += time.monotonic() - tb
-                out = self._wave(cfg, block, w * rpw, k, S, acc)
-                del block
-                acc = out.acc
-                oflows.append(out.overflow)
-                needs.append(out.needs)
-                counts.append(out.counts)
-            # the one readback of the attempt: waits for the device
-            total_oflow = int(torch.stack(oflows).sum())
-            t_upload += t_blocked
-            t_compute += time.monotonic() - t0 - t_blocked
-            if total_oflow == 0 or attempt == max_retries:
-                break
-            retries = attempt + 1
-            cfg = self._resize(cfg, torch.stack(needs).cpu().numpy())
+        try:
+            for attempt in range(max_retries + 1):
+                disp = TieredWaveDispatcher(self, cfg) if tiered else None
+                t0 = time.monotonic()
+                t_blocked = 0.0
+                acc = None
+                oflows, needs, counts = [], [], []
+                if feeder is not None:  # uploads overlap any build below
+                    feeder.start()
+                for w in range(W):
+                    # the tier decision (and a cold tier's builds) at the
+                    # wave boundary, then the libraries of the serving
+                    # config: built at the first wave, found loaded later
+                    wave_cfg = disp.next_cfg() if disp is not None else cfg
+                    if cuda:
+                        kc.load(kc.sources_for(wave_cfg))
+                    tb = time.monotonic()
+                    if pairs is not None:
+                        block = pairs.pop(w)
+                        if cuda:  # the kernels' stream frees it
+                            block.record_stream(
+                                torch.cuda.current_stream(self.device))
+                    else:
+                        block = feeder.get(w)
+                    t_blocked += time.monotonic() - tb
+                    if t_first_dispatch is None:
+                        t_first_dispatch = time.monotonic()
+                    out = self._wave(wave_cfg, block, w * rpw, k, S, acc)
+                    del block
+                    if feeder is not None:
+                        feeder.release(w)
+                    acc = out.acc
+                    oflows.append(out.overflow)
+                    needs.append(out.needs)
+                    counts.append(out.counts)
+                # the one readback of the attempt: waits for the device
+                total_oflow = int(torch.stack(oflows).sum())
+                t_upload += t_blocked
+                t_compute += time.monotonic() - t0 - t_blocked
+                if total_oflow == 0 or attempt == max_retries:
+                    break
+                retries = attempt + 1
+                cfg = self._resize(cfg, torch.stack(needs).cpu().numpy())
+                del acc
+                # the inputs were freed wave by wave: the retry re-uploads
+                if pairs is not None:
+                    if chunks is None:
+                        raise RuntimeError(
+                            "capacity retry needs the input re-uploaded, "
+                            "but the staged handle is consumed and no "
+                            "chunks were passed; call run(chunks, "
+                            "staged=handle) with the handle's source "
+                            "array")
+                    if chunks.shape[0] != S:
+                        raise ValueError(
+                            f"chunks has {chunks.shape[0]} rows, the "
+                            f"staged handle {S}")
+                    feeder = _WaveFeeder(self, chunks, k=k,
+                                         prefetch=self.STREAM_PREFETCH)
+                    pairs = None
+                    reuploaded = True
+                else:
+                    feeder.reset()
+        finally:
+            if feeder is not None:
+                feeder.close()
+            if pairs:
+                pairs.clear()
         if total_oflow and on_overflow == "raise":
             raise RuntimeError(
                 f"device run still overflowed {total_oflow} rows after "
@@ -438,10 +749,22 @@ class DeviceEngine:
         if timings is not None:
             timings["waves"] = W
             timings["retries"] = retries
-            timings["upload_s"] = t_upload
             timings["compute_s"] = t_compute
             timings["readback_s"] = t_readback
-            timings["total_s"] = time.monotonic() - t_start
+            timings["first_dispatch_s"] = t_first_dispatch - t_start
+            if staged is None:
+                timings["upload_s"] = t_upload
+                timings["total_s"] = time.monotonic() - t_start
+            elif reuploaded:
+                timings["retry_upload_s"] = t_upload
+            if feeder is not None:
+                timings["peak_input_wave_bytes"] = feeder.peak_held_bytes
+                timings["input_bytes"] = int(chunks.nbytes)
+            if tiered:
+                timings["tier_swaps"] = disp.swaps
+                timings["tier_cold_start"] = disp.cold
+                timings["serving_tier"] = disp.tier_label
+                timings["tier_specialize_failed"] = disp.failed
             if cfg.exchange_stats:
                 matrix = torch.stack(counts).sum(dim=0).cpu()
                 timings["exchange"] = {

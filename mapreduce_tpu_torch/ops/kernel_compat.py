@@ -17,7 +17,15 @@ three pieces of glue:
   at once, so a fresh checkout pays the slowest build, not the sum.  A
   *variant* is a source built with extra ``-D`` defines into a library of
   its own (a timed A/B of a compile-time constant); the package's
-  wrappers load only the default build.
+  wrappers load only the default build.  Each ``(source, defines)``
+  build-and-load holds a lock of its own, so threads that want one
+  library build it once (the others wait), while different libraries
+  build in parallel: the tier specializer (``engine/tiering.py``) builds
+  on a thread of its own while the wave loop loads on the main one.
+  :func:`sources_for` names the libraries a config's path launches,
+  :func:`is_built` says whether one needs no ``nvcc`` (loaded, or its
+  hashed ``.so`` already in :data:`BUILD_DIR`, the persistent cache),
+  and :func:`load` builds and loads a set of them.
   Every pointer and the stream cross as ``ctypes.c_void_p``; every C
   entry returns ``cudaGetLastError()`` and :func:`check` raises on a
   non-zero code.  ``nvcc`` runs with ``-Xptxas -v``: :data:`BUILD_LOGS`
@@ -40,12 +48,15 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import re
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,6 +68,10 @@ KERNELS = ("tokenize", "segreduce", "radix_plan", "radix_upfront",
 #: exchange plan's kernel, ``flash_attention.cu`` the three
 #: flash-attention kernels)
 SOURCES = ("tokenize", "segreduce", "radix", "flash_attention")
+#: the ops module that wraps each source (its ``_SIGNATURES`` are the
+#: library's C entries)
+_WRAPPERS = {"tokenize": "tokenize", "segreduce": "segscan",
+             "radix": "radix_sort", "flash_attention": "flash_attention"}
 #: kernel launches per kernel (one per wrapper call that launched it)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 #: plain-version calls per kernel
@@ -73,9 +88,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 Defines = Tuple[Tuple[str, int], ...]
 
 _LIBS: Dict[Tuple[str, Defines], ctypes.CDLL] = {}
+#: one lock per ``(source, defines)``, held around its build and load
+_BUILD_LOCKS: Dict[Tuple[str, Defines], threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 #: the output of each build's nvcc, for the builds this process made, by
 #: :func:`build_label`
 BUILD_LOGS: Dict[str, str] = {}
+#: wall seconds of each build's nvcc (start to exit), by :func:`build_label`
+BUILD_SECONDS: Dict[str, float] = {}
 
 MASK32 = 0xFFFFFFFF
 
@@ -153,17 +173,26 @@ def _lib_path(name: str, defines: Defines = ()) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
+def _build_lock(key: Tuple[str, Defines]) -> threading.Lock:
+    with _LOCKS_LOCK:
+        return _BUILD_LOCKS.setdefault(key, threading.Lock())
+
+
 def _start_build(name: str, defines: Defines = ()
                  ) -> Optional[subprocess.Popen]:
     out = _lib_path(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    # named by process and thread: two threads building one source never
+    # share a temporary file
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    proc.mr_tmp, proc.mr_t0 = tmp, time.monotonic()
+    return proc
 
 
 def _finish_build(name: str, proc: Optional[subprocess.Popen],
@@ -171,13 +200,12 @@ def _finish_build(name: str, proc: Optional[subprocess.Popen],
     if proc is None:
         return
     log, _ = proc.communicate()
-    out = _lib_path(name, defines)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     label = build_label(name, defines)
+    BUILD_SECONDS[label] = time.monotonic() - proc.mr_t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {label} "
                            f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)
+    os.replace(proc.mr_tmp, _lib_path(name, defines))
     BUILD_LOGS[label] = log
 
 
@@ -227,19 +255,45 @@ def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
     return dict(zip(_demangle(names), (usage[n] for n in names)))
 
 
-def build_all(variants: Sequence[Tuple[str, Defines]] = ()) -> None:
-    """Build every kernel library that is not built yet, and each
-    ``(source, defines)`` of *variants*: one ``nvcc`` per build, all
-    started together."""
-    builds = [(n, ()) for n in SOURCES] + [(n, tuple(d))
-                                          for n, d in variants]
-    procs = [_start_build(n, d) for n, d in builds]
-    errors = []
-    for (n, d), proc in zip(builds, procs):
-        try:
-            _finish_build(n, proc, d)
-        except RuntimeError as e:  # collect: every nvcc must be waited on
-            errors.append(str(e))
+def sources_for(cfg) -> Tuple[str, ...]:
+    """The libraries an engine config's path launches on CUDA:
+    ``tokenize`` and ``segreduce`` always, and ``radix`` when every sort
+    and the exchange plan run on the radix kernels (``sort_impl ==
+    'radix'``)."""
+    names = ("tokenize", "segreduce")
+    return names + ("radix",) if cfg.sort_impl == "radix" else names
+
+
+def is_built(name: str, defines: Defines = ()) -> bool:
+    """The warmness probe: True when source *name*'s library needs no
+    ``nvcc`` — loaded in this process, or its ``.so`` for the current
+    sources and flags already in :data:`BUILD_DIR`."""
+    key = (name, tuple(defines))
+    return key in _LIBS or _lib_path(*key).exists()
+
+
+def build_all(variants: Sequence[Tuple[str, Defines]] = (),
+              names: Iterable[str] = SOURCES) -> None:
+    """Build each library of *names* (every source by default) and each
+    ``(source, defines)`` of *variants* that is not built yet: one
+    ``nvcc`` per build, all started together.  Holds each build's lock
+    (taken in sorted order) until every ``nvcc`` has exited."""
+    builds = sorted({(n, ()) for n in names}
+                    | {(n, tuple(d)) for n, d in variants})
+    locks = [_build_lock(b) for b in builds]
+    for lock in locks:
+        lock.acquire()
+    try:
+        procs = [_start_build(n, d) for n, d in builds]
+        errors = []
+        for (n, d), proc in zip(builds, procs):
+            try:
+                _finish_build(n, proc, d)
+            except RuntimeError as e:  # collect: every nvcc must be waited on
+                errors.append(str(e))
+    finally:
+        for lock in locks:
+            lock.release()
     if errors:
         raise RuntimeError("\n".join(errors))
 
@@ -249,17 +303,35 @@ def library(name: str, signatures: Dict[str, tuple],
     """The loaded shared library of source *name* (built with *defines*,
     a variant, when given), built on first use.  *signatures* maps each
     C entry to ``(restype, [argtypes])``, set once at load (ctypes would
-    otherwise pass pointers as 32-bit ints)."""
+    otherwise pass pointers as 32-bit ints).  One thread builds and
+    loads a library; others asking for it meanwhile wait for it."""
     key = (name, tuple(defines))
     lib = _LIBS.get(key)
-    if lib is None:
-        _finish_build(name, _start_build(name, key[1]), key[1])
-        lib = ctypes.CDLL(str(_lib_path(name, key[1])))
-        for fn, (restype, argtypes) in signatures.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _LIBS[key] = lib
+    if lib is not None:
+        return lib
+    with _build_lock(key):
+        lib = _LIBS.get(key)
+        if lib is None:
+            _finish_build(name, _start_build(name, key[1]), key[1])
+            lib = ctypes.CDLL(str(_lib_path(name, key[1])))
+            for fn, (restype, argtypes) in signatures.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _LIBS[key] = lib
     return lib
+
+
+def load(names: Iterable[str]) -> None:
+    """Build the libraries of *names* not built yet (in parallel, as
+    :func:`build_all`) and load each: after this, their wrappers launch
+    without waiting for ``nvcc``."""
+    names = [n for n in names if (n, ()) not in _LIBS]
+    if not names:
+        return
+    build_all(names=names)
+    for n in names:
+        mod = importlib.import_module(f"{__package__}.{_WRAPPERS[n]}")
+        library(n, mod._SIGNATURES)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -15,8 +15,12 @@ everywhere; the radix kernels: every output, and the whole sort also
 on a repeat).  The flash kernels accumulate in another order than their
 plain versions, so they are held to atol = rtol = 2e-2 on the bf16/fp16
 outputs (out, dq, dk, dv: a few units in the last place of the 8-bit
-mantissa) and atol 1e-3 on the f32 lse.
+mantissa) and atol 1e-3 on the f32 lse.  The word-count paths through
+the feeder, the staged handle and the tier policy are held to
+``Counter`` (and a forced-cold tiered run to the 'radix' run's bits).
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -652,3 +656,108 @@ def test_trainer_step_kernels_match_plain(dev, monkeypatch):
         dk, dp = pk[n] - p0[n], pp[n] - p0[n]
         err = float((dk - dp).norm() / dp.norm().clamp_min(1e-30))
         assert err < 5e-2, (n, err)
+
+
+# -- the feeder, the staged path and the tier policy on the card ----------------
+
+_FEED_WORDS = 300_000
+_FEED_CHUNK = 1 << 16
+
+
+@pytest.fixture(scope="module")
+def feed_corpus():
+    from mapreduce_tpu_torch.corpus import make_corpus
+
+    data = make_corpus(_FEED_WORDS, _FEED_WORDS // 27, seed=3)
+    return data, Counter(data.split())
+
+
+def _feed_wc(parts=1, **over):
+    from dataclasses import replace
+
+    from mapreduce_tpu_torch.engine import wordcount as wcmod
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+
+    cfg = replace(wcmod.bench_engine_config(), local_capacity=1 << 16,
+                  exchange_capacity=1 << 15, out_capacity=1 << 16, **over)
+    return wcmod.DeviceWordCount(Partitions(parts, "cuda"),
+                                 chunk_len=_FEED_CHUNK, config=cfg)
+
+
+@pytest.mark.parametrize("waves", [1, 3, 6])
+def test_streaming_counts_repeat(dev, feed_corpus, waves):
+    """20 streaming runs a wave count, each equal to Counter: a wave
+    freed to the copy stream's pool without being recorded on the
+    kernels' stream, or a pinned buffer refilled before its copy ended,
+    shows as counts that go wrong only sometimes."""
+    data, want = feed_corpus
+    wc = _feed_wc()
+    for _ in range(20):
+        tm = {}
+        assert wc.count_bytes(data, timings=tm, waves=waves) == want
+        assert tm["waves"] == waves
+
+
+def test_count_staged_frees_the_staged_bytes(dev, feed_corpus):
+    data, want = feed_corpus
+    wc = _feed_wc()
+    wc.count_bytes(data, waves=3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    handle = wc.stage(data, waves=3)
+    staged = sum(t.numel() * t.element_size() for t in handle[2][0])
+    assert torch.cuda.memory_allocated() - base >= staged
+    tm = {}
+    assert wc.count_staged(handle, timings=tm) == want
+    assert "upload_s" not in tm and handle[2][0] == []
+    del handle
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= base
+
+
+def test_forced_cold_tiered_radix_equals_radix(dev, feed_corpus):
+    """A forced-cold 'tiered-radix' run (tier 0 on torch.sort, swapping
+    to the radix kernels) gives the 'radix' run's bits."""
+    from mapreduce_tpu_torch.engine import tiering
+
+    data, want = feed_corpus
+    ref_wc = _feed_wc(8, sort_impl="radix")
+    chunks, L = ref_wc._to_chunks(data)
+    ref = ref_wc._engine_for(L).run(chunks, waves=3)
+    wc = _feed_wc(8, sort_impl="tiered-radix")
+    tm = {}
+    with tiering.force_cold():
+        got = wc._engine_for(L).run(chunks, timings=tm, waves=3)
+    assert tm["tier_cold_start"] and tm["tier_swaps"] <= 1
+    assert tm["tier_specialize_failed"] is None
+    for f in ("keys", "values", "payload", "valid"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+def test_concurrent_library_calls_build_once(dev, tmp_path, monkeypatch):
+    """Two threads asking for one unbuilt library: one nvcc, one load."""
+    import threading
+
+    monkeypatch.setattr(kc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kc, "_LIBS", {})
+    started = []
+    real_start = kc._start_build
+
+    def counted(name, defines=()):
+        proc = real_start(name, defines)
+        if proc is not None:
+            started.append(name)
+        return proc
+
+    monkeypatch.setattr(kc, "_start_build", counted)
+    defines = (("MR_CONCURRENT_BUILD_TEST", 1),)
+    libs = []
+    threads = [threading.Thread(target=lambda: libs.append(kc.library(
+        "segreduce", segscan._SIGNATURES, defines))) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    assert started == ["segreduce"]
+    assert len(libs) == 2 and libs[0] is libs[1]

@@ -224,11 +224,12 @@ def test_convert_round_trips(jax_ref):
 
 def _port_sources():
     files = sorted((ROOT / "mapreduce_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "probe_plan.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "probe_plan.py",
+                    ROOT / "probe_feeder.py"]
 
 
 def test_port_imports_no_jax():
-    """An AST walk over the port, chip_smoke.py and probe_plan.py: no
+    """An AST walk over the port, chip_smoke.py and the probes: no
     ``import jax``, no
     ``from jax...``, nothing of the JAX package ``mapreduce_tpu``."""
     def banned(name):
@@ -260,15 +261,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_leftover_engine_options_raise():
-    """The tiered policies are still refused, pointing at ROADMAP;
-    'radix' and partition maps, once refused, now build, and a table is
-    checked against the bucket and partition counts."""
+    """Unknown formulations are refused; 'radix', partition maps and the
+    tiered policies, once refused, now build, and a table is checked
+    against the bucket and partition counts."""
     parts = Partitions(8, "cpu")
     for impl in ("tiered", "tiered-radix"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tde.DeviceEngine(parts, twc._wordcount_map_fn,
-                             tde.EngineConfig(sort_impl=impl))
+        eng = tde.DeviceEngine(parts, twc._wordcount_map_fn,
+                               tde.EngineConfig(sort_impl=impl))
+        assert eng.config.sort_impl == impl
     for bad in (dict(segment_impl="mosaic"), dict(sort_impl="bitonic"),
+                dict(sort_impl="tiered-bitonic"),
                 dict(partition_map=True, partition_buckets=12)):
         with pytest.raises(ValueError):
             tde.DeviceEngine(parts, twc._wordcount_map_fn,
