@@ -84,7 +84,29 @@ which raises on failure:
    ``kernel_compat.BUILD_DIR`` over 1M words (``first_dispatch_s`` and
    each library's build seconds); counts and matrices equal everywhere,
    and no tier-1 build may fail;
-8. the flash-attention kernels against their plain versions on the card
+8. the resident sessions (``EngineSession``, the ``session`` line), launch
+   counters read around each part, every kernel of its path launched and
+   no plain call: (a) ``bench.py``'s ``measure_sustained`` at full size
+   (its config, 1<<20-byte chunks, three tenants fed a 1.5M-word corpus
+   each, seeds 0-2, 3 interleaved rounds after a warm feed) at P = 1 and
+   at P = 8 on the radix path; after every feed the tenant's snapshot
+   equals ``Counter`` of its own words times its feeds; each tenant's
+   first feed and snapshot, then 6 rounds alternating one overflow read
+   a feed (the port's) with one after every wave (the JAX feed's sync,
+   by a wrapper of the engine's wave here); records/s over each mode's
+   feeds, feed wall p50/p99, snapshot seconds, staleness (feed end to
+   snapshot end, also after the window), resident bytes a stream and
+   the peak a feed adds; (b) the flagship config as a session at P = 8, radix,
+   with a partition map: the 24 chunks in 4 feeds, a ``plan_rebalance``
+   of the stream's bucket histogram after the first, the last two feeds
+   profiled (uploads pinned and off the kernels' stream); counts against
+   ``Counter``, the traffic matrix against the host recompute under the
+   two tables; an evict to ``mem:`` storage and the lazy restore of the
+   next snapshot, bit-equal (``session_spill_s``,
+   ``session_restore_s``), and ``SpillPolicy(max_resident=1)`` evicting
+   the colder stream; (c) ``TopKWords(k=100)`` over the corpus in 4
+   feeds, equal to ``host_topk``;
+9. the flash-attention kernels against their plain versions on the card
    at the transformer slice's shape ``[4, 8, 2048, 128]`` bf16 causal,
    plus a full (non-causal) case and a ragged ``T = 2000``, ``D = 64``
    case: out, lse, dq, dk and dv; kernel, plain and bound times at the
@@ -95,7 +117,7 @@ which raises on failure:
    forward + backward (timed here only; the port never calls it); then
    the three kernels once more without the causal mask and with 4x the
    batch (``flash_scaling``: what bounds them);
-9. the transformer slice: ``TransformerTrainer`` at the configuration of
+10. the transformer slice: ``TransformerTrainer`` at the configuration of
    ``bench_train.bench_transformer`` (vocab 32768, embed 1024, 8 layers,
    8 heads x 128, ffn 4096, bf16 products on f32 parameters, B = 4, T =
    2048, SGD at lr 1e-3) on ``np.random.default_rng(0)`` tokens: a first
@@ -106,7 +128,7 @@ which raises on failure:
    launched, no plain call), step seconds, tokens/s and MFU, one step
    under ``torch.profiler``, and the logits product's cost three ways
    (bf16 operands with an f32 result, the port's; bf16 result; f32);
-10. one JSON line of per-kernel numbers, then the result line.
+11. one JSON line of per-kernel numbers, then the result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
 flash kernels sum in another order than their plain versions: out, dq,
@@ -168,6 +190,21 @@ LSE_ATOL = 1e-3
 #: the trainer's first step through the kernels against the plain one
 STEP_LOSS_ATOL = 1e-2
 STEP_UPDATE_RTOL = 5e-2
+#: the sustained session (phase 8): bench.py's measure_sustained at its
+#: full size (smoke=False): its config, 1<<20-byte chunks, a 1.5M-word
+#: make_corpus slice a tenant (seeds 0-2, so tenants that mixed would
+#: show), three tenants, 3 rounds a block
+SESSION_CONFIG = dict(local_capacity=1 << 17, exchange_capacity=1 << 15,
+                      out_capacity=1 << 17, tile=512, tile_records=104,
+                      combine_in_scan=True, combine_capacity=1 << 17,
+                      unit_values=True, reduce_op="sum")
+SESSION_CHUNK_LEN = 1 << 20
+SESSION_WORDS = 1_500_000
+SESSION_TENANTS = ("t0", "t1", "t2")
+SESSION_ROUNDS = 3
+#: the flagship session feeds the 24-chunk corpus in this many feeds
+SESSION_FEEDS = 4
+TOPK_K = 100
 
 
 def check(cond, msg):
@@ -530,15 +567,17 @@ def _covered(intervals, lo, hi):
     return sum(max(0.0, min(hi, b) - max(lo, a)) for a, b in intervals)
 
 
-def upload_report(label, events):
+def upload_report(label, events, expect=None):
     """Phase 5's check of a run's uploads: every host-to-device copy
     pinned and on another stream than the port's kernels; prints the
-    copies' device ms and the share of it that overlaps kernel time."""
+    copies' device ms, the share of it that overlaps kernel time, and
+    beside the copies traced the *expect* ones issued (a wave each)."""
     h2d = [e for e in events
            if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
     ours = [e for e in events if e["cat"] == "kernel"
             and _profile_group(e["name"]) != "other"]
-    check(h2d and ours, f"{label}: no uploads or no kernels in the trace")
+    check(h2d and ours, f"{label}: {len(h2d)} uploads and {len(ours)} "
+          "kernels of the port in the trace; both must be there")
     pageable = sorted({e["name"] for e in h2d if "Pinned" not in e["name"]})
     check(not pageable, f"{label}: pageable host-to-device copies: "
           f"{pageable}")
@@ -560,6 +599,7 @@ def upload_report(label, events):
                      for e in h2d)
     print(json.dumps({f"{label}_upload": {
         "h2d_ms": h2d_us / 1e3, "copies": len(h2d),
+        "expected_copies": expect,
         "overlap_share": overlap_us / h2d_us,
         "copy_streams": sorted(copy_streams),
         "kernel_streams": sorted(kernel_streams)}}))
@@ -580,8 +620,6 @@ def device_profile(torch, label, run, group_of, on_trace=None):
         run()
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    if on_trace is not None:
-        on_trace(trace_events(prof))
     groups, calls, rows = {}, {}, []
     for ev in prof.key_averages():
         # device-side events only: a CPU op also reports its kernels'
@@ -605,6 +643,8 @@ def device_profile(torch, label, run, group_of, on_trace=None):
         "device_calls": calls,
         "top": [{"device_us": r[0], "calls": r[1], "name": r[2],
                  "group": r[3]} for r in rows[:12]]}}))
+    if on_trace is not None:
+        on_trace(trace_events(prof))
     return groups, calls
 
 
@@ -618,9 +658,11 @@ def profile_phase(torch, kc, wc, chunks, label="profile", waves=None,
     upload_report`)."""
     engine = wc._engine_for(chunks.shape[1])
     kc.reset_counts()
+    tm = {}
     groups, calls = device_profile(
-        torch, label, lambda: engine.run(chunks, waves=waves),
-        _profile_group, on_trace=lambda ev: upload_report(label, ev))
+        torch, label, lambda: engine.run(chunks, waves=waves, timings=tm),
+        _profile_group,
+        on_trace=lambda ev: upload_report(label, ev, expect=tm["waves"]))
     check(all(groups.get(g, 0) > 0 for g in need),
           f"{label}: profiled run shows no device time in {need}: {groups}")
     check(all(groups.get(g, 0) == 0 for g in forbid),
@@ -1592,6 +1634,336 @@ def trainer_phase(torch, kc, fa, tmod):
     return launches
 
 
+def percentile(values, q):
+    """The nearest-rank *q* quantile of *values*."""
+    v = sorted(values)
+    return v[min(len(v) - 1, max(0, math.ceil(q * len(v)) - 1))]
+
+
+def acc_bytes(sess, task):
+    """Device bytes of one resident stream's accumulator lanes."""
+    return sum(t.numel() * t.element_size()
+               for t in sess._streams[task].acc)
+
+
+def check_launches(launches, plain, label, radix):
+    need = WORDCOUNT_KERNELS if radix else ("tokenize", "segreduce")
+    check(all(launches[k] > 0 for k in need),
+          f"{label}: a kernel of the path was never launched: {launches}")
+    check(not any(plain.values()),
+          f"{label}: plain versions ran on the card path: {plain}")
+
+
+def sustained_case(torch, kc, wcmod, smod, Partitions, parts, sort_impl,
+                   tenants):
+    """Phase 8a: bench.py's measure_sustained at full size on *parts*
+    partitions.  Each tenant's first feed and snapshot (the first
+    result), then 2 x SESSION_ROUNDS rounds of the three tenants' feeds
+    interleaved, the rounds alternating between one overflow read a
+    feed (the port's) and one after every wave (the JAX feed's, by a
+    wrapper of the engine's wave here), each feed followed by the
+    tenant's snapshot, and last every tenant's snapshot once more (the
+    aged reads).  After the timed work, every snapshot is held against
+    Counter of exactly its tenant's words times the feeds it had folded.
+    Returns the case's numbers."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from mapreduce_tpu_torch.engine.device_engine import EngineConfig
+
+    cfg = replace(EngineConfig(**SESSION_CONFIG), sort_impl=sort_impl)
+    if parts == 1:
+        # one partition routes every local unique to itself: the
+        # bench's per-pair exchange capacity (1<<15) cannot hold a 1 MB
+        # chunk's ~35K distinct words, so it takes the local capacity
+        cfg = replace(cfg, exchange_capacity=cfg.local_capacity)
+    sess = smod.EngineSession(Partitions(parts, "cuda"),
+                              wcmod._wordcount_map_fn, cfg)
+    first = tenants[SESSION_TENANTS[0]][0]
+    row_bytes = first.nbytes // first.shape[0]
+    # k from the full feed (bench.py's rule), not from the warm feed
+    sess.k = max(1, min(sess.engine._rows_per_wave(row_bytes),
+                        -(-first.shape[0] // parts)))
+    sess.feed(first[:parts], task="warm")
+    sess.snapshot("warm")
+    sess.close("warm")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    fed = dict.fromkeys(SESSION_TENANTS, 0)
+    done_at = {}
+    snap_s, stale, peaks = [], [], []
+    taken = []  # (label, task, feeds folded, snapshot), checked last
+    real_wave = sess.engine._wave
+
+    def wave_then_read(*args):
+        out = real_wave(*args)
+        int(out.overflow.sum())  # the JAX feed's per-wave readback
+        return out
+
+    def feed(task):
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        sess.feed(tenants[task][0], task=task)
+        done_at[task] = time.monotonic()
+        peaks.append(torch.cuda.max_memory_allocated() - before)
+        fed[task] += 1
+        return done_at[task] - t0
+
+    def snapshot(task, label):
+        t0 = time.monotonic()
+        snap = sess.snapshot(task)
+        t1 = time.monotonic()
+        snap_s.append(t1 - t0)
+        stale.append(t1 - done_at[task])
+        taken.append((label, task, fed[task], snap))
+        return t1
+
+    kc.reset_counts()
+    first_result = []
+    for task in SESSION_TENANTS:
+        t0 = time.monotonic()
+        feed(task)
+        first_result.append(snapshot(task, "first") - t0)
+    resident = {t: acc_bytes(sess, t) for t in SESSION_TENANTS}
+    torch.cuda.synchronize()
+    per_stream = (torch.cuda.memory_allocated() - base) / len(
+        SESSION_TENANTS)
+    walls = {"feed": [], "wave": []}
+    for r in range(2 * SESSION_ROUNDS):
+        read = "wave" if r % 2 else "feed"
+        sess.engine._wave = wave_then_read if r % 2 else real_wave
+        try:
+            for task in SESSION_TENANTS:
+                walls[read].append(feed(task))
+                snapshot(task, f"sustained P={parts} round {r}")
+        finally:
+            sess.engine._wave = real_wave
+    for task in SESSION_TENANTS:  # the aged reads (bench.py phase 3)
+        snapshot(task, f"sustained P={parts} aged")
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    check_launches(launches, plain, f"sustained P={parts}",
+                   sort_impl == "radix")
+    for label, task, n, snap in taken:
+        chunks, want, _ = tenants[task]
+        check(snap.overflow == 0, f"{label}: {task} overflowed")
+        got = wcmod.materialize_counts(np.concatenate([chunks] * n), snap)
+        check(got == {w: c * n for w, c in want.items()},
+              f"{label}: tenant {task}'s counts differ from Counter of "
+              f"its own words x {n}")
+    records = SESSION_ROUNDS * sum(t[2] for t in tenants.values())
+    waves = sum(sess.stats(t)["waves"] for t in SESSION_TENANTS)
+    sess.close()
+    return {
+        "partitions": parts, "sort_impl": sort_impl, "k": sess.k,
+        "exchange_capacity": cfg.exchange_capacity,
+        "records_per_s": records / sum(walls["feed"]),
+        "records_per_s_per_wave_read": records / sum(walls["wave"]),
+        "records_a_mode": records, "feeds_a_mode": len(walls["feed"]),
+        "waves": waves,
+        "feed_wall_p50_s": percentile(walls["feed"], 0.5),
+        "feed_wall_p99_s": percentile(walls["feed"], 0.99),
+        "feed_wall_p50_s_per_wave_read": percentile(walls["wave"], 0.5),
+        "first_snapshot_s": first_result,
+        "snapshot_p50_s": percentile(snap_s, 0.5),
+        "snapshot_p99_s": percentile(snap_s, 0.99),
+        "staleness_p50_s": percentile(stale, 0.5),
+        "staleness_p99_s": percentile(stale, 0.99),
+        "resident_bytes_per_stream": resident,
+        "memory_allocated_per_stream": per_stream,
+        "feed_peak_over_resident_bytes": max(peaks),
+        "launches": launches}
+
+
+def session_host_matrix(hashes, chunks, feeds, k, P, tables):
+    """The traffic matrix a session accumulates, recomputed on the host:
+    per feed, per wave, entry [src][dst] counts the distinct word keys
+    of partition src's real rows routed to dst through that feed's
+    table (*hashes*: word -> (k1, k2))."""
+    import numpy as np
+
+    matrix = np.zeros((P, P), dtype=np.int64)
+    for (lo, hi), table in zip(feeds, tables):
+        B = table.shape[0]
+        for w in range(-(-(hi - lo) // (k * P))):
+            for d in range(P):
+                a = lo + w * k * P + d * k
+                words = set()
+                for row in chunks[a:min(a + k, hi)]:
+                    words.update(row.tobytes().split())
+                for k1, _k2 in {hashes[wd] for wd in words}:
+                    matrix[d, int(table[k1 % B])] += 1
+    return matrix
+
+
+def flagship_session(torch, kc, wcmod, smod, spill, router, Partitions,
+                     plan_rebalance, tok, chunks, want):
+    """Phase 8b: the flagship config as a session at P = 8 on the radix
+    path with a partition map: the 24 chunks in SESSION_FEEDS feeds, a
+    rebalance after the second to a plan_rebalance table of the
+    stream's own bucket histogram after the first, the last two feeds
+    profiled (uploads pinned and off the kernels' stream); then an evict
+    and the lazy
+    restore of the next snapshot (bench.py's measure_session_restore),
+    and a resident cap of one evicting the colder stream."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    P = RADIX_PARTS
+    cfg = replace(wcmod.bench_engine_config(), sort_impl="radix",
+                  partition_map=True)
+    store = spill.SessionSpillStore(router("mem:chip-smoke"))
+    sess = smod.EngineSession(Partitions(P, "cuda"),
+                              wcmod._wordcount_map_fn, cfg, spill=store)
+    per = chunks.shape[0] // SESSION_FEEDS
+    feeds = [(i * per, (i + 1) * per) for i in range(SESSION_FEEDS)]
+    sess.feed(chunks[:P], task="warm")
+    sess.close("warm")
+    B = sess.engine.partition_buckets
+    table = np.arange(B, dtype=np.int32) % P
+    tables = []
+    kc.reset_counts()
+    for i, (lo, hi) in enumerate(feeds[:2]):
+        if i == 1:
+            table = plan_rebalance(sess.bucket_histogram("flag"), P)
+            t0 = time.monotonic()
+            sess.rebalance("flag", table)
+            rebalance_s = time.monotonic() - t0
+        tables.append(table)
+        sess.feed(chunks[lo:hi], task="flag")
+    tables += [table] * (len(feeds) - 2)
+
+    def last_feeds():
+        for lo, hi in feeds[2:]:
+            sess.feed(chunks[lo:hi], task="flag")
+
+    # the feeds after the table's upload (the second feed's), profiled
+    waves0, before = sess.stats("flag")["waves"], dict(kc.LAUNCHES)
+    _, events = device_profile(
+        torch, "profile_session", last_feeds, _profile_group,
+        on_trace=lambda ev: upload_report(
+            "profile_session", ev,
+            expect=sess.stats("flag")["waves"] - waves0))
+    profiled = {k: kc.LAUNCHES[k] - before[k] for k in WORDCOUNT_KERNELS}
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    check_launches(launches, plain, "flagship session", True)
+    check(np.array_equal(sess.partition_map("flag"), table)
+          and not np.array_equal(table, tables[0]),
+          "flagship session: the rebalance changed no routing")
+    t0 = time.monotonic()
+    snap = sess.snapshot("flag")
+    snapshot_s = time.monotonic() - t0
+    check(wcmod.materialize_counts(chunks, snap) == want,
+          "flagship session: counts differ from Counter(data.split())")
+    hashes = tok.word_hashes_host(b" ".join(want))
+    matrix = sess.traffic_matrix("flag")
+    check(np.array_equal(matrix, session_host_matrix(
+        hashes, chunks, feeds, sess.k, P, tables)),
+        "flagship session: traffic matrix differs from the host "
+        "recompute under the two tables")
+    resident = acc_bytes(sess, "flag")
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f))
+                   for f in ("keys", "values", "payload", "valid"))
+
+    t0 = time.monotonic()
+    sess.evict("flag")
+    spill_s = time.monotonic() - t0
+    check(sess.tasks() == [], "flagship session: evict left the stream")
+    t0 = time.monotonic()
+    restored = sess.snapshot("flag")  # the lazy restore
+    restore_s = time.monotonic() - t0
+    check(same(restored, snap), "flagship session: the restored snapshot "
+          "differs from the one before the evict")
+    sess.feed(chunks[:per], task="side")
+    sess.spill_policy = spill.SpillPolicy(max_resident=1)
+    sess.feed(chunks[per:2 * per], task="side")
+    check(sess.tasks() == ["side"] and store.has("flag"),
+          f"flagship session: the resident cap kept {sess.tasks()}")
+    check(same(sess.snapshot("flag"), snap),
+          "flagship session: restored after the cap, the snapshot differs")
+    return {"partitions": P, "feeds": len(feeds), "k": sess.k,
+            "buckets": B, "rebalance_s": rebalance_s,
+            "snapshot_s": snapshot_s, "session_spill_s": spill_s,
+            "session_restore_s": restore_s,
+            "resident_bytes": resident,
+            "spilled_bytes": sum(len(store.storage.read_bytes(n))
+                                 for n in store.storage.list(r"\.npy$")),
+            "col_sums": matrix.sum(axis=0).tolist(),
+            "launches": launches, "profiled_launches": profiled,
+            "profiled_events": events}
+
+
+def topk_session(torch, kc, wcmod, topk, Partitions, data):
+    """Phase 8c: TopKWords(k=100) over the corpus in SESSION_FEEDS
+    feeds (cut at whitespace) on the radix path at P = 8, equal to
+    host_topk."""
+    from dataclasses import replace
+
+    cfg = replace(wcmod.bench_engine_config(), sort_impl="radix")
+    tk = topk.TopKWords(Partitions(RADIX_PARTS, "cuda"), k=TOPK_K,
+                        chunk_len=CHUNK_LEN, config=cfg)
+    parts, lo = [], 0
+    for i in range(1, SESSION_FEEDS + 1):
+        hi = len(data) * i // SESSION_FEEDS
+        while hi < len(data) and data[hi] not in b" \n\t\r\x0b\x0c":
+            hi += 1
+        parts.append(data[lo:hi])
+        lo = hi
+    kc.reset_counts()
+    t0 = time.monotonic()
+    for part in parts:
+        tk.feed(part)
+    feed_s = time.monotonic() - t0
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    check_launches(launches, plain, "topk", True)
+    t0 = time.monotonic()
+    top = tk.topk()
+    topk_s = time.monotonic() - t0
+    check(top == topk.host_topk(data, TOPK_K),
+          "topk: differs from host_topk")
+    return {"k": TOPK_K, "feeds": len(parts), "feed_s": feed_s,
+            "topk_s": topk_s, "top3": [[w.decode(), c] for w, c in top[:3]],
+            "launches": launches}
+
+
+def session_phase(torch, kc, wcmod, Partitions, plan_rebalance, tok, data,
+                  chunks, want, smi):
+    """Phase 8: the resident sessions (the ``session`` line)."""
+    from mapreduce_tpu_torch.corpus import make_corpus
+    from mapreduce_tpu_torch.engine import session as smod
+    from mapreduce_tpu_torch.engine import spill
+    from mapreduce_tpu_torch.engine import topk
+    from mapreduce_tpu_torch.storage.router import router
+
+    tenants = {}
+    for seed, task in enumerate(SESSION_TENANTS):
+        text = make_corpus(SESSION_WORDS, SESSION_WORDS // 25, seed=seed)
+        rows, _ = tok.shard_text(
+            text, -(-len(text) // SESSION_CHUNK_LEN), pad_multiple=512,
+            pad_to=SESSION_CHUNK_LEN + 512)
+        tenant_want = Counter(text.split())
+        tenants[task] = (rows, tenant_want, sum(tenant_want.values()))
+    def part(name, value):
+        # each part as it ends (a failure later keeps the earlier ones)
+        print(json.dumps({"session_part": {name: value}}), flush=True)
+        return value
+
+    out = {"card": smi, "sustained": [
+        part(f"sustained_p{parts}", sustained_case(
+            torch, kc, wcmod, smod, Partitions, parts, impl, tenants))
+        for parts, impl in ((1, "variadic"), (RADIX_PARTS, "radix"))]}
+    out["flagship"] = part("flagship", flagship_session(
+        torch, kc, wcmod, smod, spill, router, Partitions, plan_rebalance,
+        tok, chunks, want))
+    out["topk"] = part("topk", topk_session(torch, kc, wcmod, topk,
+                                            Partitions, data))
+    print(json.dumps({"session": out}))
+
+
 def main():
     import torch
 
@@ -1723,6 +2095,10 @@ def main():
     partition_map_phase(torch, wcmod, Partitions, tok, plan_rebalance, rwc,
                         data, want)
     tiered_phase(torch, kc, wcmod, tiering, Partitions, data, want, rmatrix)
+
+    # phase 8: the resident sessions
+    session_phase(torch, kc, wcmod, Partitions, plan_rebalance, tok, data,
+                  chunks, want, smi)
 
     # phases 8-9: the flash kernels, then the transformer slice (the
     # plain f32 matmuls of the reference stay in full f32)

@@ -37,8 +37,15 @@ buffers and a copy stream of its own on CUDA, at most
 through :meth:`DeviceEngine.stage_inputs`, whose handle
 ``run(staged=...)`` consumes.
 
-Left out of this port for now (ROADMAP): the compile ledger, the
-autotune controllers, obs gauges, multi-process.
+The resident sessions (:mod:`.session`) run the same wave per feed:
+:meth:`DeviceEngine._wave` takes the global index of its first chunk,
+the mask bound and the partition table, and carries the cumulative
+traffic lane in the accumulator.
+
+Left out of this port for now (ROADMAP): the compile ledger and the
+shape registry, the autotune controllers (only ``plan_rebalance`` is
+here), the metrics and memory gauges, custom callable monoids on CUDA,
+multi-process runs.
 """
 
 from __future__ import annotations
@@ -98,6 +105,19 @@ class EngineConfig:
     segment_block: int = 4096
     tokenize_impl: str = "lax"
     tokenize_block: int = 4096
+
+    def cache_key(self) -> tuple:
+        """Every field, in the JAX package's ``cache_key`` order: a
+        spill's ``meta["config"]`` (:func:`_cfg_token`) must spell the
+        same string in both packages for the same config."""
+        return (self.local_capacity, self.exchange_capacity,
+                self.out_capacity, self.tile, self.tile_records,
+                self.reduce_op, self.unit_values, self.combine_in_scan,
+                self.combine_capacity, self.rank_sort,
+                self.exchange_stats, self.sort_impl,
+                self.partition_map, self.partition_buckets,
+                self.segment_impl, self.segment_block,
+                self.tokenize_impl, self.tokenize_block)
 
     def scan_combine_slots(self, T: int) -> int:
         """Buffer slots one chunk's pre-reduced records occupy when the
@@ -164,10 +184,11 @@ class DeviceResult(NamedTuple):
 
 
 class _Wave(NamedTuple):
-    acc: tuple                # fin (keys, values, payload, valid), [P, C, ...]
+    #: fin (keys, values, payload, valid), [P, C, ...], then with
+    #: exchange_stats the cumulative [P, P] int32 traffic lane
+    acc: tuple
     overflow: torch.Tensor    # [P] int32 rows dropped in this wave
     needs: torch.Tensor       # [P, 5] int32 measured capacity needs
-    counts: torch.Tensor      # [P, P] int32 exchange traffic
 
 
 def _is_tiered(sort_impl: str) -> bool:
@@ -184,6 +205,33 @@ def _tier_cfgs(cfg: EngineConfig):
     steady = "radix" if cfg.sort_impl == "tiered-radix" else "variadic"
     return (replace(cfg, sort_impl="argsort"),
             replace(cfg, sort_impl=steady))
+
+
+def _steady_cfg(cfg: EngineConfig) -> EngineConfig:
+    """The steady-state config: a tier policy's steady tier, else *cfg*
+    (what a session's spill token and accumulator are keyed by)."""
+    return _tier_cfgs(cfg)[1] if _is_tiered(cfg.sort_impl) else cfg
+
+
+def op_token(op) -> str:
+    """Stable spelling of a reduce op: strings pass through, functions
+    become ``module:qualname`` (the JAX package's ``obs.compile.
+    op_token``)."""
+    if isinstance(op, str):
+        return op
+    mod = getattr(op, "__module__", None)
+    qual = getattr(op, "__qualname__", None)
+    if mod and qual:
+        return f"{mod}:{qual}"
+    return repr(op)
+
+
+def _cfg_token(cfg: EngineConfig) -> str:
+    """The config's cache key as one string, spelled as the JAX package
+    spells it (callables by :func:`op_token`, everything else by
+    ``repr``)."""
+    return "|".join(op_token(v) if callable(v) else repr(v)
+                    for v in cfg.cache_key())
 
 
 def _check_impls(cfg: EngineConfig) -> None:
@@ -462,10 +510,30 @@ class DeviceEngine:
                        + (local.n_unique - cfg.local_capacity).clamp(min=0))
         return local, local_oflow, map_oflow, comb_max
 
+    def _acc_zeros(self, cfg: EngineConfig, values: torch.Tensor,
+                   payload: torch.Tensor) -> tuple:
+        """An all-invalid accumulator ``[P, C, ...]`` whose value and
+        payload lanes are shaped like *values* / *payload* rows (``[n,
+        ...]``), with the zeroed ``[P, P]`` traffic lane under
+        ``exchange_stats``."""
+        P, C, dev = self.n_dev, cfg.out_capacity, self.device
+        acc = (torch.zeros((P, C, 2), dtype=torch.int32, device=dev),
+               torch.zeros((P, C) + tuple(values.shape[1:]),
+                           dtype=values.dtype, device=dev),
+               torch.zeros((P, C) + tuple(payload.shape[1:]),
+                           dtype=payload.dtype, device=dev),
+               torch.zeros((P, C), dtype=torch.bool, device=dev))
+        if cfg.exchange_stats:
+            acc += (torch.zeros((P, P), dtype=torch.int32, device=dev),)
+        return acc
+
     def _wave(self, cfg: EngineConfig, chunks: torch.Tensor, first: int,
-              k: int, n_real: int, acc) -> _Wave:
-        """One wave over ``chunks [k*P, L]`` (global indices from
-        *first*), folding into *acc* (None on the first wave)."""
+              k: int, n_real: int, acc, pmap=None) -> _Wave:
+        """One wave over ``chunks [k*P, L]``, folding into *acc* (None on
+        the first wave).  *first* is the global chunk index of the first
+        row and *n_real* the mask bound (rows at or past it are
+        padding); *pmap* is the ``[B]`` bucket->partition table on the
+        device (``partition_map`` configs)."""
         P = self.n_dev
         _, _, fin_op = _stage_ops(cfg)
         mapped = [self._map_partition(cfg, chunks[p * k:(p + 1) * k],
@@ -477,19 +545,12 @@ class DeviceEngine:
             return torch.stack([getattr(u, field) for u in locals_])
 
         if acc is None:  # all-invalid accumulator shaped like the fold
-            C = cfg.out_capacity
-            lv, lp = locals_[0].values, locals_[0].payload
-            acc = (torch.zeros((P, C, 2), dtype=torch.int32,
-                               device=self.device),
-                   torch.zeros((P, C) + tuple(lv.shape[1:]), dtype=lv.dtype,
-                               device=self.device),
-                   torch.zeros((P, C) + tuple(lp.shape[1:]), dtype=lp.dtype,
-                               device=self.device),
-                   torch.zeros((P, C), dtype=torch.bool, device=self.device))
+            acc = self._acc_zeros(cfg, locals_[0].values,
+                                  locals_[0].payload)
         ex = partition_exchange(
             stacked("keys"), stacked("values"), stacked("payload"),
-            stacked("valid"), cfg.exchange_capacity, carry=acc,
-            pmap=self.device_pmap() if cfg.partition_map else None,
+            stacked("valid"), cfg.exchange_capacity, carry=acc[:4],
+            pmap=pmap,
             # the radix program plans the exchange on the radix kernels
             impl="radix" if cfg.sort_impl == "radix" else "lax")
         fins, oflows, needs = [], [], []
@@ -508,8 +569,9 @@ class DeviceEngine:
                                       fin.n_unique, map_oflow, comb_max]))
         new_acc = tuple(torch.stack([getattr(f, n) for f in fins])
                         for n in ("keys", "values", "payload", "valid"))
-        return _Wave(new_acc, torch.stack(oflows), torch.stack(needs),
-                     ex.counts)
+        if cfg.exchange_stats:
+            new_acc += (acc[4] + ex.counts,)
+        return _Wave(new_acc, torch.stack(oflows), torch.stack(needs))
 
     # -- host driver -----------------------------------------------------------
 
@@ -670,7 +732,8 @@ class DeviceEngine:
                 t0 = time.monotonic()
                 t_blocked = 0.0
                 acc = None
-                oflows, needs, counts = [], [], []
+                oflows, needs = [], []
+                pmap = self.device_pmap() if cfg.partition_map else None
                 if feeder is not None:  # uploads overlap any build below
                     feeder.start()
                 for w in range(W):
@@ -691,14 +754,14 @@ class DeviceEngine:
                     t_blocked += time.monotonic() - tb
                     if t_first_dispatch is None:
                         t_first_dispatch = time.monotonic()
-                    out = self._wave(wave_cfg, block, w * rpw, k, S, acc)
+                    out = self._wave(wave_cfg, block, w * rpw, k, S, acc,
+                                     pmap)
                     del block
                     if feeder is not None:
                         feeder.release(w)
                     acc = out.acc
                     oflows.append(out.overflow)
                     needs.append(out.needs)
-                    counts.append(out.counts)
                 # the one readback of the attempt: waits for the device
                 total_oflow = int(torch.stack(oflows).sum())
                 t_upload += t_blocked
@@ -740,7 +803,7 @@ class DeviceEngine:
                 "to inspect the truncated result")
         # sliced readback: only the live prefix of each partition's result
         t0 = time.monotonic()
-        keys, vals, pay, valid = acc
+        keys, vals, pay, valid = acc[:4]
         width = max(1, int(valid.sum(dim=1).max()))
         result = DeviceResult(keys[:, :width].cpu(), vals[:, :width].cpu(),
                               pay[:, :width].cpu(), valid[:, :width].cpu(),
@@ -766,7 +829,7 @@ class DeviceEngine:
                 timings["serving_tier"] = disp.tier_label
                 timings["tier_specialize_failed"] = disp.failed
             if cfg.exchange_stats:
-                matrix = torch.stack(counts).sum(dim=0).cpu()
+                matrix = acc[4].cpu()
                 timings["exchange"] = {
                     "matrix": matrix.tolist(),
                     "row_sums": matrix.sum(dim=1).tolist(),

@@ -761,3 +761,154 @@ def test_concurrent_library_calls_build_once(dev, tmp_path, monkeypatch):
     assert not any(t.is_alive() for t in threads)
     assert started == ["segreduce"]
     assert len(libs) == 2 and libs[0] is libs[1]
+
+
+# -- the resident session on the card ------------------------------------------
+
+_SESSION_WORDS = 120_000
+
+
+@pytest.fixture(scope="module")
+def session_chunks():
+    from mapreduce_tpu_torch.corpus import make_corpus
+    from mapreduce_tpu_torch.ops.tokenize import shard_text
+
+    data = make_corpus(_SESSION_WORDS, _SESSION_WORDS // 27, seed=4)
+    n = -(-len(data) // _FEED_CHUNK)
+    chunks, _ = shard_text(data, -(-n // 8) * 8, pad_multiple=512,
+                           pad_to=_FEED_CHUNK + 512)
+    return chunks
+
+
+def _session(parts, device, store=None, **over):
+    from dataclasses import replace
+
+    from mapreduce_tpu_torch.engine import wordcount as wcmod
+    from mapreduce_tpu_torch.engine.session import EngineSession
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+
+    cfg = replace(wcmod.bench_engine_config(), local_capacity=1 << 16,
+                  exchange_capacity=1 << 15, out_capacity=1 << 16,
+                  unit_values=True, reduce_op="sum", **over)
+    return EngineSession(Partitions(parts, device), wcmod._wordcount_map_fn,
+                         cfg, k=2, spill=store)
+
+
+def _feeds(chunks):
+    """Three tenants, two uneven feeds each, interleaved."""
+    cut = chunks.shape[0] // 3 + 1
+    for lo, hi in ((0, cut), (cut, chunks.shape[0])):
+        for i, task in enumerate(("t0", "t1", "t2")):
+            yield task, chunks[lo:hi] if i != 1 else chunks[lo:hi][::-1]
+
+
+def _pin_snap(got, want):
+    for f in ("keys", "values", "payload", "valid"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert got.overflow == want.overflow == 0
+
+
+@pytest.mark.parametrize("parts,sort_impl", [(1, "variadic"), (8, "radix")])
+def test_session_snapshots_match_the_plain_session(dev, session_chunks,
+                                                   parts, sort_impl):
+    """Every tenant's snapshot after every feed, on the card, is the CPU
+    plain session's bits over the same feeds; no plain version runs on
+    the card path and every kernel of the path launches."""
+    cuda = _session(parts, "cuda", sort_impl=sort_impl)
+    plain = _session(parts, "cpu", sort_impl=sort_impl)
+    for task, block in _feeds(session_chunks):
+        plain.feed(block, task=task)
+        kc.reset_counts()
+        cuda.feed(block, task=task)
+        snap = cuda.snapshot(task)
+        assert not any(kc.PLAIN_CALLS.values()), kc.PLAIN_CALLS
+        assert kc.LAUNCHES["tokenize"] > 0 and kc.LAUNCHES["segreduce"] > 0
+        if sort_impl == "radix":
+            assert kc.LAUNCHES["radix_plan"] > 0
+            assert kc.LAUNCHES["radix_onesweep"] > 0
+        _pin_snap(snap, plain.snapshot(task))
+    assert np.array_equal(cuda.traffic_matrix("t1"),
+                          plain.traffic_matrix("t1"))
+
+
+def test_session_evict_restore_on_the_card(dev, session_chunks):
+    """Evict to ``mem:`` storage, then the next snapshot restores lazily,
+    bit-equal to the snapshot before; the stream feeds on equal to one
+    that never left, and the eviction freed device memory."""
+    from mapreduce_tpu_torch.engine.spill import SessionSpillStore
+    from mapreduce_tpu_torch.storage import MemoryStorage
+
+    half = session_chunks.shape[0] // 2
+    s = _session(8, "cuda", SessionSpillStore(MemoryStorage()),
+                 sort_impl="radix")
+    ref = _session(8, "cuda", sort_impl="radix")
+    s.feed(session_chunks[:half], task="a")
+    ref.feed(session_chunks[:half], task="a")
+    before = s.snapshot("a")
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    s.evict("a")
+    assert torch.cuda.memory_allocated() < mem and s.tasks() == []
+    _pin_snap(s.snapshot("a"), before)
+    s.feed(session_chunks[half:], task="a")
+    ref.feed(session_chunks[half:], task="a")
+    _pin_snap(s.snapshot("a"), ref.snapshot("a"))
+
+
+def test_session_memory_policy_fires_on_the_card(dev, session_chunks):
+    """``SpillPolicy(hbm_frac=...)`` below the allocated share evicts the
+    coldest stream at the next feed's end (it never fires on the CPU)."""
+    from mapreduce_tpu_torch.engine.spill import (
+        SessionSpillStore, SpillPolicy)
+    from mapreduce_tpu_torch.storage import MemoryStorage
+
+    store = SessionSpillStore(MemoryStorage())
+    s = _session(1, "cuda", store)
+    s.feed(session_chunks[:8], task="cold")
+    s.feed(session_chunks[8:16], task="hot")
+    assert not SpillPolicy(hbm_frac=0.999).hbm_pressed(s.device)
+    assert SpillPolicy(hbm_frac=1e-9).hbm_pressed(s.device)
+    s.spill_policy = SpillPolicy(hbm_frac=1e-9)
+    s.feed(session_chunks[16:24], task="hot")
+    assert s.tasks() == ["hot"] and store.has("cold")
+
+
+def test_session_without_its_library_raises(dev, session_chunks, tmp_path,
+                                            monkeypatch):
+    """A kernel library that cannot be built makes the feed raise (and
+    poisons the stream); no plain version runs in its place."""
+    monkeypatch.setattr(kc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kc, "_LIBS", {})
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(kc, "_nvcc", no_nvcc)
+    s = _session(1, "cuda")
+    kc.reset_counts()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        s.feed(session_chunks[:8], task="t")
+    assert not any(kc.PLAIN_CALLS.values())
+    assert not any(kc.LAUNCHES.values())
+
+
+def test_session_orders_reads_after_a_feed_on_another_stream(
+        dev, session_chunks):
+    """Feeds queued on a side stream, a snapshot and a spill read on the
+    default one: the session's write events order them, with no
+    device-wide synchronize, and the reads equal the plain session's."""
+    from mapreduce_tpu_torch.engine.spill import SessionSpillStore
+    from mapreduce_tpu_torch.storage import MemoryStorage
+
+    s = _session(1, "cuda", SessionSpillStore(MemoryStorage()))
+    plain = _session(1, "cpu")
+    side = torch.cuda.Stream()
+    for lo in range(0, session_chunks.shape[0], 4):
+        block = session_chunks[lo:lo + 4]
+        plain.feed(block, task="t")
+        with torch.cuda.stream(side):
+            s.feed(block, task="t")
+        _pin_snap(s.snapshot("t"), plain.snapshot("t"))
+    s.evict("t")
+    with torch.cuda.stream(side):
+        _pin_snap(s.snapshot("t"), plain.snapshot("t"))

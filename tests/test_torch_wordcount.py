@@ -237,7 +237,12 @@ def test_port_imports_no_jax():
         return top == "jax" or top == "mapreduce_tpu"
 
     files = _port_sources()
-    assert len(files) > 10
+    assert len(files) > 30
+    walked = {str(f.relative_to(ROOT)) for f in files}
+    for module in ("storage/base", "storage/memory", "storage/localdir",
+                   "storage/router", "models/checkpoint", "engine/spill",
+                   "engine/session", "engine/topk"):
+        assert f"mapreduce_tpu_torch/{module}.py" in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
