@@ -106,7 +106,28 @@ which raises on failure:
    ``session_restore_s``), and ``SpillPolicy(max_resident=1)`` evicting
    the colder stream; (c) ``TopKWords(k=100)`` over the corpus in 4
    feeds, equal to ``host_topk``;
-9. the flash-attention kernels against their plain versions on the card
+9. the job plane (``jobplane`` lines): (a) ``mapreduce_tpu_torch.cli.
+   main(["wordcount", FILES, "--device", ...])`` in this process over the
+   slice's corpus written as 24 files of whole lines, at P = 1 variadic
+   and at ``--partitions 8 --sort-impl radix``: ``RESULT`` and the 76K
+   stdout lines against ``Counter`` of the files' words, launches of the
+   path's kernels (tokenize and segreduce, and at P = 8 the three radix
+   kernels) above 0 and no plain call; then, on a copy of the inputs of
+   the run's largest segreduce call (and at P = 8 its largest radix sort
+   and exchange plan), each kernel held bit for bit against its plain
+   version; the server's ``loop`` wall, the device phase's split
+   (prepare, ``compute_s``, ``upload_s``, ``first_dispatch_s``, retries,
+   waves, ``device_result``, the result write), ``finalfn`` and the
+   unique count; (b) the host plane (4 worker threads, 4 reducers)
+   against the device plane (the default ``Partitions(1)``, variadic) on
+   a ``dir:`` board and ``shared:`` storage over 200K words in 3 files:
+   equal ``RESULT`` s, equal to the naive oracle, and stats with map,
+   reduce and device sections; (c) a two-iteration ``"loop"`` on the
+   device plane.  Before each run the example's module state (its
+   ``_conf`` and ``RESULT``) is reset to a fresh process's.  Each
+   ``Server.loop`` with worker threads runs in a thread joined under a
+   timeout;
+10. the flash-attention kernels against their plain versions on the card
    at the transformer slice's shape ``[4, 8, 2048, 128]`` bf16 causal,
    plus a full (non-causal) case and a ragged ``T = 2000``, ``D = 64``
    case: out, lse, dq, dk and dv; kernel, plain and bound times at the
@@ -117,7 +138,7 @@ which raises on failure:
    forward + backward (timed here only; the port never calls it); then
    the three kernels once more without the causal mask and with 4x the
    batch (``flash_scaling``: what bounds them);
-10. the transformer slice: ``TransformerTrainer`` at the configuration of
+11. the transformer slice: ``TransformerTrainer`` at the configuration of
    ``bench_train.bench_transformer`` (vocab 32768, embed 1024, 8 layers,
    8 heads x 128, ffn 4096, bf16 products on f32 parameters, B = 4, T =
    2048, SGD at lr 1e-3) on ``np.random.default_rng(0)`` tokens: a first
@@ -128,7 +149,7 @@ which raises on failure:
    launched, no plain call), step seconds, tokens/s and MFU, one step
    under ``torch.profiler``, and the logits product's cost three ways
    (bf16 operands with an f32 result, the port's; bf16 result; f32);
-11. one JSON line of per-kernel numbers, then the result line.
+12. one JSON line of per-kernel numbers, then the result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
 flash kernels sum in another order than their plain versions: out, dq,
@@ -1323,7 +1344,7 @@ def flash_case(torch, fa, label, B, H, Tq, Tk, D, causal):
 
 
 def flash_phase(torch, fa):
-    """Phase 8: returns the three flash kernels' records."""
+    """Phase 10: returns the three flash kernels' records."""
     import torch.nn.functional as F
 
     B, H, T, D = TF_B, TF_CONFIG["n_heads"], TF_T, TF_CONFIG["head_dim"]
@@ -1529,7 +1550,7 @@ def logits_phase(torch, cfg):
 
 
 def trainer_phase(torch, kc, fa, tmod):
-    """Phase 9: the transformer slice; returns the flash launch counts of
+    """Phase 11: the transformer slice; returns the flash launch counts of
     its counted steps."""
     import numpy as np
 
@@ -1964,6 +1985,392 @@ def session_phase(torch, kc, wcmod, Partitions, plan_rebalance, tok, data,
     print(json.dumps({"session": out}))
 
 
+#: the job plane's files: the slice's corpus cut into this many files of
+#: whole lines
+JOB_FILES = 24
+#: the host-vs-device corpus: 3 files, this many words (seed 1)
+JOB_SMALL_WORDS = 200_000
+JOB_WORKERS = 4
+JOB_REDUCERS = 4
+#: seconds a Server.loop with worker threads may take before the phase
+#: fails (its phase polling has no deadline of its own)
+JOB_LOOP_TIMEOUT = 300
+JOB_MODULE = "mapreduce_tpu_torch.examples.wordcount"
+
+
+def write_line_files(data, n, root):
+    """*data* cut at newlines into *n* files of whole lines whose
+    ``b"\n"``-join is *data* again (the device phase joins them so)."""
+    cuts = [0]
+    for i in range(1, n):
+        at = data.find(b"\n", i * len(data) // n)
+        cuts.append(len(data) if at < 0 else at)
+    cuts.append(len(data))
+    files = []
+    for i in range(n):
+        lo = cuts[i] + (1 if i else 0)
+        path = os.path.join(root, f"part-{i:03d}.txt")
+        with open(path, "wb") as f:
+            f.write(data[lo:cuts[i + 1]])
+        files.append(path)
+    joined = b"\n".join(open(f, "rb").read() for f in files)
+    check(joined == data, "job plane: the files do not rejoin to the corpus")
+    return files
+
+
+class LoopRecorder:
+    """Wraps ``Server.loop`` and the example's ``finalfn`` for the
+    job-plane phase: the loop's wall, its server (for the device phase's
+    timings) and the finalfn seconds of each run."""
+
+    def __init__(self, server_mod, wcmod):
+        self.server_mod, self.wcmod = server_mod, wcmod
+        self.runs = []
+
+    def __enter__(self):
+        rec = self
+        self.real_loop = real_loop = self.server_mod.Server.loop
+        self.real_final = real_final = self.wcmod.finalfn
+
+        def loop(server):
+            t0 = time.monotonic()
+            stats = real_loop(server)
+            rec.runs.append({"loop_wall_s": time.monotonic() - t0,
+                             "server": server, "stats": stats,
+                             "finalfn_s": rec.final_s})
+            rec.final_s = []
+            return stats
+
+        def finalfn(pairs):
+            t0 = time.monotonic()
+            reply = real_final(pairs)
+            rec.final_s.append(time.monotonic() - t0)
+            return reply
+
+        self.final_s = []
+        self.server_mod.Server.loop = loop
+        self.wcmod.finalfn = finalfn
+        return self
+
+    def __exit__(self, *exc):
+        self.server_mod.Server.loop = self.real_loop
+        self.wcmod.finalfn = self.real_final
+        return False
+
+
+def loop_in_thread(server, timeout=JOB_LOOP_TIMEOUT):
+    """``server.loop()`` in a thread joined under *timeout*: a loop still
+    polling then fails the phase instead of hanging the run."""
+    import threading
+
+    box = {}
+
+    def body():
+        try:
+            box["stats"] = server.loop()
+        except BaseException as exc:  # re-raised below
+            box["err"] = exc
+
+    t = threading.Thread(target=body, daemon=True)
+    t.start()
+    t.join(timeout)
+    check(not t.is_alive(), f"job plane: Server.loop still running after "
+          f"{timeout} s")
+    if "err" in box:
+        raise box["err"]
+    return box["stats"]
+
+
+class PathInputs:
+    """Wraps the kernel wrappers that the job plane's engine calls (the
+    segmented reduce and the radix sort through ``ops.segscan``, the
+    exchange plan through ``parallel.shuffle``) and keeps a copy of the
+    inputs of each one's largest call in the run (one ``clone`` on the
+    stream each time a call is larger than any before it).
+    :func:`hold_path_inputs` then holds each kernel against its plain
+    version on exactly those inputs."""
+
+    def __init__(self, torch, seg, shuffle):
+        self.torch, self.seg, self.shuffle = torch, seg, shuffle
+        self.inputs = {}
+
+    def _keep(self, name, n, args):
+        if n > self.inputs.get(name, (-1, None))[0]:
+            def copy(a):
+                if isinstance(a, self.torch.Tensor):
+                    return a.clone()
+                if isinstance(a, (list, tuple)):
+                    return type(a)(copy(x) for x in a)
+                return a
+            self.inputs[name] = (n, copy(args))
+
+    def __enter__(self):
+        seg, shuffle, rec = self.seg, self.shuffle, self
+        self.real = (seg.segment_reduce, seg.radix_sort_pairs,
+                     shuffle.radix_partition_plan)
+        real_seg, real_sort, real_plan = self.real
+
+        def segment_reduce(k1s, k2s, vals_s, op, unit_values):
+            rec._keep("segreduce", k1s.numel(),
+                      (k1s, k2s, list(vals_s), op, unit_values))
+            return real_seg(k1s, k2s, vals_s, op, unit_values)
+
+        def radix_sort_pairs(k1, k2):
+            rec._keep("radix_sort", k1.numel(), (k1, k2))
+            return real_sort(k1, k2)
+
+        def radix_partition_plan(dest, num_partitions):
+            rec._keep("radix_plan", dest.numel(), (dest, num_partitions))
+            return real_plan(dest, num_partitions)
+
+        seg.segment_reduce = segment_reduce
+        seg.radix_sort_pairs = radix_sort_pairs
+        shuffle.radix_partition_plan = radix_partition_plan
+        return self
+
+    def __exit__(self, *exc):
+        (self.seg.segment_reduce, self.seg.radix_sort_pairs,
+         self.shuffle.radix_partition_plan) = self.real
+        return False
+
+
+def hold_path_inputs(torch, seg, rs, label, inputs, need):
+    """Each kernel in *need* (``segreduce``, ``radix_sort``,
+    ``radix_plan``) against its plain version, bit for bit, on the
+    inputs of its largest call in the run (:class:`PathInputs`).  These
+    launches come after the run's counts were read, so they are not
+    counted as the path's."""
+    missing = [k for k in need if k not in inputs]
+    check(not missing, f"job plane {label}: no call of {missing} in the run")
+    held = {}
+    if "segreduce" in need:
+        n, (k1s, k2s, vals, op, unit) = inputs["segreduce"]
+        got = seg._segment_reduce_cuda(k1s, k2s, vals, op, unit)
+        want = seg._segment_reduce_plain(k1s, k2s, vals, op, unit)
+        _, _, is_end = seg._run_flags(k1s, k2s)
+        check(torch.equal(got[1], want[1]),
+              f"job plane {label}: segreduce end_csum differs at n={n}")
+        for g, w in zip(got[0], want[0]):
+            check(torch.equal(g[is_end], w[is_end]),
+                  f"job plane {label}: segreduce lanes differ at run ends "
+                  f"at n={n}")
+        held["segreduce"] = {"n": n, "lanes": 1 if unit else len(vals),
+                             "runs": int(is_end.sum()), "bit_equal": True}
+    if "radix_sort" in need:
+        n, (k1, k2) = inputs["radix_sort"]
+        got = rs._radix_sort_cuda(k1.to(torch.int32).contiguous(),
+                                  k2.to(torch.int32).contiguous())
+        want = rs._radix_sort_plain(k1.to(torch.int32).contiguous(),
+                                    k2.to(torch.int32).contiguous())
+        for g, w, lane in zip(got, want, ("k1", "k2", "perm")):
+            check(torch.equal(g, w), f"job plane {label}: radix sort {lane} "
+                  f"differs from the plain passes at n={n}")
+        held["radix_sort"] = {"n": n, "bit_equal": True}
+    if "radix_plan" in need:
+        n, (dest, parts) = inputs["radix_plan"]
+        d2 = (dest[None] if dest.dim() == 1 else dest).to(
+            torch.int32).contiguous()
+        got = rs._radix_plan_cuda(d2, parts + 1)
+        want = rs._radix_plan_plain(d2, parts + 1)
+        for g, w, what in zip(got, want, ("rank", "totals")):
+            check(torch.equal(g, w), f"job plane {label}: radix plan {what} "
+                  f"differs from the plain version at {list(d2.shape)}")
+        held["radix_plan"] = {"shape": list(d2.shape),
+                              "buckets": parts + 1, "bit_equal": True}
+    torch.cuda.synchronize()
+    return held
+
+
+def reset_example(spec, jwc, conf):
+    """The example's module state as a fresh process has it: ``init``
+    only updates ``_conf``, so one run's init_args (a sort impl) would
+    otherwise carry into the next."""
+    spec.clear_caches()
+    jwc._conf.clear()
+    jwc._conf.update(conf)
+    jwc.RESULT.clear()
+
+
+def jobplane_cli_run(torch, kc, seg, rs, shuffle, cli, spec, rec, conf,
+                     label, argv, want_str, need, held_need):
+    """One ``wordcount --device`` through the CLI in this process; its
+    stdout (76K lines) is captured and checked, not printed.  The inputs
+    of the largest call of each kernel in *held_need* are kept
+    (:class:`PathInputs`) and the kernel held against its plain version
+    on them once the run's counts are read."""
+    import contextlib
+    import io
+
+    reset_example(spec, rec.wcmod, conf)
+    kc.reset_counts()
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+            PathInputs(torch, seg, shuffle) as cap:
+        rc = cli.main(argv)
+    wall = time.monotonic() - t0
+    launches = dict(kc.LAUNCHES)
+    plain = dict(kc.PLAIN_CALLS)
+    check(rc == 0, f"job plane {label}: cli exit {rc}: {err.getvalue()}")
+    run = rec.runs[-1]
+    got = dict(rec.wcmod.RESULT)
+    check(got == want_str, f"job plane {label}: RESULT differs from "
+          "Counter over the files' words")
+    lines = out.getvalue().splitlines()
+    check(len(lines) == len(want_str), f"job plane {label}: {len(lines)} "
+          f"stdout lines for {len(want_str)} words")
+    top = min(want_str.items(), key=lambda wc: (-wc[1], wc[0]))
+    check(lines[0] == f"{top[1]} {top[0]}",
+          f"job plane {label}: first line {lines[0]!r}")
+    check(all(launches[k] > 0 for k in need),
+          f"job plane {label}: a kernel of the path was never launched: "
+          f"{launches}")
+    check(all(v == 0 for v in plain.values()),
+          f"job plane {label}: plain versions ran on the card: {plain}")
+    held = hold_path_inputs(torch, seg, rs, label, cap.inputs, held_need)
+    del cap
+    tm = run["server"]._last_device_timings
+    return {"run": label, "loop_wall_s": run["loop_wall_s"],
+            "cli_wall_s": wall, "prepare_s": tm["prepare_s"],
+            "engine_s": tm["engine_s"], "compute_s": tm["compute_s"],
+            "upload_s": tm["upload_s"], "readback_s": tm["readback_s"],
+            "first_dispatch_s": tm["first_dispatch_s"],
+            "retries": tm["retries"], "waves": tm["waves"],
+            "device_result_s": tm["result_s"], "result_write_s":
+            tm["write_s"], "finalfn_s": run["finalfn_s"][0],
+            "unique": len(got), "launches": {k: launches[k] for k in need},
+            "plain_calls": sum(plain.values()), "held": held,
+            "summary": err.getvalue().strip().splitlines()[-1]}
+
+
+def jobplane_phase(torch, kc, seg, rs, data, want, smi):
+    """Phase 9: the job plane on the card (the ``jobplane`` lines)."""
+    import tempfile
+    import uuid
+
+    from mapreduce_tpu_torch import cli, spec
+    from mapreduce_tpu_torch import server as server_mod
+    from mapreduce_tpu_torch.corpus import make_corpus
+    from mapreduce_tpu_torch.examples import naive
+    from mapreduce_tpu_torch.examples import wordcount as jwc
+    from mapreduce_tpu_torch.parallel import shuffle
+    from mapreduce_tpu_torch.worker import spawn_worker_threads
+
+    # the example's module state before any run (no run has touched it)
+    conf = dict(jwc._conf)
+    root = tempfile.mkdtemp(prefix="chip_smoke_jobplane_")
+    files = write_line_files(data, JOB_FILES, root)
+    want_str = {w.decode(): c for w, c in want.items()}
+    out = {"card": smi, "files": len(files), "bytes": len(data)}
+    with LoopRecorder(server_mod, jwc) as rec:
+        # (a) the flagship word count through the framework
+        base = ["tokenize", "segreduce"]
+        for label, extra, need, held_need in (
+                ("p1_variadic", [], base, ["segreduce"]),
+                ("p8_radix", ["--partitions", str(RADIX_PARTS),
+                              "--sort-impl", "radix"],
+                 base + ["radix_upfront", "radix_onesweep", "radix_plan"],
+                 ["segreduce", "radix_sort", "radix_plan"])):
+            line = jobplane_cli_run(
+                torch, kc, seg, rs, shuffle, cli, spec, rec, conf, label,
+                ["wordcount", *files, "--device", *extra], want_str, need,
+                held_need)
+            print(json.dumps({"jobplane": line}), flush=True)
+            out[label] = line
+
+        # (b) the device plane against the host plane: a dir: board,
+        # shared: storage, 4 worker threads, 4 reducers
+        small = make_corpus(JOB_SMALL_WORDS, JOB_SMALL_WORDS // 25, seed=1)
+        sroot = tempfile.mkdtemp(prefix="small_", dir=root)
+        sfiles = write_line_files(small, 3, sroot)
+        oracle = naive.wordcount(sfiles)
+        params = {r: JOB_MODULE for r in ("taskfn", "mapfn", "partitionfn",
+                                          "reducefn", "finalfn")}
+        params["combinerfn"] = JOB_MODULE
+        params["init_args"] = {"files": sfiles,
+                               "num_reducers": JOB_REDUCERS}
+        planes = {}
+        for plane in ("host", "device"):
+            reset_example(spec, jwc, conf)
+            kc.reset_counts()
+            connstr = f"dir://{os.path.join(root, plane + '_board')}"
+            p = dict(params,
+                     storage=f"shared:{os.path.join(root, plane + '_st')}")
+            threads = []
+            if plane == "device":
+                p["device"] = True  # default Partitions(1): the card
+            else:
+                threads = spawn_worker_threads(connstr, "wc", JOB_WORKERS)
+            server = server_mod.Server(connstr, "wc")
+            server.configure(p)
+            stats = loop_in_thread(server)
+            for t in threads:
+                t.join(timeout=JOB_LOOP_TIMEOUT)
+                check(not t.is_alive(), f"job plane: worker {t.name} did "
+                      "not exit")
+            check(dict(jwc.RESULT) == oracle, f"job plane {plane} plane: "
+                  "RESULT differs from the naive oracle")
+            planes[plane] = {"result": dict(jwc.RESULT), "stats": stats,
+                             "loop_wall_s": rec.runs[-1]["loop_wall_s"],
+                             "launches": dict(kc.LAUNCHES),
+                             "plain": dict(kc.PLAIN_CALLS)}
+        check(planes["host"]["result"] == planes["device"]["result"],
+              "job plane: host and device RESULTs differ")
+        hs, ds = planes["host"]["stats"], planes["device"]["stats"]
+        check(hs["map"]["count"] == 3 and hs["reduce"]["count"]
+              == JOB_REDUCERS, f"job plane: host stats {hs}")
+        check({"map", "reduce", "device"} <= set(ds),
+              f"job plane: device stats sections {sorted(ds)}")
+        check(planes["device"]["launches"]["tokenize"] > 0
+              and not any(planes["device"]["plain"].values()),
+              f"job plane: device plane launches "
+              f"{planes['device']['launches']}, plain calls "
+              f"{planes['device']['plain']}")
+        line = {"run": "host_vs_device", "words": JOB_SMALL_WORDS,
+                "unique": len(oracle), "workers": JOB_WORKERS,
+                "reducers": JOB_REDUCERS,
+                "host_loop_wall_s": planes["host"]["loop_wall_s"],
+                "device_loop_wall_s": planes["device"]["loop_wall_s"],
+                "host_map_cpu_s": hs["map"]["sum_cpu_time"],
+                "host_reduce_cpu_s": hs["reduce"]["sum_cpu_time"],
+                "device_compute_s": ds["device"]["compute_s"],
+                "equal": True}
+        print(json.dumps({"jobplane": line}), flush=True)
+        out["host_vs_device"] = line
+
+        # (c) a two-iteration "loop" on the device plane
+        iterations = []
+        looping_final = jwc.finalfn
+
+        def loop_once(pairs):
+            looping_final(pairs)
+            iterations.append(dict(jwc.RESULT))
+            return "loop" if len(iterations) < 2 else True
+
+        jwc.finalfn = loop_once
+        try:
+            reset_example(spec, jwc, conf)
+            server = server_mod.Server(f"mem://{uuid.uuid4().hex}", "wc")
+            server.configure(dict(params, device=True,
+                                  storage=f"mem:{uuid.uuid4().hex}"))
+            stats = loop_in_thread(server)
+        finally:
+            jwc.finalfn = looping_final
+        check(iterations == [oracle, oracle],
+              f"job plane: loop ran {len(iterations)} iterations")
+        check(stats["iteration"] == 2 and server.task.finished(),
+              f"job plane: loop ended at iteration {stats['iteration']}")
+        line = {"run": "loop", "iterations": len(iterations),
+                "loop_wall_s": rec.runs[-1]["loop_wall_s"],
+                "finished": True}
+        print(json.dumps({"jobplane": line}), flush=True)
+        out["loop"] = line
+    reset_example(spec, jwc, conf)
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main():
     import torch
 
@@ -2100,7 +2507,10 @@ def main():
     session_phase(torch, kc, wcmod, Partitions, plan_rebalance, tok, data,
                   chunks, want, smi)
 
-    # phases 8-9: the flash kernels, then the transformer slice (the
+    # phase 9: the job plane, through the CLI and the Server
+    jobplane_phase(torch, kc, seg, rs, data, want, smi)
+
+    # phases 10-11: the flash kernels, then the transformer slice (the
     # plain f32 matmuls of the reference stay in full f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     flash_kernels = flash_phase(torch, fa)

@@ -1,5 +1,6 @@
 """Named-blob storage (port of ``mapreduce_tpu/storage``): the durable
-plane under checkpoints and session spills.
+plane under the job plane's record files, checkpoints and session
+spills.
 
 Two backends, chosen by a DSL string through :func:`router`:
 
@@ -8,8 +9,8 @@ Two backends, chosen by a DSL string through :func:`router`:
   * ``shared:PATH`` (alias ``local:PATH``) — a directory on local disk
     or NFS, atomic tempfile + rename writes.
 
-The JAX package's ``http:HOST:PORT`` blob service and its storage
-metrics are not ported yet (ROADMAP).  A blob either package writes
+The JAX package's ``http:HOST:PORT`` blob service is not ported yet
+(ROADMAP A.4b).  A blob either package writes
 through ``shared:`` reads back through the other's: the file names and
 bytes are the same.
 """

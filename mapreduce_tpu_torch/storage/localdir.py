@@ -13,8 +13,9 @@ from __future__ import annotations
 import os
 import urllib.parse
 import uuid
-from typing import List
+from typing import Iterator, List
 
+from ..obs.metrics import storage_io, storage_op
 from .base import Storage
 
 
@@ -41,23 +42,38 @@ class LocalDirStorage(Storage):
             f.write(content)
         os.rename(tmp, self._fname(name))  # same fs: atomic
 
+    def _open_lines(self, name: str) -> Iterator[str]:
+        with open(self._fname(name), "r", encoding="utf-8") as f:
+            for line in f:
+                line = line.rstrip("\n")
+                if line:
+                    yield line
+
     def _read(self, name: str) -> str:
         with open(self._fname(name), "r", encoding="utf-8") as f:
             return f.read()
 
     def read_bytes(self, name: str) -> bytes:
         with open(self._fname(name), "rb") as f:
-            return f.read()
+            data = f.read()
+        storage_io(self.scheme, "read", len(data))
+        storage_op(self.scheme, "read")
+        return data
 
     def write_bytes(self, name: str, data: bytes) -> None:
         tmp = self._tmp()
         with open(tmp, "wb") as f:
             f.write(data)
         os.rename(tmp, self._fname(name))  # same fs: atomic
+        storage_io(self.scheme, "write", len(data))
+        storage_op(self.scheme, "publish")
 
     def _all_names(self) -> List[str]:
         return [urllib.parse.unquote(e) for e in os.listdir(self.root)
                 if e != self.STAGING]
+
+    def exists(self, name: str) -> bool:
+        return os.path.exists(self._fname(name))
 
     def remove(self, name: str) -> None:
         try:

@@ -5,8 +5,9 @@ that open the same ``mem:NAME`` share its blobs."""
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Union
+from typing import Dict, Iterator, List, Union
 
+from ..obs.metrics import storage_io, storage_op
 from .base import Storage
 
 
@@ -35,6 +36,11 @@ class MemoryStorage(Storage):
         with self._lock:
             self._blobs[name] = content
 
+    def _open_lines(self, name: str) -> Iterator[str]:
+        for line in self._read(name).splitlines():
+            if line:
+                yield line
+
     def _read(self, name: str) -> str:
         with self._lock:
             content = self._blobs[name]
@@ -44,18 +50,27 @@ class MemoryStorage(Storage):
     def write_bytes(self, name: str, data: bytes) -> None:
         with self._lock:
             self._blobs[name] = bytes(data)
+        storage_io(self.scheme, "write", len(data))
+        storage_op(self.scheme, "publish")
 
     def read_bytes(self, name: str) -> bytes:
         with self._lock:
             if name not in self._blobs:  # as the directory backend
                 raise FileNotFoundError(name)
             content = self._blobs[name]
-        return content.encode("utf-8") if isinstance(content, str) \
+        data = content.encode("utf-8") if isinstance(content, str) \
             else content
+        storage_io(self.scheme, "read", len(data))
+        storage_op(self.scheme, "read")
+        return data
 
     def _all_names(self) -> List[str]:
         with self._lock:
             return list(self._blobs.keys())
+
+    def exists(self, name: str) -> bool:
+        with self._lock:
+            return name in self._blobs
 
     def remove(self, name: str) -> None:
         with self._lock:

@@ -1,7 +1,7 @@
 """Storage DSL parsing and backend routing (port of ``mapreduce_tpu/
 storage/router.py``): ``"mem[:NAME]" | "shared:PATH" | "local:PATH"``
 (``local`` is an alias of ``shared``).  ``http:HOST:PORT`` is the JAX
-package's blob service, not ported yet: it raises."""
+package's blob service, not ported yet (ROADMAP A.4b): it raises."""
 
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ def get_storage_from(storage: Optional[str] = None) -> Tuple[str, str]:
         backend = "shared"
     if backend == "http":
         raise ValueError("http storage (the blob service) is not ported "
-                         "yet; use mem or shared:PATH")
+                         "yet (ROADMAP A.4b); use mem or shared:PATH")
     if backend not in ("mem", "shared"):
         raise ValueError(f"unknown storage backend {backend!r} "
                          "(want mem|shared|local)")

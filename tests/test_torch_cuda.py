@@ -912,3 +912,49 @@ def test_session_orders_reads_after_a_feed_on_another_stream(
     s.evict("t")
     with torch.cuda.stream(side):
         _pin_snap(s.snapshot("t"), plain.snapshot("t"))
+
+
+@pytest.mark.parametrize("parts,sort_impl", [(1, "variadic"),
+                                             (8, "radix")])
+def test_server_device_plane_on_the_card(dev, tmp_path, parts, sort_impl):
+    """The job plane's device phase on the card: ``Server`` with
+    ``device=True`` over three files equals ``Counter`` of their words,
+    launches the path's kernels and calls no plain version."""
+    import uuid
+
+    from mapreduce_tpu_torch import spec
+    from mapreduce_tpu_torch.corpus import make_corpus
+    from mapreduce_tpu_torch.examples import wordcount as wcmod
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.server import Server
+
+    lines = make_corpus(200_000, 8_000, seed=3).split(b"\n")
+    files = []
+    for i in range(3):
+        path = tmp_path / f"f{i}.txt"
+        path.write_bytes(b"\n".join(lines[i::3]))
+        files.append(str(path))
+    want = Counter()
+    for f in files:
+        want.update(w.decode() for w in open(f, "rb").read().split())
+    mod = "mapreduce_tpu_torch.examples.wordcount"
+    params = {r: mod for r in ("taskfn", "mapfn", "partitionfn",
+                               "reducefn", "finalfn")}
+    params.update(storage=f"mem:{uuid.uuid4().hex}", device=True,
+                  partitions=Partitions(parts),
+                  init_args={"files": files, "device_chunk_len": 1 << 18,
+                             "device_sort_impl": sort_impl})
+    spec.clear_caches()
+    kc.reset_counts()
+    server = Server(f"mem://{uuid.uuid4().hex}", "wc")
+    server.configure(params)
+    stats = server.loop()
+    spec.clear_caches()
+    assert dict(wcmod.RESULT) == dict(want)
+    assert stats["device"]["waves"] >= 1
+    assert not any(kc.PLAIN_CALLS.values()), kc.PLAIN_CALLS
+    need = ["tokenize", "segreduce"]
+    if sort_impl == "radix":
+        need += ["radix_upfront", "radix_onesweep", "radix_plan"]
+    for name in need:
+        assert kc.LAUNCHES[name] > 0, (name, kc.LAUNCHES)

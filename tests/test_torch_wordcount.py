@@ -241,7 +241,14 @@ def test_port_imports_no_jax():
     walked = {str(f.relative_to(ROOT)) for f in files}
     for module in ("storage/base", "storage/memory", "storage/localdir",
                    "storage/router", "models/checkpoint", "engine/spill",
-                   "engine/session", "engine/topk"):
+                   "engine/session", "engine/topk", "cli", "server",
+                   "worker", "spec", "coord/__init__", "coord/docstore",
+                   "coord/connection", "coord/task", "coord/job",
+                   "utils/__init__", "utils/constants",
+                   "utils/serialization", "utils/iterators",
+                   "utils/hashing", "core/heap", "obs/__init__",
+                   "obs/metrics", "obs/trace", "examples/__init__",
+                   "examples/naive", "examples/wordcount/__init__"):
         assert f"mapreduce_tpu_torch/{module}.py" in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
