@@ -149,13 +149,45 @@ which raises on failure:
    launched, no plain call), step seconds, tokens/s and MFU, one step
    under ``torch.profiler``, and the logits product's cost three ways
    (bf16 operands with an f32 result, the port's; bf16 result; f32);
-12. one JSON line of per-kernel numbers, then the result line.
+12. the training plane (``training_*`` lines): (a) the digits MLP at the
+   reference width (256, 128, 10), bunch 128, ``n_data`` 1, measured as
+   ``bench_train.bench_mlp`` measures it: ``mlp_train_steps_per_s``
+   (eager ``step``), the fused rate (a 100-step epoch captured into one
+   CUDA graph, the stacked batch copied into the graph's slots on the
+   card each call) and ``flops_per_step = 6 * params * batch``; the
+   captured epoch bit-equal to 100 eager steps on 100 batches; ``fit``
+   on ``make_digits()`` (800 / 200, bunch 32) lowers the validation loss
+   over 5 epochs; (b) ``fit`` 3 epochs under a ``mem://`` trainer lease
+   into a ``mem:`` ``CheckpointManager``, then a successor acquires (the
+   generation rises), restores step 3 and runs to epoch 5: its history
+   and parameters bit-equal to an uninterrupted 5-epoch run's, with the
+   acquire and ``mrtpu_trainer_recovery_seconds``; (c) ``train_digits``
+   through the port's ``Server`` with two in-process workers: 3
+   ``"loop"`` iterations of 4 map jobs, none failed, the validation loss
+   falling; the loop wall and the seconds spent in ``mapfn`` (the MLP's
+   gradients on the card); (d) the transformer slice's config with
+   ``optimizer="adamw"`` (lr ``ADAMW_LR``): 3 ``step_opt`` calls with
+   8 launches of each flash kernel a step and no plain call;
+   ``_train_steps`` with S = 4 (one graph replay, 32 launches of each)
+   bit-equal to 4 ``step_opt`` calls; ``save`` -> ``load_state``
+   bit-equal and the next step bit-equal to the step without the round
+   trip; step walls
+   (host clock) against device time (events around a replay, the
+   profiler's sum for an eager step), eager and captured, SGD beside
+   (``profile_transformer_adamw`` / ``_sgd`` lines);
+13. one JSON line of per-kernel numbers, then the result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
 flash kernels sum in another order than their plain versions: out, dq,
 dk and dv (bf16) are held to atol = rtol = 2e-2 and lse (f32) to atol
 1e-3; the trainer's first step to a loss within 1e-2 and each
-parameter's update within 5e-2 of its norm.
+parameter's update within 5e-2 of its norm.  The training plane's
+captured steps (the MLP's epoch, the transformer's S AdamW steps), the
+resumed history and the step after a checkpoint round trip are held
+bit for bit: a replay runs the eager step's kernels on the same
+inputs, and no kernel on these paths sums in a varying order (the
+flash kernels and cuBLAS's GEMMs use no atomics; the embedding's
+backward is PyTorch's sort-based ``index_put_``).
 """
 
 import json
@@ -644,9 +676,11 @@ def device_profile(torch, label, run, group_of, on_trace=None):
     groups, calls, rows = {}, {}, []
     for ev in prof.key_averages():
         # device-side events only: a CPU op also reports its kernels'
-        # time, which would count them twice; the profiler's own buffer
-        # requests are not the program's work
+        # time, which would count them twice, and so does a user
+        # annotation's device range (``Optimizer.step#AdamW.step``); the
+        # profiler's own buffer requests are not the program's work
         if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)
                 or ev.key == "Activity Buffer Request"):
             continue
         dev_us = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
@@ -2371,6 +2405,454 @@ def jobplane_phase(torch, kc, seg, rs, data, want, smi):
     return out
 
 
+# -- phase 12: the training plane ---------------------------------------------
+
+#: the phase's device (a CPU rehearsal of the phase sets "cpu")
+DEV = "cuda"
+#: the digits MLP at the reference width (examples/APRIL-ANN/init.lua:12)
+#: and bench_train.bench_mlp's batch and fused epoch
+MLP_SIZES = (256, 128, 10)
+MLP_BUNCH, MLP_FUSED_STEPS = 128, 100
+#: bench_train._timeit's warm-up and timed calls
+TIMEIT_WARMUP, TIMEIT_STEPS = 3, 20
+#: the transformer's adamw checks: steps of step_opt, S of _train_steps,
+#: and the rate (the slice's SGD rate, 1e-3, diverges under Adam's
+#: per-element steps: the loss rose from 14.5 to 32 in 4 steps on an
+#: NVIDIA H100 80GB HBM3 at 700 W)
+ADAMW_STEPS, ADAMW_S, ADAMW_LR = 3, 4, 1e-4
+
+
+def timeit(torch, step, n=TIMEIT_STEPS):
+    """``bench_train._timeit``: seconds per call of *step* over *n* calls
+    after TIMEIT_WARMUP, host clock, the last result read back (every
+    call depends on the one before it)."""
+    for _ in range(TIMEIT_WARMUP):
+        out = step()
+    out.cpu()
+    t0 = time.monotonic()
+    for _ in range(n):
+        out = step()
+    out.cpu()
+    return (time.monotonic() - t0) / n
+
+
+def same_state(torch, a, b):
+    """True when every tensor (or numpy array) of the dicts *a* and *b* is
+    bit-equal."""
+    import numpy as np
+
+    return set(a) == set(b) and all(
+        np.array_equal(a[n], b[n]) if isinstance(a[n], np.ndarray)
+        else torch.equal(a[n], b[n]) for n in a)
+
+
+def training_mlp(torch, tmodels):
+    """Phase 12 (a): bench_train.bench_mlp's rates at the reference width,
+    the captured epoch against eager steps, and fit on the digits."""
+    import numpy as np
+
+    cfg = tmodels.TrainConfig(bunch_size=MLP_BUNCH)
+    mlp_cfg = tmodels.MLPConfig(sizes=MLP_SIZES)
+    tr = tmodels.DistributedTrainer(mlp_cfg, cfg, device=DEV)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(MLP_BUNCH, 256)).astype(np.float32)
+    y = (np.arange(MLP_BUNCH) % 10).astype(np.int32)
+    xd, yd = tr.place_batch(x, y)
+    state = list(tr.init_state())
+
+    def step():
+        state[0], state[1], loss = tr.step(state[0], state[1], xd, yd)
+        return loss
+
+    step_s = timeit(torch, step)
+    S = MLP_FUSED_STEPS
+    xs = xd.expand(S, -1, -1).contiguous()
+    ys = yd.expand(S, -1).contiguous()
+
+    def epoch():
+        # the stacked batch is copied into the graph's slots on the card
+        # each call: the device copy bench_mlp makes (JAX donates)
+        state[0], state[1], losses = tr._train_epoch(state[0], state[1],
+                                                     xs, ys)
+        return losses
+
+    t0 = time.monotonic()
+    epoch()
+    torch.cuda.synchronize()
+    capture_s = time.monotonic() - t0
+    fused_s = timeit(torch, epoch, n=3) / S
+    n_params = sum(t.numel() for t in state[0].values())
+    flops = 6.0 * n_params * MLP_BUNCH
+
+    # the captured epoch against S eager steps, on S distinct batches
+    xs2 = torch.from_numpy(rng.normal(size=(S, MLP_BUNCH, 256)).astype(
+        np.float32)).to(DEV)
+    ys2 = torch.from_numpy(rng.integers(0, 10, size=(S, MLP_BUNCH))).to(DEV)
+    tr2 = tmodels.DistributedTrainer(mlp_cfg, cfg, device=DEV)
+    a, b = tr2.init_state(), tr2.init_state()
+    a = tr2._train_epoch(*a, xs2, ys2)
+    eager = []
+    for i in range(S):
+        b = tr2.step(b[0], b[1], xs2[i], ys2[i])
+        eager.append(b[2])
+    bit_equal = (same_state(torch, a[0], b[0])
+                 and same_state(torch, a[1], b[1])
+                 and torch.equal(a[2], torch.stack(eager)))
+    check(bit_equal, "training: the captured epoch differs from the same "
+          f"{S} eager steps")
+
+    # fit on the digits: 800 / 200, bunch 32, 5 epochs
+    data = tmodels.make_digits()
+    ftr = tmodels.DistributedTrainer(
+        mlp_cfg, tmodels.TrainConfig(bunch_size=32, max_epochs=5,
+                                     min_epochs=5), device=DEV)
+    t0 = time.monotonic()
+    fit = ftr.fit(*data)
+    fit_s = time.monotonic() - t0
+    hist = fit["history"]
+    check(len(hist) == 5 and hist[-1]["val_loss"] < hist[0]["val_loss"],
+          f"training: fit did not lower the validation loss: {hist}")
+    out = {"sizes": MLP_SIZES, "global_batch": MLP_BUNCH,
+           "params": n_params, "mlp_train_steps_per_s": 1.0 / step_s,
+           "step_s": step_s, "fused_steps_per_s": 1.0 / fused_s,
+           "fused_step_s": fused_s, "fused_epoch_steps": S,
+           "first_epoch_with_capture_s": capture_s,
+           "flops_per_step": flops,
+           "mfu": flops / step_s / BF16_FLOPS_PER_S,
+           "fused_mfu": flops / fused_s / BF16_FLOPS_PER_S,
+           "captured_epoch_bit_equal_to_eager": bit_equal,
+           "fit_s": fit_s, "fit_history": hist}
+    print(json.dumps({"training_mlp": out}))
+    return out
+
+
+def training_resume(torch, tmodels):
+    """Phase 12 (b): fit 3 epochs under a lease into mem: checkpoints; a
+    successor acquires (the generation rises), restores step 3 and runs to
+    epoch 5; the history equals an uninterrupted run's bit for bit."""
+    import dataclasses
+    import uuid
+
+    from mapreduce_tpu_torch.coord import Connection, TrainerLease
+    from mapreduce_tpu_torch.models.checkpoint import CheckpointManager
+    from mapreduce_tpu_torch.obs.metrics import REGISTRY
+    from mapreduce_tpu_torch.storage.router import router
+
+    data = tmodels.make_digits()
+    mlp_cfg = tmodels.MLPConfig(sizes=MLP_SIZES)
+    cfg5 = tmodels.TrainConfig(bunch_size=32, max_epochs=5, min_epochs=1,
+                               patience=100)
+    cfg3 = dataclasses.replace(cfg5, max_epochs=3)
+    board = f"mem://{uuid.uuid4().hex}"
+    mgr = CheckpointManager(router(f"mem:{uuid.uuid4().hex}"), keep_n=2)
+    pre = TrainerLease(Connection(board, "train"), holder="pre", lease=30.0)
+    gen1 = pre.acquire(timeout=10)
+    first = tmodels.DistributedTrainer(mlp_cfg, cfg3, device=DEV).fit(
+        *data, manager=mgr, lease=pre)
+    pre.release()
+    suc = TrainerLease(Connection(board, "train"), holder="suc", lease=30.0)
+    t0 = time.monotonic()
+    gen2 = suc.acquire(timeout=10)
+    acquire_s = time.monotonic() - t0
+    second = tmodels.DistributedTrainer(mlp_cfg, cfg5, device=DEV).fit(
+        *data, manager=mgr, lease=suc)
+    resume_s = time.monotonic() - t0
+    suc.release()
+    check(gen2 > gen1, f"training: generation {gen2} after {gen1}")
+    check(second["restored"] and second["start_epoch"] == 4
+          and second["epochs_run"] == 2,
+          f"training: the successor did not resume at epoch 4: {second}")
+    ref = tmodels.DistributedTrainer(mlp_cfg, cfg5, device=DEV).fit(*data)
+    resumed = first["history"] + second["history"]
+    bit_equal = resumed == ref["history"] and same_state(
+        torch, second["params"], ref["params"])
+    check(bit_equal, "training: the resumed history differs from an "
+          f"uninterrupted run: {resumed} vs {ref['history']}")
+    out = {"generations": [gen1, gen2], "checkpoints": mgr.steps(),
+           "acquire_s": acquire_s, "resume_to_epoch_5_s": resume_s,
+           "trainer_recovery_s": REGISTRY.value(
+               "mrtpu_trainer_recovery_seconds"),
+           "history_bit_equal": bit_equal, "history": resumed}
+    print(json.dumps({"training_resume": out}))
+    return out
+
+
+def training_jobboard(torch, smi):
+    """Phase 12 (c): train_digits through the port's Server, two
+    in-process workers, 3 "loop" iterations of 4 map jobs."""
+    import uuid
+
+    from mapreduce_tpu_torch import spec
+    from mapreduce_tpu_torch.examples import train_digits as td
+    from mapreduce_tpu_torch.server import Server
+    from mapreduce_tpu_torch.worker import spawn_worker_threads
+
+    spec.clear_caches()
+    td.HISTORY.clear()
+    td._data_cache.clear()
+    real_map = td.mapfn
+    map_s = []
+
+    def mapfn(key, value, emit):
+        t0 = time.monotonic()
+        real_map(key, value, emit)  # reads its gradients back: synced
+        map_s.append(time.monotonic() - t0)
+
+    mod = "mapreduce_tpu_torch.examples.train_digits"
+    params = {r: mod for r in ("taskfn", "mapfn", "partitionfn",
+                               "reducefn", "finalfn")}
+    params["storage"] = f"mem:{uuid.uuid4().hex}"
+    params["init_args"] = {"storage": params["storage"], "n_shards": 4,
+                           "bunch_size": 64, "learning_rate": 0.3,
+                           "momentum": 0.5, "max_iterations": 3,
+                           "device": DEV}
+    connstr = f"mem://{uuid.uuid4().hex}"
+    td.mapfn = mapfn
+    try:
+        threads = spawn_worker_threads(connstr, "sgd", 2)
+        server = Server(connstr, "sgd")
+        server.configure(params)
+        t0 = time.monotonic()
+        stats = loop_in_thread(server)
+        wall = time.monotonic() - t0
+        for t in threads:
+            t.join(timeout=JOB_LOOP_TIMEOUT)
+            check(not t.is_alive(), f"training: worker {t.name} did not exit")
+    finally:
+        td.mapfn = real_map
+        spec.clear_caches()
+    hist = list(td.HISTORY)
+    check(len(hist) == 3 and stats["iteration"] == 3,
+          f"training: train_digits ran {len(hist)} iterations: {hist}")
+    check(stats["map"]["count"] == 4 and stats["map"]["failed"] == 0,
+          f"training: map jobs {stats['map']}")
+    check(hist[-1]["val_loss"] < hist[0]["val_loss"],
+          f"training: train_digits' validation loss did not fall: {hist}")
+    check(len(map_s) == 12, f"training: {len(map_s)} mapfn calls, not 12")
+    out = {"card": smi, "workers": 2, "iterations": 3, "map_jobs": 4,
+           "loop_wall_s": wall, "mapfn_s_sum": sum(map_s),
+           "mapfn_s_median": statistics.median(map_s),
+           "mapfn_share_of_wall": sum(map_s) / wall, "history": hist}
+    print(json.dumps({"training_jobboard": out}))
+    return out
+
+
+def update_rel_err(torch, a, b, p0):
+    """The largest, over parameters, of ``|a - b|`` over the norm of b's
+    update from *p0* (state dicts), and its parameter."""
+    errs = {n: float((a[n] - b[n]).norm()
+                     / (b[n] - p0[n]).norm().clamp_min(1e-30)) for n in p0}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def training_adamw(torch, kc, tmod, smi):
+    """Phase 12 (d): the transformer slice's config with optimizer="adamw":
+    step_opt, _train_steps against step_opt, the checkpoint round trip,
+    launches, and step walls against device time (SGD beside)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    cfg = tmod.TransformerConfig(**TF_CONFIG)
+    tr = tmod.TransformerTrainer(cfg, learning_rate=ADAMW_LR, seed=0,
+                                 optimizer="adamw", device=DEV)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, size=(ADAMW_S, TF_B, TF_T + 1))
+    xs, ys = tr.place_batch(toks)
+    params, opt = tr.init_state()
+    p0 = {n: t.clone() for n, t in params.state_dict().items()}
+
+    def fresh():
+        """The initial state again: p0 and zero moments."""
+        p = tmod.Transformer(cfg, device=DEV)
+        p.load_state_dict(p0)
+        return p, tr._opt_init(p)
+
+    # ADAMW_STEPS step_opt calls, counted (the first is the warm one)
+    kc.reset_counts()
+    times, losses = [], []
+    for i in range(ADAMW_STEPS):
+        t0 = time.monotonic()
+        params, opt, loss = tr.step_opt(params, opt, toks[i % ADAMW_S])
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        losses.append(float(loss))
+    launches = {k: kc.LAUNCHES[k] for k in FLASH_KERNELS}
+    plain = dict(kc.PLAIN_CALLS)
+    check(all(launches[k] == ADAMW_STEPS * cfg.n_layers
+              for k in FLASH_KERNELS),
+          f"training: flash launches {launches} over {ADAMW_STEPS} "
+          f"step_opt calls, not {cfg.n_layers} a step")
+    check(all(v == 0 for v in plain.values()),
+          f"training: plain versions ran on the card path: {plain}")
+    check(all(math.isfinite(x) for x in losses), f"training: {losses}")
+    del params, opt
+
+    # _train_steps (S steps, one graph replay) against S step_opt calls
+    a, oa = fresh()
+    t0 = time.monotonic()
+    a, oa, g_losses = tr._train_steps(a, oa, xs, ys)
+    torch.cuda.synchronize()
+    capture_s = time.monotonic() - t0
+    b, ob = fresh()
+    e_losses = []
+    for i in range(ADAMW_S):
+        b, ob, loss = tr.step_opt(b, ob, toks[i])
+        e_losses.append(float(loss))
+    sa, sb = a.state_dict(), b.state_dict()
+    err, worst = update_rel_err(torch, sa, sb, p0)
+    loss_err = max(abs(g - e) / abs(e)
+                   for g, e in zip(g_losses.tolist(), e_losses))
+    steps_bit_equal = (same_state(torch, sa, sb)
+                       and g_losses.tolist() == e_losses)
+    check(steps_bit_equal, f"training: _train_steps differs from "
+          f"{ADAMW_S} step_opt calls: loss {loss_err}, {worst} {err}")
+
+    # one more replay, counted alone: S launches of each flash kernel a
+    # layer, no plain call
+    kc.reset_counts()
+    a, oa, _ = tr._train_steps(a, oa, xs, ys)
+    torch.cuda.synchronize()
+    replay_launches = {k: kc.LAUNCHES[k] for k in FLASH_KERNELS}
+    replay_plain = dict(kc.PLAIN_CALLS)
+    check(all(replay_launches[k] == ADAMW_S * cfg.n_layers
+              for k in FLASH_KERNELS),
+          f"training: one replay of the captured steps launched "
+          f"{replay_launches}")
+    check(all(v == 0 for v in replay_plain.values()),
+          f"training: plain versions ran in the replay: {replay_plain}")
+
+    # save -> load_state -> the next step, against the step without it
+    root = tempfile.mkdtemp(prefix="chip_smoke_adamw_")
+    try:
+        t0 = time.monotonic()
+        tr.save(root, b, step=ADAMW_S, opt_state=ob)
+        save_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        rb, rob, rstep = tr.load_state(root)
+        load_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(rstep == ADAMW_S and same_state(torch, rb.state_dict(), sb)
+          and same_state(torch, tmod.adamw_state_to_numpy(rb, rob),
+                         tmod.adamw_state_to_numpy(b, ob)),
+          "training: load_state did not give back the saved state")
+    nxt = toks[0]
+    sb0 = {n: t.clone() for n, t in sb.items()}
+    b, ob, l1 = tr.step_opt(b, ob, nxt)
+    rb, rob, l2 = tr.step_opt(rb, rob, nxt)
+    rt_err, rt_worst = update_rel_err(torch, rb.state_dict(),
+                                      b.state_dict(), sb0)
+    rt_loss_err = abs(float(l1) - float(l2)) / abs(float(l1))
+    check(float(l1) == float(l2)
+          and same_state(torch, rb.state_dict(), b.state_dict()),
+          f"training: the step after the round trip differs: loss "
+          f"{rt_loss_err}, {rt_worst} {rt_err}")
+    del rb, rob, b, ob, sb, sb0
+
+    # step walls (host clock to synchronize) against device time:
+    # eager step_opt, and the captured steps a replay; SGD beside
+    def replay_wall(fn):
+        walls = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) / ADAMW_S)
+        return statistics.median(walls)
+
+    def events_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / ADAMW_S
+
+    state = {"p": a, "o": oa}
+
+    def adamw_steps():
+        state["p"], state["o"], _ = tr._train_steps(state["p"], state["o"],
+                                                    xs, ys)
+
+    def adamw_eager():
+        state["p"], state["o"], _ = tr.step_opt(state["p"], state["o"],
+                                                toks[0])
+
+    walls = {"adamw_captured_step_s": replay_wall(adamw_steps),
+             "adamw_captured_replay_device_ms": events_ms(adamw_steps),
+             "adamw_eager_step_s": statistics.median(
+                 [timeit_wall(torch, adamw_eager) for _ in range(3)])}
+    groups, _ = device_profile(torch, "profile_transformer_adamw",
+                               adamw_eager, _tf_group)
+    walls["adamw_eager_device_ms"] = sum(groups.values()) / 1e3
+    del state, a, oa
+    tr._graph = None
+
+    sgd = tmod.TransformerTrainer(cfg, learning_rate=TF_LR, seed=0,
+                                  device=DEV)
+    sstate = {"p": sgd.init_params()}
+
+    def sgd_steps():
+        sstate["p"], _ = sgd._train_steps(sstate["p"], None, xs, ys)
+
+    def sgd_eager():
+        sstate["p"], _ = sgd.step(sstate["p"], toks[0])
+
+    sgd_eager()
+    sgd_steps()  # capture
+    walls.update({
+        "sgd_captured_step_s": replay_wall(sgd_steps),
+        "sgd_captured_replay_device_ms": events_ms(sgd_steps),
+        "sgd_eager_step_s": statistics.median(
+            [timeit_wall(torch, sgd_eager) for _ in range(3)])})
+    groups, _ = device_profile(torch, "profile_transformer_sgd", sgd_eager,
+                               _tf_group)
+    walls["sgd_eager_device_ms"] = sum(groups.values()) / 1e3
+    del sstate, sgd
+    out = {"card": smi, "config": TF_CONFIG, "batch": TF_B, "seq_len": TF_T,
+           "adamw": dict(tmod.ADAMW, lr=ADAMW_LR),
+           "step_opt_losses": losses,
+           "step_opt_s": times, "launches": launches, "plain_calls": plain,
+           "train_steps_S": ADAMW_S, "first_train_steps_with_capture_s":
+           capture_s, "replay_launches": replay_launches,
+           "replay_plain_calls": replay_plain,
+           "train_steps_losses": g_losses.tolist(),
+           "step_opt_losses_same_batches": e_losses,
+           "train_steps_loss_rel_err": loss_err,
+           "train_steps_update_rel_err_max": err,
+           "train_steps_update_rel_err_worst": worst,
+           "train_steps_bit_equal": steps_bit_equal,
+           "save_s": save_s, "load_state_s": load_s,
+           "round_trip_next_step_loss_rel_err": rt_loss_err,
+           "round_trip_next_step_update_rel_err_max": rt_err,
+           "walls": walls}
+    print(json.dumps({"training_adamw": out}))
+    return out
+
+
+def timeit_wall(torch, fn):
+    """Seconds of one call of *fn*, host clock to synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+def training_phase(torch, kc, tmod, smi):
+    """Phase 12: the training plane (the ``training_*`` lines)."""
+    from mapreduce_tpu_torch import models as tmodels
+
+    training_mlp(torch, tmodels)
+    training_resume(torch, tmodels)
+    training_jobboard(torch, smi)
+    return training_adamw(torch, kc, tmod, smi)
+
+
 def main():
     import torch
 
@@ -2516,6 +2998,9 @@ def main():
     flash_kernels = flash_phase(torch, fa)
     flash_scaling(torch, fa)
     flaunches = trainer_phase(torch, kc, fa, tmod)
+
+    # phase 12: the training plane
+    training_phase(torch, kc, tmod, smi)
 
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]

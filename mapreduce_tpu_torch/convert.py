@@ -22,8 +22,22 @@ the JAX package:
   checking names, shapes and dtypes, and
   :func:`transformer_params_to_numpy` goes back.
 
+* :func:`mlp_params_from_numpy` / :func:`mlp_params_to_numpy` carry the
+  MLP's flat ``w0/b0/...`` dict, and :func:`trainer_state_from_numpy` /
+  :func:`trainer_state_to_numpy` the digits trainer's whole state (its
+  parameters and momentum trace) under the JAX leaf names
+  (``params/w0``, ``opt/1/0/trace/w0``);
+* :func:`adamw_state_from_numpy` / :func:`adamw_state_to_numpy` (from
+  ``models/transformer.py``, where the checkpoints use them) carry the
+  transformer's optax ``adamw`` state (``0/count``, ``0/mu/...``,
+  ``0/nu/...``) into and out of the port's ``torch.optim.AdamW``.
+
 Every field of the JAX ``EngineConfig`` carries over, ``sort_impl=
 'radix'``, the tiered sort policies and ``partition_map`` included.
+``jax.random``'s initialisation cannot be reproduced in torch (the
+port's inits draw from a ``torch.Generator``), so the tests carry JAX
+weights and optimizer state across with these functions and compare
+the same computation.
 """
 
 from __future__ import annotations
@@ -37,8 +51,11 @@ import torch
 
 from .engine.device_engine import (
     DeviceResult, EngineConfig, validate_partition_map)
-from .models.transformer import (
-    Transformer, TransformerConfig, jax_name, module_name, param_shapes)
+from .models import mlp as _mlp
+from .models import trainer as _trainer
+from .models.transformer import (  # noqa: F401 (adamw: re-exported)
+    Transformer, TransformerConfig, adamw_state_from_numpy,
+    adamw_state_to_numpy, jax_name, module_name, param_shapes)
 
 #: the JAX compute dtypes the transformer config carries over, by name
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -108,25 +125,31 @@ def transformer_config_from_jax(fields: dict) -> TransformerConfig:
     return TransformerConfig(**out)
 
 
+def _f32_tensors(arrays: dict, shapes: dict, what: str
+                 ) -> Dict[str, torch.Tensor]:
+    """CPU f32 tensor copies of *arrays*, checked against *shapes*."""
+    missing, extra = sorted(set(shapes) - set(arrays)), \
+        sorted(set(arrays) - set(shapes))
+    if missing or extra:
+        raise ValueError(f"{what} do not match the config: missing "
+                         f"{missing}, extra {extra}")
+    out = {}
+    for name, shape in shapes.items():
+        a = np.asarray(arrays[name])
+        if a.shape != tuple(shape) or a.dtype != np.float32:
+            raise ValueError(f"{what} {name}: want {tuple(shape)} float32, "
+                             f"got {a.shape} {a.dtype}")
+        out[name] = torch.from_numpy(a.copy())
+    return out
+
+
 def transformer_params_from_numpy(params: dict, cfg: TransformerConfig
                                   ) -> Dict[str, torch.Tensor]:
     """The JAX flat parameter dict (numpy arrays, f32) as a state dict of
     :class:`Transformer` (CPU tensors, copies).  Raises ``ValueError`` on
     a missing or extra name, a wrong shape or a dtype other than f32."""
-    want = param_shapes(cfg)
-    missing, extra = sorted(set(want) - set(params)), \
-        sorted(set(params) - set(want))
-    if missing or extra:
-        raise ValueError(f"transformer params do not match the config: "
-                         f"missing {missing}, extra {extra}")
-    out = {}
-    for name, shape in want.items():
-        a = np.asarray(params[name])
-        if a.shape != shape or a.dtype != np.float32:
-            raise ValueError(f"transformer param {name}: want {shape} "
-                             f"float32, got {a.shape} {a.dtype}")
-        out[module_name(name)] = torch.from_numpy(a.copy())
-    return out
+    return {module_name(n): t for n, t in _f32_tensors(
+        params, param_shapes(cfg), "transformer params").items()}
 
 
 def transformer_params_to_numpy(
@@ -138,3 +161,36 @@ def transformer_params_to_numpy(
         else params
     return {jax_name(n): t.detach().cpu().numpy().astype(np.float32)
             for n, t in sd.items()}
+
+
+def mlp_params_from_numpy(params: dict, cfg: "_mlp.MLPConfig"
+                          ) -> Dict[str, torch.Tensor]:
+    """The JAX MLP's flat parameter dict (numpy f32) as CPU tensors,
+    names and shapes checked against *cfg*."""
+    return _f32_tensors(params, _mlp.param_shapes(cfg), "MLP params")
+
+
+def mlp_params_to_numpy(params: Dict[str, torch.Tensor]
+                        ) -> Dict[str, np.ndarray]:
+    """The port's MLP parameters as the JAX flat dict of f32 arrays."""
+    return {n: t.detach().cpu().numpy().astype(np.float32)
+            for n, t in params.items()}
+
+
+def trainer_state_from_numpy(state: dict, cfg: "_mlp.MLPConfig"):
+    """The digits trainer's flat state under the JAX leaf names
+    (``params/<n>`` and ``opt/1/0/trace/<n>``, numpy f32) as ``(params,
+    opt_state)`` dicts of CPU tensors by parameter name; pass them to
+    ``DistributedTrainer.place_state``."""
+    params, trace = _trainer.split_state(state)
+    shapes = _mlp.param_shapes(cfg)
+    return (_f32_tensors(params, shapes, "trainer params"),
+            _f32_tensors(trace, shapes, "momentum trace"))
+
+
+def trainer_state_to_numpy(params: Dict[str, torch.Tensor],
+                           opt_state: Dict[str, torch.Tensor]
+                           ) -> Dict[str, np.ndarray]:
+    """The trainer's state as the JAX flat leaves (numpy f32)."""
+    return {n: t.detach().cpu().numpy().astype(np.float32)
+            for n, t in _trainer.state_tree(params, opt_state).items()}

@@ -17,10 +17,11 @@ Two backends behind one interface:
     way the reference's workers coordinate through mongod.
 
 The query/update language is the small Mongo subset the job plane uses
-(equality, ``$in``/``$nin``/``$lt``/``$gte``, ``$or``; ``$set``/``$inc``
-and whole-document replacement; multi-update and upsert) — see e.g. the
-claim query task.lua:271-293 and ``mark_as_broken``'s ``$inc``
-job.lua:322-342; any other operator raises.  ``find_and_modify`` is
+(equality, ``$in``/``$nin``/``$lt``/``$gte``/``$exists``, ``$or``;
+``$set``/``$inc`` and whole-document replacement; multi-update and
+upsert) — see e.g. the claim query task.lua:271-293 and
+``mark_as_broken``'s ``$inc`` job.lua:322-342, and the trainer lease's
+seed-iff-absent upsert (``$exists``); any other operator raises.  ``find_and_modify`` is
 the one primitive the reference *wishes* it had for claims (it emulates it
 with update-then-find_one, task.lua:294-309, with acknowledged races); here
 it is genuinely atomic under the store lock.
@@ -58,6 +59,9 @@ def _match_value(cond: Any, value: Any, present: bool) -> bool:
                     return False
             elif op == "$gte":
                 if not (present and value is not None and value >= arg):
+                    return False
+            elif op == "$exists":
+                if bool(present) != bool(arg):
                     return False
             else:
                 raise ValueError(f"unsupported query operator {op!r}")

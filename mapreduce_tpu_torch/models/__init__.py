@@ -1,5 +1,9 @@
-"""Models: the transformer LM on the flash-attention kernels."""
+"""Models: the transformer LM on the flash-attention kernels, and the
+digits MLP with its fused trainer."""
 
+from .digits import make_digits  # noqa: F401
+from .mlp import MLPConfig  # noqa: F401
+from .trainer import DistributedTrainer, TrainConfig  # noqa: F401
 from .transformer import (  # noqa: F401
     Transformer, TransformerConfig, TransformerTrainer, forward_local,
     init_transformer, jax_name, loss_local, module_name, param_shapes,

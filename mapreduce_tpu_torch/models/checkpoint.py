@@ -111,13 +111,18 @@ SpecFn = Callable[[str, np.ndarray], Optional[list]]
 
 def save(storage: Storage, step: int, tree: Dict[str, Any],
          spec: Optional[SpecFn] = None, prefix: str = "",
-         meta: Optional[Dict[str, Any]] = None) -> str:
+         meta: Optional[Dict[str, Any]] = None,
+         precommit: Optional[Callable[[], None]] = None) -> str:
     """Write one checkpoint of the flat *tree* and return its manifest's
     blob name: each leaf as one full-extent shard, then the manifest.
 
     *spec* (when given) maps ``(name, array)`` to the ``spec`` entry the
     manifest records for the leaf (the JAX spelling: a list of axis
-    names, ``[]`` replicated); without it the entry is null."""
+    names, ``[]`` replicated); without it the entry is null.
+
+    *precommit* (when given) is called immediately before the manifest
+    is published, after the shard writes, and aborts the commit by
+    raising: the fenced trainer passes its lease gate here."""
     dirname = checkpoint_dir(prefix, step)
     leaves = {}
     for name in sorted(tree):
@@ -139,6 +144,8 @@ def save(storage: Storage, step: int, tree: Dict[str, Any],
     doc = {"format": FORMAT, "step": int(step), "meta": meta or {},
            "leaves": leaves}
     mname = manifest_name(prefix, step)
+    if precommit is not None:
+        precommit()  # the last abort point before the checkpoint exists
     storage.write(mname, json.dumps(doc, sort_keys=True))  # the commit
     return mname
 
@@ -315,10 +322,11 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Dict[str, Any],
              spec: Optional[SpecFn] = None,
-             meta: Optional[Dict[str, Any]] = None) -> str:
+             meta: Optional[Dict[str, Any]] = None,
+             precommit: Optional[Callable[[], None]] = None) -> str:
         """:func:`save` one step, then :meth:`gc`."""
         name = save(self.storage, step, tree, spec=spec,
-                    prefix=self.prefix, meta=meta)
+                    prefix=self.prefix, meta=meta, precommit=precommit)
         self.gc()
         return name
 

@@ -20,10 +20,14 @@ dots, so layer ``i``'s parameters are ``layers.{i}.<name>``;
 :func:`module_name` and :func:`jax_name` map between the two, and
 ``convert`` carries JAX parameters across.
 
+:class:`TransformerTrainer` runs the SGD step or optax's ``adamw`` (as
+``torch.optim.AdamW``), S steps in one dispatch (a CUDA graph on the
+card), and the JAX package's checkpoints.
+
 Not ported yet (ROADMAP A10): the ring / jnp attention path
-(``flash=False``), MoE (``moe_experts > 0``), the optax optimizer path,
-``_train_steps`` and checkpoints.  The first two raise
-``NotImplementedError`` here.
+(``flash=False``), MoE (``moe_experts > 0``) and the pipeline
+(``models/pipeline.py``).  The first two raise ``NotImplementedError``
+here.
 """
 
 from __future__ import annotations
@@ -271,33 +275,119 @@ def train_flops(cfg: TransformerConfig, n_params: int, B: int,
     return 6.0 * n_params * (B * T) + attn
 
 
+
+
+#: ``optax.adamw``'s defaults, which the JAX trainer's ``"adamw"`` takes
+#: (torch's AdamW defaults to weight_decay 0.01: it is passed explicitly)
+ADAMW = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
+
+def _optax_adamw_treedef(cfg: TransformerConfig) -> str:
+    """``str(jax.tree.structure(optax.adamw(lr).init(params)))`` of the
+    JAX trainer for *cfg*: its ``load_state`` checks a checkpoint's
+    ``opt_tree`` against it."""
+    d = "{" + ", ".join(f"'{n}': *" for n in sorted(param_shapes(cfg))) + "}"
+    return ("PyTreeDef((CustomNode(namedtuple[ScaleByAdamState], "
+            f"[*, {d}, {d}]), CustomNode(namedtuple[EmptyState], []), "
+            "CustomNode(namedtuple[EmptyState], [])))")
+
+
+def adamw_state_to_numpy(params: Transformer, opt: torch.optim.AdamW
+                         ) -> Dict[str, np.ndarray]:
+    """The AdamW state as optax's adamw leaves, by their names inside the
+    optimizer state: ``0/count`` (an int32 scalar), ``0/mu/<name>`` and
+    ``0/nu/<name>`` (f32), from torch's ``step`` (a float tensor, the
+    same for every parameter), ``exp_avg`` and ``exp_avg_sq``.  With
+    :func:`adamw_state_from_numpy`, the one place the two spellings
+    meet."""
+    out: Dict[str, np.ndarray] = {}
+    for name, p in params.named_parameters():
+        st = opt.state[p]
+        out["0/count"] = np.array(int(st["step"]), dtype=np.int32)
+        out[f"0/mu/{jax_name(name)}"] = \
+            st["exp_avg"].detach().cpu().numpy().astype(np.float32)
+        out[f"0/nu/{jax_name(name)}"] = \
+            st["exp_avg_sq"].detach().cpu().numpy().astype(np.float32)
+    return out
+
+
+def adamw_state_from_numpy(params: Transformer, opt: torch.optim.AdamW,
+                           leaves: Dict[str, Any]) -> None:
+    """Fill *opt*'s state (allocated by :meth:`TransformerTrainer.
+    init_state`) from optax's adamw leaves (the names of
+    :func:`adamw_state_to_numpy`); raises ``ValueError`` on a missing or
+    extra leaf or a wrong shape."""
+    want = {"0/count"} | {f"0/{m}/{jax_name(n)}" for m in ("mu", "nu")
+                          for n, _ in params.named_parameters()}
+    if set(leaves) != want:
+        raise ValueError(
+            "optimizer state does not match: missing "
+            f"{sorted(want - set(leaves))}, extra "
+            f"{sorted(set(leaves) - want)}")
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            st = opt.state[p]
+            for m, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                a = np.asarray(leaves[f"0/{m}/{jax_name(name)}"])
+                if a.shape != tuple(p.shape):
+                    raise ValueError(f"{m} of {jax_name(name)}: shape "
+                                     f"{a.shape}, want {tuple(p.shape)}")
+                st[key].copy_(torch.from_numpy(a.astype(np.float32)))
+            st["step"].fill_(float(int(np.asarray(leaves["0/count"]))))
+
+
 class TransformerTrainer:
-    """The stateless-SGD training step of the JAX ``TransformerTrainer``
-    on one device: ``p - learning_rate * g`` on f32 parameters.
+    """The JAX ``TransformerTrainer`` on one device: the stateless-SGD
+    step (``p - learning_rate * g`` on f32 parameters, :meth:`step`) or,
+    with ``optimizer="adamw"``, optax's ``adamw(learning_rate)`` as
+    ``torch.optim.AdamW`` with optax's defaults (:data:`ADAMW`: the
+    decoupled decay on the old ``p``), through :meth:`init_state` and
+    :meth:`step_opt`.  :meth:`_train_steps` runs S steps of either kind
+    on ``[S, B, T+1]`` tokens in one dispatch: on the card, one replay of
+    a CUDA graph that holds all S steps.  The JAX trainer also takes any
+    optax ``GradientTransformation``; that has no counterpart here, and
+    any optimizer but ``None`` or ``"adamw"`` raises ``ValueError``.
+
+    :meth:`save`, :meth:`load` and :meth:`load_state` keep the JAX
+    package's checkpoints: leaves ``params/<jax name>`` and optax's
+    ``opt/0/count`` / ``opt/0/mu/...`` / ``opt/0/nu/...``, the ``arch``
+    tag and the ``opt_tree`` attestation in the manifest's meta, so
+    either package restores the other's.
 
     ``device=None`` means ``"cuda"`` and raises without it; the tests pass
     ``device="cpu"`` for the plain versions of the kernels."""
 
     def __init__(self, cfg: TransformerConfig, learning_rate: float = 3e-3,
-                 seed: int = 0, device=None) -> None:
+                 seed: int = 0, optimizer=None, device=None) -> None:
         self.device = kc.resolve_device(device)
         _check_supported(cfg)
+        if optimizer not in (None, "adamw"):
+            raise ValueError(
+                f"unknown optimizer {optimizer!r}: only 'adamw' (an optax "
+                "GradientTransformation has no counterpart in the port)")
         if cfg.flash is None:
             cfg = replace(cfg, flash=True)
         self.cfg, self.lr, self.seed = cfg, learning_rate, seed
+        self.optimizer = optimizer
+        self._graph = None
 
     def init_params(self) -> Transformer:
         """Fresh parameters from ``torch.Generator().manual_seed(seed)``."""
         g = torch.Generator().manual_seed(self.seed)
-        params = init_transformer(self.cfg, g)
+        return self._place_params(init_transformer(self.cfg, g))
+
+    def _place_params(self, flat: Dict[str, Any]) -> Transformer:
+        """A :class:`Transformer` on this device from a flat dict under
+        the JAX names (tensors or numpy arrays)."""
         model = Transformer(self.cfg, device=self.device)
-        model.load_state_dict({module_name(n): p for n, p in params.items()})
+        model.load_state_dict({module_name(n): torch.as_tensor(p)
+                               for n, p in flat.items()})
         return model
 
     def place_batch(self, tokens: np.ndarray
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``[B, T+1]`` host tokens -> (inputs, shifted targets), int64 on
-        the trainer's device."""
+        """``[B, T+1]`` (or ``[S, B, T+1]``) host tokens -> (inputs,
+        shifted targets), int64 on the trainer's device."""
         t = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
         t = t.to(self.device)
         return t[..., :-1], t[..., 1:]
@@ -308,17 +398,205 @@ class TransformerTrainer:
         with torch.no_grad():
             return loss_local(params, x, y, self.cfg)
 
+    # -- the step ---------------------------------------------------------
+
+    def _step_impl(self, params: Transformer, opt, x: torch.Tensor,
+                   y: torch.Tensor) -> torch.Tensor:
+        """One step in place on placed tokens: forward, the gradients
+        (``autograd.grad``: nothing accumulates into ``.grad``, so no
+        zeroing pass and no gradient memory between steps), then SGD
+        (*opt* None) or *opt*'s update.  Reads nothing back to the host,
+        so it captures into a CUDA graph."""
+        ps = list(params.parameters())
+        loss = loss_local(params, x, y, self.cfg)
+        grads = torch.autograd.grad(loss, ps)
+        with torch.no_grad():
+            if opt is None:
+                for p, g in zip(ps, grads):
+                    p.sub_(g.mul_(self.lr))
+            else:
+                for p, g in zip(ps, grads):
+                    p.grad = g
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
     def step(self, params: Transformer, tokens: np.ndarray
              ) -> Tuple[Transformer, torch.Tensor]:
         """One SGD step on a ``[B, T+1]`` batch; returns ``(params,
         loss)``.  The update is in place (the parameters are the module's
         own storage; JAX donates them instead)."""
         x, y = self.place_batch(tokens)
-        params.zero_grad(set_to_none=True)
-        loss = loss_local(params, x, y, self.cfg)
-        loss.backward()
-        with torch.no_grad():
-            for p in params.parameters():
-                p.sub_(p.grad.mul_(self.lr))
-                p.grad = None
-        return params, loss.detach()
+        return params, self._step_impl(params, None, x, y)
+
+    # -- the optimizer path ------------------------------------------------
+
+    def _need_tx(self) -> None:
+        if self.optimizer is None:
+            raise RuntimeError(
+                "this trainer runs the stateless-SGD path; construct "
+                "with optimizer='adamw' for init_state/step_opt/load_state")
+
+    def _opt_init(self, params: Transformer) -> torch.optim.AdamW:
+        """AdamW over *params* with its state allocated now (zero moments,
+        step 0), as optax's ``init`` makes it; on the card the step count
+        lives on the device (``capturable``), so a graph can hold it."""
+        cuda = self.device.type == "cuda"
+        opt = torch.optim.AdamW(params.parameters(), lr=self.lr,
+                                capturable=cuda, **ADAMW)
+        for p in params.parameters():
+            opt.state[p] = {
+                "step": torch.zeros((), dtype=torch.float32,
+                                    device=p.device if cuda else "cpu"),
+                "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.zeros_like(p)}
+        return opt
+
+    def init_state(self) -> Tuple[Transformer, torch.optim.AdamW]:
+        """-> ``(params, opt_state)`` for the optimizer path."""
+        self._need_tx()
+        params = self.init_params()
+        return params, self._opt_init(params)
+
+    def step_opt(self, params: Transformer, opt_state: torch.optim.AdamW,
+                 tokens: np.ndarray):
+        """One optimizer step; returns ``(params, opt_state, loss)``, both
+        updated in place."""
+        self._need_tx()
+        x, y = self.place_batch(tokens)
+        return params, opt_state, self._step_impl(params, opt_state, x, y)
+
+    def _train_steps(self, params: Transformer, opt_state, xs: torch.Tensor,
+                     ys: torch.Tensor):
+        """S steps on placed ``[S, B, T]`` inputs and targets
+        (``place_batch`` of ``[S, B, T+1]`` tokens) in one dispatch: SGD
+        when *opt_state* is None, returning ``(params, losses [S])``, else
+        the optimizer's, returning ``(params, opt_state, losses)``.  On
+        the card the S steps are captured whole into one CUDA graph (on
+        the first call, and again for other state or shapes) and each
+        call replays it; on the CPU they run in a loop."""
+        if opt_state is not None:
+            self._need_tx()
+        if self.device.type == "cuda":
+            g = self._graph
+            if g is None or not g.fits((params, opt_state), xs):
+                self._graph = None
+                state = list(params.parameters())
+                if opt_state is not None:
+                    state += [t for st in opt_state.state.values()
+                              for t in st.values()]
+                self._graph = g = kc.StepsGraph(
+                    lambda x, y: self._step_impl(params, opt_state, x, y),
+                    xs, ys, state, owners=(params, opt_state))
+            losses = g.run(xs, ys)
+        else:
+            losses = torch.stack([self._step_impl(params, opt_state, xs[i],
+                                                  ys[i])
+                                  for i in range(xs.shape[0])])
+        if opt_state is None:
+            return params, losses
+        return params, opt_state, losses
+
+    # -- checkpoints (the JAX package's format, models/checkpoint.py) -----
+
+    def _arch_tag(self) -> str:
+        """Canonical architecture string: catches same-shape scrambles
+        (n_heads=4/head_dim=8 vs 8/4 give IDENTICAL wqkv shapes)."""
+        c = self.cfg
+        return (f"v{c.vocab}.e{c.embed}.l{c.n_layers}.h{c.n_heads}."
+                f"d{c.head_dim}.f{c.ffn}.moe{c.moe_experts}")
+
+    def save(self, path: str, params: Transformer, step: int = 0,
+             opt_state: torch.optim.AdamW = None, keep: int = 3) -> None:
+        """Commit a manifest-committed checkpoint under the *path*
+        directory (one shard a leaf, the manifest last), keeping the
+        newest *keep*.  With *opt_state*, the AdamW state goes too, under
+        optax's leaf names."""
+        from ..storage.localdir import LocalDirStorage
+        from .checkpoint import CheckpointManager
+
+        tree: Dict[str, Any] = {
+            "params/" + jax_name(n): t
+            for n, t in params.state_dict().items()}
+        meta: Dict[str, Any] = {"arch": self._arch_tag()}
+        if opt_state is not None:
+            tree.update({"opt/" + n: a for n, a in
+                         adamw_state_to_numpy(params, opt_state).items()})
+            meta["opt_tree"] = _optax_adamw_treedef(self.cfg)
+        CheckpointManager(LocalDirStorage(path), keep_n=keep).save(
+            step, tree, meta=meta)
+
+    def _load_host(self, path: str):
+        """-> ``(host params, host optimizer leaves or None, opt_tree or
+        None, step)`` from the newest complete checkpoint under *path*.  A
+        corrupt one falls back to the previous; an architecture, name,
+        shape or dtype mismatch raises ``ValueError`` at once."""
+        from ..storage.localdir import LocalDirStorage
+        from . import checkpoint as ckpt
+
+        storage = LocalDirStorage(path)
+        steps = ckpt.list_steps(storage)
+        for step in reversed(steps):
+            try:
+                manifest = ckpt.load_manifest(storage, "", step)
+                got = (manifest.get("meta") or {}).get("arch")
+                if got != self._arch_tag():
+                    raise ValueError(
+                        f"checkpoint params do not match this config: "
+                        f"checkpoint arch {got}, trainer "
+                        f"{self._arch_tag()}")
+                return self._host_from_manifest(storage, manifest)
+            except ckpt.CheckpointCorruptError:
+                continue
+        raise ckpt.CheckpointError(
+            f"no complete checkpoint found ({len(steps)} candidates)")
+
+    def _host_from_manifest(self, storage, manifest):
+        from . import checkpoint as ckpt
+
+        leaves = manifest["leaves"]
+        host = {n[len("params/"):]: e for n, e in leaves.items()
+                if n.startswith("params/")}
+        want = param_shapes(self.cfg)
+        if set(want) != set(host):
+            raise ValueError("checkpoint params do not match this config: "
+                             f"{set(want) ^ set(host)}")
+        bad = [n for n, shape in want.items()
+               if tuple(host[n]["shape"]) != shape
+               or np.dtype(host[n]["dtype"]) != np.float32]
+        if bad:
+            raise ValueError(
+                "checkpoint params do not match this config (shape/dtype): "
+                + ", ".join(f"{n} {tuple(host[n]['shape'])}/"
+                            f"{host[n]['dtype']} vs {want[n]}/float32"
+                            for n in bad))
+        params = {n: ckpt.assemble_leaf(storage, "params/" + n, host[n])
+                  for n in want}
+        opt = {n[len("opt/"):]: ckpt.assemble_leaf(storage, n, e)
+               for n, e in leaves.items() if n.startswith("opt/")} or None
+        opt_tree = (manifest.get("meta") or {}).get("opt_tree")
+        return params, opt, opt_tree, int(manifest["step"])
+
+    def load(self, path: str) -> Tuple[Transformer, int]:
+        """``(params, step)`` from the newest complete checkpoint; the
+        optimizer state, if saved, is ignored (:meth:`load_state`)."""
+        host, _, _, step = self._load_host(path)
+        return self._place_params(host), step
+
+    def load_state(self, path: str):
+        """Optimizer-path restore: -> ``(params, opt_state, step)``.  A
+        checkpoint saved without optimizer state resumes with fresh
+        moments; one whose ``opt_tree`` is another optimizer's raises."""
+        self._need_tx()
+        host, opt_host, saved_tree, step = self._load_host(path)
+        params = self._place_params(host)
+        opt = self._opt_init(params)
+        if opt_host is None:
+            return params, opt, step
+        want = _optax_adamw_treedef(self.cfg)
+        if saved_tree is not None and saved_tree != want:
+            raise ValueError(
+                "checkpoint optimizer state does not match this "
+                f"trainer's optimizer: saved {saved_tree}, expected {want}")
+        adamw_state_from_numpy(params, opt, opt_host)
+        return params, opt, step

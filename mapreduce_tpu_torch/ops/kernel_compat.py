@@ -133,6 +133,92 @@ def use_kernel(t: torch.Tensor, kernel: str) -> bool:
                      f"on {t.device}")
 
 
+class CapturedGraph:
+    """*fn* (kernel wrapper calls among other CUDA work) captured once
+    into a CUDA graph; :meth:`replay` runs it again.
+
+    A wrapper adds to :data:`LAUNCHES` when it is called, but a call under
+    capture only records its kernel, which launches at each replay.  So
+    the capture takes back what its calls added (:attr:`launches`), and
+    each replay adds it once more: the counters keep counting launches.
+    ``out`` is what *fn* returned: tensors of the graph's pool, which each
+    replay overwrites."""
+
+    def __init__(self, fn) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        before = dict(LAUNCHES)
+        try:
+            with torch.cuda.graph(self.graph):
+                self.out = fn()
+        finally:
+            self.launches = {k: LAUNCHES[k] - before[k] for k in KERNELS}
+            LAUNCHES.update(before)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in self.launches.items():
+            LAUNCHES[k] += n
+
+
+def capture_steps(step, n: int, state: Sequence[torch.Tensor]
+                  ) -> CapturedGraph:
+    """A training loop as one graph: ``step(i)`` for ``i < n``, each an
+    in-place update of *state* that returns a scalar loss tensor, captured
+    whole; the graph's ``out`` is the ``[n]`` losses.  ``step(0)`` runs
+    twice on a side stream first (lazy initialisations and the gradients'
+    allocation happen outside the capture), and *state* is put back
+    afterwards, so the capture starts from the state the caller passed."""
+    saved = [t.detach().clone() for t in state]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step(0)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.no_grad():
+        for t, s in zip(state, saved):
+            t.copy_(s)
+    del saved
+    losses = torch.empty(n, device=state[0].device)
+
+    def run():
+        for i in range(n):
+            losses[i].copy_(step(i))
+        return losses
+
+    return CapturedGraph(run)
+
+
+class StepsGraph:
+    """S training steps captured whole (:func:`capture_steps`) on fixed
+    tensors: *state*, whose owners (the caller's state objects) are kept
+    in :attr:`owners`, and ``[S, ...]`` slots for the stacked batch, which
+    ``step(x, y)`` reads one step's rows of.  :meth:`run` copies a batch
+    into the slots and replays."""
+
+    def __init__(self, step, xs: torch.Tensor, ys: torch.Tensor,
+                 state: Sequence[torch.Tensor], owners: Sequence) -> None:
+        self.owners = tuple(owners)
+        self.xs, self.ys = xs.clone(), ys.clone()
+        self.graph = capture_steps(lambda i: step(self.xs[i], self.ys[i]),
+                                   xs.shape[0], state)
+
+    def fits(self, owners: Sequence, xs: torch.Tensor) -> bool:
+        """Whether this graph runs *owners*' state (the same objects) on a
+        batch of *xs*' shape; otherwise the caller captures anew."""
+        owners = tuple(owners)
+        return (len(owners) == len(self.owners)
+                and all(a is b for a, b in zip(owners, self.owners))
+                and self.xs.shape == xs.shape)
+
+    def run(self, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+        """The S losses of one replay on *xs*, *ys* (a copy)."""
+        self.xs.copy_(xs)
+        self.ys.copy_(ys)
+        self.graph.replay()
+        return self.graph.out.clone()
+
+
 # -- the build -----------------------------------------------------------------
 
 def _nvcc() -> str:

@@ -18,6 +18,9 @@ outputs (out, dq, dk, dv: a few units in the last place of the 8-bit
 mantissa) and atol 1e-3 on the f32 lse.  The word-count paths through
 the feeder, the staged handle and the tier policy are held to
 ``Counter`` (and a forced-cold tiered run to the 'radix' run's bits).
+The training plane's captured steps (one CUDA graph replay: the digits
+MLP's epoch, the transformer's AdamW steps) are held bit for bit
+against the same eager steps.
 """
 
 from collections import Counter
@@ -958,3 +961,61 @@ def test_server_device_plane_on_the_card(dev, tmp_path, parts, sort_impl):
         need += ["radix_upfront", "radix_onesweep", "radix_plan"]
     for name in need:
         assert kc.LAUNCHES[name] > 0, (name, kc.LAUNCHES)
+
+
+# -- the training plane: captured steps against eager ones ---------------------
+
+
+def test_captured_mlp_epoch_equals_eager_steps(dev):
+    """The digits trainer's epoch as one CUDA graph replay against the same
+    S eager steps: bit for bit (no kernel of the step accumulates with
+    atomics in a varying order), epoch after epoch."""
+    from mapreduce_tpu_torch.models import (DistributedTrainer, MLPConfig,
+                                            TrainConfig)
+
+    tr = DistributedTrainer(MLPConfig(), TrainConfig(learning_rate=0.1,
+                                                     momentum=0.9),
+                            device=dev)
+    rng = np.random.default_rng(0)
+    S = 6
+    xs = rng.normal(size=(2, S, 128, 256)).astype(np.float32)
+    ys = rng.integers(0, 10, size=(2, S, 128)).astype(np.int32)
+    a, b = tr.init_state(), tr.init_state()
+    for e in range(2):
+        a = tr._train_epoch(*a[:2], xs[e], ys[e])
+        losses = []
+        for i in range(S):
+            b = tr.step(*b[:2], *tr.place_batch(xs[e, i], ys[e, i]))
+            losses.append(b[2])
+        assert torch.equal(a[2], torch.stack(losses)), e
+        for n in a[0]:
+            assert torch.equal(a[0][n], b[0][n]), (e, n)
+            assert torch.equal(a[1][n], b[1][n]), (e, n)
+    assert tr._graph.owners[0] is a[0]
+
+
+def test_captured_transformer_steps_equal_eager_step_opt(dev):
+    """``_train_steps`` (S AdamW steps in one graph replay) against S eager
+    ``step_opt`` calls, bit for bit; the replay counts S launches of each
+    flash kernel a layer."""
+    cfg = TransformerConfig(vocab=256, embed=128, n_layers=2, n_heads=2,
+                            head_dim=64, ffn=256)
+    tr = TransformerTrainer(cfg, learning_rate=1e-3, optimizer="adamw",
+                            device=dev)
+    S = 3
+    toks = np.random.default_rng(0).integers(0, 256, size=(S, 2, 129))
+    (a, oa), (b, ob) = tr.init_state(), tr.init_state()
+    tr._train_steps(a, oa, *tr.place_batch(toks))  # capture and a replay
+    kc.reset_counts()
+    a, oa, losses = tr._train_steps(a, oa, *tr.place_batch(toks))
+    assert kc.LAUNCHES["flash_fwd"] == kc.LAUNCHES["flash_dkv"] == S * 2
+    assert not any(kc.PLAIN_CALLS.values())
+    want = []
+    for _ in range(2):
+        for i in range(S):
+            b, ob, loss = tr.step_opt(b, ob, toks[i])
+            want.append(float(loss))
+    assert losses.tolist() == want[S:]
+    for (n, x), (_, y) in zip(a.state_dict().items(),
+                              b.state_dict().items()):
+        assert torch.equal(x, y), n
