@@ -175,7 +175,33 @@ which raises on failure:
    (host clock) against device time (events around a replay, the
    profiler's sum for an eager step), eager and captured, SGD beside
    (``profile_transformer_adamw`` / ``_sgd`` lines);
-13. one JSON line of per-kernel numbers, then the result line.
+13. the networked job plane (``netplane`` lines), every process of it
+   ``python -m mapreduce_tpu_torch.cli`` under ``$MAPREDUCE_TPU_AUTH``:
+   (a) ``docserver`` and ``blobserver ROOT`` on port 0 (the bound
+   address read from their first line); a tokenless ``/metrics`` and
+   blob ``/list`` must get 401, ``/healthz`` 200; (b) the README's
+   topology: two ``worker`` processes of two threads and a ``server``
+   process with ``examples/wordcount_split`` over ``http://`` and
+   ``http:`` on phase 9 (b)'s 200K words in 3 files, the result
+   partitions read back from the blob server equal to the naive oracle,
+   then ``drop`` clears the task's collections and blobs; (c) the device
+   phase through ``Server(http://...)`` on phase 9's 24 files, P = 1
+   variadic and P = 8 radix, its ``result.P00000`` (an HTTP PUT)
+   byte-equal to the same run on a ``dir:`` board with ``shared:``
+   storage, the path's kernels launched (counted around the http run)
+   and held bit for bit against their plain versions on the inputs of
+   their largest calls; prepare, engine, ``device_result``, the write
+   and ``finalfn`` (its reads are HTTP GETs) beside phase 9's; (d)
+   ``train_digits`` at phase 12 (c)'s shards, bunch, seed and
+   iterations with its gradients computed in two ``worker`` processes on
+   the card: the history bit-equal to phase 12's with worker threads;
+   (e) ``/metrics`` and ``/clusterz``: each worker's jobs as pushed by
+   its process equal to the board's job documents, the server's device
+   spans present; (f) every process reaped under a timeout.  Each worker
+   process's first-claim delay (its first job's claim stamp less its
+   start) is reported;
+14. one JSON line of per-kernel numbers (the word-count kernels' with
+   their phase 13 launches beside), then the result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
 flash kernels sum in another order than their plain versions: out, dq,
@@ -2849,8 +2875,619 @@ def training_phase(torch, kc, tmod, smi):
 
     training_mlp(torch, tmodels)
     training_resume(torch, tmodels)
-    training_jobboard(torch, smi)
-    return training_adamw(torch, kc, tmod, smi)
+    jobboard = training_jobboard(torch, smi)
+    training_adamw(torch, kc, tmod, smi)
+    return jobboard
+
+
+# -- phase 13: the networked job plane ------------------------------------------
+
+#: seconds a process of the netplane phase may take before the phase fails
+NET_TIMEOUT = 300
+#: the split-module example the README's topology names role by role
+SPLIT_MODULE = "mapreduce_tpu_torch.examples.wordcount_split"
+#: worker processes of (b) and (d); threads in each process of (b)
+NET_PROCS = 2
+NET_THREADS = 2
+#: telemetry push period of every process of the phase, seconds
+NET_PUSH_S = 0.5
+
+
+class NetProcs:
+    """The phase's subprocesses (``python -m mapreduce_tpu_torch.cli``),
+    their output in files (a pipe nobody reads could fill and stall a
+    process), each waited on with a timeout and killed after it."""
+
+    def __init__(self, root, token):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.root = root
+        self.env = dict(os.environ, MAPREDUCE_TPU_AUTH=token,
+                        PYTHONPATH=here + os.pathsep
+                        + os.environ.get("PYTHONPATH", ""))
+        self.procs = {}
+
+    def start(self, name, *args):
+        out = open(os.path.join(self.root, f"{name}.out"), "w")
+        err = open(os.path.join(self.root, f"{name}.err"), "w")
+        p = subprocess.Popen(
+            [sys.executable, "-m", "mapreduce_tpu_torch.cli", *args],
+            env=self.env, stdout=out, stderr=err, text=True)
+        out.close()
+        err.close()
+        self.procs[name] = p
+        return p
+
+    def text(self, name, stream="out"):
+        with open(os.path.join(self.root, f"{name}.{stream}")) as f:
+            return f.read()
+
+    def wait_line(self, name, pattern, timeout=120):
+        """The first match of *pattern* in *name*'s stdout."""
+        p = self.procs[name]
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            m = re.search(pattern, self.text(name))
+            if m:
+                return m
+            check(p.poll() is None, f"netplane: {name} exited "
+                  f"{p.returncode}: {self.text(name, 'err')[-2000:]}")
+            time.sleep(0.05)
+        check(False, f"netplane: no {pattern!r} from {name} in {timeout} s")
+
+    def wait(self, name, timeout=NET_TIMEOUT):
+        """Wait for *name* to exit 0; a timeout or another code fails."""
+        p = self.procs[name]
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=30)
+            check(False, f"netplane: {name} still running after "
+                  f"{timeout} s")
+        check(p.returncode == 0, f"netplane: {name} exited "
+              f"{p.returncode}: {self.text(name, 'err')[-2000:]}")
+
+    def reap(self):
+        """Stop every process still running (the servers), under a
+        timeout each."""
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=30)
+
+
+def net_status(url, token=None):
+    """HTTP status of a GET of *url* (with the bearer token, if any)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, headers=(
+        {"Authorization": f"Bearer {token}"} if token else {}))
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status
+    except urllib.error.HTTPError as exc:
+        return exc.code
+
+
+def wait_pushers(client, prefixes, timeout=120):
+    """Wait until a process whose telemetry role starts with each of
+    *prefixes* has pushed to the board's collector: the worker processes
+    are up and polling."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        roles = [p["role"] for p in
+                 client.clusterz()["mrtpuCluster"]["procs"].values()]
+        if all(any(r.startswith(p) for r in roles) for p in prefixes):
+            return
+        time.sleep(0.1)
+    check(False, f"netplane: workers {sorted(prefixes)} never pushed "
+          f"telemetry in {timeout} s")
+
+
+def blob_bytes(REGISTRY):
+    """This process's blob-plane bytes: raw and on the wire, a
+    direction."""
+    return {f"{d}_{kind}": sum(
+        REGISTRY.value(f"mrtpu_blob_{kind}_bytes_total", direction=d,
+                       encoding=e) for e in ("gzip", "identity"))
+        for d in ("put", "get") for kind in ("raw", "wire")}
+
+
+def rpc_count(client):
+    """Board RPCs the docserver has served so far (/metrics)."""
+    from mapreduce_tpu_torch.obs.metrics import parse_prometheus
+
+    return sum(v for (name, _), v in parse_prometheus(
+        client.metrics_text()).items()
+        if name == "mrtpu_docserver_requests_total")
+
+
+def proc_jobs(docs, proc):
+    """The jobs in *docs* that a thread of worker process *proc* ran
+    (threads are named ``proc`` or ``proc-N``)."""
+    return [d for d in docs if str(d.get("worker", "")) == proc
+            or str(d.get("worker", "")).startswith(proc + "-")]
+
+
+def map_split(docs, spawned, part):
+    """Map jobs a worker process ran; fails unless every process in
+    *spawned* ran at least one, so the run really had two processes at
+    work."""
+    split = {p: len(proc_jobs(docs, p)) for p in spawned}
+    check(all(split.values()) and sum(split.values()) == len(docs),
+          f"netplane ({part}): map jobs by process {split} of "
+          f"{len(docs)}: a worker process ran none")
+    return split
+
+
+def first_claims(docs, spawned):
+    """Each worker process's first-claim delay: its earliest job's
+    ``started_time`` (the claim) less the earliest job's
+    ``creation_time`` (the moment the task became claimable; both wall
+    clock, one host), and its first job's run time beside the median of
+    its later ones (the first carries the process's start-up on the
+    card, the later ones do not)."""
+    t_open = min(d["creation_time"] for d in docs)
+    out = {}
+    for name in spawned:
+        mine = sorted(proc_jobs(docs, name), key=lambda d: d["started_time"])
+        if not mine:
+            out[name] = None
+            continue
+        later = sorted(d["real_time"] for d in mine[1:])
+        out[name] = {
+            "claim_s": mine[0]["started_time"] - t_open,
+            "first_run_s": mine[0]["real_time"],
+            "later_run_median_s": (later[len(later) // 2] if later
+                                   else None)}
+    return out
+
+
+def netplane_split(procs, client, board, blob, token, data_small, root):
+    """Phase 13 (b): the README's topology, two ``cli worker`` processes
+    of NET_THREADS threads and a ``cli server`` with the split-module
+    example over http:// and http:, on phase 9 (b)'s input."""
+    from mapreduce_tpu_torch.examples import naive
+    from mapreduce_tpu_torch.storage.httpstore import HttpStorage
+    from mapreduce_tpu_torch.utils.serialization import parse_record
+
+    files = write_line_files(data_small, 3, root)
+    oracle = naive.wordcount(files)
+    connstr, dsl = f"http://{board}", f"http:{blob}"
+    spawned = [f"p{i}" for i in range(NET_PROCS)]
+    for i in range(NET_PROCS):
+        procs.start(f"split_worker{i}", "worker", connstr, "splitwc",
+                    "--workers", str(NET_THREADS), "--name", f"p{i}",
+                    "--max-iter", "400", "--max-sleep", "0.2",
+                    "--claim-batch", "1", "--no-claim-ahead",
+                    "--telemetry-interval", str(NET_PUSH_S))
+    wait_pushers(client, [f"worker:p{i}-" for i in range(NET_PROCS)])
+    rpcs0 = rpc_count(client)
+    m = SPLIT_MODULE
+    t0 = time.monotonic()
+    procs.start("split_server", "server", connstr, "splitwc",
+                f"{m}.taskfn", f"{m}.mapfn", f"{m}.partitionfn",
+                f"{m}.reducefn", f"{m}.finalfn", f"{m}.reducefn", dsl,
+                "--init-args", json.dumps({
+                    "files": files, "num_reducers": JOB_REDUCERS,
+                    "keep_results": True}),
+                "--telemetry-interval", str(NET_PUSH_S))
+    procs.wait("split_server")
+    wall = time.monotonic() - t0
+    for i in range(NET_PROCS):
+        procs.wait(f"split_worker{i}")
+    rpcs = rpc_count(client) - rpcs0
+    # the blob plane's bytes of every process of the run, as they pushed
+    # them (each process flushes once more as it exits)
+    moved = Counter()
+    for name, labels, value in client.clusterz()["mrtpuCluster"]["metrics"]:
+        if name.startswith("mrtpu_blob_"):
+            kind = name.split("_")[2]  # raw | wire
+            moved[f"{labels['direction']}_{kind}_{labels['encoding']}"] += value
+    stats = json.loads(procs.text("split_server").strip().splitlines()[-1])
+    st = HttpStorage(blob, auth_token=token)
+    got = {}
+    names = st.list(r"^splitwc\.result\.P\d+$")
+    for name in names:
+        for line in st.open_lines(name):
+            key, values = parse_record(line)
+            got[key] = values[0]
+    check(got == oracle, "netplane (b): the result read back from the "
+          "blob server differs from Counter over the files' words")
+    map_docs = client.find("splitwc.map_jobs")
+    docs = map_docs + client.find("splitwc.red_jobs")
+    ran = Counter(d["worker"] for d in docs)
+    maps_by_proc = map_split(map_docs, spawned, "b")
+    n_jobs = stats["map"]["count"] + stats["reduce"]["count"]
+    # drop: the task's collections and its storage, through the CLI
+    procs.start("split_drop", "drop", connstr, "splitwc", "--storage", dsl)
+    procs.wait("split_drop", timeout=120)
+    check(not [c for c in client.collections()
+               if c.startswith("splitwc.")] and not st.list(),
+          "netplane (b): cli drop left collections or blobs")
+    st.close()
+    return {"run": "split_processes", "words": JOB_SMALL_WORDS,
+            "unique": len(oracle), "worker_procs": NET_PROCS,
+            "threads_per_proc": NET_THREADS, "reducers": JOB_REDUCERS,
+            "server_cli_wall_s": wall, "map_jobs": stats["map"]["count"],
+            "reduce_jobs": stats["reduce"]["count"],
+            "board_rpcs": rpcs, "rpcs_per_job": rpcs / n_jobs,
+            "blob_bytes": dict(moved),
+            "jobs_by_worker": dict(ran), "map_jobs_by_proc": maps_by_proc,
+            "result_blobs": len(names),
+            "first_claim": first_claims(map_docs, spawned),
+            "equal": True}, ran
+
+
+def netplane_device(torch, kc, seg, rs, shuffle, spec, jwc, conf, files,
+                    board, blob, token, root, jobplane, REGISTRY,
+                    Partitions, Server):
+    """Phase 13 (c): the device phase through ``Server(http://...)`` on
+    phase 9's 24 files, P = 1 variadic and P = 8 radix, against the same
+    run on a dir: board with shared: storage; result bytes compared,
+    kernels counted and held against their plain versions."""
+    base = ["tokenize", "segreduce"]
+    lines, launches = {}, {}
+    for label, parts, sort_impl, need, held_need in (
+            ("p1_variadic", lambda: Partitions(1), None, base,
+             ["segreduce"]),
+            ("p8_radix", lambda: Partitions(RADIX_PARTS, "cuda"), "radix",
+             base + ["radix_upfront", "radix_onesweep", "radix_plan"],
+             ["segreduce", "radix_sort", "radix_plan"])):
+        runs = {}
+        for plane in ("dir", "http"):
+            reset_example(spec, jwc, conf)
+            if plane == "http":
+                connstr, dsl = f"http://{board}", f"http:{blob}"
+            else:
+                connstr = f"dir://{os.path.join(root, label + '_board')}"
+                dsl = f"shared:{os.path.join(root, label + '_st')}"
+            init = {"files": files, "num_reducers": 15}
+            if sort_impl:
+                init["device_sort_impl"] = sort_impl
+            params = {r: JOB_MODULE for r in ("taskfn", "mapfn",
+                                              "partitionfn", "reducefn",
+                                              "finalfn")}
+            params.update(combinerfn=JOB_MODULE, storage=dsl,
+                          init_args=init, device=True,
+                          partitions=parts())
+            got, final_s = {}, []
+            real_final = jwc.finalfn
+
+            def finalfn(pairs, dsl=dsl):
+                from mapreduce_tpu_torch.storage.router import router
+
+                st = router(dsl, auth=token)  # untimed: the comparison's
+                got.update({n: st.read_bytes(n) for n in st.list(
+                    r"^netwc\.result\.P\d+$")})
+                t0 = time.monotonic()
+                reply = real_final(pairs)
+                final_s.append(time.monotonic() - t0)
+                return reply
+
+            jwc.finalfn = finalfn
+            try:
+                server = Server(connstr, "netwc", auth=token)
+                server.telemetry_interval = (NET_PUSH_S if plane == "http"
+                                             else 0.0)
+                server.configure(params)
+                before = blob_bytes(REGISTRY)
+                kc.reset_counts()
+                t0 = time.monotonic()
+                if plane == "http":
+                    with PathInputs(torch, seg, shuffle) as cap:
+                        loop_in_thread(server)
+                else:
+                    loop_in_thread(server)
+                wall = time.monotonic() - t0
+            finally:
+                jwc.finalfn = real_final
+            counted = dict(kc.LAUNCHES)
+            plain = dict(kc.PLAIN_CALLS)
+            after = blob_bytes(REGISTRY)
+            check(dict(jwc.RESULT) == jobplane["want_str"],
+                  f"netplane (c) {label} {plane}: RESULT differs from "
+                  "Counter over the files' words")
+            check(list(got) == ["netwc.result.P00000"],
+                  f"netplane (c) {label} {plane}: result blobs {list(got)}")
+            runs[plane] = {"wall": wall, "final_s": final_s[0],
+                           "tm": server._last_device_timings,
+                           "bytes": got, "launches": counted,
+                           "plain": plain,
+                           "blob": {k: after[k] - before[k] for k in after}}
+        h, d = runs["http"], runs["dir"]
+        check(h["bytes"] == d["bytes"], f"netplane (c) {label}: the "
+              "http: result.P00000 differs from the dir: run's")
+        check(all(h["launches"][k] > 0 for k in need),
+              f"netplane (c) {label}: a kernel of the path was never "
+              f"launched: {h['launches']}")
+        check(not any(h["plain"].values()),
+              f"netplane (c) {label}: plain versions ran: {h['plain']}")
+        held = hold_path_inputs(torch, seg, rs, f"netplane {label}",
+                                cap.inputs, held_need)
+        del cap
+        launches[label] = {k: h["launches"][k] for k in need}
+        p9 = jobplane[label]
+        line = {"run": f"device_{label}", "result_bytes":
+                len(h["bytes"]["netwc.result.P00000"]), "byte_equal": True,
+                "loop_wall_s": {"http": h["wall"], "dir": d["wall"],
+                                "phase9_cli_mem": p9["loop_wall_s"]},
+                "prepare_s": {"http": h["tm"]["prepare_s"],
+                              "dir": d["tm"]["prepare_s"],
+                              "phase9": p9["prepare_s"]},
+                "engine_s": {"http": h["tm"]["engine_s"],
+                             "dir": d["tm"]["engine_s"],
+                             "phase9": p9["engine_s"]},
+                "device_result_s": {"http": h["tm"]["result_s"],
+                                    "dir": d["tm"]["result_s"],
+                                    "phase9": p9["device_result_s"]},
+                "result_write_s": {"http_put": h["tm"]["write_s"],
+                                   "dir": d["tm"]["write_s"],
+                                   "phase9": p9["result_write_s"]},
+                "finalfn_s": {"http_get": h["final_s"],
+                              "dir": d["final_s"],
+                              "phase9": p9["finalfn_s"]},
+                "blob_bytes": h["blob"], "launches": launches[label],
+                "plain_calls": 0, "held": held}
+        print(json.dumps({"netplane": line}), flush=True)
+        lines[label] = line
+    reset_example(spec, jwc, conf)
+    return lines, launches
+
+
+STARTUP_PROBE = r"""
+import json, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+from mapreduce_tpu_torch.models import mlp
+from mapreduce_tpu_torch.models.digits import make_digits
+t3 = time.perf_counter()
+x_tr, y_tr, _, _ = make_digits(seed=0)
+t4 = time.perf_counter()
+cfg = mlp.MLPConfig(sizes=(256, 128, 10))
+params = {k: v.requires_grad_() for k, v in mlp.init_params(
+    cfg, torch.Generator().manual_seed(0), device="cuda").items()}
+x = torch.from_numpy(x_tr[:64]).to("cuda")
+y = torch.from_numpy(y_tr[:64]).to("cuda")
+grads_s = []
+for _ in range(3):
+    t = time.perf_counter()
+    loss = mlp.nll_loss(params, x, y, cfg)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    [g.cpu() for g in grads]
+    grads_s.append(time.perf_counter() - t)
+print(json.dumps({"import_torch_s": t1 - t0, "cuda_init_s": t2 - t1,
+                  "import_port_s": t3 - t2, "make_digits_s": t4 - t3,
+                  "grads_s": grads_s}))
+"""
+
+
+def startup_probe(n):
+    """A fresh process's start-up on the card, in the steps of a
+    ``train_digits`` worker's first ``mapfn`` (import torch, the CUDA
+    context, the port's modules, the data, three gradient calls): *n*
+    such processes at once, each under a timeout."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    ps = [subprocess.Popen([sys.executable, "-c", STARTUP_PROBE], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True) for _ in range(n)]
+    out = []
+    for p in ps:
+        try:
+            so, se = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            for q in ps:
+                q.kill()
+                q.communicate(timeout=30)
+            check(False, "netplane (d): the start-up probe ran over 120 s")
+        check(p.returncode == 0, f"netplane (d): the start-up probe exited "
+              f"{p.returncode}: {se[-2000:]}")
+        out.append(json.loads(so.strip().splitlines()[-1]))
+    return out
+
+
+def netplane_train(procs, client, board, blob, token, jobboard, Server):
+    """Phase 13 (d): train_digits with the MLP's gradients computed in
+    NET_PROCS ``cli worker`` processes on the card, at phase 12 (c)'s
+    shards, bunch, seed and iterations; the history against phase 12's
+    worker threads."""
+    from mapreduce_tpu_torch import spec
+    from mapreduce_tpu_torch.examples import train_digits as td
+
+    spec.clear_caches()
+    td.HISTORY.clear()
+    td._data_cache.clear()
+    connstr, dsl = f"http://{board}", f"http:{blob}"
+    mod = "mapreduce_tpu_torch.examples.train_digits"
+    params = {r: mod for r in ("taskfn", "mapfn", "partitionfn",
+                               "reducefn", "finalfn")}
+    params["storage"] = dsl
+    params["init_args"] = {"storage": dsl, "n_shards": 4,
+                           "bunch_size": 64, "learning_rate": 0.3,
+                           "momentum": 0.5, "max_iterations": 3,
+                           "device": DEV}
+    spawned = [f"d{i}" for i in range(NET_PROCS)]
+    for i in range(NET_PROCS):
+        procs.start(f"train_worker{i}", "worker", connstr, "sgdnet",
+                    "--name", f"d{i}", "--max-iter", "400",
+                    "--max-sleep", "0.2", "--claim-batch", "1",
+                    "--no-claim-ahead", "--telemetry-interval",
+                    str(NET_PUSH_S))
+    wait_pushers(client, [f"worker:d{i}" for i in range(NET_PROCS)])
+    docs = {"map": [], "reduce": []}
+    real_final = td.finalfn
+
+    def finalfn(pairs):
+        # this iteration's jobs, before "loop" drops them
+        docs["map"].extend(client.find("sgdnet.map_jobs"))
+        docs["reduce"].extend(client.find("sgdnet.red_jobs"))
+        return real_final(pairs)
+
+    td.finalfn = finalfn
+    try:
+        server = Server(connstr, "sgdnet", auth=token)
+        server.telemetry_interval = NET_PUSH_S
+        server.configure(params)
+        t0 = time.monotonic()
+        stats = loop_in_thread(server)
+        wall = time.monotonic() - t0
+    finally:
+        td.finalfn = real_final
+        spec.clear_caches()
+    for i in range(NET_PROCS):
+        procs.wait(f"train_worker{i}")
+    hist = list(td.HISTORY)
+    check(stats["iteration"] == 3 and stats["map"]["failed"] == 0,
+          f"netplane (d): stats {stats}")
+    all_docs = docs["map"] + docs["reduce"]
+    ran = Counter(d["worker"] for d in all_docs)
+    check(len(docs["map"]) == 12 and set(ran) <= set(spawned),
+          f"netplane (d): jobs by worker {dict(ran)}")
+    maps_by_proc = map_split(docs["map"], spawned, "d")
+    threads_hist = jobboard["history"]
+    equal = hist == threads_hist
+    worst = max(abs(a[k] - b[k]) for a, b in zip(hist, threads_hist)
+                for k in a)
+    check(equal, f"netplane (d): the history with worker processes "
+          f"differs from phase 12's with threads (max |diff| {worst}): "
+          f"{hist} vs {threads_hist}")
+    return {"run": "train_digits_processes", "worker_procs": NET_PROCS,
+            "iterations": 3, "map_jobs": len(docs["map"]),
+            "reduce_jobs": len(docs["reduce"]),
+            "loop_wall_s": wall,
+            "phase12_threads_loop_wall_s": jobboard["loop_wall_s"],
+            "jobs_by_worker": dict(ran), "map_jobs_by_proc": maps_by_proc,
+            "first_claim": first_claims(docs["map"], spawned),
+            "startup_probe": {"alone": startup_probe(1),
+                              "two_at_once": startup_probe(NET_PROCS)},
+            "history_bit_equal": equal, "history": hist}, ran
+
+
+def netplane_phase(torch, kc, seg, rs, data, want, smi, jobplane,
+                   jobboard):
+    """Phase 13: the networked job plane (the ``netplane`` lines)."""
+    import shutil
+    import tempfile
+    import uuid
+
+    from mapreduce_tpu_torch import spec
+    from mapreduce_tpu_torch.coord.docserver import HttpDocStore
+    from mapreduce_tpu_torch.corpus import make_corpus
+    from mapreduce_tpu_torch.examples import wordcount as jwc
+    from mapreduce_tpu_torch.obs.metrics import REGISTRY, parse_prometheus
+    from mapreduce_tpu_torch.parallel import shuffle
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.server import Server
+
+    conf = {"files": [], "num_reducers": 15}
+    token = uuid.uuid4().hex
+    root = tempfile.mkdtemp(prefix="chip_smoke_netplane_")
+    procs = NetProcs(root, token)
+    t_phase = time.monotonic()
+    try:
+        # (a) the board and the blob service, under MAPREDUCE_TPU_AUTH
+        procs.start("docserver", "docserver", "--host", "127.0.0.1",
+                    "--port", "0")
+        procs.start("blobserver", "blobserver",
+                    os.path.join(root, "blobs"), "--host", "127.0.0.1",
+                    "--port", "0")
+        board = procs.wait_line("docserver",
+                                r"job board at http://([\d.]+:\d+)").group(1)
+        blob = procs.wait_line("blobserver",
+                               r"at http:([\d.]+:\d+)").group(1)
+        tokenless = {"board_metrics": net_status(f"http://{board}/metrics"),
+                     "board_healthz": net_status(f"http://{board}/healthz"),
+                     "blob_list": net_status(f"http://{blob}/list")}
+        check(tokenless == {"board_metrics": 401, "board_healthz": 200,
+                            "blob_list": 401},
+              f"netplane (a): tokenless requests answered {tokenless}")
+        check(net_status(f"http://{board}/metrics", token) == 200,
+              "netplane (a): the token is refused")
+        client = HttpDocStore(board, auth_token=token)
+        print(json.dumps({"netplane": {"run": "servers", "board": board,
+                                       "blob": blob, "tokenless": tokenless,
+                                       "card": smi}}), flush=True)
+
+        # (b) the README's topology on phase 9 (b)'s 200K words
+        small = make_corpus(JOB_SMALL_WORDS, JOB_SMALL_WORDS // 25, seed=1)
+        sroot = tempfile.mkdtemp(prefix="small_", dir=root)
+        split_line, split_ran = netplane_split(procs, client, board, blob,
+                                               token, small, sroot)
+        print(json.dumps({"netplane": split_line}), flush=True)
+
+        # (c) the device phase over http:// and http: storage
+        jobplane = dict(jobplane, want_str={w.decode(): c
+                                            for w, c in want.items()})
+        files = write_line_files(data, JOB_FILES,
+                                 tempfile.mkdtemp(prefix="big_", dir=root))
+        device_lines, launches = netplane_device(
+            torch, kc, seg, rs, shuffle, spec, jwc, conf, files, board,
+            blob, token, root, jobplane, REGISTRY, Partitions, Server)
+
+        # (d) train_digits with its gradients in worker processes
+        train_line, train_ran = netplane_train(procs, client, board, blob,
+                                               token, jobboard, Server)
+        print(json.dumps({"netplane": train_line}), flush=True)
+
+        # (e) the board's exposition: every worker process's jobs and
+        # the in-process server's spans reached it
+        time.sleep(2 * NET_PUSH_S)
+        metrics = parse_prometheus(client.metrics_text())
+        device_job = ("mrtpu_board_jobs", (("db", "netwc"), ("phase", "map"),
+                                           ("status", "WRITTEN")))
+        check(metrics.get(device_job) == 1
+              and any(n == "mrtpu_docserver_requests_total"
+                      for n, _ in metrics),
+              "netplane (e): /metrics lacks the board gauge of the device "
+              "job or the docserver's request counters")
+        cz = client.clusterz()
+        pushed = Counter()
+        for name, labels, value in cz["mrtpuCluster"]["metrics"]:
+            if name == "mrtpu_worker_jobs_total":
+                pushed[(labels["task"], labels["worker"])] += value
+        want_jobs = Counter({("splitwc", w): n
+                             for w, n in split_ran.items()})
+        want_jobs.update({("sgdnet", w): n for w, n in train_ran.items()})
+        got_jobs = Counter({k: v for k, v in pushed.items()
+                            if k[0] in ("splitwc", "sgdnet")})
+        check(got_jobs == want_jobs, f"netplane (e): /clusterz worker jobs "
+              f"{dict(got_jobs)} against the board's {dict(want_jobs)}")
+        roles = Counter(p["role"].split(":")[0]
+                        for p in cz["mrtpuCluster"]["procs"].values())
+        server_spans = Counter(
+            e["name"] for e in cz["traceEvents"]
+            if e.get("args", {}).get("job") == "__device__")
+        check(server_spans["job"] >= 2 and server_spans["write"] >= 2,
+              f"netplane (e): the server's device spans on /clusterz: "
+              f"{dict(server_spans)}")
+        rpc_spans = sum(1 for e in cz["traceEvents"]
+                        if str(e.get("name", "")).startswith("rpc:"))
+        client.close()
+        line = {"run": "exposition", "roles": dict(roles),
+                "worker_jobs": {f"{t}/{w}": n
+                                for (t, w), n in sorted(got_jobs.items())},
+                "server_device_spans": dict(server_spans),
+                "board_rpc_spans": rpc_spans,
+                "trace_events": len(cz["traceEvents"]),
+                "metric_series": len(metrics),
+                "phase_s": time.monotonic() - t_phase, "card": smi}
+        print(json.dumps({"netplane": line}), flush=True)
+    finally:
+        # (f) every process reaped under a timeout
+        procs.reap()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 def main():
@@ -2990,7 +3627,7 @@ def main():
                   chunks, want, smi)
 
     # phase 9: the job plane, through the CLI and the Server
-    jobplane_phase(torch, kc, seg, rs, data, want, smi)
+    jobplane = jobplane_phase(torch, kc, seg, rs, data, want, smi)
 
     # phases 10-11: the flash kernels, then the transformer slice (the
     # plain f32 matmuls of the reference stay in full f32)
@@ -3000,7 +3637,11 @@ def main():
     flaunches = trainer_phase(torch, kc, fa, tmod)
 
     # phase 12: the training plane
-    training_phase(torch, kc, tmod, smi)
+    jobboard = training_phase(torch, kc, tmod, smi)
+
+    # phase 13: the networked job plane, in processes
+    net_launches = netplane_phase(torch, kc, seg, rs, data, want, smi,
+                                  jobplane, jobboard)
 
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
@@ -3008,6 +3649,11 @@ def main():
         kern["launches"] = rlaunches[kern["name"]]
     for kern in flash_kernels:
         kern["launches"] = flaunches[kern["name"]]
+    for kern in kernels + radix_kernels:
+        # the same kernels on phase 13's device phase over http://
+        kern["launches_netplane"] = {
+            run: counts.get(kern["name"], 0)
+            for run, counts in net_launches.items()}
     kernels += radix_kernels + flash_kernels
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,9 +4,10 @@ A document store of named collections (``<db>.task``,
 ``<db>.map_jobs``, ``<db>.red_jobs``, ``<db>.errors``) in process
 memory (``mem://NAME``) or in a shared directory (``dir:///PATH``),
 with atomic claims and leased RUNNING jobs; the task state machine;
-the map and reduce job executors; and the trainer lease.  The networked
-board (``http://``) and the replicated board with its board lease are
-not ported yet (ROADMAP A.4b).
+the map and reduce job executors; the trainer lease; and the networked
+board (``http://``: :mod:`.docserver`'s ``DocServer`` and
+``HttpDocStore``).  The replicated board with its board lease is not
+ported yet (ROADMAP A.4b-2).
 """
 
 from .docstore import DirDocStore, MemoryDocStore, connect  # noqa: F401

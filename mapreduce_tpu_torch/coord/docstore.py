@@ -1,10 +1,11 @@
 """Document store: the MongoDB-collection role of the reference's control
 plane (cnn.lua + the ``task``/``map_jobs``/``red_jobs``/``errors``
 collections, task.lua:349-352), without MongoDB (port of
-``mapreduce_tpu/coord/docstore.py``; the networked ``HttpDocStore`` is
-not ported yet, ROADMAP A.4b).
+``mapreduce_tpu/coord/docstore.py``).
 
-Two backends behind one interface:
+Two local backends behind one interface (the networked third,
+``HttpDocStore`` behind ``http://HOST:PORT``, is in
+:mod:`.docserver`):
 
   * :class:`MemoryDocStore` — in-process dict + lock.  Unit tests and the
     single-process server+threads deployment use this; it is the "fake
@@ -167,6 +168,10 @@ class DocStore:
     def drop_collection(self, coll: str) -> None:
         raise NotImplementedError
 
+    def collections(self) -> List[str]:
+        """Names of the collections that hold at least one document."""
+        raise NotImplementedError
+
     def close(self) -> None:
         pass
 
@@ -261,6 +266,10 @@ class MemoryDocStore(DocStore):
     def drop_collection(self, coll: str) -> None:
         with self._lock:
             self._colls.pop(coll, None)
+
+    def collections(self) -> List[str]:
+        with self._lock:
+            return [c for c, t in self._colls.items() if t]
 
 class DirDocStore(DocStore):
     """Shared-directory store: ``<root>/<collection>/<_id>.json`` per doc.
@@ -406,6 +415,15 @@ class DirDocStore(DocStore):
                 except OSError:
                     pass
 
+    def collections(self) -> List[str]:
+        out = []
+        for name in os.listdir(self.root):
+            p = os.path.join(self.root, name)
+            if os.path.isdir(p) and any(
+                    f.endswith(".json") for f in os.listdir(p)):
+                out.append(name)
+        return out
+
     def close(self) -> None:
         # refuse new fd opens from this point on, then close every open fd
         # under ITS collection's thread lock — a _DirLock mid-critical-
@@ -466,30 +484,36 @@ class _DirLock:
         return False
 
 
-def connect(connstr: str) -> DocStore:
+def connect(connstr: str, auth: Optional[str] = None,
+            retry=None) -> DocStore:
     """Open a store from a connection string (reference: a mongod host:port,
     utils.lua:62-69).  Forms:
 
       * ``mem://<name>``       — process-local named MemoryDocStore
       * ``dir:///path``        — DirDocStore rooted at /path
       * ``/abs/path``          — shorthand for dir://
-
-    ``http://HOST:PORT`` (the JAX package's networked board) raises
-    ``ValueError``: it is not ported yet (ROADMAP A.4b).
+      * ``http://[TOKEN@]HOST:PORT`` — HttpDocStore dialing a DocServer
+        (either package's: the wire is the same).  ``auth`` is the
+        bearer token of an auth-required server (reference: the
+        ``auth_table`` arg of cnn.lua:106-113); it can also ride the
+        connstr or $MAPREDUCE_TPU_AUTH (utils/httpclient.py).
+        ``retry`` is an optional :class:`~..utils.httpclient.RetryPolicy`
+        for the networked backend (the local ones have no wire to fail).
+        An unreachable board raises once the policy is spent.
     """
     if connstr.startswith("mem://"):
         return MemoryDocStore.named(connstr[len("mem://"):])
     if connstr.startswith("dir://"):
         return DirDocStore(connstr[len("dir://"):])
     if connstr.startswith("http://"):
-        raise ValueError(
-            f"board {connstr!r}: the networked http:// board is not "
-            "ported yet (ROADMAP A.4b); use mem://NAME or dir:///PATH")
+        from .docserver import HttpDocStore
+        return HttpDocStore(connstr[len("http://"):], auth_token=auth,
+                            retry=retry)
     if connstr.startswith("/"):
         return DirDocStore(connstr)
     raise ValueError(
         f"bad connection string {connstr!r} "
-        "(want mem://NAME or dir:///PATH)")
+        "(want mem://NAME, dir:///PATH, or http://HOST:PORT)")
 
 
 def now() -> float:

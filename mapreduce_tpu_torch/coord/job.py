@@ -1,6 +1,5 @@
 """Job executor: one claimed map or reduce job (port of
-``mapreduce_tpu/coord/job.py``, without the ambient auth scope of the
-networked planes, ROADMAP A.4b).
+``mapreduce_tpu/coord/job.py``).
 
 Parity with mapreduce/job.lua: load the user module (process-cached), build
 the ``emit`` closure, run the user fn, then for map — sort + combine +
@@ -30,6 +29,7 @@ import urllib.parse
 from typing import Any, Callable, Dict, List, Optional
 
 from .. import spec
+from ..obs import metrics as _metrics
 from ..obs.trace import TRACER
 from ..utils.constants import (
     STATUS, TASK_STATUS, MAX_MAP_RESULT, MAP_RESULT_TEMPLATE)
@@ -41,6 +41,25 @@ from . import docstore
 from .connection import Connection
 
 logger = logging.getLogger("mapreduce_tpu_torch.coord.job")
+
+# -- per-task accounting: the collector's roll-up substrate (task = the
+#    task database name — low cardinality by construction).  Map-side
+#    partition increments measure the shuffle volume INTO each
+#    partition. -----------------------------------------------------------
+_TASK_RECORDS = _metrics.counter(
+    "mrtpu_task_records_total",
+    "record lines written by jobs, per task (labels: task, phase)")
+_TASK_BYTES = _metrics.counter(
+    "mrtpu_task_bytes_total",
+    "record bytes written by jobs, per task (labels: task, phase)")
+_PARTITION_RECORDS = _metrics.counter(
+    "mrtpu_partition_records_total",
+    "records routed into each reduce partition at map write time plus "
+    "records reduced out of it (labels: task, phase, partition)")
+_PARTITION_BYTES = _metrics.counter(
+    "mrtpu_partition_bytes_total",
+    "record bytes per reduce partition (labels: task, phase, partition)")
+
 
 def sanitize_token(s: str) -> str:
     """Make an arbitrary key string safe inside a blob name."""
@@ -58,6 +77,20 @@ def map_results_prefix(path: str) -> str:
     """The shared map-output namespace for a task (single source of truth
     for job writers and the server's reduce planner)."""
     return f"{path}/map_results"
+
+
+def ambient_scope(connection: Connection, storage_dsl) -> set:
+    """The ``HOST:PORT`` endpoints a job's ambient auth token is valid
+    for: its own board and its own http storage — nothing else, so user
+    fns dialing third-party HTTP hosts cannot leak the cluster secret."""
+    from ..utils.httpclient import split_embedded_token
+
+    hosts = set(connection.board_hostports())
+    # parse the DSL prefix directly: get_storage_from would mkdtemp as a
+    # side effect for a bare "shared" string
+    if isinstance(storage_dsl, str) and storage_dsl.startswith("http:"):
+        hosts.add(split_embedded_token(storage_dsl.partition(":")[2])[1])
+    return hosts
 
 
 class Job:
@@ -81,7 +114,9 @@ class Job:
         #: per-job-named atomic whole-content files); the hard guarantee
         #: is the claim-guarded job-document write-back.
         self._fence = fence
-        self._storage = storage_mod.router(task_tbl["storage"])
+        self._storage = storage_mod.router(
+            task_tbl["storage"], auth=connection.auth_token(),
+            retry=connection.retry_policy)
         self.path = task_tbl["path"]
         #: files consumed by a reduce run, deleted only once WRITTEN is
         #: durable (a re-run of a crashed reduce must still find them)
@@ -163,17 +198,30 @@ class Job:
     # -- execution ---------------------------------------------------------
 
     def execute(self) -> None:
-        """job:__call dispatch (job.lua:345-381)."""
+        """job:__call dispatch (job.lua:345-381).  Runs under the ambient
+        auth token — scoped to this job's own board + storage endpoints —
+        so user map/reduce fns that build their own storage handle
+        (router(DSL) in module code, e.g. examples/train_digits) inherit
+        the worker's token without env/DSL plumbing."""
+        from ..utils.httpclient import push_ambient_auth, restore_ambient_auth
+
         # durations on the monotonic clock: an NTP step mid-job must not
         # corrupt the persisted real_time (started_time/written_time stay
         # wall-clock by contract — they are timestamps, not durations)
         t_cpu, t_real = time.process_time(), time.monotonic()
-        if self.task_status == TASK_STATUS.MAP:
-            self._execute_map()
-        elif self.task_status == TASK_STATUS.REDUCE:
-            self._execute_reduce()
-        else:
-            raise RuntimeError(f"job in task status {self.task_status}")
+        prev_auth = push_ambient_auth(
+            self._cnn.auth_token(),
+            ambient_scope(self._cnn, self.task_tbl.get("storage")))
+        try:
+            if self.task_status == TASK_STATUS.MAP:
+                self._execute_map()
+            elif self.task_status == TASK_STATUS.REDUCE:
+                self._execute_reduce()
+            else:
+                raise RuntimeError(
+                    f"job in task status {self.task_status}")
+        finally:
+            restore_ambient_auth(prev_auth)
         self._check_fence()
         owned = self.mark_as_written(time.process_time() - t_cpu,
                                      time.monotonic() - t_real)
@@ -252,6 +300,16 @@ class Job:
                         " (reference job.lua:203-207)")
                 per_part.setdefault(part, []).append(
                     serialize_record(key, values))
+            db = self._cnn.dbname
+            for part, lines in per_part.items():
+                nb = sum(len(ln) for ln in lines)
+                part_lbl = f"P{part:05d}"
+                _PARTITION_RECORDS.inc(len(lines), task=db, phase="map",
+                                       partition=part_lbl)
+                _PARTITION_BYTES.inc(nb, task=db, phase="map",
+                                     partition=part_lbl)
+                _TASK_RECORDS.inc(len(lines), task=db, phase="map")
+                _TASK_BYTES.inc(nb, task=db, phase="map")
 
         with TRACER.span("write", phase="map", job=self.get_id(),
                          partitions=len(per_part)):
@@ -282,6 +340,8 @@ class Job:
             for n in files
         ]
         b = self._storage.builder()
+        n_out = 0
+        out_bytes = 0
         with TRACER.span("run", phase="reduce", job=self.get_id(),
                          inputs=len(files)):
             for key, values in merge_iterator(sources):
@@ -293,9 +353,20 @@ class Job:
                 else:
                     out = reducefn(key, values)
                 check_serializable(out)
-                b.write_record_line(serialize_record(key, [out]))
+                line = serialize_record(key, [out])
+                n_out += 1
+                out_bytes += len(line)
+                b.write_record_line(line)
         with TRACER.span("write", phase="reduce", job=self.get_id()):
             b.build(result_name)
+        db = self._cnn.dbname
+        # the reduce job id IS the partition token (P<nnnnn>)
+        _PARTITION_RECORDS.inc(n_out, task=db, phase="reduce",
+                               partition=str(self.get_id()))
+        _PARTITION_BYTES.inc(out_bytes, task=db, phase="reduce",
+                             partition=str(self.get_id()))
+        _TASK_RECORDS.inc(n_out, task=db, phase="reduce")
+        _TASK_BYTES.inc(out_bytes, task=db, phase="reduce")
         # deletion of consumed inputs is deferred to execute(), post-WRITTEN
         self._consumed = files
 

@@ -24,7 +24,7 @@ other), mutated only through atomic guarded updates:
     zeroed, so the successor's acquire succeeds on its next poll.
 
 The board-primary lease (``BoardLease``) goes with the replicated board
-(ROADMAP A.4b).
+(ROADMAP A.4b-2).
 """
 
 from __future__ import annotations

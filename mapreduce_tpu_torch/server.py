@@ -16,8 +16,11 @@ Differences from the JAX package: the device phase runs the port's
 (``configure`` pops ``"partitions"`` where the JAX server pops
 ``"mesh"``; the default ``Partitions(1)`` is the card and raises without
 CUDA); there is no capacity autotuner or speculative re-claim yet
-(ROADMAP A.7), and no ambient auth or telemetry pusher (the networked
-board, ROADMAP A.4b).  PyTorch is imported only by the device phase.
+(ROADMAP A.7).  PyTorch is imported only by the device phase.  On an
+``http://`` board with ``http:`` storage every byte the loop moves —
+the device phase's ``result.P00000`` included — is a blob PUT or GET,
+and the loop's spans and metrics reach the docserver through the
+process-shared telemetry pusher.
 """
 
 from __future__ import annotations
@@ -47,12 +50,11 @@ logger = logging.getLogger("mapreduce_tpu_torch.server")
 
 TERMINAL = [int(STATUS.WRITTEN), int(STATUS.FAILED)]
 
-# -- stats gauges: the ONE source the persisted stats doc is read from
-#    (the /metrics exposition that reads them too comes with ROADMAP
-#    A.4b).  Every series carries the task's db label: two Server
-#    instances in one process (the library supports several tasks per
-#    board) must not overwrite each other's stats between publish and
-#    read-back ------------------------------------------------------------
+# -- stats gauges: the ONE source both the persisted stats doc and the
+#    /metrics exposition read, so they cannot drift apart.  Every series
+#    carries the task's db label: two Server instances in one process
+#    (the library supports several tasks per board) must not overwrite
+#    each other's stats between publish and read-back -----------------------
 _STATS_JOBS = _metrics.gauge(
     "mrtpu_stats_jobs",
     "terminal jobs in the last computed stats (labels: db, phase, "
@@ -67,6 +69,9 @@ _STATS_ITERATION = _metrics.gauge(
 _STATS_DEVICE = _metrics.gauge(
     "mrtpu_stats_device",
     "device-phase engine timings from the last run (labels: db, field)")
+_PHASE_SECONDS = _metrics.histogram(
+    "mrtpu_server_phase_seconds",
+    "wall seconds the server spent driving one phase (labels: phase)")
 
 
 def _publish_phase_stats(db: str, phase: str, d: Dict[str, Any]) -> None:
@@ -81,7 +86,7 @@ def _publish_phase_stats(db: str, phase: str, d: Dict[str, Any]) -> None:
 
 def _phase_stats_from_registry(db: str, phase: str) -> Dict[str, Any]:
     """Read one phase's stats BACK from the registry — the persisted doc
-    is built from these reads."""
+    is built from these reads, so doc and /metrics agree by construction."""
     return {
         "count": int(REGISTRY.value("mrtpu_stats_jobs", db=db,
                                     phase=phase, state="all")),
@@ -101,16 +106,23 @@ class Server:
 
     def __init__(self, connstr: str, dbname: str,
                  auth: Optional[Any] = None,
-                 reclaim: Optional[Any] = None) -> None:
+                 reclaim: Optional[Any] = None,
+                 retry: Optional[Any] = None) -> None:
         if reclaim is not None:
             raise ValueError("speculative re-claim is not ported yet "
                              "(ROADMAP A.7); pass reclaim=None")
-        self.cnn = Connection(connstr, dbname, auth)
+        self.cnn = Connection(connstr, dbname, auth, retry=retry)
         self.task = Task(self.cnn)
         self.params: Dict[str, Any] = {}
         self.configured = False
         self.finished = False
         self.poll_sleep = DEFAULT_SLEEP
+        #: telemetry push cadence to the board's collector (seconds) —
+        #: the server's spans join the merged cluster timeline the same
+        #: way the workers' do.  Off by default in the library (no
+        #: surprise background traffic for embedders); the server CLI
+        #: turns it on at 1.0s.
+        self.telemetry_interval = 0.0
         # device fast path state (configure(device=True)): the partitions
         # and the engine live on the server instance and never enter the
         # task document
@@ -222,7 +234,7 @@ class Server:
     # -- reduce planning (server.lua:279-329) ------------------------------
 
     def _prepare_reduce(self) -> int:
-        storage = storage_mod.router(self.params["storage"])
+        storage = self._storage()
         ns = map_results_prefix(self.params["path"])
         # group map result files by partition token P<nnnnn>
         # (server.lua:291-312)
@@ -250,6 +262,13 @@ class Server:
         self.task.set_task_status(TASK_STATUS.REDUCE)
         logger.info("reduce phase: %d partitions", len(jobs))
         return len(jobs)
+
+    def _storage(self):
+        """The task's storage, opened with the connection's token and
+        retry policy (one flag set governs both sockets)."""
+        return storage_mod.router(self.params["storage"],
+                                  auth=self.cnn.auth_token(),
+                                  retry=self.cnn.retry_policy)
 
     # -- device fast path (the unified framework, SURVEY.md §7 steps 4-5) --
 
@@ -335,7 +354,7 @@ class Server:
             # file, so a leftover P00001 would silently blend into the
             # device output
             with TRACER.span("write", phase="device", job="__device__"):
-                storage = storage_mod.router(self.params["storage"])
+                storage = self._storage()
                 storage.remove_many(self._result_partitions(storage))
                 b = storage.builder()
                 for key, values in sorted(out_pairs,
@@ -460,7 +479,7 @@ class Server:
         return merge_iterator([records(n) for n in names])
 
     def _final(self) -> Any:
-        storage = storage_mod.router(self.params["storage"])
+        storage = self._storage()
         finalfn = spec.load_role(self.params["finalfn"], "finalfn")
         reply = finalfn.fn(self._result_pairs(storage))
         if reply not in (True, False, None, "loop"):
@@ -487,7 +506,30 @@ class Server:
 
     def loop(self) -> Dict[str, Any]:
         assert self.configured, "call configure() before loop()"
-        return self._loop_impl()
+        # ambient token for user fns run server-side (taskfn/finalfn may
+        # build their own storage handle, like worker-side map fns do);
+        # scoped to this task's own endpoints and restored after — a
+        # later open server on this thread must not inherit it
+        from .coord.job import ambient_scope
+        from .obs.collector import acquire_pusher, release_pusher
+        from .utils.httpclient import push_ambient_auth, restore_ambient_auth
+
+        prev_auth = push_ambient_auth(
+            self.cnn.auth_token(),
+            ambient_scope(self.cnn, self.params.get("storage")))
+        # push the server's spans/metrics to the board's collector (when
+        # the board is a networked docserver); telemetry failures can
+        # never fail the run.  The pusher is process-shared — a server
+        # colocated with worker threads must not deliver the ring twice.
+        lease = acquire_pusher(self.cnn.board_hostport(),
+                               self.cnn.auth_token(),
+                               role=f"server:{self.cnn.dbname}",
+                               interval=self.telemetry_interval)
+        try:
+            return self._loop_impl()
+        finally:
+            restore_ambient_auth(prev_auth)
+            release_pusher(lease)
 
     def _loop_impl(self) -> Dict[str, Any]:
         it = 0
@@ -542,6 +584,7 @@ class Server:
                 t0 = time.monotonic()
                 self._run_device_phase()
                 dt = time.monotonic() - t0
+                _PHASE_SECONDS.observe(dt, phase="device")
                 logger.info("device map+reduce done in %.3fs", dt)
             else:
                 if not skip_map:
@@ -552,6 +595,7 @@ class Server:
                     self._prepare_map()
                     self._poll_phase(self.task.map_jobs_ns(), "map")
                     dt = time.monotonic() - t0
+                    _PHASE_SECONDS.observe(dt, phase="map")
                     logger.info("map done in %.3fs", dt)
                 else:
                     skip_map = False
@@ -559,6 +603,7 @@ class Server:
                 self._prepare_reduce()
                 self._poll_phase(self.task.red_jobs_ns(), "reduce")
                 dt = time.monotonic() - t0
+                _PHASE_SECONDS.observe(dt, phase="reduce")
                 logger.info("reduce done in %.3fs", dt)
             stats = self._compute_stats()
             self._final()

@@ -68,6 +68,13 @@ class LocalDirStorage(Storage):
         storage_io(self.scheme, "write", len(data))
         storage_op(self.scheme, "publish")
 
+    def read_range(self, name: str, start: int, length: int) -> bytes:
+        """Bounded-memory byte slice (serves the blob server's Range GETs;
+        b"" past EOF)."""
+        with open(self._fname(name), "rb") as f:
+            f.seek(start)
+            return f.read(length)
+
     def _all_names(self) -> List[str]:
         return [urllib.parse.unquote(e) for e in os.listdir(self.root)
                 if e != self.STAGING]

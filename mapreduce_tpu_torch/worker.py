@@ -1,6 +1,5 @@
 """Worker: the polling executor loop (reference mapreduce/worker.lua; port
-of ``mapreduce_tpu/worker.py``, without the telemetry pusher, whose
-collector lives on the networked board of ROADMAP A.4b).
+of ``mapreduce_tpu/worker.py``).
 
 Claims jobs from the task's job board, runs them under an exception shield
 that marks the job BROKEN and reports to the errors channel, backs off
@@ -15,13 +14,20 @@ reference:
   that job, which aborts at its next emit/output step instead of racing
   the re-issued copy (coord/task.LeaseLostError);
 * the claim path is PIPELINED: one batched claim RPC takes up to
-  ``DEFAULT_CLAIM_BATCH`` jobs (Task.take_next_jobs — one board round trip
+  ``claim_batch`` jobs (Task.take_next_jobs — one board round trip
   instead of one per job), and when the worker starts its last queued
   job it claims the next batch in the background, so the claim's
   network latency overlaps the current job's execution instead of
   serializing with it.  Every held claim is leased and fenced
   INDIVIDUALLY — one heartbeat RPC covers them all (heartbeat_many),
-  but a lost lease fences exactly the job that lost it.
+  but a lost lease fences exactly the job that lost it;
+* with an ``http://`` board the worker leases the process-shared
+  telemetry pusher (obs/collector), so its spans and metrics reach the
+  docserver's ``/clusterz`` and ``/metrics``.
+
+Worker threads of one process share its CUDA context; separate worker
+processes (``python -m mapreduce_tpu_torch.cli worker``) each build or
+load the kernel libraries on their first device call.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from .coord.connection import Connection
 from .coord.job import Job
 from .coord.task import LeaseLostError, Task
+from .obs import metrics as _metrics
 from .obs.trace import TRACER
 from .utils.constants import (
     TASK_STATUS, DEFAULT_SLEEP, DEFAULT_MAX_SLEEP, DEFAULT_MAX_ITER,
@@ -42,6 +49,43 @@ from .utils.constants import (
     MAX_WORKER_RETRIES)
 
 logger = logging.getLogger("mapreduce_tpu_torch.worker")
+
+_CLAIMS = _metrics.counter(
+    "mrtpu_worker_claims_total",
+    "claim-poll outcomes (labels: worker, task, outcome=claimed|idle|"
+    "unreachable)")
+_CLAIM_BATCH = _metrics.histogram(
+    "mrtpu_worker_claim_batch_jobs",
+    "jobs claimed per successful claim RPC (labels: worker, task) — the "
+    "claim pipelining win is this histogram's mean being > 1",
+    buckets=(1, 2, 4, 8, 16, 32))
+_CLAIMED_JOBS = _metrics.counter(
+    "mrtpu_worker_claimed_jobs_total",
+    "jobs claimed, summed over batches (labels: worker, task)")
+_RELEASED_JOBS = _metrics.counter(
+    "mrtpu_worker_released_jobs_total",
+    "claim-ahead jobs handed back to WAITING unrun at worker exit "
+    "(labels: worker, task)")
+_HEARTBEATS = _metrics.counter(
+    "mrtpu_worker_heartbeats_total",
+    "per-claim heartbeat outcomes (labels: worker, task, outcome=ok|"
+    "error|lost); one batched RPC may account several claims")
+_LEASE_LOST = _metrics.counter(
+    "mrtpu_worker_lease_lost_total",
+    "jobs fenced after a confirmed lease loss (labels: worker, task)")
+_JOBS = _metrics.counter(
+    "mrtpu_worker_jobs_total",
+    "jobs this worker finished, by outcome (labels: worker, task, "
+    "phase, outcome=written|broken|fenced)")
+_JOB_SECONDS = _metrics.histogram(
+    "mrtpu_worker_job_seconds",
+    "wall seconds from claim to job outcome (labels: worker, task, "
+    "phase)")
+_CONSEC_FAILURES = _metrics.gauge(
+    "mrtpu_worker_consecutive_failures",
+    "current unbroken run of job failures (labels: worker, task); "
+    "MAX_WORKER_RETRIES ends the worker")
+
 
 class _AsyncClaim:
     """One batched claim RPC in flight on its own thread — the worker's
@@ -77,7 +121,7 @@ class _AsyncClaim:
         w = self._worker
         try:
             self.jobs, self.status = w.task.take_next_jobs(
-                w.name, Task.tmpname(), DEFAULT_CLAIM_BATCH)
+                w.name, Task.tmpname(), w.claim_batch)
             self.task_tbl = dict(w.task.tbl)
         except BaseException as exc:
             self.error = exc
@@ -97,10 +141,35 @@ class Worker:
 
     def __init__(self, connstr: str, dbname: str,
                  auth: Optional[Any] = None,
-                 name: Optional[str] = None) -> None:
-        self.cnn = Connection(connstr, dbname, auth)
+                 name: Optional[str] = None,
+                 retry: Optional[Any] = None) -> None:
+        self.cnn = Connection(connstr, dbname, auth, retry=retry)
         self.task = Task(self.cnn)
         self.name = name or f"{Connection.hostname()}-{id(self):x}"
+        #: the per-task accounting label on every metric this worker
+        #: emits (the task database name — low cardinality)
+        self._task = dbname
+        self.max_iter = DEFAULT_MAX_ITER
+        self.max_sleep = DEFAULT_MAX_SLEEP
+        self.max_tasks = DEFAULT_MAX_TASKS
+        self.sleep = DEFAULT_SLEEP
+        self.heartbeat_period = DEFAULT_HEARTBEAT
+        #: claim pipelining knobs: jobs per claim RPC, and whether the
+        #: next batch's claim overlaps the current job's execution
+        self.claim_batch = DEFAULT_CLAIM_BATCH
+        self.claim_ahead = True
+        #: telemetry push knobs: spans + metric snapshots go to the
+        #: docserver's collector every ``telemetry_interval`` seconds
+        #: over a DEDICATED socket (obs/collector.TelemetryPusher —
+        #: lossy-but-counted, can never block a heartbeat or job).
+        #: ``telemetry_address`` defaults to the board itself for
+        #: http:// connstrs.  The LIBRARY default is off (embedders —
+        #: and tests that put a fault proxy in front of the board —
+        #: must not grow surprise background traffic); the worker CLI
+        #: turns it on at 1.0s.
+        self.telemetry_interval = 0.0
+        self.telemetry_address: Optional[str] = None
+        self.telemetry_backlog = 20_000
         self.jobs_done = 0
         # claims this worker currently holds: _id -> (coll, job_tbl,
         # fence); shared between the executor loop and the heartbeat
@@ -108,6 +177,18 @@ class Worker:
         self._held: Dict[str, Tuple[str, Dict[str, Any],
                                     threading.Event]] = {}
         self._held_lock = threading.Lock()
+
+    def configure(self, conf: Dict[str, Any]) -> None:
+        """worker.lua:142-148: max_iter / max_sleep / max_tasks knobs,
+        plus the claim-pipelining pair and the telemetry-push knobs."""
+        for k in ("max_iter", "max_sleep", "max_tasks", "claim_batch",
+                  "claim_ahead", "telemetry_interval",
+                  "telemetry_address", "telemetry_backlog"):
+            if k in conf:
+                setattr(self, k, conf[k])
+        # claim_batch=0 would make every poll an idle poll forever — a
+        # silent no-op worker; 1 is the meaningful minimum (serial path)
+        self.claim_batch = max(int(self.claim_batch), 1)
 
     def _register_claims(self, status: TASK_STATUS,
                          jobs: List[Dict[str, Any]],
@@ -127,7 +208,7 @@ class Worker:
     # -- heartbeat: one thread, one RPC, every held lease -----------------
 
     def _beat_all(self, stop: threading.Event) -> None:
-        while not stop.wait(DEFAULT_HEARTBEAT):
+        while not stop.wait(self.heartbeat_period):
             with self._held_lock:
                 groups: Dict[str, List[Tuple[Dict[str, Any],
                                              threading.Event]]] = {}
@@ -138,12 +219,16 @@ class Worker:
                     owned = self.task.heartbeat_many(
                         coll, [j for j, _ in pairs])
                 except Exception:
-                    # board I/O failure: ownership is UNKNOWN (the lease may
-                    # still be live), so keep beating — fencing on a guess
-                    # would abort healthy jobs during a blip
+                    # network failure: ownership is UNKNOWN (the lease may
+                    # still be live server-side), so keep beating — fencing
+                    # on a guess would abort healthy jobs during a blip
+                    _HEARTBEATS.inc(worker=self.name, task=self._task,
+                                    outcome="error")
                     logger.exception("heartbeat failed")
                     continue
                 for (job_tbl, fence), ok in zip(pairs, owned):
+                    _HEARTBEATS.inc(worker=self.name, task=self._task,
+                                    outcome="ok" if ok else "lost")
                     if not ok and not stop.is_set():
                         # the server answered and this claim no longer
                         # matches: lease reaped (partition outlasted
@@ -153,6 +238,7 @@ class Worker:
                         logger.warning(
                             "%s: lease lost on job %s — fencing",
                             self.name, job_tbl["_id"])
+                        _LEASE_LOST.inc(worker=self.name, task=self._task)
                         fence.set()
                         with self._held_lock:
                             self._held.pop(job_tbl["_id"], None)
@@ -209,6 +295,11 @@ class Worker:
                                      self.name)
             finally:
                 root.args["outcome"] = outcome
+                _JOBS.inc(worker=self.name, task=self._task,
+                          phase=status.value, outcome=outcome)
+                _JOB_SECONDS.observe(time.monotonic() - t_claim0,
+                                     worker=self.name, task=self._task,
+                                     phase=status.value)
         return outcome
 
     def _release(self, coll: str,
@@ -221,11 +312,14 @@ class Worker:
             for j in leftovers:
                 self._held.pop(j["_id"], None)
         try:
-            self.task.release_jobs(coll, leftovers)
+            n = self.task.release_jobs(coll, leftovers)
         except Exception:
             logger.warning("%s: could not release %d unrun claims; the "
                            "lease reaper will reclaim them", self.name,
                            len(leftovers), exc_info=True)
+            return
+        if n:
+            _RELEASED_JOBS.inc(n, worker=self.name, task=self._task)
 
     def _jobs_coll(self, status: TASK_STATUS) -> str:
         return (self.task.map_jobs_ns() if status == TASK_STATUS.MAP
@@ -236,7 +330,7 @@ class Worker:
     def _execute_task(self) -> bool:
         """Work one task to completion; True if any job was executed."""
         iter_count = 0
-        sleep = DEFAULT_SLEEP
+        sleep = self.sleep
         worked = False
         failures = 0  # CONSECUTIVE failures; reset by every success
         prefetch: Optional[_AsyncClaim] = None
@@ -247,7 +341,7 @@ class Worker:
                                   args=(stop_beat,), daemon=True)
         beat_t.start()
         try:
-            while iter_count < DEFAULT_MAX_ITER:
+            while iter_count < self.max_iter:
                 # -- obtain a batch: the claim-ahead slot if one is in
                 #    flight, else a fresh (blocking) claim RPC
                 if prefetch is not None:
@@ -256,30 +350,40 @@ class Worker:
                     claim = _AsyncClaim(self, sync=True)
                 if claim.error is not None:
                     if isinstance(claim.error, PermissionError):
-                        raise claim.error  # retrying is no fix
+                        raise claim.error  # auth misconfig: retrying is no fix
                     if not isinstance(claim.error, OSError):
                         raise claim.error
-                    # board unreachable (an I/O error of a dir: board on
-                    # a flaky mount): an idle poll, not a death sentence —
-                    # back off like any idle iteration; a board that never
-                    # comes back exhausts max_iter and the worker exits
+                    # board unreachable (RetryError / CircuitOpenError /
+                    # reset): an idle poll, not a death sentence — back off
+                    # like any idle iteration; a board that never comes
+                    # back exhausts max_iter and the worker exits normally
+                    _CLAIMS.inc(worker=self.name, task=self._task,
+                                outcome="unreachable")
                     logger.warning("%s: job board unreachable (%s); "
                                    "backing off", self.name, claim.error)
                     iter_count += 1
                     time.sleep(sleep)
-                    sleep = min(sleep * 1.5, DEFAULT_MAX_SLEEP)
+                    sleep = min(sleep * 1.5, self.max_sleep)
                     continue
                 if not claim.jobs:
+                    _CLAIMS.inc(worker=self.name, task=self._task,
+                                outcome="idle")
                     if claim.status == TASK_STATUS.FINISHED:
                         return worked
                     # idle: exponential backoff (worker.lua:97-103)
                     iter_count += 1
                     time.sleep(sleep)
-                    sleep = min(sleep * 1.5, DEFAULT_MAX_SLEEP)
+                    sleep = min(sleep * 1.5, self.max_sleep)
                     continue
 
                 status, task_tbl = claim.status, claim.task_tbl
                 coll = self._jobs_coll(status)
+                _CLAIMS.inc(worker=self.name, task=self._task,
+                            outcome="claimed")
+                _CLAIM_BATCH.observe(len(claim.jobs), worker=self.name,
+                                     task=self._task)
+                _CLAIMED_JOBS.inc(len(claim.jobs), worker=self.name,
+                                  task=self._task)
                 # fences were minted at registration time (inside the
                 # claim RPC's thread) — the batch has been heartbeated
                 # since the moment it was claimed
@@ -297,7 +401,7 @@ class Worker:
                                 "%s: skipping job %s — lease lost before "
                                 "it started", self.name, job_tbl["_id"])
                             continue
-                        if not pending:
+                        if not pending and self.claim_ahead:
                             # claim-ahead: the next batch's round trip
                             # overlaps this (last queued) job's execution
                             prefetch = _AsyncClaim(self)
@@ -316,6 +420,8 @@ class Worker:
                             failures = 0
                         elif outcome == "broken":
                             failures += 1
+                        _CONSEC_FAILURES.set(failures, worker=self.name,
+                                             task=self._task)
                         if failures >= MAX_WORKER_RETRIES:
                             logger.error(
                                 "%s: %d consecutive failures, giving up "
@@ -338,7 +444,7 @@ class Worker:
                     self._release(coll, [j for j, f in pending
                                          if not f.is_set()])
                 iter_count = 0
-                sleep = DEFAULT_SLEEP
+                sleep = self.sleep
             return worked
         finally:
             if prefetch is not None:
@@ -348,18 +454,46 @@ class Worker:
             stop_beat.set()
             beat_t.join()
 
+    def _start_telemetry(self):
+        """Lease the process-shared telemetry pusher when the board is a
+        networked docserver (the collector lives there) — shared, not
+        per-worker: N workers in one process drain ONE span ring, so one
+        pusher delivers it once.  Any failure means 'no telemetry',
+        never 'no worker'."""
+        from .obs.collector import acquire_pusher
+
+        address = self.telemetry_address
+        if not address:
+            try:
+                address = self.cnn.board_hostport()
+            except Exception:
+                address = None
+        return acquire_pusher(address, self.cnn.auth_token(),
+                              role=f"worker:{self.name}",
+                              interval=self.telemetry_interval,
+                              max_backlog=self.telemetry_backlog)
+
     def execute(self) -> None:
         """Top-level entry (worker.lua:112-138): serve up to max_tasks
         tasks, waiting for each to appear."""
+        from .obs.collector import release_pusher
+
         logger.info("worker %s starting", self.name)
-        self._execute_tasks()
+        lease = self._start_telemetry()
+        try:
+            self._execute_tasks()
+        finally:
+            # the LAST worker out stops the shared pusher with a final
+            # flush, so the process's closing spans reach the merged
+            # timeline; anything undeliverable is counted dropped
+            release_pusher(lease)
 
     def _execute_tasks(self) -> None:
-        for _ in range(DEFAULT_MAX_TASKS):
+        for _ in range(self.max_tasks):
             # wait for a task document to exist and leave WAIT
             iter_count = 0
-            sleep = DEFAULT_SLEEP
-            while iter_count < DEFAULT_MAX_ITER:
+            sleep = self.sleep
+            while iter_count < self.max_iter:
                 try:
                     has_task = self.task.update()
                 except PermissionError:
@@ -373,7 +507,7 @@ class Worker:
                         break
                 iter_count += 1
                 time.sleep(sleep)
-                sleep = min(sleep * 1.5, DEFAULT_MAX_SLEEP)
+                sleep = min(sleep * 1.5, self.max_sleep)
             else:
                 logger.info("worker %s: no task appeared, exiting", self.name)
                 return
@@ -381,16 +515,23 @@ class Worker:
         logger.info("worker %s done (%d jobs)", self.name, self.jobs_done)
 
 
-def spawn_worker_threads(connstr: str, dbname: str, n: int
+def spawn_worker_threads(connstr: str, dbname: str, n: int,
+                         conf: Optional[Dict[str, Any]] = None,
+                         auth: Optional[Any] = None,
+                         retry: Optional[Any] = None,
+                         name_prefix: Optional[str] = None,
                          ) -> List[threading.Thread]:
-    """Run *n* workers (``w0``, ``w1``, ...) as daemon threads in this
-    process — the rebuild's 'fake cluster' for tests and the single-host
-    deployment (the reference uses N OS processes under ``screen``,
-    test.sh:10).  The threads are daemons: a wedged worker cannot keep
-    the process alive."""
+    """Run *n* workers as daemon threads in this process — the rebuild's
+    'fake cluster' for tests and the single-host deployment (the reference
+    uses N OS processes under ``screen``, test.sh:10).  *name_prefix*
+    overrides the default ``w<i>`` naming (``<prefix>-<i>``) so
+    multi-process deployments keep worker metric/trace labels distinct."""
     threads = []
     for i in range(n):
-        w = Worker(connstr, dbname, name=f"w{i}")
+        name = f"{name_prefix}-{i}" if name_prefix else f"w{i}"
+        w = Worker(connstr, dbname, auth=auth, name=name, retry=retry)
+        if conf:
+            w.configure(conf)
         t = threading.Thread(target=w.execute, daemon=True,
                              name=f"mr-worker-{i}")
         t.start()

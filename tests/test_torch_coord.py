@@ -206,14 +206,22 @@ def test_metrics_registry_reads_equal():
 
 
 def test_auth_refused_until_networked_board():
+    """``auth`` is taken in every shape ``Connection.auth_token`` reads,
+    as the JAX package takes it, by the connection, the server and the
+    worker alike; the local boards have no wire to guard."""
     from mapreduce_tpu_torch.server import Server
     from mapreduce_tpu_torch.worker import Worker
-    for make in (lambda: tconn.Connection("mem://a", "db", auth="t"),
-                 lambda: Server("mem://a", "db", auth={"password": "t"}),
-                 lambda: Worker("mem://a", "db", auth="t")):
-        with pytest.raises(ValueError, match="A.4b"):
-            make()
-    assert tconn.Connection("mem://a", "db").dbname == "db"
+    for auth in ("t", {"user": "u", "password": "t"}, {"token": "t"}):
+        for pkg in (tconn, jconn):
+            assert pkg.Connection("mem://a", "db", auth).auth_token() == "t"
+    assert Server("mem://a", "db", auth={"password": "t"}
+                  ).cnn.auth_token() == "t"
+    assert Worker("mem://a", "db", auth="t").cnn.auth_token() == "t"
+    for pkg in (tconn, jconn):
+        cnn = pkg.Connection("http://tok@h1:1,h2:2", "db")
+        assert cnn.auth_token() == "tok"
+        assert cnn.board_hostports() == ["h1:1", "h2:2"]
+    assert tconn.Connection("mem://a", "db").auth_token() is None
 
 
 def test_tracer_nests_claim_run_write():
@@ -274,10 +282,22 @@ def test_line_records_cross_packages(scheme, tmp_path):
 
 
 def test_http_board_and_storage_refused():
-    with pytest.raises(ValueError, match="A.4b"):
-        tdoc.connect("http://127.0.0.1:1")
-    with pytest.raises(ValueError, match="A.4b"):
-        trouter("http:127.0.0.1:1")
+    """An unreachable ``http://`` board or ``http:`` store raises once the
+    retry policy is spent; nothing falls back to a local board or
+    store."""
+    from mapreduce_tpu_torch.coord.docserver import HttpDocStore
+    from mapreduce_tpu_torch.storage.httpstore import HttpStorage
+    from mapreduce_tpu_torch.utils.httpclient import RetryError, RetryPolicy
+
+    policy = RetryPolicy(max_attempts=2, base_delay=0.01, deadline=1.0)
+    board = tdoc.connect("http://127.0.0.1:1", retry=policy)
+    assert isinstance(board, HttpDocStore)
+    with pytest.raises(RetryError):
+        board.find("c")
+    store = trouter("http:127.0.0.1:1", retry=policy)
+    assert isinstance(store, HttpStorage)
+    with pytest.raises(RetryError):
+        store.read("blob")
     with pytest.raises(ValueError):
         tdoc.connect("nonsense")
 

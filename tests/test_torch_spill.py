@@ -441,15 +441,16 @@ def test_checkpoint_manager_files_cross_packages(tmp_path):
 
 def test_storage_planes_match_the_jax_ones(tmp_path):
     """The port's ``mem:`` and ``shared:`` planes: the DSL (``local`` is
-    ``shared``; ``http`` is not ported and raises), text and byte blobs,
+    ``shared``; ``http`` wants its ``HOST:PORT``), text and byte blobs,
     regex listing, and a directory the JAX plane reads name for name."""
     from mapreduce_tpu_torch.storage.router import get_storage_from
 
     assert get_storage_from(f"local:{tmp_path}") == ("shared",
                                                      str(tmp_path))
     assert get_storage_from("mem") == ("mem", "default")
-    with pytest.raises(ValueError, match="not ported"):
-        get_storage_from("http:host:1")
+    assert get_storage_from("http:host:1") == ("http", "host:1")
+    with pytest.raises(ValueError, match="HOST:PORT"):
+        get_storage_from("http")
     with pytest.raises(ValueError, match="unknown"):
         get_storage_from("gridfs:x")
     assert topen("mem:plane-a") is topen("mem:plane-a")

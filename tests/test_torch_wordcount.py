@@ -248,7 +248,17 @@ def test_port_imports_no_jax():
                    "utils/serialization", "utils/iterators",
                    "utils/hashing", "core/heap", "obs/__init__",
                    "obs/metrics", "obs/trace", "examples/__init__",
-                   "examples/naive", "examples/wordcount/__init__"):
+                   "examples/naive", "examples/wordcount/__init__",
+                   "utils/httpclient", "coord/docserver", "obs/collector",
+                   "obs/statusz", "storage/httpstore",
+                   "examples/wordcount_split/__init__",
+                   "examples/wordcount_split/common",
+                   "examples/wordcount_split/taskfn",
+                   "examples/wordcount_split/mapfn",
+                   "examples/wordcount_split/partitionfn",
+                   "examples/wordcount_split/reducefn",
+                   "examples/wordcount_split/reducefn2",
+                   "examples/wordcount_split/finalfn"):
         assert f"mapreduce_tpu_torch/{module}.py" in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
