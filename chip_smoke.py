@@ -200,8 +200,34 @@ which raises on failure:
    spans present; (f) every process reaped under a timeout.  Each worker
    process's first-claim delay (its first job's claim stamp less its
    start) is reported;
-14. one JSON line of per-kernel numbers (the word-count kernels' with
-   their phase 13 launches beside), then the result line.
+14. the always-on service (``service`` lines): (a) ``bench.py``'s
+   ``measure_failover`` on two in-process ``DocServer`` s over one HA
+   directory, lease 1.0 s: ``board_failover_s`` from a silent kill of
+   the primary to the first mutation the promoted standby acknowledges
+   through one multi-endpoint ``HttpDocStore``, exactly once (n == 1,
+   v == 2); (b) two ``docserver --ha-dir D --ha-lease 1`` processes, a
+   ``runner`` over both (``--partitions 8 --max-inflight 2 --workers
+   2``) and two tenants' device tasks of phase 9's 24 files through
+   ``examples/wordcount`` submitted with ``submit`` (``radix`` and
+   ``variadic``), the primary SIGKILLed once both read RUNNING in
+   ``tasks --json``: the standby promotes, both tasks reach DONE, each
+   result equals ``Counter`` and the same task's bytes through
+   ``Server`` on a ``dir:`` board, and, once the runner has stopped, a
+   fresh replica's replay of the log equals the survivor's documents;
+   kill to promotion, each task's submit to DONE, queue wait and admit
+   to running (the runner's pushed SLO histograms, from the board's
+   ``/clusterz``) and whether a task re-ran a phase; (c) the same two
+   tasks with ``TaskRunner`` and the scheduled workers in this process
+   over the survivor and a restarted replica, both in flight at once:
+   the launches of the five word-count kernels counted around the run
+   (equal to the two ``dir:`` runs' summed), no plain call, each kernel
+   held bit for bit against its plain version on the inputs of its
+   largest call; (d) every process reaped under a timeout.  Phase 8's
+   sustained cases run ``measure_sustained``'s scheduler churn thread
+   and report ``submit_first_snapshot_p99_s``;
+15. one JSON line of per-kernel numbers (the word-count kernels' with
+   their phase 13 and 14 launches beside), the smoke's wall, then the
+   card and the result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
 flash kernels sum in another order than their plain versions: out, dq,
@@ -1744,14 +1770,24 @@ def sustained_case(torch, kc, wcmod, smod, Partitions, parts, sort_impl,
     feed (the port's) and one after every wave (the JAX feed's, by a
     wrapper of the engine's wave here), each feed followed by the
     tenant's snapshot, and last every tenant's snapshot once more (the
-    aged reads).  After the timed work, every snapshot is held against
-    Counter of exactly its tenant's words times the feeds it had folded.
-    Returns the case's numbers."""
+    aged reads).  As in measure_sustained, a churn thread submits,
+    ticks and cancels scheduler tasks all the while, and each tenant's
+    first feed follows its own scheduler submit, whose stamp the first
+    snapshot observes (``submit_first_snapshot_p99_s`` from this run's
+    bucket deltas of ``merged_counts``).  After the timed work, every
+    snapshot is held against Counter of exactly its tenant's words
+    times the feeds it had folded.  Returns the case's numbers."""
+    import threading
     from dataclasses import replace
 
     import numpy as np
 
+    from mapreduce_tpu_torch.coord.docstore import MemoryDocStore
     from mapreduce_tpu_torch.engine.device_engine import EngineConfig
+    from mapreduce_tpu_torch.obs import slo
+    from mapreduce_tpu_torch.obs.metrics import estimate_percentile
+    from mapreduce_tpu_torch.sched.scheduler import (
+        Scheduler, SchedulerConfig)
 
     cfg = replace(EngineConfig(**SESSION_CONFIG), sort_impl=sort_impl)
     if parts == 1:
@@ -1801,12 +1837,37 @@ def sustained_case(torch, kc, wcmod, smod, Partitions, parts, sort_impl,
         taken.append((label, task, fed[task], snap))
         return t1
 
+    scheduler = Scheduler(MemoryDocStore(), config=SchedulerConfig(
+        max_inflight=len(SESSION_TENANTS) + 1))
+    bounds, sub_base = slo.merged_counts(slo.FIRST_RESULT_FAMILY,
+                                         SESSION_TENANTS)
+    churn_stop = threading.Event()
+    churn = {"submitted": 0, "cancelled": 0}
+
+    def churn_loop():
+        i = 0
+        while not churn_stop.is_set():
+            doc = scheduler.submit("churn", db=f"churn_{i}",
+                                   kind="session", est_jobs=1)
+            scheduler.tick()
+            churn["submitted"] += 1
+            if scheduler.cancel(doc["_id"]) is not None:
+                churn["cancelled"] += 1
+            i += 1
+            churn_stop.wait(0.02)
+
+    churn_t = threading.Thread(target=churn_loop, daemon=True)
     kc.reset_counts()
+    churn_t.start()
     first_result = []
     for task in SESSION_TENANTS:
+        doc = scheduler.submit(task, db=f"sess_{task}", kind="session",
+                               est_jobs=SESSION_ROUNDS)
+        scheduler.tick()
         t0 = time.monotonic()
         feed(task)
         first_result.append(snapshot(task, "first") - t0)
+        slo.observe_first_result(doc["_id"], task)
     resident = {t: acc_bytes(sess, t) for t in SESSION_TENANTS}
     torch.cuda.synchronize()
     per_stream = (torch.cuda.memory_allocated() - base) / len(
@@ -1823,6 +1884,15 @@ def sustained_case(torch, kc, wcmod, smod, Partitions, parts, sort_impl,
             sess.engine._wave = real_wave
     for task in SESSION_TENANTS:  # the aged reads (bench.py phase 3)
         snapshot(task, f"sustained P={parts} aged")
+    churn_stop.set()
+    churn_t.join(timeout=5)
+    check(not churn_t.is_alive(), "sustained: the churn thread hangs")
+    _, sub_now = slo.merged_counts(slo.FIRST_RESULT_FAMILY,
+                                   SESSION_TENANTS)
+    sub_counts = [b - a for a, b in zip(sub_base, sub_now)]
+    check(sum(sub_counts) == len(SESSION_TENANTS),
+          f"sustained: {sum(sub_counts)} submit->first-snapshot "
+          f"observations for {len(SESSION_TENANTS)} tenants")
     launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
     check_launches(launches, plain, f"sustained P={parts}",
                    sort_impl == "radix")
@@ -1847,6 +1917,11 @@ def sustained_case(torch, kc, wcmod, smod, Partitions, parts, sort_impl,
         "feed_wall_p99_s": percentile(walls["feed"], 0.99),
         "feed_wall_p50_s_per_wave_read": percentile(walls["wave"], 0.5),
         "first_snapshot_s": first_result,
+        "submit_first_snapshot_p99_s": estimate_percentile(
+            bounds, sub_counts, 0.99),
+        "submit_first_snapshot_p50_s": estimate_percentile(
+            bounds, sub_counts, 0.50),
+        "churn": dict(churn),
         "snapshot_p50_s": percentile(snap_s, 0.5),
         "snapshot_p99_s": percentile(snap_s, 0.99),
         "staleness_p50_s": percentile(stale, 0.5),
@@ -2898,9 +2973,10 @@ class NetProcs:
     their output in files (a pipe nobody reads could fill and stall a
     process), each waited on with a timeout and killed after it."""
 
-    def __init__(self, root, token):
+    def __init__(self, root, token, label="netplane"):
         here = os.path.dirname(os.path.abspath(__file__))
         self.root = root
+        self.label = label
         self.env = dict(os.environ, MAPREDUCE_TPU_AUTH=token,
                         PYTHONPATH=here + os.pathsep
                         + os.environ.get("PYTHONPATH", ""))
@@ -2929,10 +3005,11 @@ class NetProcs:
             m = re.search(pattern, self.text(name))
             if m:
                 return m
-            check(p.poll() is None, f"netplane: {name} exited "
+            check(p.poll() is None, f"{self.label}: {name} exited "
                   f"{p.returncode}: {self.text(name, 'err')[-2000:]}")
             time.sleep(0.05)
-        check(False, f"netplane: no {pattern!r} from {name} in {timeout} s")
+        check(False, f"{self.label}: no {pattern!r} from {name} in "
+              f"{timeout} s")
 
     def wait(self, name, timeout=NET_TIMEOUT):
         """Wait for *name* to exit 0; a timeout or another code fails."""
@@ -2942,9 +3019,9 @@ class NetProcs:
         except subprocess.TimeoutExpired:
             p.kill()
             p.wait(timeout=30)
-            check(False, f"netplane: {name} still running after "
+            check(False, f"{self.label}: {name} still running after "
                   f"{timeout} s")
-        check(p.returncode == 0, f"netplane: {name} exited "
+        check(p.returncode == 0, f"{self.label}: {name} exited "
               f"{p.returncode}: {self.text(name, 'err')[-2000:]}")
 
     def reap(self):
@@ -3490,6 +3567,427 @@ def netplane_phase(torch, kc, seg, rs, data, want, smi, jobplane,
     return launches
 
 
+# -- phase 14: the always-on service --------------------------------------------
+
+#: the board-primary lease of the phase's HA pairs, seconds
+SERVICE_LEASE = 1.0
+#: seconds a task of the phase may take to reach DONE before it fails
+SERVICE_TIMEOUT = 180
+#: the two tenants and the sort each one's task asks for
+SERVICE_TENANTS = (("alpha", "radix"), ("beta", "variadic"))
+SERVICE_KERNELS = ("tokenize", "segreduce", "radix_plan", "radix_upfront",
+                   "radix_onesweep")
+#: the phase's device (a CPU rehearsal of the phase sets "cpu")
+SERVICE_DEV = "cuda"
+
+
+def service_failover():
+    """Phase 14 (a): bench.py's measure_failover on the port: two
+    in-process docservers over one HA directory; the primary is made
+    dead to clients with its lease unreleased (its HA loop stopped, its
+    validity horizon zeroed, its listener closed), and the clock runs to
+    the first mutation the promoted standby acknowledges, through one
+    multi-endpoint client carrying one rid across the rotation."""
+    import shutil
+    import tempfile
+
+    from mapreduce_tpu_torch.coord.docserver import DocServer, HttpDocStore
+
+    td = tempfile.mkdtemp(prefix="chip_smoke_ha_")
+    a = DocServer(ha_dir=td, ha_lease=SERVICE_LEASE).start_background()
+    b = DocServer(ha_dir=td, ha_lease=SERVICE_LEASE).start_background()
+    try:
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not (
+                a.ha.is_primary() or b.ha.is_primary()):
+            time.sleep(0.01)
+        check(a.ha.is_primary() or b.ha.is_primary(),
+              "service (a): no replica became primary")
+        prim, stby = (a, b) if a.ha.is_primary() else (b, a)
+        cli = HttpDocStore(f"{a.host}:{a.port},{b.host}:{b.port}")
+        try:
+            cli.insert("bench.docs", {"_id": "x", "v": 0})
+            cli.update("bench.docs", {"_id": "x"}, {"$inc": {"v": 1}})
+            t0 = time.monotonic()
+            prim.ha._stop.set()
+            prim.ha._thread.join(timeout=10)
+            prim.ha._valid_until = 0.0
+            prim.httpd.shutdown()
+            prim.httpd.server_close()
+            n = cli.update("bench.docs", {"_id": "x"}, {"$inc": {"v": 1}})
+            failover_s = time.monotonic() - t0
+            check(n == 1 and stby.ha.is_primary(),
+                  f"service (a): n {n}, standby {stby.ha.role}")
+            v = cli.find_one("bench.docs", {"_id": "x"})["v"]
+            check(v == 2, f"service (a): v {v} after the failover (not "
+                  "exactly once)")
+        finally:
+            cli.close()
+    finally:
+        for srv in (a, b):
+            try:
+                srv.shutdown()
+            except Exception:
+                pass
+        shutil.rmtree(td, ignore_errors=True)
+    return {"run": "failover", "board_failover_s": failover_s,
+            "board_failover_lease_s": SERVICE_LEASE, "n": n, "v": v,
+            "exactly_once": True}
+
+
+def service_params(files, impl, storage):
+    """A submitted device task's params, as ``cli submit --device``
+    stores them: phase 9's files through examples/wordcount, the sort in
+    the task's own init_args, the result kept in storage."""
+    params = {r: JOB_MODULE for r in ("taskfn", "mapfn", "partitionfn",
+                                      "reducefn", "finalfn")}
+    params.update(storage=storage, device=True, init_args={
+        "files": files, "num_reducers": 15, "device_sort_impl": impl,
+        "keep_results": True})
+    return params
+
+
+def result_bytes(storage_root, db):
+    with open(os.path.join(storage_root, f"{db}.result.P00000"),
+              "rb") as f:
+        return f.read()
+
+
+def result_counts(raw):
+    from mapreduce_tpu_torch.utils.serialization import parse_record
+
+    return {k: v[0] for k, v in (parse_record(line)
+                                 for line in raw.decode().splitlines())}
+
+
+def healthz(addr):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr}/healthz", timeout=10) as r:
+        return json.loads(r.read())
+
+
+def tasks_json(procs, url, n):
+    """One ``cli tasks URL --json`` in a process: the task docs by id."""
+    name = f"tasks_{n}"
+    procs.start(name, "tasks", url, "--json")
+    procs.wait(name, timeout=60)
+    return {t["_id"]: t for t in json.loads(procs.text(name))["tasks"]}
+
+
+def cluster_slo(client):
+    """The SLO lifecycle histograms the runner pushed, from the board's
+    /clusterz: per tenant, each family's observation sum and count."""
+    out = {}
+    for name, labels, value in client.clusterz()["mrtpuCluster"]["metrics"]:
+        for fam in ("queue_wait", "admit_to_running",
+                    "submit_first_result"):
+            base = f"mrtpu_slo_{fam}_seconds"
+            for part in ("sum", "count"):
+                if name == f"{base}_{part}":
+                    out.setdefault(labels.get("tenant"), {})[
+                        f"{fam}_{part}"] = value
+    return out
+
+
+def service_processes(procs, root, ha, files, token, refs, want_str):
+    """Phase 14 (b): the reference's topology in processes: two
+    ``docserver --ha-dir`` replicas, one ``runner`` over both at P = 8
+    with two tasks in flight, both tenants' tasks submitted with
+    ``submit``, and a SIGKILL of the primary once both read RUNNING."""
+    from mapreduce_tpu_torch.coord.docserver import HttpDocStore
+    from mapreduce_tpu_torch.coord.ha import HaController
+
+    for i in range(2):
+        procs.start(f"board{i}", "docserver", "--host", "127.0.0.1",
+                    "--port", "0", "--ha-dir", ha, "--ha-lease",
+                    str(SERVICE_LEASE), "--max-inflight", "2")
+    addrs = [procs.wait_line(f"board{i}",
+                             r"job board at http://([\d.]+:\d+)").group(1)
+             for i in range(2)]
+    deadline = time.monotonic() + 30
+    roles = []
+    while time.monotonic() < deadline:
+        roles = [healthz(a)["primary"] for a in addrs]
+        if sum(roles) == 1:
+            break
+        time.sleep(0.05)
+    check(sum(roles) == 1, f"service (b): primaries {roles}")
+    prim = roles.index(True)
+    url = "http://" + ",".join(addrs)
+    t0 = time.monotonic()
+    procs.start("runner", "runner", url, "--partitions", str(RADIX_PARTS),
+                "--torch-device", SERVICE_DEV,
+                "--max-inflight", "2", "--workers", "2",
+                "--telemetry-interval", "0.5")
+    procs.wait_line("runner", r"runner serving", timeout=120)
+    runner_start_s = time.monotonic() - t0
+    for tenant, impl in SERVICE_TENANTS:
+        p = service_params(files, impl,
+                           f"shared:{os.path.join(root, 'svc_' + tenant)}")
+        procs.start(f"submit_{tenant}", "submit", url, tenant,
+                    *[p[r] for r in ("taskfn", "mapfn", "partitionfn",
+                                     "reducefn", "finalfn", "storage")],
+                    "--db", f"svc_{tenant}", "--device", "--est-jobs", "1",
+                    "--init-args", json.dumps(p["init_args"]))
+    ids = {}
+    for tenant, _ in SERVICE_TENANTS:
+        procs.wait(f"submit_{tenant}", timeout=60)
+        ids[tenant] = json.loads(
+            procs.text(f"submit_{tenant}").strip().splitlines()[-1])["_id"]
+    polls = 0
+    deadline = time.monotonic() + SERVICE_TIMEOUT
+    while True:
+        polls += 1
+        docs = tasks_json(procs, url, polls)
+        states = {t: docs[tid]["state"] for t, tid in ids.items()}
+        if all(st == "RUNNING" for st in states.values()):
+            break
+        check(not any(st in ("DONE", "FAILED", "CANCELLED")
+                      for st in states.values())
+              and time.monotonic() < deadline,
+              f"service (b): tasks {states} before both read RUNNING")
+    kill_wall = time.time()
+    t_kill = time.monotonic()
+    procs.procs[f"board{prim}"].kill()
+    survivor = addrs[1 - prim]
+    while not healthz(survivor)["primary"]:
+        check(time.monotonic() - t_kill < 30,
+              "service (b): the standby did not promote in 30 s")
+        time.sleep(0.01)
+    promotion_s = time.monotonic() - t_kill
+    while True:
+        polls += 1
+        docs = tasks_json(procs, f"http://{survivor}", polls)
+        states = {t: docs[tid]["state"] for t, tid in ids.items()}
+        if all(st == "DONE" for st in states.values()):
+            break
+        check(all(st in ("ADMITTED", "RUNNING", "DONE")
+                  for st in states.values())
+              and time.monotonic() < deadline,
+              f"service (b): tasks {states} after the kill: "
+              f"{procs.text('runner', 'err')[-3000:]}")
+        time.sleep(0.3)
+    done_s = time.monotonic() - t_kill
+    for tenant, impl in SERVICE_TENANTS:
+        got = result_bytes(os.path.join(root, "svc_" + tenant),
+                           f"svc_{tenant}")
+        check(got == refs[impl]["bytes"], f"service (b): {tenant}'s result "
+              f"differs from the same task on a dir: board")
+        check(result_counts(got) == want_str, f"service (b): {tenant}'s "
+              "result differs from Counter over the files' words")
+    time.sleep(1.5)  # two pushes of the runner's telemetry
+    client = HttpDocStore(survivor, auth_token=token)
+    slo = cluster_slo(client)
+    tasks = {}
+    for tenant, impl in SERVICE_TENANTS:
+        d = docs[ids[tenant]]
+        db = f"svc_{tenant}"
+        (job,) = client.find(f"{db}.map_jobs", {"_id": "__device__"})
+        (task,) = client.find(f"{db}.task", {"_id": "unique"})
+        row = slo.get(tenant, {})
+        tasks[tenant] = {
+            "sort_impl": impl, "task": ids[tenant],
+            "submit_to_done_s": d["done_time"] - d["submit_time"],
+            "queue_wait_s": (row.get("queue_wait_sum")
+                             if row.get("queue_wait_count") == 1 else None),
+            "admit_to_running_s": (
+                row.get("admit_to_running_sum")
+                if row.get("admit_to_running_count") == 1 else None),
+            "submit_first_result_s": (
+                row.get("submit_first_result_sum")
+                if row.get("submit_first_result_count") == 1 else None),
+            "device_phase_started_after_kill": job["started_time"]
+            > kill_wall,
+            "iteration": task["iteration"],
+            "reran_a_phase": task["iteration"] != 1,
+            "result_bytes": len(refs[impl]["bytes"]),
+            "byte_equal_to_dir_run": True, "counter_equal": True}
+        check(task["iteration"] == 1, f"service (b): {tenant}'s task ran "
+              f"{task['iteration']} iterations")
+    # stop the runner cleanly (it releases the admission lease), then a
+    # fresh replica's replay of the log must equal the survivor's docs
+    procs.procs["runner"].send_signal(__import__("signal").SIGINT)
+    procs.wait("runner", timeout=120)
+    fresh = HaController(ha, lease=SERVICE_LEASE)
+    fresh._apply_new()
+    colls = sorted(client.collections())
+    check(colls == sorted(fresh.store.inner.collections()),
+          "service (b): the replayed log has other collections than the "
+          "survivor")
+    for coll in colls:
+        live = sorted(client.find(coll), key=lambda d: d["_id"])
+        check(live == sorted(fresh.store.inner.find(coll),
+                             key=lambda d: d["_id"]),
+              f"service (b): the replayed log's {coll} differs from the "
+              "survivor's documents")
+    fresh.log.close()
+    client.close()
+    return survivor, {
+        "run": "processes", "lease_s": SERVICE_LEASE,
+        "runner_start_s": runner_start_s, "kill_to_promotion_s":
+        promotion_s, "kill_to_both_done_s": done_s,
+        "tasks_polls": polls, "tasks": tasks,
+        "replay_equal_collections": len(colls)}
+
+
+def service_in_process(torch, kc, seg, rs, shuffle, spec, jwc, conf, procs,
+                       root, ha, survivor, files, token, refs):
+    """Phase 14 (c): the same two tasks with TaskRunner and the scheduled
+    workers in this process, over the surviving board and a restarted
+    replica, both in flight at once: the launches of rows 1-5 counted
+    around the run (equal to the two dir: runs' launches summed), each
+    kernel held bit for bit against its plain version on the inputs of
+    its largest call."""
+    from mapreduce_tpu_torch.coord import docstore
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.sched.scheduler import (
+        DONE, Scheduler, SchedulerConfig)
+    from mapreduce_tpu_torch.sched.service import (
+        TaskRunner, spawn_scheduled_workers, wait_for_state)
+
+    procs.start("board_restart", "docserver", "--host", "127.0.0.1",
+                "--port", "0", "--ha-dir", ha, "--ha-lease",
+                str(SERVICE_LEASE), "--max-inflight", "2")
+    restarted = procs.wait_line(
+        "board_restart", r"job board at http://([\d.]+:\d+)").group(1)
+    check(healthz(restarted)["role"] == "replica",
+          f"service (c): the restarted replica is {healthz(restarted)}")
+    connstr = f"http://{survivor},{restarted}"
+    store = docstore.connect(connstr, auth=token)
+    sch = Scheduler(store, config=SchedulerConfig(max_inflight=2))
+    reset_example(spec, jwc, conf)
+    kc.reset_counts()
+    t0 = time.monotonic()
+    with PathInputs(torch, seg, shuffle) as cap:
+        runner = TaskRunner(connstr, sch, auth=token, poll=0.02,
+                            partitions=Partitions(RADIX_PARTS, SERVICE_DEV))
+        pool = spawn_scheduled_workers(connstr, 2, auth=token)
+        try:
+            ids = {}
+            for tenant, impl in SERVICE_TENANTS:
+                ids[tenant] = sch.submit(tenant, db=f"svc2_{tenant}",
+                                         est_jobs=1, params=service_params(
+                    files, impl,
+                    f"shared:{os.path.join(root, 'svc2_' + tenant)}"))["_id"]
+            runner.start()
+            both = False
+            while not both:
+                states = [sch.get(i)["state"] for i in ids.values()]
+                both = all(st == "RUNNING" for st in states)
+                if not both:
+                    check("DONE" not in states
+                          and time.monotonic() - t0 < SERVICE_TIMEOUT,
+                          f"service (c): tasks {states} before both ran")
+                    time.sleep(0.01)
+            for tid in ids.values():
+                wait_for_state(sch, tid, DONE, timeout=SERVICE_TIMEOUT)
+        finally:
+            runner.stop(timeout=SERVICE_TIMEOUT)
+            for w in pool:
+                w.stop(timeout=SERVICE_TIMEOUT)
+            store.close()
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    check(not any(plain.values()), f"service (c): plain versions ran on "
+          f"the card: {plain}")
+    check(all(launches[k] > 0 for k in SERVICE_KERNELS),
+          f"service (c): a kernel of the path was never launched: "
+          f"{launches}")
+    solo = {k: sum(r["launches"][k] for r in refs.values())
+            for k in SERVICE_KERNELS}
+    check({k: launches[k] for k in SERVICE_KERNELS} == solo,
+          f"service (c): launches {launches} with two tasks at once, "
+          f"{solo} from the two tasks one at a time")
+    for tenant, impl in SERVICE_TENANTS:
+        got = result_bytes(os.path.join(root, "svc2_" + tenant),
+                           f"svc2_{tenant}")
+        check(got == refs[impl]["bytes"], f"service (c): {tenant}'s "
+              "result differs from the same task on a dir: board")
+    held = hold_path_inputs(torch, seg, rs, "service", cap.inputs,
+                            ["segreduce", "radix_sort", "radix_plan"])
+    del cap
+    reset_example(spec, jwc, conf)
+    return {k: launches[k] for k in SERVICE_KERNELS}, {
+        "run": "in_process", "both_running_at_once": True,
+        "wall_s": wall, "launches": {k: launches[k]
+                                     for k in SERVICE_KERNELS},
+        "launches_equal_solo_sum": True, "plain_calls": 0,
+        "byte_equal_to_dir_run": True, "held": held}
+
+
+def service_phase(torch, kc, seg, rs, data, want, smi):
+    """Phase 14: the always-on service (the ``service`` lines)."""
+    import shutil
+    import tempfile
+    import uuid
+
+    from mapreduce_tpu_torch import spec
+    from mapreduce_tpu_torch.examples import wordcount as jwc
+    from mapreduce_tpu_torch.parallel import shuffle
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.server import Server
+
+    t_phase = time.monotonic()
+    conf = {"files": [], "num_reducers": 15}
+    token = uuid.uuid4().hex
+    root = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    procs = NetProcs(root, token, label="service")
+    try:
+        line = service_failover()
+        line["card"] = smi
+        print(json.dumps({"service": line}), flush=True)
+
+        files = write_line_files(data, JOB_FILES,
+                                 tempfile.mkdtemp(prefix="big_", dir=root))
+        want_str = {w.decode(): c for w, c in want.items()}
+        refs = {}
+        for _, impl in SERVICE_TENANTS:
+            # the same task through Server on a dir: board, counted
+            reset_example(spec, jwc, conf)
+            kc.reset_counts()
+            st = os.path.join(root, f"ref_{impl}")
+            server = Server(f"dir://{os.path.join(root, 'ref_board')}",
+                            f"ref_{impl}")
+            server.configure(dict(service_params(files, impl, f"shared:{st}"),
+                                  partitions=Partitions(RADIX_PARTS,
+                                                        SERVICE_DEV)))
+            t0 = time.monotonic()
+            loop_in_thread(server)
+            refs[impl] = {"bytes": result_bytes(st, f"ref_{impl}"),
+                          "launches": dict(kc.LAUNCHES),
+                          "wall_s": time.monotonic() - t0}
+            check(not any(kc.PLAIN_CALLS.values()),
+                  f"service: plain versions ran in the dir: run "
+                  f"{dict(kc.PLAIN_CALLS)}")
+            check(result_counts(refs[impl]["bytes"]) == want_str,
+                  f"service: the dir: run ({impl}) differs from Counter")
+        reset_example(spec, jwc, conf)
+
+        ha = os.path.join(root, "ha")
+        survivor, line = service_processes(procs, root, ha, files, token,
+                                           refs, want_str)
+        line["dir_run_wall_s"] = {k: r["wall_s"] for k, r in refs.items()}
+        print(json.dumps({"service": line}), flush=True)
+
+        launches, line = service_in_process(
+            torch, kc, seg, rs, shuffle, spec, jwc, conf, procs, root, ha,
+            survivor, files, token, refs)
+        line["phase_s"] = time.monotonic() - t_phase
+        line["card"] = smi
+        print(json.dumps({"service": line}), flush=True)
+    finally:
+        # (d) every process reaped under a timeout
+        procs.reap()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+#: the run's start, for the whole smoke's wall time
+T_START = time.monotonic()
+
+
 def main():
     import torch
 
@@ -3643,6 +4141,9 @@ def main():
     net_launches = netplane_phase(torch, kc, seg, rs, data, want, smi,
                                   jobplane, jobboard)
 
+    # phase 14: the always-on service
+    service_launches = service_phase(torch, kc, seg, rs, data, want, smi)
+
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     for kern in radix_kernels:
@@ -3654,7 +4155,10 @@ def main():
         kern["launches_netplane"] = {
             run: counts.get(kern["name"], 0)
             for run, counts in net_launches.items()}
+        # and on phase 14 (c)'s two tasks in one in-process runner
+        kern["launches_service"] = service_launches[kern["name"]]
     kernels += radix_kernels + flash_kernels
+    print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

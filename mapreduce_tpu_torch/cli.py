@@ -8,7 +8,18 @@
       [--max-iter N] [--max-sleep S] [--max-tasks N] [--claim-batch N]
       [--no-claim-ahead] [--name NAME]
   python -m mapreduce_tpu_torch.cli docserver [--host H] [--port N]
-      [--root DIR] — the job board over HTTP (the mongod role)
+      [--root DIR | --ha-dir DIR [--ha-lease S] [--ha-fsync]]
+      [--max-inflight N] [--tenant-max-queued-{tasks,jobs,bytes} N]
+      — the job board over HTTP (the mongod role), replicated with
+      --ha-dir, hosting the multi-tenant scheduler's /tasks
+  python -m mapreduce_tpu_torch.cli submit CONNSTR TENANT TASKFN MAPFN
+      PARTITIONFN REDUCEFN [FINALFN] [STORAGE] [--db DB] [--device]
+      [--priority N] [--weight W] [--est-jobs N] [--est-bytes N]
+      [--init-args JSON]
+  python -m mapreduce_tpu_torch.cli tasks CONNSTR [--cancel ID] [--json]
+  python -m mapreduce_tpu_torch.cli runner CONNSTR [--workers N]
+      [--max-inflight N] [--job-lease S] [--partitions N]
+      [--torch-device {cuda,cpu}] — the always-on serving process
   python -m mapreduce_tpu_torch.cli blobserver ROOT [--host H]
       [--port N] [--no-gzip] — the ``http:HOST:PORT`` blob service
   python -m mapreduce_tpu_torch.cli drop CONNSTR DB [--storage DSL]
@@ -54,11 +65,21 @@ nothing is released).  Any other failure releases the lease before it
 propagates.  ``--device`` picks the card (default) or the CPU; without
 CUDA the default raises.
 
+``submit``, ``tasks`` and ``runner`` are the always-on service: a
+docserver (or an HA pair, ``http://H1:P1,H2:P2``) queues tenants' tasks
+under their quotas, and the runner admits them weighted-fair and drives
+each through the ``Server`` on this process's ``--partitions`` of the
+card, with a pool of cross-tenant worker threads for the host plane.
+``submit --device`` queues a device task; its sort travels in its
+``--init-args`` (``device_sort_impl``).
+
 JAX flags the port does not offer yet are refused by name, their help
 naming the ROADMAP item that brings them: ``--autotune`` and
-``--speculative-reclaim`` (A.7); the docserver's ``--ha-*`` (A.4b-2),
-``--max-inflight`` and ``--tenant-*`` (A.4c), ``--history-*``,
-``--alert*`` and ``--slo`` (A.8); ``--compile-cache`` (A.8).
+``--speculative-reclaim`` (A.7); the docserver's ``--history-*``,
+``--alert*`` and ``--slo`` and the runner's ``--slo`` (A.8);
+``--compile-cache`` (A.8); the submit's ``--program`` (A.7, the
+admission advisor's key).  The ``drain`` and ``status`` commands wait
+for A.11 and A.8.
 """
 
 from __future__ import annotations
@@ -601,12 +622,31 @@ def cmd_docserver(argv: List[str]) -> int:
     p.add_argument("--root", default=None,
                    help="back the board with dir://ROOT (durable) "
                         "instead of in-memory")
-    _refuse(p, "ROADMAP A.4b-2: the replicated board", "--ha-fsync")
-    _refuse(p, "ROADMAP A.4b-2: the replicated board", "--ha-dir",
-            "--ha-lease", takes_value=True)
-    _refuse(p, "ROADMAP A.4c: the scheduler", "--max-inflight",
-            "--tenant-max-queued-tasks", "--tenant-max-queued-jobs",
-            "--tenant-max-queued-bytes", takes_value=True)
+    h = p.add_argument_group(
+        "high availability (coord/ha.py: run N replicas over ONE "
+        "shared --ha-dir; the lease holder serves, the rest tail the "
+        "mutation log and answer 421 so clients with a multi-endpoint "
+        "connstr http://H1:P1,H2:P2 fail over; one replica over an "
+        "--ha-dir is simply a durable board)")
+    h.add_argument("--ha-dir", default=None,
+                   help="shared directory holding the board mutation "
+                        "log + primary lease (mutually exclusive with "
+                        "--root)")
+    h.add_argument("--ha-lease", type=float, default=None, metavar="S",
+                   help="board-primary lease period (default 2.0s — "
+                        "the failover detection window)")
+    h.add_argument("--ha-fsync", action="store_true",
+                   help="fsync every log append (survives host/power "
+                        "death, not just process death; slower)")
+    g = p.add_argument_group(
+        "scheduler admission (the /tasks surface this board hosts; "
+        "match --max-inflight on the runner — submits are quota-"
+        "checked HERE, admission by whichever process holds the lease)")
+    g.add_argument("--max-inflight", type=int, default=None,
+                   help="tasks admitted+running at once (default 2)")
+    g.add_argument("--tenant-max-queued-tasks", type=int, default=None)
+    g.add_argument("--tenant-max-queued-jobs", type=int, default=None)
+    g.add_argument("--tenant-max-queued-bytes", type=int, default=None)
     _refuse(p, "ROADMAP A.8: telemetry history, alerts, SLOs",
             "--history-dir", "--history-keep", "--history-segment-bytes",
             "--history-max-age", "--alert", "--alert-rules",
@@ -619,16 +659,37 @@ def cmd_docserver(argv: List[str]) -> int:
 
     from .coord.docserver import DocServer
     from .coord.docstore import DirDocStore
+    from .sched.scheduler import SchedulerConfig
 
+    overrides = {k: v for k, v in (
+        ("max_inflight", args.max_inflight),
+        ("tenant_max_queued_tasks", args.tenant_max_queued_tasks),
+        ("tenant_max_queued_jobs", args.tenant_max_queued_jobs),
+        ("tenant_max_queued_bytes", args.tenant_max_queued_bytes),
+    ) if v is not None}
+    if args.root and args.ha_dir:
+        print("--root and --ha-dir are mutually exclusive (the HA "
+              "board's durable state IS the mutation log)",
+              file=sys.stderr)
+        return 2
     store = DirDocStore(args.root) if args.root else None
-    srv = DocServer(store, args.host, args.port, auth_token=args.auth)
+    srv = DocServer(store, args.host, args.port, auth_token=args.auth,
+                    scheduler_config=(SchedulerConfig(**overrides)
+                                      if overrides else None),
+                    ha_dir=args.ha_dir, ha_lease=args.ha_lease,
+                    ha_fsync=args.ha_fsync)
+    role = f"; HA role: {srv.ha.role}" if srv.ha is not None else ""
     print(f"job board at http://{srv.host}:{srv.port} "
           f"(CONNSTR: \"http://HOST:{srv.port}\"; Prometheus at "
-          f"/metrics, merged cluster timeline at /clusterz)", flush=True)
+          f"/metrics, merged cluster timeline at /clusterz, scheduler "
+          f"at /tasks{role})", flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
         pass
+    finally:
+        if srv.ha is not None:
+            srv.ha.stop()  # a clean exit hands the board lease over
     return 0
 
 
@@ -664,10 +725,309 @@ def cmd_drop(argv: List[str]) -> int:
     return 0
 
 
+def _sched_client(connstr: str, auth, what: str):
+    """HOST:PORT normalisation + SchedulerClient construction for the
+    /tasks commands."""
+    from .sched.scheduler import SchedulerClient
+
+    addr = connstr
+    if addr.startswith("http://"):
+        addr = addr[len("http://"):]
+    addr = addr.split("/", 1)[0]
+    try:
+        return SchedulerClient(addr, auth_token=auth)
+    except ValueError:
+        print(f"{what} wants a docserver address (http://HOST:PORT), "
+              f"got {connstr!r}", file=sys.stderr)
+        return None
+
+
+def _render_sched(sched: dict) -> List[str]:
+    """The scheduler snapshot of GET /tasks: queue depth + declared
+    queued work + served records per tenant, the in-flight count
+    against the admission budget, the lease holder."""
+    if not sched or not sched.get("tenants"):
+        return []
+    cfg = sched.get("config") or {}
+    lines = ["scheduler: {} in-flight of {} max".format(
+        sched.get("inflight", 0), cfg.get("max_inflight", "?"))]
+    lease = sched.get("lease")
+    if lease and lease.get("holder"):
+        lines[0] += "  (admission lease: {} gen {})".format(
+            lease["holder"], lease.get("generation", 0))
+    for t, row in sorted(sched["tenants"].items()):
+        active = " ".join(
+            f"{s}={row.get(s, 0)}"
+            for s in ("queued", "admitted", "running", "done",
+                      "cancelled", "failed") if row.get(s))
+        age = row.get("oldest_queued_age_s")
+        lines.append(
+            "  tenant {}: {}  | queued work {} jobs / {} B | "
+            "{} records served{}".format(
+                t, active or "idle", row.get("queued_jobs", 0),
+                row.get("queued_bytes", 0),
+                row.get("served_records", 0),
+                "" if age is None
+                else f" | oldest queued {age:.1f}s"))
+    return lines
+
+
+def cmd_submit(argv: List[str]) -> int:
+    """Submit one task to a docserver's multi-tenant scheduler
+    (``/tasks``, sched/scheduler.py): the task queues under the
+    tenant's quota, the lease-holding runner admits it weighted-fair
+    and drives it through the ordinary Server machinery.  Module
+    arguments mirror ``cli server`` — they are stored in the task doc
+    and resolved by the runner process.  Exit codes: 0 queued (the task
+    doc as one JSON line), 3 rejected by a quota, 2 auth or address, 1
+    board unreachable."""
+    p = argparse.ArgumentParser(prog="mapreduce_tpu_torch submit")
+    p.add_argument("connstr", help="the docserver, http://HOST:PORT "
+                   "(or the HA pair http://H1:P1,H2:P2)")
+    p.add_argument("tenant")
+    p.add_argument("taskfn")
+    p.add_argument("mapfn")
+    p.add_argument("partitionfn")
+    p.add_argument("reducefn")
+    p.add_argument("finalfn", nargs="?", default=None)
+    p.add_argument("storage", nargs="?", default=None)
+    p.add_argument("--db", default=None,
+                   help="task database on the board (default: "
+                        "auto-generated; an ACTIVE db is refused — one "
+                        "Server per db)")
+    p.add_argument("--device", action="store_true",
+                   help="run the task's fused map+shuffle+reduce on the "
+                        "runner's device engine (the module's device "
+                        "hooks); its sort is init-args' "
+                        "device_sort_impl")
+    p.add_argument("--priority", type=int, default=0,
+                   help="within-tenant dequeue priority (higher first)")
+    p.add_argument("--weight", type=float, default=1.0,
+                   help="tenant fair-share weight")
+    p.add_argument("--est-jobs", type=int, default=0,
+                   help="declared job count (quota + fair-share charge)")
+    p.add_argument("--est-bytes", type=int, default=0,
+                   help="declared input bytes (quota accounting)")
+    p.add_argument("--init-args", default=None,
+                   help="JSON passed to every module init()")
+    _refuse(p, "ROADMAP A.7: the admission advisor", "--program",
+            takes_value=True)
+    _add_auth(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose)
+
+    params = {
+        "taskfn": normalize_module(args.taskfn),
+        "mapfn": normalize_module(args.mapfn),
+        "partitionfn": normalize_module(args.partitionfn),
+        "reducefn": normalize_module(args.reducefn),
+        "finalfn": normalize_module(args.finalfn or args.reducefn),
+        "storage": args.storage,
+    }
+    if args.device:
+        params["device"] = True
+    if args.init_args:
+        params["init_args"] = json.loads(args.init_args)
+    client = _sched_client(args.connstr, args.auth, "submit")
+    if client is None:
+        return 2
+    from .sched.scheduler import QuotaExceededError
+
+    try:
+        doc = client.submit(args.tenant, db=args.db, params=params,
+                            priority=args.priority, weight=args.weight,
+                            est_jobs=args.est_jobs,
+                            est_bytes=args.est_bytes)
+    except QuotaExceededError as exc:
+        print(f"REJECTED ({exc.reason}): {exc}", file=sys.stderr)
+        return 3
+    except PermissionError as exc:
+        print(f"{exc} (pass --auth or set $MAPREDUCE_TPU_AUTH)",
+              file=sys.stderr)
+        return 2
+    except OSError as exc:
+        print(f"cannot reach {args.connstr}: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        client.close()
+    print(json.dumps(doc, default=float))
+    return 0
+
+
+def cmd_tasks(argv: List[str]) -> int:
+    """List the scheduler's tasks and tenant queues (GET /tasks) or
+    cancel one (``--cancel ID``: a cancelled task's queued jobs never
+    run — its db is forced FINISHED and claimable jobs are removed)."""
+    p = argparse.ArgumentParser(prog="mapreduce_tpu_torch tasks")
+    p.add_argument("connstr", help="the docserver, http://HOST:PORT "
+                   "(or the HA pair http://H1:P1,H2:P2)")
+    p.add_argument("--cancel", default=None, metavar="TASK_ID")
+    p.add_argument("--json", action="store_true", dest="as_json")
+    _add_auth(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose)
+
+    client = _sched_client(args.connstr, args.auth, "tasks")
+    if client is None:
+        return 2
+    try:
+        if args.cancel:
+            doc = client.cancel(args.cancel)
+            if doc is None:
+                print(f"task {args.cancel!r} not found or already "
+                      "terminal", file=sys.stderr)
+                return 1
+            print(json.dumps(doc, default=float))
+            return 0
+        listing = client.list()
+    except PermissionError as exc:
+        print(f"{exc} (pass --auth or set $MAPREDUCE_TPU_AUTH)",
+              file=sys.stderr)
+        return 2
+    except OSError as exc:
+        print(f"cannot reach {args.connstr}: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        client.close()
+    if args.as_json:
+        print(json.dumps(listing, indent=2, default=float))
+        return 0
+    for line in _render_sched(listing.get("sched") or {}):
+        print(line)
+    for t in listing.get("tasks") or []:
+        print("  {:<9} {}  tenant={} db={} prio={} est_jobs={}".format(
+            t.get("state"), t.get("_id"), t.get("tenant"), t.get("db"),
+            t.get("priority", 0), t.get("est_jobs", 0)))
+    if not listing.get("tasks"):
+        print("no tasks submitted to this scheduler")
+    return 0
+
+
+def cmd_runner(argv: List[str]) -> int:
+    """The always-on serving process: a lease-fenced TaskRunner (ticks
+    admission, drives every admitted task through Server.loop on this
+    process's partitions of the card) plus a pool of cross-tenant
+    workers claiming over every admitted task's board
+    (sched/service.py).  Point it at the same CONNSTR the docserver
+    serves; submit work with ``cli submit``.  It joins no engine-host
+    fleet (ROADMAP A.11: no membership, no ``drain``) and admits
+    without the telemetry-informed advisor (A.7)."""
+    p = argparse.ArgumentParser(
+        prog="mapreduce_tpu_torch runner",
+        description="The always-on serving process: admission and a "
+                    "cross-tenant worker pool over a docserver's "
+                    "scheduler.  It joins no engine-host fleet and "
+                    "takes no drain requests (ROADMAP A.11), and it "
+                    "admits without the telemetry-informed advisor "
+                    "(ROADMAP A.7).")
+    p.add_argument("connstr",
+                   help="the job board (http://HOST:PORT docserver — "
+                        "or the HA replica set http://H1:P1,H2:P2, the "
+                        "runner fails over with the board — or "
+                        "mem://NAME / dir:///PATH for in-process use)")
+    p.add_argument("--workers", type=int, default=4,
+                   help="cross-tenant worker threads in this process")
+    p.add_argument("--max-inflight", type=int, default=2,
+                   help="tasks admitted+running at once")
+    p.add_argument("--job-lease", type=float, default=None, metavar="S")
+    p.add_argument("--partitions", type=int, default=1,
+                   help="device-engine partitions on the one card that "
+                        "every device task runs over (the JAX mesh's "
+                        "data axis)")
+    p.add_argument("--torch-device", choices=("cuda", "cpu"),
+                   default="cuda",
+                   help="where device tasks run; 'cpu' runs each "
+                        "kernel's plain PyTorch version")
+    p.add_argument("--telemetry-interval", type=float, default=1.0,
+                   metavar="S",
+                   help="push span/metric batches to the board's "
+                        "collector every S seconds (0 disables; http "
+                        "boards only).  The SLO lifecycle histograms "
+                        "(queue wait, admit->running, submit->first "
+                        "result) live in THIS process; pushing them "
+                        "puts them on the board's /clusterz")
+    _refuse(p, "ROADMAP A.8: the SLO objectives", "--slo",
+            takes_value=True)
+    _refuse(p, "ROADMAP A.8", "--compile-cache", "--no-compile-cache")
+    _add_auth(p)
+    _add_retry(p)
+    _add_trace(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose or 1)
+    _setup_trace(args)
+
+    from .coord import docstore
+    from .obs.collector import acquire_pusher, release_pusher
+    from .parallel.mesh import Partitions
+    from .sched.scheduler import Scheduler, SchedulerConfig
+    from .sched.service import TaskRunner, spawn_scheduled_workers
+    from .utils.httpclient import default_auth_token, split_embedded_token
+
+    retry = _retry_policy(args)
+    # the card (or the CPU, asked by name) first: a runner that cannot
+    # serve device tasks fails here, before it takes the admission lease
+    parts = Partitions(args.partitions, args.torch_device)
+    store = docstore.connect(args.connstr, auth=args.auth, retry=retry)
+    scheduler = Scheduler(
+        store, config=SchedulerConfig(max_inflight=args.max_inflight))
+    # normalized HOST:PORT (the one embedded-token parser): a TOKEN@
+    # connstr must key the SAME shared pusher the pool's workers use
+    board, embedded = None, None
+    if args.connstr.startswith("http://"):
+        embedded, board = split_embedded_token(
+            args.connstr[len("http://"):])
+    tele = acquire_pusher(board,
+                          default_auth_token(args.auth or embedded),
+                          role="runner",
+                          interval=args.telemetry_interval)
+    runner = TaskRunner(args.connstr, scheduler, auth=args.auth,
+                        retry=retry, job_lease=args.job_lease,
+                        partitions=parts).start()
+    pool = spawn_scheduled_workers(args.connstr, args.workers,
+                                   auth=args.auth, retry=retry,
+                                   job_lease=args.job_lease)
+    print(f"runner serving {args.connstr}: admission + {args.workers} "
+          f"cross-tenant worker(s), {parts.n} partition(s) on "
+          f"{parts.device}; submit with `cli submit`", flush=True)
+    rc = 0
+    try:
+        # a runner (or any pool worker) that stopped itself — auth
+        # rejected by the board — exits with the diagnosis, never idles
+        # as a zombie advertising workers it no longer has
+        while not runner._stop.wait(1.0):
+            if any(w.failed is not None for w in pool):
+                break
+        failure = runner.failed or next(
+            (w.failed for w in pool if w.failed is not None), None)
+        if failure is not None:
+            print(f"{failure} (pass --auth or set "
+                  "$MAPREDUCE_TPU_AUTH)", file=sys.stderr)
+            rc = 2
+    except KeyboardInterrupt:
+        pass
+    finally:
+        runner.stop()
+        for w in pool:
+            w.stop()
+        release_pusher(tele)
+    _export_trace(args)
+    return rc
+
+
 COMMANDS = {"server": cmd_server, "worker": cmd_worker,
             "wordcount": cmd_wordcount, "train": cmd_train,
             "docserver": cmd_docserver, "blobserver": cmd_blobserver,
-            "drop": cmd_drop}
+            "drop": cmd_drop, "submit": cmd_submit, "tasks": cmd_tasks,
+            "runner": cmd_runner}
+
+#: JAX commands the port does not offer yet, with the ROADMAP item
+NOT_PORTED_COMMANDS = {
+    "drain": "ROADMAP A.11: the engine-host fleet",
+    "status": "ROADMAP A.8: the cluster status snapshot",
+}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -676,6 +1036,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(__doc__)
         return 0
     cmd = argv[0]
+    if cmd in NOT_PORTED_COMMANDS:
+        print(f"{cmd!r} is not ported to mapreduce_tpu_torch yet "
+              f"({NOT_PORTED_COMMANDS[cmd]})", file=sys.stderr)
+        return 2
     if cmd not in COMMANDS:
         print(f"unknown command {cmd!r}; one of {sorted(COMMANDS)}",
               file=sys.stderr)

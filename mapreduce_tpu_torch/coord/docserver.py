@@ -26,10 +26,21 @@ straggles in *after* its entry was evicted is refused with
 :class:`DedupeEvictedError` rather than silently re-applied — the
 monotonic per-session seq tells that straggler from a fresh request.
 
-Left out for now: the replicated board (``--ha-*``, 421 answers, ROADMAP
-A.4b-2), the scheduler's ``/tasks`` (A.4c), and ``/statusz``,
-``/queryz`` and ``/alertz`` (A.8): those paths answer 404 naming the
-item that brings them.
+High availability (``ha_dir=``, coord/ha.py): N replicas over one
+shared directory; the lease holder serves, the rest answer HTTP 421 with
+the JAX body and tail the mutation log.  Under HA a rid-carrying
+mutation runs as a deferred-log transaction
+(:meth:`~.ha.ReplicatedDocStore.deferred_rid`): its entries and its
+recorded answer reach the log in one write, so a retry that fails over
+replays the answer on the promoted standby.
+
+Every docserver hosts the multi-tenant scheduler
+(:mod:`..sched.scheduler`) on its board and speaks ``/tasks``: POST
+submit, cancel and tick (rid-deduped and auth-gated like ``/rpc``), GET
+the task list and the scheduler snapshot.
+
+Left out for now: ``/statusz``, ``/queryz`` and ``/alertz`` (ROADMAP
+A.8): those paths answer 404 naming the item that brings them.
 """
 
 from __future__ import annotations
@@ -82,7 +93,6 @@ _SESSION_CAP = 1024  # per-client eviction watermarks remembered
 #: JAX docserver paths the port does not serve yet, each with the
 #: ROADMAP item that brings it (answered 404, the body names it)
 NOT_PORTED = {
-    "/tasks": "the multi-tenant scheduler surface (ROADMAP A.4c)",
     "/statusz": "the cluster status snapshot (ROADMAP A.8)",
     "/queryz": "the durable telemetry history (ROADMAP A.8)",
     "/alertz": "the alerting plane (ROADMAP A.8)",
@@ -121,9 +131,40 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
     dedupe_lock: threading.Lock
     auth_token: Optional[str]  # None = open server
     collector: Collector       # cluster telemetry sink (obs/collector)
+    scheduler: Any             # sched.Scheduler hosted on self.store
+    ha: Any = None             # coord/ha.HaController when HA-deployed
 
     def log_message(self, *a):  # quiet
         pass
+
+    def _not_primary(self, length: int) -> None:
+        """Answer a request that needs the primary from a replica that
+        is not (standby, fenced, or mid-takeover): HTTP 421, which is
+        NOT in the clients' retryable-status set — a FailoverClient
+        rotates to the next endpoint immediately instead of burning
+        its budget here."""
+        self.rfile.read(length)
+        _REQUESTS.inc(op="-", outcome="not_primary")
+        self._respond(NOT_PRIMARY_STATUS, json.dumps(
+            {"ok": False, "type": "NotPrimaryError",
+             "error": f"this board replica is {self.ha.role}; dial "
+                      "the lease-holding primary"}).encode())
+
+    def _lapsed(self) -> None:
+        """421 for a request whose primacy lapsed mid-execution."""
+        self._respond(NOT_PRIMARY_STATUS, json.dumps(
+            {"ok": False, "type": "NotPrimaryError",
+             "error": "primacy lapsed mid-request; rotate"}).encode())
+
+    def _txn(self, rid: Optional[str]):
+        """On a replicated (HA) board, a rid-carrying request runs as a
+        deferred-log transaction: its mutation entries and recorded
+        response reach the shared log in ONE atomic append, so a
+        standby replays mutation+answer together or sees neither."""
+        defer = (getattr(self.store, "deferred_rid", None)
+                 if rid is not None else None)
+        return defer(rid) if defer is not None \
+            else contextlib.nullcontext(None)
 
     def _respond(self, code: int, body: bytes,
                  ctype: str = "application/json") -> None:
@@ -140,9 +181,15 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
                       "mapreduce_tpu_torch yet"}).encode())
 
     def do_POST(self) -> None:
+        length = int(self.headers.get("Content-Length", 0))
+        if self.ha is not None and not self.ha.is_primary():
+            # every POST surface mutates or feeds primary-local state;
+            # a replica serves none of them
+            return self._not_primary(length)
         if self.path == "/telemetry":
             return self._do_telemetry()
-        length = int(self.headers.get("Content-Length", 0))
+        if self.path == "/tasks":
+            return self._do_tasks()
         if self.path in NOT_PORTED:
             self.rfile.read(length)
             return self._not_ported(self.path)
@@ -173,29 +220,46 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
 
         body = None
         t_exec = time.monotonic()
+        not_primary = False
         try:
-            try:
-                # adopt the caller's span (TRACE_HEADER) so this RPC's
-                # span nests under the client-side job/claim trace
-                with TRACER.adopt(self.headers.get(TRACE_HEADER)), \
-                        TRACER.span(f"rpc:{op}", coll=req.get("coll")):
-                    result = self._execute(op, req)
-                body = json.dumps({"ok": True, "result": result}).encode()
-                _REQUESTS.inc(op=op, outcome="ok")
-            except Exception as exc:
-                # catch EVERYTHING: a reserved rid must always get a
-                # recorded response, or the client's reconnect-retry
-                # would re-execute a mutation whose first attempt
-                # partially applied (e.g. ENOSPC mid-multi-update on a
-                # dir:// board)
-                body = json.dumps(
-                    {"ok": False, "type": type(exc).__name__,
-                     "error": str(exc)}).encode()
-                _REQUESTS.inc(op=op, outcome="error")
+            with self._txn(rid) as txn:
+                try:
+                    # adopt the caller's span (TRACE_HEADER) so this
+                    # RPC's span nests under the client-side trace
+                    with TRACER.adopt(self.headers.get(TRACE_HEADER)), \
+                            TRACER.span(f"rpc:{op}",
+                                        coll=req.get("coll")):
+                        result = self._execute(op, req)
+                    body = json.dumps({"ok": True,
+                                       "result": result}).encode()
+                    _REQUESTS.inc(op=op, outcome="ok")
+                except NotPrimaryError:
+                    # the self-fence lapsed BETWEEN the door check and
+                    # the write path: 421, and NOTHING recorded for the
+                    # rid — no mutation applied (the fence precedes the
+                    # apply), so the failed-over re-send runs fresh
+                    not_primary = True
+                    _REQUESTS.inc(op=op, outcome="not_primary")
+                except Exception as exc:
+                    # catch EVERYTHING else: a reserved rid must always
+                    # get a recorded response, or the client's
+                    # reconnect-retry would re-execute a mutation whose
+                    # first attempt partially applied (e.g. ENOSPC
+                    # mid-multi-update on a dir:// board)
+                    body = json.dumps(
+                        {"ok": False, "type": type(exc).__name__,
+                         "error": str(exc)}).encode()
+                    _REQUESTS.inc(op=op, outcome="error")
+                if txn is not None:
+                    txn.body = body
         finally:
             _RPC_SECONDS.observe(time.monotonic() - t_exec, op=op)
             if rid is not None:
+                # body None (not-primary) leaves the rid unrecorded:
+                # waiters wake, the re-send executes on the successor
                 self._record_rid(rid, body)
+        if not_primary:
+            return self._lapsed()
         self._respond(200, body)
 
     # -- rid dedupe ---------------------------------------------------------
@@ -274,6 +338,137 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
                 while len(cls.evicted) > _SESSION_CAP:
                     cls.evicted.popitem(last=False)
 
+    # -- the HA replayer's dedupe feed (coord/ha.py, duck-typed) -----------
+
+    @classmethod
+    def remember_answer(cls, rid: str, body: bytes) -> None:
+        """Seed a REPLAYED rid->response pair (a mutation the old
+        primary answered): a client retry that failed over here
+        replays the recorded answer instead of re-applying."""
+        with cls.dedupe_lock:
+            cls._remember_locked(rid, body)
+
+    @classmethod
+    def refuse_rid(cls, rid: str) -> None:
+        """Mark a rid whose mutations were logged WITHOUT a recorded
+        response (the old primary died mid-request): its retry is
+        refused with the loud dedupe ambiguity, never re-applied.
+        Rides the eviction watermark — the client allocates seqs
+        monotonically and serializes mutations per handle, so the
+        watermark refuses exactly this rid."""
+        s, q = _rid_session_seq(rid)
+        if s is None or q is None:
+            return
+        with cls.dedupe_lock:
+            cls.evicted[s] = max(q, cls.evicted.get(s, -1))
+            cls.evicted.move_to_end(s)
+            while len(cls.evicted) > _SESSION_CAP:
+                cls.evicted.popitem(last=False)
+
+    # -- /tasks: the scheduler surface --------------------------------------
+
+    #: /tasks ops whose second application would change state (deduped);
+    #: "tick" is idempotent admission work and re-executes harmlessly
+    _TASKS_MUTATING = frozenset({"submit", "cancel"})
+    #: serializes ALL /tasks scheduler calls on an HA board: a deferred
+    #: submit/cancel holds the store lock for its whole transaction
+    #: (wrapper -> scheduler lock order) while a concurrent tick takes
+    #: scheduler -> wrapper — this outer lock keeps the two orders from
+    #: ever interleaving (set per-server in DocServer.__init__)
+    tasks_lock: threading.Lock
+
+    def _do_tasks(self) -> None:
+        """The multi-tenant scheduler surface (sched/scheduler.py):
+        ``submit`` / ``cancel`` (rid-deduped like every board mutation
+        — a retried submit cannot enqueue a task twice) and ``tick``
+        (idempotent admission).  Auth-gated like /rpc."""
+        length = int(self.headers.get("Content-Length", 0))
+        if not check_auth(self.auth_token, self.headers):
+            self.rfile.read(length)
+            _REQUESTS.inc(op="tasks:-", outcome="unauthorized")
+            return self._respond(401, b"{}")
+        try:
+            req = json.loads(self.rfile.read(length))
+            op = req["op"]
+            if op not in ("submit", "cancel", "tick"):
+                raise KeyError(op)
+        except (json.JSONDecodeError, KeyError, UnicodeDecodeError,
+                TypeError):
+            _REQUESTS.inc(op="tasks:-", outcome="bad_request")
+            return self._respond(400, b"{}")
+        rid = req.get("rid") if op in self._TASKS_MUTATING else None
+        if rid is not None:
+            answered = self._claim_rid(rid, f"tasks:{op}")
+            if answered is not None:
+                return self._respond(200, answered)
+        body = None
+        code = 200
+        t_exec = time.monotonic()
+        not_primary = False
+        # the tasks_lock guards a lock-order inversion that only exists
+        # on an HA board (a deferred submit holds the store lock for
+        # its whole transaction while a tick takes scheduler->store);
+        # a plain board keeps its concurrent submit/cancel/tick
+        lock_ctx = (self.tasks_lock if self.ha is not None
+                    else contextlib.nullcontext())
+        try:
+            with lock_ctx, self._txn(rid) as txn:
+                try:
+                    if op == "submit":
+                        result = self.scheduler.submit(
+                            req["tenant"], db=req.get("db"),
+                            params=req.get("params"),
+                            priority=int(req.get("priority") or 0),
+                            weight=float(req.get("weight") or 1.0),
+                            est_jobs=int(req.get("est_jobs") or 0),
+                            est_bytes=int(req.get("est_bytes") or 0),
+                            kind=req.get("kind") or "server")
+                    elif op == "cancel":
+                        result = self.scheduler.cancel(
+                            req["task_id"],
+                            reason=req.get("reason") or "cancelled")
+                    else:
+                        result = self.scheduler.tick()
+                    body = json.dumps({"ok": True,
+                                       "result": result}).encode()
+                    _REQUESTS.inc(op=f"tasks:{op}", outcome="ok")
+                except NotPrimaryError:
+                    # primacy lapsed mid-transaction: 421, rid left
+                    # unrecorded — entries the transaction applied
+                    # commit WITHOUT a response, so the successor
+                    # refuses the re-send loudly, never double-applies
+                    not_primary = True
+                    _REQUESTS.inc(op=f"tasks:{op}",
+                                  outcome="not_primary")
+                except Exception as exc:
+                    # same contract as /rpc: a reserved rid always gets
+                    # a recorded response; admission rejections travel
+                    # as typed errors (QuotaExceededError carries its
+                    # reason) over HTTP 429, which the SchedulerClient
+                    # deliberately does NOT retry
+                    doc = {"ok": False, "type": type(exc).__name__,
+                           "error": str(exc)}
+                    reason = getattr(exc, "reason", None)
+                    if reason is not None:
+                        doc["reason"] = reason
+                    body = json.dumps(doc).encode()
+                    if type(exc).__name__ == "QuotaExceededError":
+                        code = 429
+                        _REQUESTS.inc(op=f"tasks:{op}",
+                                      outcome="rejected")
+                    else:
+                        _REQUESTS.inc(op=f"tasks:{op}", outcome="error")
+                if txn is not None:
+                    txn.body = body
+        finally:
+            _RPC_SECONDS.observe(time.monotonic() - t_exec,
+                                 op=f"tasks:{op}")
+            if rid is not None:
+                self._record_rid(rid, body)
+        if not_primary:
+            return self._lapsed()
+        self._respond(code, body)
+
     # -- the telemetry sink -------------------------------------------------
 
     def _do_telemetry(self) -> None:
@@ -304,17 +499,24 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
         refreshed at scrape time), ``/tracez`` (this process's span ring
         as Chrome trace JSON), ``/clusterz`` (the MERGED cluster
         timeline: every pushed process's spans clock-aligned with this
-        process's) and ``/healthz``.  Everything but /healthz is
-        auth-gated like the RPC plane; /healthz is open — it returns a
-        static liveness body, and orchestrator probes cannot send a
-        bearer token."""
+        process's), ``/tasks`` (every scheduler task doc plus the
+        scheduler snapshot) and ``/healthz``.  Everything but /healthz
+        is auth-gated like the RPC plane; /healthz is open — it returns
+        liveness (and, on an HA board, the replica's role), and
+        orchestrator probes cannot send a bearer token."""
         path = self.path.partition("?")[0]
         if path == "/healthz":
             _SCRAPES.inc(path=path)
+            if self.ha is not None:
+                # liveness plus ROLE: probes and the chaos tests tell
+                # the primary from a standby without auth
+                return self._respond(200, json.dumps(
+                    {"ok": True, "role": self.ha.role,
+                     "primary": self.ha.is_primary()}).encode())
             return self._respond(200, b'{"ok": true}')
         if path in NOT_PORTED:
             return self._not_ported(path)
-        if path not in ("/metrics", "/tracez", "/clusterz"):
+        if path not in ("/metrics", "/tracez", "/clusterz", "/tasks"):
             return self._respond(404, b"{}")
         if not check_auth(self.auth_token, self.headers):
             return self._respond(401, b"{}")
@@ -326,6 +528,12 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
                 ctype = "text/plain; version=0.0.4; charset=utf-8"
             elif path == "/tracez":
                 body = json.dumps(TRACER.chrome_trace()).encode()
+                ctype = "application/json"
+            elif path == "/tasks":
+                body = json.dumps(
+                    {"tasks": self.scheduler.list_tasks(),
+                     "sched": self.scheduler.snapshot()},
+                    default=float).encode()
                 ctype = "application/json"
             else:
                 body = json.dumps(self.collector.cluster_doc(),
@@ -379,26 +587,78 @@ class DocServer:
     Wraps a :class:`MemoryDocStore` by default (authoritative state lives
     in this process; its lock makes each RPC atomic); pass a
     ``DirDocStore`` to make the board durable across server restarts the
-    way mongod's disk was.  ``port=0`` binds a free port
-    (:attr:`port` holds it).
+    way mongod's disk was, or *ha_dir* for a replicated board
+    (coord/ha.py: the mutation log and the board-primary lease live
+    there; *ha_lease* seconds, *ha_fsync* an fsync per append).  Every
+    docserver hosts a :class:`~..sched.scheduler.Scheduler` on its board
+    (*scheduler_config*).  ``port=0`` binds a free port (:attr:`port`
+    holds it).
     """
 
     def __init__(self, store: Optional[DocStore] = None,
                  host: str = "127.0.0.1", port: int = 0,
-                 auth_token: Optional[str] = None) -> None:
+                 auth_token: Optional[str] = None,
+                 scheduler_config=None,
+                 ha_dir: Optional[str] = None,
+                 ha_lease: Optional[float] = None,
+                 ha_fsync: bool = False) -> None:
+        # late import: sched builds on coord (no cycle at module load)
+        from ..sched.scheduler import Scheduler, SchedulerConfig
+
+        self.ha = None
+        if ha_dir is not None:
+            if store is not None:
+                raise ValueError(
+                    "ha_dir and an explicit store are mutually "
+                    "exclusive: the HA board's authoritative state is "
+                    "the mutation log under ha_dir")
+            from .ha import DEFAULT_BOARD_LEASE, HaController
+
+            self.ha = HaController(
+                ha_dir,
+                lease=(ha_lease if ha_lease is not None
+                       else DEFAULT_BOARD_LEASE),
+                fsync=ha_fsync)
+            bound_store: DocStore = self.ha.store
+        else:
+            bound_store = store if store is not None else MemoryDocStore()
         handler = type("BoundRpcHandler", (_RpcHandler,), {
-            "store": store if store is not None else MemoryDocStore(),
+            "store": bound_store,
             "done": collections.OrderedDict(),
             "inflight": {},
             "evicted": collections.OrderedDict(),
             "dedupe_lock": threading.Lock(),
+            "tasks_lock": threading.Lock(),
             "auth_token": default_auth_token(auth_token),
             "collector": Collector(local_role="server"),
+            "ha": self.ha,
+            # every docserver hosts the multi-tenant scheduler surface;
+            # admission (tick) stays lease-fenced, so a board whose
+            # admission runs in a separate runner process simply never
+            # wins the lease here
+            "scheduler": Scheduler(
+                bound_store,
+                config=scheduler_config or SchedulerConfig()),
         })
         self.store = handler.store
         self.collector = handler.collector
-        self.httpd = http.server.ThreadingHTTPServer((host, port), handler)
+        self.scheduler = handler.scheduler
+        try:
+            self.httpd = http.server.ThreadingHTTPServer((host, port),
+                                                         handler)
+        except OSError:
+            if self.ha is not None:
+                # a replica that cannot serve must not contend for —
+                # let alone hold — the board-primary lease
+                self.ha.log.close()
+            raise
         self.host, self.port = self.httpd.server_address[:2]
+        if self.ha is not None:
+            # bind the HTTP port FIRST: only a replica that can serve
+            # may contend for the lease.  The handler's class-level
+            # dedupe maps are where replayed rid answers land.
+            self.ha.bind_handler(handler)
+            self.ha.start()
         self._thread: Optional[threading.Thread] = None
 
     @property
@@ -415,17 +675,23 @@ class DocServer:
         self.httpd.serve_forever()
 
     def shutdown(self) -> None:
-        """Stop serving and close the listening socket."""
+        """Stop serving and close the listening socket; an HA replica
+        releases the board lease (a standby's next poll promotes at
+        once, no expiry wait)."""
         self.httpd.shutdown()
         if self._thread:
             self._thread.join(timeout=10)
         self.httpd.server_close()
+        if self.ha is not None:
+            self.ha.stop()
 
 
 class HttpDocStore(DocStore):
-    """Client DocStore over a :class:`DocServer` (``http://HOST:PORT``;
-    several comma-separated endpoints make a :class:`FailoverClient`
-    rotate between them).
+    """Client DocStore over a :class:`DocServer` (``http://HOST:PORT``,
+    or the HA replica-set form ``HOST:PORT,HOST:PORT``: the
+    :class:`FailoverClient` rotates on transport failures and on a
+    standby's 421, under the one rid of the logical call, so the
+    re-send replays from the new primary's replicated dedupe table).
 
     One keep-alive connection per endpoint, serialized by a lock (a
     worker's claim loop and its heartbeat thread share the handle);

@@ -23,12 +23,14 @@ other), mutated only through atomic guarded updates:
   * :meth:`TrainerLease.release` — clean handoff: holder cleared, expiry
     zeroed, so the successor's acquire succeeds on its next poll.
 
-The board-primary lease (``BoardLease``) goes with the replicated board
-(ROADMAP A.4b-2).
+The board-primary election (:class:`BoardLease`) is the same guarded
+singleton, pointed at the HA directory's own ``DirDocStore``
+(coord/ha.py).
 """
 
 from __future__ import annotations
 
+import os
 import socket
 import time
 import uuid
@@ -205,3 +207,33 @@ class TrainerLease:
         """The current lease document."""
         return self._cnn.connect().find_one(
             self.ns, {"_id": self.SINGLETON_ID})
+
+
+#: default board-primary lease (seconds) — the failover detection
+#: window: a SIGKILLed primary's standby takes over within one of
+#: these.  Must be comfortably under the board clients' retry deadline
+#: (httpclient.BOARD_DEADLINE, 12s) so a mutation in flight at the kill
+#: survives the takeover inside its own budget.
+DEFAULT_BOARD_LEASE = 2.0
+
+
+class BoardLease(TrainerLease):
+    """The board-primary election: the same guarded singleton
+    (seed-iff-absent, free-or-expired claim, ``$inc`` generation
+    fencing token) pointed at the HA directory's own little
+    :class:`~.docstore.DirDocStore` — the one store that must NOT live
+    on the board it elects.  The generation is stamped into every
+    mutation-log entry the holder appends, so a deposed primary's
+    straggling appends are identifiable (and skipped) on replay
+    (coord/ha.py)."""
+
+    SINGLETON_ID = "board"
+    COLL = "board_lease"
+
+    def __init__(self, cnn, holder: Optional[str] = None,
+                 lease: float = DEFAULT_BOARD_LEASE) -> None:
+        super().__init__(
+            cnn,
+            holder=holder or (f"board-{socket.gethostname()}-"
+                              f"{os.getpid()}-{uuid.uuid4().hex[:6]}"),
+            lease=lease)

@@ -2,7 +2,11 @@
 one module exporting every role, init.lua:47-63; port of
 ``mapreduce_tpu/examples/wordcount``).
 
-``init`` takes ``{"files": [...], "num_reducers": N}``; taskfn emits one
+``init`` takes ``{"files": [...], "num_reducers": N}`` (and
+``keep_results``: finalfn then leaves the result files in storage, the
+port's addition); a thread driving a task through ``Server.loop`` reads
+that task's own init_args instead (:func:`~...spec.task_args`: one
+runner process serves several tasks of this module).  taskfn emits one
 job per file (taskfn.lua:8-11), mapfn tokenizes on whitespace and emits
 ``(word, 1)`` (mapfn.lua:4-7), partitionfn is FNV-1a mod num_reducers (the
 reference's bit32 rolling hash, init.lua:2-33), reducefn sums and declares
@@ -14,9 +18,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, List
 
+from ... import spec
 from ...utils.hashing import fnv1a32
 
-_conf: Dict[str, Any] = {"files": [], "num_reducers": 15}
+_DEFAULTS: Dict[str, Any] = {"files": [], "num_reducers": 15}
+_conf: Dict[str, Any] = dict(_DEFAULTS)
 #: finalfn deposits {word: count} here so in-process callers (tests, the
 #: CLI) can read the result; the reference prints to stdout instead
 #: (finalfn.lua:3-8).
@@ -32,8 +38,15 @@ def init(args: Any) -> None:
         _conf.update(args)
 
 
+def _args() -> Dict[str, Any]:
+    """The driving task's init_args over the defaults, else the
+    process's (``init``)."""
+    scoped = spec.task_args()
+    return {**_DEFAULTS, **scoped} if scoped else _conf
+
+
 def taskfn(emit) -> None:
-    for i, path in enumerate(_conf["files"]):
+    for i, path in enumerate(_args()["files"]):
         emit(i, path)
 
 
@@ -45,7 +58,7 @@ def mapfn(key: Any, value: str, emit) -> None:
 
 
 def partitionfn(key: str) -> int:
-    return fnv1a32(key.encode("utf-8")) % _conf["num_reducers"]
+    return fnv1a32(key.encode("utf-8")) % _args()["num_reducers"]
 
 
 def reducefn(key: str, values: List[int]) -> int:
@@ -60,7 +73,7 @@ def finalfn(pairs) -> bool:
     RESULT.clear()
     for key, values in pairs:
         RESULT[key] = values[0]
-    return True
+    return not _args().get("keep_results", False)
 
 
 # -- device fast path hooks (spec.DEVICE_HOOKS) ------------------------------
@@ -78,15 +91,16 @@ def device_config():
     they say."""
     from ...engine import EngineConfig
 
+    conf = _args()
     return EngineConfig(
-        local_capacity=int(_conf.get("device_local_capacity", 1 << 17)),
-        exchange_capacity=int(_conf.get("device_exchange_capacity",
+        local_capacity=int(conf.get("device_local_capacity", 1 << 17)),
+        exchange_capacity=int(conf.get("device_exchange_capacity",
                                         1 << 15)),
-        out_capacity=int(_conf.get("device_out_capacity", 1 << 17)),
+        out_capacity=int(conf.get("device_out_capacity", 1 << 17)),
         tile=512, tile_records=128, reduce_op="sum", unit_values=True,
-        sort_impl=str(_conf.get("device_sort_impl", "variadic")),
-        segment_impl=str(_conf.get("device_segment_impl", "lax")),
-        tokenize_impl=str(_conf.get("device_tokenize_impl", "lax")))
+        sort_impl=str(conf.get("device_sort_impl", "variadic")),
+        segment_impl=str(conf.get("device_segment_impl", "lax")),
+        tokenize_impl=str(conf.get("device_tokenize_impl", "lax")))
 
 
 def device_prepare(pairs, parts):
@@ -97,7 +111,7 @@ def device_prepare(pairs, parts):
 
     ordered = sorted(pairs, key=lambda kv: str(kv[0]))
     data = b"\n".join(open(path, "rb").read() for _, path in ordered)
-    chunk_len = int(_conf.get("device_chunk_len", 1 << 22))
+    chunk_len = int(_args().get("device_chunk_len", 1 << 22))
     n_dev = parts.n
     n_chunks = max(1, -(-len(data) // chunk_len))
     n_chunks = -(-n_chunks // n_dev) * n_dev

@@ -116,6 +116,25 @@ DIAG_FAMILIES = frozenset({
     "mrtpu_docserver_requests_total",
     "mrtpu_telemetry_dropped_total", "mrtpu_telemetry_pushes_total",
     "mrtpu_client_failovers_total",
+    # the multi-tenant service plane (sched/): queue depths, admission
+    # decisions and task transitions, and the serving-SLO lifecycle
+    # histograms a runner observes (cumulative _bucket/_sum/_count
+    # samples sum across processes: per-process monotonic totals)
+    "mrtpu_sched_queue_depth", "mrtpu_sched_queued_work",
+    "mrtpu_sched_admission_total", "mrtpu_sched_tasks_total",
+    "mrtpu_sched_served_records_total",
+    "mrtpu_slo_queue_wait_seconds_bucket",
+    "mrtpu_slo_queue_wait_seconds_sum",
+    "mrtpu_slo_queue_wait_seconds_count",
+    "mrtpu_slo_admit_to_running_seconds_bucket",
+    "mrtpu_slo_admit_to_running_seconds_sum",
+    "mrtpu_slo_admit_to_running_seconds_count",
+    "mrtpu_slo_submit_first_result_seconds_bucket",
+    "mrtpu_slo_submit_first_result_seconds_sum",
+    "mrtpu_slo_submit_first_result_seconds_count",
+    # the replicated board (coord/ha): failovers, fences, refusals
+    "mrtpu_board_promotions_total", "mrtpu_board_fences_total",
+    "mrtpu_board_replayed_rid_refusals_total",
 })
 
 

@@ -25,8 +25,10 @@ Design points (the JAX package's):
   its inverse — the telemetry collector parses every pushed snapshot
   with it.
 
-Left out for now: the device and SLO bucket ladders and the percentile
-estimators of the SLO plane (ROADMAP A.8).  Everything is stdlib.
+The serving-SLO plane's bucket ladder (:data:`SLO_BUCKETS`) and its
+bucket math (:func:`estimate_percentile`, :func:`fraction_le`) are here
+for ``obs/slo.py``; the device ladder is left out (ROADMAP A.8).
+Everything is stdlib.
 """
 
 from __future__ import annotations
@@ -34,13 +36,24 @@ from __future__ import annotations
 import math
 import re
 import threading
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 #: preset latency buckets (seconds) for RPC/phase timings; the classic
 #: Prometheus ladder plus a 30s rung.
 LATENCY_BUCKETS: Tuple[float, ...] = (
     0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0, float("inf"))
+
+#: preset serving-SLO buckets (seconds): LATENCY_BUCKETS was tuned for
+#: RPC timings (1ms floor, 30s ceiling); the SLO plane's families need
+#: BOTH a finer low end (snapshot staleness on a hot stream is
+#: sub-millisecond) and a longer tail (queue wait under backpressure is
+#: minutes, and a 30s ceiling would clip exactly the observations an
+#: error-budget alert exists for).
+SLO_BUCKETS: Tuple[float, ...] = (
+    100e-6, 250e-6, 500e-6,
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0, 600.0, float("inf"))
 
 _NAME_RX = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RX = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -180,6 +193,18 @@ class Histogram(Metric):
             s = self._series.get(_label_key(labels))
             return float(s["count"]) if s else 0.0
 
+    def merged_counts(self, **labels: Any) -> List[int]:
+        """Per-bucket counts summed over every series whose labels are
+        a superset of *labels* (the Registry.sum convention)."""
+        want = set(_label_key(labels))
+        out = [0] * len(self.buckets)
+        with self._lock:
+            for key, s in self._series.items():
+                if want.issubset(set(key)):
+                    for i, n in enumerate(s["counts"]):
+                        out[i] += n
+        return out
+
     def samples(self) -> List[str]:
         out = []
         with self._lock:
@@ -290,6 +315,75 @@ def storage_io(scheme: str, direction: str, nbytes: int,
 
 def storage_op(scheme: str, op: str) -> None:
     _STORAGE_OPS.inc(scheme=scheme, op=op)
+
+
+# -- histogram bucket -> percentile estimation (the SLO plane's math) --------
+
+
+def estimate_percentile(bounds: Sequence[float], counts: Sequence[int],
+                        q: float) -> Optional[float]:
+    """Estimate the *q*-quantile (0 < q <= 1) of a histogram from its
+    per-bucket (NON-cumulative) *counts* against sorted upper *bounds*
+    — the ``histogram_quantile`` estimator: find the bucket the rank
+    lands in and interpolate linearly inside it (observations assumed
+    uniform within a bucket).
+
+    Edge cases:
+
+    * an EMPTY histogram (zero observations) has no percentiles —
+      ``None``, never a fake 0.0 a gate would wave through;
+    * a rank landing in the ``+Inf`` bucket answers the largest finite
+      bound (the classic Prometheus clamp: the estimate is a known
+      UNDERESTIMATE, and the SLO evaluation treats +Inf-bucket mass as
+      over-threshold separately so the clamp cannot hide a breach).
+    """
+    bounds = [float(b) for b in bounds]
+    counts = [int(c) for c in counts]
+    total = sum(counts)
+    if total <= 0 or not bounds:
+        return None
+    q = min(max(float(q), 0.0), 1.0)
+    rank = q * total
+    cum = 0
+    for i, n in enumerate(counts):
+        prev = cum
+        cum += n
+        if cum >= rank and n > 0:
+            upper = bounds[i]
+            lower = bounds[i - 1] if i > 0 else 0.0
+            if upper == math.inf:
+                # the +Inf clamp: the largest finite bound (0.0 when
+                # the ladder is degenerate — a single +Inf bucket)
+                return lower
+            return lower + (upper - lower) * ((rank - prev) / n)
+    return bounds[-2] if len(bounds) > 1 else 0.0
+
+
+def fraction_le(bounds: Sequence[float], counts: Sequence[int],
+                threshold: float) -> Optional[float]:
+    """Estimated fraction of observations <= *threshold*, interpolating
+    inside the bucket the threshold falls in.  Mass in the ``+Inf``
+    bucket is always OVER any finite threshold (it never counts as
+    good).  ``None`` for an empty histogram."""
+    bounds = [float(b) for b in bounds]
+    counts = [int(c) for c in counts]
+    total = sum(counts)
+    if total <= 0 or not bounds:
+        return None
+    threshold = float(threshold)
+    good = 0.0
+    lower = 0.0
+    for bound, n in zip(bounds, counts):
+        if bound <= threshold:
+            good += n
+        elif bound != math.inf and threshold > lower:
+            # threshold inside this finite bucket: linear share
+            good += n * (threshold - lower) / (bound - lower)
+            break
+        else:
+            break
+        lower = bound
+    return min(1.0, good / total)
 
 
 # -- exposition parser (the collector's ingest, tests) ----------------------

@@ -185,7 +185,7 @@ def _flash_fwd_cuda(qh, k, v, causal):
                               kc.ptr(lse), bh, tq, tk, d, int(causal),
                               _DTYPES[qh.dtype], kc.stream(qh.device))
     kc.check("flash_fwd", err)
-    kc.LAUNCHES["flash_fwd"] += 1
+    kc.count_launch("flash_fwd")
     return out, lse
 
 
@@ -197,7 +197,7 @@ def _flash_dq_cuda(qh, k, v, do, lse, delta, causal, scale):
                              tk, d, int(causal), float(scale),
                              _DTYPES[qh.dtype], kc.stream(qh.device))
     kc.check("flash_dq", err)
-    kc.LAUNCHES["flash_dq"] += 1
+    kc.count_launch("flash_dq")
     return dq
 
 
@@ -216,7 +216,7 @@ def _flash_dkv_cuda(qh, k, v, do, lse, delta, causal):
                               kc.ptr(dv), bh, tq, tk, d, int(causal), ld,
                               _DTYPES[qh.dtype], kc.stream(qh.device))
     kc.check("flash_dkv", err)
-    kc.LAUNCHES["flash_dkv"] += 1
+    kc.count_launch("flash_dkv")
     return dk, dv
 
 

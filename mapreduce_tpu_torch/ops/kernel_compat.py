@@ -34,8 +34,11 @@ three pieces of glue:
 * **the counters** — :data:`LAUNCHES` counts the launches of each
   kernel (one per wrapper call that launched it) and
   :data:`PLAIN_CALLS` the calls of each plain version, so a run can show
-  which path it took.  They are plain ints, the package's only global
-  state; :func:`reset_counts` zeroes both.
+  which path it took.  Wrappers add to them only through
+  :func:`count_launch` and :func:`count_plain`, under one lock, so
+  threads driving two engines at once lose no count (a call on a stream
+  being captured counts at each replay instead);
+  :func:`reset_counts` zeroes both.
 
 It also holds the uint32 arithmetic the plain versions share.  torch's
 ``uint32`` supports few operations, and an int64 product of two 32-bit
@@ -99,12 +102,47 @@ BUILD_SECONDS: Dict[str, float] = {}
 
 MASK32 = 0xFFFFFFFF
 
+#: guards every change to :data:`LAUNCHES` and :data:`PLAIN_CALLS`
+_COUNT_LOCK = threading.Lock()
+#: per stream being captured into a :class:`CapturedGraph`: the
+#: kernels recorded into it (a capture's calls may run on other threads,
+#: as autograd's backward does, but they enqueue on the capture stream)
+_CAPTURES: Dict[int, Dict[str, int]] = {}
+
 
 def reset_counts() -> None:
     """Zero every launch and plain-call counter."""
-    for k in KERNELS:
-        LAUNCHES[k] = 0
-        PLAIN_CALLS[k] = 0
+    with _COUNT_LOCK:
+        for k in KERNELS:
+            LAUNCHES[k] = 0
+            PLAIN_CALLS[k] = 0
+
+
+def count_launch(kernel: str, n: int = 1) -> None:
+    """Add *n* launches of *kernel* (a wrapper, where it launches).  A
+    call on a stream that a :class:`CapturedGraph` is capturing only
+    records its kernel: it goes to that capture's tally instead, and
+    counts at each replay."""
+    if _CAPTURES and torch.cuda.is_current_stream_capturing():
+        key = torch.cuda.current_stream().cuda_stream
+        with _COUNT_LOCK:
+            tally = _CAPTURES.get(key)
+            if tally is None:
+                # a stream forked into the capture: with one capture
+                # under way, it is that capture's
+                tally = (next(iter(_CAPTURES.values()))
+                         if len(_CAPTURES) == 1
+                         else _CAPTURES.setdefault(key, {}))
+            tally[kernel] = tally.get(kernel, 0) + n
+        return
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += n
+
+
+def count_plain(kernel: str, n: int = 1) -> None:
+    """Add *n* calls of *kernel*'s plain version."""
+    with _COUNT_LOCK:
+        PLAIN_CALLS[kernel] += n
 
 
 def resolve_device(device=None) -> torch.device:
@@ -127,7 +165,7 @@ def use_kernel(t: torch.Tensor, kernel: str) -> bool:
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
-        PLAIN_CALLS[kernel] += 1
+        count_plain(kernel)
         return False
     raise ValueError(f"{kernel}: no kernel or plain version for a tensor "
                      f"on {t.device}")
@@ -137,27 +175,34 @@ class CapturedGraph:
     """*fn* (kernel wrapper calls among other CUDA work) captured once
     into a CUDA graph; :meth:`replay` runs it again.
 
-    A wrapper adds to :data:`LAUNCHES` when it is called, but a call under
+    A wrapper adds to :data:`LAUNCHES` when it launches, but a call under
     capture only records its kernel, which launches at each replay.  So
-    the capture takes back what its calls added (:attr:`launches`), and
-    each replay adds it once more: the counters keep counting launches.
+    the calls that enqueue on the capture stream, from any thread, are
+    tallied for the capture (:attr:`launches`) and not counted, while
+    other streams' launches during the capture count as ever; each
+    replay adds the tally once: the counters keep counting launches.
     ``out`` is what *fn* returned: tensors of the graph's pool, which each
     replay overwrites."""
 
     def __init__(self, fn) -> None:
         self.graph = torch.cuda.CUDAGraph()
-        before = dict(LAUNCHES)
+        key = None
         try:
             with torch.cuda.graph(self.graph):
+                key = torch.cuda.current_stream().cuda_stream
+                with _COUNT_LOCK:
+                    _CAPTURES[key] = {}
                 self.out = fn()
         finally:
-            self.launches = {k: LAUNCHES[k] - before[k] for k in KERNELS}
-            LAUNCHES.update(before)
+            with _COUNT_LOCK:
+                tally = _CAPTURES.pop(key, {})
+        self.launches = {k: tally.get(k, 0) for k in KERNELS}
 
     def replay(self) -> None:
         self.graph.replay()
-        for k, n in self.launches.items():
-            LAUNCHES[k] += n
+        with _COUNT_LOCK:
+            for k, n in self.launches.items():
+                LAUNCHES[k] += n
 
 
 def capture_steps(step, n: int, state: Sequence[torch.Tensor]

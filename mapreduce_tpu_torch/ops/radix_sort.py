@@ -263,7 +263,7 @@ def _radix_plan_cuda(dest: torch.Tensor, nbuckets: int):
     err = lib.mr_radix_plan(kc.ptr(dest), n, b, nbuckets, kc.ptr(scratch),
                             kc.ptr(rank), kc.ptr(totals), kc.stream(dev))
     kc.check("radix_plan", err)
-    kc.LAUNCHES["radix_plan"] += 1
+    kc.count_launch("radix_plan")
     return rank, totals
 
 
@@ -285,7 +285,7 @@ def _radix_upfront_cuda(k1: torch.Tensor, k2: torch.Tensor
     err = _lib().mr_radix_upfront(kc.ptr(k1), kc.ptr(k2), n, kc.ptr(table),
                                   kc.stream(dev))
     kc.check("radix_upfront", err)
-    kc.LAUNCHES["radix_upfront"] += 1
+    kc.count_launch("radix_upfront")
     return table
 
 
@@ -311,7 +311,7 @@ def _radix_onesweep_cuda(k1: torch.Tensor, k2: torch.Tensor,
         n, lane, shift, kc.ptr(counts), kc.ptr(scratch),
         *(kc.ptr(o) for o in out), kc.stream(dev))
     kc.check("radix_onesweep", err)
-    kc.LAUNCHES["radix_onesweep"] += 1
+    kc.count_launch("radix_onesweep")
 
 
 def _radix_sort_cuda(k1: torch.Tensor, k2: torch.Tensor):
@@ -331,8 +331,8 @@ def _radix_sort_cuda(k1: torch.Tensor, k2: torch.Tensor):
         kc.ptr(k1), kc.ptr(k2), n, *(kc.ptr(t) for t in a),
         *(kc.ptr(t) for t in b), kc.ptr(scratch), kc.stream(dev))
     kc.check("radix_sort_pairs", err)
-    kc.LAUNCHES["radix_upfront"] += 1
-    kc.LAUNCHES["radix_onesweep"] += RADIX_PASSES
+    kc.count_launch("radix_upfront")
+    kc.count_launch("radix_onesweep", RADIX_PASSES)
     return b[0], b[1], b[2]
 
 
@@ -352,7 +352,7 @@ def radix_sort_pairs(k1: torch.Tensor, k2: torch.Tensor
     k2 = k2.to(torch.int32).contiguous()
     if kc.use_kernel(k1, "radix_upfront"):
         return _radix_sort_cuda(k1, k2)
-    kc.PLAIN_CALLS["radix_onesweep"] += RADIX_PASSES
+    kc.count_plain("radix_onesweep", RADIX_PASSES)
     return _radix_sort_plain(k1, k2)
 
 

@@ -190,7 +190,7 @@ def _segment_reduce_cuda(k1s: torch.Tensor, k2s: torch.Tensor,
         N, D, int(unit_values), *codes, kc.ptr(reduced), kc.ptr(end_csum),
         kc.ptr(scratch), kc.stream(dev))
     kc.check("segreduce", err)
-    kc.LAUNCHES["segreduce"] += 1
+    kc.count_launch("segreduce")
     return [reduced[:, i] for i in range(D)], end_csum
 
 

@@ -127,7 +127,7 @@ def _tokenize_cuda(chunk: torch.Tensor, multipliers) -> TokenStream:
                           kc.ptr(keys), kc.ptr(is_end), kc.ptr(start),
                           kc.ptr(length), kc.ptr(scratch), kc.stream(dev))
     kc.check("tokenize", err)
-    kc.LAUNCHES["tokenize"] += 1
+    kc.count_launch("tokenize")
     return TokenStream(is_end, keys, start, length)
 
 

@@ -107,12 +107,14 @@ class Server:
     def __init__(self, connstr: str, dbname: str,
                  auth: Optional[Any] = None,
                  reclaim: Optional[Any] = None,
-                 retry: Optional[Any] = None) -> None:
+                 retry: Optional[Any] = None,
+                 job_lease: Optional[float] = None) -> None:
         if reclaim is not None:
             raise ValueError("speculative re-claim is not ported yet "
                              "(ROADMAP A.7); pass reclaim=None")
         self.cnn = Connection(connstr, dbname, auth, retry=retry)
-        self.task = Task(self.cnn)
+        self.task = Task(self.cnn, **(
+            {"job_lease": job_lease} if job_lease is not None else {}))
         self.params: Dict[str, Any] = {}
         self.configured = False
         self.finished = False
@@ -526,7 +528,11 @@ class Server:
                                role=f"server:{self.cnn.dbname}",
                                interval=self.telemetry_interval)
         try:
-            return self._loop_impl()
+            # the task's own init_args for the modules' reads on this
+            # thread: two tasks of one module in one process (a runner)
+            # each see theirs, whichever ran the module's init
+            with spec.task_scope(self.params.get("init_args")):
+                return self._loop_impl()
         finally:
             restore_ambient_auth(prev_auth)
             release_pusher(lease)

@@ -28,6 +28,7 @@ workers here receive the real init_args); reducer property flags
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import threading
 from dataclasses import dataclass, field
@@ -43,6 +44,8 @@ ACI_FLAGS = ("associative_reducer", "commutative_reducer", "idempotent_reducer")
 _fn_cache: Dict[tuple, "RoleModule"] = {}
 _inits_done: Dict[int, bool] = {}
 _init_lock = threading.Lock()
+#: per thread: the init_args of the task this thread drives
+_task_local = threading.local()
 
 
 @dataclass
@@ -96,6 +99,28 @@ def load_role(module_name: str, role: str) -> RoleModule:
     )
     _fn_cache[key] = rm
     return rm
+
+
+@contextlib.contextmanager
+def task_scope(init_args: Any):
+    """Run the block as the thread serving a task with *init_args*: module
+    code on this thread reads them with :func:`task_args`.  ``init``
+    runs once per process, so two tasks of one module served by one
+    process (a runner) could not each deliver their own args through
+    it."""
+    prev = getattr(_task_local, "args", None)
+    _task_local.args = dict(init_args) if isinstance(init_args, dict) \
+        else None
+    try:
+        yield
+    finally:
+        _task_local.args = prev
+
+
+def task_args() -> Optional[Dict[str, Any]]:
+    """The init_args of the task this thread drives; None outside a
+    :func:`task_scope` (or for a task without init_args)."""
+    return getattr(_task_local, "args", None)
 
 
 def clear_caches() -> None:

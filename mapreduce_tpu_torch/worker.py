@@ -171,6 +171,9 @@ class Worker:
         self.telemetry_address: Optional[str] = None
         self.telemetry_backlog = 20_000
         self.jobs_done = 0
+        #: fence of the most recently started job — observable so
+        #: tests/operators can see a fencing in flight
+        self.current_fence: Optional[threading.Event] = None
         # claims this worker currently holds: _id -> (coll, job_tbl,
         # fence); shared between the executor loop and the heartbeat
         # thread under _held_lock
@@ -251,6 +254,7 @@ class Worker:
                  t_claim0: float, t_claim1: float) -> str:
         """Execute one claimed job; returns its outcome
         (written|broken|fenced)."""
+        self.current_fence = fence
         job = Job(self.cnn, job_tbl, status, task_tbl, coll, fence=fence)
         logger.info("%s: running %s job %s", self.name, status.value,
                     job.get_id())

@@ -1019,3 +1019,114 @@ def test_captured_transformer_steps_equal_eager_step_opt(dev):
     for (n, x), (_, y) in zip(a.state_dict().items(),
                               b.state_dict().items()):
         assert torch.equal(x, y), n
+
+
+# -- the always-on service: two device tasks at once ---------------------------
+
+
+def _runner_files(tmp_path):
+    from mapreduce_tpu_torch.corpus import make_corpus
+
+    lines = make_corpus(300_000, 12_000, seed=5).split(b"\n")
+    files = []
+    for i in range(3):
+        path = tmp_path / f"f{i}.txt"
+        path.write_bytes(b"\n".join(lines[i::3]))
+        files.append(str(path))
+    return files
+
+
+def _runner_tasks(sch, files, tmp_path, impls, tag):
+    mod = "mapreduce_tpu_torch.examples.wordcount"
+    ids = {}
+    for impl in impls:
+        params = {r: mod for r in ("taskfn", "mapfn", "partitionfn",
+                                   "reducefn", "finalfn")}
+        params.update(storage=f"shared:{tmp_path / tag / impl}",
+                      device=True, combinerfn=mod,
+                      init_args={"files": files, "keep_results": True,
+                                 "device_chunk_len": 1 << 18,
+                                 "device_sort_impl": impl})
+        ids[impl] = sch.submit(impl, db=f"{tag}_{impl}", params=params,
+                               est_jobs=1)["_id"]
+    return ids
+
+
+def test_two_device_tasks_in_one_runner_count_exactly(dev, tmp_path):
+    """Two device tasks (radix at P = 8, variadic) in flight at once in
+    one TaskRunner: the launch counters read after both equal the sum of
+    the two tasks run one at a time (no count lost between threads), no
+    plain version runs, and each result equals its solo run's bytes."""
+    import uuid
+
+    from mapreduce_tpu_torch import spec
+    from mapreduce_tpu_torch.coord.docstore import MemoryDocStore
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.sched.scheduler import (
+        DONE, Scheduler, SchedulerConfig)
+    from mapreduce_tpu_torch.sched.service import TaskRunner, wait_for_state
+
+    files = _runner_files(tmp_path)
+
+    def serve(tag, impls):
+        name = uuid.uuid4().hex
+        sch = Scheduler(MemoryDocStore.named(name),
+                        config=SchedulerConfig(max_inflight=2))
+        ids = _runner_tasks(sch, files, tmp_path, impls, tag)
+        spec.clear_caches()
+        kc.reset_counts()
+        runner = TaskRunner(f"mem://{name}", sch, poll=0.02,
+                            partitions=Partitions(8)).start()
+        try:
+            for tid in ids.values():
+                wait_for_state(sch, tid, DONE, timeout=120)
+        finally:
+            runner.stop(timeout=120)
+            spec.clear_caches()
+        torch.cuda.synchronize()
+        out = {impl: (tmp_path / tag / impl / f"{tag}_{impl}.result.P00000"
+                      ).read_bytes() for impl in impls}
+        return dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS), out
+
+    solo = [serve(f"solo{i}", [impl])
+            for i, impl in enumerate(("radix", "variadic"))]
+    both, plain, out = serve("both", ["radix", "variadic"])
+    want = {k: solo[0][0][k] + solo[1][0][k] for k in kc.KERNELS}
+    assert both == want
+    assert want["radix_onesweep"] > 0 and want["tokenize"] > 0
+    assert not any(plain.values())
+    assert out["radix"] == solo[0][2]["radix"]
+    assert out["variadic"] == solo[1][2]["variadic"]
+    assert out["radix"] == out["variadic"]
+
+
+def test_capture_keeps_another_threads_launches(dev):
+    """A CUDA-graph capture tallies only what enqueues on its capture
+    stream: a launch counted from another thread on another stream
+    during the capture stays counted, and the replay adds the capture's
+    launches once."""
+    import threading
+
+    chunk = torch.from_numpy(np.frombuffer(_text(1 << 16, 0),
+                                           dtype=np.uint8).copy()).to(dev)
+    tokenize.tokenize_hash(chunk)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    kc.reset_counts()
+
+    def other():
+        with torch.cuda.stream(side):
+            kc.count_launch("segreduce", 3)
+
+    def body():
+        t = threading.Thread(target=other)
+        t.start()
+        t.join(10)
+        return tokenize.tokenize_hash(chunk)
+
+    g = kc.CapturedGraph(body)
+    assert g.launches == {k: int(k == "tokenize") for k in kc.KERNELS}
+    assert kc.LAUNCHES["segreduce"] == 3 and kc.LAUNCHES["tokenize"] == 0
+    g.replay()
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["tokenize"] == 1

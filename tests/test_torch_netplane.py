@@ -470,8 +470,9 @@ def test_cli_drop_clears_collections_and_storage(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["docserver", "--ha-dir", "/x"], "A.4b-2"),
-    (["docserver", "--max-inflight", "2"], "A.4c"),
+    (["runner", "mem://x", "--slo", "q:p99:1"], "A.8"),
+    (["submit", "http://h:1", "t", "m", "m", "m", "m", "--program", "w"],
+     "A.7"),
     (["docserver", "--history-dir", "/x"], "A.8"),
     (["docserver", "--slo", "q:p99:1"], "A.8"),
     (["server", "--autotune"], "A.7"),

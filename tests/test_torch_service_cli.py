@@ -1,0 +1,230 @@
+"""The always-on service through the port's command line: the HA
+docserver pair, ``submit``, ``tasks`` and ``runner`` (JAX
+``cli.py:1835``, ``:1915``, ``:1964``), and the flags and commands that
+stay refused by name (ROADMAP A.7, A.8, A.11).  Every process binds port
+0, waits with a timeout and is killed after it."""
+
+import contextlib
+import io
+import json
+import os
+import re
+import signal
+import subprocess
+import sys
+import time
+import urllib.request
+import uuid
+from collections import Counter
+
+import pytest
+
+from mapreduce_tpu_torch import cli as tcli
+from mapreduce_tpu_torch.coord.docserver import DocServer
+from mapreduce_tpu_torch.sched.scheduler import (
+    DONE, SchedulerClient, SchedulerConfig)
+from mapreduce_tpu_torch.sched.service import wait_for_state
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT = 60
+MOD = "mapreduce_tpu_torch.examples.wordcount"
+
+
+def _main(argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tcli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _env(token):
+    return dict(os.environ, MAPREDUCE_TPU_AUTH=token,
+                PYTHONPATH=REPO + os.pathsep + os.environ.get(
+                    "PYTHONPATH", ""))
+
+
+def _cli(*args, env, log):
+    """A CLI process: its first stdout lines are read here, its log goes
+    to the file *log* (a pipe nobody reads could fill)."""
+    with open(log, "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "mapreduce_tpu_torch.cli", *args],
+            env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+
+
+def _reap(procs, sig=signal.SIGTERM):
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(sig)
+    for p in procs:
+        try:
+            p.wait(timeout=TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=10)
+
+
+def _healthz(addr):
+    with urllib.request.urlopen(f"http://{addr}/healthz",
+                                timeout=10) as r:
+        return json.loads(r.read())
+
+
+def test_submit_and_tasks_against_a_docserver():
+    srv = DocServer(auth_token="tok", scheduler_config=SchedulerConfig(
+        tenant_max_queued_tasks=1)).start_background()
+    try:
+        url = f"http://{srv.host}:{srv.port}"
+        rc, out, _ = _main(["submit", url, "acme", MOD, MOD, MOD, MOD,
+                            "--auth", "tok", "--device",
+                            "--est-jobs", "3", "--init-args",
+                            json.dumps({"device_sort_impl": "radix"})])
+        assert rc == 0
+        doc = json.loads(out)
+        assert doc["state"] == "QUEUED" and doc["tenant"] == "acme"
+        assert doc["params"]["device"] is True
+        assert doc["params"]["finalfn"] == MOD
+        assert doc["params"]["init_args"] == {"device_sort_impl": "radix"}
+        rc, _, err = _main(["submit", url, "acme", MOD, MOD, MOD, MOD,
+                            "--auth", "tok"])
+        assert rc == 3 and "REJECTED (queued_tasks)" in err
+        rc, _, err = _main(["tasks", url])
+        assert rc == 2 and "auth" in err
+        rc, out, _ = _main(["tasks", url, "--json", "--auth", "tok"])
+        listing = json.loads(out)
+        assert rc == 0 and [t["_id"] for t in listing["tasks"]] == [
+            doc["_id"]]
+        assert listing["sched"]["tenants"]["acme"]["queued_jobs"] == 3
+        rc, out, _ = _main(["tasks", url, "--auth", "tok"])
+        assert rc == 0 and "tenant acme: queued=1" in out
+        assert f"QUEUED    {doc['_id']}" in out
+        rc, out, _ = _main(["tasks", url, "--auth", "tok", "--cancel",
+                            doc["_id"]])
+        assert rc == 0 and json.loads(out)["state"] == "CANCELLED"
+        rc, _, err = _main(["tasks", url, "--auth", "tok", "--cancel",
+                            doc["_id"]])
+        assert rc == 1 and "already terminal" in err
+    finally:
+        srv.shutdown()
+
+
+def test_ha_docserver_pair_and_runner_processes(tmp_path):
+    """Two ``docserver --ha-dir`` processes (one primary by /healthz),
+    one ``runner`` over both with ``--torch-device cpu``, a device task
+    and a host task submitted with ``submit``; SIGKILL of the primary
+    while they are queued; the standby promotes and both reach DONE."""
+    token = uuid.uuid4().hex
+    env = _env(token)
+    words = Counter()
+    files = []
+    for i in range(3):
+        text = f"alpha beta p{i} gamma alpha delta\n" * 30
+        p = tmp_path / f"f{i}.txt"
+        p.write_text(text)
+        files.append(str(p))
+        words.update(text.split())
+    ha = str(tmp_path / "ha")
+    boards = [_cli("docserver", "--host", "127.0.0.1", "--port", "0",
+                   "--ha-dir", ha, "--ha-lease", "0.8", "--max-inflight",
+                   "2", env=env, log=tmp_path / f"board{i}.err")
+              for i in range(2)]
+    procs = list(boards)
+    try:
+        addrs = [re.search(r"job board at http://([\d.]+:\d+)",
+                           p.stdout.readline()).group(1) for p in boards]
+        deadline = time.monotonic() + 20
+        roles = []
+        while time.monotonic() < deadline:
+            roles = [_healthz(a)["primary"] for a in addrs]
+            if sum(roles) == 1:
+                break
+            time.sleep(0.05)
+        assert sum(roles) == 1, roles
+        prim = roles.index(True)
+        url = "http://" + ",".join(addrs)
+        storage = f"shared:{tmp_path / 'st'}"
+        init = {"files": files, "num_reducers": 3, "keep_results": True,
+                "device_chunk_len": 1024, "device_local_capacity": 512,
+                "device_exchange_capacity": 256,
+                "device_out_capacity": 512, "device_sort_impl": "radix"}
+        ids = []
+        for tenant, extra in (("dev", ["--device"]), ("host", [])):
+            rc, out, err = _main(
+                ["submit", url, tenant, MOD, MOD, MOD, MOD, MOD, storage,
+                 "--db", f"cli_{tenant}", "--init-args", json.dumps(init),
+                 "--auth", token] + extra)
+            assert rc == 0, err
+            ids.append(json.loads(out)["_id"])
+        boards[prim].kill()
+        boards[prim].wait(timeout=TIMEOUT)
+        runner = _cli("runner", url, "--workers", "2", "--max-inflight",
+                      "2", "--partitions", "2", "--torch-device", "cpu",
+                      "--telemetry-interval", "0.5", env=env,
+                      log=tmp_path / "runner.err")
+        procs.append(runner)
+        assert "runner serving" in runner.stdout.readline()
+        client = SchedulerClient(",".join(addrs), auth_token=token)
+
+        class _Sched:  # wait_for_state's view of the /tasks listing
+            @staticmethod
+            def get(tid):
+                return next((t for t in client.list()["tasks"]
+                             if t["_id"] == tid), None)
+
+        for tid in ids:
+            wait_for_state(_Sched, tid, DONE, timeout=TIMEOUT, poll=0.1)
+        assert _healthz(addrs[1 - prim]) == {"ok": True, "role": "primary",
+                                             "primary": True}
+        from mapreduce_tpu_torch.utils.serialization import parse_record
+
+        for tenant in ("dev", "host"):
+            got = Counter()
+            for f in (tmp_path / "st").glob(f"cli_{tenant}.result.P*"):
+                for line in f.read_text().splitlines():
+                    k, v = parse_record(line)
+                    got[k] += v[0]
+            assert got == words, tenant
+        client.close()
+        _reap([runner], signal.SIGINT)
+        assert runner.returncode == 0, (
+            tmp_path / "runner.err").read_text()[-2000:]
+    finally:
+        _reap(procs)
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["runner", "mem://x", "--slo", "q:p99:1"], "A.8"),
+    (["runner", "mem://x", "--compile-cache"], "A.8"),
+    (["submit", "http://h:1", "t", "m", "m", "m", "m", "--program", "w"],
+     "A.7"),
+    (["docserver", "--history-dir", "/x"], "A.8"),
+    (["docserver", "--alert", "r:e:gt:1"], "A.8"),
+])
+def test_service_flags_still_refused_by_name(argv, item):
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as exc:
+        tcli.main(argv)
+    assert exc.value.code == 2
+    assert "not ported" in err.getvalue() and item in err.getvalue()
+
+
+@pytest.mark.parametrize("cmd,item", [("drain", "A.11"),
+                                      ("status", "A.8")])
+def test_unported_commands_refused_by_name(cmd, item):
+    rc, _, err = _main([cmd, "http://h:1"])
+    assert rc == 2 and "not ported" in err and item in err
+
+
+def test_runner_help_names_what_it_leaves_out():
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), pytest.raises(SystemExit):
+        tcli.main(["runner", "--help"])
+    text = " ".join(out.getvalue().split())
+    assert "A.11" in text and "A.7" in text and "--partitions" in text
+
+
+def test_docserver_rejects_root_with_ha_dir(tmp_path):
+    rc, _, err = _main(["docserver", "--port", "0", "--root",
+                        str(tmp_path / "r"), "--ha-dir",
+                        str(tmp_path / "h")])
+    assert rc == 2 and "mutually exclusive" in err

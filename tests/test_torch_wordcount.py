@@ -258,7 +258,11 @@ def test_port_imports_no_jax():
                    "examples/wordcount_split/partitionfn",
                    "examples/wordcount_split/reducefn",
                    "examples/wordcount_split/reducefn2",
-                   "examples/wordcount_split/finalfn"):
+                   "examples/wordcount_split/finalfn",
+                   "coord/persistent_table", "coord/lease", "coord/ha",
+                   "obs/slo", "sched/__init__", "sched/scheduler",
+                   "sched/service", "testing/__init__",
+                   "testing/faults"):
         assert f"mapreduce_tpu_torch/{module}.py" in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
