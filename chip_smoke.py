@@ -109,7 +109,10 @@ which raises on failure:
 9. the job plane (``jobplane`` lines): (a) ``mapreduce_tpu_torch.cli.
    main(["wordcount", FILES, "--device", ...])`` in this process over the
    slice's corpus written as 24 files of whole lines, at P = 1 variadic
-   and at ``--partitions 8 --sort-impl radix``: ``RESULT`` and the 76K
+   (with the CLI's controllers on, its default, and once more with
+   ``--no-autotune --no-speculative-reclaim``: the same stdout byte for
+   byte, and no control decision recorded) and at ``--partitions 8
+   --sort-impl radix``: ``RESULT`` and the 76K
    stdout lines against ``Counter`` of the files' words, launches of the
    path's kernels (tokenize and segreduce, and at P = 8 the three radix
    kernels) above 0 and no plain call; then, on a copy of the inputs of
@@ -184,7 +187,9 @@ which raises on failure:
    process with ``examples/wordcount_split`` over ``http://`` and
    ``http:`` on phase 9 (b)'s 200K words in 3 files, the result
    partitions read back from the blob server equal to the naive oracle,
-   then ``drop`` clears the task's collections and blobs; (c) the device
+   the server's control decisions (its controllers are on) as pushed to
+   ``/clusterz``, none a re-claim, beside ``rpcs_per_job``, then
+   ``drop`` clears the task's collections and blobs; (c) the device
    phase through ``Server(http://...)`` on phase 9's 24 files, P = 1
    variadic and P = 8 radix, its ``result.P00000`` (an HTTP PUT)
    byte-equal to the same run on a ``dir:`` board with ``shared:``
@@ -208,8 +213,9 @@ which raises on failure:
    v == 2); (b) two ``docserver --ha-dir D --ha-lease 1`` processes, a
    ``runner`` over both (``--partitions 8 --max-inflight 2 --workers
    2``) and two tenants' device tasks of phase 9's 24 files through
-   ``examples/wordcount`` submitted with ``submit`` (``radix`` and
-   ``variadic``), the primary SIGKILLed once both read RUNNING in
+   ``examples/wordcount`` submitted with ``submit --program wave``
+   (``radix`` and ``variadic``), the primary SIGKILLed once both read
+   RUNNING in
    ``tasks --json``: the standby promotes, both tasks reach DONE, each
    result equals ``Counter`` and the same task's bytes through
    ``Server`` on a ``dir:`` board, and, once the runner has stopped, a
@@ -222,12 +228,42 @@ which raises on failure:
    the launches of the five word-count kernels counted around the run
    (equal to the two ``dir:`` runs' summed), no plain call, each kernel
    held bit for bit against its plain version on the inputs of its
-   largest call; (d) every process reaped under a timeout.  Phase 8's
+   largest call; (d) the runner's admission advisor, fed the runner's
+   own facts (``wave`` warm: phase 1 built the libraries), routes both
+   tasks to its placement, each pick an ``admission`` decision counted
+   on ``/clusterz``; every process reaped under a timeout.  Phase 8's
    sustained cases run ``measure_sustained``'s scheduler churn thread
    and report ``submit_first_snapshot_p99_s``;
-15. one JSON line of per-kernel numbers (the word-count kernels' with
-   their phase 13 and 14 launches beside), the smoke's wall, then the
-   card and the result line.
+15. the self-tuning controllers (``control`` lines): (a)
+   ``bench.py``'s ``measure_skew_rebalance`` ported: a resident stream
+   of ``control_map_fn`` records (the chunk values are the keys) on
+   ``Partitions(8, "cuda")``, radix, with a partition map, every skewed
+   key congruent to partition 5 under the identity map and spread over
+   its buckets, ``out_capacity`` sized so the balanced population fits
+   a partition and the skewed one cannot; a uniform and a skewed stream
+   with ``AutoTuner(min_records=keys_per_round // 2)`` attached, a warm
+   feed outside the timed window, then the skewed feeds again without a
+   controller; at the bench's size (C = 4096, 4 rounds) and at a real
+   stream's state (C = 1<<18 a partition, 8192 values a chunk, 4
+   waves a feed): ``skewed_wall_ratio`` (skewed wall over uniform
+   wall), each window's recv imbalance (the last below the first), at
+   least one rebalance and a ``repartition`` decision resolved
+   ``improved``, the snapshot equal to host truth (``np.unique`` over
+   the fed keys), the uncontrolled run overflowing, the radix kernels
+   launched (no plain call) and held against their plain versions on
+   their largest inputs; the wall a round and each rebalance's host
+   re-bin split (``lanes_to_host``, ``repartition_rows``,
+   ``lanes_to_device``); (b) phase 8's first tenant at P = 1 under the
+   sustained config with its exchange capacity 1<<15, which the
+   tenant's feed overflows: an autotuned ``DeviceEngine`` run retries
+   and teaches the controller, an ``EngineSession`` of the program is
+   pre-sized at its door and feeds overflow-free, and a second run
+   retries no more; one ``capacity`` decision, resolved ``improved``;
+   counts against ``Counter``; tokenize and segreduce launched, no
+   plain call;
+16. one JSON line of per-kernel numbers (the word-count kernels' with
+   their phase 13, 14 and 15 launches beside), the smoke's wall, then
+   the card and the result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
 flash kernels sum in another order than their plain versions: out, dq,
@@ -2088,7 +2124,8 @@ def topk_session(torch, kc, wcmod, topk, Partitions, data):
 
 def session_phase(torch, kc, wcmod, Partitions, plan_rebalance, tok, data,
                   chunks, want, smi):
-    """Phase 8: the resident sessions (the ``session`` line)."""
+    """Phase 8: the resident sessions (the ``session`` line).  Returns
+    the tenants' records (phase 15 (b) feeds one again)."""
     from mapreduce_tpu_torch.corpus import make_corpus
     from mapreduce_tpu_torch.engine import session as smod
     from mapreduce_tpu_torch.engine import spill
@@ -2118,6 +2155,7 @@ def session_phase(torch, kc, wcmod, Partitions, plan_rebalance, tok, data,
     out["topk"] = part("topk", topk_session(torch, kc, wcmod, topk,
                                             Partitions, data))
     print(json.dumps({"session": out}))
+    return tenants
 
 
 #: the job plane's files: the slice's corpus cut into this many files of
@@ -2221,16 +2259,20 @@ class PathInputs:
     segmented reduce and the radix sort through ``ops.segscan``, the
     exchange plan through ``parallel.shuffle``) and keeps a copy of the
     inputs of each one's largest call in the run (one ``clone`` on the
-    stream each time a call is larger than any before it).
-    :func:`hold_path_inputs` then holds each kernel against its plain
-    version on exactly those inputs."""
+    stream each time a call is larger than any before it; with
+    *latest*, also each time one is as large, so the last of the largest
+    calls is kept: a session's first fold may route no row to a
+    partition, its last ones do).  :func:`hold_path_inputs` then holds
+    each kernel against its plain version on exactly those inputs."""
 
-    def __init__(self, torch, seg, shuffle):
+    def __init__(self, torch, seg, shuffle, latest=False):
         self.torch, self.seg, self.shuffle = torch, seg, shuffle
+        self.latest = latest
         self.inputs = {}
 
     def _keep(self, name, n, args):
-        if n > self.inputs.get(name, (-1, None))[0]:
+        have = self.inputs.get(name, (-1, None))[0]
+        if n > have or (self.latest and n == have):
             def copy(a):
                 if isinstance(a, self.torch.Tensor):
                     return a.clone()
@@ -2334,9 +2376,13 @@ def jobplane_cli_run(torch, kc, seg, rs, shuffle, cli, spec, rec, conf,
     (:class:`PathInputs`) and the kernel held against its plain version
     on them once the run's counts are read."""
     import contextlib
+    import hashlib
     import io
 
+    from mapreduce_tpu_torch.obs.metrics import REGISTRY
+
     reset_example(spec, rec.wcmod, conf)
+    decisions0 = REGISTRY.sum("mrtpu_control_decisions_total")
     kc.reset_counts()
     out, err = io.StringIO(), io.StringIO()
     t0 = time.monotonic()
@@ -2365,7 +2411,14 @@ def jobplane_cli_run(torch, kc, seg, rs, shuffle, cli, spec, rec, conf,
     held = hold_path_inputs(torch, seg, rs, label, cap.inputs, held_need)
     del cap
     tm = run["server"]._last_device_timings
+    server = run["server"]
     return {"run": label, "loop_wall_s": run["loop_wall_s"],
+            "stdout_sha256": hashlib.sha256(
+                out.getvalue().encode()).hexdigest(),
+            "controllers": {"reclaim": server.reclaim is not None,
+                            "autotune": server.autotune is not None},
+            "control_decisions": REGISTRY.sum(
+                "mrtpu_control_decisions_total") - decisions0,
             "cli_wall_s": wall, "prepare_s": tm["prepare_s"],
             "engine_s": tm["engine_s"], "compute_s": tm["compute_s"],
             "upload_s": tm["upload_s"], "readback_s": tm["readback_s"],
@@ -2398,10 +2451,15 @@ def jobplane_phase(torch, kc, seg, rs, data, want, smi):
     want_str = {w.decode(): c for w, c in want.items()}
     out = {"card": smi, "files": len(files), "bytes": len(data)}
     with LoopRecorder(server_mod, jwc) as rec:
-        # (a) the flagship word count through the framework
+        # (a) the flagship word count through the framework, with the
+        # CLI's controllers on (its default), and once more at P = 1
+        # with them off: the same stdout, byte for byte
         base = ["tokenize", "segreduce"]
         for label, extra, need, held_need in (
                 ("p1_variadic", [], base, ["segreduce"]),
+                ("p1_variadic_no_controllers",
+                 ["--no-autotune", "--no-speculative-reclaim"], base,
+                 ["segreduce"]),
                 ("p8_radix", ["--partitions", str(RADIX_PARTS),
                               "--sort-impl", "radix"],
                  base + ["radix_upfront", "radix_onesweep", "radix_plan"],
@@ -2412,6 +2470,17 @@ def jobplane_phase(torch, kc, seg, rs, data, want, smi):
                 held_need)
             print(json.dumps({"jobplane": line}), flush=True)
             out[label] = line
+        on, off = out["p1_variadic"], out["p1_variadic_no_controllers"]
+        check(on["controllers"] == {"reclaim": True, "autotune": True}
+              and off["controllers"] == {"reclaim": False,
+                                         "autotune": False},
+              f"job plane: controllers {on['controllers']} / "
+              f"{off['controllers']}")
+        check(on["stdout_sha256"] == off["stdout_sha256"],
+              "job plane: stdout with the controllers on differs from "
+              "stdout with them off")
+        check(off["control_decisions"] == 0, "job plane: a run without "
+              f"controllers recorded {off['control_decisions']} decisions")
 
         # (b) the device plane against the host plane: a dir: board,
         # shared: storage, 4 worker threads, 4 reducers
@@ -3161,11 +3230,19 @@ def netplane_split(procs, client, board, blob, token, data_small, root):
     rpcs = rpc_count(client) - rpcs0
     # the blob plane's bytes of every process of the run, as they pushed
     # them (each process flushes once more as it exits)
-    moved = Counter()
+    moved, decisions = Counter(), Counter()
     for name, labels, value in client.clusterz()["mrtpuCluster"]["metrics"]:
         if name.startswith("mrtpu_blob_"):
             kind = name.split("_")[2]  # raw | wire
             moved[f"{labels['direction']}_{kind}_{labels['encoding']}"] += value
+        elif name == "mrtpu_control_decisions_total":
+            # the server process runs the CLI's controllers (default on)
+            decisions[f"{labels['controller']}/{labels['outcome']}"] += \
+                value
+    # no worker straggles here: the re-claimer must not have acted
+    check(not any(k.startswith("reclaim/") for k in decisions),
+          f"netplane (b): re-claim decisions without a straggler: "
+          f"{dict(decisions)}")
     stats = json.loads(procs.text("split_server").strip().splitlines()[-1])
     st = HttpStorage(blob, auth_token=token)
     got = {}
@@ -3194,6 +3271,7 @@ def netplane_split(procs, client, board, blob, token, data_small, root):
             "server_cli_wall_s": wall, "map_jobs": stats["map"]["count"],
             "reduce_jobs": stats["reduce"]["count"],
             "board_rpcs": rpcs, "rpcs_per_job": rpcs / n_jobs,
+            "control_decisions": dict(decisions),
             "blob_bytes": dict(moved),
             "jobs_by_worker": dict(ran), "map_jobs_by_proc": maps_by_proc,
             "result_blobs": len(names),
@@ -3729,6 +3807,7 @@ def service_processes(procs, root, ha, files, token, refs, want_str):
                     *[p[r] for r in ("taskfn", "mapfn", "partitionfn",
                                      "reducefn", "finalfn", "storage")],
                     "--db", f"svc_{tenant}", "--device", "--est-jobs", "1",
+                    "--program", "wave",
                     "--init-args", json.dumps(p["init_args"]))
     ids = {}
     for tenant, _ in SERVICE_TENANTS:
@@ -3779,6 +3858,19 @@ def service_processes(procs, root, ha, files, token, refs, want_str):
     time.sleep(1.5)  # two pushes of the runner's telemetry
     client = HttpDocStore(survivor, auth_token=token)
     slo = cluster_slo(client)
+    # (d) the runner's advisor: it registered its own facts, the libraries
+    # phase 1 built make "wave" warm there, and a one-candidate pick is
+    # recorded only when warm, so each task's admission is a decision
+    admission = sum(
+        v for n, labels, v in client.clusterz()["mrtpuCluster"]["metrics"]
+        if n == "mrtpu_control_decisions_total"
+        and labels.get("controller") == "admission")
+    check(admission >= len(SERVICE_TENANTS), f"service (d): {admission} "
+          "admission decisions on /clusterz for "
+          f"{len(SERVICE_TENANTS)} tasks")
+    meshes = {t: docs[ids[t]].get("mesh") for t, _ in SERVICE_TENANTS}
+    check(len(set(meshes.values())) == 1 and None not in meshes.values(),
+          f"service (d): the tasks' placements {meshes}")
     tasks = {}
     for tenant, impl in SERVICE_TENANTS:
         d = docs[ids[tenant]]
@@ -3828,6 +3920,7 @@ def service_processes(procs, root, ha, files, token, refs, want_str):
         "runner_start_s": runner_start_s, "kill_to_promotion_s":
         promotion_s, "kill_to_both_done_s": done_s,
         "tasks_polls": polls, "tasks": tasks,
+        "admission_decisions": admission, "placements": meshes,
         "replay_equal_collections": len(colls)}
 
 
@@ -3984,6 +4077,365 @@ def service_phase(torch, kc, seg, rs, data, want, smi):
     return launches
 
 
+# -- phase 15: the self-tuning controllers ------------------------------------
+
+#: the phase's device (a CPU rehearsal of the phase sets "cpu")
+CONTROL_DEV = "cuda"
+#: phase 15 (a): bench.py's measure_skew_rebalance at its own size
+#: (smoke=False: C = 4096 rows a partition, 4 rounds, 32-value chunks),
+#: then a real stream's state: C = 1<<18 a partition (8 x 262,144
+#: resident rows, ~420K distinct keys over the rounds) with 8192-value
+#: chunks, so a feed is 4 waves
+SKEW_SIZES = (("bench", 4096, 4, 32), ("stream", 1 << 18, 4, 8192))
+#: chunks a partition a wave (bench.py's k)
+SKEW_K = 2
+#: the kernels of the skewed session's path (radix, no tokenizer)
+SKEW_KERNELS = ("segreduce", "radix_plan", "radix_upfront",
+                "radix_onesweep")
+
+
+def control_map_fn(chunk, chunk_index, cfg):
+    """Torch twin of ``bench._control_map_fn``: the chunk VALUES are the
+    key_hi hashes verbatim, so the corpus chooses the partition and the
+    bucket of every record (a skewed and a uniform corpus run the same
+    program and differ only in routing)."""
+    import torch
+
+    c = chunk.to(torch.int64)
+    keys = torch.stack([c, c % 17], dim=-1).to(torch.int32)
+    vals = torch.ones(c.shape, dtype=torch.int32, device=c.device)
+    pay = (c % 97).to(torch.int32)[:, None]
+    valid = torch.ones(c.shape, dtype=torch.bool, device=c.device)
+    return (keys, vals, pay, valid,
+            torch.zeros((), dtype=torch.int32, device=c.device))
+
+
+def skew_feeds(B, P, C, rounds, rows):
+    """``bench.measure_skew_rebalance``'s corpus, in its draw order: the
+    uniform run's warm feed and rounds, then the skewed run's.  Every
+    skewed key is congruent to partition 5 under the identity map and
+    spread over B / P buckets."""
+    import numpy as np
+
+    keys_per_round = max(64, int(C * 0.4))
+    hot = 5 % P
+    rng = np.random.default_rng(7)
+
+    def corpus_round(r, skewed):
+        ids = np.arange(r * keys_per_round, (r + 1) * keys_per_round,
+                        dtype=np.int64)
+        if skewed:
+            group = ids % (B // P)
+            k = ids * np.int64(B) + group * np.int64(P) + hot
+        else:
+            k = ids * np.int64(B) + (ids % np.int64(B))
+        draw = rng.choice(k, size=keys_per_round * 4)
+        pad = (-draw.size) % rows
+        draw = np.concatenate([draw, draw[:pad]])
+        return draw.reshape(-1, rows).astype(np.int32)
+
+    out = {}
+    for skewed in (False, True):
+        out[skewed] = ([corpus_round(0, skewed)[:2]]
+                       + [corpus_round(r, skewed) for r in range(rounds)])
+    return out, keys_per_round
+
+
+class RebalanceTimer:
+    """Times a session's rebalances, split into the host re-bin's three
+    steps (``lanes_to_host`` -> ``repartition_rows`` ->
+    ``lanes_to_device``), by wrapping the session module's names while
+    a rebalance runs."""
+
+    STEPS = ("lanes_to_host", "repartition_rows", "lanes_to_device")
+
+    def __init__(self, smod, sess):
+        self.smod, self.sess = smod, sess
+        self.calls = []
+        self._on = False
+
+    def __enter__(self):
+        real = self.sess.rebalance
+        self.real_steps = {n: getattr(self.smod, n) for n in self.STEPS}
+        timer = self
+
+        def step(name, fn):
+            def timed(*a, **kw):
+                if not timer._on:
+                    return fn(*a, **kw)
+                t0 = time.monotonic()
+                out = fn(*a, **kw)
+                timer.calls[-1][name] = (timer.calls[-1].get(name, 0.0)
+                                         + time.monotonic() - t0)
+                return out
+            return timed
+
+        def rebalance(task, pmap):
+            self.calls.append({})
+            self._on = True
+            t0 = time.monotonic()
+            try:
+                return real(task, pmap)
+            finally:
+                self._on = False
+                self.calls[-1]["total_s"] = time.monotonic() - t0
+
+        for n, fn in self.real_steps.items():
+            setattr(self.smod, n, step(n, fn))
+        self.sess.rebalance = rebalance
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real_steps.items():
+            setattr(self.smod, n, fn)
+        del self.sess.rebalance
+        return False
+
+
+def skew_truth(feeds):
+    """Host truth of a control stream: each key_hi and its count."""
+    import numpy as np
+
+    return np.unique(np.concatenate([f.reshape(-1) for f in feeds]),
+                     return_counts=True)
+
+
+def skew_snapshot_equal(torch, snap, truth):
+    """The snapshot's (key, count) pairs against *truth*, and its second
+    key lane and payload against their functions of the key."""
+    import numpy as np
+
+    valid = snap.valid.numpy()
+    keys = snap.keys.numpy()[valid]
+    order = np.argsort(keys[:, 0], kind="stable")
+    k1 = keys[order, 0]
+    vals = snap.values.numpy()[valid][order]
+    want_k, want_n = truth
+    return (snap.overflow == 0 and np.array_equal(k1, want_k)
+            and np.array_equal(vals, want_n)
+            and np.array_equal(keys[order, 1], k1 % 17)
+            and np.array_equal(snap.payload.numpy()[valid][order, 0],
+                               k1 % 97))
+
+
+def skew_case(torch, kc, seg, rs, shuffle, smod, Partitions, label, C,
+              rounds, rows):
+    """Phase 15 (a) at one size: bench.py's measure_skew_rebalance
+    ported (a uniform and a skewed stream, each with an ``AutoTuner``
+    attached, the warm feed outside the timed window), then the skewed
+    feeds once more without a controller."""
+    from mapreduce_tpu_torch.engine.autotune import AutoTuner
+    from mapreduce_tpu_torch.engine.device_engine import (
+        EngineConfig, partition_buckets_for)
+    from mapreduce_tpu_torch.obs.comms import matrix_stats
+    from mapreduce_tpu_torch.obs.control import ControlLedger
+
+    P = RADIX_PARTS
+    if label == "bench":
+        # bench.py's own capacities: local 4C, a pair's exchange 256
+        # (each partition's wave holds k * 32 = 64 uniques)
+        local, exchange = 4 * C, 256
+    else:
+        # what routes: a partition's wave holds k * rows records, so at
+        # most that many uniques, all of which may go to one partition
+        local = exchange = SKEW_K * rows
+    cfg = EngineConfig(local_capacity=local, exchange_capacity=exchange,
+                       out_capacity=C, tile=64, tile_records=32,
+                       partition_map=True, sort_impl="radix")
+    B = partition_buckets_for(cfg, P)
+    feeds, keys_per_round = skew_feeds(B, P, C, rounds, rows)
+    ledger = ControlLedger()
+
+    def run(skewed, controlled):
+        tuner = (AutoTuner(ledger=ledger, min_records=keys_per_round // 2)
+                 if controlled else None)
+        sess = smod.EngineSession(Partitions(P, CONTROL_DEV),
+                                  control_map_fn, cfg, k=SKEW_K,
+                                  autotune=tuner, task="skew-bench")
+        task = "skewed" if skewed else "uniform"
+        warm, *timed = feeds[skewed]
+        on = "raise" if controlled else "count"
+        kc.reset_counts()
+        with RebalanceTimer(smod, sess) as reb, \
+                PathInputs(torch, seg, shuffle, latest=True) as cap:
+            sess.feed(warm, task=task, on_overflow=on)
+            imb, walls = [], []
+            last = sess.traffic_matrix(task).astype("int64")
+            t0 = time.monotonic()
+            for chunk in timed:
+                t1 = time.monotonic()
+                sess.feed(chunk, task=task, on_overflow=on)
+                cur = sess.traffic_matrix(task).astype("int64")
+                walls.append(time.monotonic() - t1)
+                imb.append(matrix_stats((cur - last).tolist())
+                           ["imbalance_recv"])
+                last = cur
+            wall = time.monotonic() - t0
+        launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+        out = {"wall_s": wall, "round_wall_s": walls, "imbalance": imb,
+               "stats": sess.stats(task), "rebalance_s": reb.calls,
+               "launches": {k: launches[k] for k in SKEW_KERNELS},
+               "plain_calls": sum(plain.values()), "inputs": cap.inputs,
+               "resident_bytes": acc_bytes(sess, task)}
+        if controlled and skewed:
+            out["snapshot_equal"] = skew_snapshot_equal(
+                torch, sess.snapshot(task), skew_truth(feeds[True]))
+        sess.close()
+        return out
+
+    uniform = run(False, True)
+    skewed = run(True, True)
+    held = hold_path_inputs(torch, seg, rs, f"control {label}",
+                            skewed.pop("inputs"),
+                            ["segreduce", "radix_sort", "radix_plan"])
+    uniform.pop("inputs")
+    bare = run(True, False)
+    bare.pop("inputs")
+    imb = skewed["imbalance"]
+    decs = ledger.decisions("repartition")
+    check(imb[-1] < imb[0], f"control {label}: the skewed stream's "
+          f"imbalance did not fall across windows: {imb}")
+    check(skewed["stats"].get("rebalances", 0) >= 1,
+          f"control {label}: no rebalance: {skewed['stats']}")
+    check(any(d["outcome"] == "improved" for d in decs),
+          f"control {label}: no repartition decision resolved improved: "
+          f"{decs}")
+    check(skewed["snapshot_equal"], f"control {label}: the skewed "
+          "stream's snapshot differs from host truth")
+    check(bare["stats"]["overflow"] > 0, f"control {label}: the skewed "
+          "feeds without a controller did not overflow")
+    check(all(v > 0 for v in skewed["launches"].values())
+          and skewed["plain_calls"] == 0,
+          f"control {label}: launches {skewed['launches']}, plain calls "
+          f"{skewed['plain_calls']}")
+    return {
+        "size": label, "out_capacity": C, "local_capacity": local,
+        "exchange_capacity": exchange, "rounds": rounds,
+        "values_a_chunk": rows, "k": SKEW_K,
+        "keys_per_round": keys_per_round,
+        "records_a_round": int(feeds[True][1].size),
+        "skewed_wall_ratio": skewed["wall_s"] / uniform["wall_s"],
+        "skew_uniform_wall_s": uniform["wall_s"],
+        "skew_skewed_wall_s": skewed["wall_s"],
+        "skew_imbalance_first": imb[0], "skew_imbalance_last": imb[-1],
+        "skew_imbalance": imb,
+        "uniform_imbalance": uniform["imbalance"],
+        "skew_rebalance_decisions": sum(
+            1 for d in decs if d["outcome"] != "error"
+            and d["task"] == "skewed"),
+        "decisions": [{k: d.get(k) for k in (
+            "task", "outcome", "evidence", "action", "outcome_evidence")}
+            for d in decs],
+        "skewed_round_wall_s": skewed["round_wall_s"],
+        "uniform_round_wall_s": uniform["round_wall_s"],
+        "rebalance_s": skewed["rebalance_s"],
+        "skewed_stats": skewed["stats"],
+        "resident_bytes": skewed["resident_bytes"],
+        "uncontrolled_overflow_rows": bare["stats"]["overflow"],
+        "launches": skewed["launches"], "plain_calls": 0, "held": held,
+        "snapshot_equal_host_truth": True}
+
+
+def capacity_case(torch, kc, seg, shuffle, wcmod, Partitions, tenant):
+    """Phase 15 (b): a tenant of phase 8 at P = 1 under the sustained
+    config, whose exchange capacity (1<<15) the tenant's one-wave feed
+    overflows: (1) an autotuned run retries and teaches the controller,
+    (2) a session of the same program pre-sized at its door feeds the
+    tenant overflow-free, (3) another run retries no more."""
+    from mapreduce_tpu_torch.engine import session as smod
+    from mapreduce_tpu_torch.engine.autotune import AutoTuner
+    from mapreduce_tpu_torch.engine.device_engine import (
+        DeviceEngine, EngineConfig)
+    from mapreduce_tpu_torch.obs.control import ControlLedger
+
+    rows, want, _ = tenant
+    cfg = EngineConfig(**SESSION_CONFIG)
+    ledger = ControlLedger()
+    tuner = AutoTuner(ledger=ledger, repartition=False)
+    parts = Partitions(1, CONTROL_DEV)
+    steps = {}
+    kc.reset_counts()
+    with PathInputs(torch, seg, shuffle) as cap:
+        t0 = time.monotonic()
+        eng = DeviceEngine(parts, wcmod._wordcount_map_fn, cfg,
+                           task="capacity", autotune=tuner)
+        tm1 = {}
+        r1 = eng.run(rows, timings=tm1)
+        steps["run_1_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        sess = smod.EngineSession(parts, wcmod._wordcount_map_fn, cfg,
+                                  task="capacity", autotune=tuner)
+        oflow = sess.feed(rows, task="t0")
+        snap = sess.snapshot("t0")
+        steps["session_feed_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        tm2 = {}
+        r2 = DeviceEngine(parts, wcmod._wordcount_map_fn, cfg,
+                          task="capacity", autotune=tuner).run(
+            rows, timings=tm2)
+        steps["run_2_s"] = time.monotonic() - t0
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    key = eng.autotune_key()
+    learned = dict(tuner.capacity._state[key]["caps"])
+    decs = ledger.decisions("capacity")
+    check(tm1["retries"] >= 1, "control (b): the mis-sized run did not "
+          "retry")
+    check(sess.config.exchange_capacity > cfg.exchange_capacity,
+          f"control (b): the session was not pre-sized: {sess.config}")
+    check(oflow == 0 and snap.overflow == 0,
+          f"control (b): the pre-sized session's first feed overflowed "
+          f"{oflow} rows")
+    check(tm2["retries"] == 0, f"control (b): the second run retried "
+          f"{tm2['retries']} times")
+    check(len(decs) == 1 and decs[0]["outcome"] == "improved",
+          f"control (b): capacity decisions {decs}")
+    for label, res in (("run 1", r1), ("run 2", r2), ("session", snap)):
+        check(wcmod.materialize_counts(rows, res) == want,
+              f"control (b): {label}'s counts differ from Counter")
+    check_launches(launches, plain, "control (b)", False)
+    held = hold_path_inputs(torch, seg, None, "control (b)", cap.inputs,
+                            ["segreduce"])
+    sess.close()
+    return {
+        "exchange_capacity": cfg.exchange_capacity,
+        "retries_run_1": tm1["retries"], "retries_run_2": tm2["retries"],
+        "learned": learned, "session_config": {
+            k: getattr(sess.config, k) for k in (
+                "local_capacity", "exchange_capacity", "out_capacity",
+                "combine_capacity")},
+        "session_first_feed_overflow": oflow,
+        "decision": {k: decs[0].get(k) for k in (
+            "outcome", "evidence", "action", "outcome_evidence", "note")},
+        "seconds": steps, "compute_s_run_1": tm1["compute_s"],
+        "compute_s_run_2": tm2["compute_s"],
+        "launches": {k: launches[k] for k in ("tokenize", "segreduce")},
+        "plain_calls": 0, "held": held}
+
+
+def control_phase(torch, kc, seg, rs, wcmod, Partitions, tenants, smi):
+    """Phase 15: the self-tuning controllers (the ``control`` lines).
+    Returns the launches of (a)'s controlled skewed stream at the
+    stream size and of (b)."""
+    from mapreduce_tpu_torch.engine import session as smod
+    from mapreduce_tpu_torch.parallel import shuffle
+
+    t_phase = time.monotonic()
+    launches = {}
+    for label, C, rounds, rows in SKEW_SIZES:
+        line = skew_case(torch, kc, seg, rs, shuffle, smod, Partitions,
+                         label, C, rounds, rows)
+        line["card"] = smi
+        print(json.dumps({"control": {"skew": line}}), flush=True)
+        launches[f"skew_{label}"] = line["launches"]
+    line = capacity_case(torch, kc, seg, shuffle, wcmod, Partitions,
+                         tenants[SESSION_TENANTS[0]])
+    line["card"] = smi
+    line["phase_s"] = time.monotonic() - t_phase
+    print(json.dumps({"control": {"capacity": line}}), flush=True)
+    launches["capacity"] = line["launches"]
+    return launches
+
+
 #: the run's start, for the whole smoke's wall time
 T_START = time.monotonic()
 
@@ -4121,8 +4573,8 @@ def main():
     tiered_phase(torch, kc, wcmod, tiering, Partitions, data, want, rmatrix)
 
     # phase 8: the resident sessions
-    session_phase(torch, kc, wcmod, Partitions, plan_rebalance, tok, data,
-                  chunks, want, smi)
+    tenants = session_phase(torch, kc, wcmod, Partitions, plan_rebalance,
+                            tok, data, chunks, want, smi)
 
     # phase 9: the job plane, through the CLI and the Server
     jobplane = jobplane_phase(torch, kc, seg, rs, data, want, smi)
@@ -4144,6 +4596,10 @@ def main():
     # phase 14: the always-on service
     service_launches = service_phase(torch, kc, seg, rs, data, want, smi)
 
+    # phase 15: the self-tuning controllers
+    control_launches = control_phase(torch, kc, seg, rs, wcmod, Partitions,
+                                     tenants, smi)
+
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     for kern in radix_kernels:
@@ -4157,6 +4613,11 @@ def main():
             for run, counts in net_launches.items()}
         # and on phase 14 (c)'s two tasks in one in-process runner
         kern["launches_service"] = service_launches[kern["name"]]
+        # and on phase 15's controlled skewed stream (both sizes) and
+        # its capacity case
+        kern["launches_control"] = {
+            run: counts.get(kern["name"], 0)
+            for run, counts in control_launches.items()}
     kernels += radix_kernels + flash_kernels
     print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START}}))
     print(smi)

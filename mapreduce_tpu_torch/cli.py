@@ -73,13 +73,21 @@ card, with a pool of cross-tenant worker threads for the host plane.
 ``submit --device`` queues a device task; its sort travels in its
 ``--init-args`` (``device_sort_impl``).
 
+The controllers (``engine/autotune``) are on by default for ``server``
+and ``wordcount``, as in the JAX CLI: ``--autotune`` attaches the
+capacity autotuner to the device phase's engine and
+``--speculative-reclaim`` the straggler re-claim to the host plane's
+poll loop (``--no-autotune`` / ``--no-speculative-reclaim`` turn them
+off).  ``submit --program TOKEN`` names the program the runner's
+admission advisor keys warmth on (e.g. ``wave``); the runner registers
+its own placement facts with that advisor and refreshes them while it
+serves.
+
 JAX flags the port does not offer yet are refused by name, their help
-naming the ROADMAP item that brings them: ``--autotune`` and
-``--speculative-reclaim`` (A.7); the docserver's ``--history-*``,
-``--alert*`` and ``--slo`` and the runner's ``--slo`` (A.8);
-``--compile-cache`` (A.8); the submit's ``--program`` (A.7, the
-admission advisor's key).  The ``drain`` and ``status`` commands wait
-for A.11 and A.8.
+naming the ROADMAP item that brings them: the docserver's
+``--history-*``, ``--alert*`` and ``--slo`` and the runner's ``--slo``
+(A.8); ``--compile-cache`` (A.8).  The ``drain`` and ``status``
+commands wait for A.11 and A.8.
 """
 
 from __future__ import annotations
@@ -215,12 +223,41 @@ def _refuse(p: argparse.ArgumentParser, item: str, *flags: str,
                        default=argparse.SUPPRESS)
 
 
-def _refuse_job_flags(p: argparse.ArgumentParser) -> None:
-    """The JAX job commands' flags that wait for the autotune
-    controllers (A.7) and the compile observability (A.8)."""
-    _refuse(p, "ROADMAP A.7", "--autotune", "--no-autotune",
-            "--speculative-reclaim", "--no-speculative-reclaim")
+def _add_controllers(p: argparse.ArgumentParser) -> None:
+    """The job commands' controller switches, on by default as in the
+    JAX CLI (library Servers default both off), and the compile-cache
+    flags that wait for A.8."""
+    p.add_argument("--autotune", dest="autotune", action="store_true",
+                   default=True,
+                   help="capacity autotuning of the device phase's "
+                        "engine (engine/autotune): pre-size capacities "
+                        "from capacity-retry forensics; decisions land "
+                        "in the control ledger (default ON)")
+    p.add_argument("--no-autotune", dest="autotune",
+                   action="store_false")
+    p.add_argument("--speculative-reclaim", dest="reclaim",
+                   action="store_true", default=True,
+                   help="straggler-driven speculative re-claim of "
+                        "host-plane jobs: a RUNNING job held far beyond "
+                        "every other worker's completed-job profile is "
+                        "re-claimed before its lease expires; "
+                        "exactly-once rides the claim fencing (default "
+                        "ON)")
+    p.add_argument("--no-speculative-reclaim", dest="reclaim",
+                   action="store_false")
     _refuse(p, "ROADMAP A.8", "--compile-cache", "--no-compile-cache")
+
+
+def _attach_controllers(server, args) -> None:
+    """``--speculative-reclaim`` and ``--autotune`` onto a Server (the
+    autotuner without its skew controller: a batch run has no stream
+    to rebalance)."""
+    from .engine.autotune import AutoTuner, SpeculativeReclaimer
+
+    if args.reclaim:
+        server.reclaim = SpeculativeReclaimer()
+    if args.autotune:
+        server.autotune = AutoTuner(repartition=False)
 
 
 def _setup_logging(verbose: int) -> None:
@@ -254,7 +291,7 @@ def cmd_wordcount(argv: List[str]) -> int:
                    default="cuda",
                    help="where the device engine runs; 'cpu' runs each "
                         "kernel's plain PyTorch version")
-    _refuse_job_flags(p)
+    _add_controllers(p)
     _add_trace(p)
     _add_verbosity(p)
     args = p.parse_args(argv)
@@ -295,6 +332,7 @@ def cmd_wordcount(argv: List[str]) -> int:
         return REGISTRY.sum("mrtpu_storage_bytes_total", direction=direction)
 
     server = Server(connstr, "wc")
+    _attach_controllers(server, args)
     server.configure(params)
     # the summary's storage bytes are this run's: deltas around the loop
     before = {d: storage_bytes(d) for d in ("write", "read")}
@@ -482,7 +520,7 @@ def cmd_server(argv: List[str]) -> int:
                    help="JSON passed to every module init()")
     p.add_argument("--result-ns", default=None)
     _add_telemetry(p)
-    _refuse_job_flags(p)
+    _add_controllers(p)
     _add_auth(p)
     _add_retry(p)
     _add_trace(p)
@@ -511,6 +549,7 @@ def cmd_server(argv: List[str]) -> int:
         params["result_ns"] = args.result_ns
     server = Server(args.connstr, args.dbname, auth=args.auth,
                     retry=_retry_policy(args))
+    _attach_controllers(server, args)
     server.telemetry_interval = args.telemetry_interval
     server.configure(params)
     stats = server.loop()
@@ -810,8 +849,13 @@ def cmd_submit(argv: List[str]) -> int:
                    help="declared input bytes (quota accounting)")
     p.add_argument("--init-args", default=None,
                    help="JSON passed to every module init()")
-    _refuse(p, "ROADMAP A.7: the admission advisor", "--program",
-            takes_value=True)
+    p.add_argument("--program", default=None,
+                   help="program token this task's device phase "
+                        "dispatches (e.g. wave): the runner's admission "
+                        "advisor routes it to a placement where serving "
+                        "it needs no kernel build; without it the task "
+                        "kind is the key, which matches no token, and "
+                        "warmth routing is inert")
     _add_auth(p)
     _add_verbosity(p)
     args = p.parse_args(argv)
@@ -829,6 +873,8 @@ def cmd_submit(argv: List[str]) -> int:
         params["device"] = True
     if args.init_args:
         params["init_args"] = json.loads(args.init_args)
+    if args.program:
+        params["program"] = args.program
     client = _sched_client(args.connstr, args.auth, "submit")
     if client is None:
         return 2
@@ -911,17 +957,21 @@ def cmd_runner(argv: List[str]) -> int:
     process's partitions of the card) plus a pool of cross-tenant
     workers claiming over every admitted task's board
     (sched/service.py).  Point it at the same CONNSTR the docserver
-    serves; submit work with ``cli submit``.  It joins no engine-host
-    fleet (ROADMAP A.11: no membership, no ``drain``) and admits
-    without the telemetry-informed advisor (A.7)."""
+    serves; submit work with ``cli submit``.  Admission is
+    telemetry-informed: the runner registers its own placement facts
+    (warm program tokens, card memory) with an ``AdmissionAdvisor``
+    under its host id and refreshes them while it serves.  It joins no
+    engine-host fleet (ROADMAP A.11: no membership, no ``drain``), and
+    the SLO objectives wait for A.8."""
     p = argparse.ArgumentParser(
         prog="mapreduce_tpu_torch runner",
         description="The always-on serving process: admission and a "
                     "cross-tenant worker pool over a docserver's "
-                    "scheduler.  It joins no engine-host fleet and "
-                    "takes no drain requests (ROADMAP A.11), and it "
-                    "admits without the telemetry-informed advisor "
-                    "(ROADMAP A.7).")
+                    "scheduler, routed by an admission advisor fed this "
+                    "process's warm programs and card memory.  It joins "
+                    "no engine-host fleet and takes no drain requests "
+                    "(ROADMAP A.11); the SLO objectives wait for "
+                    "ROADMAP A.8.")
     p.add_argument("connstr",
                    help="the job board (http://HOST:PORT docserver — "
                         "or the HA replica set http://H1:P1,H2:P2, the "
@@ -960,6 +1010,7 @@ def cmd_runner(argv: List[str]) -> int:
     _setup_trace(args)
 
     from .coord import docstore
+    from .engine.autotune import AdmissionAdvisor, local_mesh_facts
     from .obs.collector import acquire_pusher, release_pusher
     from .parallel.mesh import Partitions
     from .sched.scheduler import Scheduler, SchedulerConfig
@@ -971,8 +1022,22 @@ def cmd_runner(argv: List[str]) -> int:
     # serve device tasks fails here, before it takes the admission lease
     parts = Partitions(args.partitions, args.torch_device)
     store = docstore.connect(args.connstr, auth=args.auth, retry=retry)
+    # telemetry-informed admission: this process hosts the admitted
+    # tasks' engines, so ITS warm programs and card memory are the
+    # placement facts, registered under a per-process host id (two
+    # runners on one board must not clobber each other) and refreshed
+    # while it serves
+    import os
+    import socket
+
+    advisor = AdmissionAdvisor()
+    # the JAX fleet's default_host_id spelling
+    host_id = f"{socket.gethostname()}:{os.getpid()}"
+    warm, hbm = local_mesh_facts()
+    advisor.register_mesh(host_id, warm_programs=warm, hbm_frac=hbm)
     scheduler = Scheduler(
-        store, config=SchedulerConfig(max_inflight=args.max_inflight))
+        store, config=SchedulerConfig(max_inflight=args.max_inflight),
+        advisor=advisor)
     # normalized HOST:PORT (the one embedded-token parser): a TOKEN@
     # connstr must key the SAME shared pusher the pool's workers use
     board, embedded = None, None
@@ -998,6 +1063,11 @@ def cmd_runner(argv: List[str]) -> int:
         # rejected by the board — exits with the diagnosis, never idles
         # as a zombie advertising workers it no longer has
         while not runner._stop.wait(1.0):
+            # keep the advisor's facts live: warmth grows as tasks build
+            # their kernels, memory moves at every wave
+            warm, hbm = local_mesh_facts()
+            advisor.register_mesh(host_id, warm_programs=warm,
+                                  hbm_frac=hbm)
             if any(w.failed is not None for w in pool):
                 break
         failure = runner.failed or next(

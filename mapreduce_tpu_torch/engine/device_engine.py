@@ -42,10 +42,15 @@ The resident sessions (:mod:`.session`) run the same wave per feed:
 the mask bound and the partition table, and carries the cumulative
 traffic lane in the accumulator.
 
+With ``autotune=`` (:class:`..autotune.AutoTuner`) a run is pre-sized
+from what earlier runs of the same program family learned
+(:meth:`DeviceEngine.autotune_key`), teaches the controller at every
+capacity retry, and resolves its decision after the loop; without it
+nothing is recorded and nothing changes.
+
 Left out of this port for now (ROADMAP): the compile ledger and the
-shape registry, the autotune controllers (only ``plan_rebalance`` is
-here), the metrics and memory gauges, custom callable monoids on CUDA,
-multi-process runs.
+shape registry (A.8), the metrics and memory gauges, custom callable
+monoids on CUDA, multi-process runs.
 """
 
 from __future__ import annotations
@@ -224,6 +229,16 @@ def op_token(op) -> str:
     if mod and qual:
         return f"{mod}:{qual}"
     return repr(op)
+
+
+def _capacities(cfg: EngineConfig) -> dict:
+    """The static capacities a retry right-sizes: the before/after
+    payload of the capacity-retry forensics the autotuner learns from."""
+    return {"local_capacity": cfg.local_capacity,
+            "exchange_capacity": cfg.exchange_capacity,
+            "out_capacity": cfg.out_capacity,
+            "tile_records": cfg.tile_records,
+            "combine_capacity": cfg.combine_capacity}
 
 
 def _cfg_token(cfg: EngineConfig) -> str:
@@ -410,12 +425,19 @@ class DeviceEngine:
     STREAM_PREFETCH = 2
 
     def __init__(self, parts: Partitions, map_fn: Callable,
-                 config: EngineConfig = EngineConfig()) -> None:
+                 config: EngineConfig = EngineConfig(),
+                 task: str = "-", autotune=None) -> None:
         _check_impls(config)
         self.device = parts.device
         self.n_dev = parts.n
         self.map_fn = map_fn
         self.config = config
+        #: the observe->act loop (engine/autotune.AutoTuner): None (the
+        #: default) records no decision and pre-sizes no capacity
+        self.autotune = autotune
+        #: the owning task's label ("-" outside the task machinery): the
+        #: task of every control decision this engine's runs record
+        self.task_label = task or "-"
         #: the bucket->partition table (partition_map configs only):
         #: host copy, and its device copy made at first use
         self._pmap_host: Optional[np.ndarray] = None
@@ -431,6 +453,20 @@ class DeviceEngine:
         if self._tier_spec is None:
             self._tier_spec = TierSpecializer()
         return self._tier_spec
+
+    def autotune_key(self) -> str:
+        """The capacity controller's learning key: everything that
+        identifies the PROGRAM FAMILY minus the capacities themselves
+        (two runs of one workload at different capacities, or a run and
+        a session of it, must share a key, or nothing would ever be
+        learned across a resize).  The JAX package's spelling."""
+        cfg = self.config
+        return "|".join([
+            op_token(self.map_fn),
+            op_token(cfg.reduce_op)
+            if callable(cfg.reduce_op) else str(cfg.reduce_op),
+            str(cfg.unit_values), str(cfg.combine_in_scan),
+            str(cfg.sort_impl), str(cfg.tile), str(self.n_dev)])
 
     # -- the partition map ---------------------------------------------------
 
@@ -697,6 +733,12 @@ class DeviceEngine:
             raise ValueError(f"on_overflow must be 'raise' or 'return', "
                              f"got {on_overflow!r}")
         cfg = self.config
+        if self.autotune is not None:
+            # the capacity controller pre-sizes this run from what
+            # earlier runs of the program family learned (the decision
+            # lands in the control ledger)
+            cfg = self.autotune.recommend_config(
+                cfg, self.autotune_key(), task=self.task_label)
         P = self.n_dev
         t_start = time.monotonic()
         feeder = None
@@ -769,7 +811,15 @@ class DeviceEngine:
                 if total_oflow == 0 or attempt == max_retries:
                     break
                 retries = attempt + 1
-                cfg = self._resize(cfg, torch.stack(needs).cpu().numpy())
+                new_cfg = self._resize(cfg,
+                                       torch.stack(needs).cpu().numpy())
+                if self.autotune is not None:
+                    # the controller learns the right-sized capacities,
+                    # so the NEXT run (or session) starts there
+                    self.autotune.note_retry(
+                        self.autotune_key(), _capacities(cfg),
+                        _capacities(new_cfg), task=self.task_label)
+                cfg = new_cfg
                 del acc
                 # the inputs were freed wave by wave: the retry re-uploads
                 if pairs is not None:
@@ -795,6 +845,11 @@ class DeviceEngine:
                 feeder.close()
             if pairs:
                 pairs.clear()
+        if self.autotune is not None:
+            # the next control window's measurement: zero retries after
+            # a pre-sized start resolves the pending capacity decision
+            self.autotune.note_run(self.autotune_key(), retries,
+                                   task=self.task_label)
         if total_oflow and on_overflow == "raise":
             raise RuntimeError(
                 f"device run still overflowed {total_oflow} rows after "

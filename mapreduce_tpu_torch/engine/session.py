@@ -42,8 +42,17 @@ Syncs and streams (the differences from the JAX package):
     the next feed are ordered after the work that wrote the
     accumulator, with no device-wide synchronize.
 
-Left out of this port for now (ROADMAP): the ``autotune=`` hook, the SLO
-and metrics observations and the stream-age gauges.
+Control (``autotune=``, an :class:`..autotune.AutoTuner`): the
+capacity controller pre-sizes the session at its door (a stream cannot
+retry, so learned capacities must land before the first wave), a
+stream's first feed is that decision's measurement, and after every
+feed the skew controller reads the stream's traffic window and may
+rebalance its partition map.  Both run outside the session lock; the
+rebalance's reads and writes of the accumulator are ordered after the
+feed's waves by the events above.
+
+Left out of this port for now (ROADMAP A.8): the SLO and metrics
+observations and the stream-age gauges.
 """
 
 from __future__ import annotations
@@ -133,15 +142,33 @@ class EngineSession:
     wave is padded and masked by ``n_real``, as in a batch run).
     *spill* is the store evicted streams go to, *spill_policy* when they
     go, and *max_pending_feeds* (0: unbounded) how many feeds of one task
-    may wait for the session lock before the next is refused."""
+    may wait for the session lock before the next is refused.
+    *autotune* attaches the controllers (module docstring); the session
+    stays weak-referenceable, since the skew controller keys its window
+    state on it."""
 
     def __init__(self, parts: Partitions, map_fn: Callable,
                  config: EngineConfig = EngineConfig(),
                  k: Optional[int] = None, task: str = "-",
                  spill: Optional[SessionSpillStore] = None,
                  spill_policy: Optional[SpillPolicy] = None,
-                 max_pending_feeds: int = 0) -> None:
-        self.engine = DeviceEngine(parts, map_fn, config)
+                 max_pending_feeds: int = 0, autotune=None) -> None:
+        #: the engine's task label is the session default; per-feed
+        #: labels ride the streams
+        self.engine = DeviceEngine(parts, map_fn, config, task=task)
+        if autotune is not None:
+            # capacity pre-sizing at the door: sessions cannot retry, so
+            # learned capacities must land before the first wave
+            # (autotune_key ignores capacities, so the probe engine's
+            # key IS the tuned one's)
+            tuned = autotune.recommend_config(
+                config, self.engine.autotune_key(), task=task)
+            if tuned is not config:
+                config = tuned
+                self.engine = DeviceEngine(parts, map_fn, config,
+                                           task=task)
+        #: the observe->act loop (None: no decision is ever recorded)
+        self.autotune = autotune
         self.device = self.engine.device
         self.config = config
         self.k = int(k) if k else None
@@ -309,6 +336,17 @@ class EngineSession:
         # housekeeping outside the lock: an eviction this feed causes
         # must not lengthen its critical section
         self.enforce_spill_policy()
+        # the observe->act loop, also outside the lock: the skew
+        # controller reads this feed's traffic window and may rebalance
+        # the stream (its own lock acquisitions; a decision, applied or
+        # refused, lands in the control ledger)
+        if self.autotune is not None:
+            if st.feeds == 1:
+                # a pre-sized stream's FIRST feed is the capacity
+                # decision's measurement window
+                self.autotune.note_session_feed(
+                    self.engine.autotune_key(), feed_oflow, task=task)
+            self.autotune.after_feed(self, task)
         if feed_oflow and on_overflow == "raise":
             raise SessionOverflowError(
                 f"session stream {task!r} overflowed {feed_oflow} rows "

@@ -193,9 +193,12 @@ def repartition_rows(lanes: Dict[str, np.ndarray], n_dev_new: int,
         rows = np.nonzero(dest == d)[0]
         if rows.size > out_capacity:
             raise SessionRestoreError(
-                f"stream {task!r}: partition {d} of the target layout "
+                # the JAX package's words: a refused rebalance records
+                # this message in the control ledger
+                f"stream {task!r}: partition {d} of the target mesh "
                 f"holds {rows.size} unique rows > out_capacity "
-                f"{out_capacity}; raise EngineConfig.out_capacity")
+                f"{out_capacity} — raise EngineConfig.out_capacity to "
+                "restore on this mesh")
         rows = rows[np.lexsort((k[rows, 1], k[rows, 0]))]
         out["keys"][d, :rows.size] = k[rows]
         out["vals"][d, :rows.size] = v[rows]

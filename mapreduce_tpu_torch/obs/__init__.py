@@ -8,9 +8,12 @@
 * :mod:`.collector` — the telemetry plane: the process-shared pusher and
   the docserver's collector behind ``/clusterz``;
 * :mod:`.statusz` — the board gauges the docserver refreshes before it
-  renders ``/metrics``.
+  renders ``/metrics``;
+* :mod:`.control` — the control ledger of the controllers' decisions,
+  with :mod:`.comms`' ``matrix_stats`` and :mod:`.analysis`' MAD
+  helpers, the parts of those modules the controllers read.
 
 The rest of the JAX package's ``obs/`` (``/statusz``, profiles, compile
-and memory ledgers, history, SLOs, alerts) is not ported yet (ROADMAP
-A.8).
+and memory ledgers, history, SLOs, alerts, ``diagnose``) is not ported
+yet (ROADMAP A.8).
 """

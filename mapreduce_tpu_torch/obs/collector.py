@@ -135,6 +135,10 @@ DIAG_FAMILIES = frozenset({
     # the replicated board (coord/ha): failovers, fences, refusals
     "mrtpu_board_promotions_total", "mrtpu_board_fences_total",
     "mrtpu_board_replayed_rid_refusals_total",
+    # the control plane (obs/control + engine/autotune): every automatic
+    # decision's controller/outcome counts roll up cluster-wide (the
+    # decisions themselves travel as control_decision spans)
+    "mrtpu_control_decisions_total",
 })
 
 

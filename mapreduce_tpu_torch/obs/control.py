@@ -1,0 +1,260 @@
+"""The control ledger (port of ``mapreduce_tpu/obs/control.py``): every
+automatic decision, with its evidence and its measured outcome.
+
+The controllers of :mod:`..engine.autotune` act on the telemetry (the
+exchange traffic matrix, capacity-retry forensics, kernel warmth,
+completed-job latencies); this module is the record of what they did,
+so an operator (or a test) can answer "what did the system change, on
+what evidence, and did it help?" without reading logs.
+
+Each decision is ONE structured record::
+
+    {"id": 7, "controller": "repartition", "task": "wc",
+     "evidence": {"imbalance_recv": 3.4, "hot_dst": 5, ...},
+     "action":   {"moved_buckets": 12, ...},
+     "outcome":  "pending" | "applied" | "refused" | "error"
+               | "improved" | "neutral" | "regressed",
+     "outcome_evidence": {...},     # filled when the next window lands
+     "note": "rebalanced P00000 off device 5"}
+
+Lifecycle: :meth:`ControlLedger.record` captures the decision when it
+is applied (or refused: a refused rebalance is a decision too, counted
+and loud); :meth:`ControlLedger.resolve` lands the NEXT control window's
+measurement as ``improved`` / ``neutral`` / ``regressed``.  Every record
+and resolve emits a zero-duration ``control_decision`` tracer event, so
+decisions ride the telemetry pusher to the collector and the merged
+timeline.
+
+Surfaces: ``mrtpu_control_decisions_total{controller,outcome}`` and
+``mrtpu_control_evicted_total`` (the JAX names), and
+:func:`validate_control`, the strict check of a ``control_ledger.json``
+document, so either package accepts the other's ledger snapshot.
+
+Embedder contract: with no controller attached nothing in this module
+runs: a run with controllers disabled records ZERO decisions.
+
+Monotonic-only module: decision ages are durations; the one persisted
+wall timestamp is minted through ``coord/docstore.now`` like every
+other board stamp.
+
+Left out of this port (ROADMAP A.8): the durable history plane's
+binding (``bind_history`` / ``unbind_history`` and
+``HISTORY_EVIDENCE_FAMILIES``: the port has no metric history, so a
+resolution carries only its caller's evidence), and the ledger's
+``/statusz`` section, ``status`` render and profile-bundle artifact.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional
+
+from .metrics import counter
+from .trace import TRACER
+
+#: the controllers of engine/autotune.py (+ the fleet plane's movers),
+#: in the JAX package's order; "fleet" is recorded only by A.11's plane
+CONTROLLERS = ("repartition", "capacity", "admission", "reclaim",
+               "fleet")
+
+#: terminal-at-record outcomes vs measured-next-window outcomes
+RECORD_OUTCOMES = ("pending", "applied", "refused", "error")
+RESOLVED_OUTCOMES = ("improved", "neutral", "regressed")
+
+#: decisions kept in the in-process ring (oldest evicted, counted)
+MAX_DECISIONS = 256
+
+_DECISIONS = counter(
+    "mrtpu_control_decisions_total",
+    "automatic control-plane decisions (labels: controller="
+    "repartition|capacity|admission|reclaim|fleet, outcome) — counted "
+    "once at record time (pending/applied/refused/error) and once "
+    "more "
+    "when the next control window measures a pending decision "
+    "(improved/neutral/regressed), so outcome sums tell the whole "
+    "story: total decisions AND how they turned out")
+_EVICTED = counter(
+    "mrtpu_control_evicted_total",
+    "control-ledger decisions evicted from the bounded in-process "
+    "ring before /statusz or a bundle captured them")
+
+
+class ControlLedger:
+    """Bounded, thread-safe ring of control decisions (one per process
+    by default, :data:`LEDGER`; embedders and tests may make their
+    own)."""
+
+    def __init__(self, max_decisions: int = MAX_DECISIONS) -> None:
+        self._lock = threading.Lock()
+        self._decisions: "OrderedDict[int, Dict[str, Any]]" = \
+            OrderedDict()
+        self._seq = 0
+        self.max_decisions = max_decisions
+
+    # -- the write side ----------------------------------------------------
+
+    def record(self, controller: str, task: str,
+               evidence: Dict[str, Any], action: Dict[str, Any],
+               outcome: str = "pending", note: str = "",
+               tracer=TRACER) -> int:
+        """Record one decision when it is applied (or refused); returns
+        the id :meth:`resolve` later lands the measured outcome on."""
+        if controller not in CONTROLLERS:
+            raise ValueError(f"unknown controller {controller!r} "
+                             f"(known: {CONTROLLERS})")
+        if outcome not in RECORD_OUTCOMES:
+            raise ValueError(f"record outcome must be one of "
+                             f"{RECORD_OUTCOMES}, got {outcome!r}")
+        from ..coord import docstore  # the one wall-clock mint point
+
+        with self._lock:
+            self._seq += 1
+            did = self._seq
+            dec = {
+                "id": did,
+                "controller": controller,
+                "task": str(task or "-"),
+                "evidence": dict(evidence or {}),
+                "action": dict(action or {}),
+                "outcome": outcome,
+                "note": str(note or ""),
+                "monotonic": time.monotonic(),
+                "time": docstore.now(),
+            }
+            self._decisions[did] = dec
+            while len(self._decisions) > self.max_decisions:
+                self._decisions.popitem(last=False)
+                _EVICTED.inc()
+        _DECISIONS.inc(controller=controller, outcome=outcome)
+        self._emit(dec, tracer)
+        return did
+
+    def resolve(self, decision_id: int, outcome: str,
+                evidence: Optional[Dict[str, Any]] = None,
+                note: Optional[str] = None, tracer=TRACER) -> bool:
+        """Land the next control window's measurement on a pending
+        decision.  Returns False when the decision aged out of the ring
+        (counted as evicted at record time) or was already resolved."""
+        if outcome not in RESOLVED_OUTCOMES:
+            raise ValueError(f"resolved outcome must be one of "
+                             f"{RESOLVED_OUTCOMES}, got {outcome!r}")
+        with self._lock:
+            dec = self._decisions.get(decision_id)
+            if dec is None or dec["outcome"] in RESOLVED_OUTCOMES:
+                return False
+            dec["outcome"] = outcome
+            dec["outcome_evidence"] = dict(evidence or {})
+            if note:
+                # the record-time note says what was decided and why;
+                # the resolution's says how it turned out: keep both
+                dec["outcome_note"] = str(note)
+            controller = dec["controller"]
+            snap = dict(dec)
+        _DECISIONS.inc(controller=controller, outcome=outcome)
+        self._emit(snap, tracer)
+        return True
+
+    @staticmethod
+    def _emit(dec: Dict[str, Any], tracer) -> None:
+        """One zero-duration ``control_decision`` event per record /
+        resolve: decisions travel with the span ring to the collector
+        and the merged timeline."""
+        now = time.monotonic()
+        tracer.end(
+            tracer.begin("control_decision", start=now,
+                         controller=dec["controller"],
+                         task=dec["task"]),
+            now, decision_id=int(dec["id"]), outcome=dec["outcome"],
+            evidence=dec.get("evidence"), action=dec.get("action"),
+            outcome_evidence=dec.get("outcome_evidence"),
+            note=dec.get("note"))
+
+    # -- the read side -----------------------------------------------------
+
+    def decisions(self, controller: Optional[str] = None,
+                  task: Optional[str] = None) -> List[Dict[str, Any]]:
+        """Decisions newest-last, optionally filtered."""
+        with self._lock:
+            out = [dict(d) for d in self._decisions.values()]
+        if controller is not None:
+            out = [d for d in out if d["controller"] == controller]
+        if task is not None:
+            out = [d for d in out if d["task"] == task]
+        return out
+
+    def pending(self, controller: str,
+                task: Optional[str] = None) -> List[Dict[str, Any]]:
+        return [d for d in self.decisions(controller, task)
+                if d["outcome"] == "pending"]
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The decision ring (ages instead of raw monotonic stamps) plus
+        per-controller outcome counts; empty when no controller ever
+        decided anything, so a controllers-disabled run provably
+        emitted nothing."""
+        now = time.monotonic()
+        with self._lock:
+            rows = [dict(d) for d in self._decisions.values()]
+        if not rows:
+            return {}
+        counts: Dict[str, Dict[str, int]] = {}
+        for d in rows:
+            d["age_s"] = round(now - d.pop("monotonic"), 3)
+            c = counts.setdefault(d["controller"], {})
+            c[d["outcome"]] = c.get(d["outcome"], 0) + 1
+        return {"decisions": rows, "counts": counts}
+
+    def reset(self) -> None:
+        """Tests only: forget every decision."""
+        with self._lock:
+            self._decisions.clear()
+
+
+#: the process-global ledger every controller records into by default
+LEDGER = ControlLedger()
+
+
+def control_snapshot() -> Dict[str, Any]:
+    return LEDGER.snapshot()
+
+
+def validate_control(doc: Any) -> None:
+    """Strict structural check of a ``control_ledger.json`` document
+    (``{"kind": "mrtpu-control", "snapshot": ...}``): a document that
+    passes is one the JAX package's analysis tools accept too."""
+    if not isinstance(doc, dict) or doc.get("kind") != "mrtpu-control":
+        raise ValueError("control: not a mrtpu-control document")
+    snap = doc.get("snapshot")
+    if not isinstance(snap, dict):
+        raise ValueError("control: snapshot is not an object")
+    decisions = snap.get("decisions")
+    if not isinstance(decisions, list) or not decisions:
+        raise ValueError("control: decisions is not a non-empty list "
+                         "(an empty ledger is not written at all)")
+    all_outcomes = set(RECORD_OUTCOMES) | set(RESOLVED_OUTCOMES)
+    for i, d in enumerate(decisions):
+        if not isinstance(d, dict):
+            raise ValueError(f"control: decision {i} is not an object")
+        if d.get("controller") not in CONTROLLERS:
+            raise ValueError(
+                f"control: decision {i} has unknown controller "
+                f"{d.get('controller')!r}")
+        if d.get("outcome") not in all_outcomes:
+            raise ValueError(
+                f"control: decision {i} has unknown outcome "
+                f"{d.get('outcome')!r}")
+        for field in ("evidence", "action"):
+            if not isinstance(d.get(field), dict):
+                raise ValueError(
+                    f"control: decision {i} missing {field!r} object")
+        if not isinstance(d.get("id"), int):
+            raise ValueError(f"control: decision {i} has no integer id")
+    counts = snap.get("counts")
+    if not isinstance(counts, dict):
+        raise ValueError("control: counts is not an object")
+    for ctrl, by_outcome in counts.items():
+        if ctrl not in CONTROLLERS or not isinstance(by_outcome, dict):
+            raise ValueError(
+                f"control: counts entry {ctrl!r} malformed")

@@ -39,9 +39,10 @@ bound is the card's concurrency budget.
 
 The task docs, the tenant docs and each :class:`QuotaExceededError`
 reason are the JAX package's field for field, so either package's
-scheduler continues from the other's documents.  Left out: the
-telemetry-informed admission (``advisor=``, ROADMAP A.7) and the
-engine-host fleet (``fleet=``, A.11); both accept only None.
+scheduler continues from the other's documents.  ``advisor=`` (an
+:class:`~..engine.autotune.AdmissionAdvisor`) routes each admitted task
+to a registered placement and sets ``mesh`` on its doc.  Left out: the
+engine-host fleet (``fleet=``, ROADMAP A.11), which accepts only None.
 """
 
 from __future__ import annotations
@@ -226,10 +227,6 @@ class Scheduler:
                  fleet: Optional[Any] = None) -> None:
         self.store = store
         self.config = config
-        if advisor is not None:
-            raise NotImplementedError(
-                "telemetry-informed admission (advisor=) is not ported "
-                "yet (ROADMAP A.7); pass advisor=None")
         if fleet is not None:
             raise NotImplementedError(
                 "the engine-host fleet (fleet=) is not ported yet "
@@ -237,6 +234,12 @@ class Scheduler:
         self.lease = lease if lease is not None else (
             SchedulerLease(_SchedCnn(store), holder=holder)
             if use_lease else None)
+        #: telemetry-informed admission (engine/autotune.
+        #: AdmissionAdvisor): an admitted task is ROUTED to the
+        #: registered placement warm for its program with the most
+        #: memory headroom (the pick lands in the control ledger).
+        #: None, the default, admits exactly as before.
+        self.advisor = advisor
         self._lock = threading.Lock()
 
     # -- submit (admission control) ---------------------------------------
@@ -455,6 +458,20 @@ class Scheduler:
                               "generation": gen}})
                 if doc is None:
                     continue  # cancelled in the race; re-read the queue
+                if self.advisor is not None:
+                    # the program is the task's declared one, else its
+                    # kind; with nothing registered the task routes as
+                    # before
+                    program = str((cand.get("params") or {})
+                                  .get("program")
+                                  or cand.get("kind") or "-")
+                    mesh = self.advisor.choose(program, tenant=tenant,
+                                               task=doc["_id"])
+                    if mesh is not None:
+                        self.store.update(TASKS_COLL,
+                                          {"_id": doc["_id"]},
+                                          {"$set": {"mesh": mesh}})
+                        doc["mesh"] = mesh
                 # queue wait (submit->admitted): exact monotonic when
                 # this process saw the submit, else the board's
                 # persisted stamps (cross-process degradation)

@@ -15,8 +15,11 @@ Differences from the JAX package: the device phase runs the port's
 :class:`~.engine.DeviceEngine` over :class:`~.parallel.mesh.Partitions`
 (``configure`` pops ``"partitions"`` where the JAX server pops
 ``"mesh"``; the default ``Partitions(1)`` is the card and raises without
-CUDA); there is no capacity autotuner or speculative re-claim yet
-(ROADMAP A.7).  PyTorch is imported only by the device phase.  On an
+CUDA).  ``reclaim=`` (a :class:`~.engine.autotune.SpeculativeReclaimer`)
+re-claims straggler-held jobs in the poll loop, and ``Server.autotune``
+(an :class:`~.engine.autotune.AutoTuner`) pre-sizes the device phase's
+engine; library Servers default both to None, the CLI turns both on.
+PyTorch is imported only by the device phase.  On an
 ``http://`` board with ``http:`` storage every byte the loop moves —
 the device phase's ``result.P00000`` included — is a blob PUT or GET,
 and the loop's spans and metrics reach the docserver through the
@@ -109,10 +112,15 @@ class Server:
                  reclaim: Optional[Any] = None,
                  retry: Optional[Any] = None,
                  job_lease: Optional[float] = None) -> None:
-        if reclaim is not None:
-            raise ValueError("speculative re-claim is not ported yet "
-                             "(ROADMAP A.7); pass reclaim=None")
         self.cnn = Connection(connstr, dbname, auth, retry=retry)
+        #: straggler-driven speculative re-claim (engine/autotune.
+        #: SpeculativeReclaimer): None (the default) keeps the reap loop
+        #: as it was.  Every re-claim lands in the control ledger;
+        #: exactly-once rides the existing claim-guard fencing.
+        self.reclaim = reclaim
+        #: capacity autotuning of the device phase's engine (engine/
+        #: autotune.AutoTuner): None keeps the module's config as given
+        self.autotune = None
         self.task = Task(self.cnn, **(
             {"job_lease": job_lease} if job_lease is not None else {}))
         self.params: Dict[str, Any] = {}
@@ -211,6 +219,12 @@ class Server:
             if reaped:
                 logger.warning("%s: reaped %d expired job leases", phase,
                                reaped)
+            if self.reclaim is not None:
+                # a RUNNING job held far beyond every other worker's
+                # completed-job profile is broken back to claimable
+                # BEFORE its lease expires; the deposed worker fences at
+                # its next heartbeat or emit
+                self.reclaim.scan(store, coll)
             # BROKEN with repetitions >= cap -> FAILED (server.lua:192-206)
             store.update(
                 coll,
@@ -230,6 +244,11 @@ class Server:
                 logger.info("%s %.1f%% (%d/%d)", phase, pct, done, total)
                 last_pct = pct
             if done >= total:
+                if self.reclaim is not None:
+                    # the phase drained: resolve still-pending re-claims
+                    # from the final docs (scan() never runs for this
+                    # coll again)
+                    self.reclaim.finish(store, coll)
                 return
             time.sleep(self.poll_sleep)
 
@@ -284,7 +303,10 @@ class Server:
         if self._device_engine is None:
             from .engine import DeviceEngine, EngineConfig
             cfg = ds.config() if ds.config else EngineConfig()
-            self._device_engine = DeviceEngine(parts, ds.map_fn, cfg)
+            # the task database name labels the engine's decisions
+            self._device_engine = DeviceEngine(parts, ds.map_fn, cfg,
+                                               task=self.cnn.dbname,
+                                               autotune=self.autotune)
         return self._device_engine
 
     def _run_device_phase(self) -> None:

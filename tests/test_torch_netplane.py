@@ -471,13 +471,9 @@ def test_cli_drop_clears_collections_and_storage(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["runner", "mem://x", "--slo", "q:p99:1"], "A.8"),
-    (["submit", "http://h:1", "t", "m", "m", "m", "m", "--program", "w"],
-     "A.7"),
     (["docserver", "--history-dir", "/x"], "A.8"),
     (["docserver", "--slo", "q:p99:1"], "A.8"),
-    (["server", "--autotune"], "A.7"),
     (["worker", "mem://x", "db", "--compile-cache"], "A.8"),
-    (["wordcount", "f", "--speculative-reclaim"], "A.7"),
     (["train", "mem://x", "db", "--no-compile-cache"], "A.8"),
 ])
 def test_cli_refuses_unported_flags(argv, item):
@@ -488,3 +484,31 @@ def test_cli_refuses_unported_flags(argv, item):
         tcli.main(argv)
     assert exc.value.code == 2
     assert "not ported" in err.getvalue() and item in err.getvalue()
+
+
+class _Configured(Exception):
+    """Raised by a stubbed ``Server.configure``: the command got past
+    its flags and attached its controllers."""
+
+
+@pytest.mark.parametrize("argv,field,want", [
+    (["server", "mem://x", "db", "m", "m", "m", "m", "--autotune"],
+     "autotune", True),
+    (["server", "mem://x", "db", "m", "m", "m", "m", "--no-autotune"],
+     "autotune", False),
+    (["wordcount", "f", "--device", "--torch-device", "cpu",
+      "--speculative-reclaim"], "reclaim", True),
+])
+def test_cli_takes_the_controller_flags(monkeypatch, argv, field, want):
+    """The flags the port once refused as ROADMAP A.7 are ported: they
+    parse, and they attach (or leave off) the controller they name."""
+    seen = {}
+
+    def configure(self, params):
+        seen["server"] = self
+        raise _Configured
+
+    monkeypatch.setattr(Server, "configure", configure)
+    with pytest.raises(_Configured):
+        tcli.main(argv)
+    assert (getattr(seen["server"], field) is not None) == want

@@ -301,8 +301,12 @@ def test_refusals(corpus):
     del params["finalfn"]
     with pytest.raises(ValueError, match="finalfn"):
         TServer(f"mem://{uuid.uuid4().hex}", "wc").configure(params)
-    with pytest.raises(ValueError, match="A.7"):
-        TServer(f"mem://{uuid.uuid4().hex}", "wc", reclaim=object())
+    # a re-claimer attaches (once refused as ROADMAP A.7); the library
+    # default is none
+    reclaim = object()
+    assert TServer(f"mem://{uuid.uuid4().hex}", "wc",
+                   reclaim=reclaim).reclaim is reclaim
+    assert TServer(f"mem://{uuid.uuid4().hex}", "wc").reclaim is None
     # an unreachable http:// board raises once the retry policy is
     # spent; the loop never falls back to a local board
     from mapreduce_tpu_torch.utils.httpclient import RetryError, RetryPolicy

@@ -10,6 +10,7 @@ import json
 import os
 import re
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -173,6 +174,10 @@ def test_ha_docserver_pair_and_runner_processes(tmp_path):
 
         for tid in ids:
             wait_for_state(_Sched, tid, DONE, timeout=TIMEOUT, poll=0.1)
+            # the runner's admission advisor routed each task to the
+            # placement it registered: its own host id
+            assert _Sched.get(tid)["mesh"] == \
+                f"{socket.gethostname()}:{runner.pid}"
         assert _healthz(addrs[1 - prim]) == {"ok": True, "role": "primary",
                                              "primary": True}
         from mapreduce_tpu_torch.utils.serialization import parse_record
@@ -195,8 +200,6 @@ def test_ha_docserver_pair_and_runner_processes(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["runner", "mem://x", "--slo", "q:p99:1"], "A.8"),
     (["runner", "mem://x", "--compile-cache"], "A.8"),
-    (["submit", "http://h:1", "t", "m", "m", "m", "m", "--program", "w"],
-     "A.7"),
     (["docserver", "--history-dir", "/x"], "A.8"),
     (["docserver", "--alert", "r:e:gt:1"], "A.8"),
 ])
@@ -215,12 +218,34 @@ def test_unported_commands_refused_by_name(cmd, item):
     assert rc == 2 and "not ported" in err and item in err
 
 
+def test_submit_program_lands_in_the_task_params():
+    """``submit --program`` (once refused as ROADMAP A.7) stores the
+    admission advisor's key in the task's params; without it the task
+    carries none."""
+    board = DocServer().start_background()
+    try:
+        url = f"http://{board.host}:{board.port}"
+        docs = []
+        for extra in (["--program", "wave"], []):
+            rc, out, err = _main(["submit", url, "acme", "m", "m", "m",
+                                  "m", "--db", f"db{len(docs)}"] + extra)
+            assert rc == 0, err
+            docs.append(json.loads(out.strip().splitlines()[-1]))
+        assert docs[0]["params"]["program"] == "wave"
+        assert "program" not in docs[1]["params"]
+    finally:
+        board.shutdown()
+
+
 def test_runner_help_names_what_it_leaves_out():
+    """The runner's help names what waits (A.11's fleet, A.8's SLO
+    objectives) and no longer A.7, whose advisor it now runs."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out), pytest.raises(SystemExit):
         tcli.main(["runner", "--help"])
     text = " ".join(out.getvalue().split())
-    assert "A.11" in text and "A.7" in text and "--partitions" in text
+    assert "A.11" in text and "A.8" in text and "--partitions" in text
+    assert "A.7" not in text and "advisor" in text
 
 
 def test_docserver_rejects_root_with_ha_dir(tmp_path):

@@ -262,7 +262,9 @@ def test_port_imports_no_jax():
                    "coord/persistent_table", "coord/lease", "coord/ha",
                    "obs/slo", "sched/__init__", "sched/scheduler",
                    "sched/service", "testing/__init__",
-                   "testing/faults"):
+                   "testing/faults", "obs/control", "obs/comms",
+                   "obs/analysis", "engine/autotune",
+                   "engine/device_engine"):
         assert f"mapreduce_tpu_torch/{module}.py" in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
