@@ -261,9 +261,30 @@ which raises on failure:
    retries no more; one ``capacity`` decision, resolved ``improved``;
    counts against ``Counter``; tokenize and segreduce launched, no
    plain call;
-16. one JSON line of per-kernel numbers (the word-count kernels' with
-   their phase 13, 14 and 15 launches beside), the smoke's wall, then
-   the card and the result line.
+16. the engine's device telemetry (the ``telemetry`` lines): the P = 1
+   variadic and P = 8 radix slices of phases 4 and 7 again, warm, each
+   under one root span: the wave, dispatch and retry counters, the span
+   counts by name, checked to nest ``device_run ⊃ wave ⊃ {upload,
+   compute, readback}`` with every child inside its wave and upload and
+   compute carrying device intervals (``device_ms`` from CUDA events),
+   each wave's compute ``device_ms`` beside the run's ``compute_s``, the
+   analytic cost model's MFU and roofline share (failing unless 0 <
+   ``roofline_frac`` <= 1), the allocator's memory sample beside
+   ``torch.cuda.max_memory_allocated()``, ``upload_overlap_frac``,
+   ``build_info()`` and the kernels' launches; the P = 1 slice once more
+   under ``torch.cuda.set_sync_debug_mode("warn")``, failing if a
+   synchronising call's stack passes through ``mapreduce_tpu_torch/
+   obs/`` or a telemetry line of the engine (the line lists every sync
+   site); a P = 1 run whose ``out_capacity`` (1<<16) the corpus's
+   76,006 unique words overflow, so it retries once: the
+   ``capacity_retry`` event's classification against the card's memory
+   and its capacities; a profile bundle of the P = 1 run, loaded back;
+   and one ``cli wordcount --device --trace-out`` job (phase 9 (b)'s
+   200K words) whose trace holds ``device_run ⊃ wave ⊃ {upload,
+   compute, readback}`` under the job's ``run`` span;
+17. one JSON line of per-kernel numbers (the word-count kernels' with
+   their phase 13, 14, 15 and 16 launches beside), the smoke's wall,
+   then the card and the result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
 flash kernels sum in another order than their plain versions: out, dq,
@@ -4436,6 +4457,334 @@ def control_phase(torch, kc, seg, rs, wcmod, Partitions, tenants, smi):
     return launches
 
 
+# -- phase 16: the engine's device telemetry ------------------------------------
+
+#: identifiers of the engine's and the session's telemetry lines: a
+#: synchronising call on such a line (or anywhere under obs/) fails
+TELEMETRY_LINE = re.compile(
+    r"\b(line\.|_memory_obs|_profile|_comms|_slo|TRACER|_WAVES|"
+    r"_DISPATCHES|_RETRIES|_STAGE_SECONDS|_WAVE_SECONDS|_PARTITION_|"
+    r"_SESSION|_FEEDS|_CHUNKS|_SNAPSHOTS|_LIVE_RECORDS|_OVERFLOWS|"
+    r"_BACKPRESSURE|refresh_stream_age_gauges)")
+#: phase 16's forced retry: below the corpus's 76,006 unique words
+TELEMETRY_OUT_CAPACITY = 1 << 16
+#: the device phase 16's retry and CLI runs use ("cpu" in a rehearsal)
+TELEMETRY_DEV = "cuda"
+
+
+def span_family(TRACER, trace_id):
+    return [e for e in TRACER.events()
+            if e["args"].get("trace_id") == trace_id]
+
+
+def check_wave_tree(events, label, device_clock=True):
+    """Check ``device_run ⊃ wave ⊃ {upload, compute, readback}`` in
+    *events* (one trace): parent links, each child inside its parent
+    (half a microsecond of rounding slack, as the JAX test allows), and
+    device intervals on upload and compute.  Returns the span counts by
+    name and each wave's ``(compute device_ms, upload device_ms)``."""
+    by_id = {e["args"]["span_id"]: e for e in events}
+    names = Counter(e["name"] for e in events)
+    per_wave = {}
+
+    def inside(outer, inner):
+        return (outer["ts"] <= inner["ts"] + 0.5
+                and inner["ts"] + inner["dur"]
+                <= outer["ts"] + outer["dur"] + 0.5)
+
+    for e in events:
+        parent = by_id.get(e["args"]["parent_id"])
+        name = e["name"]
+        if name == "wave":
+            check(parent is not None and parent["name"] == "device_run"
+                  and inside(parent, e), f"{label}: a wave outside its "
+                  "device_run")
+            check("truncated" not in e["args"], f"{label}: a truncated "
+                  "wave in a run that finished")
+        elif name in ("upload", "compute") or (
+                name == "readback" and "kind" in e["args"]):
+            check(parent is not None and parent["name"] == "wave"
+                  and inside(parent, e), f"{label}: {name} outside its "
+                  "wave")
+            if name in ("upload", "compute") and device_clock:
+                check(e["args"].get("clock") == "device"
+                      and e["args"]["device_ms"] > 0,
+                      f"{label}: {name} without a device interval: "
+                      f"{e['args']}")
+            if name != "readback":
+                w = parent["args"]["wave"]
+                per_wave.setdefault(w, {})[f"{name}_device_ms"] = \
+                    e["args"].get("device_ms")
+    check(names["device_run"] >= 1 and names["wave"] >= 1
+          and names["wave"] == names["upload"] == names["compute"],
+          f"{label}: span counts {dict(names)}")
+    return dict(names), [dict(wave=w, **per_wave[w])
+                         for w in sorted(per_wave)]
+
+
+def sync_sites(torch, run):
+    """Run *run* under ``set_sync_debug_mode("warn")``: the count of
+    synchronising calls by the innermost frame of the port, and the
+    frames that are under obs/ or on a telemetry line."""
+    import traceback
+    import warnings
+
+    stacks = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stacks.append(traceback.extract_stack()[:-1])
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    sites, bad = Counter(), []
+    for st in stacks:
+        ours = [fr for fr in st if "mapreduce_tpu_torch/" in
+                fr.filename.replace(os.sep, "/")]
+        if ours:
+            fr = ours[-1]
+            path = fr.filename.replace(os.sep, "/")
+            sites[f"{path.split('mapreduce_tpu_torch/')[-1]}:"
+                  f"{fr.lineno}"] += 1
+        for fr in ours:
+            path = fr.filename.replace(os.sep, "/")
+            if "mapreduce_tpu_torch/obs/" in path or (
+                    "mapreduce_tpu_torch/engine/" in path
+                    and TELEMETRY_LINE.search(fr.line or "")):
+                bad.append(f"{path}:{fr.lineno} {fr.line}")
+    return len(stacks), dict(sites), bad
+
+
+def telemetry_run(torch, kc, wc, data, want, label, waves, smi, need):
+    """One warm slice under a root span: the ``telemetry`` line."""
+    from mapreduce_tpu_torch.obs import memory
+    from mapreduce_tpu_torch.obs.buildinfo import build_info
+    from mapreduce_tpu_torch.obs.metrics import REGISTRY
+    from mapreduce_tpu_torch.obs.trace import TRACER
+
+    chunks, L = wc._to_chunks(data)
+    eng = wc._engine_for(L)
+    eng.task_label = f"telemetry_{label}"
+    wc.count_bytes(data, waves=waves)  # warm, under this label too
+    before = {f: REGISTRY.sum(f, task=eng.task_label) for f in (
+        "mrtpu_device_waves_total", "mrtpu_device_dispatches_total",
+        "mrtpu_device_retries_total")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kc.reset_counts()
+    tm = {}
+    with TRACER.span("root", phase="telemetry") as root:
+        got = wc.count_bytes(data, timings=tm, waves=waves)
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    check(got == want, f"telemetry {label}: counts differ from Counter")
+    check(all(launches[k] > 0 for k in need),
+          f"telemetry {label}: a kernel of the path was never launched: "
+          f"{launches}")
+    check(all(v == 0 for v in plain.values()),
+          f"telemetry {label}: plain versions ran on the card: {plain}")
+    events = span_family(TRACER, root.trace_id)
+    names, per_wave = check_wave_tree(events, f"telemetry {label}")
+    counters = {f.split("_device_")[1]: REGISTRY.sum(
+        f, task=eng.task_label) - before[f] for f in before}
+    check(counters == {"waves_total": tm["waves"],
+                       "dispatches_total": tm["waves"],
+                       "retries_total": 0},
+          f"telemetry {label}: counters {counters}, {tm['waves']} waves")
+    check(names["wave"] == tm["waves"], f"telemetry {label}: "
+          f"{names['wave']} wave spans for {tm['waves']} waves")
+    check(0.0 < tm["roofline_frac"] <= 1.0,
+          f"telemetry {label}: roofline_frac {tm['roofline_frac']}")
+    sample = memory.memory_snapshot()
+    check(sample.get("device_source") == "measured",
+          f"telemetry {label}: memory sample {sample}")
+    dev_sample = next(iter(sample["devices"].values()))
+    check(0 < dev_sample["bytes_in_use"] <= dev_sample["peak_bytes_in_use"]
+          <= peak, f"telemetry {label}: memory sample {dev_sample} vs "
+          f"max_memory_allocated {peak}")
+    line = {
+        "run": label, "card": smi, "counters": counters, "spans": names,
+        "nested": True, "waves": per_wave, "compute_s": tm["compute_s"],
+        "upload_s": tm["upload_s"], "readback_s": tm["readback_s"],
+        "first_dispatch_s": tm["first_dispatch_s"],
+        "wave_compute_device_ms_sum": sum(
+            w["compute_device_ms"] or 0.0 for w in per_wave),
+        **{k: tm[k] for k in (
+            "flops", "cost_bytes", "cost_source", "peak_source",
+            "model_flops_per_s", "arith_intensity", "mfu",
+            "roofline_frac", "program_memory_bytes", "memory_source",
+            "upload_overlap_frac")},
+        "memory": {"sample": dev_sample, "max_memory_allocated": peak},
+        "build_info": build_info(), "launches": launches}
+    print(json.dumps({"telemetry": line}), flush=True)
+    return tm, events, launches
+
+
+def telemetry_retry(torch, wcmod, data, want, smi):
+    """A P = 1 run whose out_capacity the corpus overflows: one retry,
+    its ``capacity_retry`` event checked against the card's memory."""
+    from dataclasses import replace
+
+    from mapreduce_tpu_torch.obs.memory import HBM_PRESSURE_RATIO
+    from mapreduce_tpu_torch.obs.trace import TRACER
+
+    cfg = replace(wcmod.bench_engine_config(),
+                  out_capacity=TELEMETRY_OUT_CAPACITY)
+    wc = wcmod.DeviceWordCount(device=TELEMETRY_DEV, chunk_len=CHUNK_LEN,
+                               config=cfg)
+    chunks, L = wc._to_chunks(data)
+    wc._engine_for(L).task_label = "telemetry_retry"
+    tm = {}
+    with TRACER.span("root", phase="telemetry") as root:
+        got = wc.count_bytes(data, timings=tm)
+    check(got == want, "telemetry retry: counts differ from Counter")
+    events = span_family(TRACER, root.trace_id)
+    retries = [e["args"] for e in events if e["name"] == "capacity_retry"]
+    check(tm["retries"] == 1 and len(retries) == 1,
+          f"telemetry retry: {tm['retries']} retries, {len(retries)} "
+          "capacity_retry events")
+    ev = retries[0]
+    old, new = ev["old_capacities"], ev["new_capacities"]
+    check(old["out_capacity"] == TELEMETRY_OUT_CAPACITY
+          and new["out_capacity"] > TELEMETRY_OUT_CAPACITY
+          and ev["overflow_rows"] > 0 and ev["attempt"] == 0,
+          f"telemetry retry: event {ev}")
+    dev_mem = next(iter(ev["device_memory"]["devices"].values()))
+    limit = torch.cuda.mem_get_info()[1]
+    check(dev_mem["bytes_limit"] == limit, f"telemetry retry: limit "
+          f"{dev_mem['bytes_limit']} vs mem_get_info {limit}")
+    footprint = ev["program_memory"]["total"]
+    want_bound = ("hbm" if max(dev_mem["bytes_in_use"], footprint)
+                  >= HBM_PRESSURE_RATIO * limit else "capacity")
+    check(ev["bound"] == want_bound, f"telemetry retry: bound "
+          f"{ev['bound']}, expected {want_bound}")
+    names = Counter(e["name"] for e in events)
+    check(names["device_run"] == 2, f"telemetry retry: spans {dict(names)}")
+    line = {"run": "capacity_retry", "card": smi, "retries": tm["retries"],
+            "bound": ev["bound"], "overflow_rows": ev["overflow_rows"],
+            "old_capacities": old, "new_capacities": new,
+            "device_memory": dev_mem, "program_memory_total": footprint,
+            "spans": dict(names), "compute_s": tm["compute_s"]}
+    print(json.dumps({"telemetry": line}), flush=True)
+
+
+def telemetry_bundle(events, smi):
+    """The P = 1 run's profile bundle, written and loaded back."""
+    import shutil
+    import tempfile
+
+    from mapreduce_tpu_torch.obs import profile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_bundle_")
+    try:
+        out = profile.write_bundle(
+            os.path.join(root, "bundle"),
+            trace_doc={"traceEvents": events, "displayTimeUnit": "ms"})
+        b = profile.load_bundle(out)
+        check(len(b["trace"]["traceEvents"]) == len(events)
+              and b["statusz"]["device"]["waves"] > 0
+              and b["statusz"]["memory"]["device_source"] == "measured",
+              "telemetry bundle: loaded bundle differs")
+        line = {"run": "bundle", "card": smi,
+                "files": b["manifest"]["files"],
+                "trace_events": len(events),
+                "metric_samples": len(b["metrics"]),
+                "statusz_device": b["statusz"]["device"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"telemetry": line}), flush=True)
+
+
+def telemetry_cli(data, smi):
+    """One ``cli wordcount --device --trace-out`` job: the device run's
+    spans under the job's ``run`` span."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from mapreduce_tpu_torch import cli, spec
+    from mapreduce_tpu_torch.corpus import make_corpus
+    from mapreduce_tpu_torch.examples import wordcount as jwc
+
+    small = make_corpus(JOB_SMALL_WORDS, JOB_SMALL_WORDS // 25, seed=1)
+    root = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        files = write_line_files(small, 3, root)
+        trace_path = os.path.join(root, "trace.json")
+        reset_example(spec, jwc, jwc._DEFAULTS)
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(["wordcount", *files, "--device",
+                           "--torch-device", TELEMETRY_DEV,
+                           "--trace-out", trace_path])
+        check(rc == 0, f"telemetry cli: exit {rc}: {err.getvalue()}")
+        want = Counter(w.decode() for w in small.split())
+        check(dict(jwc.RESULT) == dict(want),
+              "telemetry cli: RESULT differs from Counter")
+        with open(trace_path, encoding="utf-8") as f:
+            doc = json.load(f)
+    finally:
+        reset_example(spec, jwc, jwc._DEFAULTS)
+        shutil.rmtree(root, ignore_errors=True)
+    events = doc["traceEvents"]
+    jobs = [e for e in events if e["name"] == "job"
+            and e["args"].get("job") == "__device__"]
+    check(jobs, "telemetry cli: no device job span in the trace")
+    job = jobs[-1]
+    fam = [e for e in events
+           if e["args"].get("trace_id") == job["args"]["trace_id"]]
+    runs = [e for e in fam if e["name"] == "run"
+            and e["args"]["parent_id"] == job["args"]["span_id"]]
+    check(len(runs) == 1, f"telemetry cli: {len(runs)} run spans")
+    drs = [e for e in fam if e["name"] == "device_run"]
+    check(drs and all(d["args"]["parent_id"] == runs[0]["args"]["span_id"]
+                      for d in drs),
+          "telemetry cli: a device_run outside the job's run span")
+    names, per_wave = check_wave_tree(fam, "telemetry cli")
+    line = {"run": "cli_trace_out", "card": smi, "words": JOB_SMALL_WORDS,
+            "spans": names, "waves": per_wave,
+            "under": ["job", "run", "device_run", "wave"],
+            "trace_events": len(events)}
+    print(json.dumps({"telemetry": line}), flush=True)
+
+
+def telemetry_phase(torch, kc, wcmod, wc, rwc, data, want, smi):
+    """Phase 16: the engine's device telemetry (the ``telemetry``
+    lines).  Returns the launches of its two slices."""
+    t_phase = time.monotonic()
+    base = ("tokenize", "segreduce")
+    tm1, events1, l1 = telemetry_run(torch, kc, wc, data, want, "p1_variadic",
+                                     None, smi, base)
+    _, _, l8 = telemetry_run(torch, kc, rwc, data, want, "p8_radix",
+                             RADIX_WAVES, smi, WORDCOUNT_KERNELS)
+    got = {}
+    n_sync, sites, bad = sync_sites(
+        torch, lambda: got.update(c=wc.count_bytes(data)))
+    check(got["c"] == want, "telemetry sync: counts differ from Counter")
+    check(n_sync > 0, "telemetry sync: sync-debug mode saw no sync")
+    check(not bad, f"telemetry sync: synchronising calls through the "
+          f"telemetry: {bad}")
+    print(json.dumps({"telemetry": {
+        "run": "sync_debug_p1_variadic", "card": smi, "syncs": n_sync,
+        "sites": sites, "telemetry_frames": bad}}), flush=True)
+    telemetry_retry(torch, wcmod, data, want, smi)
+    telemetry_bundle(events1, smi)
+    telemetry_cli(data, smi)
+    print(json.dumps({"telemetry": {
+        "run": "phase", "card": smi,
+        "phase_s": time.monotonic() - t_phase}}), flush=True)
+    return {"p1_variadic": l1, "p8_radix": l8}
+
+
 #: the run's start, for the whole smoke's wall time
 T_START = time.monotonic()
 
@@ -4600,6 +4949,10 @@ def main():
     control_launches = control_phase(torch, kc, seg, rs, wcmod, Partitions,
                                      tenants, smi)
 
+    # phase 16: the engine's device telemetry
+    telemetry_launches = telemetry_phase(torch, kc, wcmod, wc, rwc, data,
+                                         want, smi)
+
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     for kern in radix_kernels:
@@ -4618,6 +4971,10 @@ def main():
         kern["launches_control"] = {
             run: counts.get(kern["name"], 0)
             for run, counts in control_launches.items()}
+        # and on phase 16's two slices with the tracer's root span
+        kern["launches_telemetry"] = {
+            run: counts.get(kern["name"], 0)
+            for run, counts in telemetry_launches.items()}
     kernels += radix_kernels + flash_kernels
     print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START}}))
     print(smi)

@@ -17,6 +17,9 @@
       [--priority N] [--weight W] [--est-jobs N] [--est-bytes N]
       [--init-args JSON]
   python -m mapreduce_tpu_torch.cli tasks CONNSTR [--cancel ID] [--json]
+  python -m mapreduce_tpu_torch.cli timeline CONNSTR --out FILE — the
+      docserver's merged cluster timeline (/clusterz) as one
+      Perfetto-loadable Chrome trace
   python -m mapreduce_tpu_torch.cli runner CONNSTR [--workers N]
       [--max-inflight N] [--job-lease S] [--partitions N]
       [--torch-device {cuda,cpu}] — the always-on serving process
@@ -86,8 +89,8 @@ serves.
 JAX flags the port does not offer yet are refused by name, their help
 naming the ROADMAP item that brings them: the docserver's
 ``--history-*``, ``--alert*`` and ``--slo`` and the runner's ``--slo``
-(A.8); ``--compile-cache`` (A.8).  The ``drain`` and ``status``
-commands wait for A.11 and A.8.
+(A.8); ``--compile-cache`` (A.8).  The JAX commands the port does not
+offer yet (:data:`NOT_PORTED_COMMANDS`) exit 2 naming theirs.
 """
 
 from __future__ import annotations
@@ -951,6 +954,64 @@ def cmd_tasks(argv: List[str]) -> int:
     return 0
 
 
+def _docserver_client(connstr: str, auth, what: str):
+    """HOST:PORT normalisation + HttpDocStore construction for the
+    exposition-plane commands (accepts pasted browser URLs)."""
+    from .coord.docserver import HttpDocStore
+
+    addr = connstr
+    if addr.startswith("http://"):
+        addr = addr[len("http://"):]
+    addr = addr.split("/", 1)[0]
+    try:
+        return HttpDocStore(addr, auth_token=auth)
+    except ValueError:
+        print(f"{what} wants a docserver address (http://HOST:PORT), "
+              f"got {connstr!r}: mem:// and dir:// boards live inside "
+              "their owning process and have no wire to poll",
+              file=sys.stderr)
+        return None
+
+
+def cmd_timeline(argv: List[str]) -> int:
+    """Fetch the docserver's /clusterz merged cluster timeline (every
+    pushed process's spans clock-aligned with the server's own, one
+    Perfetto-loadable file) and write it to --out."""
+    p = argparse.ArgumentParser(prog="mapreduce_tpu_torch timeline")
+    p.add_argument("connstr",
+                   help="the docserver, http://HOST:PORT "
+                        "(the same CONNSTR workers use)")
+    p.add_argument("--out", required=True, metavar="FILE",
+                   help="where to write the merged Chrome trace JSON")
+    _add_auth(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose)
+
+    store = _docserver_client(args.connstr, args.auth, "timeline")
+    if store is None:
+        return 2
+    try:
+        doc = store.clusterz()
+    except PermissionError as exc:
+        print(f"{exc} (pass --auth or set $MAPREDUCE_TPU_AUTH)",
+              file=sys.stderr)
+        return 2
+    except OSError as exc:
+        print(f"cannot reach {args.connstr}: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        store.close()
+    with open(args.out, "w", encoding="utf-8") as f:
+        json.dump(doc, f, default=float)
+    cluster = doc.get("mrtpuCluster") or {}
+    print(f"cluster timeline written to {args.out} "
+          f"({len(doc.get('traceEvents') or [])} events from "
+          f"{len(cluster.get('procs') or {})} process(es)); open in "
+          "https://ui.perfetto.dev")
+    return 0
+
+
 def cmd_runner(argv: List[str]) -> int:
     """The always-on serving process: a lease-fenced TaskRunner (ticks
     admission, drives every admitted task through Server.loop on this
@@ -1091,12 +1152,19 @@ COMMANDS = {"server": cmd_server, "worker": cmd_worker,
             "wordcount": cmd_wordcount, "train": cmd_train,
             "docserver": cmd_docserver, "blobserver": cmd_blobserver,
             "drop": cmd_drop, "submit": cmd_submit, "tasks": cmd_tasks,
-            "runner": cmd_runner}
+            "runner": cmd_runner, "timeline": cmd_timeline}
 
 #: JAX commands the port does not offer yet, with the ROADMAP item
 NOT_PORTED_COMMANDS = {
     "drain": "ROADMAP A.11: the engine-host fleet",
-    "status": "ROADMAP A.8: the cluster status snapshot",
+    "warmup": "ROADMAP A.8b: the compile plane",
+    "status": "ROADMAP A.8c: the cluster status snapshot",
+    "profile": "ROADMAP A.8c: the cluster status snapshot (/statusz) "
+               "it bundles",
+    "diagnose": "ROADMAP A.8c: the cluster diagnosis",
+    "history": "ROADMAP A.8c: the durable telemetry history",
+    "top": "ROADMAP A.8c: the durable telemetry history",
+    "alerts": "ROADMAP A.8c: the alerting plane",
 }
 
 

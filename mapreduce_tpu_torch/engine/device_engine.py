@@ -48,9 +48,20 @@ from what earlier runs of the same program family learned
 capacity retry, and resolves its decision after the loop; without it
 nothing is recorded and nothing changes.
 
+Telemetry (the JAX engine's instruments): the ``mrtpu_device_*``
+counters and the per-wave histogram below, the span timeline
+``device_run ⊃ wave ⊃ {upload, compute, readback}`` of every attempt
+(:mod:`..obs.wavetrace`: CUDA events on the card, read after the
+attempt's one overflow read, so it adds no host wait to the loop), the
+result's ``readback`` span, a ``capacity_retry`` forensics event at each
+retry (:mod:`..obs.memory`), per-wave device-memory samples from the
+allocator's counters, the upload/compute overlap share
+(:mod:`..obs.comms`) and the analytic cost model with MFU and the
+roofline share (:mod:`..obs.profile`), all in ``timings`` too.
+
 Left out of this port for now (ROADMAP): the compile ledger and the
-shape registry (A.8), the metrics and memory gauges, custom callable
-monoids on CUDA, multi-process runs.
+shape registry (A.8b), the exchange's link-class roll-ups (A.8c),
+custom callable monoids on CUDA, multi-process runs.
 """
 
 from __future__ import annotations
@@ -63,11 +74,52 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..obs import comms as _comms
+from ..obs import memory as _memory_obs
+from ..obs import metrics as _obs
+from ..obs import profile as _profile
+from ..obs.trace import TRACER
+from ..obs.wavetrace import WaveTimeline
 from ..ops import kernel_compat as kc
+from ..ops.radix_sort import RADIX_PASSES
 from ..ops.segscan import SENTINEL, ReduceOp, sorted_unique_reduce
 from ..parallel.mesh import Partitions
 from ..parallel.shuffle import partition_exchange
 from .tiering import TierSpecializer, TieredWaveDispatcher
+
+# -- device-plane instruments (the JAX engine's): live counters for the
+#    exposition plane plus per-wave histograms on DEVICE_BUCKETS ------------
+_WAVES = _obs.counter("mrtpu_device_waves_total",
+                      "device-engine waves executed (labels: task)")
+_DISPATCHES = _obs.counter(
+    "mrtpu_device_dispatches_total",
+    "wave programs dispatched by the device engine (labels: program, "
+    "task): one program=wave a wave, as in the JAX engine; the kernel "
+    "launches of a wave are counted in kernel_compat.LAUNCHES")
+_RETRIES = _obs.counter("mrtpu_device_retries_total",
+                        "capacity-overflow retries (labels: task)")
+_STAGE_SECONDS = _obs.counter(
+    "mrtpu_device_seconds_total",
+    "device-engine host wall seconds by stage (labels: stage, task)")
+_WAVE_SECONDS = _obs.histogram(
+    "mrtpu_device_wave_seconds",
+    "per-wave stage seconds on the DEVICE_BUCKETS preset (labels: "
+    "stage=wave|upload|compute|readback): the durations of the "
+    "timeline's spans.  On CUDA upload (the feeder's copy) and compute "
+    "(first to last launch of the wave) are device time from CUDA "
+    "events, wave and readback host-clock intervals; on the CPU all "
+    "host time.  Task-agnostic: per-task accounting rides the counters",
+    buckets=_obs.DEVICE_BUCKETS)
+#: per-partition skew inputs: live unique rows (and approximate bytes)
+#: of each partition after the last run's exchange and fold
+_PARTITION_RECORDS = _obs.gauge(
+    "mrtpu_device_partition_records",
+    "live unique rows per partition after the last device run "
+    "(labels: task, partition)")
+_PARTITION_BYTES = _obs.gauge(
+    "mrtpu_device_partition_bytes",
+    "approximate bytes of live rows per partition after the last "
+    "device run (labels: task, partition)")
 
 
 @dataclass(frozen=True)
@@ -194,6 +246,19 @@ class _Wave(NamedTuple):
     acc: tuple
     overflow: torch.Tensor    # [P] int32 rows dropped in this wave
     needs: torch.Tensor       # [P, 5] int32 measured capacity needs
+    records: int              # record slots map_fn emits a chunk (T)
+
+
+class _Aval(NamedTuple):
+    """A tensor's shape and dtype: what the cost and memory models read
+    of a wave's arrays, without keeping them alive."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+    @classmethod
+    def of(cls, t: torch.Tensor) -> "_Aval":
+        return cls(tuple(t.shape), t.dtype)
 
 
 def _is_tiered(sort_impl: str) -> bool:
@@ -287,9 +352,10 @@ class _WaveFeeder:
     event, with no host block, and records the wave as used on that
     stream: the wave was allocated on the copy stream, and without the
     record the allocator could hand its memory to a later wave's copy
-    while the kernels still read it.  On the CPU nothing is pinned and
-    no stream is used; the wave split and the byte accounting are the
-    same.
+    while the kernels still read it.  Each copy lies between two timing
+    events on the copy stream, which :meth:`copy_events` hands to the
+    engine's timeline.  On the CPU nothing is pinned and no stream is
+    used; the wave split and the byte accounting are the same.
     """
 
     #: pinned host buffers a CUDA feeder cycles through
@@ -315,6 +381,9 @@ class _WaveFeeder:
         self._pool: Optional[cf.ThreadPoolExecutor] = None
         self._futs: dict = {}
         self._ready: dict = {}
+        #: per wave resolved by get() on CUDA, its copy's (start, done)
+        #: timing events
+        self._copies: dict = {}
         self._submitted = 0
         self._accounted: set = set()
         self.held_bytes = 0
@@ -349,11 +418,13 @@ class _WaveFeeder:
         with torch.cuda.stream(self._stream):
             dev = torch.empty(self._shape, dtype=self._dtype,
                               device=self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self._stream)
             dev.copy_(buf, non_blocking=True)
-            done = torch.cuda.Event()
+            done = torch.cuda.Event(enable_timing=True)
             done.record(self._stream)
         self._copied[i] = done
-        return dev, done
+        return dev, start, done
 
     def _ensure_submitted(self, upto: int) -> None:
         upto = min(upto, self.waves - 1)
@@ -381,12 +452,18 @@ class _WaveFeeder:
         if w not in self._ready:
             wave = self._futs.pop(w).result()
             if self._cuda:
-                wave, done = wave
+                wave, start, done = wave
+                self._copies[w] = (start, done)
                 compute = torch.cuda.current_stream(self.device)
                 compute.wait_event(done)
                 wave.record_stream(compute)
             self._ready[w] = wave
         return self._ready[w]
+
+    def copy_events(self, w: int) -> Optional[tuple]:
+        """The ``(start, done)`` timing events around wave *w*'s copy
+        (CUDA, once :meth:`get` resolved it), else None."""
+        return self._copies.pop(w, None)
 
     def synchronize(self) -> None:
         """Return once every copy issued so far has landed."""
@@ -395,6 +472,7 @@ class _WaveFeeder:
 
     def release(self, w: int) -> None:
         self._ready.pop(w, None)
+        self._copies.pop(w, None)
         if w in self._accounted:
             self._accounted.discard(w)
             self.held_bytes -= self._wave_nbytes
@@ -411,6 +489,7 @@ class _WaveFeeder:
             self._pool = None
         self._futs.clear()
         self._ready.clear()
+        self._copies.clear()
         self._accounted.clear()
         self.held_bytes = 0
 
@@ -506,7 +585,8 @@ class DeviceEngine:
                        first_index: int, n_real: int):
         """Steps 1-2 for one partition's ``k`` chunks: the map loop (with
         the in-scan combiner) and the local reduce.  Returns ``(local,
-        local_oflow, map_oflow, comb_max)``."""
+        local_oflow, map_oflow, comb_max, T)``, T the record slots
+        ``map_fn`` emits a chunk."""
         local_op, local_unit, _ = _stage_ops(cfg)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         map_oflow, comb_oflow, comb_max = zero, zero, zero
@@ -514,6 +594,7 @@ class DeviceEngine:
         for j in range(chunks.shape[0]):
             idx = first_index + j
             keys, vals, pay, valid, m_oflow = self.map_fn(chunks[j], idx, cfg)
+            T = keys.shape[0]
             # chunks past n_real are padding: their records are masked
             live = idx < n_real
             if live:
@@ -544,7 +625,7 @@ class DeviceEngine:
             sort_impl=cfg.sort_impl)
         local_oflow = (map_oflow + comb_oflow
                        + (local.n_unique - cfg.local_capacity).clamp(min=0))
-        return local, local_oflow, map_oflow, comb_max
+        return local, local_oflow, map_oflow, comb_max, T
 
     def _acc_zeros(self, cfg: EngineConfig, values: torch.Tensor,
                    payload: torch.Tensor) -> tuple:
@@ -595,7 +676,7 @@ class DeviceEngine:
                 ex.keys[p], ex.values[p], ex.payload[p], ex.valid[p],
                 cfg.out_capacity, fin_op, unit_values=False,
                 sort_impl=cfg.sort_impl)
-            local, local_oflow, map_oflow, comb_max = mapped[p]
+            local, local_oflow, map_oflow, comb_max, _ = mapped[p]
             fin_oflow = (fin.n_unique - cfg.out_capacity).clamp(min=0)
             fins.append(fin)
             oflows.append(local_oflow + ex.overflow[p] + fin_oflow)
@@ -607,7 +688,36 @@ class DeviceEngine:
                         for n in ("keys", "values", "payload", "valid"))
         if cfg.exchange_stats:
             new_acc += (acc[4] + ex.counts,)
-        return _Wave(new_acc, torch.stack(oflows), torch.stack(needs))
+        return _Wave(new_acc, torch.stack(oflows), torch.stack(needs),
+                     int(mapped[0][4]))
+
+    # -- the cost model (obs/profile) ------------------------------------------
+
+    def _program_costs(self, cfg: EngineConfig, shapes, records: int,
+                       ) -> dict:
+        """FLOPs and bytes of ONE wave, by the analytic model
+        (``source="analytic"``: there is no compiler cost model to read)
+        of the program that ran: the wave's input block and record width
+        from its arrays (*shapes*: the block, then the accumulator
+        lanes), *records* slots a chunk, the fold re-sorting all P
+        partitions' accumulators, the port's radix pass count, and on
+        CUDA the segmented-reduce kernel whatever ``segment_impl`` says
+        (the device picks the route)."""
+        block, _, vals, pay = shapes[:4]
+        chunk_rows = int(block.shape[0])
+        input_bytes = (chunk_rows * int(np.prod(block.shape[1:]))
+                       * block.dtype.itemsize)
+        Q = int(pay.shape[2]) if len(pay.shape) > 2 else 1
+        val_bytes = (int(np.prod(vals.shape[2:])) or 1) * vals.dtype.itemsize
+        costs = _profile.analytic_costs(
+            input_bytes, chunk_rows * int(records), 8 + val_bytes + 4 * Q + 1,
+            fold_records=self.n_dev * cfg.out_capacity,
+            argsort=cfg.sort_impl == "argsort",
+            segment_impl=("pallas" if self.device.type == "cuda"
+                          else cfg.segment_impl),
+            sort_impl=cfg.sort_impl, radix_passes=RADIX_PASSES)
+        costs["source"] = "analytic"
+        return costs
 
     # -- host driver -----------------------------------------------------------
 
@@ -764,10 +874,12 @@ class DeviceEngine:
         rpw = k * P
         tiered = _is_tiered(cfg.sort_impl)
         cuda = self.device.type == "cuda"
-        t_upload = t_compute = 0.0
+        task = self.task_label
+        t_upload = t_compute = t_attempt_compute = 0.0
         t_first_dispatch = None
         reuploaded = False
         retries = 0
+        uploads, busy = [], []
         try:
             for attempt in range(max_retries + 1):
                 disp = TieredWaveDispatcher(self, cfg) if tiered else None
@@ -775,50 +887,94 @@ class DeviceEngine:
                 t_blocked = 0.0
                 acc = None
                 oflows, needs = [], []
+                # the first wave's arrays (the memory model's) and the
+                # last wave's config (the cost model's), per attempt
+                cost_shapes = cost_cfg = None
+                records = 0
                 pmap = self.device_pmap() if cfg.partition_map else None
-                if feeder is not None:  # uploads overlap any build below
-                    feeder.start()
-                for w in range(W):
-                    # the tier decision (and a cold tier's builds) at the
-                    # wave boundary, then the libraries of the serving
-                    # config: built at the first wave, found loaded later
-                    wave_cfg = disp.next_cfg() if disp is not None else cfg
-                    if cuda:
-                        kc.load(kc.sources_for(wave_cfg))
-                    tb = time.monotonic()
-                    if pairs is not None:
-                        block = pairs.pop(w)
-                        if cuda:  # the kernels' stream frees it
-                            block.record_stream(
-                                torch.cuda.current_stream(self.device))
-                    else:
-                        block = feeder.get(w)
-                    t_blocked += time.monotonic() - tb
-                    if t_first_dispatch is None:
-                        t_first_dispatch = time.monotonic()
-                    out = self._wave(wave_cfg, block, w * rpw, k, S, acc,
-                                     pmap)
-                    del block
-                    if feeder is not None:
-                        feeder.release(w)
-                    acc = out.acc
-                    oflows.append(out.overflow)
-                    needs.append(out.needs)
-                # the one readback of the attempt: waits for the device
-                total_oflow = int(torch.stack(oflows).sum())
+                line = WaveTimeline(self.device, attempt, W, t0,
+                                    histogram=_WAVE_SECONDS)
+                try:
+                    if feeder is not None:  # uploads overlap any build
+                        feeder.start()
+                    for w in range(W):
+                        # the tier decision (and a cold tier's builds) at
+                        # the wave boundary, then the libraries of the
+                        # serving config: built at the first wave, found
+                        # loaded later
+                        wave_cfg = disp.next_cfg() if disp is not None else cfg
+                        if cuda:
+                            kc.load(kc.sources_for(wave_cfg))
+                        tb = time.monotonic()
+                        if pairs is not None:
+                            block = pairs.pop(w)
+                            if cuda:  # the kernels' stream frees it
+                                block.record_stream(
+                                    torch.cuda.current_stream(self.device))
+                            copy = None
+                        else:
+                            block = feeder.get(w)
+                            copy = feeder.copy_events(w)
+                        t_up = time.monotonic()
+                        t_blocked += t_up - tb
+                        line.wave(w, tb, t_up, copy)
+                        if t_first_dispatch is None:
+                            t_first_dispatch = time.monotonic()
+                        line.compute_begin()
+                        out = self._wave(wave_cfg, block, w * rpw, k, S, acc,
+                                         pmap)
+                        line.compute_end()
+                        _DISPATCHES.inc(1, program="wave", task=task)
+                        if cost_shapes is None:
+                            cost_shapes = [_Aval.of(t) for t in
+                                           (block, *out.acc)
+                                           + ((pmap,) if pmap is not None
+                                              else ())]
+                        cost_cfg, records = wave_cfg, out.records
+                        del block
+                        if feeder is not None:
+                            feeder.release(w)
+                        acc = out.acc
+                        oflows.append(out.overflow)
+                        needs.append(out.needs)
+                        # the allocator's counters on CUDA (host reads),
+                        # else the input waves held plus the accumulator
+                        held = feeder.held_bytes if feeder is not None else 0
+                        _memory_obs.sample_device_memory(
+                            [self.device], analytic_bytes_in_use=held + sum(
+                                t.numel() * t.element_size() for t in acc))
+                    # the one readback of the attempt: waits for the
+                    # device; every wave span closes here
+                    tr0 = time.monotonic()
+                    total_oflow = int(torch.stack(oflows).sum())
+                    tr1 = time.monotonic()
+                except BaseException:
+                    line.abort()
+                    raise
+                uploads, busy = line.finish(tr0, tr1)
                 t_upload += t_blocked
-                t_compute += time.monotonic() - t0 - t_blocked
+                t_attempt_compute = time.monotonic() - t0 - t_blocked
+                t_compute += t_attempt_compute
                 if total_oflow == 0 or attempt == max_retries:
                     break
                 retries = attempt + 1
                 new_cfg = self._resize(cfg,
                                        torch.stack(needs).cpu().numpy())
+                # capacity-retry forensics: the attempt's program
+                # footprint and the device's memory state, classified
+                _memory_obs.capacity_retry_event(
+                    task=task, attempt=attempt, overflow_rows=total_oflow,
+                    program_memory_doc=_memory_obs.analytic_program_memory(
+                        cost_shapes),
+                    devices=[self.device],
+                    old_capacities=_capacities(cfg),
+                    new_capacities=_capacities(new_cfg))
                 if self.autotune is not None:
                     # the controller learns the right-sized capacities,
                     # so the NEXT run (or session) starts there
                     self.autotune.note_retry(
                         self.autotune_key(), _capacities(cfg),
-                        _capacities(new_cfg), task=self.task_label)
+                        _capacities(new_cfg), task=task)
                 cfg = new_cfg
                 del acc
                 # the inputs were freed wave by wave: the retry re-uploads
@@ -848,8 +1004,7 @@ class DeviceEngine:
         if self.autotune is not None:
             # the next control window's measurement: zero retries after
             # a pre-sized start resolves the pending capacity decision
-            self.autotune.note_run(self.autotune_key(), retries,
-                                   task=self.task_label)
+            self.autotune.note_run(self.autotune_key(), retries, task=task)
         if total_oflow and on_overflow == "raise":
             raise RuntimeError(
                 f"device run still overflowed {total_oflow} rows after "
@@ -859,12 +1014,43 @@ class DeviceEngine:
         # sliced readback: only the live prefix of each partition's result
         t0 = time.monotonic()
         keys, vals, pay, valid = acc[:4]
-        width = max(1, int(valid.sum(dim=1).max()))
-        result = DeviceResult(keys[:, :width].cpu(), vals[:, :width].cpu(),
-                              pay[:, :width].cpu(), valid[:, :width].cpu(),
-                              total_oflow)
+        with TRACER.span("readback", stage="result"):
+            n_live = valid.sum(dim=1).cpu()
+            width = max(1, int(n_live.max()))
+            result = DeviceResult(keys[:, :width].cpu(),
+                                  vals[:, :width].cpu(),
+                                  pay[:, :width].cpu(),
+                                  valid[:, :width].cpu(), total_oflow)
         t_readback = time.monotonic() - t0
+        _WAVES.inc(W, task=task)
+        _RETRIES.inc(retries, task=task)
+        _STAGE_SECONDS.inc(t_upload, stage="upload", task=task)
+        _STAGE_SECONDS.inc(t_compute, stage="compute", task=task)
+        _STAGE_SECONDS.inc(t_readback, stage="readback", task=task)
+        # per-partition skew inputs: live rows and their byte mass
+        row_bytes = sum(t.element_size() * int(np.prod(t.shape[2:]))
+                        for t in result[:3])
+        for p, n in enumerate(n_live.tolist()):
+            _PARTITION_RECORDS.set(n, task=task, partition=f"P{p:05d}")
+            _PARTITION_BYTES.set(n * row_bytes, task=task,
+                                 partition=f"P{p:05d}")
+        overlap = _comms.record_upload_overlap(
+            _comms.overlap_fraction(uploads, busy), task=task)
+        derived = {}
+        if cost_shapes is not None:
+            # the final attempt's program: its costs over the final
+            # attempt's compute seconds (the MFU clock)
+            derived = _profile.record_run(
+                self._program_costs(cost_cfg, cost_shapes, records),
+                waves=W, compute_s=t_attempt_compute, n_dev=1,
+                device=_profile.describe_device(self.device), task=task)
+            mem = _memory_obs.analytic_program_memory(cost_shapes)
+            _memory_obs.record_program_memory("wave", mem)
+            derived["program_memory_bytes"] = int(mem["total"])
+            derived["memory_source"] = mem["source"]
         if timings is not None:
+            timings.update(derived)
+            timings["upload_overlap_frac"] = round(overlap, 4)
             timings["waves"] = W
             timings["retries"] = retries
             timings["compute_s"] = t_compute

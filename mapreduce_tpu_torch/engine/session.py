@@ -51,28 +51,117 @@ rebalance its partition map.  Both run outside the session lock; the
 rebalance's reads and writes of the accumulator are ordered after the
 feed's waves by the events above.
 
-Left out of this port for now (ROADMAP A.8): the SLO and metrics
-observations and the stream-age gauges.
+Telemetry (the JAX session's): the ``mrtpu_session_*`` counters and
+gauges below, the device engine's wave and dispatch counters for every
+wave a feed folds (no spans, as in JAX), each feed's and snapshot's
+latency and each snapshot's staleness in the SLO plane
+(:mod:`..obs.slo`), and the stream-age gauges
+(:func:`refresh_stream_age_gauges`).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+import weakref
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..obs import metrics as _obs
+from ..obs import slo as _slo
 from ..ops import kernel_compat as kc
 from ..parallel.mesh import Partitions
 from .device_engine import (
-    DeviceEngine, DeviceResult, EngineConfig, _cfg_token, _is_tiered,
-    _steady_cfg, _WaveFeeder, identity_pmap, validate_partition_map)
+    _DISPATCHES, _WAVES, DeviceEngine, DeviceResult, EngineConfig,
+    _cfg_token, _is_tiered, _steady_cfg, _WaveFeeder, identity_pmap,
+    validate_partition_map)
 from .spill import (
-    LANES, SessionRestoreError, SessionSpillStore, SpillPolicy,
-    lanes_to_device, lanes_to_host, repartition_rows)
+    _RESIDENT, _RESTORES, _SPILL_SECONDS, _SPILLS, LANES,
+    SessionRestoreError, SessionSpillStore, SpillPolicy, lanes_to_device,
+    lanes_to_host, repartition_rows)
 from .tiering import TieredWaveDispatcher
+
+_FEEDS = _obs.counter(
+    "mrtpu_session_feeds_total",
+    "EngineSession.feed calls (labels: task)")
+_CHUNKS = _obs.counter(
+    "mrtpu_session_chunks_total",
+    "input chunks folded into a resident session aggregate "
+    "(labels: task)")
+_SESSION_WAVES = _obs.counter(
+    "mrtpu_session_waves_total",
+    "waves the session layer folded (labels: task, tier=0|1|<impl>|-): "
+    "device dispatches match this one for one while the session is the "
+    "only engine user.  Under a tier policy the tier label attributes "
+    "a cold tenant's first waves to tier-0 serving; a non-variadic "
+    "steady tier labels as its impl name (e.g. 'radix'); '-' is an "
+    "untiered session")
+_SNAPSHOTS = _obs.counter(
+    "mrtpu_session_snapshots_total",
+    "mid-stream consistent reads of a session aggregate (labels: task)")
+_SESSION_SECONDS = _obs.counter(
+    "mrtpu_session_seconds_total",
+    "wall seconds in the session layer (labels: stage=feed|snapshot, "
+    "task)")
+_LIVE_RECORDS = _obs.gauge(
+    "mrtpu_session_records_live",
+    "live unique rows in a session's resident accumulator at the last "
+    "snapshot (labels: task)")
+_OVERFLOWS = _obs.counter(
+    "mrtpu_session_overflow_rows_total",
+    "rows a session stream dropped for capacity (labels: task); any "
+    "nonzero value means that stream's aggregate is truncated")
+_BACKPRESSURE = _obs.counter(
+    "mrtpu_session_backpressure_total",
+    "feeds/snapshots refused with retry-after semantics (labels: "
+    "task, reason=feed_queue|migrating): feed_queue, the stream's "
+    "bounded pending-feed queue was full; migrating, the stream was "
+    "handed off to another host and serves at its new route")
+_STREAM_AGE = _obs.gauge(
+    "mrtpu_session_stream_age_seconds",
+    "seconds since a resident stream's last feed / last snapshot "
+    "(labels: task, stamp=feed|snapshot), refreshed whole-family on "
+    "every session call: a stalled stream shows even when nobody polls "
+    "its snapshots")
+
+#: live sessions, for the whole-family stream-age refresh (weak: a
+#: dropped session's streams vanish from the gauge)
+_SESSIONS: "weakref.WeakSet[EngineSession]" = weakref.WeakSet()
+#: last harvested (task, stamp, monotonic) rows per session: a session
+#: whose lock is busy at refresh time contributes its previous stamps
+_AGE_STAMPS: "weakref.WeakKeyDictionary[EngineSession, list]" = \
+    weakref.WeakKeyDictionary()
+
+
+def refresh_stream_age_gauges(now: Optional[float] = None) -> None:
+    """Swap the whole ``mrtpu_session_stream_age_seconds`` family from
+    every live session's stream stamps (called after each session call,
+    never while holding a session lock)."""
+    now = time.monotonic() if now is None else now
+    rows: List[Tuple[Dict[str, str], float]] = []
+    for sess in list(_SESSIONS):
+        # non-blocking: a session mid-feed holds its lock for the whole
+        # wave loop, and another session's epilogue must not wait on
+        # it; a busy session's cached stamps stand in
+        if sess._lock.acquire(blocking=False):
+            try:
+                stamps = []
+                for task, st in sess._streams.items():
+                    if st.last_feed_monotonic is not None:
+                        stamps.append((task, "feed",
+                                       st.last_feed_monotonic))
+                    if st.last_snapshot_monotonic is not None:
+                        stamps.append((task, "snapshot",
+                                       st.last_snapshot_monotonic))
+                _AGE_STAMPS[sess] = stamps
+            finally:
+                sess._lock.release()
+        for task, stamp, t in _AGE_STAMPS.get(sess, []):
+            rows.append(({"task": task, "stamp": stamp},
+                         round(now - t, 6)))
+    _STREAM_AGE.replace(rows)
 
 
 class SessionOverflowError(RuntimeError):
@@ -191,6 +280,7 @@ class EngineSession:
         #: the swap happens once, between feeds or at a wave boundary
         #: inside one, and every tenant gains from it
         self._dispatcher: Optional[TieredWaveDispatcher] = None
+        _SESSIONS.add(self)
 
     # -- shape latching ----------------------------------------------------
 
@@ -271,12 +361,17 @@ class EngineSession:
                 st = self._restore_locked(task)
             else:
                 st = self._streams[task] = _Stream()
+            self._refresh_resident()
         return st
+
+    def _refresh_resident(self) -> None:
+        _RESIDENT.set(len(self._streams), task="-")
 
     def _refuse_handed_off(self, task: str) -> None:
         """A stream handed to another host must not restore here (call
         under the lock)."""
         if task in self._handed_off:
+            _BACKPRESSURE.inc(task=task, reason="migrating")
             raise SessionBusyError(
                 f"stream {task!r} was migrated off this host; its spill "
                 "belongs to the destination now: re-resolve the task's "
@@ -315,6 +410,7 @@ class EngineSession:
                              f"got {on_overflow!r}")
         task = self.default_task if task is None else str(task)
         chunks = np.ascontiguousarray(chunks)
+        t0 = time.monotonic()
         # the bounded queue counts waiters only: a feed leaves it when it
         # takes the session lock, so N admits N feeds queued behind the
         # one that runs
@@ -322,6 +418,7 @@ class EngineSession:
         if self.max_pending_feeds > 0:
             with self._pending_lock:
                 if self._pending.get(task, 0) >= self.max_pending_feeds:
+                    _BACKPRESSURE.inc(task=task, reason="feed_queue")
                     raise SessionBusyError(
                         f"stream {task!r}: {self.max_pending_feeds} "
                         "feeds already pending; the device is behind "
@@ -329,10 +426,11 @@ class EngineSession:
                 self._pending[task] = self._pending.get(task, 0) + 1
                 slot[0] = True
         try:
-            feed_oflow, st = self._feed_locked(chunks, task, slot)
+            feed_oflow, st = self._feed_locked(chunks, task, slot, t0)
         finally:
             if slot[0]:  # died before it took the session lock
                 self._pending_done(task)
+        refresh_stream_age_gauges()
         # housekeeping outside the lock: an eviction this feed causes
         # must not lengthen its critical section
         self.enforce_spill_policy()
@@ -370,7 +468,8 @@ class EngineSession:
                "checkpoint" if restorable else
                "close(task) and restart it from the source"))
 
-    def _feed_locked(self, chunks: np.ndarray, task: str, slot: list):
+    def _feed_locked(self, chunks: np.ndarray, task: str, slot: list,
+                     t0: float):
         with self._lock:
             if slot[0]:  # this feed runs now: free its waiter slot
                 self._pending_done(task)
@@ -389,6 +488,7 @@ class EngineSession:
             feeder = _WaveFeeder(eng, chunks, k=self.k,
                                  prefetch=eng.STREAM_PREFETCH)
             oflows = []
+            wave_tiers: Dict[str, int] = {}
             try:
                 self._await_acc(st)
                 feeder.start()
@@ -399,6 +499,12 @@ class EngineSession:
                     block = feeder.get(w)
                     out = eng._wave(cfg, block, st.pos + w * rpw, self.k,
                                     n_real, st.acc, pmap)
+                    _DISPATCHES.inc(1, program="wave", task=task)
+                    # the serving tier of this wave ("-" untiered): a
+                    # feed across the swap counts under both labels
+                    tier = (self._dispatcher.tier_label
+                            if self._dispatcher is not None else "-")
+                    wave_tiers[tier] = wave_tiers.get(tier, 0) + 1
                     del block
                     feeder.release(w)
                     # the old accumulator's last reference goes here,
@@ -423,6 +529,16 @@ class EngineSession:
             st.feeds += 1
             st.overflow += feed_oflow
             st.last_feed_monotonic = time.monotonic()
+            _WAVES.inc(feeder.waves, task=task)
+            for tier, n in wave_tiers.items():
+                _SESSION_WAVES.inc(n, task=task, tier=tier)
+            _FEEDS.inc(task=task)
+            _CHUNKS.inc(S, task=task)
+            if feed_oflow:
+                _OVERFLOWS.inc(feed_oflow, task=task)
+            feed_s = time.monotonic() - t0
+            _SESSION_SECONDS.inc(feed_s, stage="feed", task=task)
+            _slo.observe_session_op("feed", task, feed_s)
             return feed_oflow, st
 
     def snapshot(self, task: Optional[str] = None) -> DeviceResult:
@@ -431,6 +547,7 @@ class EngineSession:
         goes on).  ``overflow`` carries the stream's cumulative dropped
         rows (0: exact)."""
         task = self.default_task if task is None else str(task)
+        t0 = time.monotonic()
         with self._lock:
             st = self._streams.get(task)
             if st is None:
@@ -438,6 +555,7 @@ class EngineSession:
                 if self.spill is not None and self.spill.has(task):
                     # an evicted stream still serves: restore lazily
                     st = self._restore_locked(task)
+                    self._refresh_resident()
             if st is None:
                 raise KeyError(f"no stream {task!r} in this session "
                                f"(known: {sorted(self._streams)})")
@@ -445,12 +563,24 @@ class EngineSession:
                 raise self._broken_error(task, "its aggregate is unusable")
             keys, vals, pay, valid = self._acc(st)[:4]
             self._await_acc(st)
-            width = max(1, int(valid.sum(dim=1).max()))
+            n_live = valid.sum(dim=1).cpu()
+            width = max(1, int(n_live.max()))
             result = DeviceResult(keys[:, :width].cpu(),
                                   vals[:, :width].cpu(),
                                   pay[:, :width].cpu(),
                                   valid[:, :width].cpu(), st.overflow)
-            st.last_snapshot_monotonic = time.monotonic()
+            _SNAPSHOTS.inc(task=task)
+            _LIVE_RECORDS.set(int(n_live.sum()), task=task)
+            done = time.monotonic()
+            if st.last_feed_monotonic is not None:
+                # staleness: the age of the newest record the snapshot
+                # reflects (feeds and snapshots are serialised, so the
+                # last completed feed holds it)
+                _slo.observe_staleness(task, done - st.last_feed_monotonic)
+            st.last_snapshot_monotonic = done
+            _SESSION_SECONDS.inc(done - t0, stage="snapshot", task=task)
+            _slo.observe_session_op("snapshot", task, done - t0)
+        refresh_stream_age_gauges()
         return result
 
     def stats(self, task: Optional[str] = None) -> Dict[str, object]:
@@ -597,7 +727,7 @@ class EngineSession:
             meta["rebalances"] = st.rebalances
         return meta
 
-    def _spill_locked(self, task: str) -> int:
+    def _spill_locked(self, task: str, reason: str) -> int:
         if self.spill is None:
             raise RuntimeError(
                 "this session has no spill store: construct with "
@@ -610,30 +740,40 @@ class EngineSession:
                 f"stream {task!r} is poisoned; its accumulator must not "
                 "be spilled (restore() rolls back to the last good "
                 "spill)")
+        t0 = time.monotonic()
         acc = self._acc(st)
         self._await_acc(st)
-        return self.spill.save_stream(task, lanes_to_host(acc),
+        step = self.spill.save_stream(task, lanes_to_host(acc),
                                       self._spill_meta(st))
+        _SPILLS.inc(task=task, reason=reason)
+        _SPILL_SECONDS.inc(time.monotonic() - t0, stage="spill", task=task)
+        return step
 
-    def spill_stream(self, task: Optional[str] = None) -> int:
+    def spill_stream(self, task: Optional[str] = None,
+                     reason: str = "explicit") -> int:
         """Checkpoint *task*'s accumulator to the spill store (the
         stream stays resident); returns the committed step.  Serialised
-        with feeds, so it holds exactly the completed feeds."""
+        with feeds, so it holds exactly the completed feeds.  *reason*
+        labels ``mrtpu_session_spills_total``."""
         task = self.default_task if task is None else str(task)
         with self._lock:
-            return self._spill_locked(task)
+            return self._spill_locked(task, reason)
 
-    def evict(self, task: Optional[str] = None) -> int:
+    def evict(self, task: Optional[str] = None,
+              reason: str = "explicit") -> int:
         """Spill *task*, then drop its resident accumulator (its device
         memory frees with the references); the next feed or snapshot
         restores it lazily."""
         task = self.default_task if task is None else str(task)
         with self._lock:
-            step = self._spill_locked(task)
+            step = self._spill_locked(task, reason)
             self._streams.pop(task, None)
+            self._refresh_resident()
+        refresh_stream_age_gauges()
         return step
 
-    def migrate_out(self, task: Optional[str] = None) -> int:
+    def migrate_out(self, task: Optional[str] = None,
+                    reason: str = "migration") -> int:
         """The source half of a migration: spill *task*, drop it and
         mark it handed off, so a feed or snapshot that raced the evict
         gets :class:`SessionBusyError` instead of restoring a spill that
@@ -642,7 +782,7 @@ class EngineSession:
         task = self.default_task if task is None else str(task)
         with self._lock:
             if task in self._streams:
-                step = self._spill_locked(task)
+                step = self._spill_locked(task, reason)
                 self._streams.pop(task, None)
             elif self.spill is not None and self.spill.has(task):
                 step = 0  # already durable: nothing resident to spill
@@ -650,9 +790,12 @@ class EngineSession:
                 raise KeyError(
                     f"no resident or spilled stream {task!r} to migrate")
             self._handed_off.add(task)
+            self._refresh_resident()
+        refresh_stream_age_gauges()
         return step
 
     def _restore_locked(self, task: str) -> _Stream:
+        t0 = time.monotonic()
         lanes, meta = self.spill.load_stream(task)
         want = _cfg_token(_steady_cfg(self.config))
         got = meta.get("config")
@@ -705,6 +848,9 @@ class EngineSession:
         # record can be proven to be
         st.last_feed_monotonic = time.monotonic()
         self._streams[task] = st
+        _RESTORES.inc(task=task, outcome="resharded" if resharded else "ok")
+        _SPILL_SECONDS.inc(time.monotonic() - t0, stage="restore",
+                           task=task)
         return st
 
     def adopt(self, task: Optional[str] = None) -> None:
@@ -727,6 +873,8 @@ class EngineSession:
         with self._lock:
             st = self._restore_locked(task)
             self._handed_off.discard(task)
+            self._refresh_resident()
+        refresh_stream_age_gauges()
         return st
 
     def enforce_spill_policy(self) -> List[str]:
@@ -745,11 +893,18 @@ class EngineSession:
                 last = max(st.last_feed_monotonic or 0.0,
                            st.last_snapshot_monotonic or 0.0)
                 ages[task] = now - last
+        pressed = policy.hbm_pressed(self.device)
         evicted = []
-        for task in policy.victims(ages,
-                                   policy.hbm_pressed(self.device)):
+        for task in policy.victims(ages, pressed):
+            if (policy.max_idle_s is not None
+                    and ages.get(task, 0.0) > policy.max_idle_s):
+                reason = "idle"
+            elif pressed:
+                reason = "pressure"
+            else:
+                reason = "resident_cap"
             try:
-                self.evict(task)
+                self.evict(task, reason=reason)
             except (KeyError, SessionStreamBroken):
                 continue  # raced a close() or a break: nothing to evict
             evicted.append(task)
@@ -769,5 +924,8 @@ class EngineSession:
             else:
                 self._streams.clear()
                 self._handed_off.clear()
+            self._refresh_resident()
         if self.spill is not None and drop_spill and task is not None:
             self.spill.drop(str(task))
+        # a closed stream's age series must not linger
+        refresh_stream_age_gauges()

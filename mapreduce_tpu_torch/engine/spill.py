@@ -19,8 +19,9 @@ The files are the JAX package's: a spill either package writes restores
 in the other.  Key lanes are int32 bit patterns on the device and
 ``uint32`` in the files (the JAX dtype); the conversion happens here and
 in the session, and :func:`repartition_rows` works on ``uint32`` keys as
-the JAX function does.  The JAX package's spill metrics are not ported
-yet (ROADMAP).
+the JAX function does.  The spill metrics are the JAX package's (the
+session counts spills, restores and their seconds; the shard bytes and
+restore outcomes ride the checkpoint metrics).
 """
 
 from __future__ import annotations
@@ -33,10 +34,31 @@ import numpy as np
 import torch
 
 from ..models import checkpoint as _ckpt
+from ..obs import metrics as _metrics
 
 #: lane names, in the accumulator's positional order (traffic only
 #: with EngineConfig.exchange_stats)
 LANES = ("keys", "vals", "pay", "valid", "traffic")
+
+_SPILLS = _metrics.counter(
+    "mrtpu_session_spills_total",
+    "session streams checkpointed to the blob plane (labels: task, "
+    "reason=explicit|idle|pressure|resident_cap|migration)")
+_RESTORES = _metrics.counter(
+    "mrtpu_session_restores_total",
+    "session stream restores from spilled checkpoints (labels: task, "
+    "outcome=ok|resharded: resharded restores re-binned the rows "
+    "onto another partition count)")
+_SPILL_SECONDS = _metrics.counter(
+    "mrtpu_session_spill_seconds_total",
+    "wall seconds in session spill/restore (labels: stage=spill|"
+    "restore, task)")
+_RESIDENT = _metrics.gauge(
+    "mrtpu_session_resident_streams",
+    "streams holding a resident accumulator in a live session (labels: "
+    "task=- whole-session count); spill payload bytes ride the shared "
+    "mrtpu_ckpt_bytes_total counter")
+
 #: the mesh axis name the JAX package records in a spilled leaf's spec
 AXIS = "data"
 
@@ -137,6 +159,7 @@ class SessionSpillStore:
         :class:`SessionRestoreError` when none survives."""
         prefix = self._task_prefix(task)
         steps = _ckpt.list_steps(self.storage, prefix)
+        skipped = 0
         for step in reversed(steps):
             try:
                 manifest = _ckpt.load_manifest(self.storage, prefix, step)
@@ -144,7 +167,10 @@ class SessionSpillStore:
                     name: _ckpt.assemble_leaf(self.storage, name, entry)
                     for name, entry in manifest["leaves"].items()}
             except _ckpt.CheckpointCorruptError:
+                _ckpt.note_restore("corrupt")
+                skipped += 1
                 continue
+            _ckpt.note_restore("ok", step=step, fell_past=skipped)
             return lanes, dict(manifest.get("meta") or {})
         raise SessionRestoreError(
             f"stream {task!r}: no complete spilled checkpoint under "

@@ -27,8 +27,11 @@ Layout (one checkpoint = one directory-shaped blob prefix)::
 A tree is a flat ``{name: array}`` dict (numpy arrays or tensors; a
 tensor is copied to the host).  The JAX package's placement rules are
 not needed here: *spec* is written into the manifest for operators, and
-a restore ignores it.  The JAX package's checkpoint metrics are not
-ported yet (ROADMAP).
+a restore ignores it.  The metrics are the JAX package's
+(``mrtpu_ckpt_*``: saves, restores by outcome, corrupt shards,
+fallbacks, gc by reason, shard bytes, the last step); a port shard is
+one a leaf, so its byte counts differ from a JAX checkpoint's of the
+same state by the npy headers of the JAX package's extra shards.
 """
 
 from __future__ import annotations
@@ -42,11 +45,38 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs import metrics as _metrics
 from ..storage.base import Storage
 
 MANIFEST = "MANIFEST.json"
 BEST_TAG = "BEST"
 FORMAT = 1
+
+_SAVES = _metrics.counter(
+    "mrtpu_ckpt_saves_total",
+    "sharded checkpoints committed (manifest written)")
+_RESTORES = _metrics.counter(
+    "mrtpu_ckpt_restores_total",
+    "checkpoint restore attempts (labels: outcome=ok|corrupt)")
+_CORRUPT_SHARDS = _metrics.counter(
+    "mrtpu_ckpt_corrupt_shards_total",
+    "shards that failed digest/size/decode validation on restore")
+_FALLBACKS = _metrics.counter(
+    "mrtpu_ckpt_fallbacks_total",
+    "restores that fell back past a bad/incomplete checkpoint to an "
+    "older complete one")
+_GC = _metrics.counter(
+    "mrtpu_ckpt_gc_total",
+    "checkpoint data removed by gc (labels: reason=retention for "
+    "whole checkpoints beyond keep-N, reason=orphan for manifestless "
+    "shard dirs left by aborted commits)")
+_BYTES = _metrics.counter(
+    "mrtpu_ckpt_bytes_total",
+    "checkpoint shard payload bytes (labels: direction=save|restore)")
+_LAST_STEP = _metrics.gauge(
+    "mrtpu_ckpt_last_step",
+    "step of the newest committed checkpoint this process wrote or "
+    "restored (labels: op=save|restore)")
 
 
 class CheckpointError(ValueError):
@@ -130,6 +160,7 @@ def save(storage: Storage, step: int, tree: Dict[str, Any],
         data = _npy_bytes(arr)
         blob = _shard_blob(dirname, name, 0)
         storage.write_bytes(blob, data)
+        _BYTES.inc(len(data), direction="save")
         leaves[name] = {
             "shape": list(arr.shape),
             "dtype": str(arr.dtype),
@@ -147,6 +178,8 @@ def save(storage: Storage, step: int, tree: Dict[str, Any],
     if precommit is not None:
         precommit()  # the last abort point before the checkpoint exists
     storage.write(mname, json.dumps(doc, sort_keys=True))  # the commit
+    _SAVES.inc()
+    _LAST_STEP.set(int(step), op="save")
     return mname
 
 
@@ -197,22 +230,25 @@ def load_manifest(storage: Storage, prefix: str, step: int,
 
 
 def _read_shard(storage: Storage, name: str,
-                sh: Dict[str, Any]) -> np.ndarray:
-    """Fetch, verify and decode one shard; any failure is
-    :class:`CheckpointCorruptError`."""
+                sh: Dict[str, Any]) -> Tuple[np.ndarray, int]:
+    """Fetch, verify and decode one shard: ``(array, nbytes)``; any
+    failure is :class:`CheckpointCorruptError`."""
     try:
         data = storage.read_bytes(sh["blob"])
     except (FileNotFoundError, KeyError) as exc:
+        _CORRUPT_SHARDS.inc()
         raise CheckpointCorruptError(
             f"leaf {name!r}: shard {sh['blob']!r} missing") from exc
     if (len(data) != sh["nbytes"]
             or hashlib.sha256(data).hexdigest() != sh["sha256"]):
+        _CORRUPT_SHARDS.inc()
         raise CheckpointCorruptError(
             f"leaf {name!r}: shard {sh['blob']!r} failed digest/size "
             f"validation ({len(data)} bytes)")
     try:
-        return np.load(io.BytesIO(data), allow_pickle=False)
+        return np.load(io.BytesIO(data), allow_pickle=False), len(data)
     except ValueError as exc:
+        _CORRUPT_SHARDS.inc()
         raise CheckpointCorruptError(
             f"leaf {name!r}: shard {sh['blob']!r} undecodable "
             f"({exc})") from exc
@@ -228,21 +264,38 @@ def assemble_leaf(storage: Storage, name: str,
     out = np.empty(shape, dtype)
     covered = 0
     for sh in entry["shards"]:
-        arr = _read_shard(storage, name, sh)
+        arr, nbytes = _read_shard(storage, name, sh)
         idx = tuple(slice(int(a), int(b)) for a, b in sh["index"])
         extent = tuple(int(b) - int(a) for a, b in sh["index"])
         if arr.shape != extent or arr.dtype != dtype:
+            _CORRUPT_SHARDS.inc()
             raise CheckpointCorruptError(
                 f"leaf {name!r}: shard {sh['blob']!r} is "
                 f"{arr.shape}/{arr.dtype}, manifest says "
                 f"{extent}/{dtype}")
         out[idx] = arr
         covered += int(np.prod(extent)) if extent else 1
+        _BYTES.inc(nbytes, direction="restore")
     total = int(np.prod(shape)) if shape else 1
     if covered != total:
         raise CheckpointCorruptError(
             f"leaf {name!r}: shards cover {covered} of {total} elements")
     return out
+
+
+def note_restore(outcome: str, step: Optional[int] = None,
+                 fell_past: int = 0) -> None:
+    """Metric hook of restore flows built on :func:`assemble_leaf` (the
+    spill store's, the transformer's): count one restore attempt.  With
+    ``ok``, *step* records the restored step and *fell_past* how many
+    corrupt candidates the restore skipped (fallbacks count only when
+    something was fallen back TO)."""
+    _RESTORES.inc(outcome=outcome)
+    if outcome == "ok":
+        if fell_past:
+            _FALLBACKS.inc(fell_past)
+        if step is not None:
+            _LAST_STEP.set(int(step), op="restore")
 
 
 def validate_manifest_against(manifest: Dict[str, Any],
@@ -281,6 +334,8 @@ def restore(storage: Storage, step: int, prefix: str = "",
         validate_manifest_against(manifest, template)
     leaves = {name: assemble_leaf(storage, name, entry)
               for name, entry in manifest["leaves"].items()}
+    _RESTORES.inc(outcome="ok")
+    _LAST_STEP.set(int(manifest["step"]), op="restore")
     return leaves, manifest
 
 
@@ -293,11 +348,18 @@ def restore_latest(storage: Storage, prefix: str = "",
     :class:`CheckpointError` that is not corruption) does not fall back:
     an older checkpoint cannot fix a wrong template."""
     steps = list_steps(storage, prefix)
+    skipped = 0
     for step in reversed(steps):
         try:
-            return restore(storage, step, prefix=prefix, template=template)
+            out = restore(storage, step, prefix=prefix, template=template)
         except CheckpointCorruptError:
+            note_restore("corrupt")
+            skipped += 1
             continue
+        if skipped:
+            # counted only now: a fallback is falling back TO something
+            _FALLBACKS.inc(skipped)
+        return out
     if steps:
         raise CheckpointError(
             f"no complete checkpoint under {prefix!r}: all "
@@ -372,10 +434,12 @@ class CheckpointManager:
             self.storage.remove_many(
                 [n for n in by_step[step] if n != mname])
             removed += 1
+            _GC.inc(reason="retention")
         committed = set(steps)
         for s in sorted(by_step):
             if s not in committed and s < steps[-1]:
                 self.storage.remove_many(by_step[s])
+                _GC.inc(reason="orphan")
         return removed
 
     def restore_latest(self, template: Optional[Dict[str, Any]] = None):

@@ -33,9 +33,10 @@ through GridFS for every minibatch gradient and every optimizer step
 The checkpointed state is flat, under the JAX package's leaf names
 (``params/w0``, ``opt/1/0/trace/w0``), with the JAX spelling of each
 leaf's partition spec (:data:`TRAINER_PARTITION_RULES`): either package
-restores the other's checkpoints.  The JAX trainer's per-epoch device
-memory gauges (``obs/memory.sample_device_memory``) wait for the port's
-``obs/memory`` (ROADMAP A.8).
+restores the other's checkpoints.  Each epoch samples the device's
+memory into ``obs/memory``'s gauges, as the JAX trainer does: the CUDA
+allocator's counters on the card, the state and batch bytes this trainer
+holds on the CPU (labelled analytic).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 
 from ..coord.lease import TrainerFencedError, TrainerLease
+from ..obs import memory as _memory_obs
 from ..obs import metrics as _metrics
 from ..ops import kernel_compat as kc
 from ..parallel.partition import resolve_spec
@@ -365,6 +367,13 @@ class DistributedTrainer:
                 params, opt_state, xs, ys)
             val_loss, val_acc = self._eval(params, x_va_d, y_va_d)
             val_loss = float(val_loss)
+            # per-epoch device-memory gauges: the allocator's counters on
+            # the card, else the state and batch bytes held, analytic
+            _memory_obs.sample_device_memory(
+                [self.device], analytic_bytes_in_use=sum(
+                    t.numel() * t.element_size()
+                    for t in (*params.values(), *opt_state.values()))
+                + xs.nbytes + ys.nbytes)
             rec = {"epoch": epoch,
                    "train_loss": float(losses.mean()),
                    "val_loss": val_loss,

@@ -536,6 +536,7 @@ class TransformerTrainer:
 
         storage = LocalDirStorage(path)
         steps = ckpt.list_steps(storage)
+        skipped = 0
         for step in reversed(steps):
             try:
                 manifest = ckpt.load_manifest(storage, "", step)
@@ -545,9 +546,13 @@ class TransformerTrainer:
                         f"checkpoint params do not match this config: "
                         f"checkpoint arch {got}, trainer "
                         f"{self._arch_tag()}")
-                return self._host_from_manifest(storage, manifest)
+                out = self._host_from_manifest(storage, manifest)
             except ckpt.CheckpointCorruptError:
+                ckpt.note_restore("corrupt")
+                skipped += 1
                 continue
+            ckpt.note_restore("ok", step, fell_past=skipped)
+            return out
         raise ckpt.CheckpointError(
             f"no complete checkpoint found ({len(steps)} candidates)")
 

@@ -93,12 +93,14 @@ _CLOCK_OFFSET = gauge(
 MAX_SPANS_PER_PROC = 50_000
 
 #: the task roll-up fields and the labelled families that feed them —
-#: summed across every process's latest snapshot, grouped by ``task``
-#: (the JAX package's device-seconds and FLOPs fields wait for the
-#: device counters of ROADMAP A.8)
-_ROLLUP_FIELDS: Tuple[Tuple[str, str], ...] = (
-    ("records", "mrtpu_task_records_total"),
-    ("bytes", "mrtpu_task_bytes_total"),
+#: summed across every process's latest snapshot, grouped by ``task``;
+#: the third element is a ``(label, value)`` the series must carry
+_ROLLUP_FIELDS: Tuple[Tuple[str, str, Optional[Tuple[str, str]]], ...] = (
+    ("records", "mrtpu_task_records_total", None),
+    ("bytes", "mrtpu_task_bytes_total", None),
+    ("device_seconds", "mrtpu_device_seconds_total",
+     ("stage", "compute")),
+    ("flops", "mrtpu_device_flops_total", None),
 )
 
 #: metric families carried (summed across processes) in the cluster doc:
@@ -116,6 +118,18 @@ DIAG_FAMILIES = frozenset({
     "mrtpu_docserver_requests_total",
     "mrtpu_telemetry_dropped_total", "mrtpu_telemetry_pushes_total",
     "mrtpu_client_failovers_total",
+    # the device plane (engine/device_engine, obs/profile, obs/memory):
+    # per-partition skew, FLOPs, stage seconds, waves and retries, live
+    # device memory and the capacity-retry forensics counter
+    "mrtpu_device_partition_records", "mrtpu_device_partition_bytes",
+    "mrtpu_device_flops_total", "mrtpu_device_seconds_total",
+    "mrtpu_device_waves_total", "mrtpu_device_retries_total",
+    "mrtpu_device_memory_bytes",
+    "mrtpu_device_capacity_retry_events_total",
+    "mrtpu_upload_overlap_frac",
+    # the resident sessions' per-task streaming volume
+    "mrtpu_session_chunks_total", "mrtpu_session_waves_total",
+    "mrtpu_session_overflow_rows_total",
     # the multi-tenant service plane (sched/): queue depths, admission
     # decisions and task transitions, and the serving-SLO lifecycle
     # histograms a runner observes (cumulative _bucket/_sum/_count
@@ -299,15 +313,20 @@ class Collector:
         tasks: Dict[str, Dict[str, float]] = {}
         for parsed in snapshots:
             for (name, labelkey), value in parsed.items():
-                for field, family in _ROLLUP_FIELDS:
+                for field, family, extra in _ROLLUP_FIELDS:
                     if name != family:
                         continue
-                    task = dict(labelkey).get("task")
+                    labels = dict(labelkey)
+                    task = labels.get("task")
                     if not task or task == "-":
                         continue
+                    if extra is not None and labels.get(extra[0]) != extra[1]:
+                        continue
                     t = tasks.setdefault(task, {
-                        f: 0.0 for f, _ in _ROLLUP_FIELDS})
+                        f: 0.0 for f, _, _ in _ROLLUP_FIELDS})
                     t[field] += value
+        for t in tasks.values():
+            t["device_seconds"] = round(t["device_seconds"], 4)
         return tasks
 
     @staticmethod

@@ -25,9 +25,10 @@ Design points (the JAX package's):
   its inverse — the telemetry collector parses every pushed snapshot
   with it.
 
-The serving-SLO plane's bucket ladder (:data:`SLO_BUCKETS`) and its
-bucket math (:func:`estimate_percentile`, :func:`fraction_le`) are here
-for ``obs/slo.py``; the device ladder is left out (ROADMAP A.8).
+The device plane's bucket ladder (:data:`DEVICE_BUCKETS`) is here for
+the engine's per-wave histogram, and the serving-SLO plane's
+(:data:`SLO_BUCKETS`) and its bucket math (:func:`estimate_percentile`,
+:func:`fraction_le`) for ``obs/slo.py``.
 Everything is stdlib.
 """
 
@@ -42,6 +43,16 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 #: Prometheus ladder plus a 30s rung.
 LATENCY_BUCKETS: Tuple[float, ...] = (
     0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, float("inf"))
+
+#: preset device-plane buckets (seconds): µs-range lower rungs for the
+#: engine's per-wave stage timings.  LATENCY_BUCKETS' 1ms floor would
+#: collapse sub-millisecond stages (a wave's kernels on the card, a
+#: prefetched upload's wait) into one bucket; this ladder resolves
+#: 10µs .. 30s.
+DEVICE_BUCKETS: Tuple[float, ...] = (
+    10e-6, 25e-6, 50e-6, 100e-6, 250e-6, 500e-6,
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0, float("inf"))
 
 #: preset serving-SLO buckets (seconds): LATENCY_BUCKETS was tuned for

@@ -8,7 +8,9 @@ Per-tenant request timestamps threaded through the serving path:
 * ``sched/service.py`` stamps running→first-job-written (the
   **submit→first-result** latency of a server-kind task);
 * a resident session's snapshot reports **staleness** (age of the newest
-  record a ``snapshot()`` reflects) through :func:`observe_staleness`.
+  record a ``snapshot()`` reflects) through :func:`observe_staleness`,
+  and every feed and snapshot its own latency through
+  :func:`observe_session_op`.
 
 All of it lands in per-tenant Histograms on the sub-second-resolution
 :data:`~.metrics.SLO_BUCKETS` ladder; :func:`merged_counts` reads them
@@ -59,6 +61,10 @@ _STALENESS = histogram(
     "snapshot staleness per tenant stream (labels: tenant): age of the "
     "newest record the snapshot reflects, monotonic at feed time vs "
     "monotonic at snapshot time", buckets=SLO_BUCKETS)
+_SESSION_OP = histogram(
+    "mrtpu_slo_session_op_seconds",
+    "per-call latency of the resident session surface (labels: tenant, "
+    "op=feed|snapshot)", buckets=SLO_BUCKETS)
 
 
 # -- in-memory submit stamps (the exact-duration path) -----------------------
@@ -153,6 +159,11 @@ def observe_first_result(task_id: str, tenant: str,
 
 def observe_staleness(tenant: str, seconds: float) -> None:
     _STALENESS.observe(max(0.0, float(seconds)), tenant=str(tenant))
+
+
+def observe_session_op(op: str, tenant: str, seconds: float) -> None:
+    _SESSION_OP.observe(max(0.0, float(seconds)), tenant=str(tenant),
+                        op=str(op))
 
 
 # -- histogram read paths ----------------------------------------------------

@@ -23,6 +23,7 @@ MLP's epoch, the transformer's AdamW steps) are held bit for bit
 against the same eager steps.
 """
 
+import re
 from collections import Counter
 
 import numpy as np
@@ -961,6 +962,120 @@ def test_server_device_plane_on_the_card(dev, tmp_path, parts, sort_impl):
         need += ["radix_upfront", "radix_onesweep", "radix_plan"]
     for name in need:
         assert kc.LAUNCHES[name] > 0, (name, kc.LAUNCHES)
+
+
+# -- the device telemetry on the card --------------------------------------------
+
+#: identifiers of the engine's and the session's telemetry lines
+_TELEMETRY_LINE = re.compile(
+    r"\b(line\.|_memory_obs|_profile|_comms|_slo|TRACER|_WAVES|"
+    r"_DISPATCHES|_RETRIES|_STAGE_SECONDS|_WAVE_SECONDS|_PARTITION_|"
+    r"_SESSION|_FEEDS|_CHUNKS|_SNAPSHOTS|_LIVE_RECORDS|_OVERFLOWS|"
+    r"_BACKPRESSURE|refresh_stream_age_gauges)")
+
+
+def _sync_stacks(run):
+    """Run *run* under ``set_sync_debug_mode("warn")``; returns the
+    Python stack of every synchronising CUDA call it made."""
+    import traceback
+    import warnings
+
+    stacks = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stacks.append(traceback.extract_stack()[:-1])
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return stacks
+
+
+def _telemetry_frames(stacks):
+    """The frames of *stacks* in the port's obs/ or on a telemetry line
+    of its engine."""
+    bad = []
+    for st in stacks:
+        for fr in st:
+            path = fr.filename.replace("\\", "/")
+            if "mapreduce_tpu_torch/obs/" in path or (
+                    "mapreduce_tpu_torch/engine/" in path
+                    and _TELEMETRY_LINE.search(fr.line or "")):
+                bad.append(f"{path}:{fr.lineno} {fr.line}")
+    return bad
+
+
+@pytest.mark.parametrize("parts,sort_impl", [(1, "variadic"),
+                                             (8, "radix")])
+def test_engine_timeline_on_the_card(dev, feed_corpus, parts, sort_impl):
+    """A streaming run's spans on the card: device_run ⊃ wave ⊃ {upload,
+    compute, readback}, each child inside its wave, compute and upload
+    device intervals with device_ms > 0, and a roofline share in
+    (0, 1]."""
+    from mapreduce_tpu_torch.obs.trace import TRACER
+
+    data, want = feed_corpus
+    wc = _feed_wc(parts, sort_impl=sort_impl)
+    wc.count_bytes(data, waves=3)  # warm
+    tm = {}
+    with TRACER.span("root") as root:
+        assert wc.count_bytes(data, timings=tm, waves=3) == want
+    ev = [e for e in TRACER.events()
+          if e["args"].get("trace_id") == root.trace_id]
+    by_id = {e["args"]["span_id"]: e for e in ev}
+    names = Counter(e["name"] for e in ev)
+    assert names["device_run"] == 1
+    assert names["wave"] == names["upload"] == names["compute"] \
+        == tm["waves"] >= 2
+    for e in ev:
+        parent = by_id.get(e["args"]["parent_id"])
+        if e["name"] in ("upload", "compute"):
+            assert parent["name"] == "wave"
+            assert e["args"]["clock"] == "device"
+            assert e["args"]["device_ms"] > 0
+        if parent is not None and parent["name"] in ("wave", "device_run"):
+            assert parent["ts"] <= e["ts"] + 0.5
+            assert (e["ts"] + e["dur"]
+                    <= parent["ts"] + parent["dur"] + 0.5), e["name"]
+    assert 0.0 < tm["roofline_frac"] <= 1.0
+    assert tm["cost_source"] == "analytic"
+    assert tm["peak_source"].startswith("kind:h100") \
+        or tm["peak_source"].startswith("platform:gpu")
+
+
+def test_telemetry_makes_no_synchronising_call(dev, feed_corpus):
+    """Under sync-debug mode no synchronising call's stack passes
+    through the port's obs/ or a telemetry line of the engine or the
+    session (the engine's own overflow read and result copy do sync)."""
+    from mapreduce_tpu_torch.engine import session as smod
+    from mapreduce_tpu_torch.engine import wordcount as wcmod
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+
+    data, want = feed_corpus
+    wc = _feed_wc(8, sort_impl="radix")
+    wc.count_bytes(data, waves=3)  # warm: builds, the memory limit read
+    chunks, _ = wc._to_chunks(data)
+    sess = smod.EngineSession(Partitions(8, "cuda"),
+                              wcmod._wordcount_map_fn, wc.config, k=2)
+    sess.feed(chunks[:16], task="t")
+    out = {}
+
+    def run():
+        out["counts"] = wc.count_bytes(data, waves=3)
+        sess.feed(chunks[16:32], task="t")
+        sess.snapshot("t")
+
+    stacks = _sync_stacks(run)
+    assert out["counts"] == want
+    assert stacks, "sync-debug mode reported no sync at all"
+    assert _telemetry_frames(stacks) == []
 
 
 # -- the training plane: captured steps against eager ones ---------------------

@@ -225,7 +225,7 @@ def test_convert_round_trips(jax_ref):
 def _port_sources():
     files = sorted((ROOT / "mapreduce_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "probe_plan.py",
-                    ROOT / "probe_feeder.py"]
+                    ROOT / "probe_feeder.py", ROOT / "probe_telemetry.py"]
 
 
 def test_port_imports_no_jax():
@@ -264,7 +264,8 @@ def test_port_imports_no_jax():
                    "sched/service", "testing/__init__",
                    "testing/faults", "obs/control", "obs/comms",
                    "obs/analysis", "engine/autotune",
-                   "engine/device_engine"):
+                   "engine/device_engine", "obs/profile", "obs/memory",
+                   "obs/buildinfo", "obs/wavetrace"):
         assert f"mapreduce_tpu_torch/{module}.py" in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
