@@ -282,9 +282,32 @@ which raises on failure:
    and one ``cli wordcount --device --trace-out`` job (phase 9 (b)'s
    200K words) whose trace holds ``device_run ⊃ wave ⊃ {upload,
    compute, readback}`` under the job's ``run`` span;
-17. one JSON line of per-kernel numbers (the word-count kernels' with
-   their phase 13, 14, 15 and 16 launches beside), the smoke's wall,
-   then the card and the result line.
+17. the remaining examples and the compile plane (the ``examples``
+   lines), with the corpus written as 24 files of whole lines: (a)
+   ``examples/wordspan`` through ``Server(device=True)`` at its own
+   capacities (so it retries), at P = 1 and at P = 8 radix:
+   ``[count, first, last]`` for every word against a host oracle built
+   from the bytes alone (``span_oracle``), the path's kernels launched
+   (the 3-lane segreduce; at P = 8 the radix kernels) and no plain
+   call, each kernel held bit for bit against its plain version on the
+   inputs of its largest call, the loop wall, ``compute_s`` and
+   ``device_result``; (b) the compile plane in four processes: ``cli
+   warmup --compile-cache D --sort-impl tiered-radix`` into an empty
+   D (every library ``compiled``; the nvcc seconds), the same again
+   (every library a ``persistent_hit``, no compiler), (a)'s runs
+   recording their buckets in D's shape registry, then
+   ``chip_smoke.py --wordspan-child D FILES`` (a fresh ``AutoTuner``
+   pre-sizes the P = 1 run from the registry: no retry, a decision
+   whose source is ``shape_registry``, the same spans) and ``warmup
+   --replay`` (a row with seconds for every recorded device-engine
+   bucket, none failed); ``cold_compile_s`` and ``warm_start_s`` are
+   the two warmups' seconds; (c) ``examples/wordcount_native`` through
+   ``Server`` with 4 worker threads on a ``dir://`` board over a 2M-word
+   corpus in 8 ``shared:`` blobs, against ``Counter``, the ``g++``
+   library loaded by the map jobs;
+18. one JSON line of per-kernel numbers (the word-count kernels' with
+   their phase 13, 14, 15, 16 and 17 launches beside), the smoke's
+   wall, then the card and the result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
 flash kernels sum in another order than their plain versions: out, dq,
@@ -4786,6 +4809,432 @@ def telemetry_phase(torch, kc, wcmod, wc, rwc, data, want, smi):
 
 
 #: the run's start, for the whole smoke's wall time
+
+# -- phase 17: the remaining examples and the compile plane --------------------
+
+WORDSPAN_MODULE = "mapreduce_tpu_torch.examples.wordspan"
+NATIVE_MODULE = "mapreduce_tpu_torch.examples.wordcount_native"
+#: the example's module state as a fresh process has it
+WORDSPAN_CONF = {"files": [], "num_reducers": 8}
+#: phase 17 (c): words, blobs and worker threads of the native word count
+NATIVE_WORDS = 2_000_000
+NATIVE_BLOBS = 8
+NATIVE_WORKERS = 4
+#: seconds a subprocess of phase 17 may take
+EXAMPLES_CHILD_TIMEOUT = 300
+#: the phase's device (a CPU rehearsal of the phase sets "cpu")
+EXAMPLES_DEV = "cuda"
+#: (label, partitions, sort, kernels that must launch, kernels held)
+WORDSPAN_PATHS = (
+    ("P1", 1, "variadic", ("tokenize", "segreduce"), ["segreduce"]),
+    ("P8", RADIX_PARTS, "radix",
+     ("tokenize", "segreduce", "radix_plan", "radix_upfront",
+      "radix_onesweep"), ["segreduce", "radix_sort", "radix_plan"]))
+#: the libraries ``warmup --sort-impl tiered-radix`` builds
+WARMUP_LIBRARIES = ("nvcc:tokenize", "nvcc:segreduce", "nvcc:radix",
+                    "g++:mr_native")
+
+
+def span_oracle(data, want):
+    """``[count, first, last]`` for every word of *data* (the stream the
+    files rejoin to), from the bytes alone: ``bytes.split`` for the
+    words, numpy for each word's start offset, a dict each for the first
+    and last index; *want* is ``Counter(data.split())``."""
+    import numpy as np
+
+    words = data.split()
+    is_ws = np.zeros(256, dtype=bool)
+    is_ws[[32, 9, 10, 13, 11, 12]] = True
+    ws = is_ws[np.frombuffer(data, dtype=np.uint8)]
+    starts = np.flatnonzero(~ws & np.concatenate(([True], ws[:-1])))
+    check(len(starts) == len(words), "span oracle: word starts and words "
+          "differ in number")
+    last = {w: i for i, w in enumerate(words)}
+    # later keys overwrite: walking backwards leaves each word's first
+    first = {w: i for i, w in zip(range(len(words) - 1, -1, -1),
+                                  reversed(words))}
+    oracle = {w.decode("utf-8", "replace"): [
+        want[w], int(starts[i]), int(starts[last[w]])]
+        for w, i in first.items()}
+    check(len(oracle) == len(first), "span oracle: two words decode alike")
+    return oracle
+
+
+def wordspan_segreduce_case(torch, seg, held):
+    """The 3-lane segreduce kernel (sum, min, max) timed on the inputs of
+    the P = 1 wordspan run's largest call (its local reduce), beside its
+    plain version and its bound; no single PyTorch call reduces three
+    lanes under three ops, so there is no library time."""
+    n, (k1s, k2s, vals, op, unit) = held
+    d = len(vals)
+    ms, spread = kernel_ms(torch, lambda: seg._segment_reduce_cuda(
+        k1s, k2s, vals, op, unit))
+    plain_ms = time_ms(torch, lambda: seg._segment_reduce_plain(
+        k1s, k2s, vals, op, unit), reps=5, rounds=3)
+    # as segreduce_case: keys 8 + 4*d in, 4*d + end_csum 4 out
+    b_ms, b_by = bound(n * (8 + 8 * d + 4), n * (10 + 2 * d))
+    return {"n": n, "lanes": d, "op": list(op), "ms": ms, "spread": spread,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def span_digest(result):
+    """One hash of a wordspan ``RESULT`` (compared across processes)."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(sorted(result.items())).encode()
+                          ).hexdigest()
+
+
+def wordspan_run(torch, kc, spec, tws, files, n_parts, sort_impl, label,
+                 need, autotune=None, capture=None):
+    """One ``Server(device=True)`` run of ``examples/wordspan`` over
+    *files* at the example's own capacities; returns the run's line and
+    its ``RESULT``."""
+    import uuid
+
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.server import Server
+
+    reset_example(spec, tws, WORDSPAN_CONF)
+    params = {r: WORDSPAN_MODULE for r in ("taskfn", "mapfn", "partitionfn",
+                                           "reducefn", "finalfn")}
+    params.update(combinerfn=WORDSPAN_MODULE, device=True,
+                  storage=f"mem:{uuid.uuid4().hex}",
+                  partitions=Partitions(n_parts, EXAMPLES_DEV),
+                  init_args={"files": files, "device_sort_impl": sort_impl})
+    server = Server(f"mem://{uuid.uuid4().hex}", f"ws_{label.lower()}")
+    server.autotune = autotune
+    server.configure(params)
+    kc.reset_counts()
+    with capture if capture is not None else _nothing():
+        t0 = time.monotonic()
+        loop_in_thread(server)
+        wall = time.monotonic() - t0
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    got = dict(tws.RESULT)
+    reset_example(spec, tws, WORDSPAN_CONF)
+    tm = server._last_device_timings
+    # a CPU rehearsal runs the plain versions: they stand for launches
+    cuda = EXAMPLES_DEV == "cuda"
+    ran = launches if cuda else plain
+    check(all(ran[k] > 0 for k in need), f"wordspan {label}: a kernel "
+          f"of the path was never launched: {ran}")
+    check(not cuda or not any(plain.values()), f"wordspan {label}: plain "
+          f"versions ran on the card: {plain}")
+    return {"run": label, "sort_impl": sort_impl, "loop_wall_s": wall,
+            "compute_s": tm["compute_s"], "upload_s": tm["upload_s"],
+            "prepare_s": tm["prepare_s"], "engine_s": tm["engine_s"],
+            "device_result_s": tm["result_s"], "write_s": tm["write_s"],
+            "retries": tm["retries"], "waves": tm["waves"],
+            "unique": len(got), "launches": {k: ran[k] for k in need},
+            "plain_calls": 0}, got
+
+
+class _nothing:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def wordspan_child(cache_dir, files_dir, device):
+    """Phase 17 (b) 3, in a process of its own: the P = 1 wordspan run
+    with a fresh ``AutoTuner`` on the build directory *cache_dir*;
+    prints one JSON line (the result's digest, retries, the controller's
+    capacity decision)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mapreduce_tpu_torch import spec
+    from mapreduce_tpu_torch.engine.autotune import AutoTuner
+    from mapreduce_tpu_torch.examples import wordspan as tws
+    from mapreduce_tpu_torch.obs.compile import LEDGER
+    from mapreduce_tpu_torch.obs.control import ControlLedger
+    from mapreduce_tpu_torch.ops import kernel_compat as kc
+    from mapreduce_tpu_torch.utils import compile_cache
+
+    global EXAMPLES_DEV
+    EXAMPLES_DEV = device
+    torch.zeros(1, device=device)  # the context, outside the run
+    compile_cache.enable_compile_cache(cache_dir)
+    files = sorted(os.path.join(files_dir, f) for f in os.listdir(files_dir))
+    ledger = ControlLedger()
+    label, n, impl, need, _ = WORDSPAN_PATHS[0]
+    line, got = wordspan_run(
+        torch, kc, spec, tws, files, n, impl, f"{label}_presized", need,
+        autotune=AutoTuner(ledger=ledger, repartition=False))
+    decs = ledger.decisions("capacity")
+    line.update(digest=span_digest(got), decisions=[
+        {k: d.get(k) for k in ("outcome", "evidence", "action", "note")}
+        for d in decs], compile=LEDGER.snapshot())
+    print(json.dumps({"wordspan_child": line}, default=float))
+    return 0
+
+
+def examples_child(argv, root):
+    """A phase-17 subprocess (``cli warmup ...`` or this script's
+    ``--wordspan-child``), its output in files under *root*; returns
+    its last stdout line's one value, parsed, with the process's wall
+    as ``_wall_s``."""
+    out_path = os.path.join(root, f"child{len(os.listdir(root))}.out")
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.monotonic()
+    with open(out_path, "w") as out, open(out_path + ".err", "w") as err:
+        proc = subprocess.Popen([sys.executable, *argv], stdout=out,
+                                stderr=err, cwd=here, env=env)
+        try:
+            rc = proc.wait(timeout=EXAMPLES_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+            rc = None
+    wall = time.monotonic() - t0
+    text = open(out_path).read()
+    check(rc == 0, f"examples: {' '.join(argv)} exited {rc}: "
+          f"{open(out_path + '.err').read()[-3000:]}")
+    (doc,) = json.loads(text.strip().splitlines()[-1]).values()
+    doc["_wall_s"] = wall
+    return doc
+
+
+def warmup_argv(cache_dir, *extra):
+    return ["-m", "mapreduce_tpu_torch.cli", "warmup", "--compile-cache",
+            cache_dir, "--sort-impl", "tiered-radix", "--torch-device",
+            EXAMPLES_DEV, "--json", *extra]
+
+
+def native_phase(spec, smi):
+    """Phase 17 (c): ``examples/wordcount_native`` through ``Server`` with
+    worker threads on a ``dir://`` board and ``shared:`` storage."""
+    import tempfile
+    import uuid
+
+    from mapreduce_tpu_torch.corpus import N_LINES
+    from mapreduce_tpu_torch.corpus import N_WORDS as EUROPARL_WORDS
+    from mapreduce_tpu_torch.corpus import make_corpus
+    from mapreduce_tpu_torch.examples import wordcount_native as tnat
+    from mapreduce_tpu_torch.obs.compile import LEDGER
+    from mapreduce_tpu_torch.server import Server
+    from mapreduce_tpu_torch.storage.router import router
+    from mapreduce_tpu_torch.worker import spawn_worker_threads
+
+    data = make_corpus(NATIVE_WORDS, NATIVE_WORDS * N_LINES // EUROPARL_WORDS,
+                       seed=0)
+    want = {w.decode(): c for w, c in Counter(data.split()).items()}
+    root = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    try:
+        dsl = f"shared:{os.path.join(root, 'blobs')}"
+        st = router(dsl)
+        files = write_line_files(data, NATIVE_BLOBS, root)
+        names = []
+        for f in files:
+            name = os.path.basename(f)
+            with open(f, "rb") as fh:
+                st.write(name, fh.read().decode())
+            names.append(name)
+        reset_example(spec, tnat, {"blobs": [], "num_reducers": 15,
+                                   "storage": None})
+        tnat._handle = None
+        params = {r: NATIVE_MODULE for r in ("taskfn", "mapfn", "partitionfn",
+                                             "reducefn", "finalfn",
+                                             "combinerfn")}
+        params["storage"] = dsl
+        params["init_args"] = {"blobs": names, "num_reducers": 4,
+                               "storage": dsl}
+        connstr = f"dir://{os.path.join(root, 'board')}"
+        before = (LEDGER.snapshot().get("programs") or {}).get(
+            "g++:mr_native", {})
+        threads = spawn_worker_threads(connstr, "native", NATIVE_WORKERS)
+        server = Server(connstr, "native")
+        server.configure(params)
+        t0 = time.monotonic()
+        stats = loop_in_thread(server)
+        wall = time.monotonic() - t0
+        for t in threads:
+            t.join(timeout=JOB_LOOP_TIMEOUT)
+            check(not t.is_alive(), f"native: worker {t.name} did not exit")
+        got = dict(tnat.RESULT)
+        reset_example(spec, tnat, {"blobs": [], "num_reducers": 15,
+                                   "storage": None})
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    check(got == want, "native: RESULT differs from Counter(corpus.split())")
+    lib = (LEDGER.snapshot().get("programs") or {}).get("g++:mr_native", {})
+    acquired = {o: lib.get(o, 0) - before.get(o, 0)
+                for o in ("compiled", "persistent_hit")}
+    check(sum(acquired.values()) == 1, f"native: the map jobs did not load "
+          f"the g++ library: {lib}")
+    line = {"run": "wordcount_native", "card": smi, "words": NATIVE_WORDS,
+            "blobs": NATIVE_BLOBS, "workers": NATIVE_WORKERS,
+            "unique": len(got), "loop_wall_s": wall,
+            "map_jobs": stats["map"]["count"],
+            "reduce_jobs": stats["reduce"]["count"],
+            "library": {o: n for o, n in acquired.items() if n},
+            "counter_equal": True}
+    print(json.dumps({"examples": line}), flush=True)
+    return line
+
+
+def examples_phase(torch, kc, seg, rs, data, want, smi):
+    """Phase 17: ``examples/wordspan`` on the card at P = 1 and P = 8
+    radix, the compile plane in processes, and ``examples/
+    wordcount_native`` (the ``examples`` lines)."""
+    import shutil
+    import tempfile
+
+    from mapreduce_tpu_torch import spec
+    from mapreduce_tpu_torch.engine.autotune import AutoTuner
+    from mapreduce_tpu_torch.examples import wordspan as tws
+    from mapreduce_tpu_torch.obs.control import ControlLedger
+    from mapreduce_tpu_torch.parallel import shuffle
+    from mapreduce_tpu_torch.utils import compile_cache
+
+    t_phase = time.monotonic()
+    root = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    cache = os.path.join(root, "cache")
+    os.makedirs(cache)
+    procs = os.path.join(root, "procs")
+    os.makedirs(procs)
+    out = {}
+    try:
+        files_dir = os.path.join(root, "files")
+        os.makedirs(files_dir)
+        files = write_line_files(data, JOB_FILES, files_dir)
+        t0 = time.monotonic()
+        oracle = span_oracle(data, want)
+        oracle_s = time.monotonic() - t0
+
+        # (b) 1-2: warmup into the empty build directory, then again
+        cold = examples_child(warmup_argv(cache), procs)
+        warm = examples_child(warmup_argv(cache), procs)
+        expect = (WARMUP_LIBRARIES if EXAMPLES_DEV == "cuda"
+                  else WARMUP_LIBRARIES[-1:])
+        for name, doc, outcome in (("first", cold, "compiled"),
+                                   ("second", warm, "persistent_hit")):
+            libs = doc["libraries"]
+            check(sorted(libs) == sorted(expect),
+                  f"compile plane: the {name} warmup acquired {sorted(libs)}")
+            check(all(v["outcome"] == outcome for v in libs.values()),
+                  f"compile plane: the {name} warmup's libraries: {libs}")
+        check(all(v["compiler_s"] == 0 for v in warm["libraries"].values()),
+              f"compile plane: the second warmup ran a compiler: "
+              f"{warm['libraries']}")
+
+        # (a) wordspan at P = 1 and P = 8 radix at the example's own
+        # capacities, in this process, the build directory enabled so
+        # that every attempt lands in its registry
+        saved = compile_cache.save_state()
+        compile_cache.enable_compile_cache(cache)
+        try:
+            for label, n, impl, need, held_need in WORDSPAN_PATHS:
+                with PathInputs(torch, seg, shuffle) as cap:
+                    line, got = wordspan_run(
+                        torch, kc, spec, tws, files, n, impl, label, need,
+                        capture=cap)
+                check(got == oracle, f"wordspan {label}: spans differ from "
+                      "the host oracle")
+                check(line["retries"] >= 1, f"wordspan {label}: the "
+                      "example's capacities did not retry")
+                line["held"] = hold_path_inputs(torch, seg, rs,
+                                                f"wordspan {label}",
+                                                cap.inputs, held_need)
+                if n == 1:
+                    line["segreduce_case"] = wordspan_segreduce_case(
+                        torch, seg, cap.inputs["segreduce"])
+                del cap
+                line.update(card=smi, words=N_WORDS, files=JOB_FILES,
+                            oracle_equal=True)
+                print(json.dumps({"examples": {"wordspan": line}}),
+                      flush=True)
+                out[label] = line
+            # the same P = 1 run pre-sized from the registry by a fresh
+            # controller, warm like (a)'s: what the retries cost
+            label, n, impl, need, _ = WORDSPAN_PATHS[0]
+            ledger = ControlLedger()
+            presized, got = wordspan_run(
+                torch, kc, spec, tws, files, n, impl, f"{label}_presized",
+                need, autotune=AutoTuner(ledger=ledger, repartition=False))
+            check(got == oracle and presized["retries"] == 0,
+                  f"wordspan: the in-process pre-sized run retried "
+                  f"{presized['retries']} times or differs")
+            check(len(ledger.decisions("capacity")) == 1, "wordspan: no "
+                  "capacity decision for the pre-sized run")
+        finally:
+            compile_cache.restore_state(saved)
+
+        # (b) 3: a fresh process pre-sized from the registry
+        child = examples_child([os.path.abspath(__file__),
+                                "--wordspan-child", cache, files_dir,
+                                EXAMPLES_DEV], procs)
+        check(child["digest"] == span_digest(oracle), "compile plane: the "
+              "pre-sized wordspan differs from the host oracle")
+        check(child["retries"] == 0, f"compile plane: the pre-sized run "
+              f"retried {child['retries']} times")
+        built = {p: v["compiled"] for p, v in (
+            child["compile"].get("programs") or {}).items()
+            if p.startswith(("nvcc:", "g++:"))}
+        check(not any(built.values()), f"compile plane: the pre-sized "
+              f"process compiled {built}")
+        sources = [d["evidence"]["source"] for d in child["decisions"]]
+        check(len(sources) == 1 and "shape_registry" in sources[0],
+              f"compile plane: capacity decisions {child['decisions']}")
+
+        # (b) 4: replay every recorded bucket
+        replay = examples_child(warmup_argv(cache, "--replay"), procs)
+        rows = replay["replay"]
+        with open(os.path.join(cache, "mrtpu_shape_registry.json")) as f:
+            recorded = json.load(f)["buckets"]
+        engine_buckets = {b for b, r in recorded.items()
+                          if (r.get("replay") or {}).get("kind")
+                          == "device_engine"}
+        replayed = {r["bucket"] for r in rows if "seconds" in r}
+        check(engine_buckets and engine_buckets <= replayed,
+              f"compile plane: replay left {engine_buckets - replayed}")
+        check(not any("replay failed" in r.get("skipped", "") for r in rows),
+              f"compile plane: {[r for r in rows if 'skipped' in r]}")
+        compile_line = {
+            "card": smi,
+            "cold_compile_s": cold["seconds"],
+            "warm_start_s": warm["seconds"],
+            "nvcc_s": {k: v["compiler_s"]
+                       for k, v in cold["libraries"].items()},
+            "first_warmup": {k: v["outcome"]
+                             for k, v in cold["libraries"].items()},
+            "second_warmup": {k: v["outcome"]
+                              for k, v in warm["libraries"].items()},
+            "warmup_process_wall_s": [cold["_wall_s"], warm["_wall_s"],
+                                      replay["_wall_s"]],
+            "presized": {k: child[k] for k in (
+                "retries", "loop_wall_s", "compute_s", "engine_s",
+                "decisions")},
+            "presized_process_wall_s": child["_wall_s"],
+            "presized_in_process": {k: presized[k] for k in (
+                "retries", "loop_wall_s", "compute_s", "engine_s")},
+            "retrying_in_process": {k: out["P1"][k] for k in (
+                "retries", "loop_wall_s", "compute_s", "engine_s")},
+            "registry_buckets": len(recorded),
+            "replayed": len(replayed),
+            "replay_s": sum(r["seconds"] for r in rows if "seconds" in r),
+            "oracle_s": oracle_s}
+        print(json.dumps({"examples": {"compile_plane": compile_line}},
+                         default=float), flush=True)
+
+        # (c) the native word count
+        native_phase(spec, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"examples": {"phase_s": time.monotonic() - t_phase}}),
+          flush=True)
+    return ({label: line["launches"] for label, line in out.items()},
+            out["P1"]["segreduce_case"])
+
+
 T_START = time.monotonic()
 
 
@@ -4953,6 +5402,10 @@ def main():
     telemetry_launches = telemetry_phase(torch, kc, wcmod, wc, rwc, data,
                                          want, smi)
 
+    # phase 17: the remaining examples and the compile plane
+    wordspan_launches, ws_case = examples_phase(torch, kc, seg, rs, data,
+                                                want, smi)
+
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     for kern in radix_kernels:
@@ -4975,6 +5428,12 @@ def main():
         kern["launches_telemetry"] = {
             run: counts.get(kern["name"], 0)
             for run, counts in telemetry_launches.items()}
+        # and on phase 17's wordspan runs (the 3-lane segreduce)
+        kern["launches_wordspan"] = {
+            run: counts.get(kern["name"], 0)
+            for run, counts in wordspan_launches.items()}
+        if kern["name"] == "segreduce":
+            kern["wordspan_case"] = ws_case
     kernels += radix_kernels + flash_kernels
     print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START}}))
     print(smi)
@@ -4988,4 +5447,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cold"]:
         sys.exit(cold_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--wordspan-child"]:
+        sys.exit(wordspan_child(*sys.argv[2:5]))
     sys.exit(main())

@@ -29,6 +29,9 @@
   python -m mapreduce_tpu_torch.cli wordcount FILES... [--device]
       [--workers N] [--num-reducers N] [--sort-impl IMPL]
       [--partitions N] [--torch-device {cuda,cpu}]
+  python -m mapreduce_tpu_torch.cli warmup [--compile-cache DIR]
+      [--sort-impl IMPL | --tier {0,1,both}] [--bench] [--replay]
+      [--torch-device {cuda,cpu}] [--json]
   python -m mapreduce_tpu_torch.cli train CONNSTR DBNAME [--storage DSL]
       [--epochs N] [--bunch N] [--patience N] [--seed N] [--keep N]
       [--lease S | --no-lease] [--acquire-timeout S] [--holder NAME]
@@ -86,11 +89,20 @@ admission advisor keys warmth on (e.g. ``wave``); the runner registers
 its own placement facts with that advisor and refreshes them while it
 serves.
 
+``warmup`` builds every kernel library of the device engine's config
+and the host core into the build directory and acquires the wave
+program; ``--replay`` also precompiles every bucket of the shape
+registry (``obs/compile``).  ``server``, ``worker``, ``wordcount``,
+``train``, ``runner`` and ``warmup`` take ``--compile-cache [DIR]``
+(default on: ``$MAPREDUCE_TPU_CACHE``, else ``build/kernels``, else the
+user cache dir) and ``--no-compile-cache`` (a temporary build dir and
+no registry; ``warmup`` then exits 1, as on a dir it cannot write).
+
 JAX flags the port does not offer yet are refused by name, their help
 naming the ROADMAP item that brings them: the docserver's
 ``--history-*``, ``--alert*`` and ``--slo`` and the runner's ``--slo``
-(A.8); ``--compile-cache`` (A.8).  The JAX commands the port does not
-offer yet (:data:`NOT_PORTED_COMMANDS`) exit 2 naming theirs.
+(A.8c).  The JAX commands the port does not offer yet
+(:data:`NOT_PORTED_COMMANDS`) exit 2 naming theirs.
 """
 
 from __future__ import annotations
@@ -229,7 +241,7 @@ def _refuse(p: argparse.ArgumentParser, item: str, *flags: str,
 def _add_controllers(p: argparse.ArgumentParser) -> None:
     """The job commands' controller switches, on by default as in the
     JAX CLI (library Servers default both off), and the compile-cache
-    flags that wait for A.8."""
+    flags."""
     p.add_argument("--autotune", dest="autotune", action="store_true",
                    default=True,
                    help="capacity autotuning of the device phase's "
@@ -248,7 +260,37 @@ def _add_controllers(p: argparse.ArgumentParser) -> None:
                         "ON)")
     p.add_argument("--no-speculative-reclaim", dest="reclaim",
                    action="store_false")
-    _refuse(p, "ROADMAP A.8", "--compile-cache", "--no-compile-cache")
+    _add_compile_cache(p)
+
+
+def _add_compile_cache(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--compile-cache", nargs="?", const=True, default=True,
+                   metavar="DIR",
+                   help="the build directory of the kernel libraries and "
+                        "the shape registry (utils/compile_cache; default "
+                        "on: $MAPREDUCE_TPU_CACHE, else the package-"
+                        "adjacent build/kernels, else the user cache "
+                        "dir; DIR picks another)")
+    p.add_argument("--no-compile-cache", dest="compile_cache",
+                   action="store_const", const=False,
+                   help="build into a temporary directory of this "
+                        "process (every build compiles; no registry)")
+
+
+def _setup_compile_cache(args) -> str:
+    """Point the builds (and the compile ledger's registry) where the
+    flags say; returns the directory."""
+    from .utils import compile_cache
+
+    if args.compile_cache is False:
+        path = compile_cache.disable_compile_cache()
+    else:
+        path = compile_cache.enable_compile_cache(
+            None if args.compile_cache is True else args.compile_cache)
+    logging.getLogger("mapreduce_tpu_torch.cli").info(
+        "%s build dir at %s", "temporary" if args.compile_cache is False
+        else "persistent", path)
+    return path
 
 
 def _attach_controllers(server, args) -> None:
@@ -300,6 +342,7 @@ def cmd_wordcount(argv: List[str]) -> int:
     args = p.parse_args(argv)
     _setup_logging(args.verbose)
     _setup_trace(args)
+    _setup_compile_cache(args)
 
     from .server import Server
 
@@ -412,12 +455,13 @@ def cmd_train(argv: List[str]) -> int:
     _add_telemetry(p)
     _add_auth(p)
     _add_retry(p)
-    _refuse(p, "ROADMAP A.8", "--compile-cache", "--no-compile-cache")
+    _add_compile_cache(p)
     _add_trace(p)
     _add_verbosity(p)
     args = p.parse_args(argv)
     _setup_logging(args.verbose or 1)
     _setup_trace(args)
+    _setup_compile_cache(args)
 
     from . import storage as storage_mod
     from .coord import Connection, TrainerFencedError, TrainerLease
@@ -531,6 +575,7 @@ def cmd_server(argv: List[str]) -> int:
     args = p.parse_args(argv)
     _setup_logging(args.verbose or 1)
     _setup_trace(args)
+    _setup_compile_cache(args)
 
     from .server import Server
 
@@ -585,12 +630,13 @@ def cmd_worker(argv: List[str]) -> int:
     _add_telemetry(p)
     _add_auth(p)
     _add_retry(p)
-    _refuse(p, "ROADMAP A.8", "--compile-cache", "--no-compile-cache")
+    _add_compile_cache(p)
     _add_trace(p)
     _add_verbosity(p)
     args = p.parse_args(argv)
     _setup_logging(args.verbose or 1)
     _setup_trace(args)
+    _setup_compile_cache(args)
 
     from .worker import Worker, spawn_worker_threads
 
@@ -973,6 +1019,148 @@ def _docserver_client(connstr: str, auth, what: str):
         return None
 
 
+def cmd_warmup(argv: List[str]) -> int:
+    """Build every kernel library of the device engine's configuration
+    (and the host core) into the build directory, and acquire its wave
+    program, so that later processes load instead of compiling (the JAX
+    CLI's ``warmup``, which primes XLA's persistent cache).  With
+    ``--replay``, also precompile every bucket the shape registry
+    recorded on this machine."""
+    p = argparse.ArgumentParser(prog="mapreduce_tpu_torch warmup")
+    p.add_argument("--chunk-len", type=int, default=1 << 22)
+    p.add_argument("--cache-dir", default=None,
+                   help="the build directory (as --compile-cache DIR)")
+    p.add_argument("--bench", action="store_true",
+                   help="use the flagship bench's engine config instead "
+                        "of the DeviceWordCount default")
+    p.add_argument("--tier", choices=("0", "1", "both"), default="both",
+                   help="which tier(s) to prime: 0 = the argsort serving "
+                        "config, 1 = the steady variadic config, both "
+                        "(default) = both")
+    p.add_argument("--sort-impl", choices=SORT_IMPLS, default=None,
+                   help="prime this sort instead of the --tier mapping "
+                        "('radix' builds the radix library; "
+                        "'tiered-radix' primes argsort + radix)")
+    p.add_argument("--segment-impl", choices=("lax", "pallas"),
+                   default=None,
+                   help="the config's segmented-reduce formulation name "
+                        "(kept for the config's identity, as the "
+                        "wordcount example's device_segment_impl: on the "
+                        "card the CUDA kernel runs whatever it says)")
+    p.add_argument("--tokenize-impl", choices=("lax", "pallas"),
+                   default=None,
+                   help="the config's tokenizer formulation name; see "
+                        "--segment-impl")
+    p.add_argument("--torch-device", choices=("cuda", "cpu"),
+                   default="cuda",
+                   help="'cpu' builds nothing for the card (the host "
+                        "core still builds) and records the CPU program")
+    p.add_argument("--replay", action="store_true",
+                   help="also precompile EVERY bucket the shape registry "
+                        "(obs/compile, kept in the build directory) "
+                        "recorded, each on its own partition count")
+    p.add_argument("--json", action="store_true",
+                   help="end with one JSON line of the libraries, the "
+                        "wave program's outcomes and the replay rows")
+    _add_compile_cache(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose)
+    if args.cache_dir:
+        args.compile_cache = args.cache_dir
+    path = _setup_compile_cache(args)
+    from .utils.compile_cache import writable_dir
+
+    if args.compile_cache is False or not writable_dir(path):
+        # a warmup that persists nothing is a FAILURE: every later
+        # process would build again
+        print(f"ERROR: build dir {path!r} is not writable or is this "
+              "process's own: this warmup would persist nothing (set "
+              "$MAPREDUCE_TPU_CACHE, --compile-cache DIR or --cache-dir "
+              "to a writable path)", file=sys.stderr)
+        return 1
+
+    from dataclasses import replace as _replace
+
+    from . import native
+    from .engine.device_engine import replay_registry
+    from .engine.wordcount import DeviceWordCount, bench_engine_config
+    from .obs.compile import LEDGER, registry_path
+    from .ops import kernel_compat as kc
+    from .parallel.mesh import Partitions
+
+    parts = Partitions(1, args.torch_device)
+    wc = DeviceWordCount(parts, chunk_len=args.chunk_len,
+                         config=bench_engine_config() if args.bench
+                         else None)
+    cfg = _replace(wc.config, sort_impl=(
+        args.sort_impl or {"0": "argsort", "1": "variadic",
+                           "both": "tiered"}[args.tier]))
+    if args.segment_impl:
+        cfg = _replace(cfg, segment_impl=args.segment_impl)
+    if args.tokenize_impl:
+        cfg = _replace(cfg, tokenize_impl=args.tokenize_impl)
+    wc.config = cfg
+    secs = wc.warm()
+    native.load_library()
+    libraries = {}
+    for rec in LEDGER.buckets():
+        prog = rec["program"]
+        compiler, _, label = prog.partition(":")
+        if compiler not in ("nvcc", "g++"):
+            continue
+        # the work done: a library loaded twice (both tiers') is
+        # "cached" the second time
+        outcome = next(o for o in ("compiled", "persistent_hit", "cached")
+                       if o in rec["outcomes"])
+        build_s = (kc.BUILD_SECONDS.get(label, 0.0) if compiler == "nvcc"
+                   else native.BUILD_SECONDS or 0.0)
+        libraries[prog] = {"outcome": outcome, "compiler_s":
+                           build_s if outcome == "compiled" else 0.0,
+                           "seconds": rec["compile_s"]}
+    print(f"built the engine's libraries in {secs:.1f}s -> build dir at "
+          f"{path}")
+    for prog, row in sorted(libraries.items()):
+        print(f"  {prog}: {row['outcome']}, compiler "
+              f"{row['compiler_s']:.2f}s, {row['seconds']:.2f}s in all")
+    wave = (LEDGER.snapshot().get("programs") or {}).get("wave") or {}
+    print(f"  wave program: {wave.get('compiled', 0)} compiled / "
+          f"{wave.get('persistent_hit', 0)} persistent hit / "
+          f"{wave.get('cached', 0)} cached; shape registry at "
+          f"{registry_path(path)}")
+    rows = []
+    if args.replay:
+        rows = replay_registry(path, args.torch_device)
+        for row in rows:
+            if "seconds" in row:
+                print(f"  replayed {row['program']} bucket "
+                      f"{row['bucket']}: {row['seconds']:.3f}s")
+            else:
+                print(f"  skipped {row['program']} bucket "
+                      f"{row['bucket']}: {row['skipped']}")
+        primed = sum("seconds" in r for r in rows)
+        print(f"replay: {primed} bucket(s) primed, "
+              f"{len(rows) - primed} skipped")
+    tiers: dict = {}
+    for rec in LEDGER.buckets():
+        if rec.get("program") == "wave":
+            t = tiers.setdefault(rec.get("tier"), {"buckets": 0,
+                                                   "compile_s": 0.0})
+            t["buckets"] += 1
+            t["compile_s"] += float(rec.get("compile_s", 0.0))
+    names = {0: "tier 0 (argsort serving)", 1: "tier 1 (variadic)",
+             2: "tier 2 (radix kernels)", None: "untiered"}
+    print("per-tier summary:")
+    for t in sorted(tiers, key=lambda x: (x is None, x)):
+        print(f"  {names.get(t, t)}: {tiers[t]['buckets']} bucket(s), "
+              f"{tiers[t]['compile_s']:.2f}s")
+    if args.json:
+        print(json.dumps({"warmup": {
+            "build_dir": path, "seconds": secs, "libraries": libraries,
+            "wave": wave, "replay": rows}}, default=float))
+    return 0
+
+
 def cmd_timeline(argv: List[str]) -> int:
     """Fetch the docserver's /clusterz merged cluster timeline (every
     pushed process's spans clock-aligned with the server's own, one
@@ -1061,7 +1249,7 @@ def cmd_runner(argv: List[str]) -> int:
                         "puts them on the board's /clusterz")
     _refuse(p, "ROADMAP A.8: the SLO objectives", "--slo",
             takes_value=True)
-    _refuse(p, "ROADMAP A.8", "--compile-cache", "--no-compile-cache")
+    _add_compile_cache(p)
     _add_auth(p)
     _add_retry(p)
     _add_trace(p)
@@ -1069,6 +1257,7 @@ def cmd_runner(argv: List[str]) -> int:
     args = p.parse_args(argv)
     _setup_logging(args.verbose or 1)
     _setup_trace(args)
+    _setup_compile_cache(args)
 
     from .coord import docstore
     from .engine.autotune import AdmissionAdvisor, local_mesh_facts
@@ -1081,7 +1270,7 @@ def cmd_runner(argv: List[str]) -> int:
     retry = _retry_policy(args)
     # the card (or the CPU, asked by name) first: a runner that cannot
     # serve device tasks fails here, before it takes the admission lease
-    parts = Partitions(args.partitions, args.torch_device)
+    parts = Partitions(1, args.torch_device)
     store = docstore.connect(args.connstr, auth=args.auth, retry=retry)
     # telemetry-informed admission: this process hosts the admitted
     # tasks' engines, so ITS warm programs and card memory are the
@@ -1152,12 +1341,12 @@ COMMANDS = {"server": cmd_server, "worker": cmd_worker,
             "wordcount": cmd_wordcount, "train": cmd_train,
             "docserver": cmd_docserver, "blobserver": cmd_blobserver,
             "drop": cmd_drop, "submit": cmd_submit, "tasks": cmd_tasks,
-            "runner": cmd_runner, "timeline": cmd_timeline}
+            "runner": cmd_runner, "timeline": cmd_timeline,
+            "warmup": cmd_warmup}
 
 #: JAX commands the port does not offer yet, with the ROADMAP item
 NOT_PORTED_COMMANDS = {
     "drain": "ROADMAP A.11: the engine-host fleet",
-    "warmup": "ROADMAP A.8b: the compile plane",
     "status": "ROADMAP A.8c: the cluster status snapshot",
     "profile": "ROADMAP A.8c: the cluster status snapshot (/statusz) "
                "it bundles",
@@ -1182,7 +1371,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"unknown command {cmd!r}; one of {sorted(COMMANDS)}",
               file=sys.stderr)
         return 2
-    return COMMANDS[cmd](argv[1:])
+    from .utils import compile_cache
+
+    # a command run in process (tests, the smoke) leaves the build dir
+    # and the registry as it found them
+    saved = compile_cache.save_state()
+    try:
+        return COMMANDS[cmd](argv[1:])
+    finally:
+        compile_cache.restore_state(saved)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ import importlib
 
 _EXPORTS = {
     "DeviceEngine": "device_engine", "DeviceResult": "device_engine",
-    "EngineConfig": "device_engine",
+    "EngineConfig": "device_engine", "replay_registry": "device_engine",
     "DeviceWordCount": "wordcount", "bench_engine_config": "wordcount",
     "materialize_counts": "wordcount",
     "EngineSession": "session", "SessionBusyError": "session",

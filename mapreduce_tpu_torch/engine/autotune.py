@@ -37,13 +37,12 @@ Embedder contract: nothing here runs unless attached
 disabled records ZERO decisions and computes what it computed before.
 The CLI surfaces attach them.
 
-Differences from the JAX package: the capacity controller learns from
-retry forensics only (the JAX one also reads the compile ledger's
-on-disk shape registry; its CUDA twin, a ledger over the ``nvcc``
-builds, is ROADMAP A.8), and :func:`local_mesh_facts` reads kernel
-warmth from ``kernel_compat.is_built`` and memory from
-``torch.cuda.mem_get_info``.  Left out (ROADMAP A.11): the
-``FleetRebalancer`` and live migration.
+Differences from the JAX package: :func:`local_mesh_facts` also counts
+a program warm when every kernel library it launches passes
+``kernel_compat.is_built``, and reads memory from
+``torch.cuda.mem_get_info``.  The capacity controller reads the compile
+ledger's shape registry (:mod:`..obs.compile`) as the JAX one does.
+Left out (ROADMAP A.11): the ``FleetRebalancer`` and live migration.
 
 Monotonic-only module: controllers time control windows; the persisted
 job timestamps the reclaimer compares are minted by
@@ -283,12 +282,10 @@ class CapacityController:
     already right-sizes a single run; this controller makes the NEXT
     run (or session, which cannot retry at all) start right-sized.
 
-    Its one source is capacity-retry forensics (:meth:`note_retry`,
-    called by the engine at every resize), held for this process's
-    life.  The JAX controller also reads the compile ledger's on-disk
-    shape registry; the port has no such registry yet (ROADMAP A.8: a
-    ledger over the ``nvcc`` builds), so nothing is learned across
-    processes."""
+    Sources, in evidence order: capacity-retry forensics
+    (:meth:`note_retry`, called by the engine at every resize) and the
+    shape registry's replayable configs (the capacities that eventually
+    ran on this machine, surviving process restarts)."""
 
     def __init__(self, ledger: _control.ControlLedger = None) -> None:
         self.ledger = ledger if ledger is not None else _control.LEDGER
@@ -314,6 +311,31 @@ class CapacityController:
                     st["caps"][field] = v
             st["source"] = "retry_forensics"
 
+    def _registry_caps(self, key: str, cfg) -> Dict[str, int]:
+        """Learned capacities from the shape registry: the max of every
+        replayable device-engine bucket whose map_fn matches this key's
+        program family."""
+        from ..obs.compile import LEDGER as _COMPILE_LEDGER
+
+        out: Dict[str, int] = {}
+        try:
+            buckets = _COMPILE_LEDGER.disk_buckets()
+        except Exception as exc:
+            logger.debug("shape registry unavailable: %s", str(exc))
+            return out
+        fn_token = str(key).split("|", 1)[0]
+        for rec in buckets.values():
+            replay = rec.get("replay")
+            if (not isinstance(replay, dict)
+                    or replay.get("kind") != "device_engine"
+                    or replay.get("map_fn") != fn_token):
+                continue
+            for field in _CAPACITY_FIELDS:
+                v = int((replay.get("config") or {}).get(field) or 0)
+                if v > out.get(field, 0):
+                    out[field] = v
+        return out
+
     def recommend_config(self, cfg, key: str, task: str = "-"):
         """The run-entry hook: returns *cfg* with any learned capacity
         raised to its learned value (never lowered: a user's generous
@@ -325,6 +347,12 @@ class CapacityController:
             retries = st["retries"]
             source = st["source"]
             pending = st["pending"]
+        reg = self._registry_caps(key, cfg)
+        for field, v in reg.items():
+            if v > learned.get(field, 0):
+                learned[field] = v
+                source = (source + "+shape_registry" if source
+                          else "shape_registry")
         changes = {}
         for field in _CAPACITY_FIELDS:
             have = int(getattr(cfg, field))
@@ -483,10 +511,12 @@ class AdmissionAdvisor:
 
 def local_mesh_facts() -> Tuple[List[str], Optional[float]]:
     """The LOCAL process's placement facts for
-    :meth:`AdmissionAdvisor.register_mesh`: the program tokens (the JAX
-    compile ledger's spelling: ``"wave"``, the device engine's wave at
-    the default config, and ``"tf_step"``, the transformer step) whose
-    every kernel library passes ``kernel_compat.is_built`` (serving them
+    :meth:`AdmissionAdvisor.register_mesh`: the program tokens the
+    compile ledger holds buckets for (its in-process records and the
+    enabled cache's shape registry, as in the JAX function), with
+    ``"wave"`` (the device engine's wave at the default config) and
+    ``"tf_step"`` (the transformer step) also warm when every kernel
+    library they launch passes ``kernel_compat.is_built`` (serving them
     here needs no ``nvcc``), and the worst card's memory use fraction,
     ``torch.cuda.memory_allocated`` over the total of
     ``torch.cuda.mem_get_info`` (None on the CPU, as the JAX function
@@ -497,10 +527,20 @@ def local_mesh_facts() -> Tuple[List[str], Optional[float]]:
     from ..ops import kernel_compat as kc
     from .device_engine import EngineConfig
 
+    from ..obs.compile import LEDGER as _compile_ledger
+
     programs = {"wave": kc.sources_for(EngineConfig()),
                 "tf_step": ("flash_attention",)}
-    warm = sorted(tok for tok, libs in programs.items()
-                  if all(kc.is_built(n) for n in libs))
+    warm = {tok for tok, libs in programs.items()
+            if all(kc.is_built(n) for n in libs)}
+    warm.update((_compile_ledger.snapshot().get("programs") or {}).keys())
+    try:
+        for rec in _compile_ledger.disk_buckets().values():
+            if rec.get("program"):
+                warm.add(str(rec["program"]))
+    except Exception as exc:
+        logger.debug("shape registry unavailable: %s", str(exc))
+    warm = sorted(warm)
     worst = None
     if torch.cuda.is_available():
         for i in range(torch.cuda.device_count()):

@@ -59,22 +59,32 @@ allocator's counters, the upload/compute overlap share
 (:mod:`..obs.comms`) and the analytic cost model with MFU and the
 roofline share (:mod:`..obs.profile`), all in ``timings`` too.
 
-Left out of this port for now (ROADMAP): the compile ledger and the
-shape registry (A.8b), the exchange's link-class roll-ups (A.8c),
-custom callable monoids on CUDA, multi-process runs.
+The wave program is a compile-ledger acquisition (:mod:`..obs.compile`,
+program ``wave``): :meth:`DeviceEngine.precompile` and the first wave of
+each configuration a run serves load the libraries of its path under a
+``compile`` span, keyed as the JAX engine keys its wave program (map_fn,
+config, partitions and the wave's input shape), and record the bucket,
+with the replay spec :func:`replay_registry` primes it from
+(``cli warmup --replay``), in the enabled cache's shape registry.
+
+Left out of this port for now (ROADMAP): the exchange's link-class
+roll-ups (A.8c), custom callable monoids on CUDA (A.9), multi-process
+runs (A.11).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import time
-from dataclasses import dataclass, replace
+from dataclasses import asdict, dataclass, replace
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..obs import comms as _comms
+from ..obs import compile as _compile_obs
+from ..obs.compile import op_token
 from ..obs import memory as _memory_obs
 from ..obs import metrics as _obs
 from ..obs import profile as _profile
@@ -283,19 +293,6 @@ def _steady_cfg(cfg: EngineConfig) -> EngineConfig:
     return _tier_cfgs(cfg)[1] if _is_tiered(cfg.sort_impl) else cfg
 
 
-def op_token(op) -> str:
-    """Stable spelling of a reduce op: strings pass through, functions
-    become ``module:qualname`` (the JAX package's ``obs.compile.
-    op_token``)."""
-    if isinstance(op, str):
-        return op
-    mod = getattr(op, "__module__", None)
-    qual = getattr(op, "__qualname__", None)
-    if mod and qual:
-        return f"{mod}:{qual}"
-    return repr(op)
-
-
 def _capacities(cfg: EngineConfig) -> dict:
     """The static capacities a retry right-sizes: the before/after
     payload of the capacity-retry forensics the autotuner learns from."""
@@ -312,6 +309,11 @@ def _cfg_token(cfg: EngineConfig) -> str:
     ``repr``)."""
     return "|".join(op_token(v) if callable(v) else repr(v)
                     for v in cfg.cache_key())
+
+
+#: the compile tier of each concrete sort (the registry's schema-v2
+#: ``tier``: 0 the argsort serving tier, 1 variadic, 2 radix)
+_TIERS = {"argsort": 0, "variadic": 1, "radix": 2}
 
 
 def _check_impls(cfg: EngineConfig) -> None:
@@ -524,6 +526,9 @@ class DeviceEngine:
         if config.partition_map:
             partition_buckets_for(config, self.n_dev)  # raises if P ∤ B
         self._tier_spec: Optional[TierSpecializer] = None
+        #: (config key, row shape, dtype, k) of each wave program this
+        #: engine acquired through the compile ledger
+        self._acquired: set = set()
 
     @property
     def specializer(self) -> TierSpecializer:
@@ -765,18 +770,76 @@ class DeviceEngine:
         return tuple(dict.fromkeys(n for c in cfgs
                                    for n in kc.sources_for(c)))
 
+    # -- the compile ledger ------------------------------------------------
+
+    def _replay_info(self, cfg: EngineConfig, row_shape, row_dtype,
+                     k: int) -> Optional[dict]:
+        """The shape registry's replay spec (the JAX engine's
+        ``_replay_info``): enough to rebuild this engine and precompile
+        this program in a fresh process.  None when it cannot replay: a
+        map_fn that is not importable by name, or a callable reduce op.
+        A per-lane tuple op is recorded as a list."""
+        path = _compile_obs.fn_path(self.map_fn)
+        if path is None or callable(cfg.reduce_op):
+            return None
+        config = asdict(cfg)
+        if isinstance(cfg.reduce_op, tuple):
+            config["reduce_op"] = list(cfg.reduce_op)
+        return {"kind": "device_engine", "map_fn": path, "config": config,
+                "k": int(k), "row_shape": [int(d) for d in row_shape],
+                "row_dtype": str(np.dtype(row_dtype)), "n_dev": self.n_dev}
+
+    def _mesh_doc(self) -> dict:
+        kind = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "cpu")
+        return {"n_devices": self.n_dev, "device_kind": kind,
+                "platform": self.device.type}
+
+    def _acquire(self, cfg: EngineConfig, row_shape, row_dtype,
+                 k: int) -> None:
+        """The wave program of concrete *cfg* for waves of ``k * P`` rows
+        of *row_shape*: the libraries of its path loaded (on CUDA), once
+        per engine, through the compile ledger (``cached`` when another
+        engine of this process acquired the same program)."""
+        row_shape = tuple(int(d) for d in row_shape)
+        dtype = np.dtype(row_dtype)
+        mine = (cfg.cache_key(), row_shape, dtype.str, int(k))
+        if mine in self._acquired:
+            return
+        libs = kc.sources_for(cfg)
+        build = ((lambda: kc.load(libs, observe=True))
+                 if self.device.type == "cuda" else (lambda: None))
+        _compile_obs.LEDGER.acquire(
+            "wave", build,
+            key=("wave", self.map_fn, cfg.cache_key(), self.n_dev,
+                 str(self.device)) + mine[1:],
+            avals=[_Aval((int(k) * self.n_dev,) + row_shape, dtype)],
+            extra=("wave", op_token(self.map_fn), _cfg_token(cfg)),
+            mesh=self._mesh_doc(),
+            replay=self._replay_info(cfg, row_shape, dtype, k),
+            tier=_TIERS.get(cfg.sort_impl))
+        self._acquired.add(mine)
+
     def precompile(self, row_shape, row_dtype=np.uint8,
                    k: Optional[int] = None) -> float:
-        """Build and load the CUDA libraries of the config's path (both
-        tiers' under a tier policy; one ``nvcc`` per source, in
-        parallel), returning the seconds spent.  The counterpart of the
-        JAX engine's AOT compile: CUDA has no program to compile per
-        shape, so *row_shape*, *row_dtype* and *k* name the run it
-        prepares but change nothing, and nothing of the corpus is
-        launched.  On the CPU there is nothing to build."""
+        """Acquire the wave program for rows of *row_shape* (``k`` chunks
+        a partition a wave; default the auto split of a full wave)
+        through the compile ledger: build and load the CUDA libraries of
+        the config's path (both tiers' under a tier policy; one ``nvcc``
+        per source, in parallel), returning the seconds spent.  The
+        counterpart of the JAX engine's AOT compile: nothing of a corpus
+        is launched.  On the CPU there is nothing to build, and only the
+        ledger's record is made."""
         t0 = time.monotonic()
-        if self.device.type == "cuda":
-            kc.load(self._libraries(self.config))
+        if k is None:
+            row_bytes = int(np.dtype(row_dtype).itemsize
+                            * np.prod(row_shape))
+            k = self._rows_per_wave(row_bytes)
+        cfg = self.config
+        if self.device.type == "cuda":  # every tier's libraries at once
+            kc.load(self._libraries(cfg))
+        for c in _tier_cfgs(cfg) if _is_tiered(cfg.sort_impl) else (cfg,):
+            self._acquire(c, row_shape, row_dtype, k)
         return time.monotonic() - t0
 
     def stage_inputs(self, chunks: np.ndarray, waves: Optional[int] = None):
@@ -863,11 +926,15 @@ class DeviceEngine:
                     "stage_inputs again for another run")
             pairs = dict(enumerate(staged_list))
             k = staged_list[0].shape[0] // P
+            row_shape = tuple(staged_list[0].shape[1:])
+            row_dtype = np.dtype(str(staged_list[0].dtype).replace(
+                "torch.", ""))
             staged_list.clear()
         else:
             S = chunks.shape[0]
             k = (self._auto_rows(chunks) if waves is None
                  else -(-S // (max(1, waves) * P)))
+            row_shape, row_dtype = chunks.shape[1:], chunks.dtype
             feeder = _WaveFeeder(self, chunks, k=k,
                                  prefetch=self.STREAM_PREFETCH)
             W = feeder.waves
@@ -903,8 +970,7 @@ class DeviceEngine:
                         # serving config: built at the first wave, found
                         # loaded later
                         wave_cfg = disp.next_cfg() if disp is not None else cfg
-                        if cuda:
-                            kc.load(kc.sources_for(wave_cfg))
+                        self._acquire(wave_cfg, row_shape, row_dtype, k)
                         tb = time.monotonic()
                         if pairs is not None:
                             block = pairs.pop(w)
@@ -1076,3 +1142,52 @@ class DeviceEngine:
                     "row_sums": matrix.sum(dim=1).tolist(),
                     "col_sums": matrix.sum(dim=0).tolist()}
         return result
+
+
+# -- shape-registry replay (cli warmup --replay) -----------------------------
+
+
+def replay_registry(registry_dir: Optional[str] = None,
+                    device=None) -> list:
+    """Precompile EVERY replayable bucket of the shape registry
+    (:mod:`..obs.compile`) in *registry_dir* (default: the enabled
+    cache's) on *device* (``None`` means ``"cuda"``): the full warm
+    start, not just the word count's default (the JAX package's
+    ``replay_registry``).  A bucket replays when it recorded a
+    ``device_engine`` replay spec (an importable map_fn, a string or
+    per-lane reduce op); each replays on its own recorded partition
+    count, which one card always offers (the JAX function skips a
+    bucket recorded for another mesh size).  Anything else is reported
+    as skipped with the reason, never dropped.  Returns one result dict
+    per bucket: ``bucket``, ``program``, ``tier``, and ``seconds`` or
+    ``skipped``."""
+    results = []
+    engines: dict = {}
+    for bucket, rec in sorted(
+            _compile_obs.LEDGER.disk_buckets(registry_dir).items()):
+        row = {"bucket": bucket, "program": rec.get("program"),
+               "tier": rec.get("tier")}
+        spec = rec.get("replay")
+        if not isinstance(spec, dict) or spec.get("kind") != "device_engine":
+            row["skipped"] = "no replay spec recorded"
+            results.append(row)
+            continue
+        try:
+            map_fn = _compile_obs.resolve_fn(spec["map_fn"])
+            fields = dict(spec["config"])
+            if isinstance(fields.get("reduce_op"), list):
+                fields["reduce_op"] = tuple(fields["reduce_op"])
+            cfg = EngineConfig(**fields)
+            n_dev = int(spec["n_dev"])
+            ekey = (spec["map_fn"], _cfg_token(cfg), n_dev)
+            eng = engines.get(ekey)
+            if eng is None:
+                eng = engines[ekey] = DeviceEngine(
+                    Partitions(n_dev, device), map_fn, cfg)
+            row["seconds"] = eng.precompile(
+                tuple(spec["row_shape"]), np.dtype(spec["row_dtype"]),
+                k=int(spec["k"]))
+        except Exception as exc:  # a bad bucket must not stop the rest
+            row["skipped"] = f"replay failed: {exc}"
+        results.append(row)
+    return results

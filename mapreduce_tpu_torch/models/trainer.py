@@ -266,7 +266,7 @@ class DistributedTrainer:
             self._graph = g = kc.StepsGraph(
                 lambda x, y: self._step_impl(params, opt_state, x, y),
                 xs, ys, list(params.values()) + list(opt_state.values()),
-                owners=(params, opt_state))
+                owners=(params, opt_state), program="mlp_epoch")
         return params, opt_state, g.run(xs, ys)
 
     def _eval(self, params: Params, x: torch.Tensor, y: torch.Tensor):

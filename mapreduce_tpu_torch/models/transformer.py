@@ -487,7 +487,8 @@ class TransformerTrainer:
                               for t in st.values()]
                 self._graph = g = kc.StepsGraph(
                     lambda x, y: self._step_impl(params, opt_state, x, y),
-                    xs, ys, state, owners=(params, opt_state))
+                    xs, ys, state, owners=(params, opt_state),
+                    program="tf_steps")
             losses = g.run(xs, ys)
         else:
             losses = torch.stack([self._step_impl(params, opt_state, xs[i],

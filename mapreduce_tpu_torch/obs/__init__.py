@@ -21,9 +21,11 @@
   with :mod:`.comms`' ``matrix_stats`` and upload overlap and
   :mod:`.analysis`' MAD helpers.
 
-Not ported yet: the compile ledger (ROADMAP A.8b); ``/statusz``,
-``diagnose``, the comms link classes, the SLO objectives, the durable
-history and the alerts (A.8c).
+* :mod:`.compile` — the compile ledger of the builds, loads and
+  captures, and the shape registry.
+
+Not ported yet (ROADMAP A.8c): ``/statusz``, ``diagnose``, the comms
+link classes, the SLO objectives, the durable history and the alerts.
 """
 
 from .metrics import DEVICE_BUCKETS  # noqa: F401

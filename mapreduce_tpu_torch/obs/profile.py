@@ -24,13 +24,13 @@ they are denominators for a ratio, not measurements, and the
 **Profile bundles** (:func:`write_bundle` / :func:`load_bundle`): one
 directory holding a Chrome trace, a ``/metrics`` snapshot, a
 ``statusz.json`` with the device and memory sections, the control
-ledger when a controller decided something, and a manifest that names
-an optional ``torch.profiler`` trace directory.  The loader re-validates
+ledger when a controller decided something, the compile ledger
+(``compile_ledger.json``: :mod:`.compile`'s snapshot and buckets), and
+a manifest that names an optional ``torch.profiler`` trace directory.  The loader re-validates
 with the strict parsers (``parse_prometheus``, :func:`validate_trace`),
 so a bundle that loads is one Perfetto and Prometheus accept, and a
-bundle of either package loads in the other.  Left out (ROADMAP): the
-compile ledger (A.8b); the cluster ``/statusz``, comms, SLO, alerts and
-history artifacts (A.8c).
+bundle of either package loads in the other.  Left out (ROADMAP A.8c):
+the cluster ``/statusz``, comms, SLO, alerts and history artifacts.
 
 The manifest's ``created_time`` is a persisted timestamp minted through
 ``coord/docstore.now``; every duration here is somebody else's
@@ -393,6 +393,16 @@ def write_bundle(out_dir: str,
     _dump(out_dir, "statusz.json", statusz_doc, indent=1)
     _dump(out_dir, "trace.json", trace_doc)
     files = ["metrics.prom", "statusz.json", "trace.json"]
+    # the compile ledger (obs/compile): what this process built, loaded
+    # and captured, and where the shape registry lives
+    from .compile import LEDGER, validate_compile_ledger
+
+    ledger_doc = {"kind": "mrtpu-compile-ledger", "version": 1,
+                  "snapshot": LEDGER.snapshot(),
+                  "buckets": LEDGER.buckets()}
+    validate_compile_ledger(ledger_doc)
+    _dump(out_dir, "compile_ledger.json", ledger_doc, indent=1)
+    files.append("compile_ledger.json")
     # the control plane: written only when a controller decided
     # something (an empty file would claim the loop ran and did nothing)
     ctrl_snap = control_snapshot()
@@ -425,9 +435,9 @@ def load_bundle(path: str) -> Dict[str, Any]:
     """Load and re-validate a bundle of either package: the metrics
     snapshot must survive the strict Prometheus parser and the trace the
     structural check.  Returns ``{"manifest", "metrics_text",
-    "metrics", "statusz", "trace"}`` plus ``"control_ledger"`` when the
-    bundle has one; the JAX package's other artifacts are left on
-    disk."""
+    "metrics", "statusz", "trace"}`` plus ``"compile_ledger"`` and
+    ``"control_ledger"`` when the bundle has them; the JAX package's
+    other artifacts are left on disk."""
     with open(os.path.join(path, "manifest.json"), encoding="utf-8") as f:
         manifest = json.load(f)
     if manifest.get("kind") != "mrtpu-profile-bundle":
@@ -446,6 +456,14 @@ def load_bundle(path: str) -> Dict[str, Any]:
         "statusz": statusz_doc,
         "trace": trace_doc,
     }
+    comp_path = os.path.join(path, "compile_ledger.json")
+    if os.path.exists(comp_path):
+        from .compile import validate_compile_ledger
+
+        with open(comp_path, encoding="utf-8") as f:
+            comp_doc = json.load(f)
+        validate_compile_ledger(comp_doc)
+        out["compile_ledger"] = comp_doc
     ctrl_path = os.path.join(path, "control_ledger.json")
     if os.path.exists(ctrl_path):
         from .control import validate_control

@@ -63,6 +63,10 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
+from ..obs.compile import LEDGER
+from ..obs.trace import TRACER
+from ..utils import compile_cache as _compile_cache
+
 #: the kernels of this package, by the name their counters use
 KERNELS = ("tokenize", "segreduce", "radix_plan", "radix_upfront",
            "radix_onesweep", "flash_fwd", "flash_dq", "flash_dkv")
@@ -82,8 +86,11 @@ PLAIN_CALLS: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-#: where the shared libraries are built (listed in .gitignore)
-BUILD_DIR = _PKG.parent / "build" / "kernels"
+#: where the shared libraries are built: ``build/kernels`` by default
+#: (listed in .gitignore), or what ``utils/compile_cache`` chose
+#: (``--compile-cache DIR``, ``$MAPREDUCE_TPU_CACHE``); kept in step
+#: with it by ``compile_cache.enable_compile_cache``
+BUILD_DIR = Path(_compile_cache.build_dir())
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -242,11 +249,22 @@ class StepsGraph:
     into the slots and replays."""
 
     def __init__(self, step, xs: torch.Tensor, ys: torch.Tensor,
-                 state: Sequence[torch.Tensor], owners: Sequence) -> None:
+                 state: Sequence[torch.Tensor], owners: Sequence,
+                 program: str = "steps") -> None:
         self.owners = tuple(owners)
         self.xs, self.ys = xs.clone(), ys.clone()
-        self.graph = capture_steps(lambda i: step(self.xs[i], self.ys[i]),
-                                   xs.shape[0], state)
+
+        def capture():
+            with TRACER.span("capture", program=program):
+                return capture_steps(
+                    lambda i: step(self.xs[i], self.ys[i]), xs.shape[0],
+                    state)
+
+        # a compile-ledger acquisition under *program* (the JAX
+        # trainers' program names): always ``compiled``, a capture is
+        # this process's own
+        self.graph, _ = LEDGER.acquire(program, capture, avals=[xs, ys],
+                                       stage="capture")
 
     def fits(self, owners: Sequence, xs: torch.Tensor) -> bool:
         """Whether this graph runs *owners*' state (the same objects) on a
@@ -332,7 +350,10 @@ def _finish_build(name: str, proc: Optional[subprocess.Popen],
         return
     log, _ = proc.communicate()
     label = build_label(name, defines)
-    BUILD_SECONDS[label] = time.monotonic() - proc.mr_t0
+    t1 = time.monotonic()
+    BUILD_SECONDS[label] = t1 - proc.mr_t0
+    TRACER.record("nvcc", proc.mr_t0, t1, library=label,
+                  exit=proc.returncode)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {label} "
                            f"(exit {proc.returncode}):\n{log}")
@@ -443,19 +464,42 @@ def library(name: str, signatures: Dict[str, tuple],
     with _build_lock(key):
         lib = _LIBS.get(key)
         if lib is None:
-            _finish_build(name, _start_build(name, key[1]), key[1])
-            lib = ctypes.CDLL(str(_lib_path(name, key[1])))
+            label = build_label(name, key[1])
+            program = f"nvcc:{label}"
+            with TRACER.span("compile", program=program) as sp:
+                _finish_build(name, _start_build(name, key[1]), key[1])
+                t0 = time.monotonic()
+                with TRACER.span("load", library=label):
+                    lib = ctypes.CDLL(str(_lib_path(name, key[1])))
+                t_load = time.monotonic() - t0
+                # nvcc ran for it in this process (here or in a
+                # build_all), or its .so was already in BUILD_DIR
+                outcome = ("compiled" if label in BUILD_SECONDS
+                           else "persistent_hit")
+                sp.args["outcome"] = outcome
             for fn, (restype, argtypes) in signatures.items():
                 getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = argtypes
             _LIBS[key] = lib
+            stages = {"load": t_load}
+            if outcome == "compiled":
+                stages["nvcc"] = BUILD_SECONDS[label]
+            LEDGER.observe(program, outcome, stages)
     return lib
 
 
-def load(names: Iterable[str]) -> None:
+def load(names: Iterable[str], observe: bool = False) -> None:
     """Build the libraries of *names* not built yet (in parallel, as
     :func:`build_all`) and load each: after this, their wrappers launch
-    without waiting for ``nvcc``."""
+    without waiting for ``nvcc``.  Each fresh load is a compile-ledger
+    acquisition (``compiled`` or ``persistent_hit``); with *observe*
+    (the engine's program acquisitions), a library already loaded
+    counts as ``cached``."""
+    names = list(names)
+    if observe:
+        for n in names:
+            if (n, ()) in _LIBS:
+                LEDGER.observe(f"nvcc:{n}", "cached")
     names = [n for n in names if (n, ()) not in _LIBS]
     if not names:
         return

@@ -281,13 +281,16 @@ def test_scheduler_without_advisor_sets_no_mesh_and_fleet_refused():
 
 
 def test_local_mesh_facts_with_the_card_probes_stubbed(monkeypatch):
-    """Warm program tokens from ``kernel_compat.is_built``; the worst
-    card's allocated share of ``mem_get_info``'s total; None with no
-    card."""
+    """Warm program tokens from ``kernel_compat.is_built`` (the compile
+    ledger's records and registry stubbed empty); the worst card's
+    allocated share of ``mem_get_info``'s total; None with no card."""
     import torch
 
+    from mapreduce_tpu_torch.obs import compile as tcompile
     from mapreduce_tpu_torch.ops import kernel_compat as kc
 
+    monkeypatch.setattr(tcompile.LEDGER, "snapshot", lambda: {})
+    monkeypatch.setattr(tcompile.LEDGER, "disk_buckets", lambda dir=None: {})
     built = {"tokenize", "segreduce"}
     monkeypatch.setattr(kc, "is_built", lambda name, defines=(): name in
                         built)

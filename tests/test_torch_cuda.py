@@ -1245,3 +1245,113 @@ def test_capture_keeps_another_threads_launches(dev):
     g.replay()
     torch.cuda.synchronize()
     assert kc.LAUNCHES["tokenize"] == 1
+
+
+# -- the remaining examples and the compile plane on the card ---------------------
+
+
+def _span_files(tmp_path):
+    from mapreduce_tpu_torch.corpus import make_corpus
+
+    lines = make_corpus(300_000, 12_000, seed=5).split(b"\n")
+    files = []
+    for i in range(3):
+        path = tmp_path / f"s{i}.txt"
+        path.write_bytes(b"\n".join(lines[i::3]))
+        files.append(str(path))
+    return files
+
+
+def _wordspan(files, parts, sort_impl, autotune=None):
+    """``examples/wordspan`` through ``Server(device=True)`` at capacities
+    the files' ~40K uniques overflow; its RESULT and device timings."""
+    import uuid
+
+    from mapreduce_tpu_torch import spec
+    from mapreduce_tpu_torch.examples import wordspan as tws
+    from mapreduce_tpu_torch.server import Server
+
+    mod = "mapreduce_tpu_torch.examples.wordspan"
+    params = {r: mod for r in ("taskfn", "mapfn", "partitionfn",
+                               "reducefn", "finalfn")}
+    params.update(combinerfn=mod, storage=f"mem:{uuid.uuid4().hex}",
+                  device=True, partitions=parts,
+                  init_args={"files": files, "device_chunk_len": 1 << 18,
+                             "device_local_capacity": 1 << 12,
+                             "device_exchange_capacity": 1 << 10,
+                             "device_out_capacity": 1 << 12,
+                             "device_sort_impl": sort_impl})
+    spec.clear_caches()
+    tws._conf.clear()
+    tws._conf.update({"files": [], "num_reducers": 8})
+    server = Server(f"mem://{uuid.uuid4().hex}", "ws")
+    server.autotune = autotune
+    server.configure(params)
+    server.loop()
+    spec.clear_caches()
+    return dict(tws.RESULT), server._last_device_timings
+
+
+@pytest.mark.parametrize("parts,sort_impl", [(1, "variadic"), (8, "radix")])
+def test_wordspan_on_the_card_equals_the_cpu_run(dev, tmp_path, parts,
+                                                 sort_impl):
+    """Spans on the card (the 3-lane segreduce kernel; at P = 8 the radix
+    kernels) equal the same run's plain versions on the CPU, through the
+    capacity retries."""
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+
+    files = _span_files(tmp_path)
+    want, cpu_tm = _wordspan(files, Partitions(parts, "cpu"), sort_impl)
+    kc.reset_counts()
+    got, tm = _wordspan(files, Partitions(parts), sort_impl)
+    assert got == want
+    assert tm["retries"] >= 1 and tm["retries"] == cpu_tm["retries"]
+    assert not any(kc.PLAIN_CALLS.values()), kc.PLAIN_CALLS
+    need = ["tokenize", "segreduce"]
+    if sort_impl == "radix":
+        need += ["radix_upfront", "radix_onesweep", "radix_plan"]
+    for name in need:
+        assert kc.LAUNCHES[name] > 0, (name, kc.LAUNCHES)
+
+
+def test_registry_round_trip_through_warmup_replay(dev, tmp_path):
+    """Runs on the card record their buckets in the enabled cache's
+    registry; ``warmup --replay`` replays every one, and a fresh
+    controller pre-sizes the next run from it: no retry."""
+    import contextlib
+    import io
+    import json
+
+    from mapreduce_tpu_torch import cli
+    from mapreduce_tpu_torch.engine.autotune import AutoTuner
+    from mapreduce_tpu_torch.obs.control import ControlLedger
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.utils import compile_cache
+
+    files = _span_files(tmp_path)
+    saved = compile_cache.save_state()
+    cache = str(tmp_path / "cache")
+    try:
+        compile_cache.enable_compile_cache(cache)
+        want, tm = _wordspan(files, Partitions(1), "variadic")
+        assert tm["retries"] >= 1
+        ledger = ControlLedger()
+        got, tm2 = _wordspan(files, Partitions(1), "variadic",
+                             autotune=AutoTuner(ledger=ledger,
+                                                repartition=False))
+    finally:
+        compile_cache.restore_state(saved)
+    assert got == want and tm2["retries"] == 0
+    (dec,) = ledger.decisions("capacity")
+    assert "shape_registry" in dec["evidence"]["source"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["warmup", "--compile-cache", cache, "--replay",
+                       "--json"])
+    assert rc == 0
+    doc = json.loads(out.getvalue().strip().splitlines()[-1])["warmup"]
+    rows = doc["replay"]
+    with open(f"{cache}/mrtpu_shape_registry.json") as f:
+        recorded = json.load(f)["buckets"]
+    assert len(rows) == len(recorded) >= 3
+    assert all("seconds" in r for r in rows), rows

@@ -60,8 +60,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 CHUNK = 1024
 WAVES = 3
 DATA = _corpus(seed=3, n_words=2500)
-#: spans of the JAX compile ledger (ROADMAP A.8b): not in the port
-COMPILE_SPANS = {"compile", "lowering", "backend_compile"}
+#: spans of the two packages' compile ledgers: JAX lowers and compiles,
+#: the port builds, loads and captures (tests/test_torch_compile.py)
+COMPILE_SPANS = {"compile", "lowering", "backend_compile", "nvcc", "g++",
+                 "load", "capture"}
 TREE_ARGS = ("attempt", "waves", "wave", "kind", "stage")
 ENGINE_FAMILIES = ("mrtpu_device_waves_total", "mrtpu_device_retries_total",
                    "mrtpu_device_dispatches_total")

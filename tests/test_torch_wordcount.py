@@ -265,7 +265,11 @@ def test_port_imports_no_jax():
                    "testing/faults", "obs/control", "obs/comms",
                    "obs/analysis", "engine/autotune",
                    "engine/device_engine", "obs/profile", "obs/memory",
-                   "obs/buildinfo", "obs/wavetrace"):
+                   "obs/buildinfo", "obs/wavetrace", "obs/compile",
+                   "utils/compile_cache", "native/__init__",
+                   "examples/wordspan/__init__",
+                   "examples/wordcountbig/__init__",
+                   "examples/wordcount_native/__init__"):
         assert f"mapreduce_tpu_torch/{module}.py" in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
