@@ -12,7 +12,12 @@ which raises on failure:
    and 6, all started together), print each kernel's registers and
    spill bytes as ptxas reports them (``ptxas`` line; a flash, onesweep,
    plan, tokenize or segreduce kernel that spills fails the run) and
-   the card's name and power limit;
+   the card's name and power limit; then the libraries are copied into
+   a build directory of this run's own (:func:`own_build_dir`), which
+   ``$MAPREDUCE_TPU_CACHE`` names for the rest of the run and for every
+   child, so that the CLI phases' shape registry starts empty and their
+   capacities depend on this run alone, not on what earlier runs left
+   in the checkout's ``build/kernels``;
 2. the tokenize kernel against its plain PyTorch version on one
    full-width chunk (4,194,816 bytes of the synthetic corpus): bit
    equality, then kernel / plain times beside the memory bound (the
@@ -80,8 +85,8 @@ which raises on failure:
    on tier 0 (``torch.sort`` calls, no radix launch), at most one swap,
    then, once the specializer is done, a run served by ``radix``; (c)
    truly cold: ``python3 chip_smoke.py --cold tiered-radix`` and
-   ``--cold radix`` each in a subprocess with an empty temporary
-   ``kernel_compat.BUILD_DIR`` over 1M words (``first_dispatch_s`` and
+   ``--cold radix`` each in a subprocess with an empty temporary build
+   directory (``compile_cache.disable_compile_cache``) over 1M words (``first_dispatch_s`` and
    each library's build seconds); counts and matrices equal everywhere,
    and no tier-1 build may fail;
 8. the resident sessions (``EngineSession``, the ``session`` line), launch
@@ -1407,9 +1412,7 @@ def cold_child(impl):
     """Phase 7b (c), in a process of its own: a fresh, empty build
     directory, then a ``COLD_WORDS`` count with ``sort_impl=impl`` at P =
     8, which builds what its first wave needs; prints one JSON line."""
-    import tempfile
     from dataclasses import replace
-    from pathlib import Path
 
     import torch
 
@@ -1421,45 +1424,46 @@ def cold_child(impl):
     from mapreduce_tpu_torch.engine import wordcount as wcmod
     from mapreduce_tpu_torch.ops import kernel_compat as kc
     from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.utils import compile_cache
 
     torch.zeros(1, device="cuda")  # the context, outside the timed run
     data = make_corpus(COLD_WORDS, COLD_WORDS * N_LINES // EUROPARL_WORDS,
                        seed=1)
     want = Counter(data.split())
-    with tempfile.TemporaryDirectory() as tmp:
-        kc.BUILD_DIR = Path(tmp)
-        cfg = replace(wcmod.bench_engine_config(), sort_impl=impl)
-        wc = wcmod.DeviceWordCount(Partitions(RADIX_PARTS, "cuda"),
-                                   chunk_len=COLD_CHUNK_LEN, config=cfg)
-        tm = {}
-        t0 = time.monotonic()
-        got = wc.count_bytes(data, timings=tm, waves=3)
-        wall = time.monotonic() - t0
-        check(got == want, f"cold {impl}: counts differ from Counter")
-        out = {"impl": impl, "words": COLD_WORDS, "wall_s": wall,
-               "first_dispatch_s": tm["first_dispatch_s"],
-               "compute_s": tm["compute_s"], "waves": tm["waves"],
-               "build_s": dict(kc.BUILD_SECONDS)}
-        if impl == "tiered-radix":
-            key = kc.sources_for(replace(cfg, sort_impl="radix"))
-            check(wc.engine.specializer.wait(key, timeout=COLD_TIMEOUT_S),
-                  "cold: the specializer did not finish")
-            failed = wc.engine.specializer.failed(key)
-            if failed:
-                out[TIER_FAILED_KEY] = failed
-            check(not failed, f"cold: the tier-1 build failed: {failed}")
-            out.update(
-                serving_tier=tm["serving_tier"],
-                tier_cold_start=tm["tier_cold_start"],
-                tier_swaps=tm["tier_swaps"],
-                build_s=dict(kc.BUILD_SECONDS),
-                specializer_s=wc.engine.specializer.seconds[key])
-            tm2 = {}
-            check(wc.count_bytes(data, timings=tm2, waves=3) == want,
-                  "cold: the second run's counts differ")
-            out["next_run_serving_tier"] = tm2["serving_tier"]
-            check(tm2["serving_tier"] == "radix",
-                  f"cold: the second run served {tm2['serving_tier']}")
+    # a fresh, empty build directory of this process (removed at exit)
+    compile_cache.disable_compile_cache()
+    cfg = replace(wcmod.bench_engine_config(), sort_impl=impl)
+    wc = wcmod.DeviceWordCount(Partitions(RADIX_PARTS, "cuda"),
+                               chunk_len=COLD_CHUNK_LEN, config=cfg)
+    tm = {}
+    t0 = time.monotonic()
+    got = wc.count_bytes(data, timings=tm, waves=3)
+    wall = time.monotonic() - t0
+    check(got == want, f"cold {impl}: counts differ from Counter")
+    out = {"impl": impl, "words": COLD_WORDS, "wall_s": wall,
+           "first_dispatch_s": tm["first_dispatch_s"],
+           "compute_s": tm["compute_s"], "waves": tm["waves"],
+           "build_s": dict(kc.BUILD_SECONDS)}
+    if impl == "tiered-radix":
+        key = kc.sources_for(replace(cfg, sort_impl="radix"))
+        check(wc.engine.specializer.wait(key, timeout=COLD_TIMEOUT_S),
+              "cold: the specializer did not finish")
+        failed = wc.engine.specializer.failed(key)
+        if failed:
+            out[TIER_FAILED_KEY] = failed
+        check(not failed, f"cold: the tier-1 build failed: {failed}")
+        out.update(
+            serving_tier=tm["serving_tier"],
+            tier_cold_start=tm["tier_cold_start"],
+            tier_swaps=tm["tier_swaps"],
+            build_s=dict(kc.BUILD_SECONDS),
+            specializer_s=wc.engine.specializer.seconds[key])
+        tm2 = {}
+        check(wc.count_bytes(data, timings=tm2, waves=3) == want,
+              "cold: the second run's counts differ")
+        out["next_run_serving_tier"] = tm2["serving_tier"]
+        check(tm2["serving_tier"] == "radix",
+              f"cold: the second run served {tm2['serving_tier']}")
     print(json.dumps(out))
     return 0
 
@@ -3842,8 +3846,13 @@ def service_processes(procs, root, ha, files, token, refs, want_str):
                 "--torch-device", SERVICE_DEV,
                 "--max-inflight", "2", "--workers", "2",
                 "--telemetry-interval", "0.5")
-    procs.wait_line("runner", r"runner serving", timeout=120)
+    banner = procs.wait_line("runner", r"runner serving .* (\d+) "
+                             r"partition\(s\) on (\w+)", timeout=120)
     runner_start_s = time.monotonic() - t0
+    check(int(banner.group(1)) == RADIX_PARTS
+          and banner.group(2) == SERVICE_DEV,
+          f"service (b): the runner serves {banner.group(1)} partition(s) "
+          f"on {banner.group(2)}, not {RADIX_PARTS} on {SERVICE_DEV}")
     for tenant, impl in SERVICE_TENANTS:
         p = service_params(files, impl,
                            f"shared:{os.path.join(root, 'svc_' + tenant)}")
@@ -5238,6 +5247,32 @@ def examples_phase(torch, kc, seg, rs, data, want, smi):
 T_START = time.monotonic()
 
 
+def own_build_dir():
+    """A build directory of this run's own under ``$TMPDIR``, holding
+    copies of the libraries phase 1 built, named by
+    ``$MAPREDUCE_TPU_CACHE`` for this process and every child (removed
+    at exit).  Every CLI command enables the build directory's shape
+    registry by default, and the capacity controller pre-sizes from it:
+    in the checkout's ``build/kernels`` a run would start from what
+    earlier runs recorded there."""
+    import atexit
+    import shutil
+    import tempfile
+
+    from mapreduce_tpu_torch.utils import compile_cache
+
+    src = compile_cache.build_dir()
+    path = tempfile.mkdtemp(prefix="chip_smoke_build_")
+    atexit.register(shutil.rmtree, path, ignore_errors=True)
+    for name in os.listdir(src):
+        if name.endswith(".so"):
+            shutil.copy2(os.path.join(src, name), path)
+    os.environ["MAPREDUCE_TPU_CACHE"] = path
+    check(compile_cache.build_dir() == path, "the run's build dir is "
+          f"{compile_cache.build_dir()}, not {path}")
+    return path
+
+
 def main():
     import torch
 
@@ -5271,6 +5306,7 @@ def main():
     print(f"build: {time.monotonic() - t0:.2f} s (nvcc, sm_90a, "
           f"{len(kc.SOURCES)} sources and {len(variants)} variants in "
           "parallel)")
+    print(f"build dir: {own_build_dir()} (this run's own)")
     ptxas_report(kc, rs)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1270,7 +1270,7 @@ def cmd_runner(argv: List[str]) -> int:
     retry = _retry_policy(args)
     # the card (or the CPU, asked by name) first: a runner that cannot
     # serve device tasks fails here, before it takes the admission lease
-    parts = Partitions(1, args.torch_device)
+    parts = Partitions(args.partitions, args.torch_device)
     store = docstore.connect(args.connstr, auth=args.auth, retry=retry)
     # telemetry-informed admission: this process hosts the admitted
     # tasks' engines, so ITS warm programs and card memory are the

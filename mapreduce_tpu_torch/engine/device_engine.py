@@ -796,11 +796,17 @@ class DeviceEngine:
                 "platform": self.device.type}
 
     def _acquire(self, cfg: EngineConfig, row_shape, row_dtype,
-                 k: int) -> None:
+                 k: int, registry: Optional[dict] = None,
+                 pending: Optional[list] = None) -> None:
         """The wave program of concrete *cfg* for waves of ``k * P`` rows
         of *row_shape*: the libraries of its path loaded (on CUDA), once
         per engine, through the compile ledger (``cached`` when another
-        engine of this process acquired the same program)."""
+        engine of this process acquired the same program).  A run's wave
+        loop passes the shape *registry* it read before the attempt and
+        a *pending* list that takes ``(bucket, outcome)`` for the
+        registry write after the attempt's readback, so that the loop
+        does no file I/O; otherwise the registry is read and written
+        here."""
         row_shape = tuple(int(d) for d in row_shape)
         dtype = np.dtype(row_dtype)
         mine = (cfg.cache_key(), row_shape, dtype.str, int(k))
@@ -809,7 +815,7 @@ class DeviceEngine:
         libs = kc.sources_for(cfg)
         build = ((lambda: kc.load(libs, observe=True))
                  if self.device.type == "cuda" else (lambda: None))
-        _compile_obs.LEDGER.acquire(
+        _, outcome, bucket = _compile_obs.LEDGER.acquire(
             "wave", build,
             key=("wave", self.map_fn, cfg.cache_key(), self.n_dev,
                  str(self.device)) + mine[1:],
@@ -817,7 +823,10 @@ class DeviceEngine:
             extra=("wave", op_token(self.map_fn), _cfg_token(cfg)),
             mesh=self._mesh_doc(),
             replay=self._replay_info(cfg, row_shape, dtype, k),
-            tier=_TIERS.get(cfg.sort_impl))
+            tier=_TIERS.get(cfg.sort_impl), registry=registry,
+            persist=pending is None)
+        if pending is not None:
+            pending.append((bucket, outcome))
         self._acquired.add(mine)
 
     def precompile(self, row_shape, row_dtype=np.uint8,
@@ -950,6 +959,10 @@ class DeviceEngine:
         try:
             for attempt in range(max_retries + 1):
                 disp = TieredWaveDispatcher(self, cfg) if tiered else None
+                # the shape registry is read before the attempt and
+                # written after its readback, outside compute_s
+                registry = _compile_obs.LEDGER.disk_buckets()
+                acquired: list = []
                 t0 = time.monotonic()
                 t_blocked = 0.0
                 acc = None
@@ -970,7 +983,8 @@ class DeviceEngine:
                         # serving config: built at the first wave, found
                         # loaded later
                         wave_cfg = disp.next_cfg() if disp is not None else cfg
-                        self._acquire(wave_cfg, row_shape, row_dtype, k)
+                        self._acquire(wave_cfg, row_shape, row_dtype, k,
+                                      registry, acquired)
                         tb = time.monotonic()
                         if pairs is not None:
                             block = pairs.pop(w)
@@ -1021,6 +1035,8 @@ class DeviceEngine:
                 t_upload += t_blocked
                 t_attempt_compute = time.monotonic() - t0 - t_blocked
                 t_compute += t_attempt_compute
+                for bucket, outcome in acquired:
+                    _compile_obs.LEDGER.persist(bucket, outcome)
                 if total_oflow == 0 or attempt == max_retries:
                     break
                 retries = attempt + 1
@@ -1155,7 +1171,9 @@ def replay_registry(registry_dir: Optional[str] = None,
     start, not just the word count's default (the JAX package's
     ``replay_registry``).  A bucket replays when it recorded a
     ``device_engine`` replay spec (an importable map_fn, a string or
-    per-lane reduce op); each replays on its own recorded partition
+    per-lane reduce op) and this port's torch version key, so the JAX
+    package's buckets in a shared directory are skipped unimported; each
+    replays on its own recorded partition
     count, which one card always offers (the JAX function skips a
     bucket recorded for another mesh size).  Anything else is reported
     as skipped with the reason, never dropped.  Returns one result dict
@@ -1170,6 +1188,16 @@ def replay_registry(registry_dir: Optional[str] = None,
         spec = rec.get("replay")
         if not isinstance(spec, dict) or spec.get("kind") != "device_engine":
             row["skipped"] = "no replay spec recorded"
+            results.append(row)
+            continue
+        # a shared cache dir ($MAPREDUCE_TPU_CACHE) may hold the JAX
+        # package's buckets too: they carry no torch version, and their
+        # map_fn must not be imported here
+        owner = str(spec.get("map_fn", "")).partition(":")[0]
+        if "torch" not in rec or owner.split(".")[0] == "mapreduce_tpu":
+            row["skipped"] = (f"not this port's bucket (map_fn "
+                              f"{spec.get('map_fn')!r}): the JAX "
+                              "package's are not replayed here")
             results.append(row)
             continue
         try:

@@ -329,34 +329,35 @@ class CompileLedger:
                 mesh: Optional[Dict[str, Any]] = None,
                 replay: Optional[Dict[str, Any]] = None,
                 tier: Optional[int] = None,
-                stage: str = "build") -> Tuple[Any, str]:
+                stage: str = "build",
+                registry: Optional[Dict[str, Any]] = None,
+                persist: bool = True) -> Tuple[Any, str, str]:
         """Acquire *program*: run *build* under a ``compile`` span and
         account for it.  With a *key* (everything the program depends
         on), a second acquisition of the key in this process is
-        ``cached`` and builds nothing (returns None; the bucket is
-        written to the enabled cache's registry if it is missing there);
-        otherwise the outcome is ``persistent_hit`` when the bucket is in
-        that registry, else ``compiled``, and the bucket is recorded
-        there.  Returns ``(build's result, outcome)``."""
+        ``cached`` and builds nothing (returns None); otherwise the
+        outcome is ``persistent_hit`` when the bucket is in *registry*
+        (default: the enabled cache's shape registry on disk; pass
+        ``{}`` for a program that is this process's own, such as a
+        CUDA-graph capture), else ``compiled``.  With *persist* the
+        bucket is written to the enabled cache's registry now (see
+        :meth:`persist`); without it the caller persists it later, or
+        never.  Returns ``(build's result, outcome, bucket id)``."""
         if key is not None:
             with self._lock:
                 hit = (program, key) in self._keys
         else:
             hit = False
-        cdir = cache_dir()
         bucket = bucket_id(program, avals, extra, mesh)
         if hit:
             self.observe(program, "cached", bucket=bucket)
-            if cdir and bucket not in self.disk_buckets(cdir):
-                # acquired before this cache was enabled: the registry
-                # still learns that it ran here
-                with self._lock:
-                    rec = dict(self._records.get(bucket) or {})
-                if rec:
-                    self._persist(registry_path(cdir), bucket, rec)
-            return None, "cached"
-        known = bool(cdir) and bucket in self.disk_buckets(cdir)
-        outcome = "persistent_hit" if known else "compiled"
+            if persist:
+                self.persist(bucket, "cached")
+            return None, "cached", bucket
+        if registry is None:
+            cdir = cache_dir()
+            registry = self.disk_buckets(cdir) if cdir else {}
+        outcome = "persistent_hit" if bucket in registry else "compiled"
         t0 = time.monotonic()
         with self._tracer.span("compile", program=program) as sp:
             out = build()
@@ -367,8 +368,23 @@ class CompileLedger:
                 self._keys.add((program, key))
         self.observe(program, outcome, {stage: secs}, bucket=bucket,
                      avals=avals, extra=extra, mesh=mesh, replay=replay,
-                     tier=tier, persist=True)
-        return out, outcome
+                     tier=tier, persist=persist)
+        return out, outcome, bucket
+
+    def persist(self, bucket: str, outcome: str) -> None:
+        """Write *bucket*'s in-process record to the enabled cache's
+        registry after an acquisition with *outcome*: always after a
+        build or a load, after a ``cached`` one only when the registry
+        lacks the bucket (acquired before this cache was enabled: the
+        registry still learns that it ran here)."""
+        cdir = cache_dir()
+        if not cdir or (outcome == "cached"
+                        and bucket in self.disk_buckets(cdir)):
+            return
+        with self._lock:
+            rec = dict(self._records.get(bucket) or {})
+        if rec:
+            self._persist(registry_path(cdir), bucket, rec)
 
     # -- snapshots ---------------------------------------------------------
 

@@ -24,7 +24,8 @@ three pieces of glue:
   on a thread of its own while the wave loop loads on the main one.
   :func:`sources_for` names the libraries a config's path launches,
   :func:`is_built` says whether one needs no ``nvcc`` (loaded, or its
-  hashed ``.so`` already in :data:`BUILD_DIR`, the persistent cache),
+  hashed ``.so`` already in the build directory, the persistent cache,
+  which ``utils/compile_cache.build_dir`` names),
   and :func:`load` builds and loads a set of them.
   Every pointer and the stream cross as ``ctypes.c_void_p``; every C
   entry returns ``cudaGetLastError()`` and :func:`check` raises on a
@@ -86,11 +87,6 @@ PLAIN_CALLS: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-#: where the shared libraries are built: ``build/kernels`` by default
-#: (listed in .gitignore), or what ``utils/compile_cache`` chose
-#: (``--compile-cache DIR``, ``$MAPREDUCE_TPU_CACHE``); kept in step
-#: with it by ``compile_cache.enable_compile_cache``
-BUILD_DIR = Path(_compile_cache.build_dir())
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -261,10 +257,11 @@ class StepsGraph:
                     state)
 
         # a compile-ledger acquisition under *program* (the JAX
-        # trainers' program names): always ``compiled``, a capture is
-        # this process's own
-        self.graph, _ = LEDGER.acquire(program, capture, avals=[xs, ys],
-                                       stage="capture")
+        # trainers' program names): always ``compiled`` and never in the
+        # shape registry, since a capture is this process's own
+        self.graph, _, _ = LEDGER.acquire(program, capture, avals=[xs, ys],
+                                          stage="capture", registry={},
+                                          persist=False)
 
     def fits(self, owners: Sequence, xs: torch.Tensor) -> bool:
         """Whether this graph runs *owners*' state (the same objects) on a
@@ -319,7 +316,10 @@ def _lib_path(name: str, defines: Defines = ()) -> Path:
     for src in _sources(name):
         h.update(src.read_bytes())
     h.update(" ".join(_flags(defines)).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+    # the build directory as utils/compile_cache chooses it now
+    # (``build/kernels`` by default, listed in .gitignore)
+    return (Path(_compile_cache.build_dir())
+            / f"{name}-{h.hexdigest()[:12]}.so")
 
 
 def _build_lock(key: Tuple[str, Defines]) -> threading.Lock:
@@ -332,7 +332,7 @@ def _start_build(name: str, defines: Defines = ()
     out = _lib_path(name, defines)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     # named by process and thread: two threads building one source never
     # share a temporary file
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
@@ -419,7 +419,8 @@ def sources_for(cfg) -> Tuple[str, ...]:
 def is_built(name: str, defines: Defines = ()) -> bool:
     """The warmness probe: True when source *name*'s library needs no
     ``nvcc`` — loaded in this process, or its ``.so`` for the current
-    sources and flags already in :data:`BUILD_DIR`."""
+    sources and flags already in the build directory
+    (``utils/compile_cache.build_dir``)."""
     key = (name, tuple(defines))
     return key in _LIBS or _lib_path(*key).exists()
 
@@ -473,7 +474,7 @@ def library(name: str, signatures: Dict[str, tuple],
                     lib = ctypes.CDLL(str(_lib_path(name, key[1])))
                 t_load = time.monotonic() - t0
                 # nvcc ran for it in this process (here or in a
-                # build_all), or its .so was already in BUILD_DIR
+                # build_all), or its .so was already in the build dir
                 outcome = ("compiled" if label in BUILD_SECONDS
                            else "persistent_hit")
                 sp.args["outcome"] = outcome

@@ -34,7 +34,6 @@ import atexit
 import logging
 import os
 import shutil
-import sys
 import tempfile
 from pathlib import Path
 from typing import Any, Dict, Optional
@@ -48,7 +47,6 @@ USER_DIR = os.path.join(
                    os.path.join(os.path.expanduser("~"), ".cache")),
     "mapreduce_tpu_torch", "kernels")
 
-_KC = "mapreduce_tpu_torch.ops.kernel_compat"
 #: ``dir``: the enabled cache (None: none enabled); ``temp``: the
 #: process's own directory under --no-compile-cache
 _STATE: Dict[str, Any] = {"dir": None, "temp": None}
@@ -90,21 +88,12 @@ def resolve_dir(path: Optional[str] = None) -> str:
     return USER_DIR
 
 
-def _push(path: str) -> None:
-    """Point a loaded ``kernel_compat`` at *path* (an unloaded one reads
-    :func:`build_dir` when it is imported)."""
-    kc = sys.modules.get(_KC)
-    if kc is not None:
-        kc.BUILD_DIR = Path(path)
-
-
 def enable_compile_cache(path: Optional[str] = None) -> str:
     """Build into, and keep the shape registry in, the directory
     :func:`resolve_dir` picks for *path*; returns it."""
     path = resolve_dir(path)
     _STATE["dir"] = path
     _STATE["temp"] = None
-    _push(path)
     return path
 
 
@@ -119,7 +108,6 @@ def disable_compile_cache() -> str:
     atexit.register(_remove, path)
     _STATE["dir"] = None
     _STATE["temp"] = path
-    _push(path)
     return path
 
 
@@ -135,16 +123,10 @@ def disabled() -> bool:
 
 
 def build_dir() -> str:
-    """Where libraries are built now: a loaded ``kernel_compat``'s
-    ``BUILD_DIR``, else the enabled or temporary directory, else
-    ``$MAPREDUCE_TPU_CACHE`` or :data:`DEFAULT_DIR`."""
-    kc_dir = getattr(sys.modules.get(_KC), "BUILD_DIR", None)
-    if kc_dir is not None:
-        return str(kc_dir)
-    return _chosen_dir()
-
-
-def _chosen_dir() -> str:
+    """Where libraries are built now: the enabled or temporary
+    directory, else ``$MAPREDUCE_TPU_CACHE`` or :data:`DEFAULT_DIR`.
+    The one source of the choice: ``kernel_compat`` and ``native`` call
+    this at every build and load."""
     return (_STATE["dir"] or _STATE["temp"]
             or os.environ.get("MAPREDUCE_TPU_CACHE") or DEFAULT_DIR)
 
@@ -153,14 +135,8 @@ def save_state() -> Dict[str, Any]:
     """The current choice, for :func:`restore_state` (a command run in
     process, as the tests and the smoke run them, leaves the process as
     it found it)."""
-    kc = sys.modules.get(_KC)
-    return {**_STATE, "kc_dir": None if kc is None else kc.BUILD_DIR}
+    return dict(_STATE)
 
 
 def restore_state(saved: Dict[str, Any]) -> None:
-    _STATE["dir"] = saved["dir"]
-    _STATE["temp"] = saved["temp"]
-    kc = sys.modules.get(_KC)
-    if kc is not None:
-        kc.BUILD_DIR = (saved["kc_dir"] if saved["kc_dir"] is not None
-                        else Path(_chosen_dir()))
+    _STATE.update(saved)

@@ -35,6 +35,7 @@ import os
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 #: (name, text in radix.cu, text wrapped around it): each patch puts a
 #: -D switch around one part of the kernel
@@ -124,8 +125,10 @@ def main():
     import chip_smoke as cs
     from mapreduce_tpu_torch.ops import kernel_compat as kc
     from mapreduce_tpu_torch.ops import radix_sort as rs
+    from mapreduce_tpu_torch.utils import compile_cache
 
-    kc.CSRC = patched_csrc(kc, kc.BUILD_DIR.parent / "probe_plan")
+    kc.CSRC = patched_csrc(kc, Path(compile_cache.build_dir()).parent
+                           / "probe_plan")
     defines = {v: tuple((name, 1) for name in names)
                for v, names in VARIANTS.items()}
     procs = [(d, kc._start_build("radix", d)) for d in defines.values()]

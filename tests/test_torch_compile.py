@@ -17,6 +17,8 @@ import contextlib
 import io
 import json
 import os
+import subprocess
+import sys
 import threading
 import uuid
 
@@ -188,7 +190,8 @@ def test_no_compile_cache_counts_each_build(ledger, monkeypatch):
     try:
         tmp = compile_cache.disable_compile_cache()
         assert compile_cache.disabled() and compile_cache.cache_dir() is None
-        assert str(kc.BUILD_DIR) == tmp and tmp != compile_cache.DEFAULT_DIR
+        assert str(kc._lib_path("tokenize").parent) == tmp
+        assert tmp != compile_cache.DEFAULT_DIR
         tnative.load_library()
         assert str(tnative.lib_path()).startswith(tmp)
         # a registry needs an enabled cache: none is kept
@@ -229,14 +232,14 @@ def test_cli_takes_the_compile_cache_flags(monkeypatch, tmp_path, cmd,
         seen["path"] = setup(args)
         seen["cache_dir"] = compile_cache.cache_dir()
         seen["disabled"] = compile_cache.disabled()
-        seen["kc"] = str(kc.BUILD_DIR)
+        seen["kc"] = str(kc._lib_path("tokenize").parent)
         raise _Stop
 
     monkeypatch.setattr(tcli, "_setup_compile_cache", stop)
     argv = CMDS[cmd] + {"none": [], "dir": ["--compile-cache",
                                             str(tmp_path / "d")],
                         "off": ["--no-compile-cache"]}[flags]
-    kc_before = kc.BUILD_DIR
+    kc_before = kc._lib_path("tokenize")
     with pytest.raises(_Stop):
         tcli.main(argv)
     assert seen["kc"] == seen["path"]
@@ -246,19 +249,20 @@ def test_cli_takes_the_compile_cache_flags(monkeypatch, tmp_path, cmd,
         assert seen["cache_dir"] == str(tmp_path / "d")
     else:
         assert seen["cache_dir"] == compile_cache.resolve_dir()
-    assert kc.BUILD_DIR == kc_before
+    assert kc._lib_path("tokenize") == kc_before
     assert compile_cache.cache_dir() is None and not compile_cache.disabled()
 
 
 def test_build_dir_follows_the_cache_choice(tmp_path):
-    before = kc.BUILD_DIR
+    before = kc._lib_path("tokenize")
     with _cache_at(tmp_path / "k") as path:
-        assert kc.BUILD_DIR == tmp_path / "k" and path == str(tmp_path / "k")
+        assert kc._lib_path("tokenize").parent == tmp_path / "k"
+        assert path == str(tmp_path / "k")
         assert compile_cache.build_dir() == path
         assert tnative.lib_path().parent == tmp_path / "k"
         assert tcompile.registry_path() == os.path.join(
             path, "mrtpu_shape_registry.json")
-    assert kc.BUILD_DIR == before
+    assert kc._lib_path("tokenize") == before
     assert tcompile.registry_path() is None
 
 
@@ -401,9 +405,13 @@ def test_replay_registry_reports_each_skip(tmp_path, ledger):
     buckets = {
         "a-capture": {"program": "tf_steps"},
         "b-other": {"program": "wave", "replay": {"kind": "other"}},
-        "c-missing": {"program": "wave", "tier": 1, "replay": {
-            **spec, "map_fn": "no_such_module_xyz:fn"}},
-        "d-good": {"program": "wave", "tier": 1, "replay": spec},
+        "c-missing": {"program": "wave", "tier": 1, "torch": "2",
+                      "replay": {**spec, "map_fn": "no_such_module_xyz:fn"}},
+        "d-good": {"program": "wave", "tier": 1, "torch": "2",
+                   "replay": spec},
+        # the JAX package's bucket in a shared dir: no torch version
+        "e-jax": {"program": "wave", "tier": 1, "jax": "0", "replay": {
+            **spec, "map_fn": "mapreduce_tpu.examples.wordspan:device_map"}},
     }
     with open(tmp_path / "mrtpu_shape_registry.json", "w") as f:
         json.dump({"kind": "mrtpu-shape-registry", "version": 2,
@@ -415,10 +423,117 @@ def test_replay_registry_reports_each_skip(tmp_path, ledger):
     assert rows[2]["skipped"].startswith("replay failed: ")
     assert "no_such_module_xyz" in rows[2]["skipped"]
     assert "seconds" in rows[3] and rows[3]["tier"] == 1
+    assert rows[4]["skipped"].startswith("not this port's bucket")
     (rec,) = [r for r in ledger.buckets() if r["program"] == "wave"]
     assert rec["replay"]["n_dev"] == 2
     assert rec["mesh"] == {"n_devices": 2, "device_kind": "cpu",
                            "platform": "cpu"}
+
+
+#: a fresh interpreter's replay of a registry directory: the rows, and
+#: every module of JAX or of the JAX package it imported
+REPLAY_CHILD = """
+import json, sys
+from mapreduce_tpu_torch.engine.device_engine import replay_registry
+rows = replay_registry(sys.argv[1], "cpu")
+print(json.dumps({"rows": rows, "jax": sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "mapreduce_tpu"))}))
+"""
+
+
+def test_replay_of_a_shared_dir_imports_nothing_of_jax(registries,
+                                                      tmp_path):
+    """One directory holding both packages' buckets (a shared
+    ``$MAPREDUCE_TPU_CACHE``): the port replays its own and skips the
+    JAX package's with the reason, importing none of JAX."""
+    buckets = {}
+    for side in ("jax", "port"):
+        with open(os.path.join(registries[side],
+                               "mrtpu_shape_registry.json")) as f:
+            buckets.update(json.load(f)["buckets"])
+    with open(tmp_path / "mrtpu_shape_registry.json", "w") as f:
+        json.dump({"kind": "mrtpu-shape-registry", "version": 2,
+                   "buckets": buckets}, f)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", REPLAY_CHILD,
+                           str(tmp_path)], capture_output=True, text=True,
+                          env=env, timeout=LOOP_TIMEOUT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert doc["jax"] == []
+    rows = {r["bucket"]: r for r in doc["rows"]}
+    jax_waves = {b for b, r in buckets.items() if "jax" in r
+                 and (r.get("replay") or {}).get("kind") == "device_engine"}
+    port_waves = {b for b, r in buckets.items() if "torch" in r
+                  and r["program"] == "wave"}
+    assert jax_waves and port_waves and set(rows) == set(buckets)
+    for b in jax_waves:
+        assert rows[b]["skipped"].startswith("not this port's bucket"), \
+            rows[b]
+        assert "mapreduce_tpu.examples.wordcount" in rows[b]["skipped"]
+    assert all("seconds" in rows[b] for b in port_waves)
+
+
+def test_a_capture_is_never_a_registry_hit(tmp_path, ledger, monkeypatch):
+    """A CUDA-graph capture is this process's own: ``compiled`` even
+    where the registry holds a bucket of the same avals, and never
+    written there."""
+    monkeypatch.setattr(kc, "capture_steps", lambda step, n, state: "g")
+    xs, ys = torch.zeros(2, 3), torch.zeros(2)
+    with _cache_at(tmp_path / "c") as path:
+        # a bucket of the same program and avals already in the registry
+        ledger.acquire("tf_steps", lambda: None, avals=[xs, ys])
+        reg = tcompile.registry_path(path)
+        before = open(reg).read()
+        graph = kc.StepsGraph(lambda x, y: x, xs, ys, [], [],
+                              program="tf_steps")
+        assert graph.graph == "g"
+        assert open(reg).read() == before
+    with _cache_at(tmp_path / "d") as path:
+        kc.StepsGraph(lambda x, y: x, xs, ys, [], [], program="tf_steps")
+        assert not os.path.exists(tcompile.registry_path(path))
+    (rec,) = [r for r in ledger.buckets() if r["program"] == "tf_steps"]
+    assert rec["outcomes"] == {"compiled": 3}
+
+
+def test_the_wave_loop_does_no_registry_io(tmp_path, ledger, monkeypatch):
+    """A run reads the shape registry before each attempt and writes
+    what the attempt acquired after its readback: no wave of the timed
+    loop reads or writes the file."""
+    from dataclasses import replace
+
+    data = b" ".join(f"w{i % 300}".encode() for i in range(3000))
+    wc = twcmod.DeviceWordCount(Partitions(1, "cpu"), chunk_len=1024)
+    chunks, _ = wc._to_chunks(data)
+    cfg = replace(wc.config, local_capacity=1 << 5,
+                  exchange_capacity=1 << 5, out_capacity=1 << 5)
+    eng = DeviceEngine(Partitions(1, "cpu"), twcmod._wordcount_map_fn, cfg)
+    waves, io = [0], []
+    real_wave = eng._wave
+
+    def wave(*a, **kw):
+        waves[0] += 1
+        return real_wave(*a, **kw)
+
+    monkeypatch.setattr(eng, "_wave", wave)
+    for name in ("_persist", "_load_disk"):
+        def spy(*a, _real=getattr(ledger, name), _name=name, **kw):
+            io.append((_name, waves[0]))
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(ledger, name, spy)
+    tm = {}
+    with _cache_at(tmp_path / "c") as path:
+        eng.run(chunks, timings=tm, waves=3)
+        disk = _waves(path)
+    assert tm["retries"] >= 1 and tm["waves"] == 3
+    # one bucket an attempt, each written once, after its attempt
+    assert len(disk) == tm["retries"] + 1
+    writes = [w for n, w in io if n == "_persist"]
+    assert writes == [3 * (a + 1) for a in range(tm["retries"] + 1)], io
+    assert all(w % 3 == 0 for _, w in io), io
 
 
 # -- the engine's wave acquisitions ---------------------------------------------

@@ -35,6 +35,7 @@ from mapreduce_tpu_torch.models import transformer as tmod
 from mapreduce_tpu_torch.ops import flash_attention as fa
 from mapreduce_tpu_torch.ops import kernel_compat as kc
 from mapreduce_tpu_torch.ops import radix_sort, segscan, tokenize
+from mapreduce_tpu_torch.utils import compile_cache
 
 pytestmark = pytest.mark.cuda
 
@@ -742,7 +743,7 @@ def test_concurrent_library_calls_build_once(dev, tmp_path, monkeypatch):
     """Two threads asking for one unbuilt library: one nvcc, one load."""
     import threading
 
-    monkeypatch.setattr(kc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(compile_cache, "build_dir", lambda: str(tmp_path))
     monkeypatch.setattr(kc, "_LIBS", {})
     started = []
     real_start = kc._start_build
@@ -881,7 +882,7 @@ def test_session_without_its_library_raises(dev, session_chunks, tmp_path,
                                             monkeypatch):
     """A kernel library that cannot be built makes the feed raise (and
     poisons the stream); no plain version runs in its place."""
-    monkeypatch.setattr(kc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(compile_cache, "build_dir", lambda: str(tmp_path))
     monkeypatch.setattr(kc, "_LIBS", {})
 
     def no_nvcc():
@@ -1326,7 +1327,6 @@ def test_registry_round_trip_through_warmup_replay(dev, tmp_path):
     from mapreduce_tpu_torch.engine.autotune import AutoTuner
     from mapreduce_tpu_torch.obs.control import ControlLedger
     from mapreduce_tpu_torch.parallel.mesh import Partitions
-    from mapreduce_tpu_torch.utils import compile_cache
 
     files = _span_files(tmp_path)
     saved = compile_cache.save_state()

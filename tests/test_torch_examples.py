@@ -47,6 +47,7 @@ from mapreduce_tpu_torch.ops import kernel_compat as kc
 from mapreduce_tpu_torch.parallel.mesh import Partitions
 from mapreduce_tpu_torch.server import Server as TServer
 from mapreduce_tpu_torch.storage.router import router as trouter
+from mapreduce_tpu_torch.utils import compile_cache
 from mapreduce_tpu_torch.worker import spawn_worker_threads as tspawn
 
 #: seconds a whole loop may take here before the test fails
@@ -349,7 +350,8 @@ def test_native_build_failure_raises_with_compiler_output(tmp_path,
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(tnative, "SOURCE", bad)
     monkeypatch.setattr(tnative, "_LIB", None)
-    monkeypatch.setattr(kc, "BUILD_DIR", tmp_path / "b")
+    monkeypatch.setattr(compile_cache, "build_dir",
+                        lambda: str(tmp_path / "b"))
     with pytest.raises(RuntimeError, match="g\\+\\+ failed.*bad.cpp"):
         tnative.load_library()
 

@@ -163,7 +163,10 @@ def test_ha_docserver_pair_and_runner_processes(tmp_path):
                       "--telemetry-interval", "0.5", env=env,
                       log=tmp_path / "runner.err")
         procs.append(runner)
-        assert "runner serving" in runner.stdout.readline()
+        banner = runner.stdout.readline()
+        # the runner's engines run over the partitions it was given
+        assert "runner serving" in banner and "2 partition(s)" in banner, \
+            banner
         client = SchedulerClient(",".join(addrs), auth_token=token)
 
         class _Sched:  # wait_for_state's view of the /tasks listing

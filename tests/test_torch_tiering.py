@@ -30,6 +30,7 @@ from mapreduce_tpu_torch.engine import tiering
 from mapreduce_tpu_torch.engine import wordcount as twc
 from mapreduce_tpu_torch.ops import kernel_compat as kc
 from mapreduce_tpu_torch.parallel.mesh import Partitions
+from mapreduce_tpu_torch.utils import compile_cache
 from tests.test_torch_wordcount import (
     CFG, CHUNK, DATA, TINY, WAVES, _jax_run, _pin_result, _port_run)
 
@@ -222,7 +223,7 @@ def test_specializer_threads_are_daemons(monkeypatch):
 def test_library_lock_builds_once(monkeypatch, tmp_path):
     """Eight threads asking for one unbuilt library: one build, one
     load, every thread the same library."""
-    monkeypatch.setattr(kc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(compile_cache, "build_dir", lambda: str(tmp_path))
     monkeypatch.setattr(kc, "_LIBS", {})
     calls = {"start": 0, "finish": 0, "load": 0}
 
@@ -271,7 +272,7 @@ def test_build_plane_probes(monkeypatch, tmp_path):
     assert kc.sources_for(cfg) == ("tokenize", "segreduce")
     assert kc.sources_for(dataclasses.replace(cfg, sort_impl="radix")) \
         == ("tokenize", "segreduce", "radix")
-    monkeypatch.setattr(kc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(compile_cache, "build_dir", lambda: str(tmp_path))
     monkeypatch.setattr(kc, "_LIBS", {})
     assert not kc.is_built("radix")
     kc._lib_path("radix").write_bytes(b"")
