@@ -310,8 +310,28 @@ which raises on failure:
    ``Server`` with 4 worker threads on a ``dir://`` board over a 2M-word
    corpus in 8 ``shared:`` blobs, against ``Counter``, the ``g++``
    library loaded by the map jobs;
-18. one JSON line of per-kernel numbers (the word-count kernels' with
-   their phase 13, 14, 15, 16 and 17 launches beside), the smoke's
+18. the operator plane, status and diagnosis half (the ``operator``
+   lines): (a) a ``docserver`` and a ``runner --partitions 8
+   --trace-out F --telemetry-interval 0.5`` in processes, both with
+   ``--slo submit_first_result:p99:120 --slo
+   queue_wait:p99:0.000001`` (the second must breach), and two device
+   word counts submitted to the board: the 24 files of the corpus, and
+   24 files of a skewed corpus whose distinct words hash mostly to
+   partition 0 (:func:`skewed_corpus`), each result against ``Counter``;
+   (b) ``cli status``: the engine sections the runner pushed (device
+   with waves and MFU, compile, memory, comms with only ``self`` bytes,
+   equal to each task's traffic-matrix records times its row bytes),
+   the scheduler, the breached objective, each task's device line;
+   (c) ``cli diagnose --json``: the device phases and the ``device_run``
+   window, the skewed task's partition 0 flagged and none of the
+   uniform task's; (d) ``cli profile --out``, loaded back; (e) a
+   SIGTERM to the runner: exit 143, a flight trace that validates and
+   holds ``device_run ⊃ wave``, a flight ``.prom`` with the exchange
+   counters and the runner's launches of the five kernels (and no
+   plain call); the ``/statusz`` scrape seconds, the commands' walls
+   and the tasks' ``compute_s`` beside phase 14 (c)'s;
+19. one JSON line of per-kernel numbers (the word-count kernels' with
+   their phase 13, 14, 15, 16, 17 and 18 launches beside), the smoke's
    wall, then the card and the result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
@@ -4028,6 +4048,10 @@ def service_in_process(torch, kc, seg, rs, shuffle, spec, jwc, conf, procs,
                     time.sleep(0.01)
             for tid in ids.values():
                 wait_for_state(sch, tid, DONE, timeout=SERVICE_TIMEOUT)
+            # each task's engine compute seconds, from its stats doc
+            compute = {t: store.find_one(
+                f"svc2_{t}.task", {"_id": "unique"})["stats"]["device"][
+                    "compute_s"] for t, _ in SERVICE_TENANTS}
         finally:
             runner.stop(timeout=SERVICE_TIMEOUT)
             for w in pool:
@@ -4060,7 +4084,7 @@ def service_in_process(torch, kc, seg, rs, shuffle, spec, jwc, conf, procs,
         "wall_s": wall, "launches": {k: launches[k]
                                      for k in SERVICE_KERNELS},
         "launches_equal_solo_sum": True, "plain_calls": 0,
-        "byte_equal_to_dir_run": True, "held": held}
+        "byte_equal_to_dir_run": True, "held": held, "compute_s": compute}
 
 
 def service_phase(torch, kc, seg, rs, data, want, smi):
@@ -4127,7 +4151,7 @@ def service_phase(torch, kc, seg, rs, data, want, smi):
         # (d) every process reaped under a timeout
         procs.reap()
     shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return launches, line["compute_s"]
 
 
 # -- phase 15: the self-tuning controllers ------------------------------------
@@ -5244,6 +5268,328 @@ def examples_phase(torch, kc, seg, rs, data, want, smi):
             out["P1"]["segreduce_case"])
 
 
+# -- phase 18: the operator plane, status and diagnosis half ------------------
+
+#: the objectives both processes take; the second must breach
+OPERATOR_SLOS = ("submit_first_result:p99:120", "queue_wait:p99:0.000001")
+#: seconds the two tasks may take to reach DONE, and the runner to exit
+OPERATOR_TIMEOUT = 180
+#: the phase's device (a CPU rehearsal of the phase sets "cpu")
+OPERATOR_DEV = "cuda"
+#: the skewed corpus: words, distinct words, the share of the distinct
+#: words that hash to partition 0
+SKEW_CORPUS = (4_000_000, 120_000, 0.8)
+#: the five kernels of the P = 8 radix path
+OPERATOR_KERNELS = SERVICE_KERNELS
+
+
+def skewed_corpus(n_words, n_vocab, hot, P, seed=0):
+    """*n_words* words (9 lowercase letters, 16 to a line) drawn from
+    *n_vocab* distinct ones, a *hot* share of which hash to partition 0
+    of *P* (``k1 % P``, the tokenizer's first lane), so partition 0
+    receives most of the exchange's distinct keys."""
+    import numpy as np
+
+    from mapreduce_tpu_torch.ops.tokenize import HASH_A1
+
+    rng = np.random.default_rng(seed)
+    L = 9
+    cand = rng.integers(97, 123, (n_vocab * P * 2, L), dtype=np.uint8)
+    cand = np.unique(cand, axis=0)
+    h = np.zeros(len(cand), np.uint64)
+    for j in range(L):
+        h = (h * np.uint64(HASH_A1) + cand[:, j].astype(np.uint64)
+             + np.uint64(1)) & np.uint64(0xFFFFFFFF)
+    dest = h % np.uint64(P)
+    n_hot = int(n_vocab * hot)
+    vocab = np.concatenate([cand[dest == 0][:n_hot],
+                            cand[dest != 0][:n_vocab - n_hot]])
+    check(len(vocab) == n_vocab, f"skewed corpus: {len(vocab)} words")
+    buf = np.full((n_words, L + 1), ord(" "), np.uint8)
+    buf[:, :L] = vocab[rng.integers(0, n_vocab, n_words)]
+    buf[15::16, L] = ord("\n")
+    return buf.tobytes()[:-1]
+
+
+def prom_values(path, family):
+    """``{labels: value}`` of *family* in a Prometheus text file."""
+    from mapreduce_tpu_torch.obs.metrics import parse_prometheus
+
+    with open(path, encoding="utf-8") as f:
+        parsed = parse_prometheus(f.read())
+    return {lk: v for (name, lk), v in parsed.items() if name == family}
+
+
+def run_cli(argv):
+    """``mapreduce_tpu_torch.cli.main(argv)`` in this process (the
+    exposition commands import no torch): exit code, stdout, wall s."""
+    import contextlib
+    import io
+
+    from mapreduce_tpu_torch import cli as tcli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tcli.main(argv)
+    wall = time.monotonic() - t0
+    check(rc == 0, f"operator: cli {argv[0]} exited {rc}: "
+          f"{err.getvalue()[-2000:]}")
+    return out.getvalue(), wall
+
+
+def operator_status(url, token, client, dbs):
+    """Phase 18 (b): ``cli status`` and the checks of its text; the
+    scrape seconds of ``/statusz``."""
+    scrapes = []
+    for _ in range(5):
+        t0 = time.monotonic()
+        snap = client.statusz()
+        scrapes.append(time.monotonic() - t0)
+    text, wall = run_cli(["status", url, "--auth", token])
+    for needle in ("device plane (", "  MFU ", "compile ledger (",
+                   "device memory:", "comms (exchange & dataflow):",
+                   "  bytes by link: ", "scheduler: ",
+                   "serving SLOs (", "telemetry (cluster roll-ups"):
+        check(needle in text, f"operator (b): no {needle!r} in status:\n"
+              f"{text[-3000:]}")
+    check(re.search(r"tenant \S+ p99 queue_wait: .*BREACHING", text),
+          f"operator (b): no breached queue_wait objective:\n{text}")
+    for db in dbs:
+        m = re.search(rf"\[{db}\]  status=\S+.*\n((?:  .*\n)*)", text)
+        check(m and re.search(r"  device: \d+ waves .* MFU", m.group(1)),
+              f"operator (b): no device line with waves and MFU for "
+              f"{db}:\n{text}")
+    ex = snap["comms"]["exchange"]
+    # one card: every pair is a transpose in HBM; the CPU's plain runs
+    # class the off-diagonal pairs host
+    links = {"self"} if OPERATOR_DEV == "cuda" else {"self", "host"}
+    check(set(ex["bytes_by_link"]) == links,
+          f"operator (b): link classes {ex['bytes_by_link']}")
+    rows = client.clusterz()["mrtpuCluster"]["metrics"]
+
+    def total(name, db, **want):
+        return sum(v for n, labels, v in rows if n == name
+                   and labels.get("task") == db
+                   and all(labels.get(k) == w for k, w in want.items()))
+
+    comms = {}
+    for db in dbs:
+        row_bytes = (total("mrtpu_device_partition_bytes", db)
+                     / total("mrtpu_device_partition_records", db))
+        records = total("mrtpu_exchange_records_total", db)
+        by_link = {c: total("mrtpu_comms_bytes_total", db, link=c)
+                   for c in ("self", "nvlink", "pcie", "host")}
+        check(records > 0 and sum(by_link.values()) == records * row_bytes
+              and {c for c, v in by_link.items() if v} == links,
+              f"operator (b): {db}: bytes by link {by_link}, records "
+              f"{records} x row bytes {row_bytes}")
+        comms[db] = {"records": records, "row_bytes": row_bytes,
+                     "bytes_by_link": by_link}
+    check(sum(ex["bytes_by_link"].values()) == ex["records"] * comms[
+        ex["task"]]["row_bytes"], f"operator (b): the comms section's "
+        f"bytes {ex['bytes_by_link']} against {comms}")
+    return snap, {"scrape_s": statistics.median(scrapes),
+                  "scrape_s_all": scrapes, "status_wall_s": wall,
+                  "comms": comms, "comms_section_task": ex["task"],
+                  "modeled_exchange_s": ex["modeled_exchange_s"],
+                  "exchange_frac_of_compute":
+                  ex["exchange_frac_of_compute"]}
+
+
+def operator_diagnose(url, token, dbs):
+    """Phase 18 (c): ``cli diagnose --json``."""
+    text, wall = run_cli(["diagnose", url, "--json", "--auth", token])
+    rep = json.loads(text)
+    dev = rep["phases"].get("device") or {}
+    check(set(dev) == {"wave_s", "upload_s", "compute_s", "readback_s"}
+          and dev["wave_s"] > 0 and dev["compute_s"] > 0,
+          f"operator (c): device phases {dev}")
+    check(rep["critical_path"].get("window_s", 0) > 0,
+          f"operator (c): no device_run window: {rep['critical_path']}")
+    flagged = [(s["task"], s["partition"]) for s in rep["skew"]
+               if s["plane"] == "device"]
+    check((dbs[1], "P00000") in flagged, f"operator (c): the skewed "
+          f"task's partition 0 is not flagged: {rep['skew']}")
+    check(not [s for s in rep["skew"] if s["task"] == dbs[0]],
+          f"operator (c): the uniform task is flagged: {rep['skew']}")
+    slo = [e for e in rep["slo"].get("objectives") or []
+           if e["objective"] == "queue_wait" and e["breaching"]]
+    check(slo, f"operator (c): no breaching queue_wait: {rep['slo']}")
+    return {"diagnose_wall_s": wall, "device_phases": dev,
+            "window_s": rep["critical_path"]["window_s"],
+            "skew": [s for s in rep["skew"] if s["plane"] == "device"],
+            "notes": rep["notes"]}
+
+
+def operator_flight(procs, trace_out):
+    """Phase 18 (e): SIGTERM the runner; its flight files."""
+    import signal
+
+    from mapreduce_tpu_torch.obs.profile import validate_trace
+    from mapreduce_tpu_torch.ops.kernel_compat import KERNELS
+
+    p = procs.procs["runner"]
+    t0 = time.monotonic()
+    p.send_signal(signal.SIGTERM)
+    try:
+        rc = p.wait(timeout=OPERATOR_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait(timeout=30)
+        rc = None
+    exit_s = time.monotonic() - t0
+    check(rc == 143, f"operator (e): the runner exited {rc}: "
+          f"{procs.text('runner', 'err')[-2000:]}")
+    check(not os.path.exists(trace_out), "operator (e): a normal trace "
+          "export ran on SIGTERM")
+    with open(f"{trace_out}.flight.trace.json", encoding="utf-8") as f:
+        doc = json.load(f)
+    validate_trace(doc)
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    runs = {e["args"]["span_id"]: e for e in spans
+            if e["name"] == "device_run"}
+    waves = [e for e in spans if e["name"] == "wave"
+             and e["args"].get("parent_id") in runs]
+    for w in waves:
+        r = runs[w["args"]["parent_id"]]
+        check(r["ts"] <= w["ts"] + 0.5 and w["ts"] + w["dur"]
+              <= r["ts"] + r["dur"] + 0.5, f"operator (e): a wave "
+              f"outside its device_run: {w} {r}")
+    check(runs and waves, f"operator (e): {len(runs)} device_run and "
+          f"{len(waves)} wave spans under them in the flight trace")
+    prom = f"{trace_out}.flight.metrics.prom"
+    check(prom_values(prom, "mrtpu_exchange_records_total"),
+          "operator (e): no mrtpu_exchange_records_total in the flight "
+          ".prom")
+    fam = ("mrtpu_kernel_launches_total" if OPERATOR_DEV == "cuda"
+           else "mrtpu_kernel_plain_calls_total")
+    counts = {dict(lk)["kernel"]: int(v)
+              for lk, v in prom_values(prom, fam).items()}
+    launches = {k: counts.get(k, 0) for k in KERNELS}
+    check(all(launches[k] > 0 for k in OPERATOR_KERNELS),
+          f"operator (e): the runner launched {launches}")
+    plain = {} if OPERATOR_DEV != "cuda" else {
+        dict(lk)["kernel"]: v for lk, v in prom_values(
+            prom, "mrtpu_kernel_plain_calls_total").items() if v}
+    check(not plain, f"operator (e): plain versions ran on the card: "
+          f"{plain}")
+    return launches, {"exit_code": rc, "sigterm_to_exit_s": exit_s,
+                      "flight_spans": len(spans),
+                      "device_runs": len(runs), "waves": len(waves),
+                      "launches": launches, "plain_calls": 0}
+
+
+def operator_phase(data, want, smi, service_compute):
+    """Phase 18: the operator plane (the ``operator`` lines).  Returns
+    the runner process's launches of every kernel."""
+    import shutil
+    import tempfile
+    import uuid
+
+    from mapreduce_tpu_torch.coord.docserver import HttpDocStore
+    from mapreduce_tpu_torch.obs.profile import load_bundle
+    from mapreduce_tpu_torch.sched.scheduler import SchedulerClient
+
+    t_phase = time.monotonic()
+    token = uuid.uuid4().hex
+    root = tempfile.mkdtemp(prefix="chip_smoke_operator_")
+    procs = NetProcs(root, token, label="operator")
+    dbs = ("op_uniform", "op_skewed")
+    try:
+        skew = skewed_corpus(*SKEW_CORPUS, RADIX_PARTS)
+        wants = {dbs[0]: {w.decode(): c for w, c in want.items()},
+                 dbs[1]: {w.decode(): c
+                          for w, c in Counter(skew.split()).items()}}
+        files = {dbs[0]: write_line_files(data, JOB_FILES, tempfile.mkdtemp(
+                     prefix="u_", dir=root)),
+                 dbs[1]: write_line_files(skew, JOB_FILES, tempfile.mkdtemp(
+                     prefix="s_", dir=root))}
+        slo = [a for spec in OPERATOR_SLOS for a in ("--slo", spec)]
+        # (a) the cluster
+        t0 = time.monotonic()
+        procs.start("board", "docserver", "--host", "127.0.0.1", "--port",
+                    "0", "--max-inflight", "2", *slo)
+        addr = procs.wait_line(
+            "board", r"job board at http://([\d.]+:\d+)").group(1)
+        url = f"http://{addr}"
+        trace_out = os.path.join(root, "runner.trace.json")
+        procs.start("runner", "runner", url, "--partitions",
+                    str(RADIX_PARTS), "--torch-device", OPERATOR_DEV,
+                    "--max-inflight", "2", "--workers", "2",
+                    "--telemetry-interval", "0.5", "--trace-out",
+                    trace_out, *slo)
+        procs.wait_line("runner", r"runner serving", timeout=120)
+        start_s = time.monotonic() - t0
+        sched = SchedulerClient(addr, auth_token=token)
+        client = HttpDocStore(addr, auth_token=token)
+        try:
+            t0 = time.monotonic()
+            ids = {db: sched.submit(
+                db.replace("_", "-"), db=db, est_jobs=1,
+                params=service_params(files[db], "radix",
+                                      f"shared:{os.path.join(root, db)}"),
+            )["_id"] for db in dbs}
+            while True:
+                docs = {d["_id"]: d for d in sched.list()["tasks"]}
+                states = {db: docs[i]["state"] for db, i in ids.items()}
+                if all(st == "DONE" for st in states.values()):
+                    break
+                check(all(st in ("QUEUED", "ADMITTED", "RUNNING", "DONE")
+                          for st in states.values())
+                      and time.monotonic() - t0 < OPERATOR_TIMEOUT,
+                      f"operator (a): tasks {states}: "
+                      f"{procs.text('runner', 'err')[-3000:]}")
+                time.sleep(0.1)
+            done_s = time.monotonic() - t0
+            tasks = {}
+            for db in dbs:
+                got = result_counts(result_bytes(os.path.join(root, db), db))
+                check(got == wants[db], f"operator (a): {db}'s result "
+                      "differs from Counter over its files' words")
+                dev = client.find_one(f"{db}.task",
+                                      {"_id": "unique"})["stats"]["device"]
+                tasks[db] = {k: dev.get(k) for k in (
+                    "compute_s", "waves", "retries", "upload_s",
+                    "readback_s", "mfu", "exchange_records",
+                    "exchange_imbalance", "modeled_exchange_s",
+                    "exchange_frac_of_compute")}
+                tasks[db]["unique"] = len(wants[db])
+            time.sleep(1.5)  # the runner's last pushes (0.5 s apart)
+            # (b) status, (c) diagnose, (d) profile
+            _, status = operator_status(url, token, client, dbs)
+            diag = operator_diagnose(url, token, dbs)
+            bundle = os.path.join(root, "bundle")
+            _, prof_wall = run_cli(["profile", url, "--out", bundle,
+                                    "--auth", token])
+            b = load_bundle(bundle)
+            check(b["statusz"].get("comms") and b.get("diagnosis")
+                  and b.get("cluster_trace"),
+                  f"operator (d): bundle files {b['manifest']['files']}")
+        finally:
+            sched.close()
+            client.close()
+        # (e) the flight recorder
+        launches, flight = operator_flight(procs, trace_out)
+        line = {"run": "cluster", "card": smi, "start_s": start_s,
+                "submit_to_both_done_s": done_s, "tasks": tasks,
+                "service_compute_s": service_compute, **status,
+                "profile_wall_s": prof_wall,
+                "bundle_files": b["manifest"]["files"]}
+        print(json.dumps({"operator": line}, default=float), flush=True)
+        print(json.dumps({"operator": dict(diag, run="diagnose",
+                                           card=smi)}, default=float),
+              flush=True)
+        print(json.dumps({"operator": dict(
+            flight, run="flight", card=smi,
+            phase_s=time.monotonic() - t_phase)}), flush=True)
+    finally:
+        procs.reap()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+
 T_START = time.monotonic()
 
 
@@ -5428,7 +5774,8 @@ def main():
                                   jobplane, jobboard)
 
     # phase 14: the always-on service
-    service_launches = service_phase(torch, kc, seg, rs, data, want, smi)
+    service_launches, service_compute = service_phase(
+        torch, kc, seg, rs, data, want, smi)
 
     # phase 15: the self-tuning controllers
     control_launches = control_phase(torch, kc, seg, rs, wcmod, Partitions,
@@ -5441,6 +5788,9 @@ def main():
     # phase 17: the remaining examples and the compile plane
     wordspan_launches, ws_case = examples_phase(torch, kc, seg, rs, data,
                                                 want, smi)
+
+    # phase 18: the operator plane's status and diagnosis half
+    operator_launches = operator_phase(data, want, smi, service_compute)
 
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
@@ -5470,6 +5820,9 @@ def main():
             for run, counts in wordspan_launches.items()}
         if kern["name"] == "segreduce":
             kern["wordspan_case"] = ws_case
+        # and on phase 18's two tasks in the runner process (its flight
+        # dump's mrtpu_kernel_launches_total)
+        kern["launches_operator"] = operator_launches[kern["name"]]
     kernels += radix_kernels + flash_kernels
     print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START}}))
     print(smi)

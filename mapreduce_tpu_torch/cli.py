@@ -10,8 +10,16 @@
   python -m mapreduce_tpu_torch.cli docserver [--host H] [--port N]
       [--root DIR | --ha-dir DIR [--ha-lease S] [--ha-fsync]]
       [--max-inflight N] [--tenant-max-queued-{tasks,jobs,bytes} N]
-      — the job board over HTTP (the mongod role), replicated with
-      --ha-dir, hosting the multi-tenant scheduler's /tasks
+      [--slo SPEC]... — the job board over HTTP (the mongod role),
+      replicated with --ha-dir, hosting the multi-tenant scheduler's
+      /tasks and the cluster snapshot /statusz
+  python -m mapreduce_tpu_torch.cli status CONNSTR [--watch S] [--json]
+      — the live cluster view (/statusz rendered)
+  python -m mapreduce_tpu_torch.cli profile CONNSTR --out DIR — a
+      profile bundle of /metrics, /statusz, /tracez and /clusterz
+  python -m mapreduce_tpu_torch.cli diagnose CONNSTR|FILE [--json]
+      [--skew-ratio R] — stragglers, skew, hotspots and the critical
+      path of a live /clusterz or a saved cluster_trace.json
   python -m mapreduce_tpu_torch.cli submit CONNSTR TENANT TASKFN MAPFN
       PARTITIONFN REDUCEFN [FINALFN] [STORAGE] [--db DB] [--device]
       [--priority N] [--weight W] [--est-jobs N] [--est-bytes N]
@@ -22,7 +30,8 @@
       Perfetto-loadable Chrome trace
   python -m mapreduce_tpu_torch.cli runner CONNSTR [--workers N]
       [--max-inflight N] [--job-lease S] [--partitions N]
-      [--torch-device {cuda,cpu}] — the always-on serving process
+      [--torch-device {cuda,cpu}] [--slo SPEC]... — the always-on
+      serving process
   python -m mapreduce_tpu_torch.cli blobserver ROOT [--host H]
       [--port N] [--no-gzip] — the ``http:HOST:PORT`` blob service
   python -m mapreduce_tpu_torch.cli drop CONNSTR DB [--storage DSL]
@@ -47,7 +56,9 @@ over TCP, the reference's N-processes-one-mongod topology).  STORAGE is
 and ``--telemetry-interval`` (pushes to an ``http://`` board's
 collector); ``docserver``, ``blobserver`` and ``drop`` take ``--auth``;
 every job command takes ``--trace-out FILE`` (this process's spans as
-Chrome trace JSON at exit).  Every command takes ``-v``.
+Chrome trace JSON at exit; it also arms the flight recorder, so a
+SIGTERM dumps ``FILE.flight.trace.json`` and ``FILE.flight.metrics.prom``
+and exits 143).  Every command takes ``-v``.
 
 ``wordcount``: without ``--device`` the host plane runs: a server on an
 in-process board and ``--workers`` worker threads run the map and reduce
@@ -98,11 +109,15 @@ registry (``obs/compile``).  ``server``, ``worker``, ``wordcount``,
 user cache dir) and ``--no-compile-cache`` (a temporary build dir and
 no registry; ``warmup`` then exits 1, as on a dir it cannot write).
 
+``--slo NAME:pPCT:THRESHOLD[:LONG_S[:SHORT_S]]`` (repeatable, on
+``docserver`` and ``runner``) replaces the serving objectives the
+process's SLO plane evaluates (``obs/slo``): ``status`` renders them,
+``diagnose`` names a breach.
+
 JAX flags the port does not offer yet are refused by name, their help
 naming the ROADMAP item that brings them: the docserver's
-``--history-*``, ``--alert*`` and ``--slo`` and the runner's ``--slo``
-(A.8c).  The JAX commands the port does not offer yet
-(:data:`NOT_PORTED_COMMANDS`) exit 2 naming theirs.
+``--history-*`` and ``--alert*`` (A.8c-2).  The JAX commands the port
+does not offer yet (:data:`NOT_PORTED_COMMANDS`) exit 2 naming theirs.
 """
 
 from __future__ import annotations
@@ -110,6 +125,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 import uuid
 from typing import List, Optional
@@ -200,20 +216,32 @@ def _add_trace(p: argparse.ArgumentParser) -> None:
                    help="span ring capacity (default: 100000)")
 
 
-def _setup_trace(args) -> None:
-    """Apply the ring bound BEFORE any span records."""
+def _setup_trace(args):
+    """Apply the ring bound BEFORE any span records.  With --trace-out
+    set, also arm the flight recorder (obs/flight): SIGTERM and atexit
+    dump the ring + registry to <trace-out>.flight.* paths, so a killed
+    process keeps its telemetry.  Returns the recorder (or None)."""
     if args.trace_max_events:
         from .obs.trace import TRACER
 
         TRACER.max_events = max(1, args.trace_max_events)
+    if args.trace_out:
+        from .obs.flight import install_flight_recorder
+
+        return install_flight_recorder(args.trace_out)
+    return None
 
 
-def _export_trace(args) -> None:
+def _export_trace(args, recorder=None) -> None:
     if args.trace_out:
         from .obs.trace import TRACER
 
         print(f"trace written to {TRACER.export(args.trace_out)}",
               file=sys.stderr)
+        if recorder is not None:
+            # the normal export ran: flight files would be redundant
+            # (their presence is the abnormal-exit signal)
+            recorder.disarm()
 
 
 class _NotPorted(argparse.Action):
@@ -341,7 +369,7 @@ def cmd_wordcount(argv: List[str]) -> int:
     _add_verbosity(p)
     args = p.parse_args(argv)
     _setup_logging(args.verbose)
-    _setup_trace(args)
+    rec = _setup_trace(args)
     _setup_compile_cache(args)
 
     from .server import Server
@@ -409,7 +437,7 @@ def cmd_wordcount(argv: List[str]) -> int:
                      dev["waves"], dev["retries"], dev["compute_s"],
                      dev["prepare_s"], dev["result_s"]))
     print(line, file=sys.stderr)
-    _export_trace(args)
+    _export_trace(args, rec)
     if wedged:
         print(f"ERROR: {len(wedged)} worker thread(s) did not exit "
               f"within 30s: {', '.join(wedged)}", file=sys.stderr)
@@ -460,7 +488,7 @@ def cmd_train(argv: List[str]) -> int:
     _add_verbosity(p)
     args = p.parse_args(argv)
     _setup_logging(args.verbose or 1)
-    _setup_trace(args)
+    rec = _setup_trace(args)
     _setup_compile_cache(args)
 
     from . import storage as storage_mod
@@ -518,7 +546,7 @@ def cmd_train(argv: List[str]) -> int:
             # fenced: a successor owns the lineage now.  Exit distinctly
             # (and WITHOUT releasing — we hold nothing)
             print(f"FENCED: {exc}", file=sys.stderr)
-            _export_trace(args)
+            _export_trace(args, rec)
             return 3
         except BaseException:
             # any OTHER failure (storage error, Ctrl-C) still holds the
@@ -542,7 +570,7 @@ def cmd_train(argv: List[str]) -> int:
             "best_val_loss": out["best_val_loss"],
             "checkpoints": manager.steps(), "best": manager.best_step(),
             "storage": storage_dsl}, default=float))
-        _export_trace(args)
+        _export_trace(args, rec)
         return 0
     finally:
         # final flush: the closing metric snapshot reaches the collector
@@ -574,7 +602,7 @@ def cmd_server(argv: List[str]) -> int:
     _add_verbosity(p)
     args = p.parse_args(argv)
     _setup_logging(args.verbose or 1)
-    _setup_trace(args)
+    rec = _setup_trace(args)
     _setup_compile_cache(args)
 
     from .server import Server
@@ -602,7 +630,7 @@ def cmd_server(argv: List[str]) -> int:
     server.configure(params)
     stats = server.loop()
     print(json.dumps(stats, default=float))
-    _export_trace(args)
+    _export_trace(args, rec)
     return 0
 
 
@@ -635,7 +663,7 @@ def cmd_worker(argv: List[str]) -> int:
     _add_verbosity(p)
     args = p.parse_args(argv)
     _setup_logging(args.verbose or 1)
-    _setup_trace(args)
+    rec = _setup_trace(args)
     _setup_compile_cache(args)
 
     from .worker import Worker, spawn_worker_threads
@@ -662,7 +690,7 @@ def cmd_worker(argv: List[str]) -> int:
                                        name_prefix=args.name)
         for t in threads:
             t.join()
-    _export_trace(args)
+    _export_trace(args, rec)
     return 0
 
 
@@ -696,6 +724,25 @@ def cmd_blobserver(argv: List[str]) -> int:
     except KeyboardInterrupt:
         pass
     return 0
+
+
+def _add_slo(p) -> None:
+    p.add_argument(
+        "--slo", action="append", default=None, metavar="SPEC",
+        help="serving-SLO objective NAME:pPCT:THRESHOLD[:LONG_S"
+             "[:SHORT_S]] (repeatable; replaces the defaults).  NAME is "
+             "one of submit_first_result / snapshot_staleness / "
+             "queue_wait; e.g. --slo snapshot_staleness:p99:1.0:600:60")
+
+
+def _setup_slo(args) -> None:
+    """Apply the --slo flags to the process-global SLO plane (obs/slo);
+    no flags = keep the documented defaults."""
+    if not args.slo:
+        return
+    from .obs import slo as slo_mod
+
+    slo_mod.configure([slo_mod.parse_objective(s) for s in args.slo])
 
 
 def cmd_docserver(argv: List[str]) -> int:
@@ -735,15 +782,17 @@ def cmd_docserver(argv: List[str]) -> int:
     g.add_argument("--tenant-max-queued-tasks", type=int, default=None)
     g.add_argument("--tenant-max-queued-jobs", type=int, default=None)
     g.add_argument("--tenant-max-queued-bytes", type=int, default=None)
-    _refuse(p, "ROADMAP A.8: telemetry history, alerts, SLOs",
+    _refuse(p, "ROADMAP A.8c-2: the telemetry history and the alerts",
             "--history-dir", "--history-keep", "--history-segment-bytes",
             "--history-max-age", "--alert", "--alert-rules",
             "--alert-webhook", "--alert-exec", "--alert-interval",
-            "--alert-damp", "--slo", takes_value=True)
+            "--alert-damp", takes_value=True)
+    _add_slo(p)
     _add_auth(p)
     _add_verbosity(p)
     args = p.parse_args(argv)
     _setup_logging(args.verbose or 1)
+    _setup_slo(args)
 
     from .coord.docserver import DocServer
     from .coord.docstore import DirDocStore
@@ -769,8 +818,9 @@ def cmd_docserver(argv: List[str]) -> int:
     role = f"; HA role: {srv.ha.role}" if srv.ha is not None else ""
     print(f"job board at http://{srv.host}:{srv.port} "
           f"(CONNSTR: \"http://HOST:{srv.port}\"; Prometheus at "
-          f"/metrics, merged cluster timeline at /clusterz, scheduler "
-          f"at /tasks{role})", flush=True)
+          f"/metrics, cluster snapshot at /statusz, merged cluster "
+          f"timeline at /clusterz, scheduler at /tasks{role})",
+          flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
@@ -1019,6 +1069,578 @@ def _docserver_client(connstr: str, auth, what: str):
         return None
 
 
+def _render_device(dev: dict) -> List[str]:
+    """The device-plane section of a /statusz snapshot (zero when the
+    serving process never ran the engine — the engine's numbers live in
+    the server/bench process, README scope caveat)."""
+    if not dev or not (dev.get("flops_total") or dev.get("waves")):
+        return []
+    secs = dev.get("seconds", {})
+    lines = ["device plane ({} waves, {} retries):".format(
+        dev.get("waves", 0), dev.get("retries", 0))]
+    lines.append(
+        "  upload {:.2f}s  compute {:.2f}s  readback {:.2f}s | "
+        "{:.3g} GFLOP, {:.3g} GB accessed".format(
+            secs.get("upload", 0.0), secs.get("compute", 0.0),
+            secs.get("readback", 0.0),
+            dev.get("flops_total", 0.0) / 1e9,
+            dev.get("bytes_total", 0.0) / 1e9))
+    if dev.get("mfu"):
+        lines.append(
+            "  MFU {:.4%}  roofline {:.2%}  ({:.3g} FLOP/s achieved, "
+            "{:.2f} flops/byte)".format(
+                dev.get("mfu", 0.0), dev.get("roofline_frac", 0.0),
+                dev.get("model_flops_per_s", 0.0),
+                dev.get("arith_intensity", 0.0)))
+    return lines
+
+
+def _render_compile(comp: dict) -> List[str]:
+    """The compile section of a /statusz snapshot (obs/compile ledger:
+    per-program outcomes + build seconds + shape buckets); the JAX
+    text's "in XLA" is "building" here (nvcc, g++, loads, captures)."""
+    if not comp or not comp.get("programs"):
+        return []
+    lines = ["compile ledger ({} bucket(s), {:.1f}s building{}):".format(
+        comp.get("buckets", 0), comp.get("total_compile_s", 0.0),
+        "" if comp.get("cache_dir")
+        else "; persistent cache DISABLED")]
+    for prog, st in sorted(comp["programs"].items()):
+        lines.append(
+            "  {}: {} compiled / {} persistent-hit / {} cached, "
+            "{:.2f}s (last {:.2f}s)".format(
+                prog, st.get("compiled", 0), st.get("persistent_hit", 0),
+                st.get("cached", 0), st.get("compile_s", 0.0),
+                st.get("last_compile_s", 0.0)))
+    return lines
+
+
+def _render_memory(mem: dict) -> List[str]:
+    """The memory section of a /statusz snapshot (obs/memory: live
+    device bytes, per-program footprints, donation savings)."""
+    if not mem:
+        return []
+    lines = ["device memory:"]
+    devices = mem.get("devices") or {}
+    if devices:
+        src = mem.get("device_source", "measured")
+        for dev, st in sorted(devices.items()):
+            limit = st.get("bytes_limit")
+            lines.append(
+                "  device {}: {:.3g} B in use{}{} [{}]".format(
+                    dev, float(st.get("bytes_in_use", 0)),
+                    "" if st.get("peak_bytes_in_use") is None
+                    else " (peak {:.3g})".format(
+                        float(st["peak_bytes_in_use"])),
+                    "" if not limit
+                    else " of {:.3g}".format(float(limit)), src))
+    for prog, m in sorted((mem.get("programs") or {}).items()):
+        lines.append(
+            "  program {}: {:.3g} B footprint (args {:.3g} + out "
+            "{:.3g} + temp {:.3g}) [{}]".format(
+                prog, float(m.get("total", 0)),
+                float(m.get("arguments", 0)), float(m.get("outputs", 0)),
+                float(m.get("temp", 0)), m.get("source", "?")))
+    for prog, s in sorted((mem.get("donation") or {}).items()):
+        lines.append(
+            "  donation {}: {:.3g} B saved of {:.3g} donated [{}]".format(
+                prog, float(s.get("bytes", 0)),
+                float(s.get("donated_bytes", 0)),
+                s.get("source", "?")))
+    return lines
+
+
+def _render_comms(comms: dict) -> List[str]:
+    """The comms section of a /statusz snapshot (obs/comms: exchange
+    traffic matrix roll-ups, link-class bytes, upload overlap)."""
+    if not comms:
+        return []
+    lines = ["comms (exchange & dataflow):"]
+    ex = comms.get("exchange") or {}
+    if ex:
+        lines.append(
+            "  exchange: {} records / {:.3g} B over {} partition(s), "
+            "imbalance send {:.2f}x / recv {:.2f}x (hot dst D{:03d} at "
+            "{:.1%})".format(
+                ex.get("records", 0), float(ex.get("bytes", 0)),
+                ex.get("partitions", 0),
+                ex.get("imbalance_send", 1.0),
+                ex.get("imbalance_recv", 1.0),
+                int(ex.get("hot_dst", 0)),
+                ex.get("hot_dst_share", 0.0)))
+        link = ex.get("bytes_by_link") or {}
+        if link:
+            lines.append("  bytes by link: " + "  ".join(
+                f"{cls} {int(v):,}" for cls, v in sorted(link.items())))
+        if ex.get("modeled_exchange_s") is not None:
+            lines.append(
+                "  modeled exchange {:.4g}s = {:.1%} of measured "
+                "compute [analytic, peaks: {}]".format(
+                    ex.get("modeled_exchange_s", 0.0),
+                    ex.get("exchange_frac_of_compute", 0.0),
+                    ex.get("peak_source", "?")))
+    if comms.get("upload_overlap_frac") is not None:
+        lines.append("  upload overlap: {:.1%} of upload waiting hid "
+                     "under device execution".format(
+                         comms["upload_overlap_frac"]))
+    return lines
+
+
+def _render_fleet(fleet: dict) -> List[str]:
+    """The engine-fleet section of /statusz (coord/fleet): per-host
+    membership state, lease headroom, heartbeat mesh facts, and how
+    many streams route to each host."""
+    if not fleet or not fleet.get("hosts"):
+        return []
+    lines = ["engine fleet: {} host(s), {} routed stream(s){}".format(
+        len(fleet["hosts"]), fleet.get("routes", 0),
+        ("  [{} routed at NO registered host]".format(
+            fleet["routes_unhosted"])
+         if fleet.get("routes_unhosted") else ""))]
+    for host, h in sorted(fleet["hosts"].items()):
+        frac = h.get("hbm_frac")
+        state = str(h.get("state", "?"))
+        # a left/expired host's lease stamp is history, not headroom
+        lease = ("{:+.1f}s".format(h.get("lease_expires_in") or 0.0)
+                 if state in ("live", "draining") else "-")
+        lines.append(
+            "  host {}: {}  gen {}  lease {}  "
+            "{} stream(s)  {} warm program(s)  hbm {}".format(
+                host, state.upper(), h.get("generation", 0), lease,
+                h.get("streams", 0), h.get("warm_programs", 0),
+                "-" if frac is None else f"{frac:.0%}"))
+    return lines
+
+
+def _render_slo(slo: dict) -> List[str]:
+    """The serving-SLO section of /statusz (obs/slo): per-tenant
+    objective percentiles, burn rates and breach state against the
+    configured targets."""
+    if not slo or not slo.get("tenants"):
+        return []
+    objectives = {o["name"]: o for o in slo.get("objectives") or []}
+    lines = ["serving SLOs ({}):".format("  ".join(
+        "{} {}<{:g}s/{:g}s+{:g}s".format(
+            o["name"], o.get("pct", "p99"), o["threshold_s"],
+            o["long_window_s"], o["short_window_s"])
+        for o in (slo.get("objectives") or [])))]
+    for tenant, objs in sorted(slo["tenants"].items()):
+        for oname, e in sorted(objs.items()):
+            pct = objectives.get(oname, {}).get("pct", "p99")
+            p = e.get("p")
+            lines.append(
+                "  tenant {} {} {}: {} ({} obs, window {})  "
+                "burn {:.1f}x/{:.1f}x  budget {:.0%}{}".format(
+                    tenant, pct, oname,
+                    "-" if p is None else f"{p:.4g}s",
+                    e.get("n", 0), e.get("window_n", 0),
+                    e.get("burn_short", 0.0), e.get("burn_long", 0.0),
+                    e.get("budget_remaining", 1.0),
+                    "  BREACHING" if e.get("breaching") else ""))
+    return lines
+
+
+def _render_control(ctrl: dict) -> List[str]:
+    """The control section of /statusz (obs/control): the observe->act
+    loop's decisions — per-controller outcome counts plus the newest
+    decisions with their evidence->action->outcome story."""
+    if not ctrl or not ctrl.get("decisions"):
+        return []
+    lines = ["control plane (observe->act):"]
+    for c, by_o in sorted((ctrl.get("counts") or {}).items()):
+        lines.append("  {}: {}".format(c, "  ".join(
+            f"{o}={n}" for o, n in sorted(by_o.items()))))
+    for d in ctrl["decisions"][-8:]:  # newest tail; bundles keep all
+        lines.append(
+            "  [{}] #{} task {} ({}, {:.0f}s ago): {}".format(
+                d.get("controller"), d.get("id"), d.get("task"),
+                d.get("outcome"), d.get("age_s", 0.0),
+                d.get("note") or "decision"))
+    return lines
+
+
+def _render_build(build: dict) -> List[str]:
+    """The identity line (obs/buildinfo): the port's build dict carries
+    torch and CUDA where the JAX one carries jax."""
+    if not build:
+        return []
+    return ["build: mrtpu {} | python {} | torch {} | cuda {} | backend "
+            "{} ({})".format(
+                build.get("version", "?"), build.get("python", "?"),
+                build.get("torch", "?"), build.get("cuda", "?"),
+                build.get("backend", "?"), build.get("device_kind", "?"))]
+
+
+def _render_telemetry(tele: dict) -> List[str]:
+    """The collector section of /statusz: per-task roll-ups plus push
+    health per process."""
+    if not tele:
+        return []
+    lines: List[str] = []
+    tasks = tele.get("tasks") or {}
+    for t, r in sorted(tasks.items()):
+        lines.append(
+            "  task {}: {:.0f} records, {:.0f} B, {:.3f} device s, "
+            "{:.3g} FLOP".format(t, r.get("records", 0),
+                                 r.get("bytes", 0),
+                                 r.get("device_seconds", 0.0),
+                                 r.get("flops", 0)))
+    procs = tele.get("procs") or {}
+    for proc, p in sorted(procs.items()):
+        missed = p.get("missed") or 0
+        lines.append(
+            "  proc {} ({}): {} push(es), last {:.1f}s ago{}".format(
+                proc, p.get("role", "?"), p.get("pushes", 0),
+                p.get("last_push_age_s") or 0.0,
+                f", {missed} spans LOST" if missed else ""))
+    if lines:
+        lines.insert(0, "telemetry (cluster roll-ups via collector):")
+    return lines
+
+
+def _render_history(hist: dict) -> List[str]:
+    """The durable-history row of /statusz (obs/history): segment and
+    series counts plus the covered wall-time span."""
+    if not hist:
+        return []
+    if hist.get("error"):
+        return [f"history: ERROR {hist['error']}"]
+    span = ""
+    oldest, newest = hist.get("oldest_t"), hist.get("newest_t")
+    if oldest is not None and newest is not None:
+        span = f", {newest - oldest:.0f}s span"
+    gc = ""
+    if hist.get("rotations") or hist.get("gc_segments"):
+        gc = ", {} rotation(s) / {} gc'd".format(
+            hist.get("rotations", 0), hist.get("gc_segments", 0))
+    return ["history: {} segment(s), {} B, {} entr(ies), {} series "
+            "from {} proc(s){}{} (keep {})".format(
+                hist.get("segments", 0), hist.get("bytes", 0),
+                hist.get("entries", 0), hist.get("series", 0),
+                hist.get("procs", 0), span, gc,
+                hist.get("keep_segments", "?"))]
+
+
+def _render_alerts(al: dict) -> List[str]:
+    """The alerts section of /statusz (obs/alerts): rule + instance
+    lifecycle summary; firing instances are always listed."""
+    if not al:
+        return []
+    counts = al.get("counts") or {}
+    summary = ("  ".join(f"{s}={n}" for s, n in sorted(counts.items()))
+               or "all inactive")
+    log = al.get("log") or {}
+    lines = ["alerts: {} rule(s), {} | log seq {} gen {}{}".format(
+        len(al.get("rules") or []), summary,
+        log.get("seq", 0), log.get("generation", 0),
+        (", {} stale skipped".format(log["skipped_stale"])
+         if log.get("skipped_stale") else ""))]
+    for inst in al.get("instances") or []:
+        if inst.get("state") not in ("firing", "pending"):
+            continue
+        lbl = ",".join(f"{k}={v}" for k, v in
+                       sorted((inst.get("labels") or {}).items()))
+        flags = ""
+        if inst.get("suppressed"):
+            flags += " [silenced]"
+        if inst.get("acked"):
+            flags += " [acked]"
+        lines.append("  {} {}{}: {:.0f}s{}{}".format(
+            inst["state"].upper(), inst.get("rule"),
+            f"{{{lbl}}}" if lbl else "", inst.get("age_s") or 0.0,
+            ("" if inst.get("value") is None
+             else " (value {:.4g})".format(float(inst["value"]))),
+            flags))
+    for s in al.get("silences") or []:
+        lines.append("  silence #{} on {}: {:.0f}s left".format(
+            s.get("id"), s.get("rule"), s.get("expires_in_s") or 0.0))
+    return lines
+
+
+def _render_checkpoint(ck: dict) -> List[str]:
+    """The training-plane section of /statusz: checkpoint save/restore/
+    corruption counters and the last recovery time (obs/statusz
+    checkpoint_snapshot)."""
+    if not ck:
+        return []
+    line = ("checkpoints: {:.0f} saved (last step {:.0f}) | restores "
+            "{:.0f} ok / {:.0f} corrupt ({:.0f} bad shards, {:.0f} "
+            "fallbacks) | {:.0f} gc'd | {:.0f} fences".format(
+                ck.get("saves", 0), ck.get("last_saved_step", 0),
+                ck.get("restores_ok", 0), ck.get("restores_corrupt", 0),
+                ck.get("corrupt_shards", 0), ck.get("fallbacks", 0),
+                ck.get("gc", 0), ck.get("lease_fences", 0)))
+    out = [line]
+    if ck.get("recovery_s"):
+        out.append("  last step-recovery: {:.3f}s".format(
+            ck["recovery_s"]))
+    return out
+
+
+def _render_ha(ha: dict) -> List[str]:
+    """The board-HA section of /statusz (coord/ha.py): role, fencing
+    generation, mutation-log progress."""
+    if not ha:
+        return []
+    lease = ha.get("lease") or {}
+    out = ["board ha: {} (generation {}, holder {}) | log {} appended "
+           "/ {} replayed / {}B (lag {}B) | {} promotion(s)".format(
+               ha.get("role", "?"), ha.get("generation", 0),
+               lease.get("holder") or ha.get("holder") or "-",
+               ha.get("log_appended", 0), ha.get("log_replayed", 0),
+               ha.get("log_bytes", 0), ha.get("replay_lag_bytes", 0),
+               ha.get("promotions", 0))]
+    if ha.get("failed"):
+        out.append(f"  BOARD HA FAILED: {ha['failed']}")
+    return out
+
+
+def render_status(snap: dict) -> str:
+    """One-screen text view of a /statusz snapshot (the master status
+    page role, Dean & Ghemawat §4.6)."""
+    lines: List[str] = _render_build(snap.get("build") or {})
+    lines += _render_ha(snap.get("ha") or {})
+    lines += _render_device(snap.get("device") or {})
+    lines += _render_compile(snap.get("compile") or {})
+    lines += _render_memory(snap.get("memory") or {})
+    lines += _render_comms(snap.get("comms") or {})
+    lines += _render_checkpoint(snap.get("checkpoint") or {})
+    lines += _render_sched(snap.get("sched") or {})
+    lines += _render_fleet(snap.get("fleet") or {})
+    lines += _render_slo(snap.get("slo") or {})
+    lines += _render_control(snap.get("control") or {})
+    lines += _render_alerts(snap.get("alerts") or {})
+    lines += _render_telemetry(snap.get("telemetry") or {})
+    lines += _render_history(snap.get("history") or {})
+    tasks = snap.get("tasks", {})
+    if not tasks:
+        lines.append("no tasks on this board")
+        return "\n".join(lines) + "\n"
+    for db, t in sorted(tasks.items()):
+        lines.append(f"[{db}]  status={t.get('status')}  "
+                     f"iteration={t.get('iteration')}"
+                     + ("  (device plane)" if t.get("device") else ""))
+        for phase in ("map", "reduce"):
+            counts = t.get("phases", {}).get(phase) or {}
+            total = sum(counts.values())
+            if not total:
+                lines.append(f"  {phase:<7}-")
+                continue
+            parts = " ".join(f"{k}={v}" for k, v in sorted(counts.items()))
+            lines.append(f"  {phase:<7}{total} jobs: {parts}")
+        tl = t.get("trainer")
+        if tl:
+            lines.append(
+                "  trainer lease: {} (generation {}, {}, lease "
+                "{:+.1f}s)".format(
+                    tl.get("holder") or "FREE", tl.get("generation"),
+                    "HELD" if tl.get("held") else "free/expired",
+                    tl.get("lease_expires_in") or 0.0))
+        workers = t.get("workers", {})
+        if workers:
+            for name, w in sorted(workers.items()):
+                lease = w.get("lease_expires_in")
+                liveness = ("ALIVE" if w.get("alive") else
+                            "idle/done" if w.get("running", 0) == 0
+                            else "STALE")
+                lease_s = (f" lease {lease:+.1f}s" if lease is not None
+                           else "")
+                lines.append(
+                    f"  worker {name}: {liveness}  "
+                    f"{w.get('running', 0)} running / "
+                    f"{w.get('jobs', 0)} held{lease_s}")
+        else:
+            lines.append("  workers: none seen")
+        nerr = t.get("errors", 0)
+        if nerr:
+            lines.append(f"  ERRORS: {nerr} in the errors channel")
+        stats = t.get("stats")
+        if stats:
+            m, r = stats.get("map", {}), stats.get("reduce", {})
+            lines.append(
+                "  last stats: map {}j/{}f cpu {:.2f}s | reduce {}j/{}f "
+                "cpu {:.2f}s | cluster {:.2f}s (iter {})".format(
+                    m.get("count", 0), m.get("failed", 0),
+                    m.get("sum_cpu_time", 0.0),
+                    r.get("count", 0), r.get("failed", 0),
+                    r.get("sum_cpu_time", 0.0),
+                    stats.get("cluster_time", 0.0),
+                    stats.get("iteration", 0)))
+            d = stats.get("device")
+            if d:
+                # per-task engine timings travel in the persisted stats
+                # doc, so they render even when the statusz-serving
+                # process is not the one that ran the engine
+                mfu = ("  MFU {:.4%}".format(d["mfu"])
+                       if d.get("mfu") else "")
+                lines.append(
+                    "  device: {} waves  upload {:.2f}s  compute "
+                    "{:.2f}s  readback {:.2f}s{}".format(
+                        d.get("waves", 0), d.get("upload_s", 0.0),
+                        d.get("compute_s", 0.0),
+                        d.get("readback_s", 0.0), mfu))
+    return "\n".join(lines) + "\n"
+
+
+def cmd_status(argv: List[str]) -> int:
+    """Live cluster view: poll the docserver's /statusz and render it
+    (the reference had only the end-of-run stats doc; this is the
+    during-the-run window)."""
+    p = argparse.ArgumentParser(prog="mapreduce_tpu_torch status")
+    p.add_argument("connstr",
+                   help="the docserver, http://HOST:PORT — or the HA "
+                        "replica set http://H1:P1,H2:P2: the watcher "
+                        "fails over with the board (the same CONNSTR "
+                        "workers use)")
+    p.add_argument("--watch", type=float, default=None, metavar="S",
+                   help="re-poll every S seconds until interrupted "
+                        "(default: render once and exit)")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print the raw /statusz JSON instead")
+    _add_auth(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose)
+
+    store = _docserver_client(args.connstr, args.auth, "status")
+    if store is None:
+        return 2
+    import time as _time
+
+    try:
+        while True:
+            try:
+                snap = store.statusz()
+            except PermissionError as exc:
+                # auth rejection never heals on its own: bail out even
+                # in watch mode, with the real diagnosis
+                print(f"{exc} (pass --auth or set $MAPREDUCE_TPU_AUTH)",
+                      file=sys.stderr)
+                return 2
+            except OSError as exc:
+                if args.watch is None:
+                    print(f"cannot reach {args.connstr}: {exc}",
+                          file=sys.stderr)
+                    return 1
+                # watch mode exists precisely for degraded clusters: a
+                # transient poll failure is a line, not an exit
+                print(f"[poll failed: {exc}]", file=sys.stderr)
+            else:
+                if args.as_json:
+                    out = json.dumps(snap, indent=2, default=float)
+                else:
+                    out = render_status(snap)
+                if args.watch is not None and not args.as_json:
+                    # one-screen refresh: clear + home, like watch(1);
+                    # --json is a stream for machines, never cleared
+                    sys.stdout.write("\x1b[2J\x1b[H")
+                sys.stdout.write(out)
+                sys.stdout.flush()
+                if args.watch is None:
+                    return 0
+            _time.sleep(args.watch)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        store.close()
+
+
+def cmd_profile(argv: List[str]) -> int:
+    """Capture a self-contained profile bundle from a LIVE cluster: the
+    docserver's /metrics exposition, /statusz cluster snapshot, /tracez
+    span ring and /clusterz merged timeline (with its diagnosis) land in
+    one directory that ``obs.profile.load_bundle`` re-validates and
+    Perfetto and Prometheus load directly."""
+    p = argparse.ArgumentParser(prog="mapreduce_tpu_torch profile")
+    p.add_argument("connstr",
+                   help="the docserver, http://HOST:PORT "
+                        "(the same CONNSTR workers use)")
+    p.add_argument("--out", required=True, metavar="DIR",
+                   help="bundle directory (created if missing)")
+    _add_auth(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose)
+
+    from .obs import profile as obs_profile
+
+    store = _docserver_client(args.connstr, args.auth, "profile")
+    if store is None:
+        return 2
+    try:
+        metrics_text = store.metrics_text()
+        statusz_doc = store.statusz()
+        trace_doc = store.tracez()
+        cluster_doc = store.clusterz()
+    except PermissionError as exc:
+        print(f"{exc} (pass --auth or set $MAPREDUCE_TPU_AUTH)",
+              file=sys.stderr)
+        return 2
+    except OSError as exc:
+        print(f"cannot reach {args.connstr}: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        store.close()
+    out = obs_profile.write_bundle(
+        args.out, metrics_text=metrics_text, statusz_doc=statusz_doc,
+        trace_doc=trace_doc, cluster_doc=cluster_doc)
+    n_ev = len(trace_doc.get("traceEvents", []))
+    print(f"profile bundle written to {out} ({n_ev} trace events); "
+          f"open trace.json in https://ui.perfetto.dev")
+    return 0
+
+
+def cmd_diagnose(argv: List[str]) -> int:
+    """Cluster diagnosis over the merged timeline: stragglers (robust
+    outlier test on claim->write latency), skewed partitions (share vs
+    uniform), retry/fault hotspots, and the claim/run/write phase
+    breakdown (obs/analysis)."""
+    p = argparse.ArgumentParser(prog="mapreduce_tpu_torch diagnose")
+    p.add_argument("connstr",
+                   help="the docserver, http://HOST:PORT — or a saved "
+                        "timeline/cluster_trace.json file (offline "
+                        "diagnosis)")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print the structured report as JSON")
+    p.add_argument("--skew-ratio", type=float, default=None,
+                   metavar="R",
+                   help="flag partitions whose share exceeds R x the "
+                        "uniform share (default 2.0)")
+    _add_auth(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose)
+
+    from .obs import analysis
+
+    if os.path.exists(args.connstr):
+        with open(args.connstr, encoding="utf-8") as f:
+            doc = json.load(f)
+    else:
+        store = _docserver_client(args.connstr, args.auth, "diagnose")
+        if store is None:
+            return 2
+        try:
+            doc = store.clusterz()
+        except PermissionError as exc:
+            print(f"{exc} (pass --auth or set $MAPREDUCE_TPU_AUTH)",
+                  file=sys.stderr)
+            return 2
+        except OSError as exc:
+            print(f"cannot reach {args.connstr}: {exc}", file=sys.stderr)
+            return 1
+        finally:
+            store.close()
+    kw = ({"skew_ratio": args.skew_ratio}
+          if args.skew_ratio is not None else {})
+    report = analysis.diagnose(doc, **kw)
+    if args.as_json:
+        print(json.dumps(report, indent=2, default=float))
+    else:
+        sys.stdout.write(analysis.render_diagnosis(report))
+    return 0
+
+
 def cmd_warmup(argv: List[str]) -> int:
     """Build every kernel library of the device engine's configuration
     (and the host core) into the build directory, and acquire its wave
@@ -1210,8 +1832,10 @@ def cmd_runner(argv: List[str]) -> int:
     telemetry-informed: the runner registers its own placement facts
     (warm program tokens, card memory) with an ``AdmissionAdvisor``
     under its host id and refreshes them while it serves.  It joins no
-    engine-host fleet (ROADMAP A.11: no membership, no ``drain``), and
-    the SLO objectives wait for A.8."""
+    engine-host fleet (ROADMAP A.11: no membership, no ``drain``).
+    ``--slo`` sets the objectives the SLO plane of this process
+    evaluates; the lifecycle histograms it observes reach the board's
+    /statusz through the telemetry pushes."""
     p = argparse.ArgumentParser(
         prog="mapreduce_tpu_torch runner",
         description="The always-on serving process: admission and a "
@@ -1219,8 +1843,7 @@ def cmd_runner(argv: List[str]) -> int:
                     "scheduler, routed by an admission advisor fed this "
                     "process's warm programs and card memory.  It joins "
                     "no engine-host fleet and takes no drain requests "
-                    "(ROADMAP A.11); the SLO objectives wait for "
-                    "ROADMAP A.8.")
+                    "(ROADMAP A.11).")
     p.add_argument("connstr",
                    help="the job board (http://HOST:PORT docserver — "
                         "or the HA replica set http://H1:P1,H2:P2, the "
@@ -1247,8 +1870,7 @@ def cmd_runner(argv: List[str]) -> int:
                         "(queue wait, admit->running, submit->first "
                         "result) live in THIS process; pushing them "
                         "puts them on the board's /clusterz")
-    _refuse(p, "ROADMAP A.8: the SLO objectives", "--slo",
-            takes_value=True)
+    _add_slo(p)
     _add_compile_cache(p)
     _add_auth(p)
     _add_retry(p)
@@ -1256,7 +1878,8 @@ def cmd_runner(argv: List[str]) -> int:
     _add_verbosity(p)
     args = p.parse_args(argv)
     _setup_logging(args.verbose or 1)
-    _setup_trace(args)
+    _setup_slo(args)
+    rec = _setup_trace(args)
     _setup_compile_cache(args)
 
     from .coord import docstore
@@ -1277,7 +1900,6 @@ def cmd_runner(argv: List[str]) -> int:
     # placement facts, registered under a per-process host id (two
     # runners on one board must not clobber each other) and refreshed
     # while it serves
-    import os
     import socket
 
     advisor = AdmissionAdvisor()
@@ -1333,7 +1955,7 @@ def cmd_runner(argv: List[str]) -> int:
         for w in pool:
             w.stop()
         release_pusher(tele)
-    _export_trace(args)
+    _export_trace(args, rec)
     return rc
 
 
@@ -1342,18 +1964,15 @@ COMMANDS = {"server": cmd_server, "worker": cmd_worker,
             "docserver": cmd_docserver, "blobserver": cmd_blobserver,
             "drop": cmd_drop, "submit": cmd_submit, "tasks": cmd_tasks,
             "runner": cmd_runner, "timeline": cmd_timeline,
-            "warmup": cmd_warmup}
+            "warmup": cmd_warmup, "status": cmd_status,
+            "profile": cmd_profile, "diagnose": cmd_diagnose}
 
 #: JAX commands the port does not offer yet, with the ROADMAP item
 NOT_PORTED_COMMANDS = {
     "drain": "ROADMAP A.11: the engine-host fleet",
-    "status": "ROADMAP A.8c: the cluster status snapshot",
-    "profile": "ROADMAP A.8c: the cluster status snapshot (/statusz) "
-               "it bundles",
-    "diagnose": "ROADMAP A.8c: the cluster diagnosis",
-    "history": "ROADMAP A.8c: the durable telemetry history",
-    "top": "ROADMAP A.8c: the durable telemetry history",
-    "alerts": "ROADMAP A.8c: the alerting plane",
+    "history": "ROADMAP A.8c-2: the durable telemetry history",
+    "top": "ROADMAP A.8c-2: the durable telemetry history",
+    "alerts": "ROADMAP A.8c-2: the alerting plane",
 }
 
 

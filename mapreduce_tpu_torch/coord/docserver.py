@@ -39,8 +39,11 @@ Every docserver hosts the multi-tenant scheduler
 submit, cancel and tick (rid-deduped and auth-gated like ``/rpc``), GET
 the task list and the scheduler snapshot.
 
-Left out for now: ``/statusz``, ``/queryz`` and ``/alertz`` (ROADMAP
-A.8): those paths answer 404 naming the item that brings them.
+``/statusz`` serves the JSON cluster snapshot
+(:func:`..obs.statusz.cluster_status`, plus the HA section on a
+replicated board): the ``status`` and ``profile`` CLIs' feed.  Left out
+for now: ``/queryz`` and ``/alertz`` (ROADMAP A.8c-2): those paths
+answer 404 naming the item that brings them.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..obs import metrics as _metrics
 from ..obs.collector import Collector
-from ..obs.statusz import update_board_gauges
+from ..obs.statusz import cluster_status, update_board_gauges
 from ..obs.trace import TRACE_HEADER, TRACER
 from ..utils.httpclient import (
     NOT_PRIMARY_STATUS, FailoverClient, NotPrimaryError, RetryPolicy,
@@ -90,12 +93,15 @@ _MUTATING_OPS = frozenset(
 _DEDUPE_CAP = 4096   # answered-request ids remembered per server
 _SESSION_CAP = 1024  # per-client eviction watermarks remembered
 
+#: the GET paths this docserver serves (``/healthz`` unauthenticated)
+GET_PATHS = ("/metrics", "/statusz", "/tracez", "/clusterz", "/tasks",
+             "/healthz")
+
 #: JAX docserver paths the port does not serve yet, each with the
 #: ROADMAP item that brings it (answered 404, the body names it)
 NOT_PORTED = {
-    "/statusz": "the cluster status snapshot (ROADMAP A.8)",
-    "/queryz": "the durable telemetry history (ROADMAP A.8)",
-    "/alertz": "the alerting plane (ROADMAP A.8)",
+    "/queryz": "the durable telemetry history (ROADMAP A.8c-2)",
+    "/alertz": "the alerting plane (ROADMAP A.8c-2)",
 }
 
 
@@ -496,11 +502,12 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
     def do_GET(self) -> None:
         """Exposition plane: ``/metrics`` (Prometheus text over the
         process-global registry, with the job-board depth gauges
-        refreshed at scrape time), ``/tracez`` (this process's span ring
-        as Chrome trace JSON), ``/clusterz`` (the MERGED cluster
-        timeline: every pushed process's spans clock-aligned with this
-        process's), ``/tasks`` (every scheduler task doc plus the
-        scheduler snapshot) and ``/healthz``.  Everything but /healthz
+        refreshed at scrape time), ``/statusz`` (JSON cluster snapshot,
+        including the collector's per-task roll-ups), ``/tracez`` (this
+        process's span ring as Chrome trace JSON), ``/clusterz`` (the
+        MERGED cluster timeline: every pushed process's spans
+        clock-aligned with this process's), ``/tasks`` (every scheduler
+        task doc plus the scheduler snapshot) and ``/healthz``.  Everything but /healthz
         is auth-gated like the RPC plane; /healthz is open — it returns
         liveness (and, on an HA board, the replica's role), and
         orchestrator probes cannot send a bearer token."""
@@ -516,7 +523,7 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
             return self._respond(200, b'{"ok": true}')
         if path in NOT_PORTED:
             return self._not_ported(path)
-        if path not in ("/metrics", "/tracez", "/clusterz", "/tasks"):
+        if path not in GET_PATHS:
             return self._respond(404, b"{}")
         if not check_auth(self.auth_token, self.headers):
             return self._respond(401, b"{}")
@@ -524,6 +531,13 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
         try:
             if path == "/metrics":
                 update_board_gauges(self.store)
+                # SLO gauges (percentile/burn/threshold) are published
+                # by evaluation ticks; run one at scrape time so the
+                # exposition is current and the burn windows sample at
+                # scrape cadence
+                from ..obs import slo as _slo
+
+                _slo.evaluate(collector=self.collector)
                 body = _metrics.REGISTRY.render().encode()
                 ctype = "text/plain; version=0.0.4; charset=utf-8"
             elif path == "/tracez":
@@ -535,9 +549,24 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
                      "sched": self.scheduler.snapshot()},
                     default=float).encode()
                 ctype = "application/json"
-            else:
+            elif path == "/clusterz":
+                # evaluate HERE too: `cli diagnose` may be the first
+                # scrape a board ever serves, and its SLO findings read
+                # the derived percentile/burn/threshold gauges this tick
+                # publishes
+                from ..obs import slo as _slo
+
+                _slo.evaluate(collector=self.collector)
                 body = json.dumps(self.collector.cluster_doc(),
                                   default=float).encode()
+                ctype = "application/json"
+            else:
+                snap = cluster_status(
+                    self.store, collector=self.collector,
+                    scheduler=self.scheduler)
+                if self.ha is not None:
+                    snap["ha"] = self.ha.snapshot()
+                body = json.dumps(snap, default=float).encode()
                 ctype = "application/json"
         except Exception as exc:
             # a scrape must never kill the handler thread; the scraper
@@ -815,6 +844,10 @@ class HttpDocStore(DocStore):
         if status != 200:
             raise IOError(f"{path[1:]}: HTTP {status}")
         return raw
+
+    def statusz(self) -> Dict[str, Any]:
+        """Fetch the server's /statusz cluster snapshot."""
+        return json.loads(self._get("/statusz"))
 
     def metrics_text(self) -> str:
         """Fetch the server's /metrics Prometheus exposition."""

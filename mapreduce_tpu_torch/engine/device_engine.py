@@ -93,7 +93,7 @@ from ..obs.wavetrace import WaveTimeline
 from ..ops import kernel_compat as kc
 from ..ops.radix_sort import RADIX_PASSES
 from ..ops.segscan import SENTINEL, ReduceOp, sorted_unique_reduce
-from ..parallel.mesh import Partitions
+from ..parallel.mesh import Partitions, partition_devices
 from ..parallel.shuffle import partition_exchange
 from .tiering import TierSpecializer, TieredWaveDispatcher
 
@@ -1093,11 +1093,19 @@ class DeviceEngine:
                 f"{retries} right-sized retries; raise EngineConfig "
                 "capacities (or max_retries), or pass on_overflow='return' "
                 "to inspect the truncated result")
-        # sliced readback: only the live prefix of each partition's result
+        # sliced readback: only the live prefix of each partition's
+        # result.  The exchange traffic matrix rides the SAME n_live
+        # fetch (one [P + 1, P] copy, not a second readback).
         t0 = time.monotonic()
         keys, vals, pay, valid = acc[:4]
+        traffic_h = None
         with TRACER.span("readback", stage="result"):
-            n_live = valid.sum(dim=1).cpu()
+            if cfg.exchange_stats:
+                both = torch.cat([acc[4], valid.sum(dim=1).to(
+                    acc[4].dtype).unsqueeze(0)]).cpu()
+                traffic_h, n_live = both[:P], both[P]
+            else:
+                n_live = valid.sum(dim=1).cpu()
             width = max(1, int(n_live.max()))
             result = DeviceResult(keys[:, :width].cpu(),
                                   vals[:, :width].cpu(),
@@ -1116,6 +1124,16 @@ class DeviceEngine:
             _PARTITION_RECORDS.set(n, task=task, partition=f"P{p:05d}")
             _PARTITION_BYTES.set(n * row_bytes, task=task,
                                  partition=f"P{p:05d}")
+        # comms observability (obs/comms): the run's exchange traffic
+        # matrix -> per-(src,dst) counters, imbalance gauges, the
+        # link-class roll-up and the modeled exchange seconds against
+        # the final attempt's compute (the matrix is already host data)
+        comms_derived = {}
+        if traffic_h is not None:
+            comms_derived = _comms.record_exchange(
+                traffic_h.tolist(), row_bytes=row_bytes, task=task,
+                devices=partition_devices(P, self.device),
+                compute_s=t_attempt_compute)
         overlap = _comms.record_upload_overlap(
             _comms.overlap_fraction(uploads, busy), task=task)
         derived = {}
@@ -1132,6 +1150,7 @@ class DeviceEngine:
             derived["memory_source"] = mem["source"]
         if timings is not None:
             timings.update(derived)
+            timings.update(comms_derived)
             timings["upload_overlap_frac"] = round(overlap, 4)
             timings["waves"] = W
             timings["retries"] = retries
@@ -1151,12 +1170,6 @@ class DeviceEngine:
                 timings["tier_cold_start"] = disp.cold
                 timings["serving_tier"] = disp.tier_label
                 timings["tier_specialize_failed"] = disp.failed
-            if cfg.exchange_stats:
-                matrix = acc[4].cpu()
-                timings["exchange"] = {
-                    "matrix": matrix.tolist(),
-                    "row_sums": matrix.sum(dim=1).tolist(),
-                    "col_sums": matrix.sum(dim=0).tolist()}
         return result
 
 

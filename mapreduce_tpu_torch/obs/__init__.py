@@ -14,18 +14,21 @@
 * :mod:`.buildinfo` — the ``mrtpu_build_info`` identity gauge;
 * :mod:`.collector` — the telemetry plane: the process-shared pusher and
   the docserver's collector behind ``/clusterz``;
-* :mod:`.statusz` — the board gauges the docserver refreshes before it
-  renders ``/metrics``;
-* :mod:`.slo` — the serving-SLO lifecycle histograms;
-* :mod:`.control` — the control ledger of the controllers' decisions,
-  with :mod:`.comms`' ``matrix_stats`` and upload overlap and
-  :mod:`.analysis`' MAD helpers.
-
+* :mod:`.statusz` — the ``/statusz`` cluster snapshot and the board
+  gauges the docserver refreshes before it renders ``/metrics``;
+* :mod:`.slo` — the serving-SLO lifecycle histograms and the objectives
+  evaluated over them (percentiles, burn rates, breaches);
+* :mod:`.comms` — the exchange traffic matrix, its link-class roll-up
+  and modeled exchange seconds, and the upload overlap;
+* :mod:`.analysis` — ``diagnose`` over a ``/clusterz`` document
+  (stragglers, skew, hotspots, the critical path) and its render;
+* :mod:`.flight` — the flight recorder ``--trace-out`` arms: SIGTERM
+  dumps the span ring and the registry;
+* :mod:`.control` — the control ledger of the controllers' decisions;
 * :mod:`.compile` — the compile ledger of the builds, loads and
   captures, and the shape registry.
 
-Not ported yet (ROADMAP A.8c): ``/statusz``, ``diagnose``, the comms
-link classes, the SLO objectives, the durable history and the alerts.
+Not ported yet (ROADMAP A.8c-2): the durable history and the alerts.
 """
 
 from .metrics import DEVICE_BUCKETS  # noqa: F401
@@ -34,5 +37,7 @@ from .profile import (  # noqa: F401
     record_run, validate_trace, write_bundle)
 from .memory import (  # noqa: F401
     capacity_retry_event, memory_snapshot, sample_device_memory)
-from .comms import overlap_fraction, record_upload_overlap  # noqa: F401
+from .comms import (  # noqa: F401
+    comms_snapshot, overlap_fraction, record_exchange,
+    record_upload_overlap, validate_comms)
 from .buildinfo import build_info  # noqa: F401

@@ -1,6 +1,6 @@
 """Cluster telemetry plane: push collector, clock alignment, merged timeline
 (port of ``mapreduce_tpu/obs/collector.py``, without the durable history
-and the alerts, which wait for ROADMAP A.8).
+and the alerts, which wait for ROADMAP A.8c-2).
 
 * :class:`TelemetryPusher` — the client half.  A per-process background
   thread batches NEW span-ring events (``Tracer.events_since``) plus a
@@ -103,9 +103,10 @@ _ROLLUP_FIELDS: Tuple[Tuple[str, str, Optional[Tuple[str, str]]], ...] = (
     ("flops", "mrtpu_device_flops_total", None),
 )
 
-#: metric families carried (summed across processes) in the cluster doc:
-#: the job plane's counters whose cluster-wide totals show skew,
-#: stragglers and fault hotspots, and the blob plane's raw and wire bytes
+#: metric families carried (summed across processes) in the cluster doc
+#: for obs/analysis — counters/gauges whose cluster-wide totals drive
+#: skew, hotspot and phase diagnosis — and the blob plane's raw and wire
+#: bytes
 DIAG_FAMILIES = frozenset({
     "mrtpu_blob_raw_bytes_total", "mrtpu_blob_wire_bytes_total",
     "mrtpu_partition_records_total", "mrtpu_partition_bytes_total",
@@ -126,17 +127,37 @@ DIAG_FAMILIES = frozenset({
     "mrtpu_device_waves_total", "mrtpu_device_retries_total",
     "mrtpu_device_memory_bytes",
     "mrtpu_device_capacity_retry_events_total",
+    # the compile plane (obs/compile): per-process build seconds and
+    # outcomes roll up for obs/analysis' compile-hotspot notes
+    "mrtpu_compile_total", "mrtpu_compile_seconds_sum",
+    "mrtpu_compile_seconds_count",
+    "mrtpu_compile_cache_disabled_total",
+    # the comms plane (obs/comms): the exchange traffic matrix, its
+    # link-class roll-up and the imbalance/overlap/roofline gauges, so
+    # diagnose sees who-sends-to-whom cluster-wide (the skew check's
+    # matrix fallback rides these rows)
+    "mrtpu_exchange_records_total", "mrtpu_exchange_bytes_total",
+    "mrtpu_comms_bytes_total",
+    "mrtpu_exchange_imbalance",
+    "mrtpu_comms_modeled_exchange_seconds",
+    "mrtpu_comms_exchange_frac_of_compute",
     "mrtpu_upload_overlap_frac",
-    # the resident sessions' per-task streaming volume
+    # the resident sessions' per-task streaming volume, spill/restore
+    # traffic and feed-queue backpressure
     "mrtpu_session_chunks_total", "mrtpu_session_waves_total",
     "mrtpu_session_overflow_rows_total",
+    "mrtpu_session_spills_total", "mrtpu_session_restores_total",
+    "mrtpu_session_backpressure_total",
     # the multi-tenant service plane (sched/): queue depths, admission
-    # decisions and task transitions, and the serving-SLO lifecycle
-    # histograms a runner observes (cumulative _bucket/_sum/_count
-    # samples sum across processes: per-process monotonic totals)
+    # decisions and task transitions
     "mrtpu_sched_queue_depth", "mrtpu_sched_queued_work",
     "mrtpu_sched_admission_total", "mrtpu_sched_tasks_total",
     "mrtpu_sched_served_records_total",
+    # the serving-SLO plane (obs/slo): per-tenant lifecycle histograms
+    # (cumulative _bucket/_sum/_count samples sum across processes —
+    # per-process monotonic totals, so the sum IS the cluster view),
+    # breach counts, and the derived percentile/burn/threshold gauges
+    # plus queue-age and stream-age gauges (all merged by MAX below)
     "mrtpu_slo_queue_wait_seconds_bucket",
     "mrtpu_slo_queue_wait_seconds_sum",
     "mrtpu_slo_queue_wait_seconds_count",
@@ -146,6 +167,14 @@ DIAG_FAMILIES = frozenset({
     "mrtpu_slo_submit_first_result_seconds_bucket",
     "mrtpu_slo_submit_first_result_seconds_sum",
     "mrtpu_slo_submit_first_result_seconds_count",
+    "mrtpu_slo_snapshot_staleness_seconds_bucket",
+    "mrtpu_slo_snapshot_staleness_seconds_sum",
+    "mrtpu_slo_snapshot_staleness_seconds_count",
+    "mrtpu_slo_breach_total",
+    "mrtpu_slo_percentile_seconds", "mrtpu_slo_burn_rate",
+    "mrtpu_slo_threshold_seconds",
+    "mrtpu_sched_oldest_queued_age_seconds",
+    "mrtpu_session_stream_age_seconds",
     # the replicated board (coord/ha): failovers, fences, refusals
     "mrtpu_board_promotions_total", "mrtpu_board_fences_total",
     "mrtpu_board_replayed_rid_refusals_total",
@@ -154,6 +183,58 @@ DIAG_FAMILIES = frozenset({
     # decisions themselves travel as control_decision spans)
     "mrtpu_control_decisions_total",
 })
+
+#: diagnosis gauges that merge across processes by MAX, not sum: the
+#: device label is a bare device id, so two processes sharing one card
+#: land on the SAME label key, and the worst process's view is what
+#: pressure, skew and SLO diagnosis want (a fresh replica must not hide
+#: a stale one)
+_DIAG_GAUGE_MAX = frozenset({
+    "mrtpu_device_memory_bytes",
+    # queue depths are board-authoritative on whichever process hosts
+    # the scheduler; a second process's stale view must not sum in
+    "mrtpu_sched_queue_depth", "mrtpu_sched_queued_work",
+    # last-run gauges, not cluster-additive quantities
+    "mrtpu_exchange_imbalance",
+    "mrtpu_comms_modeled_exchange_seconds",
+    "mrtpu_comms_exchange_frac_of_compute",
+    "mrtpu_slo_percentile_seconds", "mrtpu_slo_burn_rate",
+    "mrtpu_slo_threshold_seconds",
+    "mrtpu_sched_oldest_queued_age_seconds",
+    "mrtpu_session_stream_age_seconds",
+})
+
+#: and gauges where the WORST view is the smallest value: an overlap
+#: fraction merged by max would let one healthy feeder hide another
+#: process's feeder-bound run
+_DIAG_GAUGE_MIN = frozenset({
+    "mrtpu_upload_overlap_frac",
+})
+
+
+def _proc_obs(parsed: Dict[Any, float]) -> Dict[str, Any]:
+    """Per-process build/memory roll-up from one pushed metrics snapshot
+    (the /statusz per-proc rows)."""
+    compile_s = 0.0
+    compiles = 0.0
+    hbm = 0.0
+    for (name, labelkey), value in parsed.items():
+        if name == "mrtpu_compile_seconds_sum":
+            compile_s += value
+        elif name == "mrtpu_compile_total":
+            labels = dict(labelkey)
+            if labels.get("outcome") in ("compiled", "persistent_hit"):
+                compiles += value
+        elif name == "mrtpu_device_memory_bytes":
+            if dict(labelkey).get("stat") == "bytes_in_use":
+                hbm += value
+    out: Dict[str, Any] = {}
+    if compile_s or compiles:
+        out["compile_s"] = round(compile_s, 3)
+        out["compiles"] = int(compiles)
+    if hbm:
+        out["hbm_bytes_in_use"] = int(hbm)
+    return out
 
 
 class Collector:
@@ -200,6 +281,7 @@ class Collector:
                     "spans": collections.deque(),
                     "applied_seq": 0,  # idempotency high-water mark
                     "metrics": {},
+                    "sections": {},
                     "pushes": 0,
                     "missed": 0,
                     "last_push": now,
@@ -249,6 +331,9 @@ class Collector:
             while len(buf) > self.max_spans_per_proc:
                 buf.popleft()
                 evicted += 1
+            sections = payload.get("sections")
+            if isinstance(sections, dict):
+                st["sections"] = sections
             mtext = payload.get("metrics")
             if mtext:
                 try:
@@ -287,6 +372,7 @@ class Collector:
                     "spans": list(st["spans"]) if spans else [],
                     "n_spans": len(st["spans"]),
                     "metrics": dict(st["metrics"]),
+                    "sections": st["sections"],
                     "pushes": st["pushes"], "missed": st["missed"],
                     "last_push_age_s": round(now - st["last_push"], 3),
                 } for proc, st in self._procs.items()}
@@ -303,6 +389,15 @@ class Collector:
         snap = self._snapshot(spans=False)
         return [st["metrics"] for proc, st in snap.items()
                 if not (exclude_self and proc == PROC_ID)]
+
+    def pushed_sections(self) -> List[Tuple[str, Dict[str, Any]]]:
+        """``(proc, sections)`` of every other process that pushed its
+        engine-side /statusz sections (:func:`..obs.statusz.
+        process_sections`), the freshest push first."""
+        snap = self._snapshot(spans=False)
+        return [(proc, st["sections"]) for proc, st in sorted(
+            snap.items(), key=lambda kv: kv[1]["last_push_age_s"])
+            if proc != PROC_ID and st["sections"]]
 
     @staticmethod
     def _rollups(snapshots: List[Dict[Any, float]]) -> Dict[str, Dict[str,
@@ -332,20 +427,30 @@ class Collector:
     @staticmethod
     def _diag_metrics(snapshots: List[Dict[Any, float]],
                       ) -> List[List[Any]]:
-        """Cluster-wide sums of the diagnosis families, JSON-shaped as
-        ``[name, {labels}, value]`` rows."""
+        """Cluster-wide roll-ups of the diagnosis families (sums; MAX or
+        MIN for the gauges named above), JSON-shaped as ``[name,
+        {labels}, value]`` rows."""
         agg: Dict[Tuple[str, Any], float] = {}
         for parsed in snapshots:
             for (name, labelkey), value in parsed.items():
-                if name in DIAG_FAMILIES:
-                    key = (name, labelkey)
-                    agg[key] = agg.get(key, 0.0) + value
+                if name not in DIAG_FAMILIES:
+                    continue
+                key = (name, labelkey)
+                if key not in agg:
+                    agg[key] = value
+                elif name in _DIAG_GAUGE_MAX:
+                    agg[key] = max(agg[key], value)
+                elif name in _DIAG_GAUGE_MIN:
+                    agg[key] = min(agg[key], value)
+                else:
+                    agg[key] = agg[key] + value
         return [[name, dict(labelkey), value]
                 for (name, labelkey), value in sorted(agg.items())]
 
     def summary(self, registry: Registry = REGISTRY) -> Dict[str, Any]:
-        """Per-process push health and the per-task roll-ups (collector
-        state + this process's own registry)."""
+        """The /statusz telemetry section: per-process push health and
+        the per-task roll-ups (collector state + this process's own
+        registry)."""
         snap = self._snapshot(spans=False)
         # a process that pushed to its own collector contributes through
         # the live registry below, not its (staler) pushed snapshot
@@ -353,9 +458,12 @@ class Collector:
                   if proc != PROC_ID]
         parsed.append(self._parsed_local(registry))
         return {
-            "procs": {proc: {k: v for k, v in st.items()
-                             if k not in ("spans", "metrics")}
-                      for proc, st in snap.items()},
+            "procs": {
+                proc: dict(
+                    {k: v for k, v in st.items()
+                     if k not in ("spans", "metrics", "sections")},
+                    **_proc_obs(st["metrics"]))
+                for proc, st in snap.items()},
             "tasks": self._rollups(parsed),
         }
 
@@ -422,6 +530,15 @@ class Collector:
                 "metrics": self._diag_metrics(parsed),
             },
         }
+
+
+def _process_sections(registry: Registry) -> Dict[str, Any]:
+    """This process's engine-side /statusz sections, pushed beside its
+    metrics so a docserver that runs no engine can show them (a JAX
+    collector ignores the field)."""
+    from .statusz import process_sections  # late: statusz pulls coord
+
+    return process_sections(registry)
 
 
 class TelemetryPusher:
@@ -508,6 +625,7 @@ class TelemetryPusher:
                 "spans": [e for _, e in self._backlog],
                 "span_seqs": [s for s, _ in self._backlog],
                 "metrics": self._registry.render(),
+                "sections": _process_sections(self._registry),
                 # stamped LAST: the closer to the actual send, the
                 # tighter the collector's offset estimate
                 "t_mono": time.monotonic(),

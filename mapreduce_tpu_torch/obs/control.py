@@ -37,11 +37,12 @@ Monotonic-only module: decision ages are durations; the one persisted
 wall timestamp is minted through ``coord/docstore.now`` like every
 other board stamp.
 
-Left out of this port (ROADMAP A.8): the durable history plane's
+Left out of this port (ROADMAP A.8c-2): the durable history plane's
 binding (``bind_history`` / ``unbind_history`` and
 ``HISTORY_EVIDENCE_FAMILIES``: the port has no metric history, so a
-resolution carries only its caller's evidence), and the ledger's
-``/statusz`` section, ``status`` render and profile-bundle artifact.
+resolution carries only its caller's evidence).  The ledger's
+``/statusz`` section (:func:`control_snapshot`), its ``status`` render
+and its profile-bundle artifact are served.
 """
 
 from __future__ import annotations

@@ -204,6 +204,14 @@ class Histogram(Metric):
             s = self._series.get(_label_key(labels))
             return float(s["count"]) if s else 0.0
 
+    def bucket_series(self) -> List[Tuple[Dict[str, str], List[int]]]:
+        """Every series' per-bucket (NON-cumulative) counts with its
+        label dict — the SLO plane's read path for percentile
+        estimation (obs/slo)."""
+        with self._lock:
+            return [(dict(k), list(s["counts"]))
+                    for k, s in self._series.items()]
+
     def merged_counts(self, **labels: Any) -> List[int]:
         """Per-bucket counts summed over every series whose labels are
         a superset of *labels* (the Registry.sum convention)."""

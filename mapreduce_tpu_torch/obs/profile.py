@@ -23,14 +23,17 @@ they are denominators for a ratio, not measurements, and the
 
 **Profile bundles** (:func:`write_bundle` / :func:`load_bundle`): one
 directory holding a Chrome trace, a ``/metrics`` snapshot, a
-``statusz.json`` with the device and memory sections, the control
-ledger when a controller decided something, the compile ledger
-(``compile_ledger.json``: :mod:`.compile`'s snapshot and buckets), and
-a manifest that names an optional ``torch.profiler`` trace directory.  The loader re-validates
-with the strict parsers (``parse_prometheus``, :func:`validate_trace`),
-so a bundle that loads is one Perfetto and Prometheus accept, and a
-bundle of either package loads in the other.  Left out (ROADMAP A.8c):
-the cluster ``/statusz``, comms, SLO, alerts and history artifacts.
+``statusz.json`` (a live docserver's ``/statusz``, or this process's
+device, compile, memory and comms sections), the compile ledger
+(``compile_ledger.json``: :mod:`.compile`'s snapshot and buckets), the
+comms, SLO and control artifacts when their planes recorded anything,
+a ``/clusterz`` merged timeline with its diagnosis when the caller
+passes one, and a manifest that names an optional ``torch.profiler``
+trace directory.  The loader re-validates with the strict parsers
+(``parse_prometheus``, :func:`validate_trace` and each artifact's
+validator), so a bundle that loads is one Perfetto and Prometheus
+accept, and a bundle of either package loads in the other.  Left out
+(ROADMAP A.8c-2): the alerts and history artifacts.
 
 The manifest's ``created_time`` is a persisted timestamp minted through
 ``coord/docstore.now``; every duration here is somebody else's
@@ -363,29 +366,55 @@ def write_bundle(out_dir: str,
                  trace_doc: Optional[Dict[str, Any]] = None,
                  torch_trace_dir: Optional[str] = None,
                  registry: Registry = REGISTRY,
-                 tracer: Tracer = TRACER) -> str:
-    """Capture a self-contained profile bundle of THIS process into
-    *out_dir*: the registry's exposition, the tracer's Chrome trace and
-    a statusz document with the device section (and the memory section
-    once anything was sampled), unless the caller passes its own.
-    *torch_trace_dir* (a ``torch.profiler`` trace directory) is recorded
-    in the manifest when it exists.  Returns *out_dir*."""
+                 tracer: Tracer = TRACER,
+                 store: Any = None,
+                 cluster_doc: Optional[Dict[str, Any]] = None) -> str:
+    """Capture a self-contained profile bundle into *out_dir*.
+
+    Defaults snapshot THIS process: the registry's exposition, the
+    tracer's Chrome trace and — with a *store* — the full /statusz
+    cluster snapshot (without one, a statusz document with the device
+    section and the compile, memory and comms sections once anything
+    was recorded).  The ``profile`` CLI instead passes the text and docs
+    it fetched from a live docserver.  *cluster_doc* (a ``/clusterz``
+    merged cluster timeline) additionally lands as
+    ``cluster_trace.json`` with its structured diagnosis
+    (:mod:`.analysis`) as ``diagnosis.json``.  *torch_trace_dir* (a
+    ``torch.profiler`` trace directory) is recorded in the manifest when
+    it exists.  Returns *out_dir*."""
     from ..coord import docstore  # lazy: the wall-clock mint point
     from .control import control_snapshot, validate_control
-    from .memory import memory_snapshot
 
     os.makedirs(out_dir, exist_ok=True)
     if metrics_text is None:
         metrics_text = registry.render()
     parse_prometheus(metrics_text)  # refuse to write a corrupt bundle
     if statusz_doc is None:
-        statusz_doc = {"tasks": {}, "device": device_snapshot(registry)}
-        mem = memory_snapshot()
-        if mem:
-            statusz_doc["memory"] = mem
+        if store is not None:
+            from .statusz import cluster_status
+
+            statusz_doc = cluster_status(store)
+        else:
+            from .statusz import (
+                comms_snapshot_section, compile_snapshot,
+                memory_snapshot_section)
+
+            statusz_doc = {"tasks": {},
+                           "device": device_snapshot(registry)}
+            comp = compile_snapshot()
+            if comp:
+                statusz_doc["compile"] = comp
+            mem = memory_snapshot_section()
+            if mem:
+                statusz_doc["memory"] = mem
+            comms_sec = comms_snapshot_section()
+            if comms_sec:
+                statusz_doc["comms"] = comms_sec
     if trace_doc is None:
         trace_doc = tracer.chrome_trace()
     validate_trace(trace_doc)
+    if cluster_doc is not None:
+        validate_trace(cluster_doc)
 
     with open(os.path.join(out_dir, "metrics.prom"), "w",
               encoding="utf-8") as f:
@@ -403,6 +432,28 @@ def write_bundle(out_dir: str,
     validate_compile_ledger(ledger_doc)
     _dump(out_dir, "compile_ledger.json", ledger_doc, indent=1)
     files.append("compile_ledger.json")
+    # the comms plane: only when an instrumented run happened here (an
+    # empty file would read as "the exchange sent nothing")
+    from .comms import comms_snapshot, validate_comms
+
+    comms_snap = comms_snapshot()
+    if comms_snap:
+        comms_doc = {"kind": "mrtpu-comms", "version": 1,
+                     "snapshot": comms_snap}
+        validate_comms(comms_doc)
+        _dump(out_dir, "comms.json", comms_doc, indent=1)
+        files.append("comms.json")
+    # the serving-SLO plane: only when some tenant produced SLO
+    # observations (an empty file would read as "every objective green")
+    from .slo import slo_snapshot, validate_slo
+
+    slo_snap = slo_snapshot()
+    if slo_snap:
+        slo_doc = {"kind": "mrtpu-slo", "version": 1,
+                   "snapshot": slo_snap}
+        validate_slo(slo_doc)
+        _dump(out_dir, "slo.json", slo_doc, indent=1)
+        files.append("slo.json")
     # the control plane: written only when a controller decided
     # something (an empty file would claim the loop ran and did nothing)
     ctrl_snap = control_snapshot()
@@ -412,6 +463,12 @@ def write_bundle(out_dir: str,
         validate_control(ctrl_doc)
         _dump(out_dir, "control_ledger.json", ctrl_doc, indent=1)
         files.append("control_ledger.json")
+    if cluster_doc is not None:
+        from .analysis import diagnose
+
+        _dump(out_dir, "cluster_trace.json", cluster_doc)
+        _dump(out_dir, "diagnosis.json", diagnose(cluster_doc), indent=1)
+        files += ["cluster_trace.json", "diagnosis.json"]
     manifest: Dict[str, Any] = {
         "kind": "mrtpu-profile-bundle",
         "version": 1,
@@ -433,11 +490,12 @@ def write_bundle(out_dir: str,
 
 def load_bundle(path: str) -> Dict[str, Any]:
     """Load and re-validate a bundle of either package: the metrics
-    snapshot must survive the strict Prometheus parser and the trace the
-    structural check.  Returns ``{"manifest", "metrics_text",
-    "metrics", "statusz", "trace"}`` plus ``"compile_ledger"`` and
-    ``"control_ledger"`` when the bundle has them; the JAX package's
-    other artifacts are left on disk."""
+    snapshot must survive the strict Prometheus parser, the traces the
+    structural check and each artifact its validator.  Returns
+    ``{"manifest", "metrics_text", "metrics", "statusz", "trace"}`` plus
+    ``"compile_ledger"``, ``"comms"``, ``"slo"``, ``"control_ledger"``,
+    ``"cluster_trace"`` and ``"diagnosis"`` when the bundle has them;
+    the JAX package's alerts and history are left on disk."""
     with open(os.path.join(path, "manifest.json"), encoding="utf-8") as f:
         manifest = json.load(f)
     if manifest.get("kind") != "mrtpu-profile-bundle":
@@ -472,4 +530,24 @@ def load_bundle(path: str) -> Dict[str, Any]:
             ctrl_doc = json.load(f)
         validate_control(ctrl_doc)
         out["control_ledger"] = ctrl_doc
+    from .comms import validate_comms
+    from .slo import validate_slo
+
+    for key, check in (("comms", validate_comms), ("slo", validate_slo)):
+        art_path = os.path.join(path, f"{key}.json")
+        if os.path.exists(art_path):
+            with open(art_path, encoding="utf-8") as f:
+                art_doc = json.load(f)
+            check(art_doc)
+            out[key] = art_doc
+    cluster_path = os.path.join(path, "cluster_trace.json")
+    if os.path.exists(cluster_path):
+        with open(cluster_path, encoding="utf-8") as f:
+            cluster_doc = json.load(f)
+        validate_trace(cluster_doc)
+        out["cluster_trace"] = cluster_doc
+    diag_path = os.path.join(path, "diagnosis.json")
+    if os.path.exists(diag_path):
+        with open(diag_path, encoding="utf-8") as f:
+            out["diagnosis"] = json.load(f)
     return out

@@ -65,6 +65,7 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import torch
 
 from ..obs.compile import LEDGER
+from ..obs.metrics import counter
 from ..obs.trace import TRACER
 from ..utils import compile_cache as _compile_cache
 
@@ -107,6 +108,17 @@ MASK32 = 0xFFFFFFFF
 
 #: guards every change to :data:`LAUNCHES` and :data:`PLAIN_CALLS`
 _COUNT_LOCK = threading.Lock()
+#: the same counts in the registry, so another process reads them
+#: through ``/metrics``, a telemetry push or a flight dump (never reset:
+#: :func:`reset_counts` zeroes only the dicts)
+_LAUNCH_TOTAL = counter(
+    "mrtpu_kernel_launches_total",
+    "kernel launches by the port's wrappers (labels: kernel); the "
+    "process's kernel_compat.LAUNCHES since it started")
+_PLAIN_TOTAL = counter(
+    "mrtpu_kernel_plain_calls_total",
+    "calls of a kernel's plain PyTorch version (labels: kernel); the "
+    "process's kernel_compat.PLAIN_CALLS since it started")
 #: per stream being captured into a :class:`CapturedGraph`: the
 #: kernels recorded into it (a capture's calls may run on other threads,
 #: as autograd's backward does, but they enqueue on the capture stream)
@@ -140,12 +152,14 @@ def count_launch(kernel: str, n: int = 1) -> None:
         return
     with _COUNT_LOCK:
         LAUNCHES[kernel] += n
+    _LAUNCH_TOTAL.inc(n, kernel=kernel)
 
 
 def count_plain(kernel: str, n: int = 1) -> None:
     """Add *n* calls of *kernel*'s plain version."""
     with _COUNT_LOCK:
         PLAIN_CALLS[kernel] += n
+    _PLAIN_TOTAL.inc(n, kernel=kernel)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -206,6 +220,9 @@ class CapturedGraph:
         with _COUNT_LOCK:
             for k, n in self.launches.items():
                 LAUNCHES[k] += n
+        for k, n in self.launches.items():
+            if n:
+                _LAUNCH_TOTAL.inc(n, kernel=k)
 
 
 def capture_steps(step, n: int, state: Sequence[torch.Tensor]

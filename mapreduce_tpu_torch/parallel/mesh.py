@@ -1,4 +1,5 @@
-"""The partition axis (port of ``parallel/mesh.py``'s ``data`` axis).
+"""The partition axis (port of ``parallel/mesh.py``'s ``data`` axis) and
+the link classes the exchange's traffic crosses.
 
 The JAX engine runs one program per device over a mesh's ``data`` axis:
 device ``p`` maps its share of the chunks and owns reduce partition
@@ -10,6 +11,9 @@ the CPU tests' mesh size, where the 8 x 8 traffic matrix is real.
 """
 
 from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -25,3 +29,98 @@ class Partitions:
             raise ValueError(f"need at least one partition, got {n}")
         self.n = int(n)
         self.device: torch.device = resolve_device(device)
+
+
+# -- topology model: link classes + per-class peak bandwidth ------------------
+#
+# The comms observability layer (obs/comms) rolls the exchange traffic
+# matrix up by the KIND of wire each (src, dst) partition pair talks
+# over (the JAX package's self / ici / dcn / host, for this card):
+#
+#   * ``self``   — both partitions on one CUDA device: the exchange is a
+#     transpose in HBM, so every pair, diagonal or not, is an HBM copy;
+#     on the CPU only the diagonal (src is dst);
+#   * ``nvlink`` — partitions on two CUDA devices that can reach each
+#     other's memory (``torch.cuda.can_device_access_peer``);
+#   * ``pcie``   — two CUDA devices without peer access: the bytes go
+#     over PCIe through the host;
+#   * ``host``   — CPU partitions (the tests' plain runs): bytes move
+#     through host memory, the JAX CPU mesh's class off the diagonal.
+#
+# No configuration puts partitions on two cards yet, so the nvlink and
+# pcie classes are untested.  Like obs/profile's FLOPs peaks, the
+# bandwidths are datasheet denominators for a roofline ratio, not
+# measurements: the table says so via ``peak_source`` and every figure
+# derived from it is labelled ``source="analytic"``.
+
+#: link classes, in locality order
+LINK_CLASSES: Tuple[str, ...] = ("self", "nvlink", "pcie", "host")
+
+#: default per-link-class peak bandwidth (bytes/s per partition pair),
+#: H100 SXM datasheet figures
+_DEFAULT_LINK_PEAKS: Dict[str, float] = {
+    "self": 3.35e12,  # HBM3 bandwidth (H100 SXM datasheet)
+    "nvlink": 450e9,  # NVLink 4: 900 GB/s both ways -> 450 GB/s a way
+    "pcie": 64e9,     # PCIe Gen5 x16, one direction
+    "host": 10e9,     # host-memory staging (the JAX table's figure)
+}
+
+#: env override names, checked by :func:`link_peaks` (the JAX names)
+_LINK_PEAK_ENV = {
+    cls: f"MAPREDUCE_TPU_PEAK_{cls.upper()}_BYTES_PER_S"
+    for cls in LINK_CLASSES}
+
+
+class PartitionDevice(NamedTuple):
+    """One partition and the torch device that holds it."""
+
+    partition: int
+    device: Any
+
+
+def partition_devices(n: int, device: Any) -> List[PartitionDevice]:
+    """*n* partitions on one *device*, in partition order."""
+    dev = torch.device(device)
+    return [PartitionDevice(p, dev) for p in range(int(n))]
+
+
+def link_peaks() -> Dict[str, Any]:
+    """The per-link-class peak-bandwidth table (bytes/s), each class
+    individually overridable via ``MAPREDUCE_TPU_PEAK_<CLASS>_BYTES_PER_S``;
+    ``peak_source`` records which figures came from the environment so
+    the numbers stay honest about their provenance."""
+    out: Dict[str, Any] = {}
+    overridden: List[str] = []
+    for cls in LINK_CLASSES:
+        env = os.environ.get(_LINK_PEAK_ENV[cls])
+        if env:
+            out[cls] = float(env)
+            overridden.append(cls)
+        else:
+            out[cls] = _DEFAULT_LINK_PEAKS[cls]
+    out["peak_source"] = ("env:" + ",".join(overridden) if overridden
+                          else "datasheet")
+    return out
+
+
+def link_class(src: PartitionDevice, dst: PartitionDevice) -> str:
+    """Classify the wire between two partitions (``(partition, torch
+    device)`` pairs) as ``self`` / ``nvlink`` / ``pcie`` / ``host``."""
+    s_dev, d_dev = torch.device(src.device), torch.device(dst.device)
+    if s_dev.type == "cuda" and d_dev.type == "cuda":
+        s_idx = 0 if s_dev.index is None else s_dev.index
+        d_idx = 0 if d_dev.index is None else d_dev.index
+        if s_idx == d_idx:
+            return "self"  # one card: the exchange is a transpose in HBM
+        return ("nvlink" if torch.cuda.can_device_access_peer(s_idx, d_idx)
+                else "pcie")
+    if src.partition == dst.partition and s_dev == d_dev:
+        return "self"
+    return "host"  # no accelerator interconnect: host-memory copies
+
+
+def device_link_matrix(devices: Sequence[PartitionDevice],
+                       ) -> List[List[str]]:
+    """``[n, n]`` link-class names for every (src, dst) partition pair,
+    in the partition order the exchange traffic matrix uses."""
+    return [[link_class(s, d) for d in devices] for s in devices]

@@ -305,10 +305,11 @@ def test_durable_board_survives_restart(tmp_path):
 
 
 def test_unported_surfaces_name_their_item(srv):
-    """``/statusz``, ``/queryz`` and ``/alertz`` answer 404 and the body
-    names the ROADMAP item that brings each; ``/healthz`` is the JAX
-    body.  (``/tasks`` is served: tests/test_torch_sched.py.)"""
-    want = {"/statusz": "A.8", "/queryz": "A.8", "/alertz": "A.8"}
+    """``/queryz`` and ``/alertz`` answer 404 and the body names the
+    ROADMAP item that brings each; ``/healthz`` is the JAX body.
+    (``/tasks`` is served: tests/test_torch_sched.py; ``/statusz``:
+    tests/test_torch_operator_cli.py.)"""
+    want = {"/queryz": "A.8c-2", "/alertz": "A.8c-2"}
     cnn = http.client.HTTPConnection(srv.host, srv.port, timeout=10)
     for path, item in want.items():
         for method in ("GET", "POST"):

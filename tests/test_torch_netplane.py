@@ -470,13 +470,15 @@ def test_cli_drop_clears_collections_and_storage(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["runner", "mem://x", "--slo", "q:p99:1"], "A.8"),
-    (["docserver", "--history-dir", "/x"], "A.8"),
-    (["docserver", "--slo", "q:p99:1"], "A.8"),
+    (["docserver", "--alert", "r:x:>:1"], "A.8c-2"),
+    (["docserver", "--history-dir", "/x"], "A.8c-2"),
+    (["docserver", "--history-max-age", "60"], "A.8c-2"),
     # --compile-cache / --no-compile-cache on worker and train are
-    # ported (ROADMAP A.8b; tests/test_torch_compile.py takes them)
-    (["docserver", "--alert-webhook", "pager=h:1"], "A.8"),
-    (["docserver", "--history-keep", "3"], "A.8"),
+    # ported (ROADMAP A.8b; tests/test_torch_compile.py takes them), and
+    # --slo on runner and docserver (A.8c-1;
+    # tests/test_torch_operator_cli.py takes it)
+    (["docserver", "--alert-webhook", "pager=h:1"], "A.8c-2"),
+    (["docserver", "--history-keep", "3"], "A.8c-2"),
 ])
 def test_cli_refuses_unported_flags(argv, item):
     """A JAX flag the port lacks is refused by name (exit 2), naming the

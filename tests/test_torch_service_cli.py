@@ -201,12 +201,13 @@ def test_ha_docserver_pair_and_runner_processes(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["runner", "mem://x", "--slo", "q:p99:1"], "A.8"),
+    (["docserver", "--alert-rules", "rules.json"], "A.8c-2"),
     # runner --compile-cache is ported (ROADMAP A.8b;
-    # tests/test_torch_compile.py takes it)
-    (["docserver", "--alert-interval", "5"], "A.8"),
-    (["docserver", "--history-dir", "/x"], "A.8"),
-    (["docserver", "--alert", "r:e:gt:1"], "A.8"),
+    # tests/test_torch_compile.py takes it), and --slo on runner and
+    # docserver (A.8c-1; tests/test_torch_operator_cli.py takes it)
+    (["docserver", "--alert-interval", "5"], "A.8c-2"),
+    (["docserver", "--history-dir", "/x"], "A.8c-2"),
+    (["docserver", "--alert", "r:e:gt:1"], "A.8c-2"),
 ])
 def test_service_flags_still_refused_by_name(argv, item):
     err = io.StringIO()
@@ -217,7 +218,7 @@ def test_service_flags_still_refused_by_name(argv, item):
 
 
 @pytest.mark.parametrize("cmd,item", [("drain", "A.11"),
-                                      ("status", "A.8")])
+                                      ("alerts", "A.8c-2")])
 def test_unported_commands_refused_by_name(cmd, item):
     rc, _, err = _main([cmd, "http://h:1"])
     assert rc == 2 and "not ported" in err and item in err
@@ -243,14 +244,15 @@ def test_submit_program_lands_in_the_task_params():
 
 
 def test_runner_help_names_what_it_leaves_out():
-    """The runner's help names what waits (A.11's fleet, A.8's SLO
-    objectives) and no longer A.7, whose advisor it now runs."""
+    """The runner's help names what waits (A.11's fleet) and no longer
+    A.7, whose advisor it now runs, or A.8, whose SLO objectives it
+    takes with --slo."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out), pytest.raises(SystemExit):
         tcli.main(["runner", "--help"])
     text = " ".join(out.getvalue().split())
-    assert "A.11" in text and "A.8" in text and "--partitions" in text
-    assert "A.7" not in text and "advisor" in text
+    assert "A.11" in text and "--slo" in text and "--partitions" in text
+    assert "A.7" not in text and "A.8" not in text and "advisor" in text
 
 
 def test_docserver_rejects_root_with_ha_dir(tmp_path):
