@@ -28,7 +28,8 @@ which raises on failure:
    bit-equal to the first;
 3. the segmented-reduce kernel against its plain version at the main
    path's shapes (the per-chunk combiner, the local reduce, the fold,
-   and the 3-lane collision-verify monoid), with the same timings, tile
+   and the 3-lane collision-verify monoid as its per-lane codes), with
+   the same timings, tile
    A/B (``-DMR_SEGREDUCE_TILE``) and replay check for each shape, the
    time of the wrapper's packing of the value lanes alone, and
    ``torch.unique_consecutive`` as the library yardstick of the unit
@@ -44,7 +45,7 @@ which raises on failure:
    by the staged bytes once the handle is consumed; the ``staged``
    line), then the streaming ``count_bytes`` (input bytes held at once
    at most ``STREAM_PREFETCH`` waves); then a small collision-verify
-   count;
+   count (its callable monoid on the monoid kernel);
 5. one more slice run under ``torch.profiler``: device time and events
    by group (the kernels, the library sort, host-to-device copies,
    memsets, the rest), counted over device-side events only, and the
@@ -293,19 +294,24 @@ which raises on failure:
    capacities (so it retries), at P = 1 and at P = 8 radix:
    ``[count, first, last]`` for every word against a host oracle built
    from the bytes alone (``span_oracle``), the path's kernels launched
-   (the 3-lane segreduce; at P = 8 the radix kernels) and no plain
-   call, each kernel held bit for bit against its plain version on the
-   inputs of its largest call, the loop wall, ``compute_s`` and
-   ``device_result``; (b) the compile plane in four processes: ``cli
-   warmup --compile-cache D --sort-impl tiered-radix`` into an empty
-   D (every library ``compiled``; the nvcc seconds), the same again
-   (every library a ``persistent_hit``, no compiler), (a)'s runs
-   recording their buckets in D's shape registry, then
-   ``chip_smoke.py --wordspan-child D FILES`` (a fresh ``AutoTuner``
-   pre-sizes the P = 1 run from the registry: no retry, a decision
-   whose source is ``shape_registry``, the same spans) and ``warmup
-   --replay`` (a row with seconds for every recorded device-engine
-   bucket, none failed); ``cold_compile_s`` and ``warm_start_s`` are
+   (the callable span monoid's segreduce kernel; at P = 8 the radix
+   kernels) and no plain call, each kernel held bit for bit against its
+   plain version on the inputs of its largest call, the loop wall,
+   ``compute_s`` and ``device_result``; then, outside D's registry,
+   each run again with the monoid as its per-lane codes (``("sum",
+   "min", "max")``, the codes kernel): the same spans; (b) the compile
+   plane in four processes: ``cli warmup --compile-cache D --sort-impl
+   tiered-radix`` into an empty D (every library ``compiled``; the nvcc
+   seconds), the same again (every library a ``persistent_hit``, no
+   compiler), (a)'s callable runs recording their buckets in D's shape
+   registry (with the runs' capacities, ``sizing``, and no replay spec,
+   as the JAX engine's), then ``chip_smoke.py --wordspan-child D
+   FILES`` (a fresh ``AutoTuner`` pre-sizes the P = 1 run from the
+   callable's own buckets: no retry, a decision whose source is
+   ``shape_registry``, the same spans, the span monoid's library a
+   ``persistent_hit``) and ``warmup --replay`` (a row with seconds for
+   every recorded device-engine bucket, none failed, wordspan's
+   skipped); ``cold_compile_s`` and ``warm_start_s`` are
    the two warmups' seconds; (c) ``examples/wordcount_native`` through
    ``Server`` with 4 worker threads on a ``dir://`` board over a 2M-word
    corpus in 8 ``shared:`` blobs, against ``Counter``, the ``g++``
@@ -330,9 +336,34 @@ which raises on failure:
    counters and the runner's launches of the five kernels (and no
    plain call); the ``/statusz`` scrape seconds, the commands' walls
    and the tasks' ``compute_s`` beside phase 14 (c)'s;
-19. one JSON line of per-kernel numbers (the word-count kernels' with
-   their phase 13, 14, 15, 16, 17 and 18 launches beside), the smoke's
-   wall, then the card and the result line.
+19. callable monoids on the card (the ``monoid`` lines): every monoid
+   library of the phase built at once (``build_all``: one ``nvcc`` a
+   monoid) with its registers and spills; (a) the monoid kernel (a
+   callable ``reduce_op`` lowered into the combine of
+   ``csrc/segreduce.cuh``) against its plain ladder, bit for bit (the
+   reduced lanes at run ends, ``end_csum`` everywhere), with kernel,
+   plain and bound times: the span monoid at phase 3's verify shape
+   (852,072 rows) and on phase 17's P = 1 wordspan local reduce
+   (12,490,752 rows), each beside the codes kernel on the same rows
+   (equal bits, both timed in turns), then ``testing/monoids.py``'s
+   ``(sum, min, bitwise_or)``, 1-lane ``bitwise_xor``, the 5-lane
+   argmin-count, the 8-lane ``bits`` (shifts, constants, unary ``-``,
+   ``~`` and ``!``, every comparison, bool ops, ``where`` with a
+   constant branch) and the 2-lane affine composition (which does not
+   commute) at 852,072 rows, the last replayed 50 times from one CUDA
+   graph; (b) ``DeviceWordCount(verify_collisions=True)`` at the flagship
+   config over the 16M words at P = 1 variadic and P = 8 radix, with the
+   callable and with its codes, each against ``Counter``, and phase 17's
+   wordspan comparison; (c) an ``EngineSession`` at P = 1 with the
+   ``(sum, min, bitwise_or)`` monoid over 4M records in 4 feeds, its
+   snapshot against a numpy oracle, then evicted to ``mem:`` storage
+   and restored bit for bit; (d) ``a // b`` refused by name before any
+   launch;
+20. one JSON line of per-kernel numbers (the word-count kernels' with
+   their phase 13, 14, 15, 16, 17 and 18 launches beside, and
+   ``segreduce_monoid`` with its phase 17 and 19 launches), the smoke's
+   wall beside the 434.5 s the smoke took before phase 19 existed,
+   then the card and the result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
 flash kernels sum in another order than their plain versions: out, dq,
@@ -492,9 +523,12 @@ def max_abs_err(torch, got, want):
 def tile_variants(kc, source, define, tiles):
     """``{label: defines}`` of a tile A/B over *tiles*: the tile that
     *source* sets with ``#define`` *define* is its own build, ``()``;
-    each other tile a variant build."""
-    own = re.search(rf"#define {define} (\d+)",
-                    (kc.CSRC / f"{source}.cu").read_text())
+    each other tile a variant build.  The define may sit in the
+    source's header of the same name (``segreduce.cuh``)."""
+    text = "".join(p.read_text() for p in (kc.CSRC / f"{source}.cu",
+                                          kc.CSRC / f"{source}.cuh")
+                   if p.exists())
+    own = re.search(rf"#define {define} (\d+)", text)
     check(own is not None, f"{source}.cu defines no {define}")
     return {f"tile={t}": (() if t == int(own.group(1)) else ((define, t),))
             for t in tiles}
@@ -712,13 +746,15 @@ def segreduce_phase(torch, kc, seg, wcmod, chunks_dev, cfg):
     cases.append(segreduce_case(torch, kc, seg, libs, "fold/sum", k1s, k2s,
                                 vs, "sum", False))
 
-    vcfg = replace(cfg, unit_values=False, reduce_op=wcmod.VERIFY_REDUCE_OP)
+    # the collision-verify monoid as its per-lane codes (phase 19 runs
+    # it as the callable, on its monoid kernel)
+    vcfg = replace(cfg, unit_values=False, reduce_op=VERIFY_CODES)
     keys, vals, pay, valid, _ = wcmod._wordcount_map_fn_verify(
         chunks_dev[0], 0, vcfg)
     k1s, k2s, vs = sorted_lanes(keys, valid,
                                 [vals[:, i] for i in range(3)])
     cases.append(segreduce_case(torch, kc, seg, libs, "verify/(sum,min,max)",
-                                k1s, k2s, vs, wcmod.VERIFY_REDUCE_OP, False))
+                                k1s, k2s, vs, VERIFY_CODES, False))
     for c in cases:
         print(json.dumps({"segreduce_case": c}))
     head = cases[0]
@@ -4857,12 +4893,15 @@ NATIVE_WORKERS = 4
 EXAMPLES_CHILD_TIMEOUT = 300
 #: the phase's device (a CPU rehearsal of the phase sets "cpu")
 EXAMPLES_DEV = "cuda"
-#: (label, partitions, sort, kernels that must launch, kernels held)
+#: (label, partitions, sort, kernels that must launch, kernels held):
+#: the callable span monoid runs on its monoid kernel
 WORDSPAN_PATHS = (
-    ("P1", 1, "variadic", ("tokenize", "segreduce"), ["segreduce"]),
+    ("P1", 1, "variadic", ("tokenize", "segreduce_monoid"), ["segreduce"]),
     ("P8", RADIX_PARTS, "radix",
-     ("tokenize", "segreduce", "radix_plan", "radix_upfront",
+     ("tokenize", "segreduce_monoid", "radix_plan", "radix_upfront",
       "radix_onesweep"), ["segreduce", "radix_sort", "radix_plan"]))
+#: the per-lane codes of the span and collision-verify monoid
+VERIFY_CODES = ("sum", "min", "max")
 #: the libraries ``warmup --sort-impl tiered-radix`` builds
 WARMUP_LIBRARIES = ("nvcc:tokenize", "nvcc:segreduce", "nvcc:radix",
                     "g++:mr_native")
@@ -4893,24 +4932,6 @@ def span_oracle(data, want):
     return oracle
 
 
-def wordspan_segreduce_case(torch, seg, held):
-    """The 3-lane segreduce kernel (sum, min, max) timed on the inputs of
-    the P = 1 wordspan run's largest call (its local reduce), beside its
-    plain version and its bound; no single PyTorch call reduces three
-    lanes under three ops, so there is no library time."""
-    n, (k1s, k2s, vals, op, unit) = held
-    d = len(vals)
-    ms, spread = kernel_ms(torch, lambda: seg._segment_reduce_cuda(
-        k1s, k2s, vals, op, unit))
-    plain_ms = time_ms(torch, lambda: seg._segment_reduce_plain(
-        k1s, k2s, vals, op, unit), reps=5, rounds=3)
-    # as segreduce_case: keys 8 + 4*d in, 4*d + end_csum 4 out
-    b_ms, b_by = bound(n * (8 + 8 * d + 4), n * (10 + 2 * d))
-    return {"n": n, "lanes": d, "op": list(op), "ms": ms, "spread": spread,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
-
-
 def span_digest(result):
     """One hash of a wordspan ``RESULT`` (compared across processes)."""
     import hashlib
@@ -4920,15 +4941,24 @@ def span_digest(result):
 
 
 def wordspan_run(torch, kc, spec, tws, files, n_parts, sort_impl, label,
-                 need, autotune=None, capture=None):
+                 need, autotune=None, capture=None, codes=False):
     """One ``Server(device=True)`` run of ``examples/wordspan`` over
-    *files* at the example's own capacities; returns the run's line and
-    its ``RESULT``."""
+    *files* at the example's own capacities (with *codes*, its monoid as
+    the per-lane codes instead of the callable); returns the run's line
+    and its ``RESULT``."""
     import uuid
 
     from mapreduce_tpu_torch.parallel.mesh import Partitions
     from mapreduce_tpu_torch.server import Server
 
+    if codes:
+        span_op = tws.SPAN_REDUCE_OP
+        tws.SPAN_REDUCE_OP = VERIFY_CODES
+        try:
+            return wordspan_run(torch, kc, spec, tws, files, n_parts,
+                                sort_impl, label, need, autotune, capture)
+        finally:
+            tws.SPAN_REDUCE_OP = span_op
     reset_example(spec, tws, WORDSPAN_CONF)
     params = {r: WORDSPAN_MODULE for r in ("taskfn", "mapfn", "partitionfn",
                                            "reducefn", "finalfn")}
@@ -5117,7 +5147,9 @@ def native_phase(spec, smi):
 def examples_phase(torch, kc, seg, rs, data, want, smi):
     """Phase 17: ``examples/wordspan`` on the card at P = 1 and P = 8
     radix, the compile plane in processes, and ``examples/
-    wordcount_native`` (the ``examples`` lines)."""
+    wordcount_native`` (the ``examples`` lines).  Returns the wordspan
+    runs' launches, the inputs of the P = 1 run's largest segmented
+    reduce and the callable-against-codes comparison (for phase 19)."""
     import shutil
     import tempfile
 
@@ -5129,6 +5161,7 @@ def examples_phase(torch, kc, seg, rs, data, want, smi):
     from mapreduce_tpu_torch.utils import compile_cache
 
     t_phase = time.monotonic()
+    compare, ws_held = {}, None
     root = tempfile.mkdtemp(prefix="chip_smoke_examples_")
     cache = os.path.join(root, "cache")
     os.makedirs(cache)
@@ -5158,6 +5191,13 @@ def examples_phase(torch, kc, seg, rs, data, want, smi):
         check(all(v["compiler_s"] == 0 for v in warm["libraries"].values()),
               f"compile plane: the second warmup ran a compiler: "
               f"{warm['libraries']}")
+        # the span monoid's library, built in phase 1, for (b) 3's process
+        # (warmup builds only the word count's)
+        src = compile_cache.build_dir()
+        monoid_libs = [f for f in os.listdir(src)
+                       if f.startswith(kc.MONOID) and f.endswith(".so")]
+        for f in monoid_libs:
+            shutil.copy2(os.path.join(src, f), cache)
 
         # (a) wordspan at P = 1 and P = 8 radix at the example's own
         # capacities, in this process, the build directory enabled so
@@ -5177,9 +5217,8 @@ def examples_phase(torch, kc, seg, rs, data, want, smi):
                 line["held"] = hold_path_inputs(torch, seg, rs,
                                                 f"wordspan {label}",
                                                 cap.inputs, held_need)
-                if n == 1:
-                    line["segreduce_case"] = wordspan_segreduce_case(
-                        torch, seg, cap.inputs["segreduce"])
+                if n == 1:  # phase 19 times both kernels on these rows
+                    ws_held = cap.inputs["segreduce"]
                 del cap
                 line.update(card=smi, words=N_WORDS, files=JOB_FILES,
                             oracle_equal=True)
@@ -5187,7 +5226,9 @@ def examples_phase(torch, kc, seg, rs, data, want, smi):
                       flush=True)
                 out[label] = line
             # the same P = 1 run pre-sized from the registry by a fresh
-            # controller, warm like (a)'s: what the retries cost
+            # controller, warm like (a)'s: what the retries cost (the
+            # callable's buckets carry its capacities, and no replay
+            # spec, as the JAX engine's)
             label, n, impl, need, _ = WORDSPAN_PATHS[0]
             ledger = ControlLedger()
             presized, got = wordspan_run(
@@ -5200,6 +5241,21 @@ def examples_phase(torch, kc, seg, rs, data, want, smi):
                   "capacity decision for the pre-sized run")
         finally:
             compile_cache.restore_state(saved)
+        # each run again with the per-lane codes, outside the registry
+        # (which the callable's runs alone pre-size from): the same spans
+        for label, n, impl, need, _ in WORDSPAN_PATHS:
+            cneed = tuple("segreduce" if k == "segreduce_monoid" else k
+                          for k in need)
+            cline, cgot = wordspan_run(
+                torch, kc, spec, tws, files, n, impl, f"{label}_codes",
+                cneed, codes=True)
+            check(cgot == oracle, f"wordspan {label}: the codes' spans "
+                  "differ from the callable's")
+            compare[label] = {
+                "callable_equal_codes": True, "oracle_equal": True,
+                **{f"{k}_{w}": ln[k] for w, ln in (("callable", out[label]),
+                                                   ("codes", cline))
+                   for k in ("loop_wall_s", "compute_s", "retries")}}
 
         # (b) 3: a fresh process pre-sized from the registry
         child = examples_child([os.path.abspath(__file__),
@@ -5214,6 +5270,12 @@ def examples_phase(torch, kc, seg, rs, data, want, smi):
             if p.startswith(("nvcc:", "g++:"))}
         check(not any(built.values()), f"compile plane: the pre-sized "
               f"process compiled {built}")
+        hits = {p: v.get("persistent_hit", 0) for p, v in (
+            child["compile"].get("programs") or {}).items()
+            if p.startswith(f"nvcc:{kc.MONOID}")}
+        check(EXAMPLES_DEV != "cuda" or (hits and all(hits.values())),
+              f"compile plane: the pre-sized process did not load the span "
+              f"monoid's library from the build directory: {hits}")
         sources = [d["evidence"]["source"] for d in child["decisions"]]
         check(len(sources) == 1 and "shape_registry" in sources[0],
               f"compile plane: capacity decisions {child['decisions']}")
@@ -5229,6 +5291,15 @@ def examples_phase(torch, kc, seg, rs, data, want, smi):
         replayed = {r["bucket"] for r in rows if "seconds" in r}
         check(engine_buckets and engine_buckets <= replayed,
               f"compile plane: replay left {engine_buckets - replayed}")
+        # wordspan's buckets: the callable's capacities, no replay spec
+        sized = {b for b, r in recorded.items() if "sizing" in r}
+        check(sized and all(
+            recorded[b]["sizing"]["map_fn"].endswith("wordspan:device_map")
+            and "replay" not in recorded[b] for b in sized),
+            f"compile plane: wordspan's buckets {sorted(sized)}")
+        check(sized <= {r["bucket"] for r in rows if "seconds" not in r},
+              f"compile plane: replay did not skip wordspan's buckets: "
+              f"{[r for r in rows if r['bucket'] in sized]}")
         check(not any("replay failed" in r.get("skipped", "") for r in rows),
               f"compile plane: {[r for r in rows if 'skipped' in r]}")
         compile_line = {
@@ -5252,6 +5323,7 @@ def examples_phase(torch, kc, seg, rs, data, want, smi):
             "retrying_in_process": {k: out["P1"][k] for k in (
                 "retries", "loop_wall_s", "compute_s", "engine_s")},
             "registry_buckets": len(recorded),
+            "sizing_buckets": len(sized),
             "replayed": len(replayed),
             "replay_s": sum(r["seconds"] for r in rows if "seconds" in r),
             "oracle_s": oracle_s}
@@ -5265,7 +5337,7 @@ def examples_phase(torch, kc, seg, rs, data, want, smi):
     print(json.dumps({"examples": {"phase_s": time.monotonic() - t_phase}}),
           flush=True)
     return ({label: line["launches"] for label, line in out.items()},
-            out["P1"]["segreduce_case"])
+            ws_held, compare)
 
 
 # -- phase 18: the operator plane, status and diagnosis half ------------------
@@ -5590,6 +5662,351 @@ def operator_phase(data, want, smi, service_compute):
 
 
 
+# -- phase 19: callable monoids on the card --------------------------------------
+
+#: the op-level cases of phase 19 (a): testing/monoids.py's monoids at
+#: 852,072 rows (phase 3's verify shape), each against its plain ladder,
+#: as (name, value lanes): the lane-wise xor also at 5 lanes, after the
+#: 5-lane argmin-count (two libraries' kernels at one lane count)
+MONOID_CASES = (("sum_min_or", 3), ("xor", 1), ("argmin_count", 5),
+                ("xor", 5), ("bits", 8), ("affine", 2))
+MONOID_ROWS = 852_072
+#: phase 19 (a)'s keys: about 9 rows a run, as the verify shape's
+MONOID_KEYS = 95_000
+#: the verify path's runs in phase 19 (b): (label, partitions, sort)
+VERIFY_PATHS = (("P1", 1, "variadic"), ("P8", RADIX_PARTS, "radix"))
+#: phase 19 (c): the session's chunks (numpy seed 19), values a chunk,
+#: keys, feeds
+MONOID_SESSION = dict(chunks=64, rows=1 << 16, keys=1 << 18, feeds=4)
+#: the phase's device (a CPU rehearsal of (b)-(d) sets "cpu")
+MONOID_DEV = "cuda"
+
+
+def monoid_lanes(torch, seg, lanes, n, key_range, seed):
+    """Sorted key lanes (one in ten rows invalid) and *lanes* int32 value
+    lanes over the whole int32 range, made from numpy seed *seed*, on the
+    card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, key_range, size=(n, 2)).astype(np.uint32)
+    valid = torch.from_numpy(rng.random(n) >= 0.1)
+    k = torch.from_numpy(keys.view(np.int32).copy())
+    k1 = torch.where(valid, k[:, 0], seg.SENTINEL)
+    k2 = torch.where(valid, k[:, 1], seg.SENTINEL)
+    perm = seg._sort_perm(k1, k2, "variadic")
+    vals = torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31, size=(n, lanes), dtype=np.int64).astype(np.int32))
+    vals = vals[perm]
+    dev = torch.device(MONOID_DEV)
+    return (k1[perm].contiguous().to(dev), k2[perm].contiguous().to(dev),
+            [vals[:, i].contiguous().to(dev) for i in range(lanes)])
+
+
+def monoid_case(torch, seg, monoid, label, op, k1s, k2s, vals, codes=None):
+    """One monoid kernel case: bit-equal to the plain ladder (reduced
+    lanes at run ends, end_csum everywhere), kernel ms (20 calls in one
+    CUDA graph), plain ms and the bound.  With *codes*, the codes kernel
+    on the same rows: bit-equal to the monoid kernel, and both timed in
+    turns (codes, monoid, monoid, codes)."""
+    n, d = k1s.numel(), len(vals)
+
+    def call(o):
+        return lambda: seg._segment_reduce_cuda(k1s, k2s, vals, o, False)
+
+    got = call(op)()
+    want = seg._segment_reduce_plain(k1s, k2s, vals, op, False)
+    torch.cuda.synchronize()
+    _, _, is_end = seg._run_flags(k1s, k2s)
+    check(torch.equal(got[1], want[1]), f"monoid {label}: end_csum")
+    err = max_abs_err(torch, got[1], want[1])
+    for g, w in zip(got[0], want[0]):
+        check(torch.equal(g[is_end], w[is_end]),
+              f"monoid {label}: reduced lanes at run ends")
+        err = max(err, max_abs_err(torch, g[is_end], w[is_end]))
+    ir = monoid.lower(op)
+    # bytes: keys 8 + values 4*d in; reduced 4*d + end_csum 4 out.  ops:
+    # ~10 compare/flag ops a row and the combine's nodes a row
+    ops_per_row = 10 + len(ir.nodes) * (d if ir.lanes is None else 1)
+    b_ms, b_by = bound(n * (8 + 8 * d + 4), n * ops_per_row)
+    case = {"label": label, "n": n, "lanes": d, "runs": int(is_end.sum()),
+            "ir_nodes": len(ir.nodes), "max_abs_err": err,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if codes is None:
+        case["ms"], case["spread"] = kernel_ms(torch, call(op))
+    else:
+        other = call(codes)()
+        torch.cuda.synchronize()
+        check(torch.equal(other[1], got[1]) and all(
+            torch.equal(a[is_end], b[is_end])
+            for a, b in zip(other[0], got[0])),
+            f"monoid {label}: the callable and the codes kernel differ")
+        turns = [kernel_ms(torch, call(o))[0]
+                 for o in (codes, op, op, codes)]
+        case.update(codes=list(codes), codes_equal=True,
+                    ms=statistics.median(turns[1:3]),
+                    codes_ms=statistics.median([turns[0], turns[3]]),
+                    turns_ms=turns)
+    case["plain_ms"] = time_ms(torch, lambda: seg._segment_reduce_plain(
+        k1s, k2s, vals, op, False), reps=3, rounds=3)
+    print(json.dumps({"monoid_case": case}), flush=True)
+    return case
+
+
+def monoid_map_fn(chunk, chunk_index, cfg):
+    """Phase 19 (c)'s records: keys (c % 65521, c % 7) of each chunk
+    value c, value lanes [c % 101 + 1, c * 7919 - 40000, c & 0x5A5] for
+    ``(sum, min, bitwise_or)``, payload a function of the key."""
+    import torch
+
+    c = chunk.to(torch.int64)
+    k1 = (c % 65521).to(torch.int32)
+    k2 = (c % 7).to(torch.int32)
+    vals = torch.stack([c % 101 + 1, c * 7919 - 40_000, c & 0x5A5],
+                       dim=-1).to(torch.int32)
+    return (torch.stack([k1, k2], dim=-1), vals, (k1 * 7 + k2)[:, None],
+            (c % 11) != 0, torch.zeros((), dtype=torch.int32))
+
+
+def monoid_session_oracle(chunks):
+    """``{(k1, k2): [sum, min, or]}`` of :func:`monoid_map_fn`'s records,
+    with numpy (the sum wraps as int32)."""
+    import numpy as np
+
+    c = chunks.reshape(-1).astype(np.int64)
+    c = c[c % 11 != 0]
+    key = (c % 65521) * 7 + c % 7
+    order = np.argsort(key, kind="stable")
+    key, c = key[order], c[order]
+    starts = np.flatnonzero(np.concatenate(([True], key[1:] != key[:-1])))
+    v1 = np.add.reduceat(c % 101 + 1, starts)
+    v2 = np.minimum.reduceat(c * 7919 - 40_000, starts)
+    v3 = np.bitwise_or.reduceat(c & 0x5A5, starts)
+    wrap = ((v1 + 2 ** 31) % 2 ** 32) - 2 ** 31
+    return {(int(k // 7), int(k % 7)): [int(a), int(b), int(o)]
+            for k, a, b, o in zip(key[starts], wrap, v2, v3)}
+
+
+def monoid_snapshot_dict(snap):
+    keys = snap.keys.cpu().reshape(-1, 2).tolist()
+    vals = snap.values.cpu().reshape(-1, 3).tolist()
+    valid = snap.valid.cpu().reshape(-1).tolist()
+    return {tuple(k): v for k, v, ok in zip(keys, vals, valid) if ok}
+
+
+def monoid_session(torch, kc, monoids, smi):
+    """Phase 19 (c): an ``EngineSession`` at P = 1 with the ``(sum, min,
+    bitwise_or)`` monoid: fed in feeds, a snapshot against the host
+    oracle after each, then an evict to ``mem:`` storage and the lazy
+    restore, bit-equal."""
+    import numpy as np
+
+    from mapreduce_tpu_torch.engine import session as smod
+    from mapreduce_tpu_torch.engine import spill
+    from mapreduce_tpu_torch.engine.device_engine import EngineConfig
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.storage.router import router
+
+    ms = MONOID_SESSION
+    chunks = np.random.default_rng(19).integers(
+        0, ms["keys"], size=(ms["chunks"], ms["rows"])).astype(np.int32)
+    cfg = EngineConfig(local_capacity=1 << 19, exchange_capacity=1 << 19,
+                       out_capacity=1 << 19, tile=512, tile_records=512,
+                       reduce_op=monoids.sum_min_or)
+    store = spill.SessionSpillStore(router("mem:chip-smoke-monoid"))
+    sess = smod.EngineSession(Partitions(1, MONOID_DEV), monoid_map_fn, cfg,
+                              k=ms["chunks"] // ms["feeds"], spill=store)
+    per = ms["chunks"] // ms["feeds"]
+    kc.reset_counts()
+    feed_s = []
+    for f in range(ms["feeds"]):
+        t0 = time.monotonic()
+        check(sess.feed(chunks[f * per:(f + 1) * per], task="m") == 0,
+              "monoid session: a feed overflowed")
+        feed_s.append(time.monotonic() - t0)
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    snap = sess.snapshot("m")
+    got = monoid_snapshot_dict(snap)
+    check(got == monoid_session_oracle(chunks), "monoid session: the "
+          "snapshot differs from the host oracle")
+    sess.evict("m")
+    restored = sess.snapshot("m")
+    check(all(torch.equal(getattr(restored, f), getattr(snap, f))
+              for f in ("keys", "values", "payload", "valid")),
+          "monoid session: the restored snapshot differs")
+    cuda = MONOID_DEV == "cuda"
+    ran = launches if cuda else plain
+    check(ran["segreduce_monoid"] > 0 and ran["tokenize"] == 0,
+          f"monoid session: launches {ran}")
+    check(not cuda or not any(plain.values()),
+          f"monoid session: plain versions ran on the card: {plain}")
+    line = {"run": "session", "card": smi, "records": int(chunks.size),
+            "unique": len(got), "feeds": ms["feeds"], "feed_s": feed_s,
+            "launches": {"segreduce_monoid": ran["segreduce_monoid"]},
+            "oracle_equal": True, "restore_equal": True}
+    print(json.dumps({"monoid": line}), flush=True)
+    return ran["segreduce_monoid"]
+
+
+def verify_run(torch, kc, wcmod, Partitions, data, want, label, n_parts,
+               impl, op):
+    """One ``DeviceWordCount(verify_collisions=True)`` count of *data* with
+    monoid *op* (the callable or its codes), warm, counted."""
+    from dataclasses import replace
+
+    cfg = replace(wcmod.bench_engine_config(), sort_impl=impl)
+    vwc = wcmod.DeviceWordCount(Partitions(n_parts, MONOID_DEV),
+                                chunk_len=CHUNK_LEN, config=cfg,
+                                verify_collisions=True)
+    vwc.config = replace(vwc.config, reduce_op=op)
+    vwc.warm()
+    # a warm run first: a new engine's first run carries its allocations
+    check(vwc.count_bytes(data) == want, f"verify {label}: the warm run "
+          "differs from Counter")
+    kc.reset_counts()
+    tm = {}
+    t0 = time.monotonic()
+    got = vwc.count_bytes(data, timings=tm)
+    wall = time.monotonic() - t0
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    check(got == want, f"verify {label}: counts differ from Counter")
+    cuda = MONOID_DEV == "cuda"
+    ran = launches if cuda else plain
+    callable_op = callable(op)
+    check(ran["segreduce_monoid" if callable_op else "segreduce"] > 0
+          and ran["tokenize"] > 0, f"verify {label}: launches {ran}")
+    check(not callable_op or ran["segreduce"] == 0,
+          f"verify {label}: the callable ran on the codes kernel: {ran}")
+    if impl == "radix":
+        check(ran["radix_onesweep"] > 0 and ran["radix_plan"] > 0,
+              f"verify {label}: launches {ran}")
+    check(not cuda or not any(plain.values()),
+          f"verify {label}: plain versions ran on the card: {plain}")
+    return {"run": label, "op": "callable" if callable_op else list(op),
+            "sort_impl": impl, "wall_s": wall, "compute_s": tm["compute_s"],
+            "waves": tm["waves"], "retries": tm["retries"],
+            "counter_equal": True,
+            "launches": {k: v for k, v in ran.items() if v}}
+
+
+def monoid_phase(torch, kc, seg, wcmod, chunks, data, want, ws_held,
+                 ws_compare, smi):
+    """Phase 19: callable monoids on the card (the ``monoid`` lines).
+    Returns the ``kernels`` entry of ``segreduce_monoid`` and the codes
+    kernel's case on wordspan's local reduce."""
+    from mapreduce_tpu_torch.obs.compile import LEDGER
+    from mapreduce_tpu_torch.ops import monoid
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.testing import monoids
+
+    t_phase = time.monotonic()
+    libs = list(dict.fromkeys(
+        kc.monoid_library(monoid.lower(monoids.MONOIDS[m][0]))
+        for m in ("span",) + tuple(m for m, _ in MONOID_CASES)))
+    t0 = time.monotonic()
+    kc.build_all(names=libs)
+    build = {"build_s": time.monotonic() - t0,
+             "nvcc_s": {n: kc.BUILD_SECONDS.get(n) for n in libs},
+             "ptxas": {n: kc.ptxas_usage(kc.BUILD_LOGS[n])
+                       for n in libs if n in kc.BUILD_LOGS}}
+    for n, kernels in build["ptxas"].items():
+        check(all(u.get("spill_stores") == 0 and u.get("spill_loads") == 0
+                  for u in kernels.values()),
+              f"ptxas: a monoid kernel of {n} spills: {kernels}")
+    print(json.dumps({"monoid": dict(build, run="build", card=smi)}),
+          flush=True)
+
+    # (a) the kernel against its plain version, and beside the codes
+    cases = []
+    dev = torch.device(MONOID_DEV)
+    vcfg = wcmod.bench_engine_config()
+    keys, vals, _, valid, _ = wcmod._wordcount_map_fn_verify(
+        torch.from_numpy(chunks[0]).to(dev), 0, vcfg)
+    k1 = torch.where(valid, keys[:, 0], seg.SENTINEL)
+    k2 = torch.where(valid, keys[:, 1], seg.SENTINEL)
+    perm = seg._sort_perm(k1, k2, "variadic")
+    vl = [vals[perm, i].contiguous() for i in range(3)]
+    cases.append(monoid_case(
+        torch, seg, monoid, "verify/span", monoids.span,
+        k1[perm].contiguous(), k2[perm].contiguous(), vl,
+        codes=VERIFY_CODES))
+    n, (wk1, wk2, wvals, _, _) = ws_held
+    cases.append(monoid_case(torch, seg, monoid, "wordspan_local/span",
+                             monoids.span, wk1, wk2, wvals,
+                             codes=VERIFY_CODES))
+    for i, (name, lanes) in enumerate(MONOID_CASES):
+        op = monoids.MONOIDS[name][0]
+        k1s, k2s, lanes_v = monoid_lanes(torch, seg, lanes, MONOID_ROWS,
+                                         MONOID_KEYS, 190 + i)
+        cases.append(monoid_case(torch, seg, monoid, f"{name}/{lanes}",
+                                 op, k1s, k2s, lanes_v))
+    replay_check(torch, "monoid_replay affine",
+                 lambda: seg._segment_reduce_cuda(k1s, k2s, lanes_v, op,
+                                                  False), MONOID_ROWS)
+
+    # (b) the verify path at full width, callable and codes
+    paths = []
+    for label, n_parts, impl in VERIFY_PATHS:
+        for op in (wcmod.VERIFY_REDUCE_OP, VERIFY_CODES):
+            line = verify_run(torch, kc, wcmod, Partitions, data, want,
+                              label, n_parts, impl, op)
+            line["card"] = smi
+            print(json.dumps({"monoid": {"verify": line}}), flush=True)
+            paths.append(line)
+    print(json.dumps({"monoid": {"wordspan": ws_compare}}), flush=True)
+
+    # (c) a session with the (sum, min, bitwise_or) monoid
+    session_launches = monoid_session(torch, kc, monoids, smi)
+
+    # (d) an unsupported callable raises before any launch
+    kc.reset_counts()
+    try:
+        seg._segment_reduce_cuda(wk1, wk2, wvals, lambda a, b: a // b, False)
+        raised = None
+    except NotImplementedError as exc:
+        raised = str(exc)
+    check(raised is not None and "floordiv" in raised,
+          f"monoid: a // b did not raise by name ({raised!r})")
+    check(kc.LAUNCHES["segreduce_monoid"] == 0,
+          "monoid: a launch before the refusal")
+    # each monoid library is its own compile-ledger program, loaded by a
+    # build: compiled by this process in a fresh checkout, a
+    # persistent_hit where its .so is already in the build directory
+    # (phase 17's child loads the span's so)
+    progs = {p: {o: n for o, n in v.items() if o in (
+        "compiled", "persistent_hit", "cached")} for p, v in (
+        LEDGER.snapshot().get("programs") or {}).items()
+        if p.startswith(f"nvcc:{kc.MONOID}")}
+    check(sorted(progs) == sorted(f"nvcc:{n}" for n in libs) and all(
+        v.get("compiled") or v.get("persistent_hit")
+        for v in progs.values()),
+        f"monoid: the compile ledger's monoid programs: {progs}")
+    print(json.dumps({"monoid": {"refused": raised[:200], "ledger": progs,
+                                 "phase_s": time.monotonic() - t_phase}}),
+          flush=True)
+
+    head = cases[0]
+    kernel = {"name": "segreduce_monoid", "route": "cuda",
+              "source": "mapreduce_tpu_torch/csrc/segreduce.cuh",
+              "replaces": "mapreduce_tpu/ops/segscan.py:193",
+              "launches": paths[0]["launches"]["segreduce_monoid"],
+              "max_abs_err": max(c["max_abs_err"] for c in cases),
+              "ms": head["ms"], "plain_ms": head["plain_ms"],
+              "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+              "library_ms": None, "codes_ms": head["codes_ms"],
+              "cases": {c["label"]: c["ms"] for c in cases},
+              "launches_verify": {f"{p['run']}": p["launches"].get(
+                  "segreduce_monoid", 0) for p in paths
+                  if p["op"] == "callable"},
+              "launches_session": session_launches}
+    ws = cases[1]
+    codes_case = {"n": ws["n"], "lanes": 3, "op": list(VERIFY_CODES),
+                  "ms": ws["codes_ms"], "monoid_ms": ws["ms"],
+                  "plain_ms": None, "bound_ms": ws["bound_ms"],
+                  "bound_by": ws["bound_by"], "library_ms": None}
+    return kernel, codes_case
+
+
 T_START = time.monotonic()
 
 
@@ -5637,21 +6054,24 @@ def main():
     from mapreduce_tpu_torch.models import transformer as tmod
     from mapreduce_tpu_torch.ops import flash_attention as fa
     from mapreduce_tpu_torch.ops import kernel_compat as kc
+    from mapreduce_tpu_torch.ops import monoid
     from mapreduce_tpu_torch.ops import radix_sort as rs
     from mapreduce_tpu_torch.ops import segscan as seg
     from mapreduce_tpu_torch.ops import tokenize as tok
     from mapreduce_tpu_torch.parallel.mesh import Partitions
 
-    # phase 1: build, and the card
+    # phase 1: build, and the card (with the span and collision-verify
+    # monoid's library: phases 4 and 17 run it)
     t0 = time.monotonic()
     variants = [("radix", d) for d in [*sort_variants(rs).values(),
                                        *plan_variants(kc).values()] if d]
     variants += [(src, d) for src in SCAN_TILE_DEFINES
                  for d in scan_variants(kc, src).values() if d]
-    kc.build_all(variants)
+    span_lib = kc.monoid_library(monoid.lower(wcmod.VERIFY_REDUCE_OP))
+    kc.build_all(variants, names=kc.SOURCES + (span_lib,))
     print(f"build: {time.monotonic() - t0:.2f} s (nvcc, sm_90a, "
-          f"{len(kc.SOURCES)} sources and {len(variants)} variants in "
-          "parallel)")
+          f"{len(kc.SOURCES)} sources, the span monoid's library and "
+          f"{len(variants)} variants in parallel)")
     print(f"build dir: {own_build_dir()} (this run's own)")
     ptxas_report(kc, rs)
     smi = subprocess.run(
@@ -5724,12 +6144,16 @@ def main():
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": launches, "plain_calls": plain}}))
 
-    # a small collision-verify count: the 3-lane kernels through the engine
+    # a small collision-verify count: the 3-lane callable monoid's kernel
+    # through the engine
     part = data[:3_000_000]
     vwc = wcmod.DeviceWordCount(device="cuda", chunk_len=1 << 18,
                                 verify_collisions=True)
+    kc.reset_counts()
     check(vwc.count_bytes(part) == Counter(part.split()),
           "verify-mode counts differ")
+    check(kc.LAUNCHES["segreduce_monoid"] > 0, "verify-mode count: no "
+          f"monoid kernel launch: {kc.LAUNCHES}")
     print("verify_collisions count: equal")
 
     profile_phase(torch, kc, wc, chunks)
@@ -5786,11 +6210,20 @@ def main():
                                          want, smi)
 
     # phase 17: the remaining examples and the compile plane
-    wordspan_launches, ws_case = examples_phase(torch, kc, seg, rs, data,
-                                                want, smi)
+    wordspan_launches, ws_held, ws_compare = examples_phase(
+        torch, kc, seg, rs, data, want, smi)
 
     # phase 18: the operator plane's status and diagnosis half
     operator_launches = operator_phase(data, want, smi, service_compute)
+
+    # phase 19: callable monoids on the card
+    monoid_kernel, ws_case = monoid_phase(torch, kc, seg, wcmod, chunks,
+                                          data, want, ws_held, ws_compare,
+                                          smi)
+    del ws_held
+    monoid_kernel["launches_wordspan"] = {
+        run: counts.get("segreduce_monoid", 0)
+        for run, counts in wordspan_launches.items()}
 
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
@@ -5814,7 +6247,8 @@ def main():
         kern["launches_telemetry"] = {
             run: counts.get(kern["name"], 0)
             for run, counts in telemetry_launches.items()}
-        # and on phase 17's wordspan runs (the 3-lane segreduce)
+        # and on phase 17's wordspan runs (the callable span monoid: on
+        # segreduce_monoid, not here)
         kern["launches_wordspan"] = {
             run: counts.get(kern["name"], 0)
             for run, counts in wordspan_launches.items()}
@@ -5823,8 +6257,9 @@ def main():
         # and on phase 18's two tasks in the runner process (its flight
         # dump's mrtpu_kernel_launches_total)
         kern["launches_operator"] = operator_launches[kern["name"]]
-    kernels += radix_kernels + flash_kernels
-    print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START}}))
+    kernels += radix_kernels + flash_kernels + [monoid_kernel]
+    print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START,
+                                "before_phase_19_wall_s": 434.5}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

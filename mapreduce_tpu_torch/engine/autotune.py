@@ -313,8 +313,9 @@ class CapacityController:
 
     def _registry_caps(self, key: str, cfg) -> Dict[str, int]:
         """Learned capacities from the shape registry: the max of every
-        replayable device-engine bucket whose map_fn matches this key's
-        program family."""
+        device-engine bucket whose map_fn matches this key's program
+        family, from its replay spec or, for a run that cannot replay (a
+        callable reduce op), its ``sizing``."""
         from ..obs.compile import LEDGER as _COMPILE_LEDGER
 
         out: Dict[str, int] = {}
@@ -325,13 +326,14 @@ class CapacityController:
             return out
         fn_token = str(key).split("|", 1)[0]
         for rec in buckets.values():
-            replay = rec.get("replay")
-            if (not isinstance(replay, dict)
-                    or replay.get("kind") != "device_engine"
-                    or replay.get("map_fn") != fn_token):
+            spec = rec.get("replay")
+            if (not isinstance(spec, dict)
+                    or spec.get("kind") != "device_engine"):
+                spec = rec.get("sizing")
+            if not isinstance(spec, dict) or spec.get("map_fn") != fn_token:
                 continue
             for field in _CAPACITY_FIELDS:
-                v = int((replay.get("config") or {}).get(field) or 0)
+                v = int((spec.get("config") or {}).get(field) or 0)
                 if v > out.get(field, 0):
                     out[field] = v
         return out

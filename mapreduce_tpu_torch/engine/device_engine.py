@@ -4,8 +4,11 @@ The user gives ``map_fn(chunk, chunk_index, cfg) -> (keys [T, 2] int32
 bits, values, payload [T, Q] int32, valid [T] bool, overflow [] int32)``
 — a fixed-capacity batch of hashed records from one input chunk — and a
 ``reduce_op``: "sum" / "min" / "max", a tuple of those (one per value
-lane), or an associative + commutative callable (CPU only: the CUDA
-segmented-reduce kernel takes op codes).
+lane), or an associative + commutative callable on torch tensors.  On
+CUDA a callable is lowered (:mod:`..ops.monoid`) into the combine of a
+segmented-reduce kernel of its own when the engine is built, so a
+monoid the lowering cannot take raises before any wave, and its library
+is built with the path's others (``kernel_compat.sources_for``).
 
 Each wave, for each of the ``P`` partitions (:class:`..parallel.mesh.
 Partitions`), runs the JAX wave program's steps in order:
@@ -65,11 +68,12 @@ each configuration a run serves load the libraries of its path under a
 ``compile`` span, keyed as the JAX engine keys its wave program (map_fn,
 config, partitions and the wave's input shape), and record the bucket,
 with the replay spec :func:`replay_registry` primes it from
-(``cli warmup --replay``), in the enabled cache's shape registry.
+(``cli warmup --replay``), in the enabled cache's shape registry.  A
+callable reduce op records no replay spec, as the JAX engine's: its
+bucket keeps the run's capacities alone (``sizing``), from which the
+capacity controller pre-sizes the map_fn's next run all the same.
 
-Left out of this port for now (ROADMAP): the exchange's link-class
-roll-ups (A.8c), custom callable monoids on CUDA (A.9), multi-process
-runs (A.11).
+Left out of this port for now (ROADMAP): multi-process runs (A.11).
 """
 
 from __future__ import annotations
@@ -91,6 +95,7 @@ from ..obs import profile as _profile
 from ..obs.trace import TRACER
 from ..obs.wavetrace import WaveTimeline
 from ..ops import kernel_compat as kc
+from ..ops import monoid as _monoid
 from ..ops.radix_sort import RADIX_PASSES
 from ..ops.segscan import SENTINEL, ReduceOp, sorted_unique_reduce
 from ..parallel.mesh import Partitions, partition_devices
@@ -525,6 +530,10 @@ class DeviceEngine:
         self._pmap_dev: Optional[torch.Tensor] = None
         if config.partition_map:
             partition_buckets_for(config, self.n_dev)  # raises if P ∤ B
+        if (self.device.type == "cuda" and callable(config.reduce_op)
+                and not config.unit_values):
+            # raises now for a monoid the kernel cannot take
+            _monoid.lower(config.reduce_op)
         self._tier_spec: Optional[TierSpecializer] = None
         #: (config key, row shape, dtype, k) of each wave program this
         #: engine acquired through the compile ledger
@@ -768,7 +777,7 @@ class DeviceEngine:
         tier policy."""
         cfgs = _tier_cfgs(cfg) if _is_tiered(cfg.sort_impl) else (cfg,)
         return tuple(dict.fromkeys(n for c in cfgs
-                                   for n in kc.sources_for(c)))
+                                   for n in kc.sources_for(c, self.device)))
 
     # -- the compile ledger ------------------------------------------------
 
@@ -788,6 +797,16 @@ class DeviceEngine:
         return {"kind": "device_engine", "map_fn": path, "config": config,
                 "k": int(k), "row_shape": [int(d) for d in row_shape],
                 "row_dtype": str(np.dtype(row_dtype)), "n_dev": self.n_dev}
+
+    def _sizing(self, cfg: EngineConfig) -> Optional[dict]:
+        """The capacities of a bucket that cannot replay (a callable
+        reduce op): the map_fn's path and the config's capacities, from
+        which the capacity controller pre-sizes the map_fn's next run
+        (``engine/autotune``).  None for a map_fn that is not importable
+        by name."""
+        path = _compile_obs.fn_path(self.map_fn)
+        return (None if path is None
+                else {"map_fn": path, "config": _capacities(cfg)})
 
     def _mesh_doc(self) -> dict:
         kind = (torch.cuda.get_device_name(self.device)
@@ -812,7 +831,8 @@ class DeviceEngine:
         mine = (cfg.cache_key(), row_shape, dtype.str, int(k))
         if mine in self._acquired:
             return
-        libs = kc.sources_for(cfg)
+        libs = kc.sources_for(cfg, self.device)
+        replay = self._replay_info(cfg, row_shape, dtype, k)
         build = ((lambda: kc.load(libs, observe=True))
                  if self.device.type == "cuda" else (lambda: None))
         _, outcome, bucket = _compile_obs.LEDGER.acquire(
@@ -822,7 +842,7 @@ class DeviceEngine:
             avals=[_Aval((int(k) * self.n_dev,) + row_shape, dtype)],
             extra=("wave", op_token(self.map_fn), _cfg_token(cfg)),
             mesh=self._mesh_doc(),
-            replay=self._replay_info(cfg, row_shape, dtype, k),
+            replay=replay, sizing=None if replay else self._sizing(cfg),
             tier=_TIERS.get(cfg.sort_impl), registry=registry,
             persist=pending is None)
         if pending is not None:

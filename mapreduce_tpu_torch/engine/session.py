@@ -495,7 +495,7 @@ class EngineSession:
                 for w in range(feeder.waves):
                     cfg = self._wave_cfg()
                     if cuda:  # built at the first wave, found later
-                        kc.load(kc.sources_for(cfg))
+                        kc.load(kc.sources_for(cfg, self.device))
                     block = feeder.get(w)
                     out = eng._wave(cfg, block, st.pos + w * rpw, self.k,
                                     n_real, st.acc, pmap)

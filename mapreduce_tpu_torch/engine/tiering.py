@@ -192,7 +192,7 @@ class TieredWaveDispatcher:
 
         self._engine = engine
         self._cfg0, self._cfg1 = _tier_cfgs(cfg)
-        self._key = kc.sources_for(self._cfg1)
+        self._key = kc.sources_for(self._cfg1, engine.device)
         #: serving tier: None until the first wave, then 0 or 1
         self.tier: Optional[int] = None
         self.swaps = 0
@@ -224,7 +224,7 @@ class TieredWaveDispatcher:
         TIER_COUNTS["cold_starts"] += 1
         # the background build first, then tier 0's own in the
         # foreground: the two run in parallel
-        names0 = kc.sources_for(self._cfg0)
+        names0 = kc.sources_for(self._cfg0, device)
         self._engine.specializer.submit(self._key, device, names0)
         if device.type == "cuda":
             kc.load(names0)

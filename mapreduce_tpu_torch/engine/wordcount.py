@@ -29,9 +29,23 @@ from .device_engine import (
 #: host materialisation window: words longer than this take a per-row
 #: Python scan (rare in natural language)
 _WINDOW = 128
-#: the collision-verify monoid, one op per value lane: [count, h3, h3]
-#: reduced with (sum, min, max)
-VERIFY_REDUCE_OP = ("sum", "min", "max")
+
+
+def _verify_reduce_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Associative + commutative: lane 0 sums counts, lanes 1 and 2 take
+    the min and max of the third (independent) word hash.  After the
+    full reduce, lane 1 != lane 2 for a unique key proves two distinct
+    byte strings shared both key lanes (a 64-bit collision), which the
+    host alone cannot see, since the device merge leaves it one
+    representative.  The JAX module's monoid, on torch tensors: the
+    monoid kernel runs it on the card (``ops/monoid.py``)."""
+    return torch.stack([a[..., 0] + b[..., 0],
+                        torch.minimum(a[..., 1], b[..., 1]),
+                        torch.maximum(a[..., 2], b[..., 2])], dim=-1)
+
+
+#: the collision-verify monoid over [count, h3, h3]
+VERIFY_REDUCE_OP = _verify_reduce_op
 
 
 def _global_start(start: torch.Tensor, chunk_index: int,

@@ -10,12 +10,13 @@ monoid (elementwise ``[sum, min, max]``), run through
 ``Server(device=True)`` on the port's engine and as an ordinary ACI
 ``reducefn`` on the host plane, with identical results.
 
-The JAX module writes the monoid as a callable (``_span_reduce_op``).
-The port's engine takes it as per-lane codes, :data:`SPAN_REDUCE_OP`
-``("sum", "min", "max")``, which the segmented-reduce kernel
-(``csrc/segreduce.cu``) runs as three lanes in one launch on the card; a
-Python callable would still raise there (ROADMAP A.9).  Both spell the
-same monoid, so both packages give the same spans.
+The monoid is a callable, as in the JAX module (``_span_reduce_op``,
+:data:`SPAN_REDUCE_OP`), on torch tensors: on the card the engine
+lowers it into the combine of the segmented-reduce kernel's monoid
+build (``ops/monoid.py``, ``csrc/segreduce.cuh``; launches counted as
+``segreduce_monoid``), three lanes in one launch.  The per-lane codes
+``("sum", "min", "max")`` spell the same monoid for the codes kernel
+(``csrc/segreduce.cu``), with the same spans.
 
 ``init`` takes ``{"files": [...], "num_reducers": N}`` and the device
 knobs ``device_chunk_len``, ``device_{local,exchange,out}_capacity``
@@ -46,9 +47,21 @@ associative_reducer = True
 commutative_reducer = True
 idempotent_reducer = True
 
-#: the span monoid, one op per value lane: counts add, the first offset
-#: takes the min, the last the max
-SPAN_REDUCE_OP = ("sum", "min", "max")
+
+
+def _span_reduce_op(a, b):
+    """The span monoid: lane 0 sums counts, lane 1 takes the min first
+    offset, lane 2 the max last offset.  Associative and commutative —
+    the compiler-visible form of the ACI flags above."""
+    import torch
+
+    return torch.stack([a[..., 0] + b[..., 0],
+                        torch.minimum(a[..., 1], b[..., 1]),
+                        torch.maximum(a[..., 2], b[..., 2])], dim=-1)
+
+
+#: the span monoid the device config takes
+SPAN_REDUCE_OP = _span_reduce_op
 #: the largest padded stream device offsets address (int32)
 MAX_STREAM_BYTES = 2 ** 31
 _INT32_MAX = 2 ** 31 - 1
@@ -111,8 +124,8 @@ def finalfn(pairs) -> bool:
 # -- device fast path hooks (spec.DEVICE_HOOKS) ------------------------------
 
 def device_config():
-    """The JAX module's capacities and tiles, the monoid as per-lane
-    codes, and the port's sort knob."""
+    """The JAX module's capacities, tiles and callable monoid, and the
+    port's sort knob."""
     from ...engine import EngineConfig
 
     return EngineConfig(

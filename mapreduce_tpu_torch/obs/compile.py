@@ -41,9 +41,11 @@ cache_dir`), beside the libraries, in the JAX record schema: per bucket
 record's ``jax``), ``count``, ``outcomes``, ``best_compile_s``, the
 wave's ``tier`` and its ``replay`` spec ``{kind: "device_engine",
 map_fn, config, n_dev, row_shape, row_dtype, k}`` (``n_dev`` the
-partition count).  Bucket ids are the port's own fingerprints.  Writes
-read, merge and atomically replace the file, so processes share a
-directory.  ``cli warmup --replay`` (:func:`..engine.device_engine.
+partition count), or, for a run that cannot replay (a callable reduce
+op, as the JAX engine records no replay spec for one), its ``sizing``
+``{map_fn, config}`` (the capacities alone).  Bucket ids are the
+port's own fingerprints.  Writes read, merge and atomically replace the
+file, so processes share a directory.  ``cli warmup --replay`` (:func:`..engine.device_engine.
 replay_registry`) and the capacity controller (``engine/autotune``)
 read it.  Library acquisitions stay in the process's ledger only: their
 ``.so`` files are their own record.  The JAX record's ``donation`` is
@@ -272,6 +274,7 @@ class CompileLedger:
                 extra: Sequence[Any] = (),
                 mesh: Optional[Dict[str, Any]] = None,
                 replay: Optional[Dict[str, Any]] = None,
+                sizing: Optional[Dict[str, Any]] = None,
                 tier: Optional[int] = None, persist: bool = False) -> str:
         """Count one acquisition of *program* with *outcome* and its
         seconds by stage; update its in-process record (bucket *bucket*,
@@ -308,6 +311,8 @@ class CompileLedger:
             record["tier"] = int(tier)
         if replay is not None:
             record["replay"] = replay
+        if sizing is not None:
+            record["sizing"] = sizing
         with self._lock:
             prev = self._records.get(bucket)
             if prev is not None:
@@ -328,6 +333,7 @@ class CompileLedger:
                 extra: Sequence[Any] = (),
                 mesh: Optional[Dict[str, Any]] = None,
                 replay: Optional[Dict[str, Any]] = None,
+                sizing: Optional[Dict[str, Any]] = None,
                 tier: Optional[int] = None,
                 stage: str = "build",
                 registry: Optional[Dict[str, Any]] = None,
@@ -368,6 +374,7 @@ class CompileLedger:
                 self._keys.add((program, key))
         self.observe(program, outcome, {stage: secs}, bucket=bucket,
                      avals=avals, extra=extra, mesh=mesh, replay=replay,
+                     sizing=sizing,
                      tier=tier, persist=persist)
         return out, outcome, bucket
 

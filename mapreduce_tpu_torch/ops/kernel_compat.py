@@ -22,6 +22,11 @@ three pieces of glue:
   library build it once (the others wait), while different libraries
   build in parallel: the tier specializer (``engine/tiering.py``) builds
   on a thread of its own while the wave loop loads on the main one.
+  A user's callable monoid (``ops/monoid.py``) gets a library of its
+  own, :func:`monoid_library`: a source generated into the build
+  directory from its IR (the combine) and ``csrc/segreduce.cuh`` (the
+  kernel), named and keyed by the IR's hash, never by the callable's
+  name, and by the headers' bytes, so an edited template rebuilds.
   :func:`sources_for` names the libraries a config's path launches,
   :func:`is_built` says whether one needs no ``nvcc`` (loaded, or its
   hashed ``.so`` already in the build directory, the persistent cache,
@@ -60,7 +65,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -68,10 +74,14 @@ from ..obs.compile import LEDGER
 from ..obs.metrics import counter
 from ..obs.trace import TRACER
 from ..utils import compile_cache as _compile_cache
+from . import monoid as _monoid
 
 #: the kernels of this package, by the name their counters use
+#: (``segreduce_monoid``: the segmented reduce with a user's callable
+#: monoid, from a library of its own per monoid)
 KERNELS = ("tokenize", "segreduce", "radix_plan", "radix_upfront",
-           "radix_onesweep", "flash_fwd", "flash_dq", "flash_dkv")
+           "radix_onesweep", "flash_fwd", "flash_dq", "flash_dkv",
+           "segreduce_monoid")
 #: the kernel sources, ``csrc/<name>.cu``: one shared library each
 #: (``radix.cu`` holds the sort's upfront and onesweep kernels and the
 #: exchange plan's kernel, ``flash_attention.cu`` the three
@@ -311,10 +321,89 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _sources(name: str):
-    """The kernel's own source plus every shared header, in a fixed
-    order (all of them feed the build hash)."""
-    return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+#: a user monoid's library name: this prefix, ``-`` and the first 16
+#: hex digits of its IR's hash (:func:`.monoid.ir_hash`)
+MONOID = "segreduce_monoid"
+
+
+class _Build(NamedTuple):
+    """What builds and binds one library."""
+
+    #: the kernel's own source, a file of ``csrc``; None for a generated
+    #: one, written beside its library at the build
+    path: Optional[Path]
+    #: the generated source (None: ``path`` holds it)
+    text: Optional[str]
+    #: the ops module whose ``_SIGNATURES``-style table the library
+    #: binds, and the table's name
+    signatures: Tuple[str, str]
+    #: what a failed ``nvcc`` names
+    what: str
+
+    def source(self) -> bytes:
+        return (self.path.read_bytes() if self.path is not None
+                else self.text.encode())
+
+
+#: the generated libraries this process has named (:func:`monoid_library`)
+_GENERATED: Dict[str, _Build] = {}
+#: the library name of each IR :func:`monoid_library` named, by the IR's
+#: id (the IR kept beside it, so that its id is not reused)
+_MONOID_NAMES: Dict[int, Tuple["_monoid.MonoidIR", str]] = {}
+
+
+def monoid_library(ir: "_monoid.MonoidIR") -> str:
+    """The library name of the monoid kernel for *ir*, registered on the
+    first call for this IR (so that :func:`library`, :func:`load` and
+    :func:`build_all` can build it); later calls are one dict lookup."""
+    got = _MONOID_NAMES.get(id(ir))
+    if got is not None:
+        return got[1]
+    name = f"{MONOID}-{_monoid.ir_hash(ir)[:16]}"
+    _GENERATED.setdefault(name, _Build(
+        None, monoid_source(ir), ("segscan", "_MONOID_SIGNATURES"),
+        f"{name} (the monoid kernel of reduce_op {ir.name})"))
+    _MONOID_NAMES[id(ir)] = (ir, name)
+    return name
+
+
+def monoid_source(ir: "_monoid.MonoidIR") -> str:
+    """The generated source of *ir*'s library: the kernel template, the
+    combine :func:`.monoid.emit_cuda` writes, and the C entries.  The
+    combine lies in an anonymous namespace, so every instantiation over
+    it (the kernel, ``launch`` and its static flag of the shared-memory
+    attribute) is the library's own: with one name in every library, a
+    process that loads two monoids would otherwise share one flag (the
+    loader merges such statics), and the second library's kernel would
+    launch without its attribute set."""
+    return ("// Generated by mapreduce_tpu_torch/ops/kernel_compat.py: a "
+            "user monoid's\n// combine (ops/monoid.py) in the segmented-"
+            "reduce kernel (csrc/segreduce.cuh).\n"
+            '#include "segreduce.cuh"\n\nnamespace {\n\n'
+            + _monoid.emit_cuda(ir) + "\n}  // namespace\n\n"
+            "MR_MONOID_ENTRIES(MrUserCombine)\n")
+
+
+def _build_of(name: str) -> _Build:
+    """How library *name* is built: a source of ``csrc`` or one this
+    process generated."""
+    got = _GENERATED.get(name)
+    if got is not None:
+        return got
+    if name not in _WRAPPERS:
+        raise KeyError(f"{name}: neither a source of {CSRC} nor a library "
+                       "this process generated (monoid_library names a "
+                       "monoid's)")
+    return _Build(CSRC / f"{name}.cu", None, (_WRAPPERS[name], "_SIGNATURES"),
+                  name)
+
+
+def _source_bytes(name: str):
+    """The bytes that make library *name*: the kernel's own source plus
+    every shared header, in a fixed order (all of them feed the build
+    hash)."""
+    return [_build_of(name).source()] + [
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
 
 
 def build_label(name: str, defines: Defines = ()) -> str:
@@ -330,8 +419,8 @@ def _flags(defines: Defines):
 
 def _lib_path(name: str, defines: Defines = ()) -> Path:
     h = hashlib.sha1()
-    for src in _sources(name):
-        h.update(src.read_bytes())
+    for src in _source_bytes(name):
+        h.update(src)
     h.update(" ".join(_flags(defines)).encode())
     # the build directory as utils/compile_cache chooses it now
     # (``build/kernels`` by default, listed in .gitignore)
@@ -353,8 +442,15 @@ def _start_build(name: str, defines: Defines = ()
     # named by process and thread: two threads building one source never
     # share a temporary file
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    nvcc, build = _nvcc(), _build_of(name)
+    src = build.path
+    if src is None:  # generated: written beside its library
+        src = out.with_suffix(".cu")
+        src_tmp = tmp.with_suffix(".cu")
+        src_tmp.write_text(build.text)
+        os.replace(src_tmp, src)
+    cmd = [nvcc, *_flags(defines), "-I", str(CSRC), "-o", str(tmp),
+           str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.mr_tmp, proc.mr_t0 = tmp, time.monotonic()
@@ -372,7 +468,8 @@ def _finish_build(name: str, proc: Optional[subprocess.Popen],
     TRACER.record("nvcc", proc.mr_t0, t1, library=label,
                   exit=proc.returncode)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {label} "
+        what = _build_of(name).what + label[len(name):]
+        raise RuntimeError(f"nvcc failed for {what} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(proc.mr_tmp, _lib_path(name, defines))
     BUILD_LOGS[label] = log
@@ -424,12 +521,20 @@ def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
     return dict(zip(_demangle(names), (usage[n] for n in names)))
 
 
-def sources_for(cfg) -> Tuple[str, ...]:
+def sources_for(cfg, device=None) -> Tuple[str, ...]:
     """The libraries an engine config's path launches on CUDA:
-    ``tokenize`` and ``segreduce`` always, and ``radix`` when every sort
-    and the exchange plan run on the radix kernels (``sort_impl ==
-    'radix'``)."""
+    ``tokenize`` and ``segreduce`` always, a callable ``reduce_op``'s
+    monoid library (:func:`monoid_library`; lowering it here raises for
+    a monoid the kernel cannot take) unless ``unit_values`` leaves the
+    op unused, and ``radix`` when every sort and the exchange plan run
+    on the radix kernels (``sort_impl == 'radix'``).  For an engine on
+    a CPU *device* (None: CUDA) the callable is not lowered and names no
+    library: the CPU launches none, and runs every callable through the
+    plain ladder."""
     names = ("tokenize", "segreduce")
+    if (callable(cfg.reduce_op) and not cfg.unit_values
+            and (device is None or torch.device(device).type == "cuda")):
+        names += (monoid_library(_monoid.lower(cfg.reduce_op)),)
     return names + ("radix",) if cfg.sort_impl == "radix" else names
 
 
@@ -523,8 +628,15 @@ def load(names: Iterable[str], observe: bool = False) -> None:
         return
     build_all(names=names)
     for n in names:
-        mod = importlib.import_module(f"{__package__}.{_WRAPPERS[n]}")
-        library(n, mod._SIGNATURES)
+        library(n, _signatures(n))
+
+
+def _signatures(name: str) -> Dict[str, tuple]:
+    """The C entries of library *name*, from the ops module that wraps
+    it."""
+    module, table = _build_of(name).signatures
+    return getattr(importlib.import_module(f"{__package__}.{module}"),
+                   table)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

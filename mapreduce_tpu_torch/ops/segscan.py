@@ -12,11 +12,17 @@ which sort last.  A real key equal to the sentinel pair is remapped to
 The sort is ``torch.sort`` (``sort_impl`` 'variadic' or 'argsort') or
 the port's radix kernels ('radix', :mod:`.radix_sort`).
 The segmented reduce follows :mod:`.kernel_compat`'s one rule: sorted
-lanes on a CUDA device launch the hand-written kernel
-(``csrc/segreduce.cu``, the port of ``_segreduce_kernel``); lanes on the
-CPU run :func:`_segment_reduce_plain`.  The kernel takes one op per value
-lane from {sum, min, max} over int32, or counts run lengths
-(``unit_values``); a Python callable monoid runs only on the CPU.
+lanes on a CUDA device launch the hand-written kernel (the port of
+``_segreduce_kernel``); lanes on the CPU run
+:func:`_segment_reduce_plain`.  The op picks the kernel:
+``csrc/segreduce.cu`` takes one op per value lane from {sum, min, max}
+over int32 (1-3 lanes), or counts run lengths (``unit_values``); a
+Python callable monoid on torch tensors is lowered by :mod:`.monoid`
+into the combine of a kernel of its own (``csrc/segreduce.cuh`` and a
+generated source, 1-8 lanes, launches counted as
+``segreduce_monoid``), as the TPU kernel traces any monoid into its
+body.  A callable outside the lowering's node set raises on CUDA before
+any launch; on the CPU it runs through the plain ladder.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Callable, NamedTuple, Sequence, Tuple, Union
 import torch
 
 from . import kernel_compat as kc
+from . import monoid
 from .radix_sort import radix_sort_pairs
 
 #: sentinel key lane value marking invalid rows, as an int32 bit pattern
@@ -152,12 +159,52 @@ _SIGNATURES = {
                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                      + [ctypes.c_void_p] * 4),
 }
+#: a monoid library's entries: the same interface as ``mr_segreduce``
+_MONOID_SIGNATURES = {
+    "mr_segreduce_monoid_scratch_bytes":
+        _SIGNATURES["mr_segreduce_scratch_bytes"],
+    "mr_segreduce_monoid": _SIGNATURES["mr_segreduce"],
+}
+
+
+def _int32_lanes(vals_s: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The value lanes as one contiguous ``[N, D]`` int32 tensor."""
+    for v in vals_s:
+        if v.dtype != torch.int32:
+            raise ValueError(f"segreduce kernel takes int32 values, "
+                             f"got {v.dtype}")
+    return torch.stack(list(vals_s), dim=-1).contiguous()
+
+
+def _segment_reduce_monoid(k1s: torch.Tensor, k2s: torch.Tensor,
+                           vals_s: Sequence[torch.Tensor], op: Callable):
+    """Launch the monoid kernel of callable *op* (its library built on
+    first use).  The lowering and the lane check come first, so an op
+    the kernel cannot take raises before any launch."""
+    dev = k1s.device
+    N, D = k1s.shape[0], len(vals_s)
+    ir = monoid.lower(op)
+    monoid.check_lanes(ir, D)
+    vals = _int32_lanes(vals_s)
+    lib = kc.library(kc.monoid_library(ir), _MONOID_SIGNATURES)
+    reduced = torch.empty((N, D), dtype=torch.int32, device=dev)
+    end_csum = torch.empty(N, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.mr_segreduce_monoid_scratch_bytes(N, D),
+                          dtype=torch.uint8, device=dev)
+    err = lib.mr_segreduce_monoid(
+        kc.ptr(k1s), kc.ptr(k2s), kc.ptr(vals), N, D, 0, 0, 0, 0,
+        kc.ptr(reduced), kc.ptr(end_csum), kc.ptr(scratch), kc.stream(dev))
+    kc.check("segreduce_monoid", err)
+    kc.count_launch("segreduce_monoid")
+    return [reduced[:, i] for i in range(D)], end_csum
 
 
 def _segment_reduce_cuda(k1s: torch.Tensor, k2s: torch.Tensor,
                          vals_s: Sequence[torch.Tensor], op: ReduceOp,
                          unit_values: bool):
-    """Launch ``csrc/segreduce.cu`` (the port of ``_segreduce_kernel``)."""
+    """Launch the port of ``_segreduce_kernel``: ``csrc/segreduce.cu``
+    for op codes and unit mode, the monoid kernel of a callable *op*
+    (:func:`_segment_reduce_monoid`)."""
     dev = k1s.device
     N = k1s.shape[0]
     kc.require(k1s, "segreduce", "k1", torch.int32, dev)
@@ -167,18 +214,12 @@ def _segment_reduce_cuda(k1s: torch.Tensor, k2s: torch.Tensor,
     else:
         ops = _lane_ops(op, len(vals_s))
         if ops is None:
-            raise NotImplementedError(
-                "segreduce: a Python callable reduce_op has no CUDA kernel; "
-                "pass 'sum'/'min'/'max' or a tuple of them per lane")
+            return _segment_reduce_monoid(k1s, k2s, vals_s, op)
         D = len(ops)
         if not 1 <= D <= 3:
             raise ValueError(f"segreduce kernel takes 1-3 value lanes, "
                              f"got {D}")
-        for v in vals_s:
-            if v.dtype != torch.int32:
-                raise ValueError(f"segreduce kernel takes int32 values, "
-                                 f"got {v.dtype}")
-        vals = torch.stack(list(vals_s), dim=-1).contiguous()
+        vals = _int32_lanes(vals_s)
         codes = [_OP_CODES[o] for o in ops] + [0] * (3 - D)
     reduced = torch.empty((N, D), dtype=torch.int32, device=dev)
     end_csum = torch.empty(N, dtype=torch.int32, device=dev)
@@ -198,9 +239,12 @@ def segment_reduce(k1s: torch.Tensor, k2s: torch.Tensor,
                    vals_s: Sequence[torch.Tensor], op: ReduceOp,
                    unit_values: bool):
     """``(reduced_lanes, end_csum)`` of sorted lanes — the kernel on CUDA,
-    the plain version on the CPU.  The result that counts is the reduced
+    the plain version on the CPU (a callable op's plain calls count as
+    ``segreduce_monoid``'s).  The result that counts is the reduced
     lanes at run-end rows and ``end_csum`` everywhere."""
-    if kc.use_kernel(k1s, "segreduce"):
+    kernel = ("segreduce_monoid" if callable(op) and not unit_values
+              else "segreduce")
+    if kc.use_kernel(k1s, kernel):
         return _segment_reduce_cuda(k1s, k2s, vals_s, op, unit_values)
     return _segment_reduce_plain(k1s, k2s, vals_s, op, unit_values)
 
@@ -232,7 +276,8 @@ def sorted_unique_reduce(keys: torch.Tensor, values, payload: torch.Tensor,
     ``unit_values``, where each key's result is its occurrence count),
     ``payload`` [N, Q] int32, ``valid`` [N] bool.  ``op`` is "sum" /
     "min" / "max", a tuple of those (one per value lane), or an
-    associative callable (CPU only).
+    associative callable on torch tensors (on CUDA, one that
+    :func:`.monoid.lower` takes: the monoid kernel).
 
     ``sort_impl`` is ``"variadic"`` (one sort of the packed key),
     ``"argsort"`` (two stable 1-key sorts) or ``"radix"`` (the radix

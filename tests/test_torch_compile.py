@@ -371,12 +371,16 @@ def test_autotuner_presizes_from_the_registry_like_jax(registries,
     assert set(source.split("+")) == {"shape_registry"}
 
 
-def test_wordspan_registry_spells_the_tuple_op_as_a_list(tmp_path, ledger):
-    """The per-lane op replays (recorded as a list, rebuilt as a tuple);
-    the JAX module's callable op has no replay spec."""
+def test_wordspan_registry_spells_the_tuple_op_as_a_list(tmp_path, ledger,
+                                                        monkeypatch):
+    """The per-lane op, patched in for the module's callable monoid,
+    replays (recorded as a list, rebuilt as a tuple, and no ``sizing``
+    beside it); the JAX module's monoid is a callable."""
     _reset_examples()
     files = _files(tmp_path, seed=9)
-    with _cache_at(tmp_path / "c") as path:
+    with _cache_at(tmp_path / "c") as path, monkeypatch.context() as mp:
+        # the same monoid as per-lane codes
+        mp.setattr(tws, "SPAN_REDUCE_OP", ("sum", "min", "max"))
         stats, _ = _device_run(
             TServer, "mapreduce_tpu_torch.examples.wordspan", files,
             parts=Partitions(1, "cpu"))
@@ -387,11 +391,47 @@ def test_wordspan_registry_spells_the_tuple_op_as_a_list(tmp_path, ledger):
     assert waves and all(r["replay"]["config"]["reduce_op"] ==
                          ["sum", "min", "max"] for r in waves)
     assert len(rows) == len(waves) and all("seconds" in r for r in rows)
+    assert all("sizing" not in r for r in waves)
     spans = [r for r in waves if r["replay"]["map_fn"].endswith(
         "wordspan:device_map")]
     assert len(spans) == len(waves)
     import mapreduce_tpu.examples.wordspan as jws
     assert callable(jws.device_config().reduce_op)
+
+
+def test_callable_wordspan_presizes_from_its_own_buckets(tmp_path, ledger):
+    """The module's callable monoid, as the JAX module's, records no
+    replay spec, and the replay reports its buckets skipped; each bucket
+    keeps the run's capacities (``sizing``), and a fresh controller
+    pre-sizes the next run of the same map_fn from them alone."""
+    _reset_examples()
+    files = _files(tmp_path, seed=9)
+    with _cache_at(tmp_path / "d") as path:
+        stats, server = _device_run(
+            TServer, "mapreduce_tpu_torch.examples.wordspan", files,
+            parts=Partitions(1, "cpu"))
+        waves = _waves(path)
+        rows = replay_registry(path, "cpu")
+        eng = server._device_engine
+        cfg = eng.config
+        pled = tcontrol.ControlLedger()
+        new = tauto.AutoTuner(ledger=pled, repartition=False) \
+            .recommend_config(cfg, eng.autotune_key(), task="t")
+    _reset_examples()
+    assert callable(cfg.reduce_op) and stats["device"]["retries"] >= 1
+    assert waves and all(r.get("replay") is None for r in waves)
+    assert len(rows) == len(waves) and all(
+        r["skipped"] == "no replay spec recorded" for r in rows)
+    assert all(r["sizing"]["map_fn"] ==
+               "mapreduce_tpu_torch.examples.wordspan:device_map"
+               for r in waves)
+    fields = ("local_capacity", "exchange_capacity", "out_capacity")
+    learned = {f: max(r["sizing"]["config"][f] for r in waves)
+               for f in fields}
+    assert {f: getattr(new, f) for f in fields} == learned
+    assert any(learned[f] > getattr(cfg, f) for f in fields)
+    (dec,) = pled.decisions("capacity")
+    assert set(dec["evidence"]["source"].split("+")) == {"shape_registry"}
 
 
 def test_replay_registry_reports_each_skip(tmp_path, ledger):

@@ -35,6 +35,7 @@ from mapreduce_tpu_torch.models import transformer as tmod
 from mapreduce_tpu_torch.ops import flash_attention as fa
 from mapreduce_tpu_torch.ops import kernel_compat as kc
 from mapreduce_tpu_torch.ops import radix_sort, segscan, tokenize
+from mapreduce_tpu_torch.testing import monoids
 from mapreduce_tpu_torch.utils import compile_cache
 
 pytestmark = pytest.mark.cuda
@@ -318,9 +319,119 @@ def test_segreduce_kernel_repeats_and_replays_bit_for_bit(dev, name, unit):
 
 
 def test_callable_op_on_cuda_raises(dev):
+    """A callable outside the lowering's node set raises by name before
+    any launch; so do more lanes than the monoid kernel takes."""
     k = torch.zeros(4, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):
-        segscan._segment_reduce_cuda(k, k, [k], lambda a, b: a + b, False)
+    kc.reset_counts()
+    with pytest.raises(NotImplementedError, match="floordiv"):
+        segscan._segment_reduce_cuda(k, k, [k], lambda a, b: a // b, False)
+    with pytest.raises(NotImplementedError, match="1 to 8"):
+        segscan._segment_reduce_cuda(k, k, [k] * 9, torch.add, False)
+    assert kc.LAUNCHES["segreduce_monoid"] == 0
+
+
+#: lane counts the lane-wise monoids run at on the card
+LANE_WISE = {"xor": torch.bitwise_xor, "add": torch.add}
+
+
+@pytest.mark.parametrize("n,key_range", [(1, 2), (2049, 256), (100_003, 3),
+                                         (852_072, 80_000)])
+@pytest.mark.parametrize("name", sorted(monoids.MONOIDS))
+def test_monoid_kernel_matches_plain(dev, name, n, key_range):
+    """Each callable monoid's kernel against the plain ladder: the
+    reduced lanes at run ends and the end count, bit for bit (key range
+    3: runs across many tiles, the look-back chain)."""
+    op, lanes = monoids.MONOIDS[name]
+    k1, k2, vals = _sorted_lanes(n, seed=n + lanes, key_range=key_range,
+                                 n_lanes=lanes)
+    want = segscan._segment_reduce_plain(k1, k2, vals, op, False)
+    kc.reset_counts()
+    got = segscan._segment_reduce_cuda(
+        k1.to(dev), k2.to(dev), [v.to(dev) for v in vals], op, False)
+    torch.cuda.synchronize()
+    _pin_surface(k1, k2, got, want)
+    assert kc.LAUNCHES["segreduce_monoid"] == 1
+    assert kc.LAUNCHES["segreduce"] == 0
+
+
+@pytest.mark.parametrize("lanes", range(1, 9))
+@pytest.mark.parametrize("name", sorted(LANE_WISE))
+def test_monoid_kernel_lane_wise_at_every_lane_count(dev, name, lanes):
+    """A lane-wise monoid's library takes 1 to 8 lanes."""
+    op = LANE_WISE[name]
+    k1, k2, vals = _sorted_lanes(50_001, seed=lanes, key_range=400,
+                                 n_lanes=lanes)
+    want = segscan._segment_reduce_plain(k1, k2, vals, op, False)
+    got = segscan._segment_reduce_cuda(
+        k1.to(dev), k2.to(dev), [v.to(dev) for v in vals], op, False)
+    torch.cuda.synchronize()
+    _pin_surface(k1, k2, got, want)
+
+
+def _runs_of_two(n, seed, n_lanes):
+    """Sorted valid keys in runs of one or two rows, and random int32
+    lanes with the extremes among them."""
+    rng = np.random.default_rng(seed)
+    head = rng.random(n) < 0.6
+    head[0] = True
+    head[1:] |= ~head[:-1]  # no two rows in a row continue a run
+    k1 = torch.from_numpy((np.cumsum(head) - 1).astype(np.int32))
+    k2 = torch.full((n,), 7, dtype=torch.int32)
+    vals = rng.integers(-2 ** 31, 2 ** 31 - 1, size=(n, n_lanes),
+                        endpoint=True).astype(np.int32)
+    vals[:4] = np.array([-2 ** 31, 2 ** 31 - 1, -1, 0],
+                        dtype=np.int32)[:, None]
+    v = torch.from_numpy(vals)
+    return k1, k2, [v[:, i].contiguous() for i in range(n_lanes)]
+
+
+@pytest.mark.parametrize("name", sorted(monoids.NODE_CASES)
+                         + ["bits"])
+def test_monoid_kernel_node_forms_on_runs_of_two(dev, name):
+    """The generated C++ of every node form the lowering takes, held
+    against the plain ladder where a run's result is one ``op(x, y)``,
+    so that an op need not be associative: shifts, constants, unary
+    ``-``, ``~`` and ``!``, ``-``, every comparison, bool ``& | ^``,
+    ``where`` with a constant branch, methods, lane-wise ops."""
+    op, lanes = (monoids.NODE_CASES.get(name) or monoids.MONOIDS[name])
+    k1, k2, vals = _runs_of_two(300_007, seed=lanes, n_lanes=lanes)
+    want = segscan._segment_reduce_plain(k1, k2, vals, op, False)
+    kc.reset_counts()
+    got = segscan._segment_reduce_cuda(
+        k1.to(dev), k2.to(dev), [v.to(dev) for v in vals], op, False)
+    torch.cuda.synchronize()
+    _pin_surface(k1, k2, got, want)
+    assert kc.LAUNCHES["segreduce_monoid"] == 1
+
+
+@pytest.mark.parametrize("name", sorted(monoids.CODES))
+def test_monoid_kernel_equals_the_codes_kernel(dev, name):
+    """A callable and its per-lane codes: the two kernels give the same
+    bits on the same rows."""
+    op, lanes = monoids.MONOIDS[name]
+    k1, k2, vals = _sorted_lanes(852_072, seed=7, key_range=80_000,
+                                 n_lanes=lanes)
+    k1, k2, vals = k1.to(dev), k2.to(dev), [v.to(dev) for v in vals]
+    a = segscan._segment_reduce_cuda(k1, k2, vals, op, False)
+    b = segscan._segment_reduce_cuda(k1, k2, vals, monoids.CODES[name],
+                                     False)
+    torch.cuda.synchronize()
+    _, _, is_end = segscan._run_flags(k1, k2)
+    assert torch.equal(a[1], b[1])
+    for x, y in zip(a[0], b[0]):
+        assert torch.equal(x[is_end], y[is_end])
+
+
+@pytest.mark.parametrize("name", ["span", "affine", "argmin_count"])
+def test_monoid_kernel_repeats_and_replays_bit_for_bit(dev, name):
+    """Eager calls and a CUDA-graph replay of one call give the first
+    call's bits."""
+    op, lanes = monoids.MONOIDS[name]
+    k1, k2, vals = _sorted_lanes(852_072, seed=8, key_range=3,
+                                 n_lanes=lanes)
+    k1, k2, vals = k1.to(dev), k2.to(dev), [v.to(dev) for v in vals]
+    _repeats_and_replays(
+        lambda: segscan._segment_reduce_cuda(k1, k2, vals, op, False))
 
 
 def test_launch_counters_count_kernel_launches(dev):
@@ -329,9 +440,11 @@ def test_launch_counters_count_kernel_launches(dev):
     tokenize.tokenize_hash(chunk)
     k = torch.zeros(10, dtype=torch.int32, device=dev)
     segscan.segment_reduce(k, k, [], "sum", True)
+    segscan.segment_reduce(k, k, [k, k], monoids.max_add, False)
     assert kc.LAUNCHES == {"tokenize": 1, "segreduce": 1, "radix_plan": 0,
                            "radix_upfront": 0, "radix_onesweep": 0,
-                           "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+                           "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                           "segreduce_monoid": 1}
     assert all(v == 0 for v in kc.PLAIN_CALLS.values())
 
 
@@ -1265,7 +1378,9 @@ def _span_files(tmp_path):
 
 def _wordspan(files, parts, sort_impl, autotune=None):
     """``examples/wordspan`` through ``Server(device=True)`` at capacities
-    the files' ~40K uniques overflow; its RESULT and device timings."""
+    the files' ~40K uniques overflow; its RESULT and device timings.
+    The monoid is the module's ``SPAN_REDUCE_OP`` (a test may patch in
+    the per-lane codes)."""
     import uuid
 
     from mapreduce_tpu_torch import spec
@@ -1296,9 +1411,9 @@ def _wordspan(files, parts, sort_impl, autotune=None):
 @pytest.mark.parametrize("parts,sort_impl", [(1, "variadic"), (8, "radix")])
 def test_wordspan_on_the_card_equals_the_cpu_run(dev, tmp_path, parts,
                                                  sort_impl):
-    """Spans on the card (the 3-lane segreduce kernel; at P = 8 the radix
-    kernels) equal the same run's plain versions on the CPU, through the
-    capacity retries."""
+    """Spans on the card (the callable 3-lane monoid's segreduce kernel;
+    at P = 8 the radix kernels) equal the same run's plain versions on
+    the CPU, through the capacity retries."""
     from mapreduce_tpu_torch.parallel.mesh import Partitions
 
     files = _span_files(tmp_path)
@@ -1308,17 +1423,23 @@ def test_wordspan_on_the_card_equals_the_cpu_run(dev, tmp_path, parts,
     assert got == want
     assert tm["retries"] >= 1 and tm["retries"] == cpu_tm["retries"]
     assert not any(kc.PLAIN_CALLS.values()), kc.PLAIN_CALLS
-    need = ["tokenize", "segreduce"]
+    # the callable span monoid runs on its monoid kernel
+    need = ["tokenize", "segreduce_monoid"]
     if sort_impl == "radix":
         need += ["radix_upfront", "radix_onesweep", "radix_plan"]
     for name in need:
         assert kc.LAUNCHES[name] > 0, (name, kc.LAUNCHES)
 
 
-def test_registry_round_trip_through_warmup_replay(dev, tmp_path):
+def test_registry_round_trip_through_warmup_replay(dev, tmp_path,
+                                                   monkeypatch):
     """Runs on the card record their buckets in the enabled cache's
-    registry; ``warmup --replay`` replays every one, and a fresh
-    controller pre-sizes the next run from it: no retry."""
+    registry, and a fresh controller pre-sizes the next run from it: no
+    retry.  The callable span monoid's buckets keep their capacities
+    alone (no replay spec, as the JAX engine's); a run with the per-lane
+    codes records replay specs; ``warmup --replay`` replays every
+    replayable bucket and reports the callable's skipped."""
+    from mapreduce_tpu_torch.examples import wordspan as tws
     import contextlib
     import io
     import json
@@ -1339,9 +1460,12 @@ def test_registry_round_trip_through_warmup_replay(dev, tmp_path):
         got, tm2 = _wordspan(files, Partitions(1), "variadic",
                              autotune=AutoTuner(ledger=ledger,
                                                 repartition=False))
+        with monkeypatch.context() as mp:
+            mp.setattr(tws, "SPAN_REDUCE_OP", ("sum", "min", "max"))
+            codes, _ = _wordspan(files, Partitions(1), "variadic")
     finally:
         compile_cache.restore_state(saved)
-    assert got == want and tm2["retries"] == 0
+    assert got == want == codes and tm2["retries"] == 0
     (dec,) = ledger.decisions("capacity")
     assert "shape_registry" in dec["evidence"]["source"]
     out = io.StringIO()
@@ -1353,5 +1477,13 @@ def test_registry_round_trip_through_warmup_replay(dev, tmp_path):
     rows = doc["replay"]
     with open(f"{cache}/mrtpu_shape_registry.json") as f:
         recorded = json.load(f)["buckets"]
-    assert len(rows) == len(recorded) >= 3
-    assert all("seconds" in r for r in rows), rows
+    assert len(rows) == len(recorded) >= 4
+    replayed = [r for r in rows if "seconds" in r]
+    skipped = [r for r in rows if "seconds" not in r]
+    assert len(replayed) >= 2 and skipped, rows
+    assert all(r["skipped"] == "no replay spec recorded" for r in skipped)
+    assert len(replayed) == sum(
+        1 for b in recorded.values() if (b.get("replay") or {}).get(
+            "kind") == "device_engine")
+    assert len(skipped) == sum(1 for b in recorded.values()
+                               if "sizing" in b)

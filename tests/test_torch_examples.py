@@ -212,9 +212,9 @@ def test_wordspan_device_equals_jax_host_and_oracle(
     assert got == oracle
     assert got == jax_span
     assert got == host_span
-    # the 3-lane reduce went through the segmented reduce (its plain
-    # version here), and at P = 8 the radix path
-    assert kc.PLAIN_CALLS["segreduce"] > 0
+    # the 3-lane callable monoid went through the monoid kernel's route
+    # (its plain version here), and at P = 8 the radix path
+    assert kc.PLAIN_CALLS["segreduce_monoid"] > 0
     assert kc.PLAIN_CALLS["tokenize"] > 0
     if sort_impl == "radix":
         assert kc.PLAIN_CALLS["radix_plan"] > 0
@@ -222,11 +222,25 @@ def test_wordspan_device_equals_jax_host_and_oracle(
 
 
 def test_wordspan_device_config_is_per_lane_codes():
-    """The JAX monoid is a callable; the port's is its per-lane codes,
-    which the CUDA kernel takes (a callable raises there: ROADMAP A.9)."""
+    """The monoid is a callable, as the JAX module's; the per-lane codes
+    spell the same monoid (both reduce a 3-lane batch alike)."""
+    import torch
+
+    from mapreduce_tpu_torch.ops import segscan as tseg
+
     cfg = tws.device_config()
-    assert cfg.reduce_op == ("sum", "min", "max")
+    assert cfg.reduce_op is tws.SPAN_REDUCE_OP and callable(cfg.reduce_op)
     assert callable(jws.device_config().reduce_op)
+    rng = np.random.default_rng(3)
+    keys = torch.from_numpy(rng.integers(0, 40, (300, 2)).astype(np.int32))
+    vals = torch.from_numpy(rng.integers(-9, 9, (300, 3)).astype(np.int32))
+    pay = torch.zeros((300, 1), dtype=torch.int32)
+    valid = torch.from_numpy(rng.random(300) < 0.9)
+    a = tseg.sorted_unique_reduce(keys, vals, pay, valid, 2048, cfg.reduce_op)
+    b = tseg.sorted_unique_reduce(keys, vals, pay, valid, 2048,
+                                  ("sum", "min", "max"))
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert (cfg.local_capacity, cfg.exchange_capacity, cfg.out_capacity,
             cfg.tile, cfg.tile_records) == (
         1 << 15, 1 << 13, 1 << 15, 512, 128)

@@ -225,7 +225,8 @@ def test_convert_round_trips(jax_ref):
 def _port_sources():
     files = sorted((ROOT / "mapreduce_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "probe_plan.py",
-                    ROOT / "probe_feeder.py", ROOT / "probe_telemetry.py"]
+                    ROOT / "probe_feeder.py", ROOT / "probe_telemetry.py",
+                    ROOT / "probe_monoid.py"]
 
 
 def test_port_imports_no_jax():
@@ -269,7 +270,8 @@ def test_port_imports_no_jax():
                    "utils/compile_cache", "native/__init__",
                    "examples/wordspan/__init__",
                    "examples/wordcountbig/__init__",
-                   "examples/wordcount_native/__init__"):
+                   "examples/wordcount_native/__init__",
+                   "ops/monoid", "testing/monoids"):
         assert f"mapreduce_tpu_torch/{module}.py" in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
