@@ -359,11 +359,28 @@ which raises on failure:
    snapshot against a numpy oracle, then evicted to ``mem:`` storage
    and restored bit for bit; (d) ``a // b`` refused by name before any
    launch;
-20. one JSON line of per-kernel numbers (the word-count kernels' with
-   their phase 13, 14, 15, 16, 17 and 18 launches beside, and
+20. the durable telemetry history and the alerting plane (the
+   ``history`` and ``alerts`` lines): a ``docserver --history-dir D
+   --alert-interval 0.5`` with an ``--alert-exec`` sink that appends
+   each notification to a file, phase 18's objectives, and two rules:
+   ``onesweep_ran`` (``increase(mrtpu_kernel_launches_total
+   {kernel=radix_onesweep}[300]):gt:0``) and a burn rule on the breached
+   ``queue_wait``; a P = 8 radix ``runner`` on the card runs phase 18's
+   uniform and skewed word counts (each against ``Counter``); then
+   ``cli alerts --json`` shows ``onesweep_ran`` firing and the sink holds
+   one firing notification for it, ``cli top`` names a device or kernel
+   family, and after a SIGTERM to the runner (its flight ``.prom`` holds
+   its own counts) ``cli history --json`` gives increases of the onesweep
+   kernel's launches and of ``mrtpu_device_waves_total`` equal to them as
+   exact integers; then the docserver is SIGKILLed and restarted on the
+   same port and directory: the same increases, the instance still
+   firing from the replayed log, and after six evaluator sweeps still
+   one notification in the sink;
+21. one JSON line of per-kernel numbers (the word-count kernels' with
+   their phase 13, 14, 15, 16, 17, 18 and 20 launches beside, and
    ``segreduce_monoid`` with its phase 17 and 19 launches), the smoke's
-   wall beside the 434.5 s the smoke took before phase 19 existed,
-   then the card and the result line.
+   wall and its wall before phase 20, then the card and the result
+   line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
 flash kernels sum in another order than their plain versions: out, dq,
@@ -6007,6 +6024,241 @@ def monoid_phase(torch, kc, seg, wcmod, chunks, data, want, ws_held,
     return kernel, codes_case
 
 
+# -- phase 20: the durable telemetry history and the alerting plane ----------
+
+#: the phase's device (a CPU rehearsal of the phase sets "cpu")
+HISTORY_DEV = "cuda"
+#: the docserver's alert evaluator period, seconds
+ALERT_INTERVAL = 0.5
+#: evaluator sweeps the restarted docserver runs before the sink is
+#: read again
+SWEEPS_AFTER_RESTART = 6
+#: seconds the alert may take to fire and be delivered
+ALERT_TIMEOUT = 60
+
+
+def history_family():
+    """The family the runner counts its kernels in: its launches on the
+    card (its plain calls in a CPU rehearsal)."""
+    return ("mrtpu_kernel_launches_total" if HISTORY_DEV == "cuda"
+            else "mrtpu_kernel_plain_calls_total")
+
+
+def history_rules():
+    """Phase 20's rules: the runner's onesweep kernel ran in the last
+    300 s, and phase 18's breached queue_wait objective burns."""
+    return (f"onesweep_ran:increase({history_family()}"
+            "{kernel=radix_onesweep}[300]):gt:0",
+            "queue_wait_burn:burn(queue_wait):gt:1")
+
+
+def history_increases(url, token):
+    """The history's increases over the last hour of the onesweep
+    kernel's count and of ``mrtpu_device_waves_total``, through ``cli
+    history --json`` (exact integers), and each query's wall."""
+    out, walls = {}, {}
+    for key, fam, labels in (
+            ("radix_onesweep", history_family(),
+             ["--label", "kernel=radix_onesweep"]),
+            ("device_waves", "mrtpu_device_waves_total", [])):
+        text, walls[key] = run_cli(["history", url, "--metric", fam,
+                                    *labels, "--range", "3600", "--json",
+                                    "--auth", token])
+        doc = json.loads(text)
+        total = sum(v for s in doc["series"] for _t, v in s["points"])
+        check(total == int(total) and total > 0,
+              f"history: {fam} increase {total}")
+        out[key] = int(total)
+    return out, walls
+
+
+def sink_firings(path, rule):
+    """The firing notifications for *rule* the exec sink appended."""
+    if not os.path.exists(path):
+        return []
+    with open(path, encoding="utf-8") as f:
+        docs = [json.loads(line) for line in f if line.strip()]
+    return [d for d in docs if d.get("rule") == rule
+            and d.get("to") == "firing"]
+
+
+def alert_state(url, token, rule):
+    """``cli alerts --json``: the state of *rule*'s instance, the
+    snapshot, and the command's wall."""
+    text, wall = run_cli(["alerts", url, "--json", "--auth", token])
+    snap = json.loads(text)["snapshot"]
+    states = [i["state"] for i in snap["instances"] if i["rule"] == rule]
+    return (states[0] if len(states) == 1 else states), snap, wall
+
+
+def history_phase(data, want, smi):
+    """Phase 20: a docserver with the durable history and two alert
+    rules, a P = 8 radix runner on the card running phase 18's uniform
+    and skewed word counts; the history's increases against the runner's
+    own counts, ``top``, the alert fired and delivered once, and all of
+    it again after a SIGKILL and a restart of the docserver on the same
+    directory (the ``history`` and ``alerts`` lines).  Returns the
+    runner's launches of every kernel."""
+    import shutil
+    import signal
+    import tempfile
+    import uuid
+
+    from mapreduce_tpu_torch.coord.docserver import HttpDocStore
+    from mapreduce_tpu_torch.sched.scheduler import SchedulerClient
+
+    t_phase = time.monotonic()
+    token = uuid.uuid4().hex
+    root = tempfile.mkdtemp(prefix="chip_smoke_history_")
+    procs = NetProcs(root, token, label="history")
+    dbs = ("hist_uniform", "hist_skewed")
+    hist_dir = os.path.join(root, "hist")
+    sink = os.path.join(root, "alerts.ndjson")
+    rule = "onesweep_ran"
+    try:
+        skew = skewed_corpus(*SKEW_CORPUS, RADIX_PARTS)
+        wants = {dbs[0]: {w.decode(): c for w, c in want.items()},
+                 dbs[1]: {w.decode(): c
+                          for w, c in Counter(skew.split()).items()}}
+        files = {dbs[0]: write_line_files(data, JOB_FILES, tempfile.mkdtemp(
+                     prefix="u_", dir=root)),
+                 dbs[1]: write_line_files(skew, JOB_FILES, tempfile.mkdtemp(
+                     prefix="s_", dir=root))}
+        slo = [a for spec in OPERATOR_SLOS for a in ("--slo", spec)]
+        board = ["--history-dir", hist_dir, "--alert-interval",
+                 str(ALERT_INTERVAL), "--alert-exec",
+                 f"log=sh -c 'cat >> {sink}; echo >> {sink}'", *slo,
+                 *[a for r in history_rules() for a in ("--alert", r)]]
+        # (a) the cluster and the two tasks
+        procs.start("board", "docserver", "--host", "127.0.0.1", "--port",
+                    "0", "--max-inflight", "2", *board)
+        m = procs.wait_line("board", r"job board at http://([\d.]+):(\d+)"
+                            r".*durable history at /queryz.*alerting at "
+                            r"/alertz \(2 rule")
+        addr = f"{m.group(1)}:{m.group(2)}"
+        url = f"http://{addr}"
+        trace_out = os.path.join(root, "runner.trace.json")
+        procs.start("runner", "runner", url, "--partitions",
+                    str(RADIX_PARTS), "--torch-device", HISTORY_DEV,
+                    "--max-inflight", "2", "--workers", "2",
+                    "--telemetry-interval", "0.5", "--trace-out",
+                    trace_out, *slo)
+        procs.wait_line("runner", r"runner serving", timeout=120)
+        sched = SchedulerClient(addr, auth_token=token)
+        client = HttpDocStore(addr, auth_token=token)
+        try:
+            t0 = time.monotonic()
+            ids = {db: sched.submit(
+                db.replace("_", "-"), db=db, est_jobs=1,
+                params=service_params(files[db], "radix",
+                                      f"shared:{os.path.join(root, db)}"),
+            )["_id"] for db in dbs}
+            while True:
+                docs = {d["_id"]: d for d in sched.list()["tasks"]}
+                states = {db: docs[i]["state"] for db, i in ids.items()}
+                if all(st == "DONE" for st in states.values()):
+                    break
+                check(all(st in ("QUEUED", "ADMITTED", "RUNNING", "DONE")
+                          for st in states.values())
+                      and time.monotonic() - t0 < OPERATOR_TIMEOUT,
+                      f"history (a): tasks {states}: "
+                      f"{procs.text('runner', 'err')[-3000:]}")
+                time.sleep(0.1)
+            done_s = time.monotonic() - t0
+            for db in dbs:
+                got = result_counts(result_bytes(os.path.join(root, db), db))
+                check(got == wants[db], f"history (a): {db}'s result "
+                      "differs from Counter over its files' words")
+            # (b) the alert fires and is delivered once
+            deadline = time.monotonic() + ALERT_TIMEOUT
+            while not sink_firings(sink, rule):
+                check(time.monotonic() < deadline, f"history (b): no "
+                      f"{rule} notification in {ALERT_TIMEOUT} s: "
+                      f"{procs.text('board', 'err')[-2000:]}")
+                time.sleep(0.1)
+            fired_s = time.monotonic() - t0
+            state, snap, alerts_wall = alert_state(url, token, rule)
+            check(state == "firing", f"history (b): {rule} is {state}: "
+                  f"{snap}")
+            # (c) top names a device or kernel family
+            top, top_wall = run_cli(["top", url, "--k", "20", "--auth",
+                                     token])
+            families = sorted(set(re.findall(r"(mrtpu_\w+?)(?:\{|\s|$)",
+                                             top)))
+            check(any(f.startswith(("mrtpu_device_", "mrtpu_kernel_"))
+                      for f in families), f"history (c): top:\n{top}")
+        finally:
+            sched.close()
+            client.close()
+        # (d) the runner stops (its flight dump holds its own counts);
+        # every push it made is in the history by then
+        launches, flight = operator_flight(procs, trace_out)
+        prom = f"{trace_out}.flight.metrics.prom"
+        own = {"radix_onesweep": launches["radix_onesweep"],
+               "device_waves": int(sum(prom_values(
+                   prom, "mrtpu_device_waves_total").values()))}
+        got, query_walls = history_increases(url, token)
+        check(got == own, f"history (d): the history's increases {got}, "
+              f"the runner's own counts {own}")
+        check(len(sink_firings(sink, rule)) == 1, "history (d): "
+              f"{rule} delivered {len(sink_firings(sink, rule))} times")
+        client = HttpDocStore(addr, auth_token=token)
+        try:
+            row = client.statusz()["history"]
+        finally:
+            client.close()
+        # (e) SIGKILL the docserver and restart it on the same port and
+        # directory
+        p = procs.procs["board"]
+        p.send_signal(signal.SIGKILL)
+        p.wait(timeout=30)
+        t0 = time.monotonic()
+        procs.start("board2", "docserver", "--host", "127.0.0.1",
+                    "--port", m.group(2), "--max-inflight", "2", *board)
+        procs.wait_line("board2", r"job board at http://")
+        deadline = time.monotonic() + 30
+        while net_status(f"{url}/healthz") != 200:
+            check(time.monotonic() < deadline, "history (e): the "
+                  "restarted docserver never answered /healthz")
+            time.sleep(0.05)
+        restart_s = time.monotonic() - t0
+        again, restart_walls = history_increases(url, token)
+        check(again == own, f"history (e): after the restart the "
+              f"history's increases {again}, the runner's {own}")
+        time.sleep(SWEEPS_AFTER_RESTART * ALERT_INTERVAL + ALERT_INTERVAL)
+        state2, snap2, _ = alert_state(url, token, rule)
+        check(state2 == "firing" and snap2["log"]["replayed"] > 0,
+              f"history (e): after the restart {rule} is {state2}: "
+              f"{snap2}")
+        n_fired = len(sink_firings(sink, rule))
+        check(n_fired == 1, f"history (e): {rule} delivered {n_fired} "
+              "times across the restart")
+        print(json.dumps({"history": {
+            "run": "cluster", "card": smi, "submit_to_both_done_s": done_s,
+            "increases": got, "runner_counts": own,
+            "after_restart": again, "query_wall_s": query_walls,
+            "query_wall_s_after_restart": restart_walls,
+            "top_wall_s": top_wall, "top_families": families,
+            "segments": row["segments"], "bytes": row["bytes"],
+            "entries": row["entries"], "series": row["series"],
+            "procs": row["procs"], "flight": flight}}, default=float),
+            flush=True)
+        print(json.dumps({"alerts": {
+            "run": "cluster", "card": smi, "rule": rule,
+            "submit_to_delivered_s": fired_s, "alerts_wall_s": alerts_wall,
+            "counts": snap["counts"], "restart_s": restart_s,
+            "counts_after_restart": snap2["counts"],
+            "log_after_restart": snap2["log"],
+            "sweeps_after_restart": SWEEPS_AFTER_RESTART,
+            "firing_notifications": n_fired,
+            "phase_s": time.monotonic() - t_phase}}, default=float),
+            flush=True)
+    finally:
+        procs.reap()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 T_START = time.monotonic()
 
 
@@ -6221,6 +6473,10 @@ def main():
                                           data, want, ws_held, ws_compare,
                                           smi)
     del ws_held
+
+    # phase 20: the durable telemetry history and the alerting plane
+    before_history_s = time.monotonic() - T_START
+    history_launches = history_phase(data, want, smi)
     monoid_kernel["launches_wordspan"] = {
         run: counts.get("segreduce_monoid", 0)
         for run, counts in wordspan_launches.items()}
@@ -6257,9 +6513,12 @@ def main():
         # and on phase 18's two tasks in the runner process (its flight
         # dump's mrtpu_kernel_launches_total)
         kern["launches_operator"] = operator_launches[kern["name"]]
+        # and on phase 20's two tasks, whose counts the history held
+        kern["launches_history"] = history_launches[kern["name"]]
     kernels += radix_kernels + flash_kernels + [monoid_kernel]
     print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START,
-                                "before_phase_19_wall_s": 434.5}}))
+                                "before_phase_20_wall_s":
+                                before_history_s}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,15 @@
   python -m mapreduce_tpu_torch.cli docserver [--host H] [--port N]
       [--root DIR | --ha-dir DIR [--ha-lease S] [--ha-fsync]]
       [--max-inflight N] [--tenant-max-queued-{tasks,jobs,bytes} N]
-      [--slo SPEC]... — the job board over HTTP (the mongod role),
-      replicated with --ha-dir, hosting the multi-tenant scheduler's
-      /tasks and the cluster snapshot /statusz
+      [--slo SPEC]... [--history-dir DIR] [--history-keep N]
+      [--history-segment-bytes B] [--history-max-age S]
+      [--alert SPEC]... [--alert-rules FILE] [--alert-webhook
+      [NAME=]HOST:PORT]... [--alert-exec [NAME=]CMD]...
+      [--alert-interval S] [--alert-damp S] — the job board over HTTP
+      (the mongod role), replicated with --ha-dir, hosting the
+      multi-tenant scheduler's /tasks, the cluster snapshot /statusz,
+      the durable telemetry history /queryz and the alerting plane
+      /alertz
   python -m mapreduce_tpu_torch.cli status CONNSTR [--watch S] [--json]
       — the live cluster view (/statusz rendered)
   python -m mapreduce_tpu_torch.cli profile CONNSTR --out DIR — a
@@ -20,6 +26,15 @@
   python -m mapreduce_tpu_torch.cli diagnose CONNSTR|FILE [--json]
       [--skew-ratio R] — stragglers, skew, hotspots and the critical
       path of a live /clusterz or a saved cluster_trace.json
+  python -m mapreduce_tpu_torch.cli history CONNSTR --metric FAMILY
+      [--label K=V]... [--range S] [--step S]
+      [--fn {raw,rate,increase,delta}] [--by-proc] [--follow
+      [--interval S]] [--json] — a range query over /queryz
+  python -m mapreduce_tpu_torch.cli top CONNSTR [--k N] [--window S]
+      [--json] — the busiest counter series of the history
+  python -m mapreduce_tpu_torch.cli alerts CONNSTR [--silence RULE
+      [--duration S]] [--ack RULE] [--watch S] [--json] — the alerting
+      plane's rules and instances (/alertz)
   python -m mapreduce_tpu_torch.cli submit CONNSTR TENANT TASKFN MAPFN
       PARTITIONFN REDUCEFN [FINALFN] [STORAGE] [--db DB] [--device]
       [--priority N] [--weight W] [--est-jobs N] [--est-bytes N]
@@ -114,10 +129,18 @@ no registry; ``warmup`` then exits 1, as on a dir it cannot write).
 process's SLO plane evaluates (``obs/slo``): ``status`` renders them,
 ``diagnose`` names a breach.
 
-JAX flags the port does not offer yet are refused by name, their help
-naming the ROADMAP item that brings them: the docserver's
-``--history-*`` and ``--alert*`` (A.8c-2).  The JAX commands the port
-does not offer yet (:data:`NOT_PORTED_COMMANDS`) exit 2 naming theirs.
+``docserver --history-dir DIR`` (on ``<ha-dir>/history`` by default)
+keeps every telemetry push as delta-encoded segments (``obs/history``):
+``history`` and ``top`` query them, ``status`` shows the history row.
+``--alert NAME:EXPR:OP:THRESHOLD[:FOR]`` (``increase|rate|delta(
+FAMILY{k=v}[W])``, ``burn(OBJECTIVE)`` or ``anomaly(FAMILY[W])``) arms
+the alerting plane (``obs/alerts``), evaluated every
+``--alert-interval`` seconds on the primary and delivered exactly once
+to each ``--alert-webhook`` / ``--alert-exec`` sink; ``alerts`` lists,
+silences and acks its rules.
+
+The JAX commands the port does not offer yet
+(:data:`NOT_PORTED_COMMANDS`) exit 2 naming theirs.
 """
 
 from __future__ import annotations
@@ -242,28 +265,6 @@ def _export_trace(args, recorder=None) -> None:
             # the normal export ran: flight files would be redundant
             # (their presence is the abnormal-exit signal)
             recorder.disarm()
-
-
-class _NotPorted(argparse.Action):
-    """A JAX flag the port does not offer yet: refused by name, never
-    accepted and then ignored."""
-
-    def __init__(self, option_strings, dest, item, nargs=0, **kw):
-        self.item = item
-        super().__init__(option_strings, dest, nargs=nargs,
-                         help=f"not ported yet ({item})", **kw)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported to "
-                     f"mapreduce_tpu_torch yet ({self.item})")
-
-
-def _refuse(p: argparse.ArgumentParser, item: str, *flags: str,
-            takes_value: bool = False) -> None:
-    for flag in flags:
-        p.add_argument(flag, action=_NotPorted, item=item,
-                       nargs=1 if takes_value else 0,
-                       default=argparse.SUPPRESS)
 
 
 def _add_controllers(p: argparse.ArgumentParser) -> None:
@@ -782,11 +783,60 @@ def cmd_docserver(argv: List[str]) -> int:
     g.add_argument("--tenant-max-queued-tasks", type=int, default=None)
     g.add_argument("--tenant-max-queued-jobs", type=int, default=None)
     g.add_argument("--tenant-max-queued-bytes", type=int, default=None)
-    _refuse(p, "ROADMAP A.8c-2: the telemetry history and the alerts",
-            "--history-dir", "--history-keep", "--history-segment-bytes",
-            "--history-max-age", "--alert", "--alert-rules",
-            "--alert-webhook", "--alert-exec", "--alert-interval",
-            "--alert-damp", takes_value=True)
+    th = p.add_argument_group(
+        "telemetry history (obs/history.py: every collector push "
+        "appends delta-encoded samples to seq-stamped JSONL segments; "
+        "/queryz + `cli history`/`cli top` read them back; defaults "
+        "onto <ha-dir>/history under HA so a promoted standby keeps "
+        "serving the series)")
+    th.add_argument("--history-dir", default=None,
+                    help="segment directory for the durable metric "
+                         "history (implied under --ha-dir; omit both "
+                         "to disable history)")
+    th.add_argument("--history-keep", type=int, default=None,
+                    metavar="N",
+                    help="segments retained after rotation (default 8)")
+    th.add_argument("--history-segment-bytes", type=int, default=None,
+                    metavar="B",
+                    help="rotate the active segment past this size "
+                         "(default 1000000)")
+    th.add_argument("--history-max-age", type=float, default=None,
+                    metavar="S",
+                    help="rotate the active segment past this age "
+                         "(default 300s)")
+    al = p.add_argument_group(
+        "alerting (obs/alerts.py: rules evaluated on this board, every "
+        "lifecycle transition appended to a generation-fenced log on "
+        "the HA dir so a promoted standby resumes pending timers and "
+        "never double-fires; read back at /alertz + `cli alerts`)")
+    al.add_argument("--alert", action="append", default=None,
+                    metavar="SPEC",
+                    help="alert rule NAME:EXPR:OP:THRESHOLD[:FOR_S] "
+                         "(repeatable).  EXPR is rate|increase|delta("
+                         "FAMILY{k=v,...}[WINDOW_S]), burn(OBJECTIVE"
+                         "[,short|long]) or anomaly(FAMILY{...}"
+                         "[WINDOW_S]); e.g. --alert lost:increase("
+                         "mrtpu_worker_lease_lost_total[300]):gt:0:60")
+    al.add_argument("--alert-rules", default=None, metavar="FILE",
+                    help="JSON file of rule specs (array of strings, "
+                         "or {\"rules\": [...]})")
+    al.add_argument("--alert-webhook", action="append", default=None,
+                    metavar="[NAME=]HOST:PORT",
+                    help="POST firing/resolved notifications here "
+                         "(repeatable; NAME keys the durable delivery "
+                         "cursor)")
+    al.add_argument("--alert-exec", action="append", default=None,
+                    metavar="[NAME=]CMD",
+                    help="run CMD per notification, JSON on stdin "
+                         "(repeatable)")
+    al.add_argument("--alert-interval", type=float, default=5.0,
+                    metavar="S",
+                    help="evaluation sweep period (default 5s)")
+    al.add_argument("--alert-damp", type=float, default=None,
+                    metavar="S",
+                    help="a firing rule resolves only after its "
+                         "condition stays clear this long (default "
+                         "30s)")
     _add_slo(p)
     _add_auth(p)
     _add_verbosity(p)
@@ -814,12 +864,27 @@ def cmd_docserver(argv: List[str]) -> int:
                     scheduler_config=(SchedulerConfig(**overrides)
                                       if overrides else None),
                     ha_dir=args.ha_dir, ha_lease=args.ha_lease,
-                    ha_fsync=args.ha_fsync)
+                    ha_fsync=args.ha_fsync,
+                    history_dir=args.history_dir,
+                    history_keep=args.history_keep,
+                    history_segment_bytes=args.history_segment_bytes,
+                    history_max_age_s=args.history_max_age,
+                    alert_rules=args.alert,
+                    alert_rules_file=args.alert_rules,
+                    alert_webhooks=args.alert_webhook,
+                    alert_execs=args.alert_exec,
+                    alert_interval=args.alert_interval,
+                    alert_damp=args.alert_damp)
     role = f"; HA role: {srv.ha.role}" if srv.ha is not None else ""
+    hist = (f", durable history at /queryz ({srv.history.dir})"
+            if srv.history is not None else "")
+    if srv.alerts is not None:
+        hist += ", alerting at /alertz ({} rule(s))".format(
+            len(srv.alerts.rules))
     print(f"job board at http://{srv.host}:{srv.port} "
           f"(CONNSTR: \"http://HOST:{srv.port}\"; Prometheus at "
           f"/metrics, cluster snapshot at /statusz, merged cluster "
-          f"timeline at /clusterz, scheduler at /tasks{role})",
+          f"timeline at /clusterz, scheduler at /tasks{hist}{role})",
           flush=True)
     try:
         srv.serve_forever()
@@ -1641,6 +1706,252 @@ def cmd_diagnose(argv: List[str]) -> int:
     return 0
 
 
+def cmd_history(argv: List[str]) -> int:
+    """Range-query the docserver's durable telemetry history
+    (/queryz): one metric family, optional label matchers, a trailing
+    window, and a server-side fn (raw samples or aligned
+    rate/increase/delta series)."""
+    p = argparse.ArgumentParser(prog="mapreduce_tpu_torch history")
+    p.add_argument("connstr",
+                   help="the docserver, http://HOST:PORT")
+    p.add_argument("--metric", required=True, metavar="FAMILY",
+                   help="metric family, e.g. mrtpu_records_total")
+    p.add_argument("--label", action="append", default=[],
+                   metavar="K=V",
+                   help="label matcher (repeatable), e.g. task=wc")
+    p.add_argument("--range", type=float, default=600.0, dest="range_s",
+                   metavar="S",
+                   help="trailing window in seconds (default 600)")
+    p.add_argument("--step", type=float, default=None, metavar="S",
+                   help="step-align rate/increase/delta series to S "
+                        "second buckets")
+    p.add_argument("--fn", default="increase",
+                   choices=("raw", "rate", "increase", "delta"),
+                   help="server-side function (default increase)")
+    p.add_argument("--by-proc", action="store_true", dest="by_proc",
+                   help="split counter series per pushing process")
+    p.add_argument("--follow", action="store_true",
+                   help="tail mode: re-issue the range query every "
+                        "--interval and print only new steps (watch a "
+                        "series without a dashboard; ctrl-c exits)")
+    p.add_argument("--interval", type=float, default=2.0, metavar="S",
+                   help="--follow poll period (default 2s)")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print the raw /queryz response as JSON")
+    _add_auth(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose)
+
+    if args.follow and args.interval <= 0:
+        print("--interval must be > 0", file=sys.stderr)
+        return 2
+    for m in args.label:
+        if "=" not in m:
+            print(f"bad --label {m!r} (want K=V)", file=sys.stderr)
+            return 2
+    store = _docserver_client(args.connstr, args.auth, "history")
+    if store is None:
+        return 2
+    params: dict = {"metric": args.metric, "fn": args.fn,
+                    "start": -abs(args.range_s)}
+    if args.label:
+        params["match"] = list(args.label)
+    if args.step is not None:
+        params["step"] = args.step
+    if args.by_proc:
+        params["by_proc"] = 1
+    try:
+        try:
+            doc = store.queryz(params)
+        except PermissionError as exc:
+            print(f"{exc} (pass --auth or set $MAPREDUCE_TPU_AUTH)",
+                  file=sys.stderr)
+            return 2
+        except OSError as exc:
+            print(f"cannot query {args.connstr}: {exc}",
+                  file=sys.stderr)
+            return 1
+        if args.as_json and not args.follow:
+            print(json.dumps(doc, indent=2, default=float))
+            return 0
+        series = doc.get("series") or []
+        print(f"{doc.get('metric')} [{doc.get('kind')}] "
+              f"fn={doc.get('fn')} "
+              f"window {doc.get('start')}..{doc.get('end')}"
+              + (f" step {doc.get('step')}s" if doc.get("step")
+                 else ""))
+        if not series and not args.follow:
+            print("  (no samples in range — is the history plane "
+                  "enabled on the docserver, and did anything push?)")
+            return 0
+        last_t = _print_history_points(series, float("-inf"))
+        if not args.follow:
+            return 0
+        # tail mode: re-issue the same trailing-window query and print
+        # only steps newer than anything already shown — `tail -f` for
+        # a metric series
+        import time as _time
+
+        while True:
+            try:
+                _time.sleep(args.interval)
+                doc = store.queryz(params)
+            except KeyboardInterrupt:
+                return 0
+            except (OSError, ValueError) as exc:
+                print(f"  [poll failed: {exc}]", file=sys.stderr)
+                continue
+            last_t = _print_history_points(doc.get("series") or [],
+                                           last_t)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        store.close()
+
+
+def _print_history_points(series: list, last_t: float) -> float:
+    """Print every point newer than *last_t*, label-prefixed; return
+    the new high-water timestamp (the --follow tail cursor)."""
+    newest = last_t
+    for s in series:
+        labels = ",".join(f"{k}={v}"
+                          for k, v in sorted(s["labels"].items()))
+        pts = [(t, v) for t, v in (s.get("points") or [])
+               if t > last_t]
+        if not pts:
+            continue
+        print(f"  {{{labels}}}: {len(pts)} point(s)")
+        for t, v in pts:
+            print(f"    {t:.3f}  {v:g}", flush=True)
+            newest = max(newest, t)
+    return newest
+
+
+def cmd_top(argv: List[str]) -> int:
+    """Top-K busiest counter series by increase over a trailing
+    history window (/queryz op=top) — a quick 'what is this cluster
+    doing right now' for operators."""
+    p = argparse.ArgumentParser(prog="mapreduce_tpu_torch top")
+    p.add_argument("connstr",
+                   help="the docserver, http://HOST:PORT")
+    p.add_argument("--k", type=int, default=10,
+                   help="how many series (default 10)")
+    p.add_argument("--window", type=float, default=300.0, metavar="S",
+                   help="trailing window in seconds (default 300)")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print the raw /queryz response as JSON")
+    _add_auth(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose)
+
+    store = _docserver_client(args.connstr, args.auth, "top")
+    if store is None:
+        return 2
+    try:
+        doc = store.queryz({"op": "top", "k": args.k,
+                            "window": args.window})
+    except PermissionError as exc:
+        print(f"{exc} (pass --auth or set $MAPREDUCE_TPU_AUTH)",
+              file=sys.stderr)
+        return 2
+    except OSError as exc:
+        print(f"cannot query {args.connstr}: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        store.close()
+    if args.as_json:
+        print(json.dumps(doc, indent=2, default=float))
+        return 0
+    rows = doc.get("series") or []
+    print(f"top {len(rows)} counter series over the last "
+          f"{doc.get('window_s', args.window):g}s:")
+    if not rows:
+        print("  (nothing moved — or the history plane is not enabled "
+              "on this docserver)")
+    for r in rows:
+        labels = ",".join(f"{k}={v}"
+                          for k, v in sorted((r.get("labels")
+                                              or {}).items()))
+        print("  {:>12.6g}/s  +{:<10g} {}{}".format(
+            r.get("rate", 0.0), r.get("increase", 0.0), r.get("name"),
+            f"{{{labels}}}" if labels else ""))
+    return 0
+
+
+def cmd_alerts(argv: List[str]) -> int:
+    """The alerting plane (/alertz): list rule + instance lifecycle
+    state, silence or ack a rule, or --watch the lifecycle live.
+    Reads work against ANY replica (standbys tail the shared alert
+    log); silence/ack are board mutations and route to the primary."""
+    p = argparse.ArgumentParser(prog="mapreduce_tpu_torch alerts")
+    p.add_argument("connstr",
+                   help="the docserver, http://HOST:PORT (or the HA "
+                        "replica-set form H1:P1,H2:P2)")
+    p.add_argument("--silence", default=None, metavar="RULE",
+                   help="suppress notifications for RULE ('*' = all) "
+                        "for --duration; the alert keeps evaluating "
+                        "and re-fires when the silence expires")
+    p.add_argument("--duration", type=float, default=3600.0,
+                   metavar="S",
+                   help="--silence length (default 3600s)")
+    p.add_argument("--ack", default=None, metavar="RULE",
+                   help="mark RULE's firing instances acknowledged")
+    p.add_argument("--watch", type=float, default=None, metavar="S",
+                   help="re-poll every S seconds until interrupted")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print the raw /alertz JSON instead")
+    _add_auth(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose)
+
+    store = _docserver_client(args.connstr, args.auth, "alerts")
+    if store is None:
+        return 2
+    import time as _time
+
+    try:
+        if args.silence is not None:
+            res = store.alert_op("silence", args.silence,
+                                 duration=args.duration)
+            print("silenced {} until {:.0f} (id {})".format(
+                res.get("rule"), res.get("until", 0.0),
+                res.get("id")))
+        if args.ack is not None:
+            res = store.alert_op("ack", args.ack)
+            print("acked {} ({} firing instance(s))".format(
+                res.get("rule"), res.get("acked_instances", 0)))
+        while True:
+            doc = store.alertz()
+            if args.as_json:
+                out = json.dumps(doc, indent=2, default=float) + "\n"
+            else:
+                lines = _render_alerts(doc.get("snapshot") or {})
+                out = ("\n".join(lines) + "\n" if lines
+                       else "no alert rules configured on this "
+                            "docserver (--alert / --alert-rules)\n")
+            if args.watch is not None and not args.as_json:
+                sys.stdout.write("\x1b[2J\x1b[H")
+            sys.stdout.write(out)
+            sys.stdout.flush()
+            if args.watch is None:
+                return 0
+            _time.sleep(args.watch)
+    except KeyboardInterrupt:
+        return 0
+    except PermissionError as exc:
+        print(f"{exc} (pass --auth or set $MAPREDUCE_TPU_AUTH)",
+              file=sys.stderr)
+        return 2
+    except OSError as exc:
+        print(f"cannot reach {args.connstr}: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        store.close()
+
+
 def cmd_warmup(argv: List[str]) -> int:
     """Build every kernel library of the device engine's configuration
     (and the host core) into the build directory, and acquire its wave
@@ -1965,14 +2276,13 @@ COMMANDS = {"server": cmd_server, "worker": cmd_worker,
             "drop": cmd_drop, "submit": cmd_submit, "tasks": cmd_tasks,
             "runner": cmd_runner, "timeline": cmd_timeline,
             "warmup": cmd_warmup, "status": cmd_status,
-            "profile": cmd_profile, "diagnose": cmd_diagnose}
+            "profile": cmd_profile, "diagnose": cmd_diagnose,
+            "history": cmd_history, "top": cmd_top,
+            "alerts": cmd_alerts}
 
 #: JAX commands the port does not offer yet, with the ROADMAP item
 NOT_PORTED_COMMANDS = {
     "drain": "ROADMAP A.11: the engine-host fleet",
-    "history": "ROADMAP A.8c-2: the durable telemetry history",
-    "top": "ROADMAP A.8c-2: the durable telemetry history",
-    "alerts": "ROADMAP A.8c-2: the alerting plane",
 }
 
 

@@ -41,9 +41,13 @@ the task list and the scheduler snapshot.
 
 ``/statusz`` serves the JSON cluster snapshot
 (:func:`..obs.statusz.cluster_status`, plus the HA section on a
-replicated board): the ``status`` and ``profile`` CLIs' feed.  Left out
-for now: ``/queryz`` and ``/alertz`` (ROADMAP A.8c-2): those paths
-answer 404 naming the item that brings them.
+replicated board): the ``status`` and ``profile`` CLIs' feed.
+``/queryz`` runs range queries over the durable telemetry history
+(:mod:`..obs.history`, ``history_dir=``, on ``<ha_dir>/history`` by
+default) and ``/alertz`` serves (GET) and mutates (POST ``silence`` /
+``ack``) the alerting plane (:mod:`..obs.alerts`), whose evaluator
+thread runs every ``alert_interval`` seconds on the primary; both GETs
+are served by standbys too.
 """
 
 from __future__ import annotations
@@ -53,8 +57,11 @@ import contextlib
 import http.server
 import itertools
 import json
+import logging
+import os
 import threading
 import time
+import urllib.parse
 import uuid
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -95,14 +102,13 @@ _SESSION_CAP = 1024  # per-client eviction watermarks remembered
 
 #: the GET paths this docserver serves (``/healthz`` unauthenticated)
 GET_PATHS = ("/metrics", "/statusz", "/tracez", "/clusterz", "/tasks",
-             "/healthz")
+             "/healthz", "/queryz", "/alertz")
 
-#: JAX docserver paths the port does not serve yet, each with the
-#: ROADMAP item that brings it (answered 404, the body names it)
-NOT_PORTED = {
-    "/queryz": "the durable telemetry history (ROADMAP A.8c-2)",
-    "/alertz": "the alerting plane (ROADMAP A.8c-2)",
-}
+#: the 404 body of ``/alertz`` on a board with no alert rules
+_NO_ALERTS = json.dumps(
+    {"ok": False, "type": "ValueError",
+     "error": "no alert rules configured (start the docserver with "
+              "--alert or --alert-rules)"}).encode()
 
 
 class DedupeEvictedError(IOError):
@@ -180,12 +186,6 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    def _not_ported(self, path: str) -> None:
-        self._respond(404, json.dumps(
-            {"ok": False, "type": "NotImplementedError",
-             "error": f"{path}: {NOT_PORTED[path]} is not ported to "
-                      "mapreduce_tpu_torch yet"}).encode())
-
     def do_POST(self) -> None:
         length = int(self.headers.get("Content-Length", 0))
         if self.ha is not None and not self.ha.is_primary():
@@ -196,9 +196,8 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
             return self._do_telemetry()
         if self.path == "/tasks":
             return self._do_tasks()
-        if self.path in NOT_PORTED:
-            self.rfile.read(length)
-            return self._not_ported(self.path)
+        if self.path == "/alertz":
+            return self._do_alertz()
         if self.path != "/rpc":
             self.rfile.read(length)
             return self._respond(404, b"{}")
@@ -383,6 +382,46 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
     #: ever interleaving (set per-server in DocServer.__init__)
     tasks_lock: threading.Lock
 
+    def _do_alertz(self) -> None:
+        """Operator mutations on the alerting plane: ``silence`` and
+        ``ack``.  Both are durable appends to the generation-fenced
+        alert log, so they run primary-only (the do_POST door already
+        answered 421 for a standby) and auth-gated like /rpc."""
+        length = int(self.headers.get("Content-Length", 0))
+        if not check_auth(self.auth_token, self.headers):
+            self.rfile.read(length)
+            _REQUESTS.inc(op="alertz:-", outcome="unauthorized")
+            return self._respond(401, b"{}")
+        from ..obs import alerts as _alerts
+
+        if not _alerts.PLANE.configured():
+            self.rfile.read(length)
+            return self._respond(404, _NO_ALERTS)
+        try:
+            req = json.loads(self.rfile.read(length))
+            op = req["op"]
+            if op not in ("silence", "ack"):
+                raise KeyError(op)
+        except (json.JSONDecodeError, KeyError, UnicodeDecodeError,
+                TypeError):
+            _REQUESTS.inc(op="alertz:-", outcome="bad_request")
+            return self._respond(400, b"{}")
+        try:
+            if op == "silence":
+                result = _alerts.PLANE.silence(
+                    str(req["rule"]),
+                    float(req.get("duration", 3600.0)))
+            else:
+                result = _alerts.PLANE.ack(str(req["rule"]))
+        except (ValueError, KeyError, TypeError, OSError) as exc:
+            _REQUESTS.inc(op=f"alertz:{op}", outcome="error")
+            return self._respond(400, json.dumps(
+                {"ok": False, "type": type(exc).__name__,
+                 "error": str(exc)}).encode())
+        _REQUESTS.inc(op=f"alertz:{op}", outcome="ok")
+        self._respond(200, json.dumps(
+            {"ok": True, "result": result}).encode())
+
     def _do_tasks(self) -> None:
         """The multi-tenant scheduler surface (sched/scheduler.py):
         ``submit`` / ``cancel`` (rid-deduped like every board mutation
@@ -507,11 +546,15 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
         process's span ring as Chrome trace JSON), ``/clusterz`` (the
         MERGED cluster timeline: every pushed process's spans
         clock-aligned with this process's), ``/tasks`` (every scheduler
-        task doc plus the scheduler snapshot) and ``/healthz``.  Everything but /healthz
-        is auth-gated like the RPC plane; /healthz is open — it returns
+        task doc plus the scheduler snapshot), ``/queryz`` (range
+        queries over the durable history), ``/alertz`` (the alerting
+        plane's state) and ``/healthz``.  Everything but /healthz is
+        auth-gated like the RPC plane; /healthz is open — it returns
         liveness (and, on an HA board, the replica's role), and
         orchestrator probes cannot send a bearer token."""
-        path = self.path.partition("?")[0]
+        # /queryz carries its parameters in the query string; every
+        # other endpoint ignores one (exact-path matching on the split)
+        path, _, query = self.path.partition("?")
         if path == "/healthz":
             _SCRAPES.inc(path=path)
             if self.ha is not None:
@@ -521,8 +564,6 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
                     {"ok": True, "role": self.ha.role,
                      "primary": self.ha.is_primary()}).encode())
             return self._respond(200, b'{"ok": true}')
-        if path in NOT_PORTED:
-            return self._not_ported(path)
         if path not in GET_PATHS:
             return self._respond(404, b"{}")
         if not check_auth(self.auth_token, self.headers):
@@ -542,6 +583,37 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
                 ctype = "text/plain; version=0.0.4; charset=utf-8"
             elif path == "/tracez":
                 body = json.dumps(TRACER.chrome_trace()).encode()
+                ctype = "application/json"
+            elif path == "/queryz":
+                # served by standbys too (history lives on the shared
+                # dir and do_GET has no primary check by design), which
+                # is what makes the series survive a board failover
+                history = getattr(self.collector, "history", None)
+                if history is None:
+                    return self._respond(404, json.dumps(
+                        {"error": "history not configured (start the "
+                         "docserver with --history-dir or --ha-dir)"}
+                    ).encode())
+                try:
+                    doc = self._queryz(history, query)
+                except ValueError as exc:
+                    # typed 400 body: bad step/range/op parameters are
+                    # the CALLER's bug, distinguishable from a 500
+                    return self._respond(400, json.dumps(
+                        {"ok": False, "type": "ValueError",
+                         "error": str(exc)}).encode())
+                body = json.dumps(doc, default=float).encode()
+                ctype = "application/json"
+            elif path == "/alertz":
+                # served from standbys too (the plane tails the shared
+                # alert log on refresh), so `cli alerts` works against
+                # whichever replica answers after a failover
+                from ..obs import alerts as _alerts
+
+                if not _alerts.PLANE.configured():
+                    return self._respond(404, _NO_ALERTS)
+                body = json.dumps(_alerts.alertz_doc(),
+                                  default=float).encode()
                 ctype = "application/json"
             elif path == "/tasks":
                 body = json.dumps(
@@ -574,6 +646,58 @@ class _RpcHandler(http.server.BaseHTTPRequestHandler):
             return self._respond(500, json.dumps(
                 {"error": f"{type(exc).__name__}: {exc}"}).encode())
         self._respond(200, body, ctype=ctype)
+
+    @staticmethod
+    def _queryz(history: Any, query: str) -> Dict[str, Any]:
+        """Parse one /queryz query string and run it.
+
+        ``op=query`` (default): ``metric=FAMILY`` plus repeated
+        ``match=label=value`` matchers, ``start``/``end`` (wall
+        seconds; <= 0 means relative to now), ``step`` and
+        ``fn=raw|rate|increase|delta`` (``by_proc=1`` splits counters
+        per pushing proc).  ``op=top``: top-K counter series by rate
+        over ``window``.  ``op=trends``: the persisted trend summary
+        diagnose consumes.  Raises ValueError on bad parameters (the
+        caller answers 400)."""
+        params = urllib.parse.parse_qs(query, keep_blank_values=True)
+
+        def one(name: str, default: Optional[str] = None,
+                ) -> Optional[str]:
+            vals = params.get(name)
+            return vals[-1] if vals else default
+
+        op = one("op", "query")
+        if op == "top":
+            window = float(one("window", "300") or 300)
+            return {"op": "top", "window_s": window,
+                    "series": history.top_series(
+                        k=int(one("k", "10") or 10), window_s=window)}
+        if op == "trends":
+            return {"op": "trends",
+                    "trends": history.trends(
+                        window_s=float(one("window", "300") or 300))}
+        if op != "query":
+            raise ValueError(f"unknown queryz op {op!r}")
+        metric = one("metric")
+        if not metric:
+            raise ValueError("queryz needs metric=FAMILY")
+        matchers: Dict[str, str] = {}
+        for m in params.get("match", []):
+            k, sep, v = m.partition("=")
+            if not sep or not k:
+                raise ValueError(f"bad matcher {m!r} (want label=value)")
+            matchers[k] = v
+        start = one("start")
+        end = one("end")
+        step = one("step")
+        return history.query(
+            metric, matchers=matchers or None,
+            start=float(start) if start is not None else None,
+            end=float(end) if end is not None else None,
+            step=float(step) if step is not None else None,
+            fn=one("fn", "raw") or "raw",
+            by_proc=(one("by_proc", "0") or "0").lower()
+            in ("1", "true", "yes"))
 
     def _execute(self, op: str, req: Dict[str, Any]) -> Any:
         store = self.store
@@ -622,6 +746,12 @@ class DocServer:
     docserver hosts a :class:`~..sched.scheduler.Scheduler` on its board
     (*scheduler_config*).  ``port=0`` binds a free port (:attr:`port`
     holds it).
+
+    *history_dir* (``<ha_dir>/history`` by default) arms the durable
+    telemetry history behind ``/queryz``; *alert_rules* /
+    *alert_rules_file* arm the alerting plane, whose log lives on
+    ``<ha_dir>/alerts`` (or ``<history_dir>/alerts``) and whose
+    evaluator thread sweeps every *alert_interval* seconds.
     """
 
     def __init__(self, store: Optional[DocStore] = None,
@@ -630,7 +760,17 @@ class DocServer:
                  scheduler_config=None,
                  ha_dir: Optional[str] = None,
                  ha_lease: Optional[float] = None,
-                 ha_fsync: bool = False) -> None:
+                 ha_fsync: bool = False,
+                 history_dir: Optional[str] = None,
+                 history_keep: Optional[int] = None,
+                 history_segment_bytes: Optional[int] = None,
+                 history_max_age_s: Optional[float] = None,
+                 alert_rules: Optional[List[str]] = None,
+                 alert_rules_file: Optional[str] = None,
+                 alert_webhooks: Optional[List[str]] = None,
+                 alert_execs: Optional[List[str]] = None,
+                 alert_interval: float = 5.0,
+                 alert_damp: Optional[float] = None) -> None:
         # late import: sched builds on coord (no cycle at module load)
         from ..sched.scheduler import Scheduler, SchedulerConfig
 
@@ -651,6 +791,72 @@ class DocServer:
             bound_store: DocStore = self.ha.store
         else:
             bound_store = store if store is not None else MemoryDocStore()
+        # durable telemetry history: defaults onto the HA dir so the
+        # standby tails the same segments and keeps serving /queryz
+        # after failover; an explicit --history-dir works standalone
+        if history_dir is None and ha_dir is not None:
+            history_dir = os.path.join(ha_dir, "history")
+        self.history = None
+        if history_dir is not None:
+            from ..obs.history import MetricHistory
+
+            kwargs: Dict[str, Any] = {"fsync": ha_fsync}
+            if history_keep is not None:
+                kwargs["keep_segments"] = history_keep
+            if history_segment_bytes is not None:
+                kwargs["max_segment_bytes"] = history_segment_bytes
+            if history_max_age_s is not None:
+                kwargs["max_segment_age_s"] = history_max_age_s
+            self.history = MetricHistory(history_dir, **kwargs)
+            # a corrupt segment REFUSES to load (HistoryCorruptError
+            # propagates) — better no history plane than a wrong one
+            self.history.load()
+            # restart-proof burn windows: rebuild the SLO plane's
+            # in-memory deques from persisted bucket deltas so a
+            # burn-rate alert survives the process that raised it
+            from ..obs import slo as _slo
+
+            _slo.PLANE.seed_from_history(self.history)
+            # control-ledger outcomes read their before/after evidence
+            # from history windows instead of racy in-memory snapshots
+            from ..obs import control as _control
+
+            _control.LEDGER.bind_history(self.history)
+        # the alerting plane: rules evaluated on this board, every
+        # transition appended to a generation-fenced log on the shared
+        # dir so a promoted standby resumes pending timers and never
+        # re-fires what the dead primary already fired
+        self._alert_stop: Optional[threading.Event] = None
+        self._alert_thread: Optional[threading.Thread] = None
+        self._alert_interval = float(alert_interval)
+        self.alerts = None
+        rule_specs = list(alert_rules or [])
+        if rule_specs or alert_rules_file:
+            from ..obs import alerts as _alerts
+            from ..obs import slo as _slo
+
+            objective_names = [o.name for o in _slo.PLANE.objectives]
+            rules = [_alerts.parse_alert(s, objectives=objective_names)
+                     for s in rule_specs]
+            if alert_rules_file:
+                rules += _alerts.load_rules_file(
+                    alert_rules_file, objectives=objective_names)
+            sinks: List[Any] = [_alerts.parse_webhook_spec(s)
+                                for s in (alert_webhooks or [])]
+            sinks += [_alerts.parse_exec_spec(s)
+                      for s in (alert_execs or [])]
+            if ha_dir is not None:
+                alert_dir: Optional[str] = os.path.join(ha_dir, "alerts")
+            elif history_dir is not None:
+                alert_dir = os.path.join(history_dir, "alerts")
+            else:
+                alert_dir = None  # burn-only rules, non-durable
+            _alerts.PLANE.configure(
+                rules, log_dir=alert_dir, fsync=ha_fsync,
+                gen_fn=(self.ha.generation if self.ha is not None
+                        else None),
+                sinks=sinks, flap_damp_s=alert_damp)
+            self.alerts = _alerts.PLANE
         handler = type("BoundRpcHandler", (_RpcHandler,), {
             "store": bound_store,
             "done": collections.OrderedDict(),
@@ -659,7 +865,8 @@ class DocServer:
             "dedupe_lock": threading.Lock(),
             "tasks_lock": threading.Lock(),
             "auth_token": default_auth_token(auth_token),
-            "collector": Collector(local_role="server"),
+            "collector": Collector(local_role="server",
+                                   history=self.history),
             "ha": self.ha,
             # every docserver hosts the multi-tenant scheduler surface;
             # admission (tick) stays lease-fenced, so a board whose
@@ -689,6 +896,31 @@ class DocServer:
             self.ha.bind_handler(handler)
             self.ha.start()
         self._thread: Optional[threading.Thread] = None
+        if self.alerts is not None:
+            self._alert_stop = threading.Event()
+            self._alert_thread = threading.Thread(
+                target=self._alert_loop, daemon=True,
+                name="alert-evaluator")
+            self._alert_thread.start()
+
+    def _alert_loop(self) -> None:
+        """Evaluate + pump on the primary; standbys only tail the
+        shared alert log so their /alertz stays live.  A sweep failure
+        is loud and non-fatal — the next tick retries."""
+        from ..obs import alerts as _alerts
+
+        while not self._alert_stop.wait(self._alert_interval):
+            try:
+                if self.ha is None or self.ha.is_primary():
+                    _alerts.PLANE.evaluate(history=self.history,
+                                           collector=self.collector)
+                    _alerts.PLANE.pump()
+                else:
+                    _alerts.PLANE.refresh()
+            except Exception as exc:
+                logging.getLogger(__name__).warning(
+                    "alert evaluator sweep failed: %s: %s",
+                    type(exc).__name__, exc)
 
     @property
     def connstr(self) -> str:
@@ -706,13 +938,25 @@ class DocServer:
     def shutdown(self) -> None:
         """Stop serving and close the listening socket; an HA replica
         releases the board lease (a standby's next poll promotes at
-        once, no expiry wait)."""
+        once, no expiry wait).  The alert evaluator stops first, and the
+        history is unbound from the control ledger and closed last."""
+        if self._alert_stop is not None:
+            self._alert_stop.set()
+            if self._alert_thread is not None:
+                self._alert_thread.join(timeout=10)
+        if self.alerts is not None:
+            self.alerts.reset()
         self.httpd.shutdown()
         if self._thread:
             self._thread.join(timeout=10)
         self.httpd.server_close()
         if self.ha is not None:
             self.ha.stop()
+        if self.history is not None:
+            from ..obs import control as _control
+
+            _control.LEDGER.unbind_history(self.history)
+            self.history.close()
 
 
 class HttpDocStore(DocStore):
@@ -860,6 +1104,61 @@ class HttpDocStore(DocStore):
     def clusterz(self) -> Dict[str, Any]:
         """Fetch the server's /clusterz merged cluster timeline."""
         return json.loads(self._get("/clusterz"))
+
+    def queryz(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Run one /queryz range query against the durable history
+        plane (the ``history``/``top`` CLI feed).  *params* maps query
+        parameter names to a value or a list of values (repeated
+        ``match`` matchers)."""
+        pairs: List[Tuple[str, str]] = []
+        for k, v in params.items():
+            for item in (v if isinstance(v, (list, tuple)) else (v,)):
+                pairs.append((str(k), str(item)))
+        qs = urllib.parse.urlencode(pairs)
+        status, raw = self._client.request("GET", f"/queryz?{qs}")
+        if status == 401:
+            raise PermissionError("queryz: auth rejected")
+        if status != 200:
+            try:
+                detail = json.loads(raw).get("error")
+            except ValueError:
+                detail = None
+            raise IOError(f"queryz: HTTP {status}"
+                          + (f" ({detail})" if detail else ""))
+        return json.loads(raw)
+
+    def alertz(self) -> Dict[str, Any]:
+        """Fetch the alerting plane's lifecycle state (the ``alerts``
+        CLI feed) — answered by standbys too, which is how an operator
+        sees the same lifecycle after a failover."""
+        status, raw = self._client.request("GET", "/alertz")
+        if status == 401:
+            raise PermissionError("alertz: auth rejected")
+        if status != 200:
+            try:
+                detail = json.loads(raw).get("error")
+            except ValueError:
+                detail = None
+            raise IOError(f"alertz: HTTP {status}"
+                          + (f" ({detail})" if detail else ""))
+        return json.loads(raw)
+
+    def alert_op(self, op: str, rule: str,
+                 duration: Optional[float] = None) -> Dict[str, Any]:
+        """``silence`` / ``ack`` against the primary's alert plane."""
+        req: Dict[str, Any] = {"op": op, "rule": rule}
+        if duration is not None:
+            req["duration"] = duration
+        status, raw = self._client.request(
+            "POST", "/alertz", body=json.dumps(req).encode())
+        if status == 401:
+            raise PermissionError("alertz: auth rejected")
+        doc = json.loads(raw) if raw else {}
+        if status != 200 or not doc.get("ok"):
+            raise IOError(f"alertz {op}: HTTP {status}"
+                          + (f" ({doc.get('error')})"
+                             if doc.get("error") else ""))
+        return doc.get("result") or {}
 
     def close(self) -> None:
         self._client.close()

@@ -26,9 +26,12 @@
   dumps the span ring and the registry;
 * :mod:`.control` — the control ledger of the controllers' decisions;
 * :mod:`.compile` — the compile ledger of the builds, loads and
-  captures, and the shape registry.
-
-Not ported yet (ROADMAP A.8c-2): the durable history and the alerts.
+  captures, and the shape registry;
+* :mod:`.history` — the durable telemetry history behind ``/queryz``:
+  delta-encoded JSONL segments every collector push appends to;
+* :mod:`.alerts` — the alerting plane behind ``/alertz``: threshold,
+  burn and anomaly rules, a generation-fenced transition log and its
+  notification sinks.
 """
 
 from .metrics import DEVICE_BUCKETS  # noqa: F401

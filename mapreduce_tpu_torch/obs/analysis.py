@@ -41,9 +41,11 @@ document, but for the port's words for a build: a compile hotspot
 "spent Ns building" (``nvcc`` or ``g++`` and the library load, two
 ``mrtpu_compile_seconds`` observations a fresh build, as lowering and
 backend compile are two in the JAX package) where the JAX text says
-"in XLA".  The fleet, trend and alert findings read sections of the
-document that stay empty until the port has an engine-host fleet
-(ROADMAP A.11), a durable history and an alerting plane (A.8c-2).
+"in XLA".  The trend and alert findings read the sections the
+collector embeds from the durable history and the alerting plane
+(``mrtpuCluster["history"]`` and ``["alerts"]``); the fleet findings
+read a section that stays empty until the port has an engine-host fleet
+(ROADMAP A.11).
 """
 
 from __future__ import annotations

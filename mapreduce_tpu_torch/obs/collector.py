@@ -1,6 +1,5 @@
 """Cluster telemetry plane: push collector, clock alignment, merged timeline
-(port of ``mapreduce_tpu/obs/collector.py``, without the durable history
-and the alerts, which wait for ROADMAP A.8c-2).
+(port of ``mapreduce_tpu/obs/collector.py``).
 
 * :class:`TelemetryPusher` — the client half.  A per-process background
   thread batches NEW span-ring events (``Tracer.events_since``) plus a
@@ -23,7 +22,13 @@ and the alerts, which wait for ROADMAP A.8c-2).
 * :meth:`Collector.cluster_doc` — the assembler.  Merges this process's
   own span ring with every pushed process's spans, shifted onto ONE
   timebase under per-process Perfetto tracks; served at ``/clusterz``
-  with the cluster aggregates under ``mrtpuCluster``.
+  with the cluster aggregates under ``mrtpuCluster`` (the history's
+  trend windows and the alert plane's snapshot among them).
+
+* ``Collector(history=)`` — every accepted push with a parseable metrics
+  snapshot appends its deltas to the durable
+  :class:`~.history.MetricHistory`; an append that fails is counted and
+  logged, never refuses the push.
 
 The push payload, its ack and ``/clusterz`` are the JAX package's, so a
 pusher of either package feeds a collector of the other.
@@ -41,6 +46,7 @@ import time
 import uuid
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
+from .history import HistoryCorruptError, MetricHistory, note_error
 from .metrics import REGISTRY, Registry, counter, gauge, parse_prometheus
 from .trace import TRACER, Tracer
 
@@ -182,6 +188,14 @@ DIAG_FAMILIES = frozenset({
     # decision's controller/outcome counts roll up cluster-wide (the
     # decisions themselves travel as control_decision spans)
     "mrtpu_control_decisions_total",
+    # the alerting plane (obs/alerts): lifecycle transitions, sink
+    # delivery outcomes and history-store GC pressure, so diagnose can
+    # cross-reference firing alerts wherever the board that evaluated
+    # them ran
+    "mrtpu_alert_transitions_total",
+    "mrtpu_alert_notifications_total",
+    "mrtpu_alerts_firing",
+    "mrtpu_history_gc_total",
 })
 
 #: diagnosis gauges that merge across processes by MAX, not sum: the
@@ -202,6 +216,9 @@ _DIAG_GAUGE_MAX = frozenset({
     "mrtpu_slo_threshold_seconds",
     "mrtpu_sched_oldest_queued_age_seconds",
     "mrtpu_session_stream_age_seconds",
+    # firing-alert counts are primary-authoritative; a standby's zero
+    # (or a stale pushed copy) must not dilute the evaluating board's
+    "mrtpu_alerts_firing",
 })
 
 #: and gauges where the WORST view is the smallest value: an overlap
@@ -241,9 +258,13 @@ class Collector:
     """Server half of the telemetry plane (one per docserver)."""
 
     def __init__(self, max_spans_per_proc: int = MAX_SPANS_PER_PROC,
-                 local_role: str = "server") -> None:
+                 local_role: str = "server",
+                 history: Optional[MetricHistory] = None) -> None:
         self.max_spans_per_proc = max(1, int(max_spans_per_proc))
         self.local_role = local_role
+        #: durable telemetry history (obs/history): every accepted push
+        #: with a parseable metrics snapshot appends its deltas there
+        self.history = history
         self._lock = threading.Lock()
         self._procs: Dict[str, Dict[str, Any]] = {}
 
@@ -335,9 +356,11 @@ class Collector:
             if isinstance(sections, dict):
                 st["sections"] = sections
             mtext = payload.get("metrics")
+            new_parsed = None
             if mtext:
                 try:
-                    st["metrics"] = parse_prometheus(str(mtext))
+                    new_parsed = parse_prometheus(str(mtext))
+                    st["metrics"] = new_parsed
                 except ValueError:
                     logger.warning(
                         "telemetry push from %s carried an unparseable "
@@ -347,6 +370,20 @@ class Collector:
             offset_now = st["offset"]
         if offset_now is not None:
             _CLOCK_OFFSET.set(round(offset_now, 6), proc=proc)
+        if self.history is not None and new_parsed is not None:
+            # history append failures degrade, never refuse telemetry —
+            # but they are counted, and corruption is logged loudly
+            try:
+                self.history.append_snapshot(
+                    proc, new_parsed, role=role, offset_s=offset_now)
+            except HistoryCorruptError as exc:
+                note_error("corrupt")
+                logger.error("telemetry history is corrupt; refusing "
+                             "to append until repaired: %s", exc)
+            except OSError as exc:
+                note_error("io")
+                logger.warning("telemetry history append failed: %s",
+                               exc)
         _COLLECTED_PUSHES.inc(role=role)
         _COLLECTED_SPANS.inc(accepted)
         if nbytes:
@@ -519,16 +556,33 @@ class Collector:
         parsed = [st["metrics"] for _, st in tracks[1:]
                   if st.get("metrics")]
         parsed.append(self._parsed_local(registry))
+        cluster: Dict[str, Any] = {
+            "aligned_to": PROC_ID,
+            "procs": procs_out,
+            "tasks": self._rollups(parsed),
+            "metrics": self._diag_metrics(parsed),
+        }
+        if self.history is not None:
+            # trend windows computed from PERSISTED deltas travel with
+            # the cluster doc, so `cli diagnose` gets the same findings
+            # live, offline on a saved trace, and across restarts
+            try:
+                cluster["history"] = self.history.trends()
+            except (OSError, HistoryCorruptError) as exc:
+                cluster["history"] = {"error": str(exc)}
+        # the alert plane rides the cluster doc the way the control
+        # ledger's decisions do: diagnose cross-references a firing
+        # alert into its findings live AND offline on a saved trace
+        from . import alerts as _alerts
+
+        alert_snap = _alerts.alerts_snapshot()
+        if alert_snap:
+            cluster["alerts"] = alert_snap
         return {
             "traceEvents": events,
             "displayTimeUnit": "ms",
             "otherData": {"clock": "monotonic", "aligned_to": PROC_ID},
-            "mrtpuCluster": {
-                "aligned_to": PROC_ID,
-                "procs": procs_out,
-                "tasks": self._rollups(parsed),
-                "metrics": self._diag_metrics(parsed),
-            },
+            "mrtpuCluster": cluster,
         }
 
 

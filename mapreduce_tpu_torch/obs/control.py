@@ -37,12 +37,12 @@ Monotonic-only module: decision ages are durations; the one persisted
 wall timestamp is minted through ``coord/docstore.now`` like every
 other board stamp.
 
-Left out of this port (ROADMAP A.8c-2): the durable history plane's
-binding (``bind_history`` / ``unbind_history`` and
-``HISTORY_EVIDENCE_FAMILIES``: the port has no metric history, so a
-resolution carries only its caller's evidence).  The ledger's
-``/statusz`` section (:func:`control_snapshot`), its ``status`` render
-and its profile-bundle artifact are served.
+A docserver binds its durable history (:meth:`ControlLedger.
+bind_history`): every resolution's evidence then carries the PERSISTED
+increase of the controller's :data:`HISTORY_EVIDENCE_FAMILIES` over
+[decision, resolution].  The ledger's ``/statusz`` section
+(:func:`control_snapshot`), its ``status`` render and its profile-bundle
+artifact are served.
 """
 
 from __future__ import annotations
@@ -82,6 +82,24 @@ _EVICTED = counter(
     "ring before /statusz or a bundle captured them")
 
 
+#: counter families whose persisted window-increase is attached as
+#: resolution evidence per controller (the "did it help?" families:
+#: what each controller's action is supposed to move)
+HISTORY_EVIDENCE_FAMILIES: Dict[str, tuple] = {
+    "repartition": ("mrtpu_exchange_records_total",
+                    "mrtpu_device_waves_total"),
+    "capacity": ("mrtpu_device_retries_total",
+                 "mrtpu_device_capacity_retry_events_total",
+                 "mrtpu_session_overflow_rows_total"),
+    "admission": ("mrtpu_sched_admission_total",
+                  "mrtpu_sched_tasks_total"),
+    "reclaim": ("mrtpu_worker_jobs_total",
+                "mrtpu_worker_lease_lost_total"),
+    "fleet": ("mrtpu_session_migrations_total",
+              "mrtpu_worker_lease_lost_total"),
+}
+
+
 class ControlLedger:
     """Bounded, thread-safe ring of control decisions (one per process
     by default, :data:`LEDGER`; embedders and tests may make their
@@ -93,6 +111,24 @@ class ControlLedger:
             OrderedDict()
         self._seq = 0
         self.max_decisions = max_decisions
+        #: durable history plane (obs/history.MetricHistory) — when
+        #: bound, every resolution's outcome_evidence carries the
+        #: PERSISTED counter increases over [decision, resolution]
+        self._history: Optional[Any] = None
+
+    def bind_history(self, history: Any) -> None:
+        """Attach the durable history plane: outcome evidence is then
+        read from persisted windows instead of racy in-memory counter
+        snapshots (the docserver binds its MetricHistory here)."""
+        with self._lock:
+            self._history = history
+
+    def unbind_history(self, history: Any) -> None:
+        """Detach *history* if it is still the bound plane (a docserver
+        shutting down must not unbind a successor's binding)."""
+        with self._lock:
+            if self._history is history:
+                self._history = None
 
     # -- the write side ----------------------------------------------------
 
@@ -142,11 +178,42 @@ class ControlLedger:
             raise ValueError(f"resolved outcome must be one of "
                              f"{RESOLVED_OUTCOMES}, got {outcome!r}")
         with self._lock:
+            dec0 = self._decisions.get(decision_id)
+            if dec0 is None or dec0["outcome"] in RESOLVED_OUTCOMES:
+                return False
+            t0 = dec0.get("time")
+            history = self._history
+            hist_controller = dec0["controller"]
+        # persisted before/after window, computed OUTSIDE the ledger
+        # lock (it tails segments): the increase of the controller's
+        # "did it help?" families over [decision, resolution]
+        hist_ev: Optional[Dict[str, Any]] = None
+        if history is not None and isinstance(t0, (int, float)):
+            from ..coord import docstore
+
+            t1 = docstore.now()
+            increases: Dict[str, float] = {}
+            for fam in HISTORY_EVIDENCE_FAMILIES.get(hist_controller,
+                                                     ()):
+                try:
+                    increases[fam] = history.window_increase(
+                        fam, float(t0), t1)
+                except (OSError, RuntimeError):
+                    # evidence is an upgrade, never a reason to drop
+                    # the resolution itself
+                    continue
+            if increases:
+                hist_ev = {"t0": round(float(t0), 3),
+                           "t1": round(t1, 3),
+                           "increase": increases}
+        with self._lock:
             dec = self._decisions.get(decision_id)
             if dec is None or dec["outcome"] in RESOLVED_OUTCOMES:
                 return False
             dec["outcome"] = outcome
             dec["outcome_evidence"] = dict(evidence or {})
+            if hist_ev is not None:
+                dec["outcome_evidence"]["history_window"] = hist_ev
             if note:
                 # the record-time note says what was decided and why;
                 # the resolution's says how it turned out: keep both

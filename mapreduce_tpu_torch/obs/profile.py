@@ -26,14 +26,14 @@ directory holding a Chrome trace, a ``/metrics`` snapshot, a
 ``statusz.json`` (a live docserver's ``/statusz``, or this process's
 device, compile, memory and comms sections), the compile ledger
 (``compile_ledger.json``: :mod:`.compile`'s snapshot and buckets), the
-comms, SLO and control artifacts when their planes recorded anything,
-a ``/clusterz`` merged timeline with its diagnosis when the caller
-passes one, and a manifest that names an optional ``torch.profiler``
-trace directory.  The loader re-validates with the strict parsers
+comms, SLO, control and alerts artifacts when their planes recorded
+anything, a ``/clusterz`` merged timeline with its diagnosis when the
+caller passes one, the durable history's segments (``history/``) when
+the caller passes a history that holds entries, and a manifest that
+names an optional ``torch.profiler`` trace directory.  The loader re-validates with the strict parsers
 (``parse_prometheus``, :func:`validate_trace` and each artifact's
 validator), so a bundle that loads is one Perfetto and Prometheus
-accept, and a bundle of either package loads in the other.  Left out
-(ROADMAP A.8c-2): the alerts and history artifacts.
+accept, and a bundle of either package loads in the other.
 
 The manifest's ``created_time`` is a persisted timestamp minted through
 ``coord/docstore.now``; every duration here is somebody else's
@@ -368,7 +368,8 @@ def write_bundle(out_dir: str,
                  registry: Registry = REGISTRY,
                  tracer: Tracer = TRACER,
                  store: Any = None,
-                 cluster_doc: Optional[Dict[str, Any]] = None) -> str:
+                 cluster_doc: Optional[Dict[str, Any]] = None,
+                 history: Any = None) -> str:
     """Capture a self-contained profile bundle into *out_dir*.
 
     Defaults snapshot THIS process: the registry's exposition, the
@@ -379,7 +380,9 @@ def write_bundle(out_dir: str,
     it fetched from a live docserver.  *cluster_doc* (a ``/clusterz``
     merged cluster timeline) additionally lands as
     ``cluster_trace.json`` with its structured diagnosis
-    (:mod:`.analysis`) as ``diagnosis.json``.  *torch_trace_dir* (a
+    (:mod:`.analysis`) as ``diagnosis.json``.  *history* (a
+    :class:`~.history.MetricHistory`) lands its segments, re-validated,
+    under ``history/``.  *torch_trace_dir* (a
     ``torch.profiler`` trace directory) is recorded in the manifest when
     it exists.  Returns *out_dir*."""
     from ..coord import docstore  # lazy: the wall-clock mint point
@@ -463,12 +466,30 @@ def write_bundle(out_dir: str,
         validate_control(ctrl_doc)
         _dump(out_dir, "control_ledger.json", ctrl_doc, indent=1)
         files.append("control_ledger.json")
+    # the alerting plane: only when rules are armed, validated on write
+    # AND reload like the control ledger
+    from .alerts import alerts_snapshot, validate_alerts
+
+    alert_snap = alerts_snapshot()
+    if alert_snap:
+        alert_doc = {"kind": "mrtpu-alerts", "version": 1,
+                     "snapshot": alert_snap}
+        validate_alerts(alert_doc)
+        _dump(out_dir, "alerts.json", alert_doc, indent=1)
+        files.append("alerts.json")
     if cluster_doc is not None:
         from .analysis import diagnose
 
         _dump(out_dir, "cluster_trace.json", cluster_doc)
         _dump(out_dir, "diagnosis.json", diagnose(cluster_doc), indent=1)
         files += ["cluster_trace.json", "diagnosis.json"]
+    # the durable history: the live segments, copied and re-validated
+    # after landing; only when it holds entries (an empty history/ would
+    # read as "nothing ever changed")
+    history_dir_rel = None
+    if history is not None and history.snapshot().get("entries"):
+        history.copy_segments(os.path.join(out_dir, "history"))
+        history_dir_rel = "history"
     manifest: Dict[str, Any] = {
         "kind": "mrtpu-profile-bundle",
         "version": 1,
@@ -479,6 +500,8 @@ def write_bundle(out_dir: str,
     if torch_trace_dir and os.path.isdir(torch_trace_dir):
         manifest["torch_trace_dir"] = os.path.relpath(torch_trace_dir,
                                                       out_dir)
+    if history_dir_rel is not None:
+        manifest["history_dir"] = history_dir_rel
     try:
         import torch
         manifest["torch_version"] = torch.__version__
@@ -494,8 +517,9 @@ def load_bundle(path: str) -> Dict[str, Any]:
     structural check and each artifact its validator.  Returns
     ``{"manifest", "metrics_text", "metrics", "statusz", "trace"}`` plus
     ``"compile_ledger"``, ``"comms"``, ``"slo"``, ``"control_ledger"``,
-    ``"cluster_trace"`` and ``"diagnosis"`` when the bundle has them;
-    the JAX package's alerts and history are left on disk."""
+    ``"alerts"``, ``"cluster_trace"``, ``"diagnosis"`` and ``"history"``
+    (:func:`~.history.read_history` of its segments) when the bundle has
+    them."""
     with open(os.path.join(path, "manifest.json"), encoding="utf-8") as f:
         manifest = json.load(f)
     if manifest.get("kind") != "mrtpu-profile-bundle":
@@ -530,10 +554,12 @@ def load_bundle(path: str) -> Dict[str, Any]:
             ctrl_doc = json.load(f)
         validate_control(ctrl_doc)
         out["control_ledger"] = ctrl_doc
+    from .alerts import validate_alerts
     from .comms import validate_comms
     from .slo import validate_slo
 
-    for key, check in (("comms", validate_comms), ("slo", validate_slo)):
+    for key, check in (("comms", validate_comms), ("slo", validate_slo),
+                       ("alerts", validate_alerts)):
         art_path = os.path.join(path, f"{key}.json")
         if os.path.exists(art_path):
             with open(art_path, encoding="utf-8") as f:
@@ -550,4 +576,12 @@ def load_bundle(path: str) -> Dict[str, Any]:
     if os.path.exists(diag_path):
         with open(diag_path, encoding="utf-8") as f:
             out["diagnosis"] = json.load(f)
+    hist_dir = os.path.join(path, str(manifest.get("history_dir")
+                                      or "history"))
+    if os.path.isdir(hist_dir):
+        # every entry re-validated; a corrupt segment refuses the load
+        # loudly (HistoryCorruptError) instead of serving a wrong series
+        from .history import read_history
+
+        out["history"] = read_history(hist_dir)
     return out

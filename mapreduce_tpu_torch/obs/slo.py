@@ -39,9 +39,8 @@ whole-family swaps, and returns the /statusz ``slo`` section.  With a
 *collector*, histogram counts merge across every process that pushed
 telemetry, so the board's scrape sees cluster-wide SLO truth.
 
-Left out until the durable history (ROADMAP A.8c-2):
-``SloPlane.seed_from_history``, which re-seeds the burn windows from
-persisted bucket deltas after a restart.
+:meth:`SloPlane.seed_from_history` re-seeds the burn windows from the
+durable history's persisted bucket deltas after a restart.
 """
 
 from __future__ import annotations
@@ -387,6 +386,47 @@ class SloPlane:
         with self._lock:
             self.objectives = list(objectives)
             self._windows.clear()
+
+    def seed_from_history(self, history: Any,
+                          now: Optional[float] = None,
+                          wall_now: Optional[float] = None) -> int:
+        """Rebuild EMPTY sample windows from the durable history plane
+        (obs/history.MetricHistory) — the restart-proof half of the
+        burn-rate alerts: a docserver that restarts mid-incident seeds
+        its windows from persisted bucket deltas instead of forgetting
+        the burn.  History samples carry wall stamps (minted at the
+        collector); they are mapped onto this process's monotonic
+        timebase by age (``mono = now - (wall_now - t_wall)``).
+        Returns the number of (objective, tenant) windows seeded;
+        already-live windows are never touched."""
+        if wall_now is None:
+            from ..coord import docstore  # the one wall-clock mint
+            wall_now = docstore.now()
+        if now is None:
+            now = time.monotonic()
+        seeded = 0
+        with self._lock:
+            for obj in self.objectives:
+                try:
+                    per_tenant = history.bucket_windows(obj.family)
+                except (OSError, RuntimeError):
+                    # corrupt/unreadable history must not block serving
+                    # — the windows just start cold
+                    break
+                for tenant, snaps in per_tenant.items():
+                    key = (obj.name, tenant)
+                    if self._windows.get(key):
+                        continue
+                    dq = collections.deque()
+                    for (t_wall, cums) in snaps[-_MAX_SAMPLES:]:
+                        age = wall_now - t_wall
+                        if age < 0 or age > obj.long_window_s:
+                            continue
+                        dq.append((now - age, dict(cums)))
+                    if dq:
+                        self._windows[key] = dq
+                        seeded += 1
+        return seeded
 
     @staticmethod
     def _delta(samples, now: float, window: float,

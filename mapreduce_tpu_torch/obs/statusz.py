@@ -12,9 +12,9 @@ are wall-clock by contract, coord/docstore.now), not duration
 arithmetic.
 
 Left out: the engine-host ``fleet`` section (ROADMAP A.11: the port has
-no fleet membership yet), and the ``alerts`` and ``history`` sections,
-whose planes come with ROADMAP A.8c-2 — until then both return ``{}``
-and stay off the page.
+no fleet membership yet).  The ``alerts`` section (:mod:`.alerts`) and
+the ``history`` row (:mod:`.history`, when the collector has one) are
+the JAX package's.
 
 Added in the port: a serving process that ran no engine (the docserver
 of a docserver/runner topology) takes the engine sections it lacks —
@@ -195,9 +195,13 @@ def control_snapshot_section() -> Dict[str, Any]:
 
 
 def alerts_snapshot_section() -> Dict[str, Any]:
-    """The alerts section of /statusz: empty until the alerting plane is
-    ported (ROADMAP A.8c-2), so the section stays off the page."""
-    return {}
+    """The alerts section of /statusz (obs/alerts): configured rules,
+    live instance lifecycle states and active silences.  Empty when no
+    rules are configured, so a plane that was never armed provably
+    shows nothing."""
+    from .alerts import alerts_snapshot
+
+    return alerts_snapshot()
 
 
 def slo_snapshot_section(collector=None) -> Dict[str, Any]:
@@ -212,10 +216,18 @@ def slo_snapshot_section(collector=None) -> Dict[str, Any]:
 
 
 def history_snapshot_section(collector=None) -> Dict[str, Any]:
-    """The ``history`` row of /statusz: empty until the durable
-    telemetry history is ported (ROADMAP A.8c-2), so the row stays off
-    the page."""
-    return {}
+    """The ``history`` row of /statusz: segment/byte/series counts of
+    the durable telemetry history plane (obs/history) when the serving
+    process's collector has one attached; empty — and off the page —
+    otherwise."""
+    history = getattr(collector, "history", None)
+    if history is None:
+        return {}
+    try:
+        return history.snapshot()
+    except OSError:
+        # a stat-level failure must not take /statusz down with it
+        return {"error": "history directory unreadable"}
 
 
 #: the /statusz sections that describe the engine of the process that

@@ -304,24 +304,65 @@ def test_durable_board_survives_restart(tmp_path):
     s2.shutdown()
 
 
-def test_unported_surfaces_name_their_item(srv):
-    """``/queryz`` and ``/alertz`` answer 404 and the body names the
-    ROADMAP item that brings each; ``/healthz`` is the JAX body.
-    (``/tasks`` is served: tests/test_torch_sched.py; ``/statusz``:
-    tests/test_torch_operator_cli.py.)"""
-    want = {"/queryz": "A.8c-2", "/alertz": "A.8c-2"}
-    cnn = http.client.HTTPConnection(srv.host, srv.port, timeout=10)
-    for path, item in want.items():
-        for method in ("GET", "POST"):
-            cnn.request(method, path, body=b"{}" if method == "POST"
-                        else None)
+def _jax_get_paths():
+    """The JAX docserver's GET allow-list, read as text from its
+    ``do_GET``."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(jds.__file__)).read_text()
+    allow = re.search(r'if path not in \(("/metrics".*?)\):', src, re.S)
+    return re.findall(r'"(/[a-z]+)"', allow.group(1))
+
+
+def test_unported_surfaces_name_their_item(srv, tmp_path):
+    """Every GET path of the JAX docserver is served by the port's: on a
+    board with the history and an alert rule each answers 200 (and
+    ``POST /alertz`` acks); on a board without them ``/queryz`` and
+    ``/alertz`` answer the JAX server's 404 bodies; ``/healthz`` is the
+    JAX body.  Nothing is left unported."""
+    paths = _jax_get_paths()
+    assert {"/queryz", "/alertz", "/healthz", "/metrics"} <= set(paths)
+    assert set(paths) <= set(tds.GET_PATHS)
+    assert not hasattr(tds, "NOT_PORTED")
+    jsrv = jds.DocServer().start_background()
+    try:
+        for path in ("/queryz", "/alertz"):
+            got = {}
+            for name, s in (("port", srv), ("jax", jsrv)):
+                cnn = http.client.HTTPConnection(s.host, s.port,
+                                                 timeout=10)
+                cnn.request("GET", path)
+                r = cnn.getresponse()
+                got[name] = (r.status, r.read())
+                cnn.close()
+            assert got["port"] == got["jax"] and got["port"][0] == 404
+    finally:
+        jsrv.shutdown()
+    planed = DocServer(history_dir=str(tmp_path / "hist"),
+                       alert_rules=["r:increase(mrtpu_x_total[60]):gt:0"],
+                       alert_interval=3600.0).start_background()
+    try:
+        cnn = http.client.HTTPConnection(planed.host, planed.port,
+                                         timeout=10)
+        for path in paths:
+            q = "?metric=mrtpu_x_total" if path == "/queryz" else ""
+            cnn.request("GET", path + q)
             r = cnn.getresponse()
-            body = json.loads(r.read())
-            assert r.status == 404 and item in body["error"], (path, body)
-    cnn.request("GET", "/healthz")
-    r = cnn.getresponse()
-    assert (r.status, r.read()) == (200, b'{"ok": true}')
-    cnn.close()
+            r.read()
+            assert r.status == 200, path
+        cnn.request("POST", "/alertz",
+                    body=json.dumps({"op": "ack", "rule": "r"}).encode())
+        r = cnn.getresponse()
+        assert (r.status, json.loads(r.read())) == (
+            200, {"ok": True, "result": {"rule": "r",
+                                         "acked_instances": 0}})
+        cnn.request("GET", "/healthz")
+        r = cnn.getresponse()
+        assert (r.status, r.read()) == (200, b'{"ok": true}')
+        cnn.close()
+    finally:
+        planed.shutdown()
 
 
 def test_unreachable_board_raises_once_policy_spent():

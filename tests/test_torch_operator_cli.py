@@ -1,7 +1,7 @@
 """The operator commands and surfaces of the port on the CPU: ``status``,
 ``profile`` and ``diagnose`` against an in-process port docserver,
-``/statusz`` and the paths still named as not ported, ``--slo`` on
-``docserver`` and ``runner``, and the flight recorder that
+``/statusz`` and every JAX docserver path, ``--slo`` on ``docserver``
+and ``runner``, the history and alert flags and commands, and the flight recorder that
 ``--trace-out`` arms (one SIGTERMed child process, under a hard
 timeout).  Every wait has a deadline.
 """
@@ -76,9 +76,20 @@ def test_statusz_is_served(board):
 
 @pytest.mark.parametrize("path", ["/queryz", "/alertz"])
 def test_history_paths_answer_404_naming_their_item(board, path):
+    """On a board without the history plane (or without alert rules)
+    the path answers 404 with the JAX docserver's body, which names the
+    flag that arms it."""
+    from mapreduce_tpu.coord import docserver as jds
+
     srv, _ = board
     status, body = _get(srv, path)
-    assert status == 404 and "A.8c-2" in json.loads(body)["error"]
+    jsrv = jds.DocServer().start_background()
+    try:
+        assert (status, body) == _get(jsrv, path)
+    finally:
+        jsrv.shutdown()
+    flag = {"/queryz": "--history-dir", "/alertz": "--alert"}[path]
+    assert status == 404 and flag in json.loads(body)["error"]
 
 
 def _jax_docserver_paths():
@@ -97,12 +108,15 @@ def test_every_jax_docserver_path_is_served_or_named(board):
     assert {"/metrics", "/statusz", "/tracez", "/clusterz", "/healthz",
             "/tasks", "/queryz", "/alertz", "/telemetry"} <= paths
     served = set(tdocserver.GET_PATHS) | {"/rpc", "/telemetry", "/tasks"}
+    assert not hasattr(tdocserver, "NOT_PORTED")
     for path in paths:
-        assert (path in served) != (path in tdocserver.NOT_PORTED), path
-        if path in tdocserver.GET_PATHS:
+        assert path in served, path
+        if path in ("/queryz", "/alertz"):
+            # served, and 404 on this board: it has no history plane
+            # and no alert rules (test_history_paths_answer_404_...)
+            assert _get(srv, path)[0] == 404, path
+        elif path in tdocserver.GET_PATHS:
             assert _get(srv, path)[0] == 200, path
-    for path, item in tdocserver.NOT_PORTED.items():
-        assert "ROADMAP A.8c-2" in item
 
 
 def test_status_renders_the_live_board(board, capsys):
@@ -162,7 +176,7 @@ def test_docserver_accepts_slo(monkeypatch):
     seen = {}
 
     class Stub:
-        ha = None
+        ha = history = alerts = None
         host, port = "127.0.0.1", 0
 
         def __init__(self, *a, **kw):
@@ -208,23 +222,75 @@ def test_runner_accepts_slo(monkeypatch):
             obj.long_window_s) == ("queue_wait", 0.5, 2.0, 30.0)
 
 
+class _Serving(Exception):
+    """Raised by a stubbed ``serve_forever``: the docserver was built."""
+
+
 @pytest.mark.parametrize("flag", ["--history-dir", "--alert"])
-def test_docserver_still_refuses_the_history_flags(flag, capsys):
-    with pytest.raises(SystemExit):
-        tcli.main(["docserver", flag, "x"])
-    assert "A.8c-2" in capsys.readouterr().err
+def test_docserver_still_refuses_the_history_flags(flag, tmp_path,
+                                                    monkeypatch, capsys):
+    """The flag is accepted and reaches its plane: ``--history-dir``
+    arms the durable history on that directory, ``--alert`` the alert
+    plane with that rule; the banner names the surface."""
+    value = {"--history-dir": str(tmp_path / "hist"),
+             "--alert": "r:increase(mrtpu_x_total[60]):gt:0"}[flag]
+    built = []
+
+    def serve_forever(self):
+        # serve in a thread, so that shutdown() has a loop to stop
+        built.append(self.start_background())
+        raise _Serving
+
+    monkeypatch.setattr(tdocserver.DocServer, "serve_forever",
+                        serve_forever)
+    try:
+        with pytest.raises(_Serving):
+            tcli.main(["docserver", "--host", "127.0.0.1", "--port", "0",
+                       flag, value])
+        (srv,) = built
+        out = capsys.readouterr().out
+        if flag == "--history-dir":
+            assert srv.history.dir == value and srv.alerts is None
+            assert f"durable history at /queryz ({value})" in out
+        else:
+            assert srv.history is None
+            assert [r.name for r in srv.alerts.rules] == ["r"]
+            assert "alerting at /alertz (1 rule(s))" in out
+    finally:
+        for srv in built:
+            srv.shutdown()
 
 
 @pytest.mark.parametrize("cmd", ["history", "top", "alerts"])
-def test_history_commands_exit_2_naming_their_item(cmd, capsys):
-    assert tcli.main([cmd, "http://127.0.0.1:1"]) == 2
-    assert "ROADMAP A.8c-2" in capsys.readouterr().err
+def test_history_commands_exit_2_naming_their_item(cmd, tmp_path, capsys):
+    """The command runs against a board with the history and one rule,
+    fed one push: exit 0 and its output."""
+    srv = DocServer(history_dir=str(tmp_path / "hist"),
+                    alert_rules=["r:increase(mrtpu_x_total[60]):gt:0"],
+                    alert_interval=3600.0).start_background()
+    url = f"http://{srv.host}:{srv.port}"
+    try:
+        srv.collector.push({"proc": "p-op", "role": "runner",
+                            "metrics": "mrtpu_x_total 3\n"})
+        argv = {"history": ["--metric", "mrtpu_x_total"],
+                "top": [], "alerts": []}[cmd]
+        capsys.readouterr()
+        assert tcli.main([cmd, url] + argv) == 0
+        out = capsys.readouterr().out
+        want = {"history": "mrtpu_x_total [counter] fn=increase",
+                "top": "top 1 counter series",
+                "alerts": "alerts: 1 rule(s), all inactive"}[cmd]
+        assert want in out, out
+    finally:
+        srv.shutdown()
 
 
 def test_not_ported_commands_are_the_fleet_and_the_history():
-    assert set(tcli.NOT_PORTED_COMMANDS) == {"drain", "history", "top",
-                                             "alerts"}
-    assert {"status", "profile", "diagnose"} <= set(tcli.COMMANDS)
+    """Only the fleet's ``drain`` is left; the history's and the alert
+    plane's commands are served."""
+    assert set(tcli.NOT_PORTED_COMMANDS) == {"drain"}
+    assert {"status", "profile", "diagnose", "history", "top",
+            "alerts"} <= set(tcli.COMMANDS)
 
 
 # -- the flight recorder ------------------------------------------------------

@@ -209,19 +209,54 @@ def test_ha_docserver_pair_and_runner_processes(tmp_path):
     (["docserver", "--history-dir", "/x"], "A.8c-2"),
     (["docserver", "--alert", "r:e:gt:1"], "A.8c-2"),
 ])
-def test_service_flags_still_refused_by_name(argv, item):
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err), pytest.raises(SystemExit) as exc:
-        tcli.main(argv)
-    assert exc.value.code == 2
-    assert "not ported" in err.getvalue() and item in err.getvalue()
+def test_service_flags_still_refused_by_name(monkeypatch, argv, item):
+    """The service flags once refused as ROADMAP *item* are ported: the
+    port's ``docserver`` hands its ``DocServer`` what the JAX CLI hands
+    the JAX one (both constructors stubbed)."""
+    from mapreduce_tpu import cli as jcli
+    from mapreduce_tpu.coord import docserver as jds
+    from mapreduce_tpu_torch.coord import docserver as tds
+
+    class Built(Exception):
+        pass
+
+    seen = {}
+    for name, cli_mod, ds_mod in (("port", tcli, tds), ("jax", jcli, jds)):
+        def build(*a, _name=name, **kw):
+            seen[_name] = kw
+            raise Built
+
+        monkeypatch.setattr(ds_mod, "DocServer", build)
+        with pytest.raises(Built):
+            cli_mod.main(argv + ["--port", "0"])
+    assert seen["port"] == seen["jax"]
+    flag = argv[1].lstrip("-").replace("-", "_")
+    got = {"alert_rules": seen["port"].get("alert_rules_file"),
+           "alert_interval": seen["port"]["alert_interval"],
+           "history_dir": seen["port"]["history_dir"],
+           "alert": seen["port"]["alert_rules"]}[flag]
+    assert got in (argv[2], float(argv[2]) if flag == "alert_interval"
+                   else None, [argv[2]]), (flag, got)
+    assert item == "A.8c-2"
 
 
 @pytest.mark.parametrize("cmd,item", [("drain", "A.11"),
                                       ("alerts", "A.8c-2")])
-def test_unported_commands_refused_by_name(cmd, item):
-    rc, _, err = _main([cmd, "http://h:1"])
-    assert rc == 2 and "not ported" in err and item in err
+def test_unported_commands_refused_by_name(tmp_path, cmd, item):
+    """``drain`` (ROADMAP A.11) is still refused by name; ``alerts``
+    (A.8c-2) runs against a board with one rule."""
+    if cmd in tcli.NOT_PORTED_COMMANDS:
+        rc, _, err = _main([cmd, "http://h:1"])
+        assert rc == 2 and "not ported" in err and item in err
+        return
+    board = DocServer(history_dir=str(tmp_path / "hist"),
+                      alert_rules=["r:increase(mrtpu_x_total[60]):gt:0"],
+                      alert_interval=3600.0).start_background()
+    try:
+        rc, out, err = _main([cmd, f"http://{board.host}:{board.port}"])
+    finally:
+        board.shutdown()
+    assert rc == 0 and "alerts: 1 rule(s)" in out, err
 
 
 def test_submit_program_lands_in_the_task_params():
