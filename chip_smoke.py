@@ -376,23 +376,47 @@ which raises on failure:
    same port and directory: the same increases, the instance still
    firing from the replayed log, and after six evaluator sweeps still
    one notification in the sink;
-21. one JSON line of per-kernel numbers (the word-count kernels' with
-   their phase 13, 14, 15, 16, 17, 18 and 20 launches beside, and
+21. the transformer's expert and ring paths and the pipeline (the
+   ``axes_moe``, ``axes_ring`` and ``axes_pipeline`` lines, TF32 off):
+   (a) the bench transformer with 8 experts (``n_model=8``, the flash
+   path, B = 4, T = 2,048): step 0 through the kernels against the same
+   step on the plain flash versions with the kernel step's experts
+   pinned (how many tokens the plain attention routes to another expert,
+   and the unpinned step's errors, printed beside), ``moe_experts=1``
+   against the dense model on the same parameters (loss within 1e-3), 4
+   steps as one captured replay against 4 eager steps (bit equality
+   printed, losses within 1e-2), then 5 counted steps (8 launches of
+   each flash kernel a step, tokens past capacity a layer, aux, peak
+   memory); (b) ``bench_longctx``'s
+   model (loss_block 2,048) on one 32,768-token sequence over 8
+   sequence partitions (``flash=False``, the ring): one step against the
+   flash path's on the same parameters, the ring through the kernels
+   against the ring on the plain versions at T = 8,192 and 2 layers, 3
+   counted steps (8 launches of each flash kernel a layer a step: one
+   folded call a ring step) beside 3 of the flash path (MFU, peak
+   memory, the step ratio); (c) ``PipelineConfig()`` at 8 stages and 16
+   microbatches: the pipelined forward against the sequential stages,
+   20 SGD steps whose loss falls, a pipelined step's time beside the
+   sequential one's;
+22. one JSON line of per-kernel numbers (the word-count kernels' with
+   their phase 13, 14, 15, 16, 17, 18 and 20 launches beside, the flash
+   kernels' with phase 21's MoE and ring launches, and
    ``segreduce_monoid`` with its phase 17 and 19 launches), the smoke's
-   wall and its wall before phase 20, then the card and the result
-   line.
+   wall and its wall before phases 20 and 21, then the card and the
+   result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
 flash kernels sum in another order than their plain versions: out, dq,
 dk and dv (bf16) are held to atol = rtol = 2e-2 and lse (f32) to atol
 1e-3; the trainer's first step to a loss within 1e-2 and each
-parameter's update within 5e-2 of its norm.  The training plane's
-captured steps (the MLP's epoch, the transformer's S AdamW steps), the
-resumed history and the step after a checkpoint round trip are held
-bit for bit: a replay runs the eager step's kernels on the same
-inputs, and no kernel on these paths sums in a varying order (the
-flash kernels and cuBLAS's GEMMs use no atomics; the embedding's
-backward is PyTorch's sort-based ``index_put_``).
+parameter's update within 5e-2 of its norm (the ring's and the MoE
+model's steps too, and the ring's against the flash path's).  The
+training plane's captured steps (the MLP's epoch, the transformer's S
+AdamW steps), the resumed history and the step after a checkpoint
+round trip are held bit for bit: a replay runs the eager step's
+kernels on the same inputs, and no kernel on these paths sums in a
+varying order (the flash kernels and cuBLAS's GEMMs use no atomics; the
+embedding's backward is PyTorch's sort-based ``index_put_``).
 """
 
 import json
@@ -6259,6 +6283,379 @@ def history_phase(data, want, smi):
     return launches
 
 
+# -- phase 21: the expert, ring and pipeline paths ---------------------------
+
+#: the phase's device (a CPU rehearsal of the phase sets "cpu")
+AXES_DEV = "cuda"
+#: (a) the bench transformer with one expert a model rank, its batch, the
+#: counted steps and the steps of one captured replay
+MOE_EXPERTS = 8
+MOE_B, MOE_T, MOE_STEPS, MOE_S = TF_B, TF_T, 5, 4
+#: (b) bench_train.bench_longctx: the bench model, loss_block 2048, one
+#: 32,768-token sequence, here over RING_PARTS sequence partitions;
+#: counted steps; the context and depth of the ring held against its
+#: plain versions
+RING_CONFIG = dict(TF_CONFIG, loss_block=2048)
+RING_T, RING_PARTS, RING_STEPS = 32768, 8, 3
+RING_SMALL_T, RING_SMALL_LAYERS = 8192, 2
+#: (c) PipelineConfig()'s defaults, its stages and microbatches, SGD steps
+#: and the timed steps of each schedule
+PIPE_STAGES, PIPE_MICRO, PIPE_STEPS, PIPE_TIMED = 8, 16, 20, 10
+
+
+def with_plain_flash(fa, fn):
+    """``fn()`` with ``ops.flash_attention``'s wrappers swapped for their
+    plain versions (which count nothing)."""
+    kernels = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+    fa.flash_fwd, fa.flash_dq, fa.flash_dkv = (
+        fa.flash_fwd_plain, fa.flash_dq_plain, fa.flash_dkv_plain)
+    try:
+        return fn()
+    finally:
+        fa.flash_fwd, fa.flash_dq, fa.flash_dkv = kernels
+
+
+def step_from(tmod, tr, p0, toks):
+    """One SGD step of *tr* from the state dict *p0*: (loss, state)."""
+    params = tmod.Transformer(tr.cfg, device=AXES_DEV)
+    params.load_state_dict(p0)
+    params, loss = tr.step(params, toks)
+    return float(loss), params.state_dict()
+
+
+def step_errors(a, b, p0):
+    """The largest update errors of two one-step results ``(loss,
+    state)`` from *p0*: ``|a - b|`` over the norm of b's update, by
+    parameter, the 8 largest first."""
+    errs = {n: float((a[1][n] - b[1][n]).norm()
+                     / (b[1][n] - p0[n]).norm().clamp_min(1e-30))
+            for n in p0}
+    return dict(sorted(errs.items(), key=lambda kv: -kv[1])[:8])
+
+
+def held_step(torch, label, a, b, p0, extra=None):
+    """Check two one-step results ``(loss, state)`` from *p0* against
+    each other at the smoke's step tolerances, after printing them (a
+    ``step_check`` line: the losses and the largest update errors) with
+    *extra*; returns the numbers."""
+    top = step_errors(a, b, p0)
+    worst = next(iter(top))
+    out = {"loss": a[0], "loss_ref": b[0], "update_rel_err_max":
+           top[worst], "update_rel_err_worst": worst}
+    print(json.dumps({"step_check": dict(label=label, **out, largest=top,
+                                         **(extra or {}))}), flush=True)
+    check(math.isfinite(a[0]) and abs(a[0] - b[0]) < STEP_LOSS_ATOL,
+          f"{label}: step loss {a[0]} against {b[0]}")
+    check(top[worst] < STEP_UPDATE_RTOL, f"{label}: {worst}'s update "
+          f"differs by {top[worst]} of its norm")
+    return out
+
+
+def counted_steps(torch, kc, tr, params, toks, n, per_step):
+    """*n* SGD steps from the counters' zero: (params, step seconds,
+    losses, flash launches, peak bytes); fails unless each flash kernel
+    launched *per_step* times a step and no plain version ran."""
+    kc.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(n):
+        t0 = time.monotonic()
+        params, loss = tr.step(params, toks)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        losses.append(float(loss))
+    launches = {k: kc.LAUNCHES[k] for k in FLASH_KERNELS}
+    plain = dict(kc.PLAIN_CALLS)
+    check(all(launches[k] == n * per_step for k in FLASH_KERNELS),
+          f"axes: flash launches {launches} over {n} steps, predicted "
+          f"{per_step} each a step")
+    check(not any(plain.values()), f"axes: plain versions ran: {plain}")
+    check(all(math.isfinite(x) for x in losses), f"axes: {losses}")
+    return params, times, losses, launches, torch.cuda.max_memory_allocated()
+
+
+def with_routes(tmod, fn, pinned=None):
+    """``(fn(), experts)``: the MoE router (``tmod._route``) records the
+    experts of each call during ``fn()``; with *pinned* (such a
+    recording), each call takes the recorded experts in order instead of
+    its own argmax (its probabilities, so the gates, stay its own)."""
+    route = tmod._route
+    seen = []
+
+    def recording(flat, w_router):
+        probs, expert = route(flat, w_router)
+        if pinned is not None:
+            expert = pinned[len(seen)]
+        seen.append(expert.detach())
+        return probs, expert
+
+    tmod._route = recording
+    try:
+        return fn(), seen
+    finally:
+        tmod._route = route
+
+
+def moe_dropped(torch, tmod, params, x, cfg):
+    """(tokens past capacity in each MoE layer, the summed aux, the
+    routes) of one forward of *params* on *x*."""
+    with torch.no_grad():
+        (_, aux), routes = with_routes(
+            tmod, lambda: tmod.forward_local(params, x, cfg))
+    cap = tmod.moe_capacity(cfg, x.numel())
+    ranks = torch.arange(cfg.moe_experts, device=x.device)
+    dropped = [int((((r[..., None] == ranks).sum(dim=1) - cap)
+                    .clamp(min=0)).sum()) for r in routes]
+    return dropped, float(aux.sum()), routes
+
+
+def moe_case(torch, kc, fa, tmod, smi):
+    """Phase 21 (a): the bench transformer with MOE_EXPERTS experts on the
+    flash path."""
+    import numpy as np
+
+    cfg = tmod.TransformerConfig(**TF_CONFIG, moe_experts=MOE_EXPERTS)
+    tr = tmod.TransformerTrainer(cfg, learning_rate=TF_LR, seed=0,
+                                 device=AXES_DEV, n_model=MOE_EXPERTS)
+    check(tr.cfg.flash is True, f"moe: flash {tr.cfg.flash}")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, size=(MOE_B, MOE_T + 1)).astype(
+        np.int32)
+    params = tr.init_params()
+    p0 = {n: t.clone() for n, t in params.state_dict().items()}
+    n_params = sum(t.numel() for t in p0.values())
+    x, _ = tr.place_batch(toks)
+
+    # step 0 through the kernels against the same step on the plain
+    # versions.  The two attentions differ in rounding, and a token whose
+    # router logits are that close routes to another expert (and moves
+    # the capacity cut of both): a discrete change the tolerances are not
+    # for.  So the plain step takes the kernel step's experts (pinned);
+    # the tokens routed differently, and the unpinned step's errors, are
+    # printed beside it.
+    dropped0, _, routes_k = moe_dropped(torch, tmod, params, x, tr.cfg)
+    _, _, routes_p = with_plain_flash(
+        fa, lambda: moe_dropped(torch, tmod, params, x, tr.cfg))
+    changed = [int((a != b).sum()) for a, b in zip(routes_k, routes_p)]
+    del params, routes_k, routes_p
+    kernel_step, routes = with_routes(
+        tmod, lambda: step_from(tmod, tr, p0, toks))
+    unpinned = step_errors(kernel_step, with_plain_flash(
+        fa, lambda: step_from(tmod, tr, p0, toks)), p0)
+    plain_step, _ = with_plain_flash(fa, lambda: with_routes(
+        tmod, lambda: step_from(tmod, tr, p0, toks), pinned=routes))
+    step0 = held_step(torch, "moe", kernel_step, plain_step, p0,
+                      {"routed_differently": changed,
+                       "dropped_per_layer": dropped0,
+                       "unpinned_largest": unpinned})
+    del kernel_step, plain_step, routes
+
+    # moe_experts=1 against the dense model on the same parameters
+    tr1 = tmod.TransformerTrainer(tmod.TransformerConfig(
+        **TF_CONFIG, moe_experts=1), seed=1, device=AXES_DEV)
+    trd = tmod.TransformerTrainer(tmod.TransformerConfig(**TF_CONFIG),
+                                  device=AXES_DEV)
+    p1 = tr1.init_params()
+    pd = tmod.Transformer(trd.cfg, device=AXES_DEV)
+    pd.load_state_dict({n: t for n, t in p1.state_dict().items()
+                        if not n.endswith("w_router")})
+    loss_one = float(tr1.loss(p1, toks))
+    loss_dense = float(trd.loss(pd, toks))
+    check(abs(loss_one - loss_dense) < 1e-3, f"moe: one expert's loss "
+          f"{loss_one}, the dense model's {loss_dense}")
+    del p1, pd, tr1, trd
+
+    # S steps as one captured replay against S eager steps
+    stoks = rng.integers(0, cfg.vocab, size=(MOE_S, MOE_B, MOE_T + 1))
+    a = tmod.Transformer(tr.cfg, device=AXES_DEV)
+    a.load_state_dict(p0)
+    b = tmod.Transformer(tr.cfg, device=AXES_DEV)
+    b.load_state_dict(p0)
+    a, replay = tr._train_steps(a, None, *tr.place_batch(stoks))
+    eager = [float(tr.step(b, stoks[i])[1]) for i in range(MOE_S)]
+    replay = replay.tolist()
+    sa, sb = a.state_dict(), b.state_dict()
+    bit_equal = replay == eager and same_state(torch, sa, sb)
+    replay_diff = {
+        "loss_max_abs": max(abs(r - e) for r, e in zip(replay, eager)),
+        "param_max_abs": max(float((sa[n] - sb[n]).abs().max())
+                             for n in sa)}
+    check(replay_diff["loss_max_abs"] < STEP_LOSS_ATOL,
+          f"moe: the captured replay's losses {replay}, eager {eager}")
+    tr._graph = None
+    del a, b, sa, sb
+
+    params = tmod.Transformer(tr.cfg, device=AXES_DEV)
+    params.load_state_dict(p0)
+    del p0
+    params, times, losses, launches, peak = counted_steps(
+        torch, kc, tr, params, toks, MOE_STEPS, cfg.n_layers)
+    dropped, aux, _ = moe_dropped(torch, tmod, params, x, tr.cfg)
+    step_s = statistics.median(times)
+    print(json.dumps({"axes_moe": {
+        "config": dict(TF_CONFIG, moe_experts=MOE_EXPERTS),
+        "n_model": MOE_EXPERTS, "batch": MOE_B, "seq_len": MOE_T,
+        "params": n_params, "step0": step0,
+        "tokens_routed_differently_plain": changed,
+        "dropped_per_layer_step0": dropped0,
+        "step0_unpinned_largest": unpinned,
+        "tokens": MOE_B * MOE_T,
+        "one_expert_loss": loss_one, "dense_loss": loss_dense,
+        "replay_steps": MOE_S, "replay_bit_equal": bit_equal,
+        "replay_losses": replay, "eager_losses": eager,
+        "replay_diff": replay_diff,
+        "losses": losses, "step_s": times, "step_s_median": step_s,
+        "tokens_per_s": MOE_B * MOE_T / step_s,
+        "capacity": tmod.moe_capacity(cfg, MOE_B * MOE_T),
+        "dropped_per_layer": dropped, "aux": aux,
+        "max_memory_allocated": peak,
+        "launches_per_step": {k: v / MOE_STEPS for k, v in launches.items()},
+        "plain_calls": dict(kc.PLAIN_CALLS), "card": smi}}), flush=True)
+    return launches
+
+
+def ring_case(torch, kc, fa, tmod, smi):
+    """Phase 21 (b): bench_longctx's model and context over RING_PARTS
+    sequence partitions, against the flash path."""
+    import numpy as np
+
+    cfg = tmod.TransformerConfig(**RING_CONFIG, flash=False)
+    tr = tmod.TransformerTrainer(cfg, learning_rate=TF_LR, seed=0,
+                                 device=AXES_DEV, n_data=RING_PARTS)
+    trf = tmod.TransformerTrainer(tmod.TransformerConfig(**RING_CONFIG),
+                                  learning_rate=TF_LR, device=AXES_DEV)
+    check(trf.cfg.flash is True, f"ring: flash path {trf.cfg.flash}")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab, size=(1, RING_T + 1)).astype(
+        np.int32)
+    params = tr.init_params()
+    p0 = {n: t.clone() for n, t in params.state_dict().items()}
+    n_params = sum(t.numel() for t in p0.values())
+    del params
+    against_flash = held_step(torch, "ring vs flash path",
+                              step_from(tmod, tr, p0, toks),
+                              step_from(tmod, trf, p0, toks), p0)
+
+    # the ring through the kernels against the ring on the plain versions
+    small = tmod.TransformerTrainer(tmod.TransformerConfig(**dict(
+        RING_CONFIG, n_layers=RING_SMALL_LAYERS,
+        loss_block=RING_SMALL_T // RING_PARTS), flash=False),
+        learning_rate=TF_LR, seed=1, device=AXES_DEV, n_data=RING_PARTS)
+    stoks = rng.integers(0, cfg.vocab, size=(1, RING_SMALL_T + 1))
+    s0 = {n: t.clone() for n, t in small.init_params().state_dict().items()}
+    against_plain = held_step(torch, "ring vs plain versions", step_from(
+        tmod, small, s0, stoks), with_plain_flash(fa, lambda: step_from(
+            tmod, small, s0, stoks)), s0)
+    del s0, small
+
+    params = tmod.Transformer(tr.cfg, device=AXES_DEV)
+    params.load_state_dict(p0)
+    per_step = RING_PARTS * cfg.n_layers
+    params, times, losses, launches, peak = counted_steps(
+        torch, kc, tr, params, toks, RING_STEPS, per_step)
+    del params
+    fparams = tmod.Transformer(trf.cfg, device=AXES_DEV)
+    fparams.load_state_dict(p0)
+    del p0
+    fparams, ftimes, _, _, fpeak = counted_steps(
+        torch, kc, trf, fparams, toks, RING_STEPS, cfg.n_layers)
+    del fparams
+    step_s, fstep_s = statistics.median(times), statistics.median(ftimes)
+    flops = tmod.train_flops(cfg, n_params, 1, RING_T)
+    print(json.dumps({"axes_ring": {
+        "config": RING_CONFIG, "seq_len": RING_T, "n_data": RING_PARTS,
+        "params": n_params, "step0_vs_flash_path": against_flash,
+        "plain_case": {"seq_len": RING_SMALL_T, "n_layers":
+                       RING_SMALL_LAYERS, **against_plain},
+        "losses": losses, "step_s": times, "step_s_median": step_s,
+        "tokens_per_s": RING_T / step_s, "flops_per_step": flops,
+        "mfu": flops / step_s / BF16_FLOPS_PER_S,
+        "max_memory_allocated": peak,
+        "flash_path_step_s": ftimes, "flash_path_step_s_median": fstep_s,
+        "flash_path_mfu": flops / fstep_s / BF16_FLOPS_PER_S,
+        "flash_path_max_memory_allocated": fpeak,
+        "ring_to_flash_step_ratio": step_s / fstep_s,
+        "launches_per_step": {k: v / RING_STEPS for k, v in launches.items()},
+        "launches_predicted_per_step": per_step, "card": smi}}), flush=True)
+    return launches
+
+
+def pipeline_case(torch, pmod, smi):
+    """Phase 21 (c): the pipelined classifier at PipelineConfig()'s
+    defaults, PIPE_STAGES stages, PIPE_MICRO microbatches."""
+    import numpy as np
+
+    cfg = pmod.PipelineConfig()
+    tr = pmod.PipelinedTrainer(cfg, learning_rate=0.1, seed=0,
+                               n_stages=PIPE_STAGES, device=AXES_DEV)
+    params = tr.init_params()
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((PIPE_MICRO * cfg.microbatch, cfg.n_in)).astype(
+        np.float32)
+    y = x[:, :cfg.n_classes].argmax(-1)
+    xd, yd = tr.place_batch(x, y)
+    with torch.no_grad():
+        got = pmod.pipeline_forward_local(params, xd, cfg).cpu()
+    want = torch.from_numpy(pmod.pipeline_reference(params, x, cfg))
+    err = float((got - want).abs().max())
+    check(bool(((got - want).abs() <= FLASH_TOL["atol"] + FLASH_TOL["rtol"]
+                * want.abs()).all()),
+          f"pipeline: forward against the sequential stages, max |diff| "
+          f"{err}")
+    losses = [float(tr.step(params, x, y)[1]) for _ in range(PIPE_STEPS)]
+    check(losses[-1] < losses[0], f"pipeline: the loss did not fall: "
+          f"{losses}")
+
+    def timed(loss_of):
+        """Seconds of one SGD step (median of PIPE_TIMED after a warm
+        one), *loss_of* giving the loss of the current parameters."""
+        names = list(params)
+        times = []
+        for i in range(PIPE_TIMED + 1):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for n in names:
+                params[n].requires_grad_(True)
+            grads = torch.autograd.grad(loss_of(), [params[n] for n in names])
+            with torch.no_grad():
+                for n, g in zip(names, grads):
+                    params[n].requires_grad_(False)
+                    params[n].sub_(g * tr.lr)
+            torch.cuda.synchronize()
+            if i:
+                times.append(time.monotonic() - t0)
+        return statistics.median(times)
+
+    pipe_s = timed(lambda: pmod.pipeline_loss(params, xd, yd, cfg))
+    seq_s = timed(lambda: -pmod.sequential_forward(params, xd, cfg).gather(
+        1, yd[:, None]).mean())
+    S, M = PIPE_STAGES, PIPE_MICRO
+    print(json.dumps({"axes_pipeline": {
+        "config": {"n_in": cfg.n_in, "hidden": cfg.hidden,
+                   "n_classes": cfg.n_classes,
+                   "microbatch": cfg.microbatch, "dtype": str(cfg.dtype)},
+        "stages": S, "microbatches": M, "ticks": M + S - 1,
+        "forward_max_abs_err": err, "losses": losses,
+        "pipelined_step_s": pipe_s, "sequential_step_s": seq_s,
+        "pipelined_to_sequential": pipe_s / seq_s,
+        "bubble_share": (S - 1) / (M + S - 1), "card": smi}}), flush=True)
+
+
+def axes_phase(torch, kc, fa, tmod, pmod, smi):
+    """Phase 21: the transformer's expert and ring paths and the pipeline
+    on the card; returns the flash launches of (a)'s and (b)'s counted
+    steps."""
+    t_phase = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moe = moe_case(torch, kc, fa, tmod, smi)
+    ring = ring_case(torch, kc, fa, tmod, smi)
+    pipeline_case(torch, pmod, smi)
+    print(json.dumps({"axes": {"phase_s": time.monotonic() - t_phase}}),
+          flush=True)
+    return {"moe": moe, "ring": ring}
+
+
 T_START = time.monotonic()
 
 
@@ -6477,6 +6874,12 @@ def main():
     # phase 20: the durable telemetry history and the alerting plane
     before_history_s = time.monotonic() - T_START
     history_launches = history_phase(data, want, smi)
+
+    # phase 21: the expert, ring and pipeline paths
+    from mapreduce_tpu_torch.models import pipeline as pmod
+
+    before_axes_s = time.monotonic() - T_START
+    axes_launches = axes_phase(torch, kc, fa, tmod, pmod, smi)
     monoid_kernel["launches_wordspan"] = {
         run: counts.get("segreduce_monoid", 0)
         for run, counts in wordspan_launches.items()}
@@ -6487,6 +6890,9 @@ def main():
         kern["launches"] = rlaunches[kern["name"]]
     for kern in flash_kernels:
         kern["launches"] = flaunches[kern["name"]]
+        # and on phase 21's counted MoE and ring steps
+        kern["launches_moe"] = axes_launches["moe"][kern["name"]]
+        kern["launches_ring"] = axes_launches["ring"][kern["name"]]
     for kern in kernels + radix_kernels:
         # the same kernels on phase 13's device phase over http://
         kern["launches_netplane"] = {
@@ -6518,7 +6924,8 @@ def main():
     kernels += radix_kernels + flash_kernels + [monoid_kernel]
     print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START,
                                 "before_phase_20_wall_s":
-                                before_history_s}}))
+                                before_history_s,
+                                "before_phase_21_wall_s": before_axes_s}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

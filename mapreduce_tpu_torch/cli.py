@@ -358,6 +358,16 @@ def cmd_wordcount(argv: List[str]) -> int:
                         "'argsort' until the steady tier's kernels are "
                         "built; default is the module's config "
                         "(variadic)")
+    p.add_argument("--segment-impl", choices=("lax", "pallas"),
+                   default=None,
+                   help="the config's segmented-reduce formulation name "
+                        "(kept for the config's identity, as the "
+                        "wordcount example's device_segment_impl: on the "
+                        "card the CUDA kernel runs whatever it says)")
+    p.add_argument("--tokenize-impl", choices=("lax", "pallas"),
+                   default=None,
+                   help="the config's tokenizer formulation name; see "
+                        "--segment-impl")
     p.add_argument("--partitions", type=int, default=1,
                    help="device-engine partitions on the one card (the "
                         "JAX mesh's data axis)")
@@ -392,12 +402,20 @@ def cmd_wordcount(argv: List[str]) -> int:
                                           args.torch_device)
         if args.sort_impl:
             params["init_args"]["device_sort_impl"] = args.sort_impl
+        if args.segment_impl:
+            params["init_args"]["device_segment_impl"] = args.segment_impl
+        if args.tokenize_impl:
+            params["init_args"]["device_tokenize_impl"] = \
+                args.tokenize_impl
     else:
-        if (args.sort_impl or args.partitions != 1
-                or args.torch_device != "cuda"):
-            print("WARNING: --sort-impl/--partitions/--torch-device only "
+        if args.sort_impl or args.segment_impl or args.tokenize_impl:
+            print("WARNING: --sort-impl/--segment-impl/--tokenize-impl only "
                   "affect the device engine (--device); the host path "
                   "ignores them", file=sys.stderr)
+        if args.partitions != 1 or args.torch_device != "cuda":
+            print("WARNING: --partitions/--torch-device only affect the "
+                  "device engine (--device); the host path ignores them",
+                  file=sys.stderr)
         from .worker import spawn_worker_threads
 
         threads = spawn_worker_threads(connstr, "wc", args.workers)

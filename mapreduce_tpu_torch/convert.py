@@ -22,6 +22,10 @@ the JAX package:
   checking names, shapes and dtypes, and
   :func:`transformer_params_to_numpy` goes back.
 
+* :func:`pipeline_params_from_numpy` / :func:`pipeline_params_to_numpy`
+  carry the pipelined classifier's flat ``w_in/w_stage/b_stage/w_out``
+  dict (``models/pipeline.py``);
+
 * :func:`mlp_params_from_numpy` / :func:`mlp_params_to_numpy` carry the
   MLP's flat ``w0/b0/...`` dict, and :func:`trainer_state_from_numpy` /
   :func:`trainer_state_to_numpy` the digits trainer's whole state (its
@@ -52,6 +56,7 @@ import torch
 from .engine.device_engine import (
     DeviceResult, EngineConfig, validate_partition_map)
 from .models import mlp as _mlp
+from .models import pipeline as _pipeline
 from .models import trainer as _trainer
 from .models.transformer import (  # noqa: F401 (adamw: re-exported)
     Transformer, TransformerConfig, adamw_state_from_numpy,
@@ -161,6 +166,22 @@ def transformer_params_to_numpy(
         else params
     return {jax_name(n): t.detach().cpu().numpy().astype(np.float32)
             for n, t in sd.items()}
+
+
+def pipeline_params_from_numpy(params: dict, cfg: "_pipeline.PipelineConfig",
+                                n_stages: int) -> Dict[str, torch.Tensor]:
+    """The JAX pipeline's flat parameter dict (numpy f32) as CPU tensors,
+    names and shapes checked against *cfg* and *n_stages*."""
+    return _f32_tensors(params, _pipeline.param_shapes(cfg, n_stages),
+                        "pipeline params")
+
+
+def pipeline_params_to_numpy(params: Dict[str, torch.Tensor]
+                             ) -> Dict[str, np.ndarray]:
+    """The port's pipeline parameters as the JAX flat dict of f32
+    arrays."""
+    return {n: t.detach().cpu().numpy().astype(np.float32)
+            for n, t in params.items()}
 
 
 def mlp_params_from_numpy(params: dict, cfg: "_mlp.MLPConfig"

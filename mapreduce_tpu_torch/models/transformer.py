@@ -2,16 +2,34 @@
 ``models/transformer.py``), on one device.
 
 The JAX package runs the model inside one ``shard_map`` over a ``(model,
-data)`` mesh.  This port is its single-device case: model and data axes
-of size 1, so every ``psum``/``pmax``/``pmean`` is the identity, and the
-attention is the flash path (``cfg.flash``): the layer projects straight
-into the kernel layout ``[B, H, T, D]`` with one einsum, runs
-:func:`..ops.flash_attention.flash_attention` (the hand-written CUDA
-kernels on the card, their plain versions on the CPU), and contracts
-back with one einsum.  Products are in ``cfg.dtype`` (bf16 by default) on
-f32 parameters; the logits are f32.  The large products outside the
-kernels stay ``torch.matmul``/``einsum``, as the JAX package leaves them
-to XLA.
+data)`` mesh.  Here both axes are modelled on one device, as
+:class:`..parallel.mesh.Partitions` models the engine's ``data`` axis:
+:class:`TransformerTrainer` takes ``n_model`` and ``n_data``, the JAX
+``make_mesh(n_model=, n_data=)``.
+
+* ``data`` (sequence parallelism): the sequence is ``n_data`` partitions
+  of ``T / n_data`` tokens.  With ``n_data == 1`` the attention is the
+  flash path (``cfg.flash`` None or True): the layer projects straight
+  into the kernel layout ``[B, H, T, D]`` with one einsum, runs
+  :func:`..ops.flash_attention.flash_attention` (the hand-written CUDA
+  kernels on the card, their plain versions on the CPU) and contracts
+  back with one einsum.  With ``n_data > 1`` (or ``flash=False``) it is
+  the ring, :func:`..parallel.ring.ring_attention`, over the partitions.
+  The loss is the mean over partitions of each partition's mean token
+  loss plus its MoE aux term (the JAX ``pmean``), and the MoE routes and
+  caps each partition's tokens on their own.
+* ``model`` (tensor and expert parallelism): the dense layers stay the
+  unsharded math.  On one device the JAX split of heads, FFN columns and
+  vocabulary over model ranks changes only the order of an f32 sum (the
+  ``psum(o.astype(f32))`` after each row-sharded product and the
+  cross-entropy's ``psum``/``pmax``), so ``n_model`` matters for the
+  validation (:meth:`TransformerConfig.validate`) and for the MoE FFN,
+  whose experts are the model ranks: expert ``r`` is the column block
+  ``w_in[:, r*F/E:(r+1)*F/E]`` and the row block of ``w_out``.
+
+Products are in ``cfg.dtype`` (bf16 by default) on f32 parameters; the
+logits and the router are f32.  The large products outside the kernels
+stay ``torch.matmul``/``einsum``, as the JAX package leaves them to XLA.
 
 Parameters keep the JAX shapes (``wqkv`` is ``[E, 3, H*D]``, not
 ``nn.Linear``'s ``[out, in]``) and live in an ``nn.Module``
@@ -23,11 +41,6 @@ dots, so layer ``i``'s parameters are ``layers.{i}.<name>``;
 :class:`TransformerTrainer` runs the SGD step or optax's ``adamw`` (as
 ``torch.optim.AdamW``), S steps in one dispatch (a CUDA graph on the
 card), and the JAX package's checkpoints.
-
-Not ported yet (ROADMAP A10): the ring / jnp attention path
-(``flash=False``), MoE (``moe_experts > 0``) and the pipeline
-(``models/pipeline.py``).  The first two raise ``NotImplementedError``
-here.
 """
 
 from __future__ import annotations
@@ -45,8 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernel_compat as kc
 from ..ops.flash_attention import flash_attention
-
-_TODO = "not ported yet (ROADMAP A10)"
+from ..parallel.ring import ring_attention
 
 
 @dataclass(frozen=True)
@@ -60,28 +72,43 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     #: recompute each layer in the backward pass (torch.utils.checkpoint)
     remat: bool = False
-    #: the JAX flash path's kernel tile request; passed on as block_q /
-    #: block_kv, which the CUDA kernels do not read (their tiles are fixed)
+    #: the attention tile request: the flash path passes it on as block_q
+    #: / block_kv, which the CUDA kernels do not read (their tiles are
+    #: fixed); the ring's flash steps ignore it too, and only the ring's
+    #: plain path (``ring_attention(use_flash=False)``) chunks by it
     attn_block: Any = None
     #: sequence-chunked cross-entropy: logits exist [B, loss_block, V] at a
     #: time, recomputed in the backward pass; None = unchunked; must
-    #: divide T
+    #: divide T_local = T / n_data
     loss_block: Any = None
-    #: MoE FFN: not ported (raises)
+    #: Switch-style top-1 MoE FFN: one expert per model rank (so it must
+    #: equal n_model), each the dense layer's column block of w_in and row
+    #: block of w_out, over its capacity-gathered tokens; tokens past
+    #: capacity fall through on the residual.  0 = dense FFN
     moe_experts: int = 0
     moe_capacity_factor: float = 1.25
+    #: weight of the Switch load-balance loss
     moe_aux_weight: float = 0.01
-    #: None or True: the flash kernels; False (the ring / jnp path) raises
+    #: None: the flash kernels when n_data == 1, the ring when n_data > 1;
+    #: True: the flash kernels (n_data must be 1); False: the ring at any
+    #: n_data (its steps on the flash kernels, ring.py)
     flash: Any = None
 
-
-def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.moe_experts:
-        raise NotImplementedError(f"moe_experts={cfg.moe_experts}: the MoE "
-                                  f"FFN is {_TODO}")
-    if cfg.flash is False:
-        raise NotImplementedError(f"flash=False: the ring / jnp attention "
-                                  f"path is {_TODO}")
+    def validate(self, n_model: int) -> None:
+        """The JAX ``validate``: heads, ffn and vocab split over the model
+        axis, and one expert per model rank.  Raises ``ValueError`` (the
+        JAX package asserts)."""
+        if n_model < 1:
+            raise ValueError(f"n_model must be at least 1, got {n_model}")
+        for what, n in (("heads", self.n_heads), ("ffn", self.ffn),
+                        ("vocab", self.vocab)):
+            if n % n_model:
+                raise ValueError(f"{what} must split over model axis: "
+                                 f"{n} % n_model={n_model} != 0")
+        if self.moe_experts and self.moe_experts != n_model:
+            raise ValueError(
+                "expert parallelism maps one expert per model-axis rank: "
+                f"moe_experts={self.moe_experts} != n_model={n_model}")
 
 
 def param_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
@@ -96,6 +123,8 @@ def param_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
         shapes[f"L{i}.wo"] = (H * D, E)
         shapes[f"L{i}.w_in"] = (E, F_)
         shapes[f"L{i}.w_out"] = (F_, E)
+        if cfg.moe_experts:
+            shapes[f"L{i}.w_router"] = (E, cfg.moe_experts)
     return shapes
 
 
@@ -121,8 +150,6 @@ def init_transformer(cfg: TransformerConfig,
     scales (unit normals over sqrt(fan_in); the embedding at 0.02; norm
     scales at 1), drawn from *generator* in the JAX order.  The draws are
     torch's, not ``jax.random``'s."""
-    _check_supported(cfg)
-
     def norm(shape, fan_in):
         return torch.randn(shape, generator=generator) / math.sqrt(fan_in)
 
@@ -137,6 +164,8 @@ def init_transformer(cfg: TransformerConfig,
         params[f"L{i}.wo"] = norm((H * D, E), H * D)
         params[f"L{i}.w_in"] = norm((E, F_), E)
         params[f"L{i}.w_out"] = norm((F_, E), F_)
+        if cfg.moe_experts:
+            params[f"L{i}.w_router"] = norm((E, cfg.moe_experts), E)
     return params
 
 
@@ -150,12 +179,12 @@ class _Layer(nn.Module):
 
 class Transformer(nn.Module):
     """The parameters, f32, JAX shapes: ``embed``, ``unembed`` and
-    ``layers[i].{ln1_scale, ln2_scale, wqkv, wo, w_in, w_out}``.
-    Uninitialised; fill with ``load_state_dict``."""
+    ``layers[i].{ln1_scale, ln2_scale, wqkv, wo, w_in, w_out}`` (and
+    ``w_router`` with experts).  Uninitialised; fill with
+    ``load_state_dict``."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        _check_supported(cfg)
         shapes = param_shapes(cfg)
         self.embed = nn.Parameter(torch.empty(shapes["embed"],
                                               device=device))
@@ -172,37 +201,124 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (x * torch.rsqrt(var + 1e-6)).to(x.dtype) * scale
 
 
-def _layer_local(x: torch.Tensor, lp: _Layer,
-                 cfg: TransformerConfig) -> torch.Tensor:
-    """One block: attention through the flash kernels, then the FFN."""
+def _layer_local(x: torch.Tensor, lp: _Layer, cfg: TransformerConfig,
+                 n_data: int):
+    """One block: attention (the flash kernels, or the ring over *n_data*
+    sequence partitions), then the FFN (dense or MoE).  Returns ``(x,
+    aux [n_data])``."""
     H, D, dt = cfg.n_heads, cfg.head_dim, cfg.dtype
-    E = x.shape[-1]
+    B, T, E = x.shape
     h = _rmsnorm(x, lp.ln1_scale.to(dt))
-    w = lp.wqkv.to(dt).reshape(E, 3, H, D)
-    qkv = torch.einsum("bte,echd->bchtd", h, w)
-    bk = (dict(block_q=cfg.attn_block, block_kv=cfg.attn_block)
-          if cfg.attn_block else {})
-    attn = flash_attention(qkv[:, 0], qkv[:, 1], qkv[:, 2], causal=True,
-                           **bk).to(dt)
-    o = torch.einsum("bhtd,hde->bte", attn, lp.wo.to(dt).reshape(H, D, E))
+    if cfg.flash:
+        w = lp.wqkv.to(dt).reshape(E, 3, H, D)
+        qkv = torch.einsum("bte,echd->bchtd", h, w)
+        bk = (dict(block_q=cfg.attn_block, block_kv=cfg.attn_block)
+              if cfg.attn_block else {})
+        attn = flash_attention(qkv[:, 0], qkv[:, 1], qkv[:, 2], causal=True,
+                               **bk).to(dt)
+        o = torch.einsum("bhtd,hde->bte", attn,
+                         lp.wo.to(dt).reshape(H, D, E))
+    else:
+        qkv = torch.einsum("bte,ecf->btcf", h, lp.wqkv.to(dt))
+        q, k, v = (qkv[:, :, j].reshape(B, T, H, D) for j in range(3))
+        attn = ring_attention(q, k, v, n_data, causal=True,
+                              block_size=cfg.attn_block).to(dt)
+        o = torch.einsum("btf,fe->bte", attn.reshape(B, T, H * D),
+                         lp.wo.to(dt))
     x = x + o
     h = _rmsnorm(x, lp.ln2_scale.to(dt))
-    # jax.nn.gelu's default is the tanh form; torch's is erf
-    u = F.gelu(torch.matmul(h, lp.w_in.to(dt)), approximate="tanh")
-    return x + torch.matmul(u, lp.w_out.to(dt))
+    if cfg.moe_experts:
+        m, aux = _moe_ffn(h, lp, cfg, n_data)
+    else:
+        # jax.nn.gelu's default is the tanh form; torch's is erf
+        u = F.gelu(torch.matmul(h, lp.w_in.to(dt)), approximate="tanh")
+        m = torch.matmul(u, lp.w_out.to(dt))
+        aux = torch.zeros(n_data, device=x.device)
+    return x + m, aux
+
+
+def moe_capacity(cfg: TransformerConfig, n_tokens: int) -> int:
+    """Tokens an expert takes from a partition of *n_tokens* (the JAX
+    ``max(1, int(N * moe_capacity_factor / n_exp))``, Python float
+    arithmetic)."""
+    return max(1, int(n_tokens * cfg.moe_capacity_factor / cfg.moe_experts))
+
+
+def _route(flat: torch.Tensor, w_router: torch.Tensor):
+    """The f32 router over ``[P, N, E]`` tokens: ``(probs [P, N, n_exp],
+    expert [P, N])``, the expert the first maximum of the logits (the JAX
+    ``argmax``).  A product in full f32: TF32 is off by PyTorch's default
+    (``torch.backends.cuda.matmul.allow_tf32``)."""
+    r_logits = torch.matmul(flat.float(), w_router)
+    return torch.softmax(r_logits, dim=-1), r_logits.argmax(dim=-1)
+
+
+def _moe_ffn(h: torch.Tensor, lp: _Layer, cfg: TransformerConfig,
+             n_data: int):
+    """The JAX ``_moe_ffn`` (Switch-style top-1) for every expert and
+    every sequence partition at once.  Each partition's ``N = B * T/n_data``
+    tokens are routed by an f32 router (``argmax`` takes the first
+    maximum); expert ``r`` takes its first ``cap`` tokens in token order
+    (a stable sort of ``expert != r``, the JAX ``argsort(~mine)``), padded
+    with foreign tokens when it owns fewer, which are weighted by 0; the
+    ``[P, n_exp, cap, E]`` gathers run through the experts as one batched
+    product each way, are gate-weighted in f32 and scatter-added back (one
+    non-zero term a token: the sum is exact in any order), and tokens
+    past capacity get 0 and fall through on the residual.  The gather's
+    backward is a scatter-add too, and a foreign row's gradient is 0, so
+    both directions are exact whatever order the card's atomics take.  No
+    step reads anything back to the host (no ``nonzero``, no boolean
+    mask), so the FFN captures into a CUDA graph.
+    Returns ``(out [B, T, E] in cfg.dtype, aux [n_data] f32)``."""
+    B, T, E = h.shape
+    dt, n_exp, P = cfg.dtype, cfg.moe_experts, n_data
+    Tl = T // P
+    N = B * Tl
+    C = min(moe_capacity(cfg, N), N)
+    Fe = cfg.ffn // n_exp
+    dev = h.device
+    # partition p's tokens in the JAX local order (b, t)
+    flat = h.reshape(B, P, Tl, E).transpose(0, 1).reshape(P, N, E)
+    probs, expert = _route(flat, lp.w_router)       # [P, N, n_exp], [P, N]
+    gate = probs.gather(-1, expert[..., None])[..., 0]        # [P, N]
+    ranks = torch.arange(n_exp, device=dev)
+    foreign = (expert[:, None, :] != ranks[None, :, None]).to(torch.int32)
+    # my tokens first, in token order: take has min(cap, N) rows
+    take = torch.argsort(foreign, dim=-1, stable=True)[..., :C]
+    took_mine = foreign.gather(-1, take) == 0                  # [P, n_exp, C]
+    idx = take.reshape(P, n_exp * C, 1).expand(P, n_exp * C, E)
+    xs = flat.gather(1, idx).reshape(P, n_exp, C, E)
+    w_in = lp.w_in.to(dt).reshape(E, n_exp, Fe).transpose(0, 1)
+    u = F.gelu(torch.matmul(xs, w_in), approximate="tanh")
+    y = torch.matmul(u, lp.w_out.to(dt).reshape(n_exp, Fe, E))
+    # gate-weight the rows before the scatter (the router's gradient
+    # path); foreign padding rows weigh 0
+    wgt = gate.gather(-1, take.reshape(P, n_exp * C)).reshape(P, n_exp, C)
+    y = y.float() * (wgt * took_mine)[..., None]
+    out = torch.zeros((P, N, E), dtype=torch.float32, device=dev)
+    out = out.scatter_add(1, idx, y.reshape(P, n_exp * C, E))
+    # Switch load balance: n * sum_e(frac_e * meanP_e) - 1, per partition
+    frac = (expert[..., None] == ranks).float().mean(dim=1)   # [P, n_exp]
+    aux = n_exp * (frac * probs.mean(dim=1)).sum(dim=-1) - 1.0
+    out = out.reshape(P, B, Tl, E).transpose(0, 1).reshape(B, T, E)
+    return out.to(dt), aux
 
 
 def forward_local(params: Transformer, tokens: torch.Tensor,
-                  cfg: TransformerConfig):
-    """``tokens`` [B, T] int -> ``(hidden [B, T, E] f32, aux)``; aux is the
-    MoE load-balance term, 0 here."""
+                  cfg: TransformerConfig, n_data: int = 1):
+    """``tokens`` [B, T] int -> ``(hidden [B, T, E] f32, aux [n_data])``;
+    aux is each sequence partition's MoE load-balance excess summed over
+    the layers (0 for dense layers)."""
     x = params.embed[tokens].to(cfg.dtype)
+    aux = torch.zeros(n_data, device=x.device)
     for lp in params.layers:
         if cfg.remat:
-            x = checkpoint(_layer_local, x, lp, cfg, use_reentrant=False)
+            x, a = checkpoint(_layer_local, x, lp, cfg, n_data,
+                              use_reentrant=False)
         else:
-            x = _layer_local(x, lp, cfg)
-    return x.float(), torch.zeros((), device=x.device)
+            x, a = _layer_local(x, lp, cfg, n_data)
+        aux = aux + a
+    return x.float(), aux
 
 
 class _LogitsF32(torch.autograd.Function):
@@ -246,24 +362,30 @@ def _chunk_nll(x_c: torch.Tensor, t_c: torch.Tensor, w: torch.Tensor,
 
 
 def loss_local(params: Transformer, tokens: torch.Tensor,
-               targets: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy; ``targets`` are the shifted tokens."""
-    x, _ = forward_local(params, tokens, cfg)
+               targets: torch.Tensor, cfg: TransformerConfig,
+               n_data: int = 1) -> torch.Tensor:
+    """Next-token cross-entropy; ``targets`` are the shifted tokens.  The
+    mean over the *n_data* sequence partitions of each one's mean token
+    loss plus ``moe_aux_weight`` times its aux (the JAX ``pmean``)."""
+    x, aux = forward_local(params, tokens, cfg, n_data)
     w = params.unembed
     Tc = cfg.loss_block
+    B, T = targets.shape
+    T_local = T // n_data
     if Tc is None:
         nll = _chunk_nll(x, targets, w, cfg.dtype)
     else:
-        T = x.shape[1]
-        if T % Tc != 0:
-            raise ValueError(f"loss_block {Tc} must divide T {T}")
+        if T_local % Tc != 0:
+            raise ValueError(f"loss_block {Tc} must divide T_local "
+                             f"{T_local} (T {T} over n_data {n_data})")
         # each chunk's logits are recomputed in the backward pass: full
         # logits never exist in memory, forward or backward
         nll = torch.cat([
             checkpoint(_chunk_nll, x[:, c:c + Tc], targets[:, c:c + Tc], w,
                        cfg.dtype, use_reentrant=False)
             for c in range(0, T, Tc)], dim=1)
-    return nll.mean()
+    per_part = nll.reshape(B, n_data, T_local).mean(dim=(0, 2))
+    return (per_part + cfg.moe_aux_weight * aux).mean()
 
 
 def train_flops(cfg: TransformerConfig, n_params: int, B: int,
@@ -354,19 +476,33 @@ class TransformerTrainer:
     tag and the ``opt_tree`` attestation in the manifest's meta, so
     either package restores the other's.
 
+    ``n_model`` and ``n_data`` are the JAX mesh's axes, modelled on the
+    one device (module docstring): ``cfg.validate(n_model)`` runs here,
+    and ``flash=None`` resolves to the flash kernels at ``n_data == 1``
+    and to the ring above it (``flash=True`` with ``n_data > 1`` raises
+    ``ValueError``, as in JAX).
+
     ``device=None`` means ``"cuda"`` and raises without it; the tests pass
     ``device="cpu"`` for the plain versions of the kernels."""
 
     def __init__(self, cfg: TransformerConfig, learning_rate: float = 3e-3,
-                 seed: int = 0, optimizer=None, device=None) -> None:
+                 seed: int = 0, optimizer=None, device=None,
+                 n_model: int = 1, n_data: int = 1) -> None:
         self.device = kc.resolve_device(device)
-        _check_supported(cfg)
+        cfg.validate(n_model)
+        if n_data < 1:
+            raise ValueError(f"n_data must be at least 1, got {n_data}")
         if optimizer not in (None, "adamw"):
             raise ValueError(
                 f"unknown optimizer {optimizer!r}: only 'adamw' (an optax "
                 "GradientTransformation has no counterpart in the port)")
         if cfg.flash is None:
-            cfg = replace(cfg, flash=True)
+            cfg = replace(cfg, flash=n_data == 1)
+        elif cfg.flash and n_data > 1:
+            raise ValueError(
+                "flash=True computes local attention only; a sequence "
+                "sharded over data axis > 1 needs the ring path")
+        self.n_data = n_data
         self.cfg, self.lr, self.seed = cfg, learning_rate, seed
         self.optimizer = optimizer
         self._graph = None
@@ -387,8 +523,14 @@ class TransformerTrainer:
     def place_batch(self, tokens: np.ndarray
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``[B, T+1]`` (or ``[S, B, T+1]``) host tokens -> (inputs,
-        shifted targets), int64 on the trainer's device."""
-        t = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
+        shifted targets), int64 on the trainer's device; T must divide by
+        ``n_data``."""
+        tokens = np.asarray(tokens)
+        T = tokens.shape[-1] - 1
+        if T % self.n_data:
+            raise ValueError(f"sequence length {T} does not split over "
+                             f"n_data={self.n_data} partitions")
+        t = torch.as_tensor(tokens, dtype=torch.int64)
         t = t.to(self.device)
         return t[..., :-1], t[..., 1:]
 
@@ -396,7 +538,7 @@ class TransformerTrainer:
         """The loss of one ``[B, T+1]`` batch, without gradients."""
         x, y = self.place_batch(tokens)
         with torch.no_grad():
-            return loss_local(params, x, y, self.cfg)
+            return loss_local(params, x, y, self.cfg, self.n_data)
 
     # -- the step ---------------------------------------------------------
 
@@ -408,7 +550,7 @@ class TransformerTrainer:
         (*opt* None) or *opt*'s update.  Reads nothing back to the host,
         so it captures into a CUDA graph."""
         ps = list(params.parameters())
-        loss = loss_local(params, x, y, self.cfg)
+        loss = loss_local(params, x, y, self.cfg, self.n_data)
         grads = torch.autograd.grad(loss, ps)
         with torch.no_grad():
             if opt is None:

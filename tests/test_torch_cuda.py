@@ -19,8 +19,12 @@ mantissa) and atol 1e-3 on the f32 lse.  The word-count paths through
 the feeder, the staged handle and the tier policy are held to
 ``Counter`` (and a forced-cold tiered run to the 'radix' run's bits).
 The training plane's captured steps (one CUDA graph replay: the digits
-MLP's epoch, the transformer's AdamW steps) are held bit for bit
-against the same eager steps.
+MLP's epoch, the transformer's AdamW steps, the MoE trainer's SGD steps)
+are held bit for bit against the same eager steps.  The ring's steps and
+the MoE + ring trainer's step are held against the same on the plain
+flash versions (the flash tolerance; the step's loss within 1e-2 and
+updates within 5e-2 of their norms), the pipeline against its
+sequential stages.
 """
 
 import re
@@ -1248,6 +1252,125 @@ def test_captured_transformer_steps_equal_eager_step_opt(dev):
     for (n, x), (_, y) in zip(a.state_dict().items(),
                               b.state_dict().items()):
         assert torch.equal(x, y), n
+
+
+# -- the expert, ring and pipeline paths on the card ---------------------------
+
+#: a small MoE + ring config: two experts (n_model 2) and 4 sequence
+#: partitions of 128 tokens, head_dim 64
+_AXES_CFG = dict(vocab=256, embed=128, n_layers=2, n_heads=2, head_dim=64,
+                 ffn=256, moe_experts=2)
+
+
+def _swap_plain(monkeypatch):
+    monkeypatch.setattr(fa, "flash_fwd", fa.flash_fwd_plain)
+    monkeypatch.setattr(fa, "flash_dq", fa.flash_dq_plain)
+    monkeypatch.setattr(fa, "flash_dkv", fa.flash_dkv_plain)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_kernels_match_plain(dev, monkeypatch, causal):
+    """The ring's flash steps (non-causal blocks, a non-zero lse
+    cotangent through dq and dkv) against the same ring on the plain
+    versions: out and the q, k, v gradients at the flash tolerance; P
+    launches of each kernel."""
+    from mapreduce_tpu_torch.parallel.ring import ring_attention
+
+    P = 4
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (2, 1024, 4, 64)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(4))
+
+    def run():
+        qs, ks, vs = (t.to(dev).requires_grad_() for t in (q, k, v))
+        out = ring_attention(qs, ks, vs, P, causal=causal)
+        out.backward(do.to(dev))
+        return out.detach(), qs.grad, ks.grad, vs.grad
+
+    kc.reset_counts()
+    got = run()
+    assert (kc.LAUNCHES["flash_fwd"], kc.LAUNCHES["flash_dq"],
+            kc.LAUNCHES["flash_dkv"]) == (P, P, P)
+    assert not any(kc.PLAIN_CALLS.values())
+    _swap_plain(monkeypatch)
+    want = run()
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        _close(a, b.cpu(), name)
+
+
+def test_moe_ring_step_kernels_match_plain(dev, monkeypatch):
+    """One SGD step of the MoE + ring trainer through the kernels, and
+    again on the plain flash versions: the loss within 1e-2, each update
+    within 5e-2 of its norm; P launches of each kernel a layer."""
+    cfg = TransformerConfig(**_AXES_CFG)
+    tr = TransformerTrainer(cfg, learning_rate=1e-2, device=dev,
+                            n_model=2, n_data=4)
+    toks = np.random.default_rng(0).integers(0, 256, size=(2, 513))
+    p0 = {n: t.clone() for n, t in tr.init_params().state_dict().items()}
+
+    def run():
+        params = tmod.Transformer(tr.cfg, device=dev)
+        params.load_state_dict(p0)
+        params, loss = tr.step(params, toks)
+        return float(loss), params.state_dict()
+
+    kc.reset_counts()
+    loss_k, pk = run()
+    assert kc.LAUNCHES["flash_fwd"] == kc.LAUNCHES["flash_dkv"] == 4 * 2
+    _swap_plain(monkeypatch)
+    loss_p, pp = run()
+    assert abs(loss_k - loss_p) < 1e-2, (loss_k, loss_p)
+    for n in p0:
+        dk, dp = pk[n] - p0[n], pp[n] - p0[n]
+        err = float((dk - dp).norm() / dp.norm().clamp_min(1e-30))
+        assert err < 5e-2, (n, err)
+
+
+@pytest.mark.parametrize("n_data", [1, 4])
+def test_captured_moe_steps_equal_eager_steps(dev, n_data):
+    """``_train_steps`` of the MoE trainer (routing, stable argsort,
+    gathers and scatter-adds inside the graph: a host sync would fail the
+    capture) against S eager SGD steps, bit for bit."""
+    cfg = TransformerConfig(**_AXES_CFG)
+    tr = TransformerTrainer(cfg, learning_rate=1e-2, device=dev, n_model=2,
+                            n_data=n_data)
+    S = 3
+    toks = np.random.default_rng(1).integers(0, 256, size=(S, 2, 513))
+    a, b = tr.init_params(), tr.init_params()
+    a, _ = tr._train_steps(a, None, *tr.place_batch(toks))  # capture
+    a, losses = tr._train_steps(a, None, *tr.place_batch(toks))
+    want = []
+    for _ in range(2):
+        for i in range(S):
+            b, loss = tr.step(b, toks[i])
+            want.append(float(loss))
+    assert losses.tolist() == want[S:]
+    for (n, x), (_, y) in zip(a.state_dict().items(),
+                              b.state_dict().items()):
+        assert torch.equal(x, y), n
+
+
+def test_pipeline_on_the_card_matches_its_reference(dev):
+    """The pipelined forward (S = 8 stages, M = 16 microbatches, bf16)
+    against the sequential stages at the flash tolerance, and a few SGD
+    steps that lower the loss."""
+    from mapreduce_tpu_torch.models import pipeline as pmod
+
+    cfg = pmod.PipelineConfig()
+    tr = pmod.PipelinedTrainer(cfg, learning_rate=0.1, n_stages=8,
+                               device=dev)
+    params = tr.init_params()
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((16 * cfg.microbatch, cfg.n_in)).astype(
+        np.float32)
+    got = pmod.pipeline_forward_local(params, torch.from_numpy(x).to(dev),
+                                      cfg)
+    want = pmod.pipeline_reference(params, x, cfg)
+    _close(got, torch.from_numpy(want), "pipeline")
+    y = x[:, :cfg.n_classes].argmax(-1)
+    losses = [float(tr.step(params, x, y)[1]) for _ in range(20)]
+    assert losses[-1] < losses[0], losses
 
 
 # -- the always-on service: two device tasks at once ---------------------------

@@ -154,14 +154,30 @@ def test_trainer_defaults_to_cuda(monkeypatch):
         ttf.TransformerTrainer(ttf.TransformerConfig(**SMALL))
 
 
-@pytest.mark.parametrize("knob,msg", [(dict(moe_experts=2), "MoE"),
-                                      (dict(flash=False), "ring")])
-def test_unported_paths_raise(knob, msg):
+@pytest.mark.parametrize("knob,axes,seq,msg", [
+    pytest.param(dict(moe_experts=2), dict(n_model=1), None, "expert",
+                 id="knob0-MoE"),
+    pytest.param(dict(flash=True), dict(n_data=4), None, "ring path",
+                 id="knob1-ring"),
+    pytest.param(dict(moe_experts=2), dict(n_model=1, n_data=4), None,
+                 "expert", id="moe-with-data-axis"),
+    pytest.param(dict(), dict(n_data=3), T, "does not split",
+                 id="t-over-n-data"),
+    pytest.param(dict(loss_block=16), dict(n_data=8), T, "T_local 8",
+                 id="loss-block-over-t-local"),
+    pytest.param(dict(), dict(n_model=3), None, "heads must split",
+                 id="heads-over-n-model"),
+])
+def test_unported_paths_raise(knob, axes, seq, msg):
+    """The refusals of the model and data axes, each with the JAX
+    trainer's words: experts other than one a model rank, ``flash=True``
+    over a split sequence, a T the partitions do not divide, a
+    ``loss_block`` that does not divide T_local, heads that do not split
+    over the model axis."""
     cfg = ttf.TransformerConfig(**SMALL, **knob)
-    with pytest.raises(NotImplementedError, match=msg):
-        ttf.TransformerTrainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_transformer(cfg, torch.Generator())
+    with pytest.raises(ValueError, match=msg):
+        tr = ttf.TransformerTrainer(cfg, device="cpu", **axes)
+        tr.step(tr.init_params(), _tokens()[:, :seq + 1])
 
 
 def test_convert_round_trip_and_mismatches():

@@ -272,7 +272,7 @@ def test_port_imports_no_jax():
                    "examples/wordcountbig/__init__",
                    "examples/wordcount_native/__init__",
                    "ops/monoid", "testing/monoids", "obs/history",
-                   "obs/alerts"):
+                   "obs/alerts", "parallel/ring", "models/pipeline"):
         assert f"mapreduce_tpu_torch/{module}.py" in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
