@@ -398,11 +398,44 @@ which raises on failure:
    microbatches: the pipelined forward against the sequential stages,
    20 SGD steps whose loss falls, a pipelined step's time beside the
    sequential one's;
-22. one JSON line of per-kernel numbers (the word-count kernels' with
-   their phase 13, 14, 15, 16, 17, 18 and 20 launches beside, the flash
-   kernels' with phase 21's MoE and ring launches, and
+22. the engine-host fleet and multi-process meshes (the ``fleet_*``
+   lines; ``probe_fleet.py`` runs this phase alone): (a) ``bench.py``'s
+   ``measure_session_migration`` at full size on ``Partitions(8)``,
+   radix: ``engine/migrate.migrate`` from one session to another over a
+   ``mem:`` spill store, the destination's snapshot bit-equal to the
+   source's before the move, the route flipped, ``session_migration_s``
+   and ``spill_s``; (b) ``measure_fleet_sustained`` at full size: two
+   fleet hosts in this process, each a resident P = 1 session on the
+   card fed by its own thread (exchange capacity 131,072, the local
+   capacity), the aggregate records/s beside phase 8's one-host rate
+   (no gain asserted: both share the card), every tenant against
+   ``Counter``, an overflowing stream failing the run; (c) kill a host:
+   ``chip_smoke.py --fleet-victim`` joins the fleet over a ``dir://``
+   board and feeds the corpus's chunks one at a time on
+   ``Partitions(8)`` radix with a spill after each; after 4 spills it is
+   SIGKILLed, ``Scheduler.recovery_sweep`` must re-home its stream to
+   the spare within the 1 s lease plus 2 s, and a fresh session restores
+   it, bit-equal to an uninterrupted stream over the committed chunks
+   and equal to ``Counter`` of them; the migration counter and a
+   ``fleet`` decision name the move; (d) a ``docserver`` and two
+   ``runner`` processes on the card, three streams routed at runner A,
+   ``cli drain A``: A steps down and exits 0, its streams are on B,
+   ``status`` shows A ``LEFT``, ``diagnose`` names 3 drain migrations;
+   (e) ``chip_smoke.py --mesh-rank`` twice: two controllers on the one
+   card over a gloo group, 4 of the 8 partitions each, phase 7's radix
+   slice (counts against ``Counter``, the traffic matrix bit-equal to
+   phase 7's, each rank's launches and ``compute_s`` beside phase 7's),
+   one step of the bench_train MLP at n_data 8 (the loss equal on both
+   ranks, f32 within 1e-5 of the one-process step's, bf16 within 1e-2),
+   then ``tests/multiproc_runner2.py``'s topology over an ``http://``
+   docserver and a blob server.  Every child loads this run's libraries
+   through ``$MAPREDUCE_TPU_CACHE`` (none runs ``nvcc``: checked), holds
+   its kernels against their plain versions and reads 0 plain calls;
+23. one JSON line of per-kernel numbers (the word-count kernels' with
+   their phase 13, 14, 15, 16, 17, 18, 20 and 22 launches beside, the
+   flash kernels' with phase 21's MoE and ring launches, and
    ``segreduce_monoid`` with its phase 17 and 19 launches), the smoke's
-   wall and its wall before phases 20 and 21, then the card and the
+   wall and its wall before phases 20, 21 and 22, then the card and the
    result line.
 
 The word-count comparisons are integer and exact (tolerance: none).  The
@@ -1306,6 +1339,7 @@ def radix_slice_phase(torch, kc, rs, wcmod, Partitions, data, want):
     host_s = time.monotonic() - t0
     check(host.tolist() == matrix, "radix slice: traffic matrix differs "
           "from host_exchange_matrix")
+    PHASE_NUMBERS["slice_radix_compute_s"] = tm["compute_s"]
     n_words = sum(want.values())
     print(json.dumps({"slice_radix": {
         "partitions": RADIX_PARTS, "words": n_words, "unique": len(want),
@@ -2294,6 +2328,8 @@ def session_phase(torch, kc, wcmod, Partitions, plan_rebalance, tok, data,
         part(f"sustained_p{parts}", sustained_case(
             torch, kc, wcmod, smod, Partitions, parts, impl, tenants))
         for parts, impl in ((1, "variadic"), (RADIX_PARTS, "radix"))]}
+    PHASE_NUMBERS["sustained_p1_records_per_s"] = \
+        out["sustained"][0]["records_per_s"]
     out["flagship"] = part("flagship", flagship_session(
         torch, kc, wcmod, smod, spill, router, Partitions, plan_rebalance,
         tok, chunks, want))
@@ -6656,6 +6692,857 @@ def axes_phase(torch, kc, fa, tmod, pmod, smi):
     return {"moe": moe, "ring": ring}
 
 
+# -- phase 22: the engine-host fleet and multi-process meshes ------------------
+
+#: bench.py's measure_session_migration at full size: its config and its
+#: 8,000-repeat corpus in 4,096-byte shards
+MIGRATION_CONFIG = dict(local_capacity=4096, exchange_capacity=2048,
+                        out_capacity=4096, tile=512, tile_records=128,
+                        combine_in_scan=True, unit_values=True,
+                        reduce_op="sum")
+MIGRATION_CORPUS = b"migrate gate alpha beta gamma delta " * 8000
+MIGRATION_SHARD = 4096
+#: bench.py's measure_fleet_sustained at full size: two hosts, each one
+#: resident session at P = 1 on the card fed by a thread of its own,
+#: SESSION_CONFIG with the exchange capacity at the local capacity
+#: (131,072: one partition routes every local unique to itself, which
+#: the bench's 1<<15 a pair cannot hold; the capacity phase 15 (b)'s
+#: controller learns), 1<<20-byte chunks of a 1.5M-word corpus, 3 rounds
+FLEET_HOSTS = ("bench-h0", "bench-h1")
+FLEET_ROUNDS = 3
+#: the kill-a-host case (tests/test_fleet_chaos.py's bound): the victim's
+#: host lease, the spills it must commit before the SIGKILL, the re-home
+#: bound (lease + 2 s) and the seconds the victim may take to get there
+FLEET_LEASE = 1.0
+FLEET_KILL_AFTER = 4
+FLEET_REHOME_SLACK = 2.0
+FLEET_TIMEOUT = 300
+#: streams routed at runner A before `cli drain` takes it out
+DRAIN_STREAMS = 3
+#: the two controllers of (e): the world size and the seconds a gloo
+#: collective may wait before it fails by name
+MESH_WORLD = 2
+MESH_GROUP_TIMEOUT = 300
+#: the bench_train MLP's one step over the group: n_data 8 at bunch 128
+MESH_N_DATA = 8
+MESH_LOSS_RTOL = 1e-5
+#: bf16 products (the bench's dtype) sum the two halves' gradients and
+#: losses in another order than one batch: held only to bf16's rounding
+MESH_BF16_LOSS_RTOL = 1e-2
+#: the updated parameters against the one-process step's, by leaf (max
+#: abs): on the H100 a sound step differs by at most 1.5e-8 (f32) and
+#: 1.2e-6 (bf16), a step whose gradients are not all-reduced by at least
+#: 2.6e-5 in every leaf (PERF.md, PR 22)
+MESH_PARAM_ATOL = {"f32": 1e-6, "bf16": 5e-6}
+MESH_TEXT = ("the quick brown fox jumps over the lazy dog " * 40
+             + "pack my box with five dozen liquor jugs " * 25)
+
+#: numbers earlier phases leave for phase 22 to print beside its own
+PHASE_NUMBERS = {}
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def fleet_session_config(wcmod):
+    """The victim's session config: the flagship config on the radix
+    path (phase 8 (b)'s, without its partition map)."""
+    from dataclasses import replace
+
+    return replace(wcmod.bench_engine_config(), sort_impl="radix")
+
+
+def migration_case(torch, kc, seg, rs, wcmod, Partitions):
+    """Phase 22 (a): bench.py's measure_session_migration at full size on
+    ``Partitions(8)``, radix: the clock runs from the evict on the source
+    to the first snapshot on the destination (spill, guarded route flip,
+    lazy restore, readback); the destination's snapshot bit-equal to the
+    source's before the move, the route flipped, one ``fleet``
+    decision."""
+    from dataclasses import replace
+
+    from mapreduce_tpu_torch.coord.docstore import MemoryDocStore
+    from mapreduce_tpu_torch.coord.fleet import FleetMember, FleetRegistry
+    from mapreduce_tpu_torch.engine.device_engine import EngineConfig
+    from mapreduce_tpu_torch.engine.migrate import migrate
+    from mapreduce_tpu_torch.engine.session import EngineSession
+    from mapreduce_tpu_torch.engine.spill import SessionSpillStore
+    from mapreduce_tpu_torch.obs import control
+    from mapreduce_tpu_torch.ops.tokenize import shard_text
+    from mapreduce_tpu_torch.parallel import shuffle
+    from mapreduce_tpu_torch.storage import MemoryStorage
+
+    cfg = replace(EngineConfig(**MIGRATION_CONFIG), sort_impl="radix")
+    corpus = MIGRATION_CORPUS
+    chunks, _ = shard_text(corpus, max(1, len(corpus) // MIGRATION_SHARD),
+                           pad_multiple=512, pad_to=MIGRATION_SHARD + 512)
+    board = MemoryDocStore()
+    reg = FleetRegistry(board)
+    hosts = [FleetMember(board, host_id=h) for h in ("bench-a", "bench-b")]
+    for m in hosts:
+        m.join(timeout=5.0, warm_programs=["wordcount"], hbm_frac=0.2)
+    spill = SessionSpillStore(MemoryStorage())
+    task = "migration-bench"
+    parts = Partitions(RADIX_PARTS, "cuda")
+    src = EngineSession(parts, wcmod._wordcount_map_fn, cfg, task=task,
+                        spill=spill)
+    dst = EngineSession(parts, wcmod._wordcount_map_fn, cfg, task=task,
+                        spill=spill)
+    reg.assign(task, "bench-a", program="wordcount")
+    kc.reset_counts()
+    with PathInputs(torch, seg, shuffle) as cap:
+        src.feed(chunks)
+        before = src.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        moved = migrate(task, src, dst, registry=reg, src_host="bench-a",
+                        dst_host="bench-b", reason="explicit")
+        after = dst.snapshot()
+        migration_s = time.monotonic() - t0
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    check_launches(launches, plain, "fleet (a)", True)
+    held = hold_path_inputs(torch, seg, rs, "fleet (a)", cap.inputs,
+                            ["segreduce", "radix_sort", "radix_plan"])
+    route = reg.route(task)
+    check(route and route["host"] == "bench-b", f"fleet (a): route {route}")
+    for f in ("keys", "values", "payload", "valid"):
+        check(torch.equal(getattr(after, f), getattr(before, f)),
+              f"fleet (a): the migrated snapshot differs in {f}")
+    check(wcmod.materialize_counts(chunks, after)
+          == Counter(corpus.split()), "fleet (a): counts differ from "
+          "Counter")
+    dec = control.LEDGER.decisions(controller="fleet", task=task)[-1]
+    check("bench-a -> bench-b" in dec["note"], f"fleet (a): {dec}")
+    src.close(drop_spill=False)
+    dst.close()
+    for m in hosts:
+        m.leave()
+    out = {"session_migration_s": migration_s, "spill_s": moved["spill_s"],
+           "chunks": int(chunks.shape[0]), "partitions": RADIX_PARTS,
+           "bit_equal": True, "routed": moved["routed"],
+           "decision": dec["note"], "launches": launches,
+           "plain_calls": plain, "held": held}
+    print(json.dumps({"fleet_migration": out}), flush=True)
+    return launches
+
+
+def fleet_sustained_case(torch, kc, seg, wcmod, Partitions):
+    """Phase 22 (b): bench.py's measure_fleet_sustained at full size: two
+    fleet hosts in this process, each a resident session on the card fed
+    by its own thread; records/s folded across both over the concurrent
+    window (a stream that overflowed gives no number: it fails),
+    printed beside phase 8's one-host rate.  Both hosts share the one
+    card, so no gain is expected and none is asserted."""
+    import threading
+    from dataclasses import replace
+
+    import numpy as np
+
+    from mapreduce_tpu_torch.coord.docstore import MemoryDocStore
+    from mapreduce_tpu_torch.coord.fleet import (
+        FleetMember, FleetRegistry, fleet_snapshot)
+    from mapreduce_tpu_torch.corpus import make_corpus
+    from mapreduce_tpu_torch.engine.device_engine import EngineConfig
+    from mapreduce_tpu_torch.engine.session import EngineSession
+    from mapreduce_tpu_torch.ops.tokenize import shard_text
+    from mapreduce_tpu_torch.parallel import shuffle
+
+    cfg = EngineConfig(**SESSION_CONFIG)
+    cfg = replace(cfg, exchange_capacity=cfg.local_capacity)
+    board = MemoryDocStore()
+    reg = FleetRegistry(board)
+    members = [FleetMember(board, host_id=h) for h in FLEET_HOSTS]
+    for m in members:
+        m.join(timeout=5.0, warm_programs=["wordcount"], hbm_frac=0.3)
+    corpus = make_corpus(SESSION_WORDS, max(SESSION_WORDS // 25, 1))
+    want = Counter(corpus.split())
+    chunks, _ = shard_text(corpus, -(-len(corpus) // SESSION_CHUNK_LEN),
+                           pad_multiple=cfg.tile,
+                           pad_to=SESSION_CHUNK_LEN + cfg.tile)
+    sessions = []
+    for h in FLEET_HOSTS:
+        sess = EngineSession(Partitions(1, "cuda"),
+                             wcmod._wordcount_map_fn, cfg, task=f"fleet-{h}")
+        row_bytes = max(1, chunks.nbytes // len(chunks))
+        sess.k = max(1, min(sess.engine._rows_per_wave(row_bytes),
+                            len(chunks)))
+        sess.feed(chunks[:1], task="warm")
+        sess.snapshot("warm")
+        sess.close("warm")
+        reg.assign(f"tenant-{h}", h, program="wordcount")
+        sessions.append(sess)
+    snap = fleet_snapshot(board)
+    check(len(snap.get("hosts", {})) == len(FLEET_HOSTS)
+          and all(h["state"] == "live" for h in snap["hosts"].values()),
+          f"fleet (b): {snap}")
+
+    def total(sess, t):
+        s = sess.snapshot(t)
+        check(s.overflow == 0, f"fleet (b): stream {t} overflowed "
+              f"{s.overflow} rows: no number from it")
+        return int(s.values[s.valid].sum())
+
+    errors = []
+
+    def serve(sess, t, n):
+        try:
+            for _ in range(n):
+                sess.feed(chunks, task=t)
+        except BaseException as exc:  # raised again in the caller
+            errors.append(exc)
+
+    def concurrent(n):
+        threads = [threading.Thread(target=serve,
+                                    args=(sess, f"tenant-{h}", n))
+                   for h, sess in zip(FLEET_HOSTS, sessions)]
+        t0 = time.monotonic()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=FLEET_TIMEOUT)
+        check(not any(th.is_alive() for th in threads),
+              "fleet (b): a feeder thread hangs")
+        if errors:
+            raise errors[0]
+        return time.monotonic() - t0
+
+    for h, sess in zip(FLEET_HOSTS, sessions):
+        sess.feed(chunks, task=f"tenant-{h}")
+    concurrent(1)  # the first time both hosts feed at once, untimed
+    before = [total(sess, f"tenant-{h}")
+              for h, sess in zip(FLEET_HOSTS, sessions)]
+    kc.reset_counts()
+    with PathInputs(torch, seg, shuffle) as cap:
+        wall = concurrent(FLEET_ROUNDS)
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    check_launches(launches, plain, "fleet (b)", False)
+    held = hold_path_inputs(torch, seg, None, "fleet (b)", cap.inputs,
+                            ["segreduce"])
+    del cap
+    records = 0
+    for h, sess, b in zip(FLEET_HOSTS, sessions, before):
+        t = f"tenant-{h}"
+        records += total(sess, t) - b
+        n = 2 + FLEET_ROUNDS
+        # a word's representative offset counts over all n feeds' chunks
+        got = wcmod.materialize_counts(np.concatenate([chunks] * n),
+                                       sess.snapshot(t))
+        check(got == {w: c * n for w, c in want.items()},
+              f"fleet (b): {t}'s counts differ from Counter x {n}")
+        sess.close()
+    for m in members:
+        m.leave()
+    check(records == len(FLEET_HOSTS) * FLEET_ROUNDS * sum(want.values()),
+          f"fleet (b): {records} records folded in the window")
+    one_host = PHASE_NUMBERS.get("sustained_p1_records_per_s")
+    out = {"fleet_sustained_records_per_s": records / wall,
+           "fleet_sustained_hosts": len(FLEET_HOSTS),
+           "fleet_sustained_records": records,
+           "fleet_sustained_wall_s": wall,
+           "fleet_sustained_rounds": FLEET_ROUNDS,
+           "partitions": 1, "exchange_capacity": cfg.exchange_capacity,
+           "phase8_one_host_records_per_s": one_host,
+           "aggregate_over_one_host": (records / wall / one_host
+                                       if one_host else None),
+           "launches": launches, "plain_calls": plain, "held": held}
+    print(json.dumps({"fleet_sustained": out}), flush=True)
+    return launches
+
+
+def fleet_victim(connstr, spill_dir, host_id, lease, chunks_path):
+    """``chip_smoke.py --fleet-victim``: phase 22 (c)'s engine host.
+    Joins the fleet, routes ``live`` here, then feeds the smoke corpus's
+    chunks one at a time on ``Partitions(8)`` radix with a spill after
+    each; its kernels are held against their plain versions on the first
+    feed's largest inputs.  Progress (the path's launches, its plain
+    calls, the libraries it built) is written after each spill commits;
+    it idles heartbeating once the stream is fed, until SIGKILLed."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mapreduce_tpu_torch.coord import docstore
+    from mapreduce_tpu_torch.coord.fleet import FleetMember, FleetRegistry
+    from mapreduce_tpu_torch.engine import wordcount as wcmod
+    from mapreduce_tpu_torch.engine.session import EngineSession
+    from mapreduce_tpu_torch.engine.spill import SessionSpillStore
+    from mapreduce_tpu_torch.ops import kernel_compat as kc
+    from mapreduce_tpu_torch.ops import radix_sort as rs
+    from mapreduce_tpu_torch.ops import segscan as seg
+    from mapreduce_tpu_torch.parallel import shuffle
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.storage.localdir import LocalDirStorage
+
+    chunks = np.load(chunks_path)
+    store = docstore.connect(connstr)
+    member = FleetMember(store, host_id=host_id, lease=float(lease))
+    member.join(timeout=30.0, warm_programs=["wave"], hbm_frac=0.2)
+    FleetRegistry(store).assign("live", host_id, program="wave")
+    sess = EngineSession(Partitions(RADIX_PARTS, "cuda"),
+                         wcmod._wordcount_map_fn,
+                         fleet_session_config(wcmod), task="live", k=1,
+                         spill=SessionSpillStore(LocalDirStorage(spill_dir)))
+    held, extra = None, {}
+    for i in range(chunks.shape[0]):
+        member.heartbeat(warm_programs=["wave"], hbm_frac=0.2)
+        if held is None:
+            with PathInputs(torch, seg, shuffle) as cap:
+                sess.feed(chunks[i:i + 1])
+        else:
+            sess.feed(chunks[i:i + 1])
+        step = sess.spill_stream()
+        if held is None:
+            # the comparison's launches are not the path's
+            before = dict(kc.LAUNCHES)
+            held = hold_path_inputs(torch, seg, rs, "fleet (c) victim",
+                                    cap.inputs, ["segreduce", "radix_sort",
+                                                 "radix_plan"])
+            extra = {k: kc.LAUNCHES[k] - before[k] for k in kc.LAUNCHES}
+            del cap
+        store.update("__chaos__.progress", {"_id": host_id}, {"$set": {
+            "spilled_chunks": i + 1, "step": step,
+            "launches": {k: v - extra.get(k, 0)
+                         for k, v in kc.LAUNCHES.items()},
+            "plain_calls": dict(kc.PLAIN_CALLS),
+            "built": sorted(kc.BUILD_LOGS), "held": held}}, upsert=True)
+    while True:
+        member.heartbeat(warm_programs=["wave"], hbm_frac=0.2)
+        time.sleep(0.1)
+
+
+def kill_host_case(torch, kc, wcmod, Partitions, chunks, root):
+    """Phase 22 (c): the port's tests/test_fleet_chaos.py at full size on
+    the card: a spare joins, the victim process feeds and spills, is
+    SIGKILLed after FLEET_KILL_AFTER spills; ``recovery_sweep`` re-homes
+    the stream within the lease plus FLEET_REHOME_SLACK; a fresh session
+    restores it, bit-equal to an uninterrupted stream over the committed
+    prefix and equal to Counter over those chunks; the migration counter
+    and the ledger's ``fleet`` decision name the move."""
+    import signal
+
+    import numpy as np
+
+    from mapreduce_tpu_torch.coord import docstore
+    from mapreduce_tpu_torch.coord.fleet import FleetMember, FleetRegistry
+    from mapreduce_tpu_torch.engine.autotune import AdmissionAdvisor
+    from mapreduce_tpu_torch.engine.session import EngineSession
+    from mapreduce_tpu_torch.engine.spill import SessionSpillStore
+    from mapreduce_tpu_torch.obs import control
+    from mapreduce_tpu_torch.obs.metrics import REGISTRY
+    from mapreduce_tpu_torch.sched.scheduler import Scheduler
+    from mapreduce_tpu_torch.storage.localdir import LocalDirStorage
+
+    board_dir = os.path.join(root, "board")
+    spill_dir = os.path.join(root, "spill")
+    os.makedirs(board_dir)
+    os.makedirs(spill_dir)
+    chunks_path = os.path.join(root, "chunks.npy")
+    np.save(chunks_path, chunks)
+    connstr = f"dir://{board_dir}"
+    out_f = open(os.path.join(root, "victim.out"), "w")
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fleet-victim",
+         connstr, spill_dir, "victim", str(FLEET_LEASE), chunks_path],
+        stdout=out_f, stderr=subprocess.STDOUT)
+    out_f.close()
+    spare = None
+    try:
+        store = docstore.connect(connstr)
+        reg = FleetRegistry(store)
+        spare = FleetMember(store, host_id="spare", lease=60.0)
+        spare.join(timeout=10.0, warm_programs=["wave"], hbm_frac=0.1)
+        t0 = time.monotonic()
+        while True:
+            prog = store.find_one("__chaos__.progress",
+                                  {"_id": "victim"}) or {}
+            if prog.get("spilled_chunks", 0) >= FLEET_KILL_AFTER:
+                break
+            check(child.poll() is None and time.monotonic() - t0
+                  < FLEET_TIMEOUT, "fleet (c): the victim never spilled "
+                  f"{FLEET_KILL_AFTER} chunks: "
+                  + open(os.path.join(root, "victim.out")).read()[-3000:])
+            spare.heartbeat(warm_programs=["wave"], hbm_frac=0.1)
+            time.sleep(0.05)
+        victim_ready_s = time.monotonic() - t0
+        t_kill = time.monotonic()
+        os.kill(child.pid, signal.SIGKILL)
+        child.wait(timeout=30)
+        sched = Scheduler(store, use_lease=False,
+                          advisor=AdmissionAdvisor(), fleet=reg)
+        m0 = REGISTRY.sum("mrtpu_session_migrations_total", task="live",
+                          reason="recovery")
+        deadline = time.monotonic() + FLEET_LEASE + 5.0
+        while True:
+            spare.heartbeat(warm_programs=["wave"], hbm_frac=0.1)
+            moves = sched.recovery_sweep()
+            if moves:
+                break
+            check(time.monotonic() < deadline, "fleet (c): the recovery "
+                  "sweep never re-homed the stream")
+            time.sleep(0.05)
+        recovered_s = time.monotonic() - t_kill
+        check(moves == [("live", "spare")], f"fleet (c): moves {moves}")
+        check(recovered_s <= FLEET_LEASE + FLEET_REHOME_SLACK,
+              f"fleet (c): re-home took {recovered_s:.2f} s (lease "
+              f"{FLEET_LEASE} s)")
+        check(reg.route("live")["host"] == "spare", "fleet (c): route")
+        doc = next(d for d in reg.hosts() if d["_id"] == "victim")
+        check(doc.get("holder") is None, "fleet (c): victim not reaped")
+        # the stream is servable now, from the last committed spill
+        cfg = fleet_session_config(wcmod)
+        kc.reset_counts()
+        t0 = time.monotonic()
+        dst = EngineSession(Partitions(RADIX_PARTS, "cuda"),
+                            wcmod._wordcount_map_fn, cfg, task="live", k=1,
+                            spill=SessionSpillStore(
+                                LocalDirStorage(spill_dir)))
+        got = dst.snapshot("live")
+        restore_s = time.monotonic() - t0
+        pos = dst.stats("live")["chunks"]
+        check(pos >= FLEET_KILL_AFTER, f"fleet (c): restored {pos} chunks")
+        ref = EngineSession(Partitions(RADIX_PARTS, "cuda"),
+                            wcmod._wordcount_map_fn, cfg, task="ref", k=1)
+        for i in range(pos):
+            ref.feed(chunks[i:i + 1])
+        want_snap = ref.snapshot("ref")
+        launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+        check_launches(launches, plain, "fleet (c) restore", True)
+        for f in ("keys", "values", "payload", "valid"):
+            check(torch.equal(getattr(got, f), getattr(want_snap, f)),
+                  f"fleet (c): the restored stream differs in {f} from "
+                  f"an uninterrupted one over {pos} chunks")
+        check(wcmod.materialize_counts(chunks[:pos], got)
+              == Counter(chunks[:pos].tobytes().split()),
+              "fleet (c): the restored counts differ from Counter")
+        dst.close(drop_spill=False)
+        ref.close()
+        check(REGISTRY.sum("mrtpu_session_migrations_total", task="live",
+                           reason="recovery") - m0 == 1,
+              "fleet (c): the migration was not counted once")
+        decs = [d["note"] for d in control.LEDGER.decisions(
+            controller="fleet", task="live")]
+        check(any("victim to spare" in n for n in decs),
+              f"fleet (c): no ledger decision names the move: {decs}")
+        victim = {"launches": prog["launches"],
+                  "plain_calls": prog["plain_calls"],
+                  "built": prog["built"], "held": prog["held"]}
+        check_launches(victim["launches"], victim["plain_calls"],
+                       "fleet (c) victim", True)
+        check(not victim["built"], f"fleet (c): the victim ran nvcc for "
+              f"{victim['built']}")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+        if spare is not None:
+            spare.leave()
+    out = {"lease_s": FLEET_LEASE, "victim_ready_s": victim_ready_s,
+           "spilled_before_kill": prog["spilled_chunks"],
+           "rehome_s": recovered_s, "restore_snapshot_s": restore_s,
+           "restored_chunks": pos, "bit_equal": True, "victim": victim,
+           "restore_launches": launches}
+    print(json.dumps({"fleet_kill": out}), flush=True)
+    return victim["launches"]
+
+
+def drain_case(root, smi):
+    """Phase 22 (d): a docserver and two runners on the card; three
+    streams routed at runner A; ``cli drain A``: A sees the flag, steps
+    down and exits 0, its streams are on B, ``status`` shows A left and
+    ``diagnose`` names the drain migrations.  The runners run no task
+    here (their kernels run in phases 14, 18 and 20)."""
+    import signal
+    import socket
+    import uuid
+
+    from mapreduce_tpu_torch.coord.docserver import HttpDocStore
+    from mapreduce_tpu_torch.coord.fleet import FleetRegistry, host_state
+    from mapreduce_tpu_torch.coord.docstore import now
+
+    token = uuid.uuid4().hex
+    procs = NetProcs(root, token, label="fleet (d)")
+    try:
+        procs.start("board", "docserver", "--host", "127.0.0.1", "--port",
+                    "0")
+        m = procs.wait_line("board", r"job board at http://([\d.]+):(\d+)")
+        addr = f"{m.group(1)}:{m.group(2)}"
+        url = f"http://{addr}"
+        runner = ["--partitions", str(RADIX_PARTS), "--torch-device",
+                  "cuda", "--workers", "1", "--max-inflight", "1",
+                  "--telemetry-interval", "0.5"]
+        pa = procs.start("runnerA", "runner", url, *runner)
+        pb = procs.start("runnerB", "runner", url, *runner)
+        for name in ("runnerA", "runnerB"):
+            procs.wait_line(name, r"runner serving", timeout=180)
+        host_a = f"{socket.gethostname()}:{pa.pid}"
+        host_b = f"{socket.gethostname()}:{pb.pid}"
+        client = HttpDocStore(addr, auth_token=token)
+        try:
+            reg = FleetRegistry(client)
+            deadline = time.monotonic() + 60
+            while {host_a, host_b} - {str(d["_id"])
+                                      for d in reg.live_hosts()}:
+                check(time.monotonic() < deadline, "fleet (d): the "
+                      f"runners never joined: {reg.hosts()}")
+                time.sleep(0.1)
+            streams = [f"stream-{i}" for i in range(DRAIN_STREAMS)]
+            for s in streams:
+                reg.assign(s, host_a, program="wave")
+            before, _ = run_cli(["status", url, "--auth", token])
+            check("engine fleet: 2 host(s)" in before,
+                  f"fleet (d): status before the drain:\n{before}")
+            t0 = time.monotonic()
+            procs.start("drain", "drain", url, host_a, "--timeout", "60")
+            procs.wait("drain", timeout=120)
+            drain_s = time.monotonic() - t0
+            procs.wait("runnerA", timeout=60)  # exit code 0
+            a_exit_s = time.monotonic() - t0
+            check(f"drain requested for host {host_a}"
+                  in procs.text("runnerA"), "fleet (d): runner A did not "
+                  "see the drain flag")
+            moved = sorted(str(r["_id"]) for r in reg.routes_for(host_b))
+            check(moved == streams and not reg.routes_for(host_a),
+                  f"fleet (d): routes after the drain: {moved}")
+            doc_a = next(d for d in reg.hosts() if d["_id"] == host_a)
+            check(host_state(doc_a, now()) == "left",
+                  f"fleet (d): runner A's host doc {doc_a}")
+        finally:
+            client.close()
+        status, status_wall = run_cli(["status", url, "--auth", token])
+        line_a = [ln for ln in status.splitlines()
+                  if f"host {host_a}:" in ln]
+        check(line_a and "LEFT" in line_a[0], f"fleet (d): status:\n"
+              f"{status}")
+        deadline = time.monotonic() + 30
+        while True:
+            raw, diag_wall = run_cli(["diagnose", url, "--json",
+                                      "--auth", token])
+            report = json.loads(raw)
+            drained = (report.get("fleet") or {}).get(
+                "migrations", {}).get("drain", 0)
+            if drained == DRAIN_STREAMS:
+                break
+            check(time.monotonic() < deadline, "fleet (d): diagnose "
+                  f"names {drained} drain migrations: {report.get('fleet')}")
+            time.sleep(0.25)
+        pb.send_signal(signal.SIGINT)  # a clean exit leaves the fleet
+        procs.wait("runnerB", timeout=60)
+    finally:
+        procs.reap()
+    out = {"drain_s": drain_s, "runner_a_exit_s": a_exit_s,
+           "streams": DRAIN_STREAMS, "status_wall_s": status_wall,
+           "diagnose_wall_s": diag_wall,
+           "diagnose_fleet": report.get("fleet"), "card": smi}
+    print(json.dumps({"fleet_drain": out}), flush=True)
+
+
+def mesh_rank(mode, rank, port, out_path, *args):
+    """``chip_smoke.py --mesh-rank``: one of phase 22 (e)'s two
+    controllers on the one card, joined by a gloo group.  ``engine``:
+    the phase 7 radix slice over ``Partitions(8, group=WORLD)`` (4
+    partitions here), warm once, then a counted run with its kernels
+    held against their plain versions; then the bench_train MLP's one
+    step at n_data 8 (f32 and the bench's bf16).  ``combined``:
+    tests/multiproc_runner2.py's roles over an http docserver and a blob
+    server.  Writes its numbers to *out_path* as JSON (and the MLP step's
+    updated parameters to *out_path* ``.npz``)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mapreduce_tpu_torch.engine import wordcount as wcmod
+    from mapreduce_tpu_torch.ops import kernel_compat as kc
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+
+    # the f32 step is held to 1e-5 of the one-process step: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, port = int(rank), int(port)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}",
+        world_size=MESH_WORLD, rank=rank,
+        timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT))
+    out = {"rank": rank}
+    try:
+        parts = Partitions(RADIX_PARTS, "cuda", group=dist.group.WORLD)
+        out["partitions"] = [parts.lo, parts.lo + parts.n_local]
+        if mode == "engine":
+            from dataclasses import replace
+
+            from mapreduce_tpu_torch.models import (
+                DistributedTrainer, MLPConfig, TrainConfig)
+            from mapreduce_tpu_torch.ops import radix_sort as rs
+            from mapreduce_tpu_torch.ops import segscan as seg
+            from mapreduce_tpu_torch.parallel import shuffle
+
+            with open(args[0], "rb") as f:
+                data = f.read()
+            cfg = replace(wcmod.bench_engine_config(), sort_impl="radix")
+            wc = wcmod.DeviceWordCount(parts, chunk_len=CHUNK_LEN,
+                                       config=cfg)
+            wc.count_bytes(data, waves=RADIX_WAVES)  # warm
+            kc.reset_counts()
+            torch.cuda.synchronize()
+            tm = {}
+            with PathInputs(torch, seg, shuffle) as cap:
+                t0 = time.monotonic()
+                got = wc.count_bytes(data, timings=tm, waves=RADIX_WAVES)
+                wall = time.monotonic() - t0
+            out["launches"], out["plain_calls"] = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+            out["held"] = hold_path_inputs(
+                torch, seg, rs, f"fleet (e) rank {rank}", cap.inputs,
+                ["segreduce", "radix_sort", "radix_plan"])
+            del cap
+            out["counts"] = {w.decode("latin-1"): c for w, c in got.items()}
+            out.update(matrix=tm["exchange"]["matrix"],
+                       compute_s=tm["compute_s"], wall_s=wall,
+                       waves=tm["waves"], retries=tm["retries"],
+                       upload_s=tm["upload_s"],
+                       readback_s=tm["readback_s"],
+                       bytes_by_link=tm.get("exchange_bytes_by_link"))
+            x, y = mesh_mlp_batch()
+            updated = {}
+            for name, dtype in (("f32", torch.float32),
+                                ("bf16", torch.bfloat16)):
+                tr = DistributedTrainer(
+                    MLPConfig(sizes=MLP_SIZES, dtype=dtype),
+                    TrainConfig(bunch_size=MLP_BUNCH), n_data=MESH_N_DATA,
+                    device="cuda", group=dist.group.WORLD)
+                params, opt = tr.init_state()
+                params, _, loss = tr.step(params, opt,
+                                          *tr.place_batch(x, y))
+                out[f"loss_{name}"] = float(loss)
+                updated.update({f"{name}.{n}": t.detach().cpu().numpy()
+                                for n, t in params.items()})
+            np.savez(out_path + ".npz", **updated)
+        else:
+            from mapreduce_tpu_torch.coord import docstore
+            from mapreduce_tpu_torch.storage.httpstore import HttpStorage
+            from mapreduce_tpu_torch.utils.serialization import (
+                parse_record, serialize_record)
+
+            board = docstore.connect(args[0])
+            blobs = HttpStorage(args[1])
+            corpus = blobs.read("corpus").encode("utf-8")
+            kc.reset_counts()
+            counts = wcmod.DeviceWordCount(parts, chunk_len=512).count_bytes(
+                corpus)
+            out["launches"], out["plain_calls"] = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+            if rank == 0:
+                claimed = board.find_and_modify(
+                    "xhost.jobs", {"_id": "wc", "status": "ENQUEUED"},
+                    {"$set": {"status": "RUNNING", "worker": "p0"}})
+                check(claimed is not None, "fleet (e): the claim failed")
+                lines = [serialize_record(k.decode("utf-8"), [v])
+                         for k, v in sorted(counts.items())]
+                blobs.write("result", "\n".join(lines) + "\n")
+                check(board.update("xhost.jobs", {"_id": "wc"},
+                                   {"$set": {"status": "WRITTEN"}}) == 1,
+                      "fleet (e): WRITTEN not set")
+                out["served"] = True
+            else:
+                deadline = time.monotonic() + MESH_GROUP_TIMEOUT
+                while (board.find_one("xhost.jobs", {"_id": "wc"})
+                       or {}).get("status") != "WRITTEN":
+                    check(time.monotonic() < deadline, "fleet (e): the "
+                          "job never reached WRITTEN")
+                    time.sleep(0.1)
+                got = dict(parse_record(ln) for ln in
+                           blobs.read("result").splitlines() if ln)
+                check(got == {k.decode("utf-8"): [v]
+                              for k, v in counts.items()},
+                      "fleet (e): the published result differs")
+                out["verified"] = True
+            out["unique"] = len(counts)
+        out["built"] = sorted(kc.BUILD_LOGS)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mesh_mlp_batch():
+    import numpy as np
+
+    batch = MLP_BUNCH * MESH_N_DATA
+    x = np.random.default_rng(0).normal(
+        size=(batch, MLP_SIZES[0])).astype(np.float32)
+    y = (np.arange(batch) % MLP_SIZES[-1]).astype(np.int32)
+    return x, y
+
+
+def mesh_ranks(root, mode, *args):
+    """Start phase 22 (e)'s two controllers and wait for both; returns
+    each rank's JSON."""
+    port = free_port()
+    procs, outs = [], []
+    for r in range(MESH_WORLD):
+        log = open(os.path.join(root, f"{mode}{r}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", mode,
+             str(r), str(port),
+             os.path.join(root, f"{mode}{r}.json"), *args],
+            stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+    try:
+        for r, p in enumerate(procs):
+            rc = p.wait(timeout=MESH_GROUP_TIMEOUT + 120)
+            with open(os.path.join(root, f"{mode}{r}.log")) as f:
+                log = f.read()
+            check(rc == 0, f"fleet (e): {mode} rank {r} exited {rc}: "
+                  f"{log[-3000:]}")
+            with open(os.path.join(root, f"{mode}{r}.json")) as f:
+                outs.append(json.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return outs
+
+
+def mesh_case(torch, data, want, rmatrix, root):
+    """Phase 22 (e): two controllers on the one card over gloo, 4 of the
+    8 partitions each: the radix count equal to ``want`` on both ranks,
+    the traffic matrix bit-equal to phase 7's; each rank's launches and
+    ``compute_s`` beside phase 7's; the MLP step's loss equal on both
+    ranks and within MESH_LOSS_RTOL of the one-process n_data 8 step
+    (f32), its updated parameters equal on both ranks and within
+    MESH_PARAM_ATOL of the one-process step's; then the combined
+    topology over an http docserver and a blob server."""
+    import tempfile
+
+    import numpy as np
+
+    from mapreduce_tpu_torch.coord.docserver import DocServer
+    from mapreduce_tpu_torch.models import (
+        DistributedTrainer, MLPConfig, TrainConfig)
+    from mapreduce_tpu_torch.storage.httpstore import BlobServer, HttpStorage
+
+    corpus = os.path.join(root, "corpus")
+    with open(corpus, "wb") as f:
+        f.write(data)
+    t0 = time.monotonic()
+    ranks = mesh_ranks(root, "engine", corpus)
+    engine_wall = time.monotonic() - t0
+    want_str = {w.decode("latin-1"): c for w, c in want.items()}
+    x, y = mesh_mlp_batch()
+    one, one_params = {}, {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tr = DistributedTrainer(MLPConfig(sizes=MLP_SIZES, dtype=dtype),
+                                TrainConfig(bunch_size=MLP_BUNCH),
+                                n_data=MESH_N_DATA, device="cuda")
+        params, opt = tr.init_state()
+        params, _, loss = tr.step(params, opt, *tr.place_batch(x, y))
+        one[name] = float(loss)
+        one_params.update({f"{name}.{n}": t.detach().cpu().numpy()
+                           for n, t in params.items()})
+    # each rank's updated parameters: equal to each other, and to the
+    # one-process step's within MESH_PARAM_ATOL (the gradients' all-reduce
+    # and its staging through host memory are on this path)
+    rank_params = []
+    for r in range(MESH_WORLD):
+        with np.load(os.path.join(root, f"engine{r}.json.npz")) as z:
+            rank_params.append(dict(z))
+    param_err = {}
+    for key, want_p in one_params.items():
+        got = [p[key] for p in rank_params]
+        check(np.array_equal(got[0], got[1]), f"fleet (e): the ranks' "
+              f"updated {key} differ")
+        param_err[key] = float(np.abs(got[0] - want_p).max())
+        check(param_err[key] <= MESH_PARAM_ATOL[key.split(".")[0]],
+              f"fleet (e): the updated {key} is {param_err[key]} from the "
+              "one-process step's")
+    for r in ranks:
+        check(r.pop("counts") == want_str, f"fleet (e): rank {r['rank']}'s "
+              "counts differ from Counter")
+        check(r["matrix"] == rmatrix, f"fleet (e): rank {r['rank']}'s "
+              "traffic matrix differs from phase 7's")
+        check_launches(r["launches"], r["plain_calls"],
+                       f"fleet (e) rank {r['rank']}", True)
+        check(not r["built"], f"fleet (e): rank {r['rank']} ran nvcc for "
+              f"{r['built']}")
+    for name, rtol in (("f32", MESH_LOSS_RTOL),
+                       ("bf16", MESH_BF16_LOSS_RTOL)):
+        losses = [r[f"loss_{name}"] for r in ranks]
+        check(losses[0] == losses[1], f"fleet (e): {name} losses {losses}")
+        check(abs(losses[0] - one[name]) <= rtol * abs(one[name]),
+              f"fleet (e): the {name} step's loss {losses[0]} against the "
+              f"one-process step's {one[name]}")
+    doc = DocServer(host="127.0.0.1", port=0).start_background()
+    blob = BlobServer(tempfile.mkdtemp(prefix="xhost_", dir=root),
+                      host="127.0.0.1", port=0).start_background()
+    try:
+        HttpStorage(blob.address).write("corpus", MESH_TEXT)
+        doc.store.insert("xhost.jobs", {"_id": "wc", "status": "ENQUEUED"})
+        t0 = time.monotonic()
+        combined = mesh_ranks(root, "combined",
+                              f"http://{doc.host}:{doc.port}", blob.address)
+        combined_wall = time.monotonic() - t0
+        final = doc.store.find("xhost.jobs", {"_id": "wc"})[0]
+        check((final["status"], final["worker"]) == ("WRITTEN", "p0"),
+              f"fleet (e): the job doc {final}")
+    finally:
+        doc.shutdown()
+        blob.shutdown()
+    check(combined[0].get("served") and combined[1].get("verified"),
+          f"fleet (e): combined {combined}")
+    for r in combined:
+        check_launches(r["launches"], r["plain_calls"],
+                       f"fleet (e) combined rank {r['rank']}", False)
+    out = {"world": MESH_WORLD, "backend": "gloo",
+           "ranks": ranks, "engine_wall_s": engine_wall,
+           "phase7_compute_s": PHASE_NUMBERS.get("slice_radix_compute_s"),
+           "matrix_bit_equal_phase7": True,
+           "loss_one_process": one,
+           "param_max_abs_err": param_err, "param_atol": MESH_PARAM_ATOL,
+           "combined": combined, "combined_wall_s": combined_wall}
+    print(json.dumps({"fleet_mesh": out}), flush=True)
+    return {f"rank{r['rank']}": r["launches"] for r in ranks}
+
+
+def fleet_phase(torch, kc, seg, rs, wcmod, Partitions, data, want, chunks,
+                rmatrix, smi):
+    """Phase 22: the engine-host fleet and multi-process meshes (the
+    ``fleet_*`` lines).  Returns phase 22's launches by run."""
+    import shutil
+    import tempfile
+
+    t_phase = time.monotonic()
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        launches = {"migration": migration_case(torch, kc, seg, rs, wcmod,
+                                                Partitions),
+                    "sustained": fleet_sustained_case(torch, kc, seg,
+                                                      wcmod, Partitions)}
+        kill_root = os.path.join(root, "kill")
+        os.makedirs(kill_root)
+        launches["victim"] = kill_host_case(torch, kc, wcmod, Partitions,
+                                            chunks, kill_root)
+        drain_root = os.path.join(root, "drain")
+        os.makedirs(drain_root)
+        drain_case(drain_root, smi)
+        mesh_root = os.path.join(root, "mesh")
+        os.makedirs(mesh_root)
+        launches.update(mesh_case(torch, data, want, rmatrix, mesh_root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"fleet": {"phase_s": time.monotonic() - t_phase,
+                                "card": smi}}), flush=True)
+    return launches
+
+
 T_START = time.monotonic()
 
 
@@ -6880,6 +7767,11 @@ def main():
 
     before_axes_s = time.monotonic() - T_START
     axes_launches = axes_phase(torch, kc, fa, tmod, pmod, smi)
+
+    # phase 22: the engine-host fleet and multi-process meshes
+    before_fleet_s = time.monotonic() - T_START
+    fleet_launches = fleet_phase(torch, kc, seg, rs, wcmod, Partitions,
+                                 data, want, chunks, rmatrix, smi)
     monoid_kernel["launches_wordspan"] = {
         run: counts.get("segreduce_monoid", 0)
         for run, counts in wordspan_launches.items()}
@@ -6921,11 +7813,17 @@ def main():
         kern["launches_operator"] = operator_launches[kern["name"]]
         # and on phase 20's two tasks, whose counts the history held
         kern["launches_history"] = history_launches[kern["name"]]
+        # and on phase 22's runs: the migration, the two fleet hosts, the
+        # killed victim's committed feeds and each gloo controller
+        kern["launches_fleet"] = {
+            run: counts.get(kern["name"], 0)
+            for run, counts in fleet_launches.items()}
     kernels += radix_kernels + flash_kernels + [monoid_kernel]
     print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START,
                                 "before_phase_20_wall_s":
                                 before_history_s,
-                                "before_phase_21_wall_s": before_axes_s}}))
+                                "before_phase_21_wall_s": before_axes_s,
+                                "before_phase_22_wall_s": before_fleet_s}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6939,4 +7837,8 @@ if __name__ == "__main__":
         sys.exit(cold_child(sys.argv[2]))
     if sys.argv[1:2] == ["--wordspan-child"]:
         sys.exit(wordspan_child(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--fleet-victim"]:
+        sys.exit(fleet_victim(*sys.argv[2:7]))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(*sys.argv[2:]))
     sys.exit(main())

@@ -139,8 +139,12 @@ the alerting plane (``obs/alerts``), evaluated every
 to each ``--alert-webhook`` / ``--alert-exec`` sink; ``alerts`` lists,
 silences and acks its rules.
 
-The JAX commands the port does not offer yet
-(:data:`NOT_PORTED_COMMANDS`) exit 2 naming theirs.
+Every runner joins the board's engine-host fleet (``coord/fleet``);
+``drain CONNSTR HOST`` flags one for drain, waits up to ``--timeout``
+seconds for it to step down, and re-homes its routed streams to the best
+live hosts.  ``status`` shows the fleet section.
+
+Every JAX command is served: :data:`NOT_PORTED_COMMANDS` is empty.
 """
 
 from __future__ import annotations
@@ -151,7 +155,7 @@ import logging
 import os
 import sys
 import uuid
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 SORT_IMPLS = ("variadic", "argsort", "radix", "tiered", "tiered-radix")
 
@@ -2160,19 +2164,21 @@ def cmd_runner(argv: List[str]) -> int:
     serves; submit work with ``cli submit``.  Admission is
     telemetry-informed: the runner registers its own placement facts
     (warm program tokens, card memory) with an ``AdmissionAdvisor``
-    under its host id and refreshes them while it serves.  It joins no
-    engine-host fleet (ROADMAP A.11: no membership, no ``drain``).
-    ``--slo`` sets the objectives the SLO plane of this process
-    evaluates; the lifecycle histograms it observes reach the board's
-    /statusz through the telemetry pushes."""
+    under its host id and refreshes them while it serves.  It joins the
+    engine-host fleet under the same id (coord/fleet), heartbeats those
+    facts every turn, rejoins after a definitive loss, steps down when
+    ``cli drain`` flags it and leaves cleanly on exit.  ``--slo`` sets
+    the objectives the SLO plane of this process evaluates; the
+    lifecycle histograms it observes reach the board's /statusz through
+    the telemetry pushes."""
     p = argparse.ArgumentParser(
         prog="mapreduce_tpu_torch runner",
         description="The always-on serving process: admission and a "
                     "cross-tenant worker pool over a docserver's "
                     "scheduler, routed by an admission advisor fed this "
                     "process's warm programs and card memory.  It joins "
-                    "no engine-host fleet and takes no drain requests "
-                    "(ROADMAP A.11).")
+                    "the engine-host fleet and steps down when `drain` "
+                    "flags it.")
     p.add_argument("connstr",
                    help="the job board (http://HOST:PORT docserver — "
                         "or the HA replica set http://H1:P1,H2:P2, the "
@@ -2212,6 +2218,7 @@ def cmd_runner(argv: List[str]) -> int:
     _setup_compile_cache(args)
 
     from .coord import docstore
+    from .coord.fleet import FleetMember, FleetRegistry, default_host_id
     from .engine.autotune import AdmissionAdvisor, local_mesh_facts
     from .obs.collector import acquire_pusher, release_pusher
     from .parallel.mesh import Partitions
@@ -2226,19 +2233,28 @@ def cmd_runner(argv: List[str]) -> int:
     store = docstore.connect(args.connstr, auth=args.auth, retry=retry)
     # telemetry-informed admission: this process hosts the admitted
     # tasks' engines, so ITS warm programs and card memory are the
-    # placement facts, registered under a per-process host id (two
-    # runners on one board must not clobber each other) and refreshed
-    # while it serves
-    import socket
-
+    # placement facts, registered under its fleet host id (hostname:pid:
+    # two runners on one board must not clobber each other) and
+    # refreshed while it serves
     advisor = AdmissionAdvisor()
-    # the JAX fleet's default_host_id spelling
-    host_id = f"{socket.gethostname()}:{os.getpid()}"
+    host_id = default_host_id()
     warm, hbm = local_mesh_facts()
     advisor.register_mesh(host_id, warm_programs=warm, hbm_frac=hbm)
+    # join the engine-host fleet: the same facts heartbeat to the board
+    # so a docserver-side scheduler places across EVERY runner, `cli
+    # drain` can ask this one to step down, and a SIGKILL here is
+    # recovered by the scheduler's failed-host sweep one lease later
+    member = FleetMember(store, host_id=host_id)
+    try:
+        member.join(timeout=10.0, warm_programs=warm, hbm_frac=hbm)
+    except (OSError, TimeoutError) as exc:
+        print(f"fleet join failed ({exc}); serving without fleet "
+              "membership", file=sys.stderr)
+        member = None
     scheduler = Scheduler(
         store, config=SchedulerConfig(max_inflight=args.max_inflight),
-        advisor=advisor)
+        advisor=advisor,
+        fleet=FleetRegistry(store) if member is not None else None)
     # normalized HOST:PORT (the one embedded-token parser): a TOKEN@
     # connstr must key the SAME shared pusher the pool's workers use
     board, embedded = None, None
@@ -2269,6 +2285,28 @@ def cmd_runner(argv: List[str]) -> int:
             warm, hbm = local_mesh_facts()
             advisor.register_mesh(host_id, warm_programs=warm,
                                   hbm_frac=hbm)
+            if member is not None:
+                # fleet heartbeat: liveness + the same facts in one
+                # guarded write; the post-image carries the board's
+                # requests back (the `cli drain` flag)
+                try:
+                    doc = member.heartbeat(warm_programs=warm,
+                                           hbm_frac=hbm)
+                except OSError:
+                    doc = {}  # transport blip: proves nothing
+                if doc is None:
+                    # definitive loss (reaped or superseded): our
+                    # streams may already serve elsewhere; rejoin fresh
+                    try:
+                        member.join(timeout=2.0, warm_programs=warm,
+                                    hbm_frac=hbm)
+                    except (OSError, TimeoutError):
+                        pass
+                elif doc.get("drain"):
+                    print(f"drain requested for host {host_id}: "
+                          "stepping down (streams re-home via the "
+                          "fleet routes + spill store)", flush=True)
+                    break
             if any(w.failed is not None for w in pool):
                 break
         failure = runner.failed or next(
@@ -2283,9 +2321,113 @@ def cmd_runner(argv: List[str]) -> int:
         runner.stop()
         for w in pool:
             w.stop()
+        if member is not None:
+            try:
+                # clean departure: the host shows as LEFT (not
+                # expired), so no recovery sweep fires for a shutdown
+                member.leave()
+            except OSError:
+                pass  # board gone too; the sweep will reap us
         release_pusher(tele)
     _export_trace(args, rec)
     return rc
+
+
+def cmd_drain(argv: List[str]) -> int:
+    """Upgrade-safe host removal: flag the engine host for drain (it
+    sees the flag on its next heartbeat, steps down and releases its
+    lease), wait for it to leave, then re-home every stream routed at
+    it to the best live hosts (coord/fleet.rehome_routes: guarded
+    route flips, scored like admission, each move a control-ledger
+    decision).  The streams are durable in the spill store, so the
+    re-home is a route flip: the destinations pay a lazy restore on
+    each stream's next feed or snapshot.  On an http board the moves'
+    counters reach the collector (a final telemetry flush), so
+    ``diagnose`` names them."""
+    p = argparse.ArgumentParser(prog="mapreduce_tpu_torch drain")
+    p.add_argument("connstr", help="the job board (same CONNSTR the "
+                                   "runner serves)")
+    p.add_argument("host", help="fleet host id (hostname:pid; the "
+                                "`cli status` fleet section lists "
+                                "them)")
+    p.add_argument("--timeout", type=float, default=30.0, metavar="S",
+                   help="seconds to wait for the host to see the flag "
+                        "and leave before re-homing anyway")
+    _add_auth(p)
+    _add_retry(p)
+    _add_verbosity(p)
+    args = p.parse_args(argv)
+    _setup_logging(args.verbose or 1)
+
+    import time as _time
+
+    from .coord import docstore
+    from .coord.fleet import FleetRegistry, host_state, rehome_routes
+    from .obs import control as _control
+    from .obs.collector import acquire_pusher, release_pusher
+    from .utils.httpclient import default_auth_token, split_embedded_token
+
+    retry = _retry_policy(args)
+    store = docstore.connect(args.connstr, auth=args.auth, retry=retry)
+    board, embedded = None, None
+    if args.connstr.startswith("http://"):
+        embedded, board = split_embedded_token(
+            args.connstr[len("http://"):])
+    # released below with a final flush: the migration counters and the
+    # ledger's decisions reach the board's /clusterz
+    tele = acquire_pusher(board, default_auth_token(args.auth or embedded),
+                          role="drain", interval=1.0)
+    try:
+        reg = FleetRegistry(store)
+
+        def _doc():
+            return next((d for d in reg.hosts()
+                         if str(d["_id"]) == args.host), None)
+
+        doc = _doc()
+        if doc is None:
+            print(f"no such fleet host: {args.host!r} (see the fleet "
+                  "section of `cli status`)", file=sys.stderr)
+            return 2
+        state = host_state(doc, docstore.now())
+        if state in ("live", "draining"):
+            reg.request_drain(args.host)
+            print(f"drain requested for {args.host} ({state}); "
+                  f"waiting up to {args.timeout:.0f}s for it to step "
+                  "down...", flush=True)
+            give_up = _time.monotonic() + args.timeout
+            while _time.monotonic() < give_up:
+                doc = _doc()
+                if doc is None or host_state(
+                        doc, docstore.now()) in ("left", "expired"):
+                    break
+                _time.sleep(0.25)
+            else:
+                print(f"host {args.host} did not leave within "
+                      f"{args.timeout:.0f}s; re-homing its routes "
+                      "anyway (its guarded writes fence once the "
+                      "routes move)", file=sys.stderr)
+        moves = rehome_routes(reg, args.host, reason="drain",
+                              ledger=_control.LEDGER)
+        for task, dst in moves:
+            print(f"  re-homed stream {task} -> {dst}")
+        left = reg.routes_for(args.host)
+        doc = _doc()
+        print("host {} {}: {} stream(s) re-homed, {} still routed "
+              "here{}".format(
+                  args.host,
+                  host_state(doc, docstore.now()) if doc else "gone",
+                  len(moves), len(left),
+                  "" if not left else
+                  " (no live destination yet — the scheduler's next "
+                  "sweep retries)"))
+        return 0 if not left else 1
+    except OSError as exc:
+        print(f"cannot reach {args.connstr}: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        release_pusher(tele)
+        store.close()
 
 
 COMMANDS = {"server": cmd_server, "worker": cmd_worker,
@@ -2296,12 +2438,11 @@ COMMANDS = {"server": cmd_server, "worker": cmd_worker,
             "warmup": cmd_warmup, "status": cmd_status,
             "profile": cmd_profile, "diagnose": cmd_diagnose,
             "history": cmd_history, "top": cmd_top,
-            "alerts": cmd_alerts}
+            "alerts": cmd_alerts, "drain": cmd_drain}
 
 #: JAX commands the port does not offer yet, with the ROADMAP item
-NOT_PORTED_COMMANDS = {
-    "drain": "ROADMAP A.11: the engine-host fleet",
-}
+#: (none: every JAX command is served)
+NOT_PORTED_COMMANDS: Dict[str, str] = {}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -42,7 +42,8 @@ a program warm when every kernel library it launches passes
 ``kernel_compat.is_built``, and reads memory from
 ``torch.cuda.mem_get_info``.  The capacity controller reads the compile
 ledger's shape registry (:mod:`..obs.compile`) as the JAX one does.
-Left out (ROADMAP A.11): the ``FleetRebalancer`` and live migration.
+The :class:`FleetRebalancer` moves the coldest stream off a host whose
+heartbeat facts show memory pressure (:mod:`.migrate`).
 
 Monotonic-only module: controllers time control windows; the persisted
 job timestamps the reclaimer compares are minted by
@@ -551,6 +552,110 @@ def local_mesh_facts() -> Tuple[List[str], Optional[float]]:
                 frac = float(torch.cuda.memory_allocated(i)) / float(total)
                 worst = frac if worst is None else max(worst, frac)
     return warm, worst
+
+
+# -- fleet rebalancing (live migration off a hot host) ------------------------
+
+
+class FleetRebalancer:
+    """Move streams off an engine host running hot.
+
+    The fleet registry's heartbeat facts carry every host's worst
+    device-memory fraction (published by the host's own
+    :func:`local_mesh_facts`: on the card the CUDA allocator's bytes
+    over the card's total).  One :meth:`step` per control window: for
+    each LIVE host at or over the pressure threshold, pick its COLDEST
+    resident stream (oldest last touch — evicting the coldest frees
+    device memory at the least serving cost, and the hot stream that CAUSED the
+    pressure keeps its warm placement) and migrate it to the
+    best-scored live host with headroom (warmth beats cold, headroom
+    breaks ties — the AdmissionAdvisor score over heartbeat facts).
+    Every move is one control-ledger ``fleet`` decision carrying the
+    pressure evidence; a window with nowhere to move records ONE
+    refused decision per hot host until the situation changes (never
+    one per window — alarm spam is not auditability).
+
+    *sessions* maps host id -> :class:`~.session.EngineSession` for
+    the hosts this process can reach (the in-process fleet shape the
+    test fixtures run); hosts without a reachable session are
+    skipped — their streams move through the scheduler's failed-host
+    recovery sweep instead."""
+
+    #: a host at or above this worst-device memory fraction is "running
+    #: hot" (the AdmissionAdvisor pressure threshold)
+    PRESSURE_FRAC = AdmissionAdvisor.PRESSURE_FRAC
+
+    def __init__(self, registry, ledger: _control.ControlLedger = None,
+                 pressure_frac: Optional[float] = None) -> None:
+        self.registry = registry
+        self.ledger = ledger if ledger is not None else _control.LEDGER
+        self.pressure_frac = float(
+            self.PRESSURE_FRAC if pressure_frac is None
+            else pressure_frac)
+        #: hot hosts whose "no destination" refusal is already recorded
+        self._refused_hosts: set = set()
+
+    def step(self, sessions: Dict[str, Any],
+             ) -> List[Tuple[str, str]]:
+        """One control window; returns the ``(task, dst_host)`` moves
+        made."""
+        from ..coord import docstore as _docstore
+        from ..coord.fleet import _score_host, host_state
+        from .migrate import migrate as _migrate
+
+        now = _docstore.now()
+        live = {str(d["_id"]): d for d in self.registry.hosts()
+                if host_state(d, now) == "live"}
+        moves: List[Tuple[str, str]] = []
+        for host_id, doc in sorted(live.items()):
+            frac = (doc.get("facts") or {}).get("hbm_frac")
+            if frac is None or float(frac) < self.pressure_frac:
+                self._refused_hosts.discard(host_id)
+                continue
+            sess = sessions.get(host_id)
+            if sess is None:
+                continue
+            cands = {
+                h: d for h, d in live.items()
+                if h != host_id
+                and (((d.get("facts") or {}).get("hbm_frac"))
+                     is None
+                     or float(d["facts"]["hbm_frac"])
+                     < self.pressure_frac)}
+            victim = sess.coldest_task()
+            evidence = {
+                "src": host_id, "hbm_frac": float(frac),
+                "pressure_frac": self.pressure_frac,
+                "source": "fleet_heartbeat_facts",
+            }
+            if victim is None:
+                self._refused_hosts.discard(host_id)
+                continue  # hot but nothing resident to move
+            if not cands:
+                if host_id not in self._refused_hosts:
+                    self._refused_hosts.add(host_id)
+                    self.ledger.record(
+                        "fleet", victim, evidence,
+                        {"reason": "rebalance", "deferred": True},
+                        outcome="refused",
+                        note=f"host {host_id} hot at "
+                             f"{float(frac):.0%} HBM but no live "
+                             "host has headroom — deferring")
+                continue
+            self._refused_hosts.discard(host_id)
+            rt = self.registry.route(victim)
+            program = rt.get("program") if rt else None
+            scored = {h: _score_host(d, program)
+                      for h, d in sorted(cands.items())}
+            dst = max(scored, key=lambda h: (scored[h][0], h))
+            evidence["candidates"] = {h: s[1]
+                                      for h, s in scored.items()}
+            _migrate(victim, sess, sessions.get(dst),
+                     registry=self.registry, src_host=host_id,
+                     dst_host=dst, reason="rebalance",
+                     ledger=self.ledger, evidence=evidence)
+            moves.append((victim, dst))
+        return moves
 
 
 # -- straggler-driven speculative re-claim ------------------------------------

@@ -73,7 +73,18 @@ callable reduce op records no replay spec, as the JAX engine's: its
 bucket keeps the run's capacities alone (``sizing``), from which the
 capacity controller pre-sizes the map_fn's next run all the same.
 
-Left out of this port for now (ROADMAP): multi-process runs (A.11).
+Over a process group (``Partitions(n, device, group=G)``, gloo) the
+engine is one controller of a multi-process mesh, as the JAX engine is
+under ``jax.distributed``: every rank is given the identical corpus (the
+SPMD contract), maps only the chunks of its own partitions and folds only
+them; the exchange crosses the group (:func:`..parallel.shuffle.
+partition_exchange`); the overflow and the capacity needs are
+all-reduced (sum and max) before any host decision, so every retry,
+capacity and wave count is one that all ranks take; and the result is
+all-gathered, so every rank returns the full :class:`DeviceResult`, as
+the JAX engine's ``_host`` does.  Only rank 0 publishes the exchange
+matrix's counters.  A mismatch between ranks shows as a collective's
+timeout (give ``init_process_group`` one), never as a silent hang.
 """
 
 from __future__ import annotations
@@ -381,7 +392,11 @@ class _WaveFeeder:
         self.S = S
         self.prefetch = (self.waves if prefetch is None
                          else max(1, prefetch))
-        self._shape = (self.rpw,) + tuple(chunks.shape[1:])
+        #: the rows of a wave this process uploads: its own partitions'
+        #: (all of them without a process group)
+        self._lo_row = engine.p_lo * k
+        self._rows = engine.n_local * k
+        self._shape = (self._rows,) + tuple(chunks.shape[1:])
         self._dtype = torch.from_numpy(chunks[:0]).dtype
         self._wave_nbytes = int(np.prod(self._shape, dtype=np.int64)
                                 * chunks.dtype.itemsize)
@@ -404,11 +419,11 @@ class _WaveFeeder:
 
     def _put_wave(self, w: int):
         """Wave *w* on the device (on CUDA with its copy's event)."""
-        lo = w * self.rpw
-        n = min(self.rpw, self.S - lo)
+        lo = w * self.rpw + self._lo_row
+        n = max(0, min(self._rows, self.S - lo))
         src = torch.from_numpy(self._chunks[lo:lo + n])
         if not self._cuda:
-            if n == self.rpw:
+            if n == self._rows:
                 return src  # a view of the caller's array
             block = torch.zeros(self._shape, dtype=self._dtype)
             block[:n] = src
@@ -454,7 +469,8 @@ class _WaveFeeder:
         self._ensure_submitted(self.prefetch - 1)
 
     def get(self, w: int) -> torch.Tensor:
-        """Wave *w*, ``[k * P, ...]``, ready for the caller's stream."""
+        """Wave *w*, ``[k * P_local, ...]``, ready for the caller's
+        stream."""
         self._ensure_submitted(w + self.prefetch - 1)
         if w not in self._ready:
             wave = self._futs.pop(w).result()
@@ -515,7 +531,14 @@ class DeviceEngine:
                  task: str = "-", autotune=None) -> None:
         _check_impls(config)
         self.device = parts.device
+        self.parts = parts
+        #: the global partition count, and this process's share of it:
+        #: partitions [p_lo, p_lo + n_local) (all of them without a
+        #: process group)
         self.n_dev = parts.n
+        self.group = parts.group
+        self.p_lo = parts.lo
+        self.n_local = parts.n_local
         self.map_fn = map_fn
         self.config = config
         #: the observe->act loop (engine/autotune.AutoTuner): None (the
@@ -643,33 +666,35 @@ class DeviceEngine:
 
     def _acc_zeros(self, cfg: EngineConfig, values: torch.Tensor,
                    payload: torch.Tensor) -> tuple:
-        """An all-invalid accumulator ``[P, C, ...]`` whose value and
-        payload lanes are shaped like *values* / *payload* rows (``[n,
-        ...]``), with the zeroed ``[P, P]`` traffic lane under
-        ``exchange_stats``."""
+        """An all-invalid accumulator ``[P_local, C, ...]`` whose value
+        and payload lanes are shaped like *values* / *payload* rows
+        (``[n, ...]``), with the zeroed global ``[P, P]`` traffic lane
+        under ``exchange_stats``."""
         P, C, dev = self.n_dev, cfg.out_capacity, self.device
-        acc = (torch.zeros((P, C, 2), dtype=torch.int32, device=dev),
-               torch.zeros((P, C) + tuple(values.shape[1:]),
+        PL = self.n_local
+        acc = (torch.zeros((PL, C, 2), dtype=torch.int32, device=dev),
+               torch.zeros((PL, C) + tuple(values.shape[1:]),
                            dtype=values.dtype, device=dev),
-               torch.zeros((P, C) + tuple(payload.shape[1:]),
+               torch.zeros((PL, C) + tuple(payload.shape[1:]),
                            dtype=payload.dtype, device=dev),
-               torch.zeros((P, C), dtype=torch.bool, device=dev))
+               torch.zeros((PL, C), dtype=torch.bool, device=dev))
         if cfg.exchange_stats:
             acc += (torch.zeros((P, P), dtype=torch.int32, device=dev),)
         return acc
 
     def _wave(self, cfg: EngineConfig, chunks: torch.Tensor, first: int,
               k: int, n_real: int, acc, pmap=None) -> _Wave:
-        """One wave over ``chunks [k*P, L]``, folding into *acc* (None on
-        the first wave).  *first* is the global chunk index of the first
-        row and *n_real* the mask bound (rows at or past it are
+        """One wave over ``chunks [k*P_local, L]`` (this process's
+        partitions' rows of the wave), folding into *acc* (None on the
+        first wave).  *first* is the global chunk index of the wave's
+        first row and *n_real* the mask bound (rows at or past it are
         padding); *pmap* is the ``[B]`` bucket->partition table on the
         device (``partition_map`` configs)."""
-        P = self.n_dev
+        lo = self.p_lo
         _, _, fin_op = _stage_ops(cfg)
-        mapped = [self._map_partition(cfg, chunks[p * k:(p + 1) * k],
-                                      first + p * k, n_real)
-                  for p in range(P)]
+        mapped = [self._map_partition(cfg, chunks[i * k:(i + 1) * k],
+                                      first + (lo + i) * k, n_real)
+                  for i in range(self.n_local)]
         locals_ = [m[0] for m in mapped]
 
         def stacked(field):
@@ -683,20 +708,22 @@ class DeviceEngine:
             stacked("valid"), cfg.exchange_capacity, carry=acc[:4],
             pmap=pmap,
             # the radix program plans the exchange on the radix kernels
-            impl="radix" if cfg.sort_impl == "radix" else "lax")
+            impl="radix" if cfg.sort_impl == "radix" else "lax",
+            group=self.group)
         fins, oflows, needs = [], [], []
-        for p in range(P):
+        for i in range(self.n_local):
             fin = sorted_unique_reduce(
-                ex.keys[p], ex.values[p], ex.payload[p], ex.valid[p],
+                ex.keys[i], ex.values[i], ex.payload[i], ex.valid[i],
                 cfg.out_capacity, fin_op, unit_values=False,
                 sort_impl=cfg.sort_impl)
-            local, local_oflow, map_oflow, comb_max, _ = mapped[p]
+            local, local_oflow, map_oflow, comb_max, _ = mapped[i]
             fin_oflow = (fin.n_unique - cfg.out_capacity).clamp(min=0)
             fins.append(fin)
-            oflows.append(local_oflow + ex.overflow[p] + fin_oflow)
+            oflows.append(local_oflow + ex.overflow[lo + i] + fin_oflow)
             # capacity needs: [local uniques, exchange per-dest max,
             # final uniques (cumulative), map drops, combiner max]
-            needs.append(torch.stack([local.n_unique, ex.max_count[p],
+            needs.append(torch.stack([local.n_unique,
+                                      ex.max_count[lo + i],
                                       fin.n_unique, map_oflow, comb_max]))
         new_acc = tuple(torch.stack([getattr(f, n) for f in fins])
                         for n in ("keys", "values", "payload", "valid"))
@@ -704,6 +731,45 @@ class DeviceEngine:
             new_acc += (acc[4] + ex.counts,)
         return _Wave(new_acc, torch.stack(oflows), torch.stack(needs),
                      int(mapped[0][4]))
+
+    # -- a process group's host decisions ---------------------------------
+
+    def _attempt_overflow(self, oflows, needs):
+        """The attempt's total dropped rows (its one readback), and over
+        a process group the capacity needs as ``[1, 1, 5]`` host values
+        all-reduced over the ranks (maxima, and the sum of the map
+        drops), so that every rank sizes the retry alike; None
+        without a group (the needs are read only on a retry)."""
+        if self.group is None:
+            return int(torch.stack(oflows).sum()), None
+        import torch.distributed as dist
+
+        nd = torch.stack(needs).to(torch.int64)           # [W, PL, 5]
+        sums = torch.stack([torch.stack(oflows).to(torch.int64).sum(),
+                            nd[..., 3].sum()]).cpu()
+        maxes = nd[..., [0, 1, 2, 4]].amax(dim=(0, 1)).cpu()
+        dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=self.group)
+        dist.all_reduce(maxes, op=dist.ReduceOp.MAX, group=self.group)
+        m = maxes.tolist()
+        return int(sums[0]), np.array([[[m[0], m[1], m[2],
+                                         int(sums[1]), m[3]]]])
+
+    def _gather_result(self, acc, cfg: EngineConfig, total_oflow: int):
+        """``(DeviceResult over all P partitions, the [P, P] traffic
+        matrix or None, live rows [P])`` on every rank of the group:
+        each rank's live prefix, all-gathered (the JAX engine's
+        ``_host``)."""
+        from ..parallel.shuffle import all_gather_rows
+
+        keys, vals, pay, valid = acc[:4]
+        (n_live,) = all_gather_rows(
+            [valid.sum(dim=1).to(torch.int32)[:, None]], self.group)
+        n_live = n_live[:, 0]
+        width = max(1, int(n_live.max()))
+        parts = all_gather_rows([t[:, :width] for t in
+                                 (keys, vals, pay, valid)], self.group)
+        traffic = acc[4].cpu() if cfg.exchange_stats else None
+        return DeviceResult(*parts, total_oflow), traffic, n_live
 
     # -- the cost model (obs/profile) ------------------------------------------
 
@@ -725,7 +791,7 @@ class DeviceEngine:
         val_bytes = (int(np.prod(vals.shape[2:])) or 1) * vals.dtype.itemsize
         costs = _profile.analytic_costs(
             input_bytes, chunk_rows * int(records), 8 + val_bytes + 4 * Q + 1,
-            fold_records=self.n_dev * cfg.out_capacity,
+            fold_records=self.n_local * cfg.out_capacity,
             argsort=cfg.sort_impl == "argsort",
             segment_impl=("pallas" if self.device.type == "cuda"
                           else cfg.segment_impl),
@@ -954,7 +1020,7 @@ class DeviceEngine:
                     "single-use: each wave is freed as it is folded); "
                     "stage_inputs again for another run")
             pairs = dict(enumerate(staged_list))
-            k = staged_list[0].shape[0] // P
+            k = staged_list[0].shape[0] // self.n_local
             row_shape = tuple(staged_list[0].shape[1:])
             row_dtype = np.dtype(str(staged_list[0].dtype).replace(
                 "torch.", ""))
@@ -1046,7 +1112,8 @@ class DeviceEngine:
                     # the one readback of the attempt: waits for the
                     # device; every wave span closes here
                     tr0 = time.monotonic()
-                    total_oflow = int(torch.stack(oflows).sum())
+                    total_oflow, group_needs = self._attempt_overflow(
+                        oflows, needs)
                     tr1 = time.monotonic()
                 except BaseException:
                     line.abort()
@@ -1060,8 +1127,9 @@ class DeviceEngine:
                 if total_oflow == 0 or attempt == max_retries:
                     break
                 retries = attempt + 1
-                new_cfg = self._resize(cfg,
-                                       torch.stack(needs).cpu().numpy())
+                new_cfg = self._resize(
+                    cfg, group_needs if group_needs is not None
+                    else torch.stack(needs).cpu().numpy())
                 # capacity-retry forensics: the attempt's program
                 # footprint and the device's memory state, classified
                 _memory_obs.capacity_retry_event(
@@ -1120,17 +1188,21 @@ class DeviceEngine:
         keys, vals, pay, valid = acc[:4]
         traffic_h = None
         with TRACER.span("readback", stage="result"):
-            if cfg.exchange_stats:
-                both = torch.cat([acc[4], valid.sum(dim=1).to(
-                    acc[4].dtype).unsqueeze(0)]).cpu()
-                traffic_h, n_live = both[:P], both[P]
+            if self.group is not None:
+                result, traffic_h, n_live = self._gather_result(
+                    acc, cfg, total_oflow)
             else:
-                n_live = valid.sum(dim=1).cpu()
-            width = max(1, int(n_live.max()))
-            result = DeviceResult(keys[:, :width].cpu(),
-                                  vals[:, :width].cpu(),
-                                  pay[:, :width].cpu(),
-                                  valid[:, :width].cpu(), total_oflow)
+                if cfg.exchange_stats:
+                    both = torch.cat([acc[4], valid.sum(dim=1).to(
+                        acc[4].dtype).unsqueeze(0)]).cpu()
+                    traffic_h, n_live = both[:P], both[P]
+                else:
+                    n_live = valid.sum(dim=1).cpu()
+                width = max(1, int(n_live.max()))
+                result = DeviceResult(keys[:, :width].cpu(),
+                                      vals[:, :width].cpu(),
+                                      pay[:, :width].cpu(),
+                                      valid[:, :width].cpu(), total_oflow)
         t_readback = time.monotonic() - t0
         _WAVES.inc(W, task=task)
         _RETRIES.inc(retries, task=task)
@@ -1147,13 +1219,17 @@ class DeviceEngine:
         # comms observability (obs/comms): the run's exchange traffic
         # matrix -> per-(src,dst) counters, imbalance gauges, the
         # link-class roll-up and the modeled exchange seconds against
-        # the final attempt's compute (the matrix is already host data)
+        # the final attempt's compute (the matrix is already host data).
+        # Over a process group every rank holds the identical matrix and
+        # the collector sums counter families across processes, so only
+        # rank 0 publishes (the timings carry it everywhere)
         comms_derived = {}
         if traffic_h is not None:
             comms_derived = _comms.record_exchange(
                 traffic_h.tolist(), row_bytes=row_bytes, task=task,
-                devices=partition_devices(P, self.device),
-                compute_s=t_attempt_compute)
+                devices=partition_devices(P, self.device, self.parts.world),
+                compute_s=t_attempt_compute,
+                publish=self.parts.rank == 0)
         overlap = _comms.record_upload_overlap(
             _comms.overlap_fraction(uploads, busy), task=task)
         derived = {}

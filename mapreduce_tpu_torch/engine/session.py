@@ -242,6 +242,11 @@ class EngineSession:
                  spill: Optional[SessionSpillStore] = None,
                  spill_policy: Optional[SpillPolicy] = None,
                  max_pending_feeds: int = 0, autotune=None) -> None:
+        if parts.group is not None:
+            raise NotImplementedError(
+                "EngineSession over a process group: a resident session "
+                "holds its streams in one process (Partitions without "
+                "group=); multi-process runs go through DeviceEngine.run")
         #: the engine's task label is the session default; per-feed
         #: labels ride the streams
         self.engine = DeviceEngine(parts, map_fn, config, task=task)

@@ -10,7 +10,12 @@ through GridFS for every minibatch gradient and every optimizer step
     over the mesh's ``data`` axis, the loss is its mean and XLA's psum
     sums the shards' gradients.  One card computes the same step on the
     whole global batch, at any ``n_data``; ``1/sqrt(n_data)`` gradient
-    smoothing (common.lua:163-166) is kept;
+    smoothing (common.lua:163-166) is kept.  Over a ``torch.distributed``
+    process group (``group=``, gloo; the JAX trainer's multi-process
+    mesh) each of the ``W`` ranks holds ``n_data / W`` shards of the
+    global batch, scales its local mean loss by its share of the batch,
+    and the gradients and the loss are all-reduced (sum) before the
+    update, so every rank applies the same update;
   * SGD + momentum + weight decay as optax's ``chain(
     add_decayed_weights(wd), sgd(lr, momentum))``, written out per leaf:
     ``t = (g + wd * p) + momentum * t_prev``, then ``p = p - lr * t``;
@@ -52,6 +57,7 @@ from ..coord.lease import TrainerFencedError, TrainerLease
 from ..obs import memory as _memory_obs
 from ..obs import metrics as _metrics
 from ..ops import kernel_compat as kc
+from ..parallel.mesh import group_shape
 from ..parallel.partition import resolve_spec
 from .checkpoint import CheckpointError, CheckpointManager
 from .mlp import (MLPConfig, init_params, loss_and_accuracy, nll_loss,
@@ -144,11 +150,19 @@ class DistributedTrainer:
     """Train the MLP family on one device; ``n_data`` is the JAX mesh's
     ``data`` axis size, kept as a logical width (global batch and
     smoothing).  ``device=None`` means ``"cuda"`` and raises without
-    it; the tests pass ``device="cpu"``."""
+    it; the tests pass ``device="cpu"``.
+
+    With *group* (a gloo ``torch.distributed`` process group whose world
+    size ``W`` divides ``n_data``) this process is one rank of a
+    multi-process data axis: :meth:`place_batch` keeps its ``n_data /
+    W`` shards of the global batch, and :meth:`step` all-reduces the
+    gradients and the loss before the update.  The captured epoch
+    (:meth:`_train_epoch`, hence :meth:`fit`) stays single-process and
+    raises over a group."""
 
     def __init__(self, mlp_cfg: MLPConfig = MLPConfig(),
                  cfg: TrainConfig = TrainConfig(), n_data: int = 1,
-                 device=None) -> None:
+                 device=None, group=None) -> None:
         if n_data < 1:
             raise ValueError(f"n_data must be >= 1, got {n_data}")
         self.device = kc.resolve_device(device)
@@ -156,6 +170,9 @@ class DistributedTrainer:
         self.grad_scale = (1.0 / np.sqrt(self.n_data)) if cfg.smoothing \
             else 1.0
         self._graph: Optional[kc.StepsGraph] = None
+        self.group = group
+        self.world, self.rank = group_shape(
+            group, self.n_data, f"DistributedTrainer(n_data={self.n_data})")
 
     # -- state ------------------------------------------------------------
 
@@ -194,10 +211,20 @@ class DistributedTrainer:
 
     def place_batch(self, x: np.ndarray, y: np.ndarray
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return (torch.as_tensor(np.asarray(x), dtype=torch.float32)
-                .to(self.device),
-                torch.as_tensor(np.asarray(y), dtype=torch.int64)
-                .to(self.device))
+        """The global batch on this trainer's device; over a process
+        group, this rank's contiguous ``1/W`` of its rows (its
+        ``n_data / W`` shards, as the JAX mesh places them)."""
+        x, y = np.asarray(x), np.asarray(y)
+        if self.group is not None:
+            if x.shape[0] % self.world:
+                raise ValueError(
+                    f"global batch of {x.shape[0]} rows does not split "
+                    f"over {self.world} ranks")
+            per = x.shape[0] // self.world
+            lo = self.rank * per
+            x, y = x[lo:lo + per], y[lo:lo + per]
+        return (torch.as_tensor(x, dtype=torch.float32).to(self.device),
+                torch.as_tensor(y, dtype=torch.int64).to(self.device))
 
     # -- the step ---------------------------------------------------------
 
@@ -212,9 +239,33 @@ class DistributedTrainer:
                 p.grad = torch.zeros_like(p)
         torch._foreach_zero_([p.grad for p in ps])
         loss = nll_loss(params, x, y, self.mlp_cfg)
+        if self.group is not None:
+            # the local mean weighted by this rank's share of the global
+            # batch: the ranks' sum is the global mean
+            loss = loss / self.world
         loss.backward()
+        loss = loss.detach()
+        if self.group is not None:
+            loss = self._all_reduce([p.grad for p in ps], loss)
         self._apply_update(params, opt_state)
-        return loss.detach()
+        return loss
+
+    def _all_reduce(self, grads: List[torch.Tensor],
+                    loss: torch.Tensor) -> torch.Tensor:
+        """Sum *grads* (in place) and *loss* over the group: one
+        ``all_reduce`` of a flat host buffer (gloo moves CPU tensors);
+        returns the summed loss on this trainer's device."""
+        import torch.distributed as dist
+
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [loss.reshape(1)]).cpu()
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        flat = flat.to(self.device)
+        at = 0
+        for g in grads:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        return flat[at].clone()
 
     @torch.no_grad()
     def _apply_update(self, params: Params, opt_state: OptState) -> None:
@@ -249,7 +300,12 @@ class DistributedTrainer:
         ``[S, global_batch]`` batch (host arrays or tensors); returns
         ``(params, opt_state, losses [S])``, the state updated in place.
         On the card: one CUDA graph replay, captured on the first call
-        and again for other state dicts or another S."""
+        and again for other state dicts or another S.  Single-process:
+        over a process group it raises ``NotImplementedError``."""
+        if self.group is not None:
+            raise NotImplementedError(
+                "the fused epoch (_train_epoch, and fit through it) runs "
+                "in one process; over a process group call step()")
         xs = torch.as_tensor(xs, dtype=torch.float32)
         ys = torch.as_tensor(ys).long()
         if self.device.type != "cuda":

@@ -44,8 +44,9 @@ backend compile are two in the JAX package) where the JAX text says
 "in XLA".  The trend and alert findings read the sections the
 collector embeds from the durable history and the alerting plane
 (``mrtpuCluster["history"]`` and ``["alerts"]``); the fleet findings
-read a section that stays empty until the port has an engine-host fleet
-(ROADMAP A.11).
+read the families the engine-host fleet (``coord/fleet``,
+``engine/migrate``) counts: hosts by state, migrations by reason and
+recovered hosts.
 """
 
 from __future__ import annotations

@@ -196,6 +196,13 @@ DIAG_FAMILIES = frozenset({
     "mrtpu_alert_notifications_total",
     "mrtpu_alerts_firing",
     "mrtpu_history_gc_total",
+    # the engine-host fleet (coord/fleet + engine/migrate): membership
+    # states, heartbeats, failed-host recoveries and stream migrations,
+    # so diagnose's fleet findings see a drain or a recovery that another
+    # process made (added in the port: the JAX collector leaves them out,
+    # and its diagnose reads them from offline documents alone)
+    "mrtpu_fleet_hosts", "mrtpu_fleet_heartbeats_total",
+    "mrtpu_fleet_recoveries_total", "mrtpu_session_migrations_total",
 })
 
 #: diagnosis gauges that merge across processes by MAX, not sum: the
@@ -219,6 +226,8 @@ _DIAG_GAUGE_MAX = frozenset({
     # firing-alert counts are primary-authoritative; a standby's zero
     # (or a stale pushed copy) must not dilute the evaluating board's
     "mrtpu_alerts_firing",
+    # every process that snapshots the fleet renders the same board truth
+    "mrtpu_fleet_hosts",
 })
 
 #: and gauges where the WORST view is the smallest value: an overlap

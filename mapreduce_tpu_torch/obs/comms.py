@@ -218,38 +218,46 @@ def modeled_exchange_seconds(bytes_by_link: Dict[str, int],
 
 def record_exchange(matrix: Sequence[Sequence[int]], row_bytes: int,
                     task: str = "-", devices: Optional[Sequence[Any]] = None,
-                    compute_s: float = 0.0) -> Dict[str, Any]:
+                    compute_s: float = 0.0,
+                    publish: bool = True) -> Dict[str, Any]:
     """Publish one device run's exchange traffic matrix (a host list of
     lists): per-(src,dst) record/byte counters, imbalance gauges, the
     link-class roll-up and the modeled exchange seconds vs *compute_s*
     (the comms roofline).  Returns the derived dict the engine merges
-    into its ``timings``.  (The JAX signature's ``publish`` flag is left
-    out: it serves a multi-controller mesh, and the port's partitions
-    live in one process.)"""
+    into its ``timings``.
+
+    ``publish=False`` computes the derived dict and the snapshot mirror
+    but touches NO registry counter or gauge: over a process group every
+    rank holds the identical matrix, the collector sums counter families
+    across processes, and only one rank may publish or the cluster
+    roll-ups would multiply the traffic by the world size."""
     task = task or "-"
     rows = [[int(v) for v in row] for row in matrix]
     stats = matrix_stats(rows)
     P = len(rows)
-    for s in range(P):
-        for d in range(P):
-            n = rows[s][d]
-            if n:
-                src, dst = f"D{s:03d}", f"D{d:03d}"
-                _EXCHANGE_RECORDS.inc(n, src=src, dst=dst, task=task)
-                _EXCHANGE_BYTES.inc(n * int(row_bytes), src=src, dst=dst,
-                                    task=task)
-    _IMBALANCE.set(stats["imbalance_send"], side="send", task=task)
-    _IMBALANCE.set(stats["imbalance_recv"], side="recv", task=task)
+    if publish:
+        for s in range(P):
+            for d in range(P):
+                n = rows[s][d]
+                if n:
+                    src, dst = f"D{s:03d}", f"D{d:03d}"
+                    _EXCHANGE_RECORDS.inc(n, src=src, dst=dst, task=task)
+                    _EXCHANGE_BYTES.inc(n * int(row_bytes), src=src,
+                                        dst=dst, task=task)
+        _IMBALANCE.set(stats["imbalance_send"], side="send", task=task)
+        _IMBALANCE.set(stats["imbalance_recv"], side="recv", task=task)
 
     by_link = rollup_by_link(rows, row_bytes, devices)
-    for cls, nbytes in by_link.items():
-        if nbytes:
-            _COMMS_BYTES.inc(nbytes, link=cls, task=task)
+    if publish:
+        for cls, nbytes in by_link.items():
+            if nbytes:
+                _COMMS_BYTES.inc(nbytes, link=cls, task=task)
     model = modeled_exchange_seconds(by_link, n_dev=max(P, 1))
     frac = (model["modeled_exchange_s"] / compute_s
             if compute_s > 0 else 0.0)
-    _MODELED_S.set(model["modeled_exchange_s"])
-    _EXCHANGE_FRAC.set(frac)
+    if publish:
+        _MODELED_S.set(model["modeled_exchange_s"])
+        _EXCHANGE_FRAC.set(frac)
 
     derived: Dict[str, Any] = {
         "exchange_records": stats["records"],

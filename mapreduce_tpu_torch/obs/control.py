@@ -55,8 +55,8 @@ from typing import Any, Dict, List, Optional
 from .metrics import counter
 from .trace import TRACER
 
-#: the controllers of engine/autotune.py (+ the fleet plane's movers),
-#: in the JAX package's order; "fleet" is recorded only by A.11's plane
+#: the controllers of engine/autotune.py (+ the fleet plane's movers:
+#: engine/migrate, coord/fleet.rehome_routes), in the JAX package's order
 CONTROLLERS = ("repartition", "capacity", "admission", "reclaim",
                "fleet")
 

@@ -11,10 +11,11 @@ Wall-clock use here is TIMESTAMP comparison (``lease_expires`` fields
 are wall-clock by contract, coord/docstore.now), not duration
 arithmetic.
 
-Left out: the engine-host ``fleet`` section (ROADMAP A.11: the port has
-no fleet membership yet).  The ``alerts`` section (:mod:`.alerts`) and
-the ``history`` row (:mod:`.history`, when the collector has one) are
-the JAX package's.
+The engine-host ``fleet`` section (:func:`..coord.fleet.fleet_snapshot`:
+membership states, lease headroom, heartbeat facts and routed streams
+per host), the ``alerts`` section (:mod:`.alerts`) and the ``history``
+row (:mod:`.history`, when the collector has one) are the JAX
+package's.
 
 Added in the port: a serving process that ran no engine (the docserver
 of a docserver/runner topology) takes the engine sections it lacks —
@@ -296,8 +297,15 @@ def cluster_status(store, now: Optional[float] = None,
         sched = scheduler.snapshot()
         if sched:
             out["sched"] = sched
-    # the engine-host fleet section waits for ROADMAP A.11 (the port
-    # has no fleet membership on the board yet)
+    # the engine-host fleet (coord/fleet): membership states, lease
+    # headroom, heartbeat facts and per-host stream routes, read from
+    # the board like every other section, so ANY process over the
+    # store renders it; empty (no host ever joined) stays off the page
+    from ..coord.fleet import fleet_snapshot  # late: coord pulls obs
+
+    fleet = fleet_snapshot(store, now=now)
+    if fleet:
+        out["fleet"] = fleet
     if collector is not None:
         # the docserver of a docserver/runner topology runs no engine:
         # each engine section it lacks comes from the freshest process

@@ -41,8 +41,10 @@ The task docs, the tenant docs and each :class:`QuotaExceededError`
 reason are the JAX package's field for field, so either package's
 scheduler continues from the other's documents.  ``advisor=`` (an
 :class:`~..engine.autotune.AdmissionAdvisor`) routes each admitted task
-to a registered placement and sets ``mesh`` on its doc.  Left out: the
-engine-host fleet (``fleet=``, ROADMAP A.11), which accepts only None.
+to a registered placement and sets ``mesh`` on its doc.  ``fleet=`` (a
+:class:`~..coord.fleet.FleetRegistry`) mirrors the live engine hosts
+into the advisor at every tick, records each placement as a fleet route,
+and runs the failed-host :meth:`Scheduler.recovery_sweep`.
 """
 
 from __future__ import annotations
@@ -227,10 +229,6 @@ class Scheduler:
                  fleet: Optional[Any] = None) -> None:
         self.store = store
         self.config = config
-        if fleet is not None:
-            raise NotImplementedError(
-                "the engine-host fleet (fleet=) is not ported yet "
-                "(ROADMAP A.11); pass fleet=None")
         self.lease = lease if lease is not None else (
             SchedulerLease(_SchedCnn(store), holder=holder)
             if use_lease else None)
@@ -240,6 +238,15 @@ class Scheduler:
         #: memory headroom (the pick lands in the control ledger).
         #: None, the default, admits exactly as before.
         self.advisor = advisor
+        #: the engine-host fleet (coord/fleet.FleetRegistry): when
+        #: attached, every tick (lease-gated, so ONE sweeper
+        #: cluster-wide) mirrors live hosts' heartbeat facts into the
+        #: advisor, runs the failed-host recovery sweep (an expired
+        #: host's streams re-home to live hosts; lazy restore makes
+        #: them servable after one sweep), and an admitted task's
+        #: placement lands in the fleet's task->host route table.  None,
+        #: the default, is the single-host scheduler.
+        self.fleet = fleet
         self._lock = threading.Lock()
 
     # -- submit (admission control) ---------------------------------------
@@ -425,6 +432,16 @@ class Scheduler:
         """
         if not self._owns_admission(strict):
             return []
+        if self.fleet is not None:
+            # the fleet plane rides the SAME lease gate as admission:
+            # one scheduler cluster-wide mirrors host facts into the
+            # advisor and sweeps for failed hosts, so each move is one
+            # auditable decision, not one plus a raced no-op
+            try:
+                self.fleet.sync_advisor(self.advisor)
+                self.recovery_sweep()
+            except OSError:
+                pass  # board hiccup: the next tick retries the sweep
         admitted: List[Dict[str, Any]] = []
         with self._lock:
             while True:
@@ -472,6 +489,12 @@ class Scheduler:
                                           {"_id": doc["_id"]},
                                           {"$set": {"mesh": mesh}})
                         doc["mesh"] = mesh
+                        if self.fleet is not None:
+                            # the pick is also a fleet ROUTE: what drain
+                            # and the recovery sweep re-home, with the
+                            # program kept to score warmth later
+                            self.fleet.assign(doc["_id"], mesh,
+                                              program=program)
                 # queue wait (submit->admitted): exact monotonic when
                 # this process saw the submit, else the board's
                 # persisted stamps (cross-process degradation)
@@ -493,6 +516,41 @@ class Scheduler:
             if admitted:
                 self._refresh_gauges()
         return admitted
+
+    # -- failed-host recovery (the fleet plane) ----------------------------
+
+    def recovery_sweep(self) -> List[tuple]:
+        """Notice expired host leases and re-home their streams: for
+        every host whose lease lapsed WITHOUT a clean release, move
+        each of its routed streams to the best live host (guarded
+        route flips, one control-ledger ``fleet`` decision per move:
+        :func:`~..coord.fleet.rehome_routes`), then reap the host doc
+        under a (holder, generation) guard so the sweep fires once and
+        a returning zombie fences instead of resurrecting re-homed
+        streams.  The streams are durable in the spill store and
+        restore LAZILY on their new host's next touch, so a dead host's
+        whole tenancy is servable again after this one sweep.  Returns
+        the ``(task, dst_host)`` moves made."""
+        if self.fleet is None:
+            return []
+        from ..coord import fleet as _fleet
+        from ..obs import control as _control
+
+        moves: List[tuple] = []
+        now = docstore.now()
+        for doc in self.fleet.expired_hosts(now):
+            host_id = str(doc["_id"])
+            moves.extend(_fleet.rehome_routes(
+                self.fleet, host_id, reason="recovery",
+                ledger=_control.LEDGER, now=now))
+            if self.fleet.routes_for(host_id):
+                # no live destination took them (rehome recorded the
+                # refusal): leave the host EXPIRED so the next sweep
+                # retries; reaping now would orphan the routes
+                continue
+            if self.fleet.reap(doc):
+                _fleet._RECOVERIES.inc(host=host_id)
+        return moves
 
     # -- lifecycle transitions (runner-facing) -----------------------------
 

@@ -6,6 +6,9 @@ the port's, or the command must be named in ``NOT_PORTED_COMMANDS``.
 Then ``wordcount --device --segment-impl ... --tokenize-impl ...`` runs
 on the CPU: its stdout equals the JAX CLI's on the same file, and the
 two flags reach the example's init args as the JAX CLI passes them.
+``drain`` (the last command ported) takes the JAX flags, and the same
+drains on a ``dir://`` board print the same lines and exit with the same
+codes in both packages.
 """
 
 import contextlib
@@ -137,3 +140,54 @@ def test_impl_flags_without_device_warn_as_in_jax(corpus):
                "affect the device engine (--device); the host path "
                "ignores them")
     assert warning in jerr and warning in terr
+
+
+# -- drain --------------------------------------------------------------------
+
+
+def test_drain_takes_the_jax_flags():
+    flags = _help_flags(tcli.main, "drain")
+    assert flags == _help_flags(jcli.main, "drain")
+    assert {"--timeout", "--auth", "--retry-attempts",
+            "--breaker-cooldown", "--verbose"} <= flags
+    assert "drain" in tcli.COMMANDS and not tcli.NOT_PORTED_COMMANDS
+
+
+def _drain(main, argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(["drain", *argv])
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.mark.parametrize("case", ["unknown_host", "rehome", "no_live"])
+def test_drain_runs_as_in_jax(tmp_path, case):
+    """The same board state, then ``drain --timeout 0.3``: equal exit
+    codes, stdout and stderr from both packages (a host that never steps
+    down is re-homed anyway after the timeout)."""
+    from mapreduce_tpu.coord import docstore as jdocstore
+    from mapreduce_tpu.coord import fleet as jfleet
+    from mapreduce_tpu_torch.coord import docstore as tdocstore
+    from mapreduce_tpu_torch.coord import fleet as tfleet
+
+    got = {}
+    for name, main, docstore, fleet in (
+            ("jax", jcli.main, jdocstore, jfleet),
+            ("port", tcli.main, tdocstore, tfleet)):
+        board = tmp_path / name
+        board.mkdir()
+        store = docstore.connect(f"dir://{board}")
+        if case != "unknown_host":
+            fleet.FleetMember(store, host_id="hostA").join(timeout=5.0)
+            if case == "rehome":
+                fleet.FleetMember(store, host_id="hostB").join(
+                    timeout=5.0, warm_programs=["wc"], hbm_frac=0.2)
+            fleet.FleetRegistry(store).assign("t", "hostA",
+                                              program="wc")
+        got[name] = _drain(main, [f"dir://{board}", "hostA",
+                                  "--timeout", "0.3"])
+        if case == "rehome":
+            assert fleet.FleetRegistry(store).route("t")["host"] == "hostB"
+    assert got["port"] == got["jax"]
+    rc = got["port"][0]
+    assert rc == {"unknown_host": 2, "rehome": 0, "no_live": 1}[case]

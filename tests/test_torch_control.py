@@ -276,8 +276,14 @@ def test_scheduler_without_advisor_sets_no_mesh_and_fleet_refused():
     doc = sched.submit("acme", params={"program": "wave"})
     sched.tick()
     assert "mesh" not in sched.get(doc["_id"])
-    with pytest.raises(NotImplementedError, match="A.11"):
-        TScheduler(tdocstore.MemoryDocStore(), fleet=object())
+    # the engine-host fleet attaches (it was refused before the port had
+    # one); with no host ever joined its recovery sweep moves nothing
+    from mapreduce_tpu_torch.coord.fleet import FleetRegistry
+
+    store = tdocstore.MemoryDocStore()
+    reg = FleetRegistry(store)
+    fleet_sched = TScheduler(store, use_lease=False, fleet=reg)
+    assert fleet_sched.fleet is reg and fleet_sched.recovery_sweep() == []
 
 
 def test_local_mesh_facts_with_the_card_probes_stubbed(monkeypatch):

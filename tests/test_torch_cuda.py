@@ -1610,3 +1610,107 @@ def test_registry_round_trip_through_warmup_replay(dev, tmp_path,
             "kind") == "device_engine")
     assert len(skipped) == sum(1 for b in recorded.values()
                                if "sizing" in b)
+
+
+# -- the engine-host fleet and the multi-process mesh on the card -------------
+
+
+def test_migration_on_the_card_is_bit_equal(dev, session_chunks):
+    """``engine/migrate.migrate``: spill on the source session, the
+    guarded route flip, a lazy restore on the destination; the
+    destination's stream, fed on, is bit-equal to one that never moved,
+    the route points at the destination, the move is one ``fleet``
+    decision, and every kernel of the radix path ran on the card."""
+    from mapreduce_tpu_torch.coord import docstore
+    from mapreduce_tpu_torch.coord.fleet import FleetMember, FleetRegistry
+    from mapreduce_tpu_torch.engine.migrate import migrate
+    from mapreduce_tpu_torch.engine.session import SessionBusyError
+    from mapreduce_tpu_torch.engine.spill import SessionSpillStore
+    from mapreduce_tpu_torch.obs.control import ControlLedger
+    from mapreduce_tpu_torch.storage import MemoryStorage
+
+    board = docstore.connect("mem://cuda-fleet-migrate")
+    for host in ("hostA", "hostB"):
+        FleetMember(board, host_id=host).join(timeout=2.0)
+    reg = FleetRegistry(board)
+    reg.assign("t", "hostA", program="wave")
+    store = SessionSpillStore(MemoryStorage())
+    half = session_chunks.shape[0] // 2
+    src = _session(8, "cuda", store, sort_impl="radix")
+    dst = _session(8, "cuda", store, sort_impl="radix")
+    ref = _session(8, "cuda", sort_impl="radix")
+    kc.reset_counts()
+    src.feed(session_chunks[:half], task="t")
+    ref.feed(session_chunks[:half], task="t")
+    before = src.snapshot("t")
+    ledger = ControlLedger()
+    res = migrate("t", src, dst, registry=reg, src_host="hostA",
+                  dst_host="hostB", reason="explicit", ledger=ledger)
+    assert res["routed"] and reg.route("t")["host"] == "hostB"
+    with pytest.raises(SessionBusyError):
+        src.feed(session_chunks[half:], task="t")
+    _pin_snap(dst.snapshot("t"), before)        # the lazy restore
+    dst.feed(session_chunks[half:], task="t")
+    ref.feed(session_chunks[half:], task="t")
+    _pin_snap(dst.snapshot("t"), ref.snapshot("t"))
+    assert [d["outcome"] for d in ledger.decisions()] == ["applied"]
+    assert not any(kc.PLAIN_CALLS.values()), kc.PLAIN_CALLS
+    for name in ("tokenize", "segreduce", "radix_plan", "radix_upfront",
+                 "radix_onesweep"):
+        assert kc.LAUNCHES[name] > 0, name
+
+
+def test_two_rank_gloo_count_on_the_card(dev, tmp_path):
+    """Two processes, each ``Partitions(8, "cuda", group=WORLD)`` over a
+    gloo group (4 partitions each, both on this card), radix: each
+    rank's count equals ``Counter`` and the other rank's result bit for
+    bit, every radix kernel launched in each and no plain call."""
+    import json
+    import subprocess
+    import sys
+    from dataclasses import asdict, replace
+
+    from chip_smoke import free_port
+    from mapreduce_tpu_torch.corpus import make_corpus
+    from mapreduce_tpu_torch.engine import wordcount as wcmod
+    from tests.test_torch_multiproc import ROOT
+
+    data = make_corpus(_SESSION_WORDS, _SESSION_WORDS // 27, seed=4)
+    corpus = tmp_path / "corpus"
+    corpus.write_bytes(data)
+    cfg = replace(wcmod.bench_engine_config(), sort_impl="radix")
+    spec = {"radix": {"corpus": str(corpus), "chunk": _FEED_CHUNK,
+                      "waves": 2, "device": "cuda", "cfg": asdict(cfg)}}
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tests.test_torch_multiproc", "engine",
+         str(r), "2", str(port), json.dumps(spec),
+         str(tmp_path / f"rank{r}.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    metas = [json.loads((tmp_path / f"rank{r}.npz.json").read_text())
+             for r in range(2)]
+    for f in ("keys", "values", "payload", "valid", "matrix"):
+        assert np.array_equal(ranks[0][f"radix.{f}"], ranks[1][f"radix.{f}"])
+    res = wcmod.DeviceResult(*(torch.from_numpy(ranks[0][f"radix.{f}"])
+                               for f in ("keys", "values", "payload",
+                                         "valid")), 0)
+    wc = wcmod.DeviceWordCount(wcmod.Partitions(8, "cpu"),
+                               chunk_len=_FEED_CHUNK, config=cfg)
+    chunks, _ = wc._to_chunks(data)
+    assert wcmod.materialize_counts(chunks, res) == Counter(data.split())
+    for meta in metas:
+        assert not any(meta["radix"]["plain_calls"].values()), meta
+        for name in ("tokenize", "segreduce", "radix_plan",
+                     "radix_upfront", "radix_onesweep"):
+            assert meta["radix"]["launches"][name] > 0, (name, meta)

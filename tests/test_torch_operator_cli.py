@@ -286,11 +286,11 @@ def test_history_commands_exit_2_naming_their_item(cmd, tmp_path, capsys):
 
 
 def test_not_ported_commands_are_the_fleet_and_the_history():
-    """Only the fleet's ``drain`` is left; the history's and the alert
-    plane's commands are served."""
-    assert set(tcli.NOT_PORTED_COMMANDS) == {"drain"}
+    """Nothing is left: the fleet's ``drain``, the history's and the
+    alert plane's commands are all served."""
+    assert tcli.NOT_PORTED_COMMANDS == {}
     assert {"status", "profile", "diagnose", "history", "top",
-            "alerts"} <= set(tcli.COMMANDS)
+            "alerts", "drain"} <= set(tcli.COMMANDS)
 
 
 # -- the flight recorder ------------------------------------------------------

@@ -232,12 +232,15 @@ def test_admission_lease_fences_a_deposed_scheduler():
 
 
 def test_advisor_and_fleet_are_refused_by_name():
-    """The fleet (ROADMAP A.11) is still refused by name; the advisor
-    (once refused as A.7) now attaches."""
+    """The advisor and the engine-host fleet, each once refused by name
+    before the port had it, now attach."""
+    from mapreduce_tpu_torch.coord.fleet import FleetRegistry
+
     advisor = object()
     assert Scheduler(MemoryDocStore(), advisor=advisor).advisor is advisor
-    with pytest.raises(NotImplementedError, match="A.11"):
-        Scheduler(MemoryDocStore(), fleet=object())
+    store = MemoryDocStore()
+    reg = FleetRegistry(store)
+    assert Scheduler(store, fleet=reg).fleet is reg
 
 
 # -- the /tasks wire ------------------------------------------------------------

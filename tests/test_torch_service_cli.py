@@ -1,8 +1,8 @@
 """The always-on service through the port's command line: the HA
 docserver pair, ``submit``, ``tasks`` and ``runner`` (JAX
 ``cli.py:1835``, ``:1915``, ``:1964``), and the flags and commands that
-stay refused by name (ROADMAP A.7, A.8, A.11).  Every process binds port
-0, waits with a timeout and is killed after it."""
+were once refused by name (ROADMAP A.7, A.8, A.11) and now run.  Every
+process binds port 0, waits with a timeout and is killed after it."""
 
 import contextlib
 import io
@@ -243,11 +243,19 @@ def test_service_flags_still_refused_by_name(monkeypatch, argv, item):
 @pytest.mark.parametrize("cmd,item", [("drain", "A.11"),
                                       ("alerts", "A.8c-2")])
 def test_unported_commands_refused_by_name(tmp_path, cmd, item):
-    """``drain`` (ROADMAP A.11) is still refused by name; ``alerts``
-    (A.8c-2) runs against a board with one rule."""
-    if cmd in tcli.NOT_PORTED_COMMANDS:
-        rc, _, err = _main([cmd, "http://h:1"])
-        assert rc == 2 and "not ported" in err and item in err
+    """Both were refused by name before the port had them: ``drain``
+    (ROADMAP A.11) now answers a board that has no such fleet host with
+    exit 2 and the JAX message, ``alerts`` (A.8c-2) runs against a board
+    with one rule."""
+    assert cmd not in tcli.NOT_PORTED_COMMANDS, item
+    if cmd == "drain":
+        board = DocServer().start_background()
+        try:
+            rc, _, err = _main([cmd, f"http://{board.host}:{board.port}",
+                                "nohost:1", "--timeout", "0"])
+        finally:
+            board.shutdown()
+        assert rc == 2 and "no such fleet host: 'nohost:1'" in err, err
         return
     board = DocServer(history_dir=str(tmp_path / "hist"),
                       alert_rules=["r:increase(mrtpu_x_total[60]):gt:0"],
@@ -279,15 +287,16 @@ def test_submit_program_lands_in_the_task_params():
 
 
 def test_runner_help_names_what_it_leaves_out():
-    """The runner's help names what waits (A.11's fleet) and no longer
-    A.7, whose advisor it now runs, or A.8, whose SLO objectives it
-    takes with --slo."""
+    """The runner's help names nothing that waits any more: not A.7,
+    whose advisor it runs, nor A.8, whose SLO objectives it takes with
+    --slo, nor A.11, whose fleet it joins (and whose drain it obeys)."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out), pytest.raises(SystemExit):
         tcli.main(["runner", "--help"])
     text = " ".join(out.getvalue().split())
-    assert "A.11" in text and "--slo" in text and "--partitions" in text
+    assert "--slo" in text and "--partitions" in text
     assert "A.7" not in text and "A.8" not in text and "advisor" in text
+    assert "A.11" not in text and "fleet" in text and "drain" in text
 
 
 def test_docserver_rejects_root_with_ha_dir(tmp_path):

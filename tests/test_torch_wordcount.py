@@ -226,7 +226,7 @@ def _port_sources():
     files = sorted((ROOT / "mapreduce_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "probe_plan.py",
                     ROOT / "probe_feeder.py", ROOT / "probe_telemetry.py",
-                    ROOT / "probe_monoid.py"]
+                    ROOT / "probe_monoid.py", ROOT / "probe_fleet.py"]
 
 
 def test_port_imports_no_jax():
@@ -272,7 +272,8 @@ def test_port_imports_no_jax():
                    "examples/wordcountbig/__init__",
                    "examples/wordcount_native/__init__",
                    "ops/monoid", "testing/monoids", "obs/history",
-                   "obs/alerts", "parallel/ring", "models/pipeline"):
+                   "obs/alerts", "parallel/ring", "models/pipeline",
+                   "coord/fleet", "engine/migrate"):
         assert f"mapreduce_tpu_torch/{module}.py" in walked, module
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
