@@ -2330,6 +2330,8 @@ def session_phase(torch, kc, wcmod, Partitions, plan_rebalance, tok, data,
         for parts, impl in ((1, "variadic"), (RADIX_PARTS, "radix"))]}
     PHASE_NUMBERS["sustained_p1_records_per_s"] = \
         out["sustained"][0]["records_per_s"]
+    PHASE_NUMBERS["sustained_p8_records_per_s"] = \
+        out["sustained"][1]["records_per_s"]
     out["flagship"] = part("flagship", flagship_session(
         torch, kc, wcmod, smod, spill, router, Partitions, plan_rebalance,
         tok, chunks, want))
@@ -6569,9 +6571,14 @@ def ring_case(torch, kc, fa, tmod, smi):
     p0 = {n: t.clone() for n, t in params.state_dict().items()}
     n_params = sum(t.numel() for t in p0.values())
     del params
-    against_flash = held_step(torch, "ring vs flash path",
-                              step_from(tmod, tr, p0, toks),
+    ring_step = step_from(tmod, tr, p0, toks)
+    against_flash = held_step(torch, "ring vs flash path", ring_step,
                               step_from(tmod, trf, p0, toks), p0)
+    # phase 23 (c) holds the two-rank ring's first step against this one
+    PHASE_NUMBERS["ring_step"] = (
+        {n: t.cpu() for n, t in p0.items()},
+        (ring_step[0], {n: t.cpu() for n, t in ring_step[1].items()}))
+    del ring_step
 
     # the ring through the kernels against the ring on the plain versions
     small = tmod.TransformerTrainer(tmod.TransformerConfig(**dict(
@@ -7543,6 +7550,520 @@ def fleet_phase(torch, kc, seg, rs, wcmod, Partitions, data, want, chunks,
     return launches
 
 
+# -- phase 23: the session, fit and the ring over a gloo group --------------
+
+#: the two ranks of phase 23 on the one card, and the seconds a gloo
+#: collective may wait before it fails by name
+GROUP_WORLD = 2
+GROUP_TIMEOUT = 300
+#: (b): make_digits' train and holdout rows (4 global batches of 1,024
+#: an epoch at n_data 8, bench_train's MLP and batch), the epochs, and
+#: the f32 run against one process's: each epoch's losses (relative)
+#: and the final parameters (max abs a leaf)
+GROUP_DIGITS = (4096, 512)
+GROUP_EPOCHS = 3
+GROUP_LOSS_RTOL = 1e-5
+GROUP_PARAM_ATOL = 1e-5
+#: (c): bench_longctx on the ring over RING_PARTS partitions, 4 a rank:
+#: the timed steps after one warm step, and each rank's flash launches
+#: a step, each kernel: causal, rank r's partitions [4r, 4r + 4) attend
+#: at the ring steps s < 4 (r + 1), one folded call a step, 8 layers
+GROUP_RING_STEPS = 3
+GROUP_RING_PER_STEP = {0: 4 * 8, 1: 8 * 8}
+
+
+def snapshot_digest(snap):
+    """sha256 of a snapshot's four lanes and its overflow."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in ("keys", "values", "payload", "valid"):
+        h.update(getattr(snap, f).numpy().tobytes())
+    h.update(str(snap.overflow).encode())
+    return h.hexdigest()
+
+
+def group_session_config(wcmod):
+    """Phase 8 (b)'s flagship session config: radix, a partition map."""
+    from dataclasses import replace
+
+    return replace(wcmod.bench_engine_config(), sort_impl="radix",
+                   partition_map=True)
+
+
+def group_stream(torch, sess, chunks, plan_rebalance):
+    """Phase 23 (a)'s stream on *sess*, one process's or a group's:
+    phase 8 (b)'s warm feed, then the 24 chunks in SESSION_FEEDS feeds
+    with a rebalance to a plan_rebalance table of the stream's bucket
+    histogram after the first, a snapshot after each feed, and a spill at
+    the end.  Returns ``(snapshot digests, feed walls, spill step, the
+    last snapshot)``."""
+    per = chunks.shape[0] // SESSION_FEEDS
+    sess.feed(chunks[:RADIX_PARTS], task="warm")
+    sess.close("warm")
+    digests, walls = [], []
+    for i in range(SESSION_FEEDS):
+        if i == 1:
+            sess.rebalance("flag", plan_rebalance(
+                sess.bucket_histogram("flag"), RADIX_PARTS))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        sess.feed(chunks[i * per:(i + 1) * per], task="flag")
+        walls.append(time.monotonic() - t0)
+        snap = sess.snapshot("flag")
+        digests.append(snapshot_digest(snap))
+    return digests, walls, sess.spill_stream("flag"), snap
+
+
+def group_session(smod, spill, router, wcmod, parts, root, name):
+    """(a)'s session over *parts*, spilling to ``ROOT/NAME``."""
+    return smod.EngineSession(
+        parts, wcmod._wordcount_map_fn, group_session_config(wcmod),
+        spill=spill.SessionSpillStore(router(
+            f"shared:{os.path.join(root, name)}")))
+
+
+def group_fit_config(TrainConfig, **over):
+    """(b)'s fit: the reference hyperparameters, bench_train's batch,
+    GROUP_EPOCHS epochs, no early stop."""
+    return TrainConfig(**dict(dict(bunch_size=MLP_BUNCH,
+                                   max_epochs=GROUP_EPOCHS, min_epochs=1,
+                                   patience=100), **over))
+
+
+def group_rank(rank, port, root):
+    """``chip_smoke.py --group-rank``: one of phase 23's two ranks on the
+    one card, joined by a gloo group.  (a) the flagship stream as a
+    session over ``Partitions(8, group=WORLD)``, its path's kernels held
+    against their plain versions; (b) ``fit`` of the bench_train MLP at
+    n_data 8 (f32), with a lease on rank 0, a resume and a fence; (c)
+    bench_longctx's ring step over the group, one warm step and
+    GROUP_RING_STEPS counted ones, the flash kernels held against their
+    plain versions.  Writes its numbers to ``ROOT/rank<r>.json``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mapreduce_tpu_torch.ops import kernel_compat as kc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, port = int(rank), int(port)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}",
+        world_size=GROUP_WORLD, rank=rank,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    group = dist.group.WORLD
+    out = {"rank": rank}
+    try:
+        out["session"] = group_session_part(torch, kc, np, rank, group, root)
+        out["fit"] = group_fit_part(torch, np, rank, group, root)
+        out["ring"] = group_ring_part(torch, kc, np, rank, group, root)
+        out["built"] = sorted(kc.BUILD_LOGS)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def group_session_part(torch, kc, np, rank, group, root):
+    """Phase 23 (a) in a rank."""
+    from mapreduce_tpu_torch.engine import session as smod
+    from mapreduce_tpu_torch.engine import spill
+    from mapreduce_tpu_torch.engine import wordcount as wcmod
+    from mapreduce_tpu_torch.engine.autotune import plan_rebalance
+    from mapreduce_tpu_torch.ops import radix_sort as rs
+    from mapreduce_tpu_torch.ops import segscan as seg
+    from mapreduce_tpu_torch.parallel import shuffle
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.storage.router import router
+
+    chunks = np.load(os.path.join(root, "chunks.npy"))
+    parts = Partitions(RADIX_PARTS, "cuda", group=group)
+    sess = group_session(smod, spill, router, wcmod, parts, root, "spill")
+    kc.reset_counts()
+    with PathInputs(torch, seg, shuffle) as cap:
+        digests, walls, step, _ = group_stream(torch, sess, chunks,
+                                               plan_rebalance)
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    check_launches(launches, plain, f"group (a) rank {rank}", True)
+    held = hold_path_inputs(torch, seg, rs, f"group (a) rank {rank}",
+                            cap.inputs, ["segreduce", "radix_sort",
+                                         "radix_plan"])
+    return {"partitions": [parts.lo, parts.lo + parts.n_local],
+            "k": sess.k, "digests": digests, "feed_s": walls,
+            "spill_step": step, "stats": sess.stats("flag"),
+            "launches": launches, "plain_calls": plain, "held": held}
+
+
+def group_fit_part(torch, np, rank, group, root):
+    """Phase 23 (b) in a rank: the fit with rank 0's lease, a fit to
+    epoch 2 resumed to 3, and a fit whose lease a successor takes after
+    epoch 2."""
+    import uuid
+
+    from mapreduce_tpu_torch.coord import (
+        Connection, TrainerFencedError, TrainerLease)
+    from mapreduce_tpu_torch.models import (
+        DistributedTrainer, MLPConfig, TrainConfig, make_digits)
+    from mapreduce_tpu_torch.models.checkpoint import CheckpointManager
+    from mapreduce_tpu_torch.storage.router import router
+
+    data = make_digits(*GROUP_DIGITS)
+
+    def trainer(**over):
+        return DistributedTrainer(
+            MLPConfig(sizes=MLP_SIZES, dtype=torch.float32),
+            group_fit_config(TrainConfig, **over), n_data=MESH_N_DATA,
+            device="cuda", group=group)
+
+    def manager(name):
+        return CheckpointManager(router(
+            f"shared:{os.path.join(root, name)}"))
+
+    def lease_of(board, holder):
+        """Rank 0's lease on *board* (None on the other rank)."""
+        if rank:
+            return None
+        lease = TrainerLease(Connection(board, "train"), holder=holder,
+                             lease=30.0)
+        lease.acquire(timeout=10)
+        return lease
+
+    t0 = time.monotonic()
+    got = trainer().fit(*data, manager=manager("fit"), lease=lease_of(
+        f"mem://{uuid.uuid4().hex}", "rank0"))
+    fit_s = time.monotonic() - t0
+    np.savez(os.path.join(root, f"fit{rank}.npz"),
+             **{n: t.detach().cpu().numpy()
+                for n, t in got["params"].items()})
+    trainer(max_epochs=2).fit(*data, manager=manager("resumed"))
+    resumed = trainer().fit(*data, manager=manager("resumed"))
+    check(resumed["restored"] and resumed["start_epoch"] == 3
+          and resumed["history"] == got["history"][2:]
+          and all(torch.equal(resumed["params"][n], got["params"][n])
+                  for n in got["params"]),
+          f"group (b) rank {rank}: the resume from epoch 2 differs from "
+          "the uninterrupted fit")
+    board = f"mem://{uuid.uuid4().hex}"
+    lease = lease_of(board, "fenced")
+    successor = TrainerLease(Connection(board, "train"), holder="successor",
+                             lease=30.0)
+
+    def take_over(rec):
+        if rec["epoch"] == 2 and lease is not None:
+            lease.lease = 0.2
+            check(lease.heartbeat(), "group (b): the lease lapsed early")
+            time.sleep(0.3)
+            check(successor.try_acquire(), "group (b): no successor")
+
+    try:
+        trainer().fit(*data, manager=manager("fenced"), lease=lease,
+                      on_epoch=take_over)
+        fenced = None
+    except TrainerFencedError as exc:
+        fenced = f"{type(exc).__name__}: {exc}"
+    check(fenced is not None, f"group (b) rank {rank}: no fence")
+    return {"history": got["history"], "best_epoch": got["best_epoch"],
+            "fit_s": fit_s, "resumed_history": resumed["history"],
+            "fenced": fenced, "fenced_steps": manager("fenced").steps()}
+
+
+def group_ring_part(torch, kc, np, rank, group, root):
+    """Phase 23 (c) in a rank: bench_longctx's step over the group."""
+    from mapreduce_tpu_torch.models import transformer as tmod
+    from mapreduce_tpu_torch.ops import flash_attention as fa
+    from mapreduce_tpu_torch.parallel import ring
+
+    cfg = tmod.TransformerConfig(**RING_CONFIG, flash=False)
+    tr = tmod.TransformerTrainer(cfg, learning_rate=TF_LR, seed=0,
+                                 device="cuda", n_data=RING_PARTS,
+                                 group=group)
+    # phase 21 (b)'s tokens and (seed 0) parameters
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(1, RING_T + 1)).astype(np.int32)
+    params = tr.init_params()
+    t0 = time.monotonic()
+    params, loss0 = tr.step(params, toks)
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    if rank == 0:
+        torch.save({n: t.cpu() for n, t in params.state_dict().items()},
+                   os.path.join(root, "ring_step.pt"))
+    # the counted steps: the port's own step, nothing patched
+    kc.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(GROUP_RING_STEPS):
+        t0 = time.monotonic()
+        params, loss = tr.step(params, toks)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        losses.append(float(loss))
+    launches = {k: kc.LAUNCHES[k] for k in FLASH_KERNELS}
+    plain = dict(kc.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    hop = group_hop_step(torch, ring, tr, params, toks)
+    want = GROUP_RING_PER_STEP[rank] * GROUP_RING_STEPS
+    check(all(v == want for v in launches.values()),
+          f"group (c) rank {rank}: flash launches {launches}, predicted "
+          f"{want} each")
+    check(not any(plain.values()), f"group (c) rank {rank}: plain "
+          f"versions ran: {plain}")
+    check(all(math.isfinite(x) for x in [float(loss0)] + losses),
+          f"group (c) rank {rank}: losses {loss0} {losses}")
+    del params
+    Tl = RING_T // RING_PARTS
+    # the kernels at a ring step's folded shape (4 partitions a call)
+    _, errs = flash_case(torch, fa, f"group (c) rank {rank}", 4,
+                         cfg.n_heads, Tl, Tl, cfg.head_dim, True)
+    return {"loss0": float(loss0), "losses": losses, "warm_s": warm_s,
+            "step_s": times, "step_s_median": statistics.median(times),
+            "instrumented_step_s": hop["step_s"], "hop_s": hop["s"],
+            "hop_share": hop["s"] / hop["step_s"],
+            "hop_share_of_step_s_median": hop["s"] / statistics.median(
+                times),
+            "hop_moves_per_step": hop["moves"],
+            "hop_bytes_per_step": hop["bytes"],
+            "launches": launches, "launches_predicted": want,
+            "plain_calls": plain, "max_memory_allocated": peak,
+            "flash_max_abs_err": errs}
+
+
+def group_hop_step(torch, ring, tr, params, toks):
+    """One more ring step, uncounted, with every hop timed alone: the
+    card is synchronised before and after each transfer (the counted
+    steps are not), so the hop's seconds exclude the kernels queued
+    before it, and the step's own seconds include the syncs added."""
+    hop = {"s": 0.0, "moves": 0, "bytes": 0}
+    real = ring._Ring.shift
+
+    def timed_shift(self, send, like, receive, forward):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = real(self, send, like, receive, forward)
+        torch.cuda.synchronize()
+        hop["s"] += time.monotonic() - t0
+        moves = (send is not None) + bool(receive)
+        hop["moves"] += moves
+        hop["bytes"] += moves * like.numel() * like.element_size()
+        return got
+
+    ring._Ring.shift = timed_shift
+    try:
+        t0 = time.monotonic()
+        tr.step(params, toks)
+        torch.cuda.synchronize()
+        hop["step_s"] = time.monotonic() - t0
+    finally:
+        ring._Ring.shift = real
+    return hop
+
+
+def group_references(torch, kc, wcmod, chunks, want, root):
+    """Phase 23's one-process references on the card, run before the
+    ranks start (so the ranks' timings are theirs alone): (a)'s stream
+    over ``Partitions(8, "cuda")`` and (b)'s fit."""
+    import numpy as np
+
+    from mapreduce_tpu_torch.engine import session as smod
+    from mapreduce_tpu_torch.engine import spill
+    from mapreduce_tpu_torch.engine.autotune import plan_rebalance
+    from mapreduce_tpu_torch.models import (
+        DistributedTrainer, MLPConfig, TrainConfig, make_digits)
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.storage.router import router
+
+    sess = group_session(smod, spill, router, wcmod,
+                         Partitions(RADIX_PARTS, "cuda"), root, "one_spill")
+    digests, walls, step, snap = group_stream(torch, sess, chunks,
+                                              plan_rebalance)
+    check(wcmod.materialize_counts(chunks, snap) == want,
+          "group (a): the one-process stream's counts differ from Counter")
+    got = DistributedTrainer(
+        MLPConfig(sizes=MLP_SIZES, dtype=torch.float32),
+        group_fit_config(TrainConfig), n_data=MESH_N_DATA,
+        device="cuda").fit(*make_digits(*GROUP_DIGITS))
+    return {"digests": digests, "feed_s": walls, "spill_step": step,
+            "history": got["history"], "best_epoch": got["best_epoch"],
+            "params": {n: t.detach().cpu().numpy()
+                       for n, t in got["params"].items()}}
+
+
+def group_phase(torch, kc, wcmod, chunks, want, smi):
+    """Phase 23: the session, fit and the ring over a gloo group of two
+    ranks on the one card (the ``group_*`` lines).  Returns each rank's
+    launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from mapreduce_tpu_torch.engine import session as smod
+    from mapreduce_tpu_torch.engine import spill
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.storage.router import router
+
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    try:
+        np.save(os.path.join(root, "chunks.npy"), chunks)
+        t0 = time.monotonic()
+        ref = group_references(torch, kc, wcmod, chunks, want, root)
+        ref_s = time.monotonic() - t0
+        torch.cuda.empty_cache()
+        port = free_port()
+        procs = []
+        t0 = time.monotonic()
+        for r in range(GROUP_WORLD):
+            log = open(os.path.join(root, f"rank{r}.log"), "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--group-rank",
+                 str(r), str(port), root],
+                stdout=log, stderr=subprocess.STDOUT))
+            log.close()
+        ranks = []
+        try:
+            for r, p in enumerate(procs):
+                rc = p.wait(timeout=GROUP_TIMEOUT + 120)
+                with open(os.path.join(root, f"rank{r}.log")) as f:
+                    log = f.read()
+                check(rc == 0, f"group: rank {r} exited {rc}: {log[-3000:]}")
+                with open(os.path.join(root, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        ranks_wall = time.monotonic() - t0
+        for r in ranks:
+            check(not r["built"], f"group: rank {r['rank']} ran nvcc for "
+                  f"{r['built']}")
+        group_session_check(torch, wcmod, smod, spill, router, Partitions,
+                            ranks, ref, root, smi)
+        group_fit_check(np, ranks, ref, root, smi)
+        group_ring_check(torch, ranks, root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"group": {
+        "phase_s": time.monotonic() - t_phase, "references_s": ref_s,
+        "ranks_wall_s": ranks_wall, "card": smi}}), flush=True)
+    return {f"rank{r['rank']}": dict(r["session"]["launches"],
+                                     **r["ring"]["launches"])
+            for r in ranks}
+
+
+def group_session_check(torch, wcmod, smod, spill, router, Partitions,
+                        ranks, ref, root, smi):
+    """(a): each rank's snapshots bit-equal to one process's (whose
+    counts are Counter's), the group's spill a one-process spill's files
+    that restore bit-equal in one process; records/s beside it."""
+    for r in ranks:
+        s = r["session"]
+        check(s["digests"] == ref["digests"], f"group (a): rank "
+              f"{r['rank']}'s snapshots differ from one process's")
+        check(s["spill_step"] == ref["spill_step"],
+              f"group (a): spill steps {s['spill_step']} against "
+              f"{ref['spill_step']}")
+    gdir, odir = os.path.join(root, "spill"), os.path.join(root, "one_spill")
+    files = sorted(n for n in os.listdir(gdir)
+                   if os.path.isfile(os.path.join(gdir, n)))
+    check(files == sorted(n for n in os.listdir(odir)
+                          if os.path.isfile(os.path.join(odir, n))),
+          "group (a): the spill's files differ from one process's")
+    for n in files:
+        with open(os.path.join(gdir, n), "rb") as a, \
+                open(os.path.join(odir, n), "rb") as b:
+            check(a.read() == b.read(), f"group (a): spilled {n} differs "
+                  "from one process's")
+    back = group_session(smod, spill, router, wcmod,
+                         Partitions(RADIX_PARTS, "cuda"), root, "spill")
+    t0 = time.monotonic()
+    restored = snapshot_digest(back.snapshot("flag"))
+    restore_s = time.monotonic() - t0
+    check(restored == ref["digests"][-1], "group (a): the group's spill "
+          "restored in one process differs")
+    rates = [N_WORDS / sum(r["session"]["feed_s"]) for r in ranks]
+    print(json.dumps({"group_session": {
+        "world": GROUP_WORLD, "partitions": RADIX_PARTS,
+        "feeds": SESSION_FEEDS, "snapshots_bit_equal": True,
+        "spill_files": len(files), "spill_bytes_equal": True,
+        "one_process_restore_s": restore_s,
+        "records_per_s": rates,
+        "one_process_records_per_s": N_WORDS / sum(ref["feed_s"]),
+        "phase8_sustained_p8_records_per_s":
+            PHASE_NUMBERS.get("sustained_p8_records_per_s"),
+        "feed_s": [r["session"]["feed_s"] for r in ranks],
+        "one_process_feed_s": ref["feed_s"],
+        "held": [r["session"]["held"] for r in ranks],
+        "launches": [r["session"]["launches"] for r in ranks],
+        "card": smi}}), flush=True)
+
+
+def group_fit_check(np, ranks, ref, root, smi):
+    """(b): equal histories on both ranks, each epoch's losses within
+    GROUP_LOSS_RTOL of one process's and the final parameters within
+    GROUP_PARAM_ATOL, the resume, the fence on both ranks."""
+    fits = [r["fit"] for r in ranks]
+    check(fits[0]["history"] == fits[1]["history"]
+          and fits[0]["best_epoch"] == fits[1]["best_epoch"],
+          "group (b): the ranks' histories differ")
+    check(fits[0]["best_epoch"] == ref["best_epoch"],
+          f"group (b): best epoch {fits[0]['best_epoch']} against "
+          f"{ref['best_epoch']}")
+    loss_err = 0.0
+    for g, w in zip(fits[0]["history"], ref["history"]):
+        for key in ("train_loss", "val_loss"):
+            err = abs(g[key] - w[key]) / abs(w[key])
+            loss_err = max(loss_err, err)
+            check(err <= GROUP_LOSS_RTOL, f"group (b): epoch {g['epoch']} "
+                  f"{key} {g[key]} against one process's {w[key]}")
+    params = [np.load(os.path.join(root, f"fit{r}.npz")) for r in range(2)]
+    param_err = {}
+    for n, want in ref["params"].items():
+        check(np.array_equal(params[0][n], params[1][n]),
+              f"group (b): the ranks' {n} differ")
+        param_err[n] = float(np.abs(params[0][n] - want).max())
+        check(param_err[n] <= GROUP_PARAM_ATOL, f"group (b): {n} is "
+              f"{param_err[n]} from one process's")
+    for f in fits:
+        check(f["fenced"] and f["fenced"].startswith("TrainerFencedError")
+              and f["fenced_steps"] == [1, 2],
+              f"group (b): the fence {f['fenced']} {f['fenced_steps']}")
+    print(json.dumps({"group_fit": {
+        "n_data": MESH_N_DATA, "epochs": GROUP_EPOCHS,
+        "history": fits[0]["history"], "history_equal_on_ranks": True,
+        "loss_max_rel_err": loss_err, "loss_rtol": GROUP_LOSS_RTOL,
+        "param_max_abs_err": param_err, "param_atol": GROUP_PARAM_ATOL,
+        "resumed_bit_equal": True, "fenced": [f["fenced"] for f in fits],
+        "fit_s": [f["fit_s"] for f in fits], "card": smi}}), flush=True)
+
+
+def group_ring_check(torch, ranks, root, smi):
+    """(c): the loss equal on both ranks, the first step within the
+    smoke's step tolerances of phase 21 (b)'s one-process ring step."""
+    rings = [r["ring"] for r in ranks]
+    check(rings[0]["loss0"] == rings[1]["loss0"]
+          and rings[0]["losses"] == rings[1]["losses"],
+          f"group (c): the ranks' losses differ: {rings}")
+    p0, one = PHASE_NUMBERS.pop("ring_step")
+    state = torch.load(os.path.join(root, "ring_step.pt"))
+    held = held_step(torch, "group ring vs one-process ring",
+                     (rings[0]["loss0"], state), one, p0)
+    del state
+    print(json.dumps({"group_ring": {
+        "config": RING_CONFIG, "seq_len": RING_T, "n_data": RING_PARTS,
+        "world": GROUP_WORLD, "step0_vs_one_process": held,
+        "ranks": rings, "card": smi}}), flush=True)
+
+
 T_START = time.monotonic()
 
 
@@ -7772,6 +8293,9 @@ def main():
     before_fleet_s = time.monotonic() - T_START
     fleet_launches = fleet_phase(torch, kc, seg, rs, wcmod, Partitions,
                                  data, want, chunks, rmatrix, smi)
+    # phase 23: the session, fit and the ring over a gloo group
+    before_group_s = time.monotonic() - T_START
+    group_launches = group_phase(torch, kc, wcmod, chunks, want, smi)
     monoid_kernel["launches_wordspan"] = {
         run: counts.get("segreduce_monoid", 0)
         for run, counts in wordspan_launches.items()}
@@ -7785,6 +8309,10 @@ def main():
         # and on phase 21's counted MoE and ring steps
         kern["launches_moe"] = axes_launches["moe"][kern["name"]]
         kern["launches_ring"] = axes_launches["ring"][kern["name"]]
+        # and on phase 23 (c)'s counted steps, each rank's own counts
+        kern["launches_group"] = {
+            run: counts.get(kern["name"], 0)
+            for run, counts in group_launches.items()}
     for kern in kernels + radix_kernels:
         # the same kernels on phase 13's device phase over http://
         kern["launches_netplane"] = {
@@ -7818,12 +8346,17 @@ def main():
         kern["launches_fleet"] = {
             run: counts.get(kern["name"], 0)
             for run, counts in fleet_launches.items()}
+        # and on phase 23 (a)'s stream, each rank's own counts
+        kern["launches_group"] = {
+            run: counts.get(kern["name"], 0)
+            for run, counts in group_launches.items()}
     kernels += radix_kernels + flash_kernels + [monoid_kernel]
     print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START,
                                 "before_phase_20_wall_s":
                                 before_history_s,
                                 "before_phase_21_wall_s": before_axes_s,
-                                "before_phase_22_wall_s": before_fleet_s}}))
+                                "before_phase_22_wall_s": before_fleet_s,
+                                "before_phase_23_wall_s": before_group_s}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -7841,4 +8374,6 @@ if __name__ == "__main__":
         sys.exit(fleet_victim(*sys.argv[2:7]))
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--group-rank"]:
+        sys.exit(group_rank(*sys.argv[2:]))
     sys.exit(main())

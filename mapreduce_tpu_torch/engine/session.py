@@ -51,6 +51,23 @@ rebalance its partition map.  Both run outside the session lock; the
 rebalance's reads and writes of the accumulator are ordered after the
 feed's waves by the events above.
 
+Over a process group (``Partitions(n, device, group=G)``, gloo) the
+session is one controller of a multi-process mesh, as the JAX session
+is on a ``jax.distributed`` mesh: every rank feeds the identical chunks
+(the SPMD contract of ``DeviceEngine.run`` over a group) and holds only
+its ``n_local`` partitions' accumulator.  Every host decision comes from
+a value all ranks hold: a feed's overflow is all-reduced (so an
+overflow raises on every rank at once), ``snapshot`` and
+``bucket_histogram`` gather the lanes (the JAX engine's ``_host``), a
+rebalance re-bins the gathered lanes and each rank keeps its own
+partitions, a spill is rank 0's write of the gathered lanes (the files
+of a one-process spill; the others wait for its commit) and a restore
+takes each rank's rows of one manifest, and the spill policy decides
+from every rank's ages.  ``stats``, ``traffic_matrix`` and
+``partition_map`` read values that are already the same on every rank.
+Tier policies and the fleet's hand-off (``migrate_out`` / ``adopt``)
+stay single-process and raise ``NotImplementedError`` over a group.
+
 Telemetry (the JAX session's): the ``mrtpu_session_*`` counters and
 gauges below, the device engine's wave and dispatch counters for every
 wave a feed folds (no spans, as in JAX), each feed's and snapshot's
@@ -64,6 +81,7 @@ from __future__ import annotations
 import threading
 import time
 import weakref
+from dataclasses import replace
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -72,7 +90,9 @@ import torch
 from ..obs import metrics as _obs
 from ..obs import slo as _slo
 from ..ops import kernel_compat as kc
-from ..parallel.mesh import Partitions
+from ..parallel.mesh import Partitions, on_rank0
+from ..parallel.shuffle import all_gather_rows
+from .autotune import _CAPACITY_FIELDS
 from .device_engine import (
     _DISPATCHES, _WAVES, DeviceEngine, DeviceResult, EngineConfig,
     _cfg_token, _is_tiered, _steady_cfg, _WaveFeeder, identity_pmap,
@@ -164,6 +184,19 @@ def refresh_stream_age_gauges(now: Optional[float] = None) -> None:
     _STREAM_AGE.replace(rows)
 
 
+def _group_max_caps(cfg: EngineConfig, group) -> EngineConfig:
+    """*cfg* with each capacity raised to its maximum over *group*'s
+    ranks (one all-reduce; *cfg* itself without a group)."""
+    if group is None:
+        return cfg
+    import torch.distributed as dist
+
+    caps = torch.tensor([getattr(cfg, f) for f in _CAPACITY_FIELDS],
+                        dtype=torch.int64)
+    dist.all_reduce(caps, op=dist.ReduceOp.MAX, group=group)
+    return replace(cfg, **dict(zip(_CAPACITY_FIELDS, caps.tolist())))
+
+
 class SessionOverflowError(RuntimeError):
     """A feed overflowed a static capacity.  A session cannot retry with
     right-sized capacities (streams have no replay), so the stream's
@@ -242,11 +275,15 @@ class EngineSession:
                  spill: Optional[SessionSpillStore] = None,
                  spill_policy: Optional[SpillPolicy] = None,
                  max_pending_feeds: int = 0, autotune=None) -> None:
-        if parts.group is not None:
+        if parts.group is not None and _is_tiered(config.sort_impl):
             raise NotImplementedError(
-                "EngineSession over a process group: a resident session "
-                "holds its streams in one process (Partitions without "
-                "group=); multi-process runs go through DeviceEngine.run")
+                f"EngineSession over a process group with the tier policy "
+                f"{config.sort_impl!r}: the tier swap is decided by each "
+                "process's own background build; pass a concrete "
+                "sort_impl over a group")
+        #: the process group (None: one process) and this rank's
+        #: partitions [lo, lo + n_local)
+        self.group = parts.group
         #: the engine's task label is the session default; per-feed
         #: labels ride the streams
         self.engine = DeviceEngine(parts, map_fn, config, task=task)
@@ -254,10 +291,11 @@ class EngineSession:
             # capacity pre-sizing at the door: sessions cannot retry, so
             # learned capacities must land before the first wave
             # (autotune_key ignores capacities, so the probe engine's
-            # key IS the tuned one's)
-            tuned = autotune.recommend_config(
-                config, self.engine.autotune_key(), task=task)
-            if tuned is not config:
+            # key IS the tuned one's); over a group every rank takes the
+            # largest capacity any rank learned
+            tuned = _group_max_caps(autotune.recommend_config(
+                config, self.engine.autotune_key(), task=task), parts.group)
+            if tuned != config:
                 config = tuned
                 self.engine = DeviceEngine(parts, map_fn, config,
                                            task=task)
@@ -340,8 +378,7 @@ class EngineSession:
         all-invalid one made by one fully masked wave (its shapes come
         from ``map_fn``)."""
         if st.acc is None:
-            P = self.engine.n_dev
-            block = torch.zeros((P,) + self._row_shape,
+            block = torch.zeros((self.engine.n_local,) + self._row_shape,
                                 dtype=torch.from_numpy(
                                     np.zeros(0, self._row_dtype)).dtype,
                                 device=self.device)
@@ -349,6 +386,28 @@ class EngineSession:
                                        1, 0, None, self._pmap(st)).acc
             self._note_written(st)
         return st.acc
+
+    # -- the lanes over all P partitions -------------------------------------
+
+    def _host_lanes(self, acc: tuple) -> Dict[str, np.ndarray]:
+        """*acc*'s lanes on the host over all P partitions
+        (:func:`~.spill.lanes_to_host`): over a group the key, value,
+        payload and valid lanes are all-gathered from every rank (the
+        traffic lane is global on each already)."""
+        if self.group is None:
+            return lanes_to_host(acc)
+        return lanes_to_host(tuple(all_gather_rows(acc[:4], self.group))
+                             + tuple(acc[4:]))
+
+    def _own_rows(self, lanes: Dict[str, np.ndarray],
+                  ) -> Dict[str, np.ndarray]:
+        """This rank's partitions' rows of all-P host lanes (every row
+        without a group; the traffic lane stays whole)."""
+        if self.group is None:
+            return lanes
+        lo, n = self.engine.p_lo, self.engine.n_local
+        return {name: a[lo:lo + n] if name in LANES[:4] else a
+                for name, a in lanes.items()}
 
     # -- the stream --------------------------------------------------------
 
@@ -492,7 +551,7 @@ class EngineSession:
             cuda = self.device.type == "cuda"
             feeder = _WaveFeeder(eng, chunks, k=self.k,
                                  prefetch=eng.STREAM_PREFETCH)
-            oflows = []
+            oflows, needs = [], []
             wave_tiers: Dict[str, int] = {}
             try:
                 self._await_acc(st)
@@ -516,10 +575,12 @@ class EngineSession:
                     # before the next wave allocates
                     st.acc = out.acc
                     oflows.append(out.overflow)
+                    needs.append(out.needs)
                     del out
-                # the feed's one readback: waits for its waves
-                feed_oflow = (int(torch.stack(oflows).sum()) if oflows
-                              else 0)
+                # the feed's one readback: waits for its waves (over a
+                # group, all-reduced: every rank holds the same total)
+                feed_oflow = (eng._attempt_overflow(oflows, needs)[0]
+                              if oflows else 0)
             except BaseException:
                 # waves before the failure are folded and pos did not
                 # move: a retry would count them twice, so poison
@@ -566,14 +627,20 @@ class EngineSession:
                                f"(known: {sorted(self._streams)})")
             if st.broken:
                 raise self._broken_error(task, "its aggregate is unusable")
-            keys, vals, pay, valid = self._acc(st)[:4]
+            acc = self._acc(st)
             self._await_acc(st)
-            n_live = valid.sum(dim=1).cpu()
-            width = max(1, int(n_live.max()))
-            result = DeviceResult(keys[:, :width].cpu(),
-                                  vals[:, :width].cpu(),
-                                  pay[:, :width].cpu(),
-                                  valid[:, :width].cpu(), st.overflow)
+            if self.group is not None:
+                # every rank's live prefix, all-gathered (the JAX _host)
+                result, _, n_live = self.engine._gather_result(
+                    acc, self.config, st.overflow)
+            else:
+                keys, vals, pay, valid = acc[:4]
+                n_live = valid.sum(dim=1).cpu()
+                width = max(1, int(n_live.max()))
+                result = DeviceResult(keys[:, :width].cpu(),
+                                      vals[:, :width].cpu(),
+                                      pay[:, :width].cpu(),
+                                      valid[:, :width].cpu(), st.overflow)
             _SNAPSHOTS.inc(task=task)
             _LIVE_RECORDS.set(int(n_live.sum()), task=task)
             done = time.monotonic()
@@ -654,7 +721,7 @@ class EngineSession:
                 return None
             acc = self._acc(st)
             self._await_acc(st)
-            lanes = lanes_to_host((acc[0], acc[1], acc[2], acc[3]))
+            lanes = self._host_lanes(acc[:4])
         k_hi = lanes["keys"][..., 0].reshape(-1).astype(np.uint64)
         mask = lanes["valid"].reshape(-1).astype(bool)
         return np.bincount((k_hi[mask] % np.uint64(B)).astype(np.int64),
@@ -700,14 +767,15 @@ class EngineSession:
                     f"stream {task!r} is poisoned; rebalance refused")
             acc = self._acc(st)
             self._await_acc(st)
-            # re-bin first: an overflow raises with the stream untouched
-            binned = repartition_rows(lanes_to_host(acc[:4]), eng.n_dev,
+            # re-bin first (the gathered lanes: every rank re-bins all P
+            # alike): an overflow raises with the stream untouched
+            binned = repartition_rows(self._host_lanes(acc[:4]), eng.n_dev,
                                       cfg.out_capacity, task=task,
                                       pmap=pmap)
             # the traffic lane is routing history under the old table;
             # it stays cumulative
-            st.acc = tuple(lanes_to_device(binned, LANES[:4],
-                                           self.device)) + acc[4:]
+            st.acc = tuple(lanes_to_device(self._own_rows(binned),
+                                           LANES[:4], self.device)) + acc[4:]
             self._note_written(st)
             st.pmap = pmap
             st.pmap_dev = None  # uploaded at the next feed
@@ -748,8 +816,11 @@ class EngineSession:
         t0 = time.monotonic()
         acc = self._acc(st)
         self._await_acc(st)
-        step = self.spill.save_stream(task, lanes_to_host(acc),
-                                      self._spill_meta(st))
+        # over a group: rank 0 writes the gathered lanes, the others
+        # return after its commit
+        step = self.spill.save_stream(task, self._host_lanes(acc),
+                                      self._spill_meta(st),
+                                      group=self.group)
         _SPILLS.inc(task=task, reason=reason)
         _SPILL_SECONDS.inc(time.monotonic() - t0, stage="spill", task=task)
         return step
@@ -783,7 +854,10 @@ class EngineSession:
         mark it handed off, so a feed or snapshot that raced the evict
         gets :class:`SessionBusyError` instead of restoring a spill that
         now belongs to the destination.  Returns the spill step (0 when
-        the stream was already evicted)."""
+        the stream was already evicted).  A session over a process group
+        raises ``NotImplementedError``: the fleet moves one-process
+        sessions."""
+        self._refuse_group_handoff("migrate_out")
         task = self.default_task if task is None else str(task)
         with self._lock:
             if task in self._streams:
@@ -799,9 +873,17 @@ class EngineSession:
         refresh_stream_age_gauges()
         return step
 
+    def _refuse_group_handoff(self, what: str) -> None:
+        if self.group is not None:
+            raise NotImplementedError(
+                f"EngineSession.{what} over a process group: the fleet "
+                "hands off one-process sessions; a group session spills "
+                "and restores in place (evict / restore)")
+
     def _restore_locked(self, task: str) -> _Stream:
         t0 = time.monotonic()
-        lanes, meta = self.spill.load_stream(task)
+        # over a group: the manifest rank 0 picks, read on every rank
+        lanes, meta = self.spill.load_stream(task, group=self.group)
         want = _cfg_token(_steady_cfg(self.config))
         got = meta.get("config")
         if got != want:
@@ -840,7 +922,8 @@ class EngineSession:
             if resharded or "traffic" not in lanes:
                 # routing history cannot be re-binned: it restarts
                 lanes["traffic"] = np.zeros((P, P), np.int32)
-        st = _Stream(tuple(lanes_to_device(lanes, names, self.device)))
+        st = _Stream(tuple(lanes_to_device(self._own_rows(lanes), names,
+                                           self.device)))
         self._note_written(st)
         st.pos = int(meta.get("pos") or 0)
         st.waves = int(meta.get("waves") or 0)
@@ -860,7 +943,9 @@ class EngineSession:
 
     def adopt(self, task: Optional[str] = None) -> None:
         """The destination half of a hand-off: lift a handed-off refusal
-        for *task*, so its next touch restores the migrated spill."""
+        for *task*, so its next touch restores the migrated spill (not
+        over a process group: :meth:`migrate_out`)."""
+        self._refuse_group_handoff("adopt")
         task = self.default_task if task is None else str(task)
         with self._lock:
             self._handed_off.discard(task)
@@ -899,6 +984,8 @@ class EngineSession:
                            st.last_snapshot_monotonic or 0.0)
                 ages[task] = now - last
         pressed = policy.hbm_pressed(self.device)
+        if self.group is not None:
+            ages, pressed = self._group_ages(ages, pressed)
         evicted = []
         for task in policy.victims(ages, pressed):
             if (policy.max_idle_s is not None
@@ -914,6 +1001,19 @@ class EngineSession:
                 continue  # raced a close() or a break: nothing to evict
             evicted.append(task)
         return evicted
+
+    def _group_ages(self, ages: Dict[str, float], pressed: bool):
+        """Every rank's idle ages and memory pressure, all-gathered: the
+        streams resident and unbroken on every rank, each at its largest
+        age, and pressure on any rank, so all ranks pick one victim
+        list."""
+        import torch.distributed as dist
+
+        seen: List = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(seen, (ages, pressed), group=self.group)
+        common = set.intersection(*(set(a) for a, _ in seen))
+        return ({t: max(a[t] for a, _ in seen) for t in sorted(common)},
+                any(p for _, p in seen))
 
     def close(self, task: Optional[str] = None,
               drop_spill: bool = True) -> None:
@@ -931,6 +1031,7 @@ class EngineSession:
                 self._handed_off.clear()
             self._refresh_resident()
         if self.spill is not None and drop_spill and task is not None:
-            self.spill.drop(str(task))
+            # over a group: rank 0 drops the shared spill, the others wait
+            on_rank0(self.group, lambda: self.spill.drop(str(task)))
         # a closed stream's age series must not linger
         refresh_stream_age_gauges()

@@ -16,11 +16,15 @@ same partition count or another:
   routing and restarts at zero.
 
 The files are the JAX package's: a spill either package writes restores
-in the other.  Key lanes are int32 bit patterns on the device and
-``uint32`` in the files (the JAX dtype); the conversion happens here and
-in the session, and :func:`repartition_rows` works on ``uint32`` keys as
-the JAX function does.  The spill metrics are the JAX package's (the
-session counts spills, restores and their seconds; the shard bytes and
+in the other.  A session over a process group spills the lanes it
+gathered from every rank as rank 0's one-process save, and each rank
+restores its own partitions' rows of the manifest rank 0 picks, so a
+group's spill restores in one process (and the reverse).  Key lanes are
+int32 bit patterns on the device and ``uint32`` in the files (the JAX
+dtype); the conversion happens here and in the session, and
+:func:`repartition_rows` works on ``uint32`` keys as the JAX function
+does.  The spill metrics are the JAX package's (the session counts
+spills, restores and their seconds; the shard bytes and
 restore outcomes ride the checkpoint metrics).
 """
 
@@ -143,35 +147,52 @@ class SessionSpillStore:
             self.storage.remove_many(names)
 
     def save_stream(self, task: str, lanes: Dict[str, np.ndarray],
-                    meta: Dict[str, Any]) -> int:
+                    meta: Dict[str, Any], group=None) -> int:
         """Checkpoint one stream's host lanes (:func:`lanes_to_host`)
         and return the committed step: shards first, the manifest last,
-        so a kill mid-spill leaves the previous spill authoritative."""
+        so a kill mid-spill leaves the previous spill authoritative.
+        With *group* (every rank holding the same all-P lanes), rank 0
+        writes them and the other ranks return after its commit: the
+        files of a one-process spill."""
         step = int(meta.get("feeds", 0))
         self.manager(task).save(step, lanes, spec=_leaf_spec,
-                                meta=dict(meta))
+                                meta=dict(meta), group=group)
         return step
 
-    def load_stream(self, task: str,
+    def _load_step(self, prefix: str, step: int,
+                   ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+        manifest = _ckpt.load_manifest(self.storage, prefix, step)
+        lanes = {name: _ckpt.assemble_leaf(self.storage, name, entry)
+                 for name, entry in manifest["leaves"].items()}
+        return lanes, dict(manifest.get("meta") or {})
+
+    def load_stream(self, task: str, group=None,
                     ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
         """The newest complete spill as host lanes (keys ``uint32``) and
         its meta, falling back past corrupt steps.  Raises
-        :class:`SessionRestoreError` when none survives."""
+        :class:`SessionRestoreError` when none survives.  With *group*,
+        rank 0 picks the step and every other rank reads that same
+        manifest (each rank then keeps its own partitions' rows)."""
         prefix = self._task_prefix(task)
+        if group is not None:
+            return _ckpt.newest_on_rank0(
+                group, lambda: self._newest(task, prefix),
+                lambda step: self._load_step(prefix, step))
+        return self._newest(task, prefix)[1]
+
+    def _newest(self, task: str, prefix: str):
+        """``(step, (lanes, meta))`` of the newest complete spill."""
         steps = _ckpt.list_steps(self.storage, prefix)
         skipped = 0
         for step in reversed(steps):
             try:
-                manifest = _ckpt.load_manifest(self.storage, prefix, step)
-                lanes = {
-                    name: _ckpt.assemble_leaf(self.storage, name, entry)
-                    for name, entry in manifest["leaves"].items()}
+                got = self._load_step(prefix, step)
             except _ckpt.CheckpointCorruptError:
                 _ckpt.note_restore("corrupt")
                 skipped += 1
                 continue
             _ckpt.note_restore("ok", step=step, fell_past=skipped)
-            return lanes, dict(manifest.get("meta") or {})
+            return step, got
         raise SessionRestoreError(
             f"stream {task!r}: no complete spilled checkpoint under "
             f"{prefix!r} ({len(steps)} candidates, all corrupt)"

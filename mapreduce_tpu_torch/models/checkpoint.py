@@ -339,14 +339,45 @@ def restore(storage: Storage, step: int, prefix: str = "",
     return leaves, manifest
 
 
+def newest_on_rank0(group, newest: Callable[[], Optional[Tuple[int, Any]]],
+                    read: Callable[[int], Any]) -> Any:
+    """One step for every rank of *group*: rank 0 runs ``newest()``,
+    ``(step, value)`` of its newest complete step or None, and every
+    other rank returns ``read(step)`` of the step rank 0 picked (None
+    when it found none), or raises what rank 0 raised."""
+    from ..parallel.mesh import on_rank0
+
+    picked: list = []
+
+    def pick() -> Optional[int]:
+        picked.append(newest())
+        return None if picked[0] is None else picked[0][0]
+
+    step = on_rank0(group, pick)
+    if picked:
+        return None if picked[0] is None else picked[0][1]
+    return None if step is None else read(step)
+
+
 def restore_latest(storage: Storage, prefix: str = "",
                    template: Optional[Dict[str, Any]] = None,
+                   group=None,
                    ) -> Optional[Tuple[Dict[str, np.ndarray],
                                        Dict[str, Any]]]:
     """The newest complete checkpoint, falling back past corrupt ones;
     None when none exists.  A template mismatch (a
     :class:`CheckpointError` that is not corruption) does not fall back:
-    an older checkpoint cannot fix a wrong template."""
+    an older checkpoint cannot fix a wrong template.
+
+    With *group*, rank 0 picks the step and every other rank reads that
+    same manifest, so all ranks restore one checkpoint."""
+    if group is not None:
+        def newest():
+            got = restore_latest(storage, prefix, template)
+            return None if got is None else (int(got[1]["step"]), got)
+
+        return newest_on_rank0(group, newest, lambda step: restore(
+            storage, step, prefix=prefix, template=template))
     steps = list_steps(storage, prefix)
     skipped = 0
     for step in reversed(steps):
@@ -385,8 +416,23 @@ class CheckpointManager:
     def save(self, step: int, tree: Dict[str, Any],
              spec: Optional[SpecFn] = None,
              meta: Optional[Dict[str, Any]] = None,
-             precommit: Optional[Callable[[], None]] = None) -> str:
-        """:func:`save` one step, then :meth:`gc`."""
+             precommit: Optional[Callable[[], None]] = None,
+             group=None) -> str:
+        """:func:`save` one step, then :meth:`gc`.
+
+        With *group* (a ``torch.distributed`` process group whose ranks
+        all hold this *tree*, as data parallelism replicates the state,
+        or as a session gathers its lanes) rank 0 alone does both
+        (retention included), and every rank returns once the manifest
+        is committed, or raises what rank 0 raised
+        (:func:`..parallel.mesh.on_rank0`): the files are a one-process
+        save's.  (The JAX multi-process save writes each process's
+        shards and lets the last writer's manifest stand.)"""
+        if group is not None:
+            from ..parallel.mesh import on_rank0
+
+            return on_rank0(group, lambda: self.save(
+                step, tree, spec=spec, meta=meta, precommit=precommit))
         name = save(self.storage, step, tree, spec=spec,
                     prefix=self.prefix, meta=meta, precommit=precommit)
         self.gc()
@@ -442,8 +488,9 @@ class CheckpointManager:
                 _GC.inc(reason="orphan")
         return removed
 
-    def restore_latest(self, template: Optional[Dict[str, Any]] = None):
+    def restore_latest(self, template: Optional[Dict[str, Any]] = None,
+                       group=None):
         """``({name: host array}, manifest)`` of the newest complete
-        step, or None."""
+        step, or None; with *group*, the same step on every rank."""
         return restore_latest(self.storage, prefix=self.prefix,
-                              template=template)
+                              template=template, group=group)

@@ -57,7 +57,7 @@ from ..coord.lease import TrainerFencedError, TrainerLease
 from ..obs import memory as _memory_obs
 from ..obs import metrics as _metrics
 from ..ops import kernel_compat as kc
-from ..parallel.mesh import group_shape
+from ..parallel.mesh import all_reduce_sum, group_shape, on_rank0
 from ..parallel.partition import resolve_spec
 from .checkpoint import CheckpointError, CheckpointManager
 from .mlp import (MLPConfig, init_params, loss_and_accuracy, nll_loss,
@@ -156,9 +156,10 @@ class DistributedTrainer:
     size ``W`` divides ``n_data``) this process is one rank of a
     multi-process data axis: :meth:`place_batch` keeps its ``n_data /
     W`` shards of the global batch, and :meth:`step` all-reduces the
-    gradients and the loss before the update.  The captured epoch
-    (:meth:`_train_epoch`, hence :meth:`fit`) stays single-process and
-    raises over a group."""
+    gradients and the loss before the update, so every rank holds the
+    same parameters.  :meth:`_train_epoch` runs its steps eagerly over a
+    group, and :meth:`fit` keeps every decision on values all ranks
+    hold (its docstring)."""
 
     def __init__(self, mlp_cfg: MLPConfig = MLPConfig(),
                  cfg: TrainConfig = TrainConfig(), n_data: int = 1,
@@ -253,19 +254,12 @@ class DistributedTrainer:
     def _all_reduce(self, grads: List[torch.Tensor],
                     loss: torch.Tensor) -> torch.Tensor:
         """Sum *grads* (in place) and *loss* over the group: one
-        ``all_reduce`` of a flat host buffer (gloo moves CPU tensors);
-        returns the summed loss on this trainer's device."""
-        import torch.distributed as dist
-
-        flat = torch.cat([g.reshape(-1) for g in grads]
-                         + [loss.reshape(1)]).cpu()
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
-        flat = flat.to(self.device)
-        at = 0
-        for g in grads:
-            g.copy_(flat[at:at + g.numel()].view_as(g))
-            at += g.numel()
-        return flat[at].clone()
+        ``all_reduce`` of a flat host buffer (:func:`..parallel.mesh.
+        all_reduce_sum`); returns the summed loss on this trainer's
+        device."""
+        total = loss.reshape(1).clone()
+        all_reduce_sum(list(grads) + [total], self.group)
+        return total[0]
 
     @torch.no_grad()
     def _apply_update(self, params: Params, opt_state: OptState) -> None:
@@ -300,15 +294,21 @@ class DistributedTrainer:
         ``[S, global_batch]`` batch (host arrays or tensors); returns
         ``(params, opt_state, losses [S])``, the state updated in place.
         On the card: one CUDA graph replay, captured on the first call
-        and again for other state dicts or another S.  Single-process:
-        over a process group it raises ``NotImplementedError``."""
-        if self.group is not None:
-            raise NotImplementedError(
-                "the fused epoch (_train_epoch, and fit through it) runs "
-                "in one process; over a process group call step()")
+        and again for other state dicts or another S.
+
+        Over a process group each rank takes its rows of every step's
+        global batch (as :meth:`place_batch` does) and runs the S steps
+        eagerly, each with its one gradient all-reduce: a CUDA graph
+        cannot hold a gloo collective (gloo runs on the host, between
+        the graph's device work), and capturing the steps' halves around
+        it would leave one host round trip a step all the same."""
         xs = torch.as_tensor(xs, dtype=torch.float32)
         ys = torch.as_tensor(ys).long()
-        if self.device.type != "cuda":
+        if self.group is not None:
+            per = xs.shape[1] // self.world
+            xs = xs[:, self.rank * per:(self.rank + 1) * per]
+            ys = ys[:, self.rank * per:(self.rank + 1) * per]
+        if self.device.type != "cuda" or self.group is not None:
             losses = [self._step_impl(params, opt_state,
                                       xs[i].to(self.device),
                                       ys[i].to(self.device))
@@ -328,6 +328,32 @@ class DistributedTrainer:
     def _eval(self, params: Params, x: torch.Tensor, y: torch.Tensor):
         with torch.no_grad():
             return loss_and_accuracy(params, x, y, self.mlp_cfg)
+
+    def _place_holdout(self, x: np.ndarray, y: np.ndarray):
+        """The holdout on this device: all of it, or over a group this
+        rank's contiguous share of its rows (any row count)."""
+        x, y = np.asarray(x), np.asarray(y)
+        if self.group is not None:
+            n = x.shape[0]
+            lo, hi = (n * self.rank // self.world,
+                      n * (self.rank + 1) // self.world)
+            x, y = x[lo:hi], y[lo:hi]
+        return (torch.as_tensor(x, dtype=torch.float32).to(self.device),
+                torch.as_tensor(y, dtype=torch.int64).to(self.device))
+
+    def _holdout(self, params: Params, x: torch.Tensor, y: torch.Tensor,
+                 n_rows: int) -> Tuple[float, float]:
+        """``(loss, accuracy)`` over the whole holdout of *n_rows* rows;
+        over a group each rank's means weighted by its rows and summed
+        by one all-reduce, so every rank holds the same floats."""
+        loss, acc = self._eval(params, x, y)
+        if self.group is None:
+            return float(loss), float(acc)
+        both = (torch.stack([loss, acc]) * x.shape[0] if x.shape[0]
+                else torch.zeros(2, device=self.device))
+        all_reduce_sum([both], self.group)
+        loss, acc = (both / n_rows).tolist()
+        return loss, acc
 
     # -- the training loop (reference server_final loop, fused) ----------
 
@@ -355,13 +381,41 @@ class DistributedTrainer:
           for the fenced epoch;
         * the epoch's permutation is ``default_rng(seed + epoch)``, so a
           successor's lineage equals an uninterrupted run's.
+
+        Over a process group every rank calls ``fit`` with the same data
+        and *manager* storage, and every decision comes from a value all
+        ranks hold: the permutation is the same on every rank, each rank
+        trains on its rows of each global batch; the holdout loss (hence
+        early stopping and ``best_epoch``) is one all-reduced float;
+        *lease* is rank 0's alone (passing one on another rank raises
+        ``ValueError``), and rank 0's fence outcome, before each epoch
+        and at each commit, reaches every rank, so a fenced epoch raises
+        :class:`TrainerFencedError` on all of them; rank 0 writes each
+        checkpoint (the one-process layout) while the others wait for
+        its commit; a resume restores the step rank 0 picks, on every
+        rank.
         """
         cfg = self.cfg
         t_start = time.monotonic()
         global_batch = cfg.bunch_size * self.n_data
         n = x_tr.shape[0]
         steps = max(n // global_batch, 1)
-        x_va_d, y_va_d = self.place_batch(x_va, y_va)
+        if lease is not None and self.rank != 0:
+            raise ValueError(
+                f"the trainer lease is rank 0's alone; rank {self.rank} "
+                "was given one")
+        #: whether rank 0 holds a lease (each epoch's fence then runs)
+        leased = on_rank0(self.group, lambda: lease is not None)
+        x_va_d, y_va_d = self._place_holdout(x_va, y_va)
+
+        def gate(what: Callable[[], Any]) -> Any:
+            """*what* on rank 0, its outcome on every rank; a fence is
+            counted on each."""
+            try:
+                return on_rank0(self.group, what)
+            except TrainerFencedError:
+                _EPOCHS.inc(outcome="fenced")
+                raise
 
         best_val = np.inf
         best_epoch = 0
@@ -369,7 +423,8 @@ class DistributedTrainer:
         restored = False
         params = opt_state = None
         if manager is not None and resume:
-            got = manager.restore_latest(self.abstract_state())
+            got = manager.restore_latest(self.abstract_state(),
+                                         group=self.group)
             if got is not None:
                 state, manifest = got
                 params, opt_state = self.place_state(*split_state(state))
@@ -404,13 +459,9 @@ class DistributedTrainer:
             # train past it
             last_epoch = start_epoch - 1
         for epoch in range(start_epoch, last_epoch + 1):
-            if lease is not None:
+            if leased:
                 # fence gate: stop BEFORE this epoch's steps are applied
-                try:
-                    lease.ensure_owned()
-                except TrainerFencedError:
-                    _EPOCHS.inc(outcome="fenced")
-                    raise
+                gate(lambda: lease.ensure_owned())
             perm = np.random.default_rng(cfg.seed + epoch).permutation(n)
             need = steps * global_batch
             if need > n:  # static shapes: wrap around (dataset may be
@@ -421,8 +472,8 @@ class DistributedTrainer:
             ys = y_tr[sel].reshape(steps, global_batch)
             params, opt_state, losses = self._train_epoch(
                 params, opt_state, xs, ys)
-            val_loss, val_acc = self._eval(params, x_va_d, y_va_d)
-            val_loss = float(val_loss)
+            val_loss, val_acc = self._holdout(params, x_va_d, y_va_d,
+                                              x_va.shape[0])
             # per-epoch device-memory gauges: the allocator's counters on
             # the card, else the state and batch bytes held, analytic
             _memory_obs.sample_device_memory(
@@ -439,9 +490,12 @@ class DistributedTrainer:
             if improved:
                 best_val, best_epoch = val_loss, epoch
             if manager is not None:
-                # commit gates: checked before the shard writes and again
-                # as the save's precommit hook, right before the manifest
-                try:
+                def commit(epoch=epoch, improved=improved,
+                           val_loss=val_loss, best_val=best_val,
+                           best_epoch=best_epoch):
+                    # commit gates: checked before the shard writes and
+                    # again as the save's precommit hook, right before the
+                    # manifest (over a group, all on rank 0)
                     if lease is not None:
                         lease.ensure_owned()
                     manager.save(
@@ -457,11 +511,10 @@ class DistributedTrainer:
                                              else None)},
                         precommit=(lease.ensure_owned
                                    if lease is not None else None))
-                except TrainerFencedError:
-                    _EPOCHS.inc(outcome="fenced")
-                    raise
-                if improved:
-                    manager.mark_best(epoch)
+                    if improved:
+                        manager.mark_best(epoch)
+
+                gate(commit)
             _EPOCHS.inc(outcome="applied")
             if restored and epoch == start_epoch:
                 _RECOVERY_S.set(time.monotonic() - t_start)

@@ -27,6 +27,17 @@ data)`` mesh.  Here both axes are modelled on one device, as
   whose experts are the model ranks: expert ``r`` is the column block
   ``w_in[:, r*F/E:(r+1)*F/E]`` and the row block of ``w_out``.
 
+Over a process group (``TransformerTrainer(..., group=G)``, gloo) the
+``data`` axis spans processes, as ``make_mesh`` lays the JAX ``data``
+axis innermost over a ``jax.distributed`` mesh: rank ``r`` of ``W`` holds
+the ``n_data / W`` sequence partitions from ``r * n_data / W`` (its
+``T / W`` tokens of every row), the ring's K/V blocks cross the group
+(:func:`..parallel.ring.ring_attention`), each rank's loss is its
+partitions' share of the global mean (token loss and MoE aux), and the
+replicated parameters' gradients and the loss are all-reduced once a
+step in one flat host buffer, so every rank applies the same update.
+``n_model`` (and the MoE's experts with it) stays within a rank.
+
 Products are in ``cfg.dtype`` (bf16 by default) on f32 parameters; the
 logits and the router are f32.  The large products outside the kernels
 stay ``torch.matmul``/``einsum``, as the JAX package leaves them to XLA.
@@ -58,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernel_compat as kc
 from ..ops.flash_attention import flash_attention
+from ..parallel.mesh import all_reduce_sum, group_shape
 from ..parallel.ring import ring_attention
 
 
@@ -202,10 +214,11 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_local(x: torch.Tensor, lp: _Layer, cfg: TransformerConfig,
-                 n_data: int):
+                 n_data: int, group=None):
     """One block: attention (the flash kernels, or the ring over *n_data*
-    sequence partitions), then the FFN (dense or MoE).  Returns ``(x,
-    aux [n_data])``."""
+    sequence partitions, across *group*'s ranks when given), then the
+    FFN (dense or MoE).  Returns ``(x, aux [n_local])``, ``n_local`` the
+    partitions *x* holds (``n_data / W`` over a group of ``W``)."""
     H, D, dt = cfg.n_heads, cfg.head_dim, cfg.dtype
     B, T, E = x.shape
     h = _rmsnorm(x, lp.ln1_scale.to(dt))
@@ -222,18 +235,19 @@ def _layer_local(x: torch.Tensor, lp: _Layer, cfg: TransformerConfig,
         qkv = torch.einsum("bte,ecf->btcf", h, lp.wqkv.to(dt))
         q, k, v = (qkv[:, :, j].reshape(B, T, H, D) for j in range(3))
         attn = ring_attention(q, k, v, n_data, causal=True,
-                              block_size=cfg.attn_block).to(dt)
+                              block_size=cfg.attn_block, group=group).to(dt)
         o = torch.einsum("btf,fe->bte", attn.reshape(B, T, H * D),
                          lp.wo.to(dt))
     x = x + o
     h = _rmsnorm(x, lp.ln2_scale.to(dt))
+    n_local = n_data // group_shape(group, n_data, "the ring")[0]
     if cfg.moe_experts:
-        m, aux = _moe_ffn(h, lp, cfg, n_data)
+        m, aux = _moe_ffn(h, lp, cfg, n_local)
     else:
         # jax.nn.gelu's default is the tanh form; torch's is erf
         u = F.gelu(torch.matmul(h, lp.w_in.to(dt)), approximate="tanh")
         m = torch.matmul(u, lp.w_out.to(dt))
-        aux = torch.zeros(n_data, device=x.device)
+        aux = torch.zeros(n_local, device=x.device)
     return x + m, aux
 
 
@@ -305,18 +319,24 @@ def _moe_ffn(h: torch.Tensor, lp: _Layer, cfg: TransformerConfig,
 
 
 def forward_local(params: Transformer, tokens: torch.Tensor,
-                  cfg: TransformerConfig, n_data: int = 1):
-    """``tokens`` [B, T] int -> ``(hidden [B, T, E] f32, aux [n_data])``;
+                  cfg: TransformerConfig, n_data: int = 1, group=None):
+    """``tokens`` [B, T] int -> ``(hidden [B, T, E] f32, aux [n_local])``;
     aux is each sequence partition's MoE load-balance excess summed over
-    the layers (0 for dense layers)."""
+    the layers (0 for dense layers).  Over *group* the tokens are this
+    rank's slice of the sequence and ``n_local = n_data / W``."""
     x = params.embed[tokens].to(cfg.dtype)
-    aux = torch.zeros(n_data, device=x.device)
+    world = group_shape(group, n_data, "the ring")[0]
+    if cfg.remat and world > 1:
+        raise NotImplementedError(
+            "remat over a process group: a recomputed layer would repeat "
+            "the ring's cross-rank hops inside the backward pass")
+    aux = torch.zeros(n_data // world, device=x.device)
     for lp in params.layers:
         if cfg.remat:
             x, a = checkpoint(_layer_local, x, lp, cfg, n_data,
                               use_reentrant=False)
         else:
-            x, a = _layer_local(x, lp, cfg, n_data)
+            x, a = _layer_local(x, lp, cfg, n_data, group)
         aux = aux + a
     return x.float(), aux
 
@@ -363,15 +383,21 @@ def _chunk_nll(x_c: torch.Tensor, t_c: torch.Tensor, w: torch.Tensor,
 
 def loss_local(params: Transformer, tokens: torch.Tensor,
                targets: torch.Tensor, cfg: TransformerConfig,
-               n_data: int = 1) -> torch.Tensor:
+               n_data: int = 1, group=None) -> torch.Tensor:
     """Next-token cross-entropy; ``targets`` are the shifted tokens.  The
     mean over the *n_data* sequence partitions of each one's mean token
-    loss plus ``moe_aux_weight`` times its aux (the JAX ``pmean``)."""
-    x, aux = forward_local(params, tokens, cfg, n_data)
+    loss plus ``moe_aux_weight`` times its aux (the JAX ``pmean``).
+
+    Over *group* the tokens and targets are this rank's slice and the
+    result is its partitions' share of that mean (their sum over
+    *n_data*): the ranks' losses sum to the global one, and so do their
+    gradients."""
+    x, aux = forward_local(params, tokens, cfg, n_data, group)
     w = params.unembed
     Tc = cfg.loss_block
     B, T = targets.shape
-    T_local = T // n_data
+    n_local = aux.shape[0]
+    T_local = T // n_local
     if Tc is None:
         nll = _chunk_nll(x, targets, w, cfg.dtype)
     else:
@@ -384,7 +410,9 @@ def loss_local(params: Transformer, tokens: torch.Tensor,
             checkpoint(_chunk_nll, x[:, c:c + Tc], targets[:, c:c + Tc], w,
                        cfg.dtype, use_reentrant=False)
             for c in range(0, T, Tc)], dim=1)
-    per_part = nll.reshape(B, n_data, T_local).mean(dim=(0, 2))
+    per_part = nll.reshape(B, n_local, T_local).mean(dim=(0, 2))
+    if group is not None:
+        return (per_part + cfg.moe_aux_weight * aux).sum() / n_data
     return (per_part + cfg.moe_aux_weight * aux).mean()
 
 
@@ -482,16 +510,29 @@ class TransformerTrainer:
     and to the ring above it (``flash=True`` with ``n_data > 1`` raises
     ``ValueError``, as in JAX).
 
+    With *group* (a gloo ``torch.distributed`` process group whose world
+    size ``W`` divides ``n_data``) the ``data`` axis spans the group's
+    ranks (module docstring): every rank is given the same global tokens
+    and parameters, :meth:`place_batch` keeps its slice of the sequence,
+    the loss is the global one on every rank and the update the same;
+    :meth:`_train_steps` runs its S steps eagerly (a CUDA graph cannot
+    hold the gloo collectives), and :meth:`save` is rank 0's write of
+    the one-process checkpoint while the other ranks wait for its
+    commit.
+
     ``device=None`` means ``"cuda"`` and raises without it; the tests pass
     ``device="cpu"`` for the plain versions of the kernels."""
 
     def __init__(self, cfg: TransformerConfig, learning_rate: float = 3e-3,
                  seed: int = 0, optimizer=None, device=None,
-                 n_model: int = 1, n_data: int = 1) -> None:
+                 n_model: int = 1, n_data: int = 1, group=None) -> None:
         self.device = kc.resolve_device(device)
         cfg.validate(n_model)
         if n_data < 1:
             raise ValueError(f"n_data must be at least 1, got {n_data}")
+        self.group = group
+        self.world, self.rank = group_shape(
+            group, n_data, f"TransformerTrainer(n_data={n_data})")
         if optimizer not in (None, "adamw"):
             raise ValueError(
                 f"unknown optimizer {optimizer!r}: only 'adamw' (an optax "
@@ -531,14 +572,31 @@ class TransformerTrainer:
             raise ValueError(f"sequence length {T} does not split over "
                              f"n_data={self.n_data} partitions")
         t = torch.as_tensor(tokens, dtype=torch.int64)
-        t = t.to(self.device)
-        return t[..., :-1], t[..., 1:]
+        x, y = t[..., :-1], t[..., 1:]
+        if self.group is not None:
+            # this rank's n_data / W partitions of the sequence
+            per = T // self.world
+            x = x[..., self.rank * per:(self.rank + 1) * per]
+            y = y[..., self.rank * per:(self.rank + 1) * per]
+        return x.to(self.device), y.to(self.device)
+
+    def _loss(self, params: Transformer, x: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+        """``loss_local`` on placed tokens: over a group, this rank's
+        share of the global loss."""
+        return loss_local(params, x, y, self.cfg, self.n_data, self.group)
 
     def loss(self, params: Transformer, tokens: np.ndarray) -> torch.Tensor:
-        """The loss of one ``[B, T+1]`` batch, without gradients."""
+        """The loss of one ``[B, T+1]`` batch, without gradients (the
+        global loss on every rank of a group)."""
         x, y = self.place_batch(tokens)
         with torch.no_grad():
-            return loss_local(params, x, y, self.cfg, self.n_data)
+            loss = self._loss(params, x, y)
+        if self.group is not None:
+            loss = loss.reshape(1).clone()
+            all_reduce_sum([loss], self.group)
+            loss = loss[0]
+        return loss
 
     # -- the step ---------------------------------------------------------
 
@@ -548,10 +606,16 @@ class TransformerTrainer:
         (``autograd.grad``: nothing accumulates into ``.grad``, so no
         zeroing pass and no gradient memory between steps), then SGD
         (*opt* None) or *opt*'s update.  Reads nothing back to the host,
-        so it captures into a CUDA graph."""
+        so it captures into a CUDA graph.  Over a group the gradients and
+        the loss are summed over the ranks first (one all-reduce of a
+        flat host buffer), so it runs eagerly."""
         ps = list(params.parameters())
-        loss = loss_local(params, x, y, self.cfg, self.n_data)
+        loss = self._loss(params, x, y)
         grads = torch.autograd.grad(loss, ps)
+        if self.group is not None:
+            loss = loss.detach().reshape(1).clone()
+            all_reduce_sum(list(grads) + [loss], self.group)
+            loss = loss[0]
         with torch.no_grad():
             if opt is None:
                 for p, g in zip(ps, grads):
@@ -616,10 +680,11 @@ class TransformerTrainer:
         the optimizer's, returning ``(params, opt_state, losses)``.  On
         the card the S steps are captured whole into one CUDA graph (on
         the first call, and again for other state or shapes) and each
-        call replays it; on the CPU they run in a loop."""
+        call replays it; on the CPU, and over a process group (whose
+        all-reduce a graph cannot hold), they run in a loop."""
         if opt_state is not None:
             self._need_tx()
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.group is None:
             g = self._graph
             if g is None or not g.fits((params, opt_state), xs):
                 self._graph = None
@@ -666,8 +731,9 @@ class TransformerTrainer:
             tree.update({"opt/" + n: a for n, a in
                          adamw_state_to_numpy(params, opt_state).items()})
             meta["opt_tree"] = _optax_adamw_treedef(self.cfg)
+        # over a group: the state is replicated, rank 0 writes it
         CheckpointManager(LocalDirStorage(path), keep_n=keep).save(
-            step, tree, meta=meta)
+            step, tree, meta=meta, group=self.group)
 
     def _load_host(self, path: str):
         """-> ``(host params, host optimizer leaves or None, opt_tree or

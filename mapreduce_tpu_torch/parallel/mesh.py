@@ -23,7 +23,7 @@ cards needs a second card.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -52,6 +52,58 @@ def group_shape(group, n: int, what: str) -> Tuple[int, int]:
             f"{what} over a process group of world size {world}: the "
             f"world size must divide {n}")
     return world, rank
+
+
+def on_rank0(group, fn: Callable[[], Any]) -> Any:
+    """``fn()`` run by rank 0 of *group* alone, its outcome shared: every
+    rank returns rank 0's result, or raises rank 0's exception (the
+    same object, unpickled; rank 0 raises its own).  One
+    ``broadcast_object_list``, so the other ranks wait for rank 0's work
+    to finish and a write rank 0 commits is visible when they return.
+    Without a group, ``fn()``."""
+    if group is None:
+        return fn()
+    import pickle
+
+    import torch.distributed as dist
+
+    box: List[Any] = [None]
+    error = None
+    if dist.get_rank(group) == 0:
+        try:
+            box[0] = (True, fn())
+        except Exception as exc:  # shared, then raised on every rank
+            error = exc
+            try:
+                pickle.dumps(exc)
+                box[0] = (False, exc)
+            except Exception:
+                box[0] = (False, RuntimeError(
+                    f"rank 0 failed: {type(exc).__name__}: {exc}"))
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    ok, value = box[0]
+    if error is not None:
+        raise error
+    if not ok:
+        raise value
+    return value
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group) -> None:
+    """Sum each of *tensors* in place over *group*: one ``all_reduce`` of
+    one flat f32 host buffer (gloo moves CPU tensors), copied back to
+    each tensor's device.  Every rank ends with the same bits."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().reshape(-1).float()
+                      for t in tensors]).cpu()
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    at = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[at:at + n].view(t.shape).to(t.device, t.dtype))
+        at += n
 
 
 class Partitions:

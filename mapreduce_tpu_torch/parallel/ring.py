@@ -43,6 +43,21 @@ Two formulations, as in the JAX module:
 Both differentiate by autograd (the flash path through
 ``flash_attention_lse``'s backward, which folds the lse cotangent into
 ``delta``).
+
+Over a process group (``group=``, gloo, world size ``W`` dividing
+``n_parts``) the sequence axis spans processes, as the JAX ring's
+``data`` axis spans a ``jax.distributed`` mesh: rank ``r`` holds the
+``P_L = n_parts / W`` partitions from ``r * P_L`` (its ``[B, T/W, H, D]``
+slice of q, k and v; the output is its slice too).  The same loop runs:
+step ``s`` reads each key block from the rank's own partitions where it
+lies there, and otherwise from the block that crossed the rank boundary
+at hop ``s`` or earlier, as ``lax.ppermute`` rotates the blocks.  Only
+the boundary block moves (:class:`_Hop`, staged through pinned host
+memory, since gloo moves CPU tensors), its cotangent sent back the same
+way in the backward pass.  Only the flash formulation runs over a group.
+Causal, a block before partition 0 never moves (the sender and the
+receiver both skip it), and a rank whose query partitions all lie before
+step ``s``'s keys launches nothing at that step.
 """
 
 from __future__ import annotations
@@ -53,6 +68,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import NEG_INF, flash_attention_lse
+from .mesh import group_shape
 
 
 def _parts(t: torch.Tensor, n_parts: int) -> torch.Tensor:
@@ -101,40 +117,161 @@ def _combine(m, den, num, bm, bden, bnum):
     return new_m, den, num
 
 
-def _ring_flash(q, k, v, n_parts, causal, scale):
-    """The flash formulation (module docstring): one ``flash_attention_lse``
-    call a step."""
-    B, T, H, D = q.shape
-    Tl = T // n_parts
+class _Ring:
+    """This rank's neighbours on the group's ring and the transfers
+    between them (gloo point-to-point, through pinned host memory on the
+    card)."""
 
-    def kernel_layout(t):  # [B, T, H, D] -> [P, B, H, T/P, D], contiguous
-        return _parts(t, n_parts).transpose(2, 3).contiguous()
+    def __init__(self, group, world: int, rank: int) -> None:
+        import torch.distributed as dist
+
+        self.group = group
+        self.next = dist.get_global_rank(group, (rank + 1) % world)
+        self.prev = dist.get_global_rank(group, (rank - 1) % world)
+
+    def shift(self, send: Optional[torch.Tensor], like: torch.Tensor,
+              receive: bool, forward: bool) -> Optional[torch.Tensor]:
+        """Send *send* (None: nothing) one rank on (*forward*: to the
+        next rank, else back to the previous) and, with *receive*, return
+        the block shaped like *like* that arrives from the other side."""
+        import torch.distributed as dist
+
+        from .shuffle import _host_stage
+
+        dst, src = (self.next, self.prev) if forward else (self.prev,
+                                                            self.next)
+        reqs, got = [], None
+        if receive:
+            got = torch.empty(like.numel() * like.element_size(),
+                              dtype=torch.uint8,
+                              pin_memory=like.device.type == "cuda")
+            reqs.append(dist.irecv(got, src=src, group=self.group))
+        if send is not None:
+            # raw bytes: gloo moves any dtype's bytes alike
+            out = _host_stage(send.contiguous().view(-1).view(torch.uint8))
+            reqs.append(dist.isend(out, dst=dst, group=self.group))
+        for req in reqs:
+            req.wait()
+        if got is None:
+            return None
+        return got.to(like.device, non_blocking=True).view(
+            like.dtype).view(like.shape)
+
+
+class _Hop(torch.autograd.Function):
+    """One ring step's boundary transfer: *block* (a ``[2, ...]`` K/V
+    block, or None) goes to the next rank and the previous rank's block
+    comes back (zeros when nothing is received, a block no step reads);
+    backward sends the received block's cotangent back to the previous
+    rank and takes the sent block's from the next.  *token* (the previous
+    hop's output) chains a rank's hops, so every rank runs their
+    backwards in the same order."""
+
+    @staticmethod
+    def forward(ctx, block, token, ring, like, send, receive):
+        ctx.ring, ctx.send, ctx.receive = ring, send, receive
+        got = ring.shift(block, like, receive, True)
+        return torch.zeros_like(like) if got is None else got
+
+    @staticmethod
+    def backward(ctx, g):
+        back = ctx.ring.shift(g if ctx.receive else None, g, ctx.send,
+                              False)
+        return back, None, None, None, None, None
+
+
+class _Sink(torch.autograd.Function):
+    """``out`` unchanged, with the last hop's output as a second input
+    whose cotangent is zero: it puts every hop of the chain on the
+    backward pass's path, so each rank runs all of them (a rank whose
+    last received blocks no step reads would otherwise skip those hops'
+    backward while its neighbour sends into them)."""
+
+    @staticmethod
+    def forward(ctx, out, token):
+        ctx.token = (token.shape, token.dtype, token.device)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.token
+        return g, torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _window(t, got, j, s, i0):
+    """Step *s*'s keys (*j* 0) or values (1) for query partitions *i0*
+    on: local partition ``i - s`` of *t* where ``i >= s``, else the
+    received ``got[s - i]``.  A view when they all lie in one of the
+    two."""
+    PL = t.shape[0]
+    pieces = [got[s - i][j][None] for i in range(i0, min(s, PL))]
+    if s < PL:
+        pieces.append(t[max(i0, s) - s:PL - s])
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+def _ring_flash(q, k, v, n_parts, causal, scale, group=None):
+    """The flash formulation (module docstring): one ``flash_attention_lse``
+    call a step.  *q*, *k*, *v* are ``[B, T/W, H, D]`` (W = 1 without a
+    *group*); returns ``(out [B, T/W, H, D], lse [P_L, B, H, T/P, 1])``."""
+    world, rank = group_shape(group, n_parts, "ring_attention")
+    B, Tr, H, D = q.shape
+    PL = n_parts // world
+    Tl = Tr // PL
+    first = rank * PL  # this rank's first partition
+
+    def kernel_layout(t):  # [B, T/W, H, D] -> [P_L, B, H, T/P, D]
+        return _parts(t, PL).transpose(2, 3).contiguous()
 
     qp, kp, vp = kernel_layout(q), kernel_layout(k), kernel_layout(v)
+    ring = like = None
+    if world > 1:
+        ring = _Ring(group, world, rank)
+        like = kp.new_empty((2,) + kp.shape[1:])  # one K/V block's shape
+    # got[s]: (K, V) of partition first - s (mod P), the block that
+    # crosses into this rank at hop s; in one process, its own
+    got, token = [None], kp
     out = torch.zeros(qp.shape, dtype=torch.float32, device=q.device)
     lse = torch.full(qp.shape[:-1] + (1,), NEG_INF, dtype=torch.float32,
                      device=q.device)
     for s in range(n_parts):
-        if causal:
-            qs, ks, vs = qp[s:], kp[:n_parts - s], vp[:n_parts - s]
-        else:
-            qs, ks, vs = (qp, torch.roll(kp, s, dims=0),
-                          torch.roll(vp, s, dims=0))
-        n = qs.shape[0]
+        if s and ring is None:
+            got.append((kp[-s], vp[-s]))
+        elif s:
+            # hop s sends partition first + PL - s: its own below PL,
+            # else the block it received at hop s - PL
+            send = not causal or (rank < world - 1 and first + PL - s >= 0)
+            block = None
+            if send:
+                block = (torch.stack([kp[PL - s], vp[PL - s]]) if s <= PL
+                         else got[s - PL])
+            token = _Hop.apply(block, token, ring, like, send,
+                               not causal or first - s >= 0)
+            got.append(token)
+        # query partition i reads key partition first + i - s, causal
+        # only from partition 0 on
+        i0 = max(0, s - first) if causal else 0
+        if i0 >= PL:
+            continue  # nothing to attend at this step
+        n = PL - i0
         o_s, l_s = flash_attention_lse(
-            *(t.reshape(n * B, H, Tl, D) for t in (qs, ks, vs)),
+            *(t.reshape(n * B, H, Tl, D) for t in (
+                qp[i0:], _window(kp, got, 0, s, i0),
+                _window(vp, got, 1, s, i0))),
             causal=causal and s == 0, scale=scale)
         o_s = o_s.view(n, B, H, Tl, D).float()
         l_s = l_s.view(n, B, H, Tl, 1)
-        lo, ll = out[n_parts - n:], lse[n_parts - n:]
+        lo, ll = out[i0:], lse[i0:]
         new_l = torch.logaddexp(ll, l_s)
         new_o = lo * torch.exp(ll - new_l) + o_s * torch.exp(l_s - new_l)
-        if n == n_parts:
+        if n == PL:
             out, lse = new_o, new_l
         else:
-            out = torch.cat([out[:n_parts - n], new_o])
-            lse = torch.cat([lse[:n_parts - n], new_l])
-    return _unparts(out.transpose(2, 3)).to(q.dtype)
+            out = torch.cat([out[:i0], new_o])
+            lse = torch.cat([lse[:i0], new_l])
+    if ring is not None and token.requires_grad:
+        out = _Sink.apply(out, token)
+    return _unparts(out.transpose(2, 3)).to(q.dtype), lse
 
 
 def _ring_plain(q, k, v, n_parts, causal, scale, block_size):
@@ -198,7 +335,8 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    n_parts: int, causal: bool = True,
                    scale: Optional[float] = None,
                    block_size: Optional[int] = None,
-                   use_flash: Optional[bool] = None) -> torch.Tensor:
+                   use_flash: Optional[bool] = None,
+                   group=None) -> torch.Tensor:
     """Exact multi-head attention over a sequence split into *n_parts*
     partitions, computed as the JAX ring computes it.
 
@@ -206,18 +344,30 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     *n_parts*; returns ``[B, T, H, D]`` in q's type.  ``use_flash`` not
     False: each step on the flash kernels (module docstring); False: the
     plain online-softmax path, whose local attention ``block_size``
-    chunks (it must divide ``T / n_parts``; None = one chunk)."""
+    chunks (it must divide ``T / n_parts``; None = one chunk).
+
+    With *group* (gloo, world size ``W`` dividing *n_parts*) ``q``/``k``/
+    ``v`` and the result are this rank's ``[B, T/W, H, D]`` slice of the
+    sequence (module docstring); the plain path raises
+    ``NotImplementedError`` there."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be [B, T, H, D] of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if n_parts < 1 or q.shape[1] % n_parts:
-        raise ValueError(f"sequence length {q.shape[1]} does not split "
-                         f"into {n_parts} partitions")
+    world, rank = group_shape(group, n_parts, f"ring_attention(n_parts="
+                              f"{n_parts})")
+    if n_parts < 1 or (q.shape[1] * world) % n_parts:
+        raise ValueError(f"sequence length {q.shape[1] * world} does not "
+                         f"split into {n_parts} partitions")
     if scale is None:
         scale = q.shape[3] ** -0.5
+    if world > 1 and use_flash is False:
+        raise NotImplementedError(
+            "ring_attention(use_flash=False) over a process group: only "
+            "the flash formulation runs across ranks")
     if use_flash is not False:
-        return _ring_flash(q, k, v, n_parts, causal, float(scale))
+        return _ring_flash(q, k, v, n_parts, causal, float(scale),
+                           group)[0]
     return _ring_plain(q, k, v, n_parts, causal, float(scale), block_size)
 
 

@@ -1714,3 +1714,106 @@ def test_two_rank_gloo_count_on_the_card(dev, tmp_path):
         for name in ("tokenize", "segreduce", "radix_plan",
                      "radix_upfront", "radix_onesweep"):
             assert meta["radix"]["launches"][name] > 0, (name, meta)
+
+
+def _two_ranks(module, mode, *extra, timeout=600):
+    """Two gloo ranks of *module*'s ``_main`` in *mode* on this card;
+    each rank's output, after both exited 0."""
+    import subprocess
+    import sys
+
+    from chip_smoke import free_port
+    from tests.test_torch_multiproc import ROOT
+
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", module, mode, str(r), "2", str(port),
+         *[e(r) if callable(e) else e for e in extra]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    return outs
+
+
+def test_two_rank_session_on_the_card(dev, tmp_path):
+    """``tests/test_torch_multiproc_session.py``'s scenarios with each
+    rank's ``Partitions(8, "cuda", group=WORLD)`` on this card: every
+    snapshot, histogram, table and traffic matrix bit-equal on both ranks
+    and to one process's on the card, the group's spill files a
+    one-process spill's; the segreduce and radix kernels launched in each
+    rank and no plain call."""
+    import json
+    import os
+
+    from mapreduce_tpu_torch.engine import spill as tspill
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.storage.router import router
+    from tests import test_torch_multiproc_session as ms
+
+    _two_ranks("tests.test_torch_multiproc_session", "session",
+               str(tmp_path), lambda r: str(tmp_path / f"rank{r}.npz"),
+               "cuda")
+    one, one_meta = ms.run_scenarios(
+        Partitions(ms.P, dev), str(tmp_path / "one"),
+        lambda d: tspill.SessionSpillStore(router(f"shared:{d}")))
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    metas = [json.loads((tmp_path / f"rank{r}.npz.json").read_text())
+             for r in range(2)]
+    for name, a in one.items():
+        for rk in ranks:
+            assert np.array_equal(rk[name], a), name
+    for meta in metas:
+        assert not any(meta.pop("plain_calls").values()), meta
+        launches = meta.pop("launches")
+        # the records map emits its records without the tokenizer
+        for name in ("segreduce", "radix_plan", "radix_upfront",
+                     "radix_onesweep"):
+            assert launches[name] > 0, (name, launches)
+        assert meta == json.loads(json.dumps(one_meta))
+    gdir, odir = tmp_path / "group" / "spill", tmp_path / "one" / "spill"
+    names = sorted(n for n in os.listdir(gdir) if (gdir / n).is_file())
+    assert names == sorted(n for n in os.listdir(odir)
+                           if (odir / n).is_file())
+    for n in names:
+        assert (gdir / n).read_bytes() == (odir / n).read_bytes(), n
+
+
+def test_two_rank_ring_on_the_card(dev, tmp_path):
+    """The causal ring over 4 partitions across two ranks on this card
+    (bf16, 2 partitions a rank, the K/V blocks crossing through pinned
+    host memory): each rank's slice of the output and of the q, k, v
+    gradients against the one-process ring on the card at the flash
+    tolerance; each rank launches each flash kernel once at every ring
+    step where one of its query partitions attends (rank 0 at steps 0-1,
+    rank 1 at 0-3) and calls no plain version."""
+    import json
+
+    from mapreduce_tpu_torch.parallel.ring import ring_attention
+    from tests import test_torch_multiproc_train as mt
+
+    _two_ranks("tests.test_torch_multiproc_train", "ring",
+               lambda r: str(tmp_path / f"ring{r}.npz"), "cuda")
+    q, k, v, do = (t.requires_grad_() if i < 3 else t
+                   for i, t in enumerate(mt.ring_inputs(dev)))
+    out = ring_attention(q, k, v, 4, causal=True)
+    out.backward(do)
+    for r in range(2):
+        got = np.load(tmp_path / f"ring{r}.npz")
+        meta = json.loads((tmp_path / f"ring{r}.npz.json").read_text())
+        sl = slice(r * 512, (r + 1) * 512)
+        for name, want in (("out", out), ("dq", q.grad), ("dk", k.grad),
+                           ("dv", v.grad)):
+            _close(torch.from_numpy(got[name]), want[:, sl].detach().cpu(),
+                   f"rank {r} {name}")
+        kernels = ("flash_fwd", "flash_dq", "flash_dkv")
+        assert {n: meta["launches"][n] for n in kernels} == \
+            dict.fromkeys(kernels, 2 * (r + 1)), meta
+        assert not any(meta["plain_calls"].values()), meta

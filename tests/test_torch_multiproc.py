@@ -23,8 +23,13 @@ the 8 partitions, every rank given the identical corpus.  Held here:
   two-process engine with its job on an ``http://`` docserver and every
   byte on a blob server;
 * a group of another backend, or a world size that does not divide the
-  partition count, raises by name, and so do a resident session and the
-  captured epoch over a group (they stay single-process).
+  partition count (or ``n_data``), raises by name, and so do a group
+  session's ``migrate_out`` (the fleet moves one-process sessions) and
+  a trainer lease given to a rank other than 0.  The resident session,
+  ``fit`` and the transformer over a group run in
+  ``tests/test_torch_multiproc_session.py`` and
+  ``tests/test_torch_multiproc_train.py``, whose rank bodies
+  :func:`test_rank_body_imports_no_jax` checks too.
 
 The rank body lives in this module (``python -m tests.test_torch_multiproc
 RANK ...``); it imports nothing of JAX.  Every rank gives
@@ -203,15 +208,15 @@ def _main(argv) -> int:
 # -- the parent side ----------------------------------------------------------
 
 
-def _start(mode, *extra):
-    """Start two ranks of *mode* (an extra argument may be a function of
-    the rank)."""
+def _start(mode, *extra, module="tests.test_torch_multiproc"):
+    """Start two ranks of *mode* of *module*'s ``_main`` (an extra
+    argument may be a function of the rank)."""
     from chip_smoke import free_port
 
     port = free_port()
     env = dict(os.environ, PYTHONPATH=ROOT)
     return [subprocess.Popen(
-        [sys.executable, "-m", "tests.test_torch_multiproc", mode,
+        [sys.executable, "-m", module, mode,
          str(r), "2", str(port), *[e(r) if callable(e) else e
                                    for e in extra]],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -403,21 +408,28 @@ def test_other_backends_and_uneven_splits_are_refused(monkeypatch):
     monkeypatch.setattr(dist, "get_world_size", lambda g=None: 2)
     parts = Partitions(8, "cpu", group=group)
     assert (parts.world, parts.rank, parts.n_local, parts.lo) == (2, 1, 4, 4)
-    # what stays single-process raises by name over a group
+    # what stays single-process raises by name over a group: a group
+    # session's hand-off to another host
     from mapreduce_tpu_torch.engine.session import EngineSession
     from mapreduce_tpu_torch.engine.wordcount import _wordcount_map_fn
+    from mapreduce_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerTrainer)
 
+    session = EngineSession(parts, _wordcount_map_fn)
     with pytest.raises(NotImplementedError, match="process group"):
-        EngineSession(parts, _wordcount_map_fn)
+        session.migrate_out("t")
     with pytest.raises(ValueError, match="world size"):
         DistributedTrainer(MLPConfig(sizes=MLP_SIZES), n_data=3,
                            device="cpu", group=group)
+    # the lease is rank 0's alone (this process is rank 1)
     tr = DistributedTrainer(MLPConfig(sizes=MLP_SIZES), n_data=8,
                             device="cpu", group=group)
-    params, opt = tr.init_state()
-    xs = np.zeros((1, BUNCH * N_DATA, MLP_SIZES[0]), np.float32)
-    with pytest.raises(NotImplementedError, match="_train_epoch"):
-        tr._train_epoch(params, opt, xs, np.zeros(xs.shape[:2], np.int32))
+    x, y = _mlp_batch()
+    with pytest.raises(ValueError, match="rank 0's alone"):
+        tr.fit(x, y, x, y, lease=object())
+    with pytest.raises(ValueError, match="world size"):
+        TransformerTrainer(TransformerConfig(), n_data=3, device="cpu",
+                           group=group)
 
 
 def test_cross_process_pairs_are_host_links():
@@ -433,25 +445,44 @@ def test_cross_process_pairs_are_host_links():
     assert cuda[0][:2] == ["self", "self"] and cuda[0][2:] == ["host"] * 2
 
 
+#: each rank module's functions that run in a child (the rest is the
+#: parent's side, which may import JAX)
+RANK_BODIES = {
+    "test_torch_multiproc.py": {"_init_group", "_rank_engine",
+                                "_rank_combined", "_main", "_mlp_batch"},
+    "test_torch_multiproc_session.py": {
+        "records_map_fn", "chunk_stream", "run_scenarios", "_rank_session",
+        "_main"},
+    "test_torch_multiproc_train.py": {
+        "_init_group", "pinned_route", "tf_tokens", "fit_data", "_trainer",
+        "_fit_record", "_rank_fit", "_rank_transformer", "_rank_train",
+        "ring_inputs", "_rank_ring", "_main"},
+}
+
+
 def test_rank_body_imports_no_jax():
-    """The module's own imports and the rank body's import nothing of
-    JAX (the children run it without the JAX package)."""
+    """Each rank module's own imports and its rank body's import nothing
+    of JAX (the children run them without the JAX package)."""
     import ast
 
-    tree = ast.parse(open(__file__).read())
-    child = {"_init_group", "_rank_engine", "_rank_combined", "_main",
-             "_mlp_batch"}
-    nodes = [n for n in tree.body if isinstance(n, (ast.Import,
-                                                    ast.ImportFrom))]
-    for fn in tree.body:
-        if isinstance(fn, ast.FunctionDef) and fn.name in child:
-            nodes += [n for n in ast.walk(fn)
-                      if isinstance(n, (ast.Import, ast.ImportFrom))]
-    names = [a.name for n in nodes if isinstance(n, ast.Import)
-             for a in n.names]
-    names += [n.module or "" for n in nodes if isinstance(n, ast.ImportFrom)]
-    assert names and not [n for n in names
-                          if n.split(".")[0] in ("jax", "mapreduce_tpu")]
+    for module, child in RANK_BODIES.items():
+        path = os.path.join(os.path.dirname(__file__), module)
+        tree = ast.parse(open(path).read())
+        nodes = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                        ast.ImportFrom))]
+        defined = set()
+        for fn in tree.body:
+            if isinstance(fn, ast.FunctionDef) and fn.name in child:
+                defined.add(fn.name)
+                nodes += [n for n in ast.walk(fn)
+                          if isinstance(n, (ast.Import, ast.ImportFrom))]
+        assert defined == child, (module, child - defined)
+        names = [a.name for n in nodes if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module or "" for n in nodes
+                  if isinstance(n, ast.ImportFrom)]
+        assert names and not [n for n in names if n.split(".")[0] in
+                              ("jax", "mapreduce_tpu")], module
 
 
 if __name__ == "__main__":
