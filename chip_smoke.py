@@ -658,17 +658,25 @@ def tokenize_call(torch, kc, tok, lib, chunk, mults):
     return tok.TokenStream(is_end, keys, start, length)
 
 
-def tokenize_phase(torch, kc, tok, chunk):
-    """Phase 2: returns the kernel's record for the JSON line."""
-    mults = (tok.HASH_A1, tok.HASH_A2)
+def tokenize_equal(torch, tok, chunk, mults, label):
+    """The tokenizer kernel against its plain version on *chunk*, bit for
+    bit in every field; returns the plain version's output and the
+    largest |diff| (0)."""
     got = tok._tokenize_cuda(chunk, mults)
     want = tok._tokenize_plain(chunk, mults)
     torch.cuda.synchronize()
     err = 0
     for f in want._fields:
         a, b = getattr(got, f), getattr(want, f)
-        check(torch.equal(a, b), f"tokenize kernel differs in {f}")
+        check(torch.equal(a, b), f"{label}: tokenize differs in {f}")
         err = max(err, max_abs_err(torch, a, b))
+    return want, err
+
+
+def tokenize_phase(torch, kc, tok, chunk):
+    """Phase 2: returns the kernel's record for the JSON line."""
+    mults = (tok.HASH_A1, tok.HASH_A2)
+    want, err = tokenize_equal(torch, tok, chunk, mults, "tokenize kernel")
     n, nl = chunk.numel(), len(mults)
     ms, spread = kernel_ms(torch, lambda: tok._tokenize_cuda(chunk, mults))
     plain_ms = time_ms(torch, lambda: tok._tokenize_plain(chunk, mults))
@@ -6624,6 +6632,28 @@ def ring_case(torch, kc, fa, tmod, smi):
     return launches
 
 
+def median_step_s(torch, step, n=PIPE_TIMED):
+    """Seconds of one *step* (the median of *n*, after a warm one), the
+    card synchronised before and after each; and the *n* times."""
+    times = []
+    for i in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.monotonic() - t0)
+    return statistics.median(times), times
+
+
+def pipeline_batch(np, cfg):
+    """Phase 21 (c)'s batch: PIPE_MICRO microbatches (seed 4), the label
+    the argmax of the first n_classes inputs."""
+    x = np.random.default_rng(4).standard_normal(
+        (PIPE_MICRO * cfg.microbatch, cfg.n_in)).astype(np.float32)
+    return x, x[:, :cfg.n_classes].argmax(-1)
+
+
 def pipeline_case(torch, pmod, smi):
     """Phase 21 (c): the pipelined classifier at PipelineConfig()'s
     defaults, PIPE_STAGES stages, PIPE_MICRO microbatches."""
@@ -6633,10 +6663,7 @@ def pipeline_case(torch, pmod, smi):
     tr = pmod.PipelinedTrainer(cfg, learning_rate=0.1, seed=0,
                                n_stages=PIPE_STAGES, device=AXES_DEV)
     params = tr.init_params()
-    rng = np.random.default_rng(4)
-    x = rng.standard_normal((PIPE_MICRO * cfg.microbatch, cfg.n_in)).astype(
-        np.float32)
-    y = x[:, :cfg.n_classes].argmax(-1)
+    x, y = pipeline_batch(np, cfg)
     xd, yd = tr.place_batch(x, y)
     with torch.no_grad():
         got = pmod.pipeline_forward_local(params, xd, cfg).cpu()
@@ -6651,13 +6678,11 @@ def pipeline_case(torch, pmod, smi):
           f"{losses}")
 
     def timed(loss_of):
-        """Seconds of one SGD step (median of PIPE_TIMED after a warm
-        one), *loss_of* giving the loss of the current parameters."""
+        """Seconds of one SGD step (median_step_s), *loss_of* giving the
+        loss of the current parameters."""
         names = list(params)
-        times = []
-        for i in range(PIPE_TIMED + 1):
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
+
+        def step():
             for n in names:
                 params[n].requires_grad_(True)
             grads = torch.autograd.grad(loss_of(), [params[n] for n in names])
@@ -6665,12 +6690,11 @@ def pipeline_case(torch, pmod, smi):
                 for n, g in zip(names, grads):
                     params[n].requires_grad_(False)
                     params[n].sub_(g * tr.lr)
-            torch.cuda.synchronize()
-            if i:
-                times.append(time.monotonic() - t0)
-        return statistics.median(times)
+
+        return median_step_s(torch, step)[0]
 
     pipe_s = timed(lambda: pmod.pipeline_loss(params, xd, yd, cfg))
+    PHASE_NUMBERS["pipeline_step_s"] = pipe_s
     seq_s = timed(lambda: -pmod.sequential_forward(params, xd, cfg).gather(
         1, yd[:, None]).mean())
     S, M = PIPE_STAGES, PIPE_MICRO
@@ -6831,6 +6855,7 @@ def migration_case(torch, kc, seg, rs, wcmod, Partitions):
     dst.close()
     for m in hosts:
         m.leave()
+    PHASE_NUMBERS["session_migration_s"] = migration_s
     out = {"session_migration_s": migration_s, "spill_s": moved["spill_s"],
            "chunks": int(chunks.shape[0]), "partitions": RADIX_PARTS,
            "bit_equal": True, "routed": moved["routed"],
@@ -7639,7 +7664,10 @@ def group_rank(rank, port, root):
     n_data 8 (f32), with a lease on rank 0, a resume and a fence; (c)
     bench_longctx's ring step over the group, one warm step and
     GROUP_RING_STEPS counted ones, the flash kernels held against their
-    plain versions.  Writes its numbers to ``ROOT/rank<r>.json``."""
+    plain versions.  Then phase 24, in the same ranks: (a) phase 21
+    (c)'s pipeline with its stages over the group; (b) (a)'s stream
+    moved off the group and into it through the fleet.  Writes its
+    numbers to ``ROOT/rank<r>.json``."""
     import datetime
 
     import numpy as np
@@ -7661,6 +7689,9 @@ def group_rank(rank, port, root):
         out["session"] = group_session_part(torch, kc, np, rank, group, root)
         out["fit"] = group_fit_part(torch, np, rank, group, root)
         out["ring"] = group_ring_part(torch, kc, np, rank, group, root)
+        # phase 24: the pipeline's stages and a fleet move over the group
+        out["pipeline"] = group_pipeline_part(torch, np, rank, group, root)
+        out["moves"] = group_moves_part(torch, kc, np, rank, group, root)
         out["built"] = sorted(kc.BUILD_LOGS)
         dist.barrier()
     finally:
@@ -7808,7 +7839,7 @@ def group_ring_part(torch, kc, np, rank, group, root):
     launches = {k: kc.LAUNCHES[k] for k in FLASH_KERNELS}
     plain = dict(kc.PLAIN_CALLS)
     peak = torch.cuda.max_memory_allocated()
-    hop = group_hop_step(torch, ring, tr, params, toks)
+    hop = group_hop_step(torch, ring, lambda: tr.step(params, toks))
     want = GROUP_RING_PER_STEP[rank] * GROUP_RING_STEPS
     check(all(v == want for v in launches.values()),
           f"group (c) rank {rank}: flash launches {launches}, predicted "
@@ -7835,11 +7866,12 @@ def group_ring_part(torch, kc, np, rank, group, root):
             "flash_max_abs_err": errs}
 
 
-def group_hop_step(torch, ring, tr, params, toks):
-    """One more ring step, uncounted, with every hop timed alone: the
-    card is synchronised before and after each transfer (the counted
-    steps are not), so the hop's seconds exclude the kernels queued
-    before it, and the step's own seconds include the syncs added."""
+def group_hop_step(torch, ring, step):
+    """One more *step* (a ring or a pipeline step), uncounted, with every
+    hop timed alone: the card is synchronised before and after each
+    transfer (the counted steps are not), so the hop's seconds exclude
+    the kernels queued before it, and the step's own seconds include the
+    syncs added.  Also counts the hops' moves and bytes."""
     hop = {"s": 0.0, "moves": 0, "bytes": 0}
     real = ring._Ring.shift
 
@@ -7857,7 +7889,7 @@ def group_hop_step(torch, ring, tr, params, toks):
     ring._Ring.shift = timed_shift
     try:
         t0 = time.monotonic()
-        tr.step(params, toks)
+        step()
         torch.cuda.synchronize()
         hop["step_s"] = time.monotonic() - t0
     finally:
@@ -7866,9 +7898,10 @@ def group_hop_step(torch, ring, tr, params, toks):
 
 
 def group_references(torch, kc, wcmod, chunks, want, root):
-    """Phase 23's one-process references on the card, run before the
-    ranks start (so the ranks' timings are theirs alone): (a)'s stream
-    over ``Partitions(8, "cuda")`` and (b)'s fit."""
+    """Phases 23 and 24's one-process references on the card, run before
+    the ranks start (so the ranks' timings are theirs alone): (a)'s
+    stream over ``Partitions(8, "cuda")``, (b)'s fit, and phase 24 (a)'s
+    pipeline step, timed as the ranks time theirs."""
     import numpy as np
 
     from mapreduce_tpu_torch.engine import session as smod
@@ -7889,16 +7922,30 @@ def group_references(torch, kc, wcmod, chunks, want, root):
         MLPConfig(sizes=MLP_SIZES, dtype=torch.float32),
         group_fit_config(TrainConfig), n_data=MESH_N_DATA,
         device="cuda").fit(*make_digits(*GROUP_DIGITS))
+    from mapreduce_tpu_torch.models import pipeline as pmod
+
+    cfg = pmod.PipelineConfig()
+    tr = pmod.PipelinedTrainer(cfg, learning_rate=0.1, seed=0,
+                               n_stages=PIPE_STAGES, device="cuda")
+    params = tr.init_params()
+    x, y = pipeline_batch(np, cfg)
+    init = {n: t.cpu().numpy() for n, t in params.items()}
+    params, loss = tr.step(params, x, y)
+    pipe = {n: t.cpu().numpy() for n, t in params.items()}
+    pipe_s, _ = median_step_s(torch, lambda: tr.step(params, x, y))
     return {"digests": digests, "feed_s": walls, "spill_step": step,
             "history": got["history"], "best_epoch": got["best_epoch"],
             "params": {n: t.detach().cpu().numpy()
-                       for n, t in got["params"].items()}}
+                       for n, t in got["params"].items()},
+            "pipe_init": init, "pipe_params": pipe, "pipe_loss": float(loss),
+            "pipe_step_s": pipe_s}
 
 
 def group_phase(torch, kc, wcmod, chunks, want, smi):
-    """Phase 23: the session, fit and the ring over a gloo group of two
-    ranks on the one card (the ``group_*`` lines).  Returns each rank's
-    launches."""
+    """Phases 23 and 24: the session, fit and the ring, then the
+    pipeline's stages and the fleet moves, over a gloo group of two
+    ranks on the one card (the ``group_*`` lines).  Returns phase 23's
+    launches by rank and phase 24 (b)'s by rank and in this process."""
     import shutil
     import tempfile
 
@@ -7950,14 +7997,17 @@ def group_phase(torch, kc, wcmod, chunks, want, smi):
                             ranks, ref, root, smi)
         group_fit_check(np, ranks, ref, root, smi)
         group_ring_check(torch, ranks, root, smi)
+        group_pipeline_check(np, ranks, ref, root, smi)
+        moves = group_moves_check(torch, kc, wcmod, chunks, ranks, ref,
+                                  root, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"group": {
         "phase_s": time.monotonic() - t_phase, "references_s": ref_s,
         "ranks_wall_s": ranks_wall, "card": smi}}), flush=True)
-    return {f"rank{r['rank']}": dict(r["session"]["launches"],
-                                     **r["ring"]["launches"])
-            for r in ranks}
+    return ({f"rank{r['rank']}": dict(r["session"]["launches"],
+                                      **r["ring"]["launches"])
+             for r in ranks}, moves)
 
 
 def group_session_check(torch, wcmod, smod, spill, router, Partitions,
@@ -8062,6 +8112,284 @@ def group_ring_check(torch, ranks, root, smi):
         "config": RING_CONFIG, "seq_len": RING_T, "n_data": RING_PARTS,
         "world": GROUP_WORLD, "step0_vs_one_process": held,
         "ranks": rings, "card": smi}}), flush=True)
+
+
+# -- phase 24: the pipeline's stages and a fleet move over a gloo group -------
+
+#: (b): phase 23 (a)'s stream moves after this many of its SESSION_FEEDS
+#: feeds; the fleet hosts: the group (its rank 0's id), a one-process
+#: session in rank 0, and this process
+GROUP_MOVE_AT = 2
+GROUP_HOSTS = ("group", "solo", "parent")
+#: (a): the loss's relative and every parameter's absolute limit after
+#: one step against one process's (tests/test_torch_multiproc_train.py's
+#: PIPE_PARAM_ATOL); a gradient summed over the ranks moves w_out by
+#: some 6e-3, so FLASH_TOL would not see it
+PIPE_GROUP_TOL = 1e-6
+
+
+def group_pipeline_part(torch, np, rank, group, root):
+    """Phase 24 (a) in a rank: phase 21 (c)'s pipeline (PipelineConfig(),
+    PIPE_STAGES stages, PIPE_MICRO microbatches, seed 0) with its stages
+    over the group: the forward against the sequential stages, one step
+    (its parameters to ``ROOT/pipe<r>.npz``), the step timed, and one
+    more step with every hop timed alone."""
+    from mapreduce_tpu_torch.models import pipeline as pmod
+    from mapreduce_tpu_torch.parallel import ring
+
+    cfg = pmod.PipelineConfig()
+    tr = pmod.PipelinedTrainer(cfg, learning_rate=0.1, seed=0,
+                               n_stages=PIPE_STAGES, device="cuda",
+                               group=group)
+    params = tr.init_params()
+    x, y = pipeline_batch(np, cfg)
+    with torch.no_grad():
+        got = pmod.pipeline_forward_local(params, tr.place_batch(x, y)[0],
+                                          cfg, group=group).cpu()
+    want = torch.from_numpy(pmod.pipeline_reference(params, x, cfg))
+    err = float((got - want).abs().max())
+    check(bool(((got - want).abs() <= FLASH_TOL["atol"] + FLASH_TOL["rtol"]
+                * want.abs()).all()),
+          f"group pipeline rank {rank}: forward against the sequential "
+          f"stages, max |diff| {err}")
+    params, loss = tr.step(params, x, y)
+    np.savez(os.path.join(root, f"pipe{rank}.npz"),
+             **{n: t.cpu().numpy() for n, t in params.items()})
+    step_s, times = median_step_s(torch, lambda: tr.step(params, x, y))
+    hop = group_hop_step(torch, ring, lambda: tr.step(params, x, y))
+    return {"stages": [tr.layout.stages.start, tr.layout.stages.stop],
+            "forward_max_abs_err": err, "loss": float(loss),
+            "step_s": times, "step_s_median": step_s,
+            "instrumented_step_s": hop["step_s"], "hop_s": hop["s"],
+            "hop_share": hop["s"] / hop["step_s"],
+            "hop_moves_per_step": hop["moves"],
+            "hop_bytes_per_step": hop["bytes"]}
+
+
+def move_feeds(torch, sess, chunks, task, feeds, plan_rebalance):
+    """Feeds *feeds* (indices of SESSION_FEEDS) of phase 23 (a)'s stream
+    into *task* on *sess*, the rebalance before feed 1 as there; the
+    snapshot digest after each."""
+    per = chunks.shape[0] // SESSION_FEEDS
+    digests = []
+    for i in feeds:
+        if i == 1:
+            sess.rebalance(task, plan_rebalance(
+                sess.bucket_histogram(task), RADIX_PARTS))
+        sess.feed(chunks[i * per:(i + 1) * per], task=task)
+        digests.append(snapshot_digest(sess.snapshot(task)))
+    torch.cuda.synchronize()
+    return digests
+
+
+def group_moves_part(torch, kc, np, rank, group, root):
+    """Phase 24 (b) in a rank, over one spill store (``ROOT/moves``) and
+    one ``dir://`` fleet board: phase 23 (a)'s stream fed GROUP_MOVE_AT
+    feeds on the group and moved to the parent (which feeds the rest
+    after the ranks exit), then the same stream fed GROUP_MOVE_AT feeds
+    by a one-process session in rank 0, moved into the group and fed the
+    rest there; the path's kernels (rows 1-5) held against their plain
+    versions."""
+    import torch.distributed as dist
+
+    from mapreduce_tpu_torch.coord import docstore
+    from mapreduce_tpu_torch.coord.fleet import FleetMember, FleetRegistry
+    from mapreduce_tpu_torch.engine import session as smod
+    from mapreduce_tpu_torch.engine import spill
+    from mapreduce_tpu_torch.engine import wordcount as wcmod
+    from mapreduce_tpu_torch.engine.autotune import plan_rebalance
+    from mapreduce_tpu_torch.engine.migrate import migrate
+    from mapreduce_tpu_torch.ops import radix_sort as rs
+    from mapreduce_tpu_torch.ops import segscan as seg
+    from mapreduce_tpu_torch.ops import tokenize as tok
+    from mapreduce_tpu_torch.parallel import shuffle
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.storage.router import router
+
+    chunks = np.load(os.path.join(root, "chunks.npy"))
+    reg = FleetRegistry(docstore.connect(
+        f"dir://{os.path.join(root, 'board')}"))
+    if rank == 0:
+        for host in GROUP_HOSTS:
+            FleetMember(reg.store, host_id=host, lease=GROUP_TIMEOUT).join(
+                timeout=10.0)
+        reg.assign("flag", "group")
+        reg.assign("back", "solo")
+    dist.barrier(group)
+
+    def session(parts):
+        return group_session(smod, spill, router, wcmod, parts, root,
+                             "moves")
+
+    sess = session(Partitions(RADIX_PARTS, "cuda", group=group))
+    kc.reset_counts()
+    with PathInputs(torch, seg, shuffle) as cap:
+        flag = move_feeds(torch, sess, chunks, "flag",
+                          range(GROUP_MOVE_AT), plan_rebalance)
+        t0 = time.monotonic()
+        out = migrate("flag", sess, None, registry=reg, src_host="group",
+                      dst_host="parent")
+        out_s = time.monotonic() - t0
+        try:
+            sess.snapshot("flag")
+            busy = None
+        except smod.SessionBusyError as exc:
+            busy = type(exc).__name__
+        into = None
+        if rank == 0:
+            solo = session(Partitions(RADIX_PARTS, "cuda"))
+            solo_digests = move_feeds(torch, solo, chunks, "back",
+                                      range(GROUP_MOVE_AT), plan_rebalance)
+            t0 = time.monotonic()
+            moved = migrate("back", solo, sess, registry=reg,
+                            src_host="solo", dst_host="group")
+            into = {"session_migration_s": time.monotonic() - t0,
+                    "spill_s": moved["spill_s"], "routed": moved["routed"],
+                    "digests": solo_digests}
+        dist.barrier(group)
+        sess.adopt("back")
+        back = move_feeds(torch, sess, chunks, "back",
+                          range(GROUP_MOVE_AT, SESSION_FEEDS),
+                          plan_rebalance)
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    label = f"group moves rank {rank}"
+    check_launches(launches, plain, label, True)
+    held = hold_path_inputs(torch, seg, rs, label, cap.inputs,
+                            ["segreduce", "radix_sort", "radix_plan"])
+    # the tokenizer on one of the stream's chunks (uncounted: after the
+    # path's counts)
+    first = torch.from_numpy(chunks[0]).cuda()
+    tokenize_equal(torch, tok, first, (tok.HASH_A1, tok.HASH_A2), label)
+    held["tokenize"] = {"n": first.numel(), "bit_equal": True}
+    return {"flag_digests": flag, "back_digests": back,
+            "session_migration_s": out_s, "spill_s": out["spill_s"],
+            "routed": out["routed"], "decision": out["decision"],
+            "step": out["step"], "busy": busy, "into": into,
+            "launches": launches, "plain_calls": plain, "held": held}
+
+
+def group_pipeline_check(np, ranks, ref, root, smi):
+    """Phase 24 (a): the loss equal on both ranks and within
+    PIPE_GROUP_TOL of one process's; after one step every parameter
+    within PIPE_GROUP_TOL of one process's, the shared ones equal on
+    both ranks, the blocks a rank does not own as placed."""
+    pipes = [r["pipeline"] for r in ranks]
+    check(pipes[0]["loss"] == pipes[1]["loss"],
+          f"group (pipeline): the ranks' losses differ: {pipes}")
+    check(abs(pipes[0]["loss"] - ref["pipe_loss"])
+          <= PIPE_GROUP_TOL * abs(ref["pipe_loss"]),
+          f"group (pipeline): loss {pipes[0]['loss']} against one "
+          f"process's {ref['pipe_loss']}")
+    params = [np.load(os.path.join(root, f"pipe{r}.npz")) for r in range(2)]
+    errs = {}
+    for n, want in ref["pipe_params"].items():
+        for r, got in enumerate(params):
+            lo, hi = pipes[r]["stages"]
+            if n in ("w_stage", "b_stage"):
+                mine, theirs = got[n][lo:hi], np.delete(got[n],
+                                                        range(lo, hi), 0)
+                check(np.array_equal(theirs, np.delete(
+                    ref["pipe_init"][n], range(lo, hi), 0)),
+                      f"group (pipeline): rank {r} changed {n} blocks it "
+                      "does not own")
+                got_n, want_n = mine, want[lo:hi]
+            else:
+                check(np.array_equal(got[n], params[0][n]),
+                      f"group (pipeline): the ranks' {n} differ")
+                got_n, want_n = got[n], want
+            err = float(np.abs(got_n - want_n).max())
+            errs[f"{n}.rank{r}"] = err
+            check(err <= PIPE_GROUP_TOL,
+                  f"group (pipeline): rank {r}'s {n} is {err} from one "
+                  "process's")
+    S, M = PIPE_STAGES, PIPE_MICRO
+    print(json.dumps({"group_pipeline": {
+        "stages": S, "microbatches": M, "ticks": M + S - 1,
+        "world": GROUP_WORLD, "stages_by_rank": [p["stages"] for p in pipes],
+        "loss": pipes[0]["loss"], "one_process_loss": ref["pipe_loss"],
+        "forward_max_abs_err": [p["forward_max_abs_err"] for p in pipes],
+        "param_max_abs_err": errs, "forward_tolerance": FLASH_TOL,
+        "step_tolerance": PIPE_GROUP_TOL,
+        "step_s_median": [p["step_s_median"] for p in pipes],
+        "step_s": [p["step_s"] for p in pipes],
+        "one_process_step_s": ref["pipe_step_s"],
+        "phase21_pipelined_step_s": PHASE_NUMBERS.get("pipeline_step_s"),
+        "instrumented_step_s": [p["instrumented_step_s"] for p in pipes],
+        "hop_s": [p["hop_s"] for p in pipes],
+        "hop_share": [p["hop_share"] for p in pipes],
+        "hop_moves_per_step": [p["hop_moves_per_step"] for p in pipes],
+        "hop_bytes_per_step": [p["hop_bytes_per_step"] for p in pipes],
+        "card": smi}}), flush=True)
+
+
+def group_moves_check(torch, kc, wcmod, chunks, ranks, ref, root, smi):
+    """Phase 24 (b): the group's stream bit-equal to one process's up to
+    the move and refused after it on both ranks, one route flip and
+    decision shared; here, the parent adopts it and feeds the rest, and
+    ends bit-equal to the uninterrupted stream; the stream moved into
+    the group ends so too.  Returns the launches by rank and here."""
+    from mapreduce_tpu_torch.coord import docstore
+    from mapreduce_tpu_torch.coord.fleet import FleetRegistry
+    from mapreduce_tpu_torch.engine import session as smod
+    from mapreduce_tpu_torch.engine import spill
+    from mapreduce_tpu_torch.engine.autotune import plan_rebalance
+    from mapreduce_tpu_torch.ops import segscan as seg
+    from mapreduce_tpu_torch.parallel import shuffle
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.storage.router import router
+
+    moves = [r["moves"] for r in ranks]
+    want = ref["digests"]
+    for m in moves:
+        check(m["flag_digests"] == want[:GROUP_MOVE_AT]
+              and m["back_digests"] == want[GROUP_MOVE_AT:],
+              "group moves: a snapshot differs from one process's")
+        check(m["busy"] == "SessionBusyError", f"group moves: after the "
+              f"hand-off a snapshot gave {m['busy']}")
+        for key in ("routed", "decision", "step"):
+            check(m[key] == moves[0][key], f"group moves: {key} differs "
+                  "between the ranks")
+    into = moves[0]["into"]
+    check(moves[0]["routed"] and into["routed"]
+          and into["digests"] == want[:GROUP_MOVE_AT],
+          f"group moves: {moves[0]['routed']} {into}")
+    reg = FleetRegistry(docstore.connect(
+        f"dir://{os.path.join(root, 'board')}"))
+    check(reg.route("flag")["host"] == "parent"
+          and reg.route("back")["host"] == "group",
+          "group moves: the routes did not flip")
+    dst = group_session(smod, spill, router, wcmod,
+                        Partitions(RADIX_PARTS, "cuda"), root, "moves")
+    dst.adopt("flag")
+    kc.reset_counts()
+    with PathInputs(torch, seg, shuffle):
+        t0 = time.monotonic()
+        first = snapshot_digest(dst.snapshot("flag"))
+        first_s = time.monotonic() - t0
+        rest = move_feeds(torch, dst, chunks, "flag",
+                          range(GROUP_MOVE_AT, SESSION_FEEDS),
+                          plan_rebalance)
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    check_launches(launches, plain, "group moves (parent)", True)
+    check(first == want[GROUP_MOVE_AT - 1] and rest == want[GROUP_MOVE_AT:],
+          "group moves: the stream moved to one process differs from the "
+          "uninterrupted one")
+    print(json.dumps({"group_moves": {
+        "partitions": RADIX_PARTS, "feeds": SESSION_FEEDS,
+        "moved_after": GROUP_MOVE_AT, "snapshots_bit_equal": True,
+        "session_migration_s": [m["session_migration_s"] for m in moves],
+        "spill_s": [m["spill_s"] for m in moves],
+        "into_group_session_migration_s": into["session_migration_s"],
+        "phase22_session_migration_s":
+            PHASE_NUMBERS.get("session_migration_s"),
+        "parent_first_snapshot_s": first_s, "routed": moves[0]["routed"],
+        "decision": moves[0]["decision"], "spill_step": moves[0]["step"],
+        "held": [m["held"] for m in moves],
+        "launches": [m["launches"] for m in moves],
+        "parent_launches": launches, "card": smi}}), flush=True)
+    out = {f"rank{r['rank']}": r["moves"]["launches"] for r in ranks}
+    out["parent"] = launches
+    return out
 
 
 T_START = time.monotonic()
@@ -8293,9 +8621,11 @@ def main():
     before_fleet_s = time.monotonic() - T_START
     fleet_launches = fleet_phase(torch, kc, seg, rs, wcmod, Partitions,
                                  data, want, chunks, rmatrix, smi)
-    # phase 23: the session, fit and the ring over a gloo group
+    # phases 23-24: the session, fit, the ring, the pipeline and the
+    # fleet moves over a gloo group
     before_group_s = time.monotonic() - T_START
-    group_launches = group_phase(torch, kc, wcmod, chunks, want, smi)
+    group_launches, moves_launches = group_phase(torch, kc, wcmod, chunks,
+                                                 want, smi)
     monoid_kernel["launches_wordspan"] = {
         run: counts.get("segreduce_monoid", 0)
         for run, counts in wordspan_launches.items()}
@@ -8350,6 +8680,11 @@ def main():
         kern["launches_group"] = {
             run: counts.get(kern["name"], 0)
             for run, counts in group_launches.items()}
+        # and on phase 24 (b)'s moved streams: each rank's (rank 0's with
+        # its one-process session's) and this process's
+        kern["launches_group_moves"] = {
+            run: counts.get(kern["name"], 0)
+            for run, counts in moves_launches.items()}
     kernels += radix_kernels + flash_kernels + [monoid_kernel]
     print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START,
                                 "before_phase_20_wall_s":

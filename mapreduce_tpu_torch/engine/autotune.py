@@ -579,7 +579,16 @@ class FleetRebalancer:
     the hosts this process can reach (the in-process fleet shape the
     test fixtures run); hosts without a reachable session are
     skipped — their streams move through the scheduler's failed-host
-    recovery sweep instead."""
+    recovery sweep instead.
+
+    A session over a process group is a host too, named by its rank 0's
+    host id: every rank of the group calls :meth:`step` with it, the
+    group's coldest stream comes from the ranks' gathered ages, rank 0
+    decides every move from its own read of the board and shares the
+    decision (:func:`..parallel.mesh.on_rank0`), and every rank then
+    runs the same migrations (a one-process source among *sessions*
+    moves on rank 0 alone, and a group destination adopts the stream
+    on every rank), so the ranks never pick different victims."""
 
     #: a host at or above this worst-device memory fraction is "running
     #: hot" (the AdmissionAdvisor pressure threshold)
@@ -598,15 +607,49 @@ class FleetRebalancer:
     def step(self, sessions: Dict[str, Any],
              ) -> List[Tuple[str, str]]:
         """One control window; returns the ``(task, dst_host)`` moves
-        made."""
+        made (the same list on every rank of a group)."""
+        from ..parallel.mesh import on_rank0
+        from .migrate import migrate as _migrate
+
+        group = next((s.group for s in sessions.values()
+                      if s.group is not None), None)
+        # a group session's coldest stream is a collective read, so
+        # every rank takes it before rank 0 decides
+        victims = {h: s.coldest_task() for h, s in sorted(sessions.items())
+                   if s.group is not None}
+        plan = on_rank0(group, lambda: self._plan(sessions, victims))
+        lead = True  # this process moves one-process sources
+        if group is not None:
+            import torch.distributed as dist
+
+            lead = dist.get_rank(group) == 0
+        for victim, host_id, dst, evidence in plan:
+            sess, into = sessions.get(host_id), sessions.get(dst)
+            if into is not None and into.group is not None:
+                # a group destination lifts a handed-off mark on every
+                # rank, also where rank 0 alone moves the source
+                into.adopt(victim)
+            if sess is None or (sess.group is None and not lead):
+                continue
+            _migrate(victim, sess, into,
+                     registry=self.registry, src_host=host_id,
+                     dst_host=dst, reason="rebalance",
+                     ledger=self.ledger, evidence=evidence)
+        return [(victim, dst) for victim, _, dst, _ in plan]
+
+    def _plan(self, sessions: Dict[str, Any], victims: Dict[str, Any],
+              ) -> List[Tuple[str, str, str, Dict[str, Any]]]:
+        """The window's ``(victim, src_host, dst_host, evidence)`` moves
+        from one read of the board; a hot host with nowhere to go gets
+        its one refused decision here.  *victims* holds the group
+        sessions' coldest streams."""
         from ..coord import docstore as _docstore
         from ..coord.fleet import _score_host, host_state
-        from .migrate import migrate as _migrate
 
         now = _docstore.now()
         live = {str(d["_id"]): d for d in self.registry.hosts()
                 if host_state(d, now) == "live"}
-        moves: List[Tuple[str, str]] = []
+        plan = []
         for host_id, doc in sorted(live.items()):
             frac = (doc.get("facts") or {}).get("hbm_frac")
             if frac is None or float(frac) < self.pressure_frac:
@@ -622,7 +665,8 @@ class FleetRebalancer:
                      is None
                      or float(d["facts"]["hbm_frac"])
                      < self.pressure_frac)}
-            victim = sess.coldest_task()
+            victim = (victims[host_id] if host_id in victims
+                      else sess.coldest_task())
             evidence = {
                 "src": host_id, "hbm_frac": float(frac),
                 "pressure_frac": self.pressure_frac,
@@ -650,12 +694,8 @@ class FleetRebalancer:
             dst = max(scored, key=lambda h: (scored[h][0], h))
             evidence["candidates"] = {h: s[1]
                                       for h, s in scored.items()}
-            _migrate(victim, sess, sessions.get(dst),
-                     registry=self.registry, src_host=host_id,
-                     dst_host=dst, reason="rebalance",
-                     ledger=self.ledger, evidence=evidence)
-            moves.append((victim, dst))
-        return moves
+            plan.append((victim, host_id, dst, evidence))
+        return plan
 
 
 # -- straggler-driven speculative re-claim ------------------------------------

@@ -65,8 +65,11 @@ of a one-process spill; the others wait for its commit) and a restore
 takes each rank's rows of one manifest, and the spill policy decides
 from every rank's ages.  ``stats``, ``traffic_matrix`` and
 ``partition_map`` read values that are already the same on every rank.
-Tier policies and the fleet's hand-off (``migrate_out`` / ``adopt``)
-stay single-process and raise ``NotImplementedError`` over a group.
+The fleet's hand-off is collective too: every rank calls
+``migrate_out`` (rank 0's spill of the gathered lanes is the hand-off,
+and every rank marks the stream handed off) and ``adopt``, and
+``coldest_task`` picks from every rank's ages.  Tier policies stay
+single-process and raise ``NotImplementedError`` over a group.
 
 Telemetry (the JAX session's): the ``mrtpu_session_*`` counters and
 gauges below, the device engine's wave and dispatch counters for every
@@ -677,17 +680,21 @@ class EngineSession:
 
     def coldest_task(self) -> Optional[str]:
         """The resident stream touched (fed or read) longest ago; broken
-        streams are skipped.  None when nothing is resident."""
+        streams are skipped.  None when nothing is resident.  Over a
+        group every rank calls it and gets the same stream: the oldest
+        of the ranks' gathered ages (:meth:`_group_ages`)."""
+        now = time.monotonic()
         with self._lock:
-            best, best_t = None, None
-            for task, st in self._streams.items():
-                if st.broken:
-                    continue
-                t = max(st.last_feed_monotonic or 0.0,
-                        st.last_snapshot_monotonic or 0.0)
-                if best_t is None or t < best_t:
-                    best, best_t = task, t
-            return best
+            ages = {task: now - max(st.last_feed_monotonic or 0.0,
+                                    st.last_snapshot_monotonic or 0.0)
+                    for task, st in self._streams.items() if not st.broken}
+        if self.group is not None:
+            ages, _ = self._group_ages(ages, False)
+        best, best_age = None, None
+        for task, age in ages.items():
+            if best_age is None or age > best_age:
+                best, best_age = task, age
+        return best
 
     # -- routing: traffic, buckets, rebalance --------------------------------
 
@@ -854,16 +861,16 @@ class EngineSession:
         mark it handed off, so a feed or snapshot that raced the evict
         gets :class:`SessionBusyError` instead of restoring a spill that
         now belongs to the destination.  Returns the spill step (0 when
-        the stream was already evicted).  A session over a process group
-        raises ``NotImplementedError``: the fleet moves one-process
-        sessions."""
-        self._refuse_group_handoff("migrate_out")
+        the stream was already evicted).  Over a process group every
+        rank calls it: rank 0 writes the spill of the gathered lanes,
+        which is the hand-off, and every rank marks the stream."""
         task = self.default_task if task is None else str(task)
         with self._lock:
             if task in self._streams:
                 step = self._spill_locked(task, reason)
                 self._streams.pop(task, None)
-            elif self.spill is not None and self.spill.has(task):
+            elif self.spill is not None and on_rank0(
+                    self.group, lambda: self.spill.has(task)):
                 step = 0  # already durable: nothing resident to spill
             else:
                 raise KeyError(
@@ -872,13 +879,6 @@ class EngineSession:
             self._refresh_resident()
         refresh_stream_age_gauges()
         return step
-
-    def _refuse_group_handoff(self, what: str) -> None:
-        if self.group is not None:
-            raise NotImplementedError(
-                f"EngineSession.{what} over a process group: the fleet "
-                "hands off one-process sessions; a group session spills "
-                "and restores in place (evict / restore)")
 
     def _restore_locked(self, task: str) -> _Stream:
         t0 = time.monotonic()
@@ -943,9 +943,9 @@ class EngineSession:
 
     def adopt(self, task: Optional[str] = None) -> None:
         """The destination half of a hand-off: lift a handed-off refusal
-        for *task*, so its next touch restores the migrated spill (not
-        over a process group: :meth:`migrate_out`)."""
-        self._refuse_group_handoff("adopt")
+        for *task*, so its next touch restores the migrated spill (over a
+        process group, every rank calls it; the restore reads the
+        manifest rank 0 picks)."""
         task = self.default_task if task is None else str(task)
         with self._lock:
             self._handed_off.discard(task)

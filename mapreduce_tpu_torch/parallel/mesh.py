@@ -17,7 +17,9 @@ the exchange's bytes between ranks go through the group (see
 :func:`..shuffle.partition_exchange`).  Only gloo groups are taken:
 gloo moves the bytes through host memory, which lets two ranks share
 one card; NCCL cannot put two ranks on one device, and NCCL across
-cards needs a second card.
+cards needs a second card.  The pipeline's ``(n_stages, n_data)`` grid
+lies over such a group as ``make_mesh`` lays the JAX ``(model, data)``
+mesh over its devices (:func:`pipeline_layout`).
 """
 
 from __future__ import annotations
@@ -52,6 +54,44 @@ def group_shape(group, n: int, what: str) -> Tuple[int, int]:
             f"{what} over a process group of world size {world}: the "
             f"world size must divide {n}")
     return world, rank
+
+
+class PipelineLayout(NamedTuple):
+    """This process's block of an ``(n_stages, n_data)`` grid laid over a
+    group: its world size and rank, and the stage and data-shard indices
+    it holds."""
+
+    world: int
+    rank: int
+    stages: range
+    data: range
+
+
+def pipeline_layout(group, n_stages: int, n_data: int) -> PipelineLayout:
+    """The ``(n_stages, n_data)`` grid over *group*'s ``W`` ranks in
+    ``make_mesh``'s row-major order: rank ``r`` holds the flat positions
+    ``[r*S*D/W, (r+1)*S*D/W)``.  Two layouts are supported: ``W``
+    divides ``S`` (rank ``r`` holds stages ``[r*S/W, (r+1)*S/W)`` with
+    every data shard: the pipeline across processes), or ``S == 1`` and
+    ``W`` divides ``D`` (the data axis across processes).  Any other
+    raises ``ValueError`` naming the shape; a group of another backend
+    than gloo ``NotImplementedError`` (:func:`group_shape`).  Without a
+    group, the whole grid."""
+    what = f"a pipeline of shape (n_stages={n_stages}, n_data={n_data})"
+    world, rank = group_shape(group, n_stages * n_data, what)
+    if n_stages % world == 0:
+        per = n_stages // world
+        return PipelineLayout(world, rank,
+                              range(rank * per, (rank + 1) * per),
+                              range(n_data))
+    if n_stages == 1 and n_data % world == 0:
+        per = n_data // world
+        return PipelineLayout(world, rank, range(1),
+                              range(rank * per, (rank + 1) * per))
+    raise ValueError(
+        f"{what} over a process group of world size {world}: the world "
+        "size must divide n_stages, or n_stages must be 1 and the world "
+        "size divide n_data")
 
 
 def on_rank0(group, fn: Callable[[], Any]) -> Any:

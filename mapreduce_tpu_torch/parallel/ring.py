@@ -57,7 +57,10 @@ memory, since gloo moves CPU tensors), its cotangent sent back the same
 way in the backward pass.  Only the flash formulation runs over a group.
 Causal, a block before partition 0 never moves (the sender and the
 receiver both skip it), and a rank whose query partitions all lie before
-step ``s``'s keys launches nothing at that step.
+step ``s``'s keys launches nothing at that step.  ``models/pipeline.py``
+moves its stage boundary's activations with the same :class:`_Ring`,
+:class:`_Hop` and :class:`_Sink`, as a shift with no wrap (the last rank
+sends nothing and the first receives nothing).
 """
 
 from __future__ import annotations
@@ -160,8 +163,9 @@ class _Ring:
 
 class _Hop(torch.autograd.Function):
     """One ring step's boundary transfer: *block* (a ``[2, ...]`` K/V
-    block, or None) goes to the next rank and the previous rank's block
-    comes back (zeros when nothing is received, a block no step reads);
+    block, a pipeline's boundary activation, or None) goes to the next
+    rank and the previous rank's block comes back (zeros when nothing is
+    received, a block no step reads);
     backward sends the received block's cotangent back to the previous
     rank and takes the sent block's from the next.  *token* (the previous
     hop's output) chains a rank's hops, so every rank runs their

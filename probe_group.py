@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Runs phase 23 of ``chip_smoke.py`` (the resident session, ``fit`` and
-the transformer's ring over a gloo group of two ranks) alone, on one
-card.
+"""Runs phases 23 and 24 of ``chip_smoke.py`` (the resident session,
+``fit`` and the transformer's ring over a gloo group of two ranks, then
+the pipeline's stages and the fleet moves over the same group) alone,
+on one card.
 
     python3 probe_group.py
 
@@ -13,10 +14,13 @@ phase 21 (b)'s one-process ring step (bench_longctx, seed 0, the same
 tokens) as phase 23 (c)'s reference, then runs ``chip_smoke.group_phase``:
 (a) the flagship stream as a session over 8 partitions, 4 a rank; (b)
 ``fit`` of the bench_train MLP with a lease on rank 0, a resume and a
-fence; (c) bench_longctx's step over the ring across the two ranks.
-Phase 8's rates are not run here, so (a) prints no phase 8 figure.
-Prints the phase's ``group_*`` lines, then one ``probe_group`` line with
-its launches and wall.  Needs a CUDA card.
+fence; (c) bench_longctx's step over the ring across the two ranks;
+then phase 24: (a) ``PipelineConfig()`` with its 8 stages over the two
+ranks, 4 a rank; (b) (a)'s stream moved from the group to this process
+and from a one-process session into the group.  Phases 8, 21 and 22 are
+not run here, so their figures print as null.  Prints the phases'
+``group_*`` lines, then one ``probe_group`` line with their launches
+and wall.  Needs a CUDA card.
 """
 
 import json
@@ -73,11 +77,11 @@ def main():
         {n: t.cpu() for n, t in p0.items()},
         (loss, {n: t.cpu() for n, t in state.items()}))
     del p0, state
-    launches = cs.group_phase(torch, kc, wcmod, chunks, want, smi)
+    launches, moves = cs.group_phase(torch, kc, wcmod, chunks, want, smi)
     print(json.dumps({"probe_group": {
         "wall_s": time.monotonic() - t_start,
         "one_process_ring_step_s": ring_s, "launches": launches,
-        "card": smi}}))
+        "moves_launches": moves, "card": smi}}))
     return 0
 
 

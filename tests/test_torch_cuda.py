@@ -1749,7 +1749,9 @@ def test_two_rank_session_on_the_card(dev, tmp_path):
     snapshot, histogram, table and traffic matrix bit-equal on both ranks
     and to one process's on the card, the group's spill files a
     one-process spill's; the segreduce and radix kernels launched in each
-    rank and no plain call."""
+    rank and no plain call.  Then its fleet moves (``run_moves``): the
+    moved streams' ends bit-equal to one process's on the card, one
+    route flip, decision and count, rank 0's."""
     import json
     import os
 
@@ -1770,6 +1772,7 @@ def test_two_rank_session_on_the_card(dev, tmp_path):
     for name, a in one.items():
         for rk in ranks:
             assert np.array_equal(rk[name], a), name
+    ms.check_moves(lambda r: tmp_path / f"rank{r}.npz", metas, one)
     for meta in metas:
         assert not any(meta.pop("plain_calls").values()), meta
         launches = meta.pop("launches")
@@ -1784,6 +1787,24 @@ def test_two_rank_session_on_the_card(dev, tmp_path):
                            if (odir / n).is_file())
     for n in names:
         assert (gdir / n).read_bytes() == (odir / n).read_bytes(), n
+
+
+def test_two_rank_pipeline_on_the_card(dev, tmp_path):
+    """``tests/test_torch_multiproc_train.py``'s pipeline cases with both
+    ranks' ``PipelinedTrainer(group=WORLD)`` on this card (the boundary
+    activations through pinned host memory): the forward, the loss and
+    every updated parameter against the one-process trainer's on the
+    card, at the CPU test's tolerances."""
+    import json
+
+    from tests import test_torch_multiproc_train as mt
+
+    _two_ranks("tests.test_torch_multiproc_train", "pipe",
+               lambda r: str(tmp_path / f"pipe{r}.npz"), "cuda")
+    ranks = [np.load(tmp_path / f"pipe{r}.npz") for r in range(2)]
+    metas = [json.loads((tmp_path / f"pipe{r}.npz.json").read_text())
+             for r in range(2)]
+    mt.check_pipeline(ranks, metas, mt.one_process_pipeline(dev))
 
 
 def test_two_rank_ring_on_the_card(dev, tmp_path):

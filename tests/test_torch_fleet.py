@@ -72,6 +72,10 @@ JPMCFG = jde.EngineConfig(local_capacity=256, exchange_capacity=64,
 #: the lease's random holder token
 STAMPS = ("lease_expires", "facts_time", "drain_time", "reaped_time",
           "moved_time", "tmpname")
+#: the host lease of a host a scenario keeps alive: it outlives the
+#: scenario however loaded the machine is (under the whole suite's load
+#: more than the default 5 s passed between a join and the sweep)
+LIVE_LEASE = 600.0
 
 
 @pytest.fixture(scope="module")
@@ -422,7 +426,7 @@ def test_recovery_sweep_rehomes_dead_hosts_streams(mesh):
     def scenario(pk):
         board = _board(pk, "fleet-recovery")
         a = pk.fleet.FleetMember(board, host_id="hostA", lease=0.4)
-        b = pk.fleet.FleetMember(board, host_id="hostB")
+        b = pk.fleet.FleetMember(board, host_id="hostB", lease=LIVE_LEASE)
         a.join(timeout=2.0)
         b.join(timeout=2.0, warm_programs=[], hbm_frac=0.2)
         reg = pk.fleet.FleetRegistry(board)
@@ -506,9 +510,9 @@ def test_rebalancer_moves_coldest_stream_off_hot_host(mesh):
 
     def scenario(pk):
         board = _board(pk, "fleet-rebalance")
-        pk.fleet.FleetMember(board, host_id="hostA").join(
+        pk.fleet.FleetMember(board, host_id="hostA", lease=LIVE_LEASE).join(
             timeout=2.0, warm_programs=[], hbm_frac=0.95)
-        pk.fleet.FleetMember(board, host_id="hostB").join(
+        pk.fleet.FleetMember(board, host_id="hostB", lease=LIVE_LEASE).join(
             timeout=2.0, warm_programs=[], hbm_frac=0.10)
         reg = pk.fleet.FleetRegistry(board)
         store = pk.store()

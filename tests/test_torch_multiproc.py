@@ -23,11 +23,11 @@ the 8 partitions, every rank given the identical corpus.  Held here:
   two-process engine with its job on an ``http://`` docserver and every
   byte on a blob server;
 * a group of another backend, or a world size that does not divide the
-  partition count (or ``n_data``), raises by name, and so do a group
-  session's ``migrate_out`` (the fleet moves one-process sessions) and
-  a trainer lease given to a rank other than 0.  The resident session,
-  ``fit`` and the transformer over a group run in
-  ``tests/test_torch_multiproc_session.py`` and
+  partition count (or ``n_data``), raises by name, and so do a pipeline
+  layout that is neither the stages nor the data across the ranks and
+  a trainer lease given to a rank other than 0.  The resident session
+  and its fleet moves, ``fit``, the transformer and the pipeline over a
+  group run in ``tests/test_torch_multiproc_session.py`` and
   ``tests/test_torch_multiproc_train.py``, whose rank bodies
   :func:`test_rank_body_imports_no_jax` checks too.
 
@@ -408,16 +408,14 @@ def test_other_backends_and_uneven_splits_are_refused(monkeypatch):
     monkeypatch.setattr(dist, "get_world_size", lambda g=None: 2)
     parts = Partitions(8, "cpu", group=group)
     assert (parts.world, parts.rank, parts.n_local, parts.lo) == (2, 1, 4, 4)
-    # what stays single-process raises by name over a group: a group
-    # session's hand-off to another host
-    from mapreduce_tpu_torch.engine.session import EngineSession
-    from mapreduce_tpu_torch.engine.wordcount import _wordcount_map_fn
+    # a pipeline grid that splits neither its stages nor its data over
+    # the ranks raises by name
+    from mapreduce_tpu_torch.models.pipeline import PipelinedTrainer
     from mapreduce_tpu_torch.models.transformer import (
         TransformerConfig, TransformerTrainer)
 
-    session = EngineSession(parts, _wordcount_map_fn)
-    with pytest.raises(NotImplementedError, match="process group"):
-        session.migrate_out("t")
+    with pytest.raises(ValueError, match=r"n_stages=3, n_data=2"):
+        PipelinedTrainer(n_stages=3, n_data=2, device="cpu", group=group)
     with pytest.raises(ValueError, match="world size"):
         DistributedTrainer(MLPConfig(sizes=MLP_SIZES), n_data=3,
                            device="cpu", group=group)
@@ -451,12 +449,13 @@ RANK_BODIES = {
     "test_torch_multiproc.py": {"_init_group", "_rank_engine",
                                 "_rank_combined", "_main", "_mlp_batch"},
     "test_torch_multiproc_session.py": {
-        "records_map_fn", "chunk_stream", "run_scenarios", "_rank_session",
-        "_main"},
+        "records_map_fn", "chunk_stream", "run_scenarios", "run_moves",
+        "_rank_session", "_main"},
     "test_torch_multiproc_train.py": {
         "_init_group", "pinned_route", "tf_tokens", "fit_data", "_trainer",
-        "_fit_record", "_rank_fit", "_rank_transformer", "_rank_train",
-        "ring_inputs", "_rank_ring", "_main"},
+        "_fit_record", "_rank_fit", "_rank_transformer", "pipe_batch",
+        "pipe_trainer", "_rank_pipeline", "_rank_train", "ring_inputs",
+        "_rank_ring", "_rank_pipe", "_main"},
 }
 
 

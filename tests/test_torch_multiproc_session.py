@@ -29,6 +29,20 @@ references.  Held (tolerance: none):
   same tables, snapshots and control decisions as in one process;
 * a resident cap of one evicts the colder stream on both ranks, from
   the ranks' gathered ages, and its lazy restore reads as in one
+  process;
+* the fleet moves a group session's streams (:func:`run_moves`, the
+  ranks alone, over one spill store and a ``dir://`` fleet board on
+  which rank 0 holds the members): a ``migrate`` from the group to a
+  one-process session on rank 0, which feeds the rest, and from a
+  one-process session into the group, each ending bit-equal to the
+  uninterrupted stream in one process and to the JAX session;
+  ``SessionBusyError`` on both ranks after the hand-off; one route flip
+  and one ledger decision, rank 0's, the same ``routed`` and decision
+  id on both ranks (rank 1's ledger and ``mrtpu_session_migrations_total``
+  do not count it); a move raced by another mover's reroute, lost on
+  both ranks; the ``FleetRebalancer``'s one shared decision from the
+  ranks' gathered ages; a dead group's routes re-homed by the
+  scheduler's recovery sweep and its last spill restored in one
   process.
 """
 
@@ -36,6 +50,7 @@ import datetime
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -193,6 +208,158 @@ def run_scenarios(parts, root, store_of):
     return out, meta
 
 
+#: the host lease of the fleet members the moves keep alive, and of the
+#: group that dies
+LIVE_LEASE = 600.0
+DEAD_LEASE = 0.3
+#: each moved stream's end snapshot and the uninterrupted one it equals
+MOVED_ENDS = {"out": "variadic.1", "in": "variadic.1", "cold": "variadic.0",
+              "back": "variadic.1", "dead": "variadic.0"}
+#: the ends fed in the group (held on both ranks; the others on rank 0)
+IN_GROUP = ("in", "back")
+
+
+def run_moves(parts, root, store_of):
+    """The fleet moves of a group session over *parts* (every rank calls
+    it; rank 0 also holds the one-process sessions, the fleet members
+    ``grp`` (the group, hot) and ``solo`` (cool), and the dead group
+    ``grp2``): ``(arrays, meta)``, each end snapshot under
+    ``<scenario>.<field>`` (the one-process ones on rank 0 only)."""
+    import torch.distributed as dist
+
+    from mapreduce_tpu_torch.coord import docstore, fleet
+    from mapreduce_tpu_torch.engine import device_engine as tde
+    from mapreduce_tpu_torch.engine import session as tsession
+    from mapreduce_tpu_torch.engine.autotune import FleetRebalancer
+    from mapreduce_tpu_torch.engine.migrate import migrate
+    from mapreduce_tpu_torch.obs import control
+    from mapreduce_tpu_torch.obs.metrics import REGISTRY
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+    from mapreduce_tpu_torch.sched.scheduler import Scheduler
+
+    group, lead = parts.group, parts.rank == 0
+    store = store_of(os.path.join(root, "moves"))
+    board = docstore.connect(f"dir://{os.path.join(root, 'board')}")
+    reg = fleet.FleetRegistry(board)
+    out, meta = {}, {}
+    cut = STREAM_CUTS[1]
+
+    def session(on):
+        return tsession.EngineSession(on, records_map_fn,
+                                      tde.EngineConfig(**CFG), k=K,
+                                      spill=store)
+
+    def solo():
+        return session(Partitions(P, parts.device))
+
+    def keep(label, snap):
+        for f in FIELDS:
+            out[f"{label}.{f}"] = getattr(snap, f).numpy()
+        meta[f"{label}.overflow"] = snap.overflow
+
+    def moved(label, ledger, **kw):
+        """One migrate, with what it counted on this rank."""
+        before = REGISTRY.sum("mrtpu_session_migrations_total")
+        got = migrate(label, registry=reg, ledger=ledger, **kw)
+        meta[label] = {
+            "routed": got["routed"], "decision": got["decision"],
+            "step": got["step"], "ledger": len(ledger.decisions()),
+            "counted": REGISTRY.sum("mrtpu_session_migrations_total")
+            - before}
+
+    members = {}
+    if lead:
+        for host, frac in (("grp", 0.95), ("solo", 0.10)):
+            members[host] = fleet.FleetMember(board, host_id=host,
+                                              lease=LIVE_LEASE)
+            members[host].join(timeout=5.0, warm_programs=[], hbm_frac=frac)
+        for task in ("out", "race", "cold", "hot"):
+            reg.assign(task, "grp")
+    dist.barrier(group)
+    g = session(parts)
+
+    # the group to a one-process session on rank 0, which feeds the rest
+    g.feed(STREAM[:cut], task="out")
+    moved("out", control.ControlLedger(), src=g, src_host="grp",
+          dst_host="solo")
+    busy = []
+    for touch in (lambda: g.feed(STREAM[cut:], task="out"),
+                  lambda: g.snapshot("out")):
+        try:
+            touch()
+            busy.append(None)
+        except tsession.SessionBusyError as exc:
+            busy.append(type(exc).__name__)
+    meta["out.busy"] = busy
+    if lead:
+        dst = solo()
+        dst.feed(STREAM[cut:], task="out")
+        keep("out", dst.snapshot("out"))
+
+    # a one-process session on rank 0 into the group
+    if lead:
+        src = solo()
+        src.feed(STREAM[:cut], task="in")
+        reg.assign("in", "solo")
+        moved("in", control.ControlLedger(), src=src, dst=g,
+              src_host="solo", dst_host="grp")
+    dist.barrier(group)
+    g.adopt("in")
+    g.feed(STREAM[cut:], task="in")
+    keep("in", g.snapshot("in"))
+    g.close("in")
+
+    # another mover (a recovery sweep) flips the route first
+    g.feed(STREAM[:cut], task="race")
+    if lead:
+        assert reg.reroute("race", "other", expect_src="grp")
+    dist.barrier(group)
+    moved("race", control.ControlLedger(), src=g, src_host="grp",
+          dst_host="solo")
+    meta["race"]["host"] = reg.route("race")["host"]
+
+    # the rebalancer: rank 0 decides, every rank moves the coldest stream
+    g.feed(STREAM[:cut], task="cold")
+    g.feed(STREAM[:cut], task="hot")
+    ledger = control.ControlLedger()
+    dst = solo() if lead else None
+    sessions = {"grp": g, "solo": dst} if lead else {"grp": g}
+    meta["rebalance"] = {"moves": FleetRebalancer(reg, ledger=ledger).step(
+        sessions), "ledger": len(ledger.decisions()),
+        "cold": reg.route("cold")["host"], "hot": reg.route("hot")["host"]}
+    if lead:
+        keep("cold", dst.snapshot("cold"))
+
+    # a dead group: its routes re-home, its last spill restores in one
+    # process
+    g.feed(STREAM[:cut], task="dead")
+    g.spill_stream("dead")
+    if lead:
+        dead = fleet.FleetMember(board, host_id="grp2", lease=DEAD_LEASE)
+        dead.join(timeout=5.0)
+        reg.assign("dead", "grp2")
+        time.sleep(2 * DEAD_LEASE)
+        meta["dead.moves"] = Scheduler(board, use_lease=False,
+                                       fleet=reg).recovery_sweep()
+        keep("dead", solo().snapshot("dead"))
+    # the rebalancer's stream back: the hosts' pressure swaps, and it
+    # moves from rank 0's session into the group, where both ranks feed
+    # the rest
+    if lead:
+        members["grp"].heartbeat(warm_programs=[], hbm_frac=0.10)
+        members["solo"].heartbeat(warm_programs=[], hbm_frac=0.95)
+    dist.barrier(group)
+    meta["rebalance.back"] = {
+        "moves": FleetRebalancer(reg, ledger=ledger).step(sessions),
+        "ledger": len(ledger.decisions())}
+    g.feed(STREAM[cut:], task="cold")
+    keep("back", g.snapshot("cold"))
+    # read after the restore's collective, so after rank 0's flip
+    meta["rebalance.back"]["cold"] = reg.route("cold")["host"]
+    dist.barrier(group)
+    return out, meta
+
+
 # -- the rank body (run as a module in each child) ----------------------------
 
 
@@ -217,7 +384,11 @@ def _rank_session(rank, world, port, root, out_path, device="cpu"):
                                       router(f"shared:{d}")))
         meta["plain_calls"] = dict(kc.PLAIN_CALLS)
         meta["launches"] = dict(kc.LAUNCHES)
+        moves, meta["moves"] = run_moves(parts, os.path.join(root, "group"),
+                                         lambda d: tspill.SessionSpillStore(
+                                             router(f"shared:{d}")))
         dist.barrier()
+        np.savez(out_path + ".moves.npz", **moves)
         np.savez(out_path, **out)
         with open(out_path + ".json", "w") as f:
             json.dump(meta, f)
@@ -273,6 +444,52 @@ def _held(label, rank_arrays, rank_meta, want):
         assert meta[f"{label}.overflow"] == want.overflow, label
 
 
+def check_moves(path, metas, one):
+    """:func:`run_moves`' records of each rank (the arrays beside
+    *path*'s rank files, ``metas[r]["moves"]``) against the one-process
+    snapshots *one* of :func:`run_scenarios`: the moved streams end
+    bit-equal to the uninterrupted ones, and rank 0's flip, ledger and
+    count are the move's only ones.  Returns the rank-0 end snapshots'
+    ``(arrays, meta)`` and every rank's, for the JAX check."""
+    moves = [m.pop("moves") for m in metas]
+    arrays = [dict(np.load(f"{path(r)}.moves.npz")) for r in range(2)]
+    for label, ref in MOVED_ENDS.items():
+        held = arrays if label in IN_GROUP else arrays[:1]
+        for rk in held:
+            for f in FIELDS:
+                assert np.array_equal(rk[f"{label}.{f}"],
+                                      one[f"{ref}.{f}"]), (label, f)
+    lead, other = moves
+    # the hand-off refused a later touch on both ranks
+    assert lead["out.busy"] == other["out.busy"] == ["SessionBusyError"] * 2
+    # one flip, one decision and one count: rank 0's, shared
+    for label, routed in (("out", True), ("race", False)):
+        a, b = lead[label], other[label]
+        assert a["routed"] is b["routed"] is routed, label
+        assert a["decision"] == b["decision"] and a["step"] == b["step"]
+        assert (a["ledger"], b["ledger"]) == (1, 0), label
+        assert (a["counted"], b["counted"]) == (1, 0), label
+    assert lead["out"]["step"] > 0
+    assert lead["race"]["host"] == other["race"]["host"] == "other"
+    assert lead["in"]["routed"] and lead["in"]["counted"] == 1
+    assert "in" not in other
+    assert lead["rebalance"]["moves"] == other["rebalance"]["moves"] == [
+        ["cold", "solo"]]
+    assert (lead["rebalance"]["ledger"], other["rebalance"]["ledger"]) == (
+        1, 0)
+    for m in moves:
+        assert (m["rebalance"]["cold"], m["rebalance"]["hot"]) == (
+            "solo", "grp")
+    # the round trip: the same shared move back, rank 0's decision
+    assert lead["rebalance.back"]["moves"] == other["rebalance.back"][
+        "moves"] == [["cold", "grp"]]
+    assert (lead["rebalance.back"]["ledger"],
+            other["rebalance.back"]["ledger"]) == (2, 0)
+    assert all(m["rebalance.back"]["cold"] == "grp" for m in moves)
+    assert lead["dead.moves"] == [["dead", "solo"]]
+    return arrays, moves
+
+
 def test_group_session_matches_one_process_and_jax(tmp_path):
     from mapreduce_tpu.engine import spill as jspill
     from mapreduce_tpu.storage.router import router as jopen
@@ -309,6 +526,8 @@ def test_group_session_matches_one_process_and_jax(tmp_path):
     for name, a in one.items():
         for rk in ranks:
             assert np.array_equal(rk[name], a), name
+    moved, moves = check_moves(lambda r: tmp_path / f"rank{r}.npz", metas,
+                               one)
     plain = [m.pop("plain_calls") for m in metas]
     assert not any(v for m in metas for v in m.pop("launches").values())
     assert metas[0] == metas[1] == one_meta
@@ -340,6 +559,10 @@ def test_group_session_matches_one_process_and_jax(tmp_path):
     _held("rebalance.1", ranks, metas, js.snapshot("t"))
     assert np.array_equal(js.traffic_matrix("t"),
                           ranks[0]["rebalance.traffic"])
+    # the moved streams' ends: the JAX session's
+    for label, want in MOVED_ENDS.items():
+        held = 2 if label in IN_GROUP else 1
+        _held(label, moved[:held], moves[:held], jsnaps[want])
     whole = jax_session(CFG, k=1)
     whole.feed(SPILL)
     _held("spill.0", ranks, metas, whole.snapshot())

@@ -25,7 +25,17 @@ ring over the group, in ``tests/test_torch_cuda.py``):
   CPU mesh, the updated parameters within :data:`TF_PARAM_ATOL` of the
   one-process step's and equal on both ranks; the same for the MoE
   (``n_model=2``, 2 experts, ``n_data=2``) with the routing pinned to a
-  fixed rule (:func:`pinned_route`) on both sides of the step.
+  fixed rule (:func:`pinned_route`) on both sides of the step;
+* ``PipelinedTrainer(group=WORLD)`` (:data:`PIPE_CASES`): 4 stages, 2 a
+  rank, over 2 data shards of 4 microbatches, f32 and bf16, and the
+  data axis across the ranks (1 stage, 4 shards): the forward on each
+  rank within ``tests/test_torch_pipeline.py``'s tolerances (rtol 2e-5,
+  atol 2e-6) of the one-process port's and, in f32, of the JAX
+  ``PipelinedTrainer``'s on its CPU mesh; the loss equal on both ranks;
+  after one step every parameter (``w_in``, each rank's own ``w_stage``
+  and ``b_stage`` blocks, ``w_out``) within :data:`PIPE_PARAM_ATOL` of
+  the one-process step's and the shared ones equal on both ranks, and
+  the blocks a rank does not own as they were placed.
 """
 
 import datetime
@@ -61,6 +71,18 @@ TF_PARAM_ATOL = 1e-6
 RING_ATOL = 1e-6
 #: (name, config overrides, n_model, n_data)
 TF_CASES = (("dense", {}, 1, 4), ("moe", {"moe_experts": 2}, 2, 2))
+#: the pipeline's narrow config, microbatches a shard and learning rate;
+#: (name, dtype, n_stages, n_data) over the two ranks: the stages across
+#: them, then the data shards
+PIPE_CFG = dict(n_in=16, hidden=32, n_classes=10, microbatch=4)
+PIPE_M, PIPE_LR = 4, 0.1
+PIPE_CASES = (("f32", "float32", 4, 2), ("bf16", "bfloat16", 4, 2),
+              ("data", "float32", 1, 4))
+#: the forward against one process's and the JAX trainer's
+#: (tests/test_torch_pipeline.py's), and the updated parameters against
+#: the one-process step's (max abs)
+PIPE_RTOL, PIPE_ATOL = 2e-5, 2e-6
+PIPE_PARAM_ATOL = 1e-6
 
 
 # -- the rank body (run as a module in each child) ----------------------------
@@ -230,12 +252,50 @@ def _rank_transformer(dist, out, meta):
                     for n, t in params.state_dict().items()})
 
 
+def pipe_batch(n_data):
+    """A pipeline case's whole batch: PIPE_M microbatches a shard."""
+    rng = np.random.default_rng(9)
+    n = PIPE_CFG["microbatch"] * PIPE_M * n_data
+    x = rng.normal(size=(n, PIPE_CFG["n_in"])).astype(np.float32)
+    return x, x[:, :PIPE_CFG["n_classes"]].argmax(-1)
+
+
+def pipe_trainer(dtype, n_stages, n_data, device, group=None):
+    from mapreduce_tpu_torch.models import pipeline as pmod
+
+    cfg = pmod.PipelineConfig(dtype=getattr(torch, dtype), **PIPE_CFG)
+    return pmod.PipelinedTrainer(cfg, learning_rate=PIPE_LR, seed=3,
+                                 n_stages=n_stages, n_data=n_data,
+                                 device=device, group=group)
+
+
+def _rank_pipeline(dist, out, meta, device):
+    """Each pipeline case over the group: the forward of this rank's
+    rows, the loss, one step and the updated parameters."""
+    from mapreduce_tpu_torch.models import pipeline as pmod
+
+    for name, dtype, n_stages, n_data in PIPE_CASES:
+        tr = pipe_trainer(dtype, n_stages, n_data, device, dist.group.WORLD)
+        params = tr.init_params()
+        x, y = pipe_batch(n_data)
+        xd, _ = tr._rows(*tr.place_batch(x, y))
+        with torch.no_grad():
+            out[f"pipe.{name}.forward"] = pmod.pipeline_forward_local(
+                params, xd, tr.cfg, n_data, dist.group.WORLD).cpu().numpy()
+        meta[f"pipe.{name}.loss"] = float(tr.loss(params, x, y))
+        params, loss = tr.step(params, x, y)
+        meta[f"pipe.{name}.step_loss"] = float(loss)
+        out.update({f"pipe.{name}.{n}": t.cpu().numpy()
+                    for n, t in params.items()})
+
+
 def _rank_train(rank, world, port, root, out_path):
     dist = _init_group(rank, world, port)
     try:
         out, meta = {}, {}
         _rank_fit(dist, rank, root, out, meta)
         _rank_transformer(dist, out, meta)
+        _rank_pipeline(dist, out, meta, "cpu")
         dist.barrier()
         np.savez(out_path, **out)
         with open(out_path + ".json", "w") as f:
@@ -281,9 +341,25 @@ def _rank_ring(rank, world, port, out_path, device):
         dist.destroy_process_group()
 
 
+def _rank_pipe(rank, world, port, out_path, device):
+    """The pipeline cases over the group on *device* (the card test's)."""
+    dist = _init_group(rank, world, port)
+    try:
+        out, meta = {}, {}
+        _rank_pipeline(dist, out, meta, device)
+        dist.barrier()
+        np.savez(out_path, **out)
+        with open(out_path + ".json", "w") as f:
+            json.dump(meta, f)
+    finally:
+        dist.destroy_process_group()
+
+
 def _main(argv) -> int:
     if argv[0] == "ring":
         _rank_ring(int(argv[1]), int(argv[2]), int(argv[3]), *argv[4:6])
+    elif argv[0] == "pipe":
+        _rank_pipe(int(argv[1]), int(argv[2]), int(argv[3]), *argv[4:6])
     else:
         _rank_train(int(argv[1]), int(argv[2]), int(argv[3]), *argv[4:6])
     return 0
@@ -336,6 +412,90 @@ def _one_process_transformer():
                       {n: t.detach().numpy()
                        for n, t in params.state_dict().items()})
     return refs
+
+
+def one_process_pipeline(device):
+    """Each pipeline case in one process on *device*: ``{name: (initial
+    parameters, forward, loss, step loss, updated parameters)}``."""
+    from mapreduce_tpu_torch.models import pipeline as pmod
+
+    refs = {}
+    for name, dtype, n_stages, n_data in PIPE_CASES:
+        tr = pipe_trainer(dtype, n_stages, n_data, device)
+        params = tr.init_params()
+        init = {n: t.cpu().numpy().copy() for n, t in params.items()}
+        x, y = pipe_batch(n_data)
+        with torch.no_grad():
+            fwd = pmod.pipeline_forward_local(
+                params, tr.place_batch(x, y)[0], tr.cfg, n_data)
+        loss = float(tr.loss(params, x, y))
+        params, step_loss = tr.step(params, x, y)
+        refs[name] = (init, fwd.cpu().numpy(), loss, float(step_loss),
+                      {n: t.cpu().numpy() for n, t in params.items()})
+    return refs
+
+
+def check_pipeline(ranks, metas, refs):
+    """The ranks' pipeline cases against one process's (*refs*, from
+    :func:`one_process_pipeline`); the parameter names and shapes are
+    the JAX ones on both ranks."""
+    for name, _, n_stages, n_data in PIPE_CASES:
+        init, fwd, loss, step_loss, want = refs[name]
+        for key, ref in (("loss", loss), ("step_loss", step_loss)):
+            got = [m[f"pipe.{name}.{key}"] for m in metas]
+            assert got[0] == got[1], (name, key, got)
+            assert got[0] == pytest.approx(ref, rel=1e-6), (name, key)
+        split = n_stages > 1  # the stages span the ranks, else the data
+        per = fwd.shape[0] // 2
+        for r, rk in enumerate(ranks):
+            rows = slice(None) if split else slice(r * per, (r + 1) * per)
+            np.testing.assert_allclose(rk[f"pipe.{name}.forward"],
+                                       fwd[rows], rtol=PIPE_RTOL,
+                                       atol=PIPE_ATOL, err_msg=name)
+        own = n_stages // 2
+        for n, a in want.items():
+            got = [rk[f"pipe.{name}.{n}"] for rk in ranks]
+            assert all(g.shape == a.shape for g in got), (name, n)
+            if split and n in ("w_stage", "b_stage"):
+                for r, g in enumerate(got):
+                    mine = slice(r * own, (r + 1) * own)
+                    np.testing.assert_allclose(
+                        g[mine], a[mine], rtol=0, atol=PIPE_PARAM_ATOL,
+                        err_msg=f"{name}.{n} rank {r}")
+                    theirs = slice((1 - r) * own, (2 - r) * own)
+                    assert np.array_equal(g[theirs], init[n][theirs]), (
+                        name, n, r)
+                continue
+            assert np.array_equal(got[0], got[1]), (name, n)
+            np.testing.assert_allclose(got[0], a, rtol=0,
+                                       atol=PIPE_PARAM_ATOL,
+                                       err_msg=f"{name}.{n}")
+
+
+def _jax_pipeline_forwards(refs):
+    """The JAX pipelined forward of each f32 case's initial parameters
+    on its ``(n_stages, n_data)`` CPU mesh."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as PS
+
+    from mapreduce_tpu.models import pipeline as jpipe
+    from mapreduce_tpu.parallel import make_mesh
+
+    out = {}
+    for name, dtype, n_stages, n_data in PIPE_CASES:
+        if dtype != "float32":
+            continue  # bf16 products round apart: held in one process
+        jcfg = jpipe.PipelineConfig(dtype=jnp.float32, **PIPE_CFG)
+        mesh = make_mesh(n_data=n_data, n_model=n_stages)
+        params = refs[name][0]
+        fwd = jax.jit(jax.shard_map(
+            lambda p, xx: jpipe.pipeline_forward_local(p, xx, jcfg),
+            mesh=mesh, in_specs=({n: jpipe.pipeline_param_spec(n)
+                                  for n in params}, PS("data")),
+            out_specs=PS("data")))
+        out[name] = np.asarray(fwd(params, pipe_batch(n_data)[0]))
+    return out
 
 
 def _jax_losses(init):
@@ -398,6 +558,8 @@ def test_fit_and_transformer_over_two_ranks_match_one_process_and_jax(
                                   for name, *_ in TF_CASES})
         jt = JTrainer(make_mesh(), JMLP(dtype=jnp.float32),
                       JConfig(**FIT_CFG))
+        pipe_refs = one_process_pipeline("cpu")
+        jax_pipe = _jax_pipeline_forwards(pipe_refs)
         outs = _wait(procs)
     finally:
         torch.set_num_threads(threads)
@@ -494,6 +656,17 @@ def test_fit_and_transformer_over_two_ranks_match_one_process_and_jax(
             np.testing.assert_allclose(ranks[0][f"{name}.{n}"], a, rtol=0,
                                        atol=TF_PARAM_ATOL,
                                        err_msg=f"{name}.{n}")
+
+
+    # the pipeline: one process's, and the JAX trainer's forward
+    check_pipeline(ranks, metas, pipe_refs)
+    for name, want in jax_pipe.items():
+        for r, rk in enumerate(ranks):
+            got = rk[f"pipe.{name}.forward"]
+            rows = slice(r * len(got), (r + 1) * len(got)) if len(
+                got) < len(want) else slice(None)
+            np.testing.assert_allclose(got, want[rows], rtol=PIPE_RTOL,
+                                       atol=PIPE_ATOL, err_msg=name)
 
 
 if __name__ == "__main__":

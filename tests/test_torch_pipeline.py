@@ -6,7 +6,9 @@ batch over ``data``; the port runs both as leading axes on one device,
 on the same schedule.  Parameters cross with ``convert``.  Tolerances
 (f32): the forward rtol 2e-5 / atol 2e-6 (``tests/test_pipeline.py``'s,
 against the sequential oracle); one SGD step: loss rtol 1e-5, each
-parameter's update within 1e-3 of its norm.
+parameter's update within 1e-3 of its norm.  The layouts of the grid
+over a process group and their refusals are checked here with a stand-in
+group; the two-rank runs are ``tests/test_torch_multiproc_train.py``'s.
 """
 
 import jax
@@ -155,3 +157,60 @@ def test_trainer_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpipe.PipelinedTrainer(tpipe.PipelineConfig(), n_stages=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpipe.PipelinedTrainer(tpipe.PipelineConfig(), n_stages=2,
+                               group=object())
+
+
+@pytest.mark.parametrize("n_stages, n_data, world, rank, stages, data", [
+    (8, 1, 2, 1, range(4, 8), range(1)),     # the stages across ranks
+    (4, 2, 4, 2, range(2, 3), range(2)),
+    (1, 4, 2, 1, range(1), range(2, 4)),     # the data across ranks
+    (2, 2, 1, 0, range(2), range(2)),        # a group of one
+])
+def test_group_layout(monkeypatch, n_stages, n_data, world, rank, stages,
+                      data):
+    """``make_mesh``'s row-major grid over a group's ranks."""
+    import torch.distributed as dist
+
+    from mapreduce_tpu_torch.parallel.mesh import pipeline_layout
+
+    monkeypatch.setattr(dist, "get_backend", lambda g=None: "gloo")
+    monkeypatch.setattr(dist, "get_world_size", lambda g=None: world)
+    monkeypatch.setattr(dist, "get_rank", lambda g=None: rank)
+    got = pipeline_layout(object(), n_stages, n_data)
+    assert (got.world, got.rank, got.stages, got.data) == (
+        world, rank, stages, data)
+    assert pipeline_layout(None, n_stages, n_data)[2:] == (
+        range(n_stages), range(n_data))
+
+
+@pytest.mark.parametrize("n_stages, n_data, world", [
+    (2, 4, 4),   # a rank would hold half a stage's shards
+    (3, 2, 2),   # neither axis splits over the ranks
+    (2, 3, 4),   # the world size divides no grid
+])
+def test_group_refuses_unsupported_layouts(monkeypatch, n_stages, n_data,
+                                           world):
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "get_backend", lambda g=None: "gloo")
+    monkeypatch.setattr(dist, "get_world_size", lambda g=None: world)
+    monkeypatch.setattr(dist, "get_rank", lambda g=None: 0)
+    with pytest.raises(ValueError, match=rf"n_stages={n_stages}, "
+                                         rf"n_data={n_data}"):
+        tpipe.PipelinedTrainer(n_stages=n_stages, n_data=n_data,
+                               device="cpu", group=object())
+
+
+def test_group_refuses_other_backends(monkeypatch):
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "get_backend", lambda g=None: "nccl")
+    with pytest.raises(NotImplementedError, match="gloo"):
+        tpipe.PipelinedTrainer(n_stages=2, device="cpu", group=object())
+    with pytest.raises(NotImplementedError, match="gloo"):
+        tpipe.pipeline_forward_local(
+            tpipe.init_pipeline_params(tpipe.PipelineConfig(), 2,
+                                       torch.Generator().manual_seed(0)),
+            torch.zeros((8, 64)), tpipe.PipelineConfig(), group=object())
