@@ -774,6 +774,19 @@ def segreduce_case(torch, kc, seg, libs, label, k1s, k2s, vals, op, unit):
     return case
 
 
+def library_case(torch, seg, case, k1s, k2s, v):
+    """A one-lane int32 sum case's library yardstick,
+    ``torch.segment_reduce(v, "sum", lengths=...)``: its ms, or None and
+    the library's refusal where it takes no int32."""
+    fn = segment_reduce_call(torch, seg, k1s, k2s, v, "sum")
+    try:
+        fn()
+    except RuntimeError as exc:
+        case["library_ms"], case["library_refused"] = None, str(exc)[:160]
+        return
+    case["library_ms"] = time_ms(torch, fn)
+
+
 def segreduce_phase(torch, kc, seg, wcmod, chunks_dev, cfg):
     """Phase 3 at the main path's shapes, on inputs the path itself
     makes from the corpus: the combiner's input (one chunk's records),
@@ -815,6 +828,7 @@ def segreduce_phase(torch, kc, seg, wcmod, chunks_dev, cfg):
     k1s, k2s, vs = sorted_lanes(buf_k, buf_valid, [buf_v])
     cases.append(segreduce_case(torch, kc, seg, libs, "local/sum", k1s, k2s,
                                 vs, "sum", False))
+    library_case(torch, seg, cases[-1], k1s, k2s, vs[0])
 
     local = seg.sorted_unique_reduce(
         buf_k, buf_v, torch.zeros((buf_k.shape[0], 1), dtype=torch.int32,
@@ -827,6 +841,7 @@ def segreduce_phase(torch, kc, seg, wcmod, chunks_dev, cfg):
     k1s, k2s, vs = sorted_lanes(fk, fvalid, [fv])
     cases.append(segreduce_case(torch, kc, seg, libs, "fold/sum", k1s, k2s,
                                 vs, "sum", False))
+    library_case(torch, seg, cases[-1], k1s, k2s, vs[0])
 
     # the collision-verify monoid as its per-lane codes (phase 19 runs
     # it as the callable, on its monoid kernel)
@@ -1802,9 +1817,10 @@ def ptxas_report(kc, rs):
                   f"reported: {hot}")
     else:
         print("ptxas: radix.cu was built earlier; spills not checked")
-    # the scan kernels: tokenize for 1-3 lanes, segreduce for 1-3 lanes
-    # and unit mode, in the default build and each tile variant
-    for src, count in (("tokenize", 3), ("segreduce", 4)):
+    # the scan kernels: tokenize for 1-3 lanes, segreduce for 1-3 int32
+    # lanes, unit mode and 1-3 float32 lanes, in the default build and
+    # each tile variant
+    for src, count in (("tokenize", 3), ("segreduce", 7)):
         for lib in [kc.build_label(src, d)
                     for d in scan_variants(kc, src).values()]:
             kernels = usage.get(lib)
@@ -5979,8 +5995,8 @@ def verify_run(torch, kc, wcmod, Partitions, data, want, label, n_parts,
 def monoid_phase(torch, kc, seg, wcmod, chunks, data, want, ws_held,
                  ws_compare, smi):
     """Phase 19: callable monoids on the card (the ``monoid`` lines).
-    Returns the ``kernels`` entry of ``segreduce_monoid`` and the codes
-    kernel's case on wordspan's local reduce."""
+    Returns the ``kernels`` entry of ``segreduce_monoid``, the codes
+    kernel's case on wordspan's local reduce and (b)'s verify runs."""
     from mapreduce_tpu_torch.obs.compile import LEDGER
     from mapreduce_tpu_torch.ops import monoid
     from mapreduce_tpu_torch.parallel.mesh import Partitions
@@ -6048,12 +6064,12 @@ def monoid_phase(torch, kc, seg, wcmod, chunks, data, want, ws_held,
     # (d) an unsupported callable raises before any launch
     kc.reset_counts()
     try:
-        seg._segment_reduce_cuda(wk1, wk2, wvals, lambda a, b: a // b, False)
+        seg._segment_reduce_cuda(wk1, wk2, wvals, torch.gcd, False)
         raised = None
     except NotImplementedError as exc:
         raised = str(exc)
-    check(raised is not None and "floordiv" in raised,
-          f"monoid: a // b did not raise by name ({raised!r})")
+    check(raised is not None and "gcd" in raised,
+          f"monoid: torch.gcd did not raise by name ({raised!r})")
     check(kc.LAUNCHES["segreduce_monoid"] == 0,
           "monoid: a launch before the refusal")
     # each monoid library is its own compile-ledger program, loaded by a
@@ -6091,7 +6107,7 @@ def monoid_phase(torch, kc, seg, wcmod, chunks, data, want, ws_held,
                   "ms": ws["codes_ms"], "monoid_ms": ws["ms"],
                   "plain_ms": None, "bound_ms": ws["bound_ms"],
                   "bound_by": ws["bound_by"], "library_ms": None}
-    return kernel, codes_case
+    return kernel, codes_case, paths
 
 
 # -- phase 20: the durable telemetry history and the alerting plane ----------
@@ -8392,6 +8408,370 @@ def group_moves_check(torch, kc, wcmod, chunks, ranks, ref, root, smi):
     return out
 
 
+# -- phase 25: float32 value lanes -----------------------------------------
+
+#: phase 25 (c)'s per-lane codes over the float map's four lanes (the
+#: codes kernel runs them as two launches, 3 lanes and 1)
+FLOAT_CODES4 = ("sum", "min", "max", "sum")
+
+
+def float_libraries(torch, kc, monoid):
+    """The monoid libraries phase 25 launches (each typed monoid's, over
+    its lanes' dtype, and ``float_span4``'s), for phase 1's build."""
+    from mapreduce_tpu_torch.testing import monoids
+
+    ops = [(op, dt) for op, _, dt in monoids.TYPED_MONOIDS.values()]
+    ops.append((float_span4, torch.float32))
+    return tuple(dict.fromkeys(kc.monoid_library(monoid.lower(op, dt))
+                               for op, dt in ops))
+
+
+def float_span4(a, b):
+    """Phase 25's callable over the float map's lanes: ``[sum, min, max,
+    sum]`` (the codes ``FLOAT_CODES4``)."""
+    import torch
+
+    return torch.stack([a[..., 0] + b[..., 0],
+                        torch.minimum(a[..., 1], b[..., 1]),
+                        torch.maximum(a[..., 2], b[..., 2]),
+                        a[..., 3] + b[..., 3]], dim=-1)
+
+
+def float_map_fn(chunk, chunk_index, cfg, welford=False):
+    """Phase 25's map: wordspan's tokenize, hash and compact
+    (``examples/wordspan.device_map``) with four float32 lanes ``[1,
+    gstart, gstart, (gstart % 1000) * 1e-3]`` (gstart the word's offset
+    in padded-chunk space); with *welford*, the three lanes ``[1, x, 0]``
+    of x = the fourth.  Invalid rows carry zeros."""
+    import torch
+
+    from mapreduce_tpu_torch.ops.compaction import tile_compact
+    from mapreduce_tpu_torch.ops.tokenize import tokenize_hash
+
+    L = chunk.shape[0]
+    toks = tokenize_hash(chunk, impl=cfg.tokenize_impl)
+    gstart = (toks.start.to(torch.int64) + chunk_index * L).to(torch.int32)
+    tc = tile_compact(toks.is_end, cfg.tile, cfg.tile_records,
+                      toks.keys[:, 0], toks.keys[:, 1], gstart)
+    k1, k2, gs = tc.arrays
+    g = gs.to(torch.float32)
+    one = torch.ones_like(g)
+    # float32 of 1e-3 times each residue: one rounding, as the host's
+    x = (gs % 1000).to(torch.float32) * torch.full_like(g, 1e-3)
+    lanes = [one, x, torch.zeros_like(g)] if welford else [one, g, g, x]
+    vals = torch.where(tc.valid[:, None], torch.stack(lanes, dim=-1), 0.0)
+    return torch.stack([k1, k2], dim=-1), vals, gs[:, None], tc.valid, \
+        tc.overflow
+
+
+def welford_map_fn(chunk, chunk_index, cfg):
+    return float_map_fn(chunk, chunk_index, cfg, welford=True)
+
+
+def float_oracle(torch, monoids, chunks, data, want):
+    """Each word's float64 reference of phase 25's lanes, from the bytes
+    alone: the words of *data* in order (``bytes.split``), their
+    padded-space offsets from *chunks* (numpy: a word starts at a
+    non-space after a space or at a chunk's start), a word id each, then
+    ``monoids.run_reference`` on the card: ``(ids, span, welford)``,
+    *ids* ``{word: id}``, *span* the reference and bound of the float
+    map's rows ``(1, g, g, x)`` under ``FLOAT_CODES4``, *welford* that
+    of rows ``(1, x, 0)``."""
+    import numpy as np
+
+    words = data.split()
+    is_ws = np.zeros(256, dtype=bool)
+    is_ws[[32, 9, 10, 13, 11, 12]] = True
+    ws = is_ws[chunks]
+    head = ~ws & np.concatenate(
+        [np.ones((ws.shape[0], 1), dtype=bool), ws[:, :-1]], axis=1)
+    gstart = np.flatnonzero(head.reshape(-1))
+    check(len(gstart) == len(words), "float oracle: word starts and words "
+          "differ in number")
+    ids = {w: i for i, w in enumerate(want)}
+    run = torch.from_numpy(np.fromiter((ids[w] for w in words), np.int64,
+                                       len(words))).to("cuda")
+    g = torch.from_numpy(gstart).to("cuda")
+    gf = g.to(torch.float32)
+    one, nil = torch.ones_like(gf), torch.zeros_like(gf)
+    # the map's lane 3, computed alike
+    x = (g % 1000).to(torch.float32) * torch.full_like(gf, 1e-3)
+    span = monoids.run_reference(
+        FLOAT_CODES4, torch.stack([one, gf, gf, x], dim=-1), run, len(ids))
+    wf = monoids.run_reference(
+        "welford", torch.stack([one, x, nil], dim=-1), run, len(ids))
+    return ids, span, wf
+
+
+def float_result_check(torch, wcmod, chunks, res, oracle, label, welford):
+    """Hold one phase 25 run's ``DeviceResult`` against the oracle: the
+    words as ``Counter``'s; counts exact (float32 holds them: each is
+    below 2**24); the min and max lanes float32 of the first and last
+    offsets exactly (rounding is monotone); the sum lane within
+    ``gamma_n * sum|v|``; welford's lanes within
+    ``monoids.run_reference``'s bounds.  Returns the largest distance of
+    lane 3 (welford: the mean) from the float64 reference."""
+    import numpy as np
+
+    ids, span, wf = oracle
+    valid = res.valid.cpu().numpy().reshape(-1)
+    pay = res.payload.cpu().numpy().reshape(-1, res.payload.shape[-1])
+    words = wcmod.gather_words(chunks, pay[valid, 0].astype(np.int64))
+    check(len(words) == len(ids) and len(set(words)) == len(words)
+          and all(w in ids for w in words),
+          f"float {label}: the words differ from Counter's")
+    at = torch.tensor([ids[w] for w in words], device="cuda")
+    vals = res.values.reshape(-1, res.values.shape[-1])[
+        torch.from_numpy(valid).to(res.values.device)].to("cuda")
+    check(vals.dtype == torch.float32, f"float {label}: values "
+          f"{vals.dtype}")
+    ref, tol = (wf if welford else span)
+    v, ref, tol = vals.double(), ref[at], tol[at]
+    off = ((v - ref).abs() - tol).max(dim=0).values
+    check(bool((off <= 0).all()), f"float {label}: lanes past their "
+          f"bounds by {off.tolist()}")
+    check(torch.equal(v[:, 0], ref[:, 0]), f"float {label}: counts")
+    lane = 1 if welford else 3
+    return float((v[:, lane] - ref[:, lane]).abs().max())
+
+
+def float_run(torch, kc, wcmod, Partitions, chunks, oracle, label, n_parts,
+              impl, op, map_fn):
+    """One ``DeviceEngine`` run of phase 25's map over the corpus's
+    chunks with *op*, warm once, then counted and held."""
+    from dataclasses import replace
+
+    from mapreduce_tpu_torch.engine.device_engine import DeviceEngine
+
+    cfg = replace(wcmod.bench_engine_config(), sort_impl=impl,
+                  reduce_op=op)
+    eng = DeviceEngine(Partitions(n_parts, "cuda"), map_fn, cfg)
+    eng.run(chunks)  # a new engine's first run carries its allocations
+    kc.reset_counts()
+    tm = {}
+    t0 = time.monotonic()
+    res = eng.run(chunks, timings=tm)
+    wall = time.monotonic() - t0
+    launches, plain = dict(kc.LAUNCHES), dict(kc.PLAIN_CALLS)
+    check(eng.value_dtype == torch.float32, f"float {label}: the map's "
+          f"lanes are {eng.value_dtype}")
+    err = float_result_check(torch, wcmod, chunks, res, oracle, label,
+                             map_fn is welford_map_fn)
+    kernel = "segreduce_monoid" if callable(op) else "segreduce"
+    check(launches[kernel] > 0 and launches["tokenize"] > 0,
+          f"float {label}: launches {launches}")
+    check(not callable(op) or launches["segreduce"] == 0,
+          f"float {label}: the callable ran on the codes kernel: {launches}")
+    if impl == "radix":
+        check(launches["radix_onesweep"] > 0 and launches["radix_plan"] > 0,
+              f"float {label}: launches {launches}")
+    check(not any(plain.values()),
+          f"float {label}: plain versions ran on the card: {plain}")
+    kind = ("welford" if map_fn is welford_map_fn
+            else "callable" if callable(op) else "codes")
+    return {"run": f"{label}/{kind}",
+            "op": getattr(op, "__name__", None) or list(op),
+            "sort_impl": impl, "wall_s": wall, "compute_s": tm["compute_s"],
+            "waves": tm["waves"], "retries": tm["retries"],
+            "max_abs_err": err,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def float_case(torch, seg, monoids, label, name, op, k1s, k2s, vals,
+               codes=None, library=None):
+    """One float kernel case: the kernel's lanes and the plain ladder's
+    held by ``monoids.hold`` (exact lanes bit-equal, the rest within
+    their bounds of each run's float64 fold), kernel ms (20 calls in one
+    CUDA graph), plain ms and the bound.  With *codes*, the codes kernel
+    on the same rows held too, and both timed in turns (codes, monoid,
+    monoid, codes).  *library*: a call that computes the same function,
+    timed beside it."""
+    n, d = k1s.numel(), len(vals)
+
+    def call(o):
+        return lambda: seg._segment_reduce_cuda(k1s, k2s, vals, o, False)
+
+    want = seg._segment_reduce_plain(k1s, k2s, vals, op, False)
+    case = {"label": label, "n": n, "lanes": d, "dtype": str(
+        vals[0].dtype).replace("torch.", "")}
+    err = 0.0
+    for o in (op,) if codes is None else (op, codes):
+        got = call(o)()
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], want[1]), f"float {label}: end_csum")
+        err = max(err, monoids.hold(name, k1s, k2s, vals, got[0], want[0]))
+    # bytes: keys 8 + values 4*d in; reduced 4*d + end_csum 4 out.  ops:
+    # ~10 compare/flag ops a row plus a few a lane
+    b_ms, b_by = bound(n * (8 + 8 * d + 4), n * (10 + 4 * d))
+    case.update(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library and time_ms(torch, library))
+    if codes is None:
+        case["ms"], case["spread"] = kernel_ms(torch, call(op))
+    else:
+        turns = [kernel_ms(torch, call(o))[0]
+                 for o in (codes, op, op, codes)]
+        case.update(codes=list(codes), ms=statistics.median(turns[1:3]),
+                    codes_ms=statistics.median([turns[0], turns[3]]),
+                    turns_ms=turns)
+    case["plain_ms"] = time_ms(torch, lambda: seg._segment_reduce_plain(
+        k1s, k2s, vals, op, False), reps=3, rounds=3)
+    print(json.dumps({"float_case": case}), flush=True)
+    return case
+
+
+def segment_reduce_call(torch, seg, k1s, k2s, v, how):
+    """``torch.segment_reduce`` of lane *v* over sorted key runs (the
+    valid rows, sorted first): the library's one call for a one-lane sum
+    or max at run ends; it takes the run lengths, which a separate pass
+    (``torch.unique_consecutive``, untimed) makes."""
+    valid, is_start, _ = seg._run_flags(k1s, k2s)
+    nv = int(valid.sum())
+    starts = torch.nonzero(is_start).reshape(-1)
+    lengths = torch.diff(starts, append=torch.tensor(
+        [nv], device=starts.device))
+    vv = v[:nv]
+    return lambda: torch.segment_reduce(vv, how, lengths=lengths)
+
+
+def float_phase(torch, kc, seg, wcmod, Partitions, chunks, data, want,
+                ws_held, verify_paths, smi):
+    """Phase 25: float32 value lanes on both segreduce kernels (the
+    ``float`` lines).  Returns the ``kernels`` entries of their float
+    variants."""
+    from mapreduce_tpu_torch.testing import monoids
+
+    t_phase = time.monotonic()
+    dev = torch.device("cuda")
+    from mapreduce_tpu_torch.ops import monoid
+
+    libs = float_libraries(torch, kc, monoid)
+    ptxas = {n: kc.ptxas_usage(kc.BUILD_LOGS[n]) for n in libs
+             if n in kc.BUILD_LOGS}
+    for n, kernels in ptxas.items():
+        check(all(u.get("spill_stores") == 0 and u.get("spill_loads") == 0
+                  for u in kernels.values()),
+              f"ptxas: a monoid kernel of {n} spills: {kernels}")
+    print(json.dumps({"float": {"ptxas": ptxas, "card": smi}}), flush=True)
+
+    def on_dev(k1, k2, vals):
+        return k1.to(dev), k2.to(dev), [v.to(dev) for v in vals]
+
+    # (a) each typed monoid's kernel and the float codes against their
+    # plain versions, at phase 19's shape (852,072 rows, ~9 a run)
+    cases = {}
+    for i, name in enumerate(sorted(monoids.TYPED_MONOIDS)):
+        op = monoids.TYPED_MONOIDS[name][0]
+        k1s, k2s, vl = on_dev(*monoids.typed_lanes(
+            name, MONOID_ROWS, MONOID_KEYS, seed=250 + i))
+        cases[name] = float_case(torch, seg, monoids, name, name, op, k1s,
+                                 k2s, vl,
+                                 codes=monoids.TYPED_CODES.get(name))
+        if name == "fsum_min_max":
+            for j, how in enumerate(("sum", "max")):
+                lane = vl[2 * j]
+                cases[f"codes/{how}"] = float_case(
+                    torch, seg, monoids, f"codes/{how}", (how,), how, k1s,
+                    k2s, [lane],
+                    library=segment_reduce_call(torch, seg, k1s, k2s, lane,
+                                                how))
+    # NaN runs and runs of -0.0 and +0.0: the codes, each op alone on
+    # its lane, and the callable
+    k1s, k2s, vl = on_dev(*monoids.typed_lanes(
+        "fsum_min_max", MONOID_ROWS, MONOID_KEYS, seed=259, specials=True))
+    codes = monoids.TYPED_CODES["fsum_min_max"]
+    want_sp = seg._segment_reduce_plain(k1s, k2s, vl, codes, False)
+    alone = [seg._segment_reduce_cuda(k1s, k2s, [v], o, False)
+             for v, o in zip(vl, codes)]
+    special_err = 0.0
+    for got in (seg._segment_reduce_cuda(k1s, k2s, vl, codes, False),
+                seg._segment_reduce_cuda(k1s, k2s, vl, monoids.fsum_min_max,
+                                         False),
+                ([a[0][0] for a in alone], alone[0][1])):
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], want_sp[1]), "float specials: end_csum")
+        special_err = max(special_err, monoids.hold(
+            "fsum_min_max", k1s, k2s, vl, got[0], want_sp[0]))
+    _, is_start, is_end = seg._run_flags(k1s, k2s)
+    red = want_sp[0]
+    specials = {"nan_runs": int(torch.isnan(red[0][is_end]).sum()),
+                "neg_zero_min": int((red[1][is_end] == 0).logical_and(
+                    torch.signbit(red[1][is_end])).sum()),
+                "pos_zero_max": int((red[2][is_end] == 0).logical_and(
+                    ~torch.signbit(red[2][is_end])).sum()),
+                "max_abs_err": special_err}
+    check(all(specials[k] > 0 for k in ("nan_runs", "neg_zero_min",
+                                        "pos_zero_max")),
+          f"float specials: no such run {specials}")
+    print(json.dumps({"float": {"specials": specials}}), flush=True)
+
+    # (b) 12,490,752 rows, wordspan's local reduce (rows 2 and 2b): its
+    # count, first and last offset as float32 lanes, codes and callable
+    _, (wk1, wk2, wvals, _, _) = ws_held
+    wf = [v.to(torch.float32) for v in wvals]
+    cases["wordspan_local"] = float_case(
+        torch, seg, monoids, "wordspan_local", "fsum_min_max",
+        monoids.fsum_min_max, wk1, wk2, wf, codes=codes)
+    del wf
+
+    # (c) the float map over the corpus at P = 1 and P = 8
+    t0 = time.monotonic()
+    oracle = float_oracle(torch, monoids, chunks, data, want)
+    oracle_s = time.monotonic() - t0
+    runs = []
+    for label, n_parts, impl in VERIFY_PATHS:
+        for op in (float_span4, FLOAT_CODES4):
+            runs.append(float_run(torch, kc, wcmod, Partitions, chunks,
+                                  oracle, label, n_parts, impl, op,
+                                  float_map_fn))
+    runs.append(float_run(torch, kc, wcmod, Partitions, chunks, oracle,
+                          "P8", RADIX_PARTS, "radix", monoids.welford,
+                          welford_map_fn))
+    for r in runs:
+        r["card"] = smi
+        print(json.dumps({"float": {"run": r}}), flush=True)
+    beside = {}
+    for p in verify_paths:
+        kind = "callable" if p["op"] == "callable" else "codes"
+        beside[f"{p['run']}/{kind}"] = p["compute_s"]
+    print(json.dumps({"float": {
+        "compute_s": {r["run"]: r["compute_s"] for r in runs},
+        "phase19_int32_verify_compute_s": beside, "oracle_s": oracle_s,
+        "phase_s": time.monotonic() - t_phase, "card": smi}}), flush=True)
+
+    codes_cases = [cases[k] for k in ("codes/sum", "codes/max")]
+    codes_cases += [{"max_abs_err": c["max_abs_err"]} for c in cases.values()
+                    if "codes_ms" in c]
+    head = cases["codes/sum"]
+    codes_kernel = {
+        "name": "segreduce_f32", "route": "cuda",
+        "source": "mapreduce_tpu_torch/csrc/segreduce.cu",
+        "replaces": "mapreduce_tpu/ops/segscan.py:193",
+        "launches": runs[1]["launches"]["segreduce"],
+        "max_abs_err": max(c["max_abs_err"] for c in codes_cases),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "cases": {k: c.get("codes_ms", c.get("ms")) for k, c in cases.items()
+                  if k.startswith("codes/") or "codes_ms" in c},
+        "launches_p8": runs[3]["launches"]["segreduce"]}
+    head = cases["fsum_min_max"]
+    monoid_kernel = {
+        "name": "segreduce_monoid_f32", "route": "cuda",
+        "source": "mapreduce_tpu_torch/csrc/segreduce.cuh",
+        "replaces": "mapreduce_tpu/ops/segscan.py:193",
+        "launches": runs[0]["launches"]["segreduce_monoid"],
+        "max_abs_err": max(c["max_abs_err"] for k, c in cases.items()
+                           if not k.startswith("codes/")),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "cases": {k: c["ms"] for k, c in cases.items()
+                  if not k.startswith("codes/")},
+        "launches_p8": runs[2]["launches"]["segreduce_monoid"],
+        "launches_welford": runs[4]["launches"]["segreduce_monoid"]}
+    return [codes_kernel, monoid_kernel]
+
+
 T_START = time.monotonic()
 
 
@@ -8453,10 +8833,12 @@ def main():
     variants += [(src, d) for src in SCAN_TILE_DEFINES
                  for d in scan_variants(kc, src).values() if d]
     span_lib = kc.monoid_library(monoid.lower(wcmod.VERIFY_REDUCE_OP))
-    kc.build_all(variants, names=kc.SOURCES + (span_lib,))
+    float_libs = float_libraries(torch, kc, monoid)
+    kc.build_all(variants, names=kc.SOURCES + (span_lib,) + float_libs)
     print(f"build: {time.monotonic() - t0:.2f} s (nvcc, sm_90a, "
-          f"{len(kc.SOURCES)} sources, the span monoid's library and "
-          f"{len(variants)} variants in parallel)")
+          f"{len(kc.SOURCES)} sources, the span monoid's library, phase "
+          f"25's {len(float_libs)} and {len(variants)} variants in "
+          "parallel)")
     print(f"build dir: {own_build_dir()} (this run's own)")
     ptxas_report(kc, rs)
     smi = subprocess.run(
@@ -8602,10 +8984,8 @@ def main():
     operator_launches = operator_phase(data, want, smi, service_compute)
 
     # phase 19: callable monoids on the card
-    monoid_kernel, ws_case = monoid_phase(torch, kc, seg, wcmod, chunks,
-                                          data, want, ws_held, ws_compare,
-                                          smi)
-    del ws_held
+    monoid_kernel, ws_case, verify_paths = monoid_phase(
+        torch, kc, seg, wcmod, chunks, data, want, ws_held, ws_compare, smi)
 
     # phase 20: the durable telemetry history and the alerting plane
     before_history_s = time.monotonic() - T_START
@@ -8626,6 +9006,11 @@ def main():
     before_group_s = time.monotonic() - T_START
     group_launches, moves_launches = group_phase(torch, kc, wcmod, chunks,
                                                  want, smi)
+    # phase 25: float32 value lanes through both segreduce kernels
+    before_float_s = time.monotonic() - T_START
+    float_kernels = float_phase(torch, kc, seg, wcmod, Partitions, chunks,
+                                data, want, ws_held, verify_paths, smi)
+    del ws_held
     monoid_kernel["launches_wordspan"] = {
         run: counts.get("segreduce_monoid", 0)
         for run, counts in wordspan_launches.items()}
@@ -8686,12 +9071,14 @@ def main():
             run: counts.get(kern["name"], 0)
             for run, counts in moves_launches.items()}
     kernels += radix_kernels + flash_kernels + [monoid_kernel]
+    kernels += float_kernels
     print(json.dumps({"smoke": {"wall_s": time.monotonic() - T_START,
                                 "before_phase_20_wall_s":
                                 before_history_s,
                                 "before_phase_21_wall_s": before_axes_s,
                                 "before_phase_22_wall_s": before_fleet_s,
-                                "before_phase_23_wall_s": before_group_s}}))
+                                "before_phase_23_wall_s": before_group_s,
+                                "before_phase_25_wall_s": before_float_s}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -82,11 +82,12 @@ def engine_config_from_jax(fields: dict) -> EngineConfig:
 def device_result_from_numpy(keys, values, payload, valid,
                              overflow) -> DeviceResult:
     """A JAX ``DeviceResult``'s arrays (keys uint32 ``[P, W, 2]``) as the
-    port's ``DeviceResult`` of CPU tensors."""
+    port's ``DeviceResult`` of CPU tensors; the values keep their dtype
+    (int32 or float32 lanes)."""
     k = np.ascontiguousarray(keys, dtype=np.uint32).view(np.int32)
     return DeviceResult(
         keys=torch.from_numpy(k.copy()),
-        values=torch.from_numpy(np.array(values, dtype=np.int32)),
+        values=torch.from_numpy(np.array(values)),
         payload=torch.from_numpy(np.array(payload, dtype=np.int32)),
         valid=torch.from_numpy(np.array(valid, dtype=bool)),
         overflow=int(overflow))

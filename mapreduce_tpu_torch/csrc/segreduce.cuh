@@ -3,17 +3,20 @@
 // Replaces: mapreduce_tpu/ops/segscan.py:_segreduce_kernel (the Pallas
 // TPU kernel behind sorted_unique_reduce(segment_impl='pallas')), which
 // takes `op: Callable`, any traceable associative monoid, and traces it
-// into its body.  Here the monoid is the kernel's Op class:
-//   - segreduce.cu instantiates it with SegOp<D>: one op code per lane
-//     from {sum, min, max}, chosen at run time, with their identities;
+// into its body.  Here the monoid is the kernel's Op class, and its
+// value type Op::V is int32_t or float (the lanes' dtype, 4 B a lane):
+//   - segreduce.cu instantiates it with SegOp<D, V>: one op code per
+//     lane from {sum, min, max}, chosen at run time, with their
+//     identities;
 //   - a user's callable is lowered by ops/monoid.py into a C++ combine
-//     (`MrUserCombine::apply<D>(a, b, o)` over int32_t[D]), which a
-//     generated source wraps in MonoidOp<F, D> below and builds into a
-//     library of its own (ops/kernel_compat.py; entries MR_MONOID_ENTRIES).
+//     (`MrUserCombine::apply<D>(a, b, o)` over MrUserCombine::T[D]),
+//     which a generated source wraps in MonoidOp<F, D> below and builds
+//     into a library of its own (ops/kernel_compat.py; entries
+//     MR_MONOID_ENTRIES).
 //
 // Input: sorted key lanes k1, k2 [n] (uint32 bit patterns as int32; the
 // sentinel pair (0xFFFFFFFF, 0xFFFFFFFF) marks invalid rows, which sort
-// last) and D int32 value lanes [n, D].  For every row i it computes
+// last) and D value lanes [n, D] of type V.  For every row i it computes
 //   reduced[i][d]  the run's inclusive combine from the run's head
 //                  through row i — or, in unit mode, the run length so
 //                  far (one lane);
@@ -30,7 +33,10 @@
 // of run ends, scanned in one pass with a decoupled look-back (scan.cuh).
 // combine(x, y) has x the earlier rows everywhere (the thread fold, the
 // warp and block scans, the look-back), as the JAX ladder applies
-// op(left, right): a monoid that does not commute gives its bits.
+// op(left, right): a monoid that does not commute gives its bits.  A
+// float sum associates otherwise than the ladder (a fold of kItems rows,
+// then a tree), so it rounds within gamma_n * sum|v| of the exact sum;
+// float min and max, and every int32 op, give the ladder's bits.
 //
 // Bound on the card: memory.  Per row it reads 8 + 4*D bytes and writes
 // 4*D + 4 (unit mode: 8 in, 8 out); a few integer ops per row and lane.
@@ -81,17 +87,93 @@ constexpr int kMaxLanes = 8;
 // either lane of the sentinel pair, as a uint32
 constexpr uint32_t kSentinel = 0xffffffffu;
 
+// A value lane's word in shared memory and back: the staging is bytes.
+template <class V>
+__device__ __forceinline__ V from_word(uint32_t w);
+template <>
+__device__ __forceinline__ int32_t from_word<int32_t>(uint32_t w) {
+  return static_cast<int32_t>(w);
+}
+template <>
+__device__ __forceinline__ float from_word<float>(uint32_t w) {
+  return __uint_as_float(w);
+}
+__device__ __forceinline__ uint32_t to_word(int32_t v) {
+  return static_cast<uint32_t>(v);
+}
+__device__ __forceinline__ uint32_t to_word(float v) {
+  return __float_as_uint(v);
+}
+
+// -- the value ops the combines share (the codes and the lowered nodes) ------
+
+// jnp.minimum / jnp.maximum of float32: NaN propagates, -0.0 < +0.0, so
+// any association gives the same bits (fminf and fmaxf drop a NaN).
+__device__ __forceinline__ float mr_fmin(float a, float b) {
+  const bool take_a = a < b || (a == b && (__float_as_uint(a) >> 31)) ||
+                      a != a;
+  return take_a ? a : b;
+}
+__device__ __forceinline__ float mr_fmax(float a, float b) {
+  const bool take_a = a > b || (a == b && !(__float_as_uint(a) >> 31)) ||
+                      a != a;
+  return take_a ? a : b;
+}
+// torch.abs of int32 (INT32_MIN stays INT32_MIN)
+__device__ __forceinline__ int32_t mr_iabs(int32_t a) {
+  return a < 0 ? static_cast<int32_t>(0u - static_cast<uint32_t>(a)) : a;
+}
+// int32 division with XLA's rules, never a trap: lax.div truncates, x / 0
+// is -1 and INT32_MIN / -1 wraps; lax.rem has the dividend's sign, x % 0
+// is x
+__device__ __forceinline__ int32_t mr_tdiv(int32_t a, int32_t b) {
+  if (b == 0) return -1;
+  if (b == -1) return static_cast<int32_t>(0u - static_cast<uint32_t>(a));
+  return a / b;
+}
+__device__ __forceinline__ int32_t mr_trem(int32_t a, int32_t b) {
+  if (b == 0) return a;
+  if (b == -1) return 0;
+  return a % b;
+}
+__device__ __forceinline__ int32_t mr_sign(int32_t a) {
+  return (a > 0) - (a < 0);
+}
+// jnp.floor_divide: the quotient less one where the signs differ and
+// the division is inexact (x // 0: -1 for 0, else -2)
+__device__ __forceinline__ int32_t mr_floordiv(int32_t a, int32_t b) {
+  const int32_t q = mr_tdiv(a, b);
+  const bool down = mr_sign(a) != mr_sign(b) && mr_trem(a, b) != 0;
+  return static_cast<int32_t>(static_cast<uint32_t>(q) - (down ? 1u : 0u));
+}
+// jnp.remainder: the divisor's sign, x % 0 is 0
+__device__ __forceinline__ int32_t mr_mod(int32_t a, int32_t b) {
+  if (b == 0) b = 1;
+  const int32_t r = mr_trem(a, b);
+  return r != 0 && mr_sign(r) != mr_sign(b)
+             ? static_cast<int32_t>(static_cast<uint32_t>(r) +
+                                    static_cast<uint32_t>(b))
+             : r;
+}
+// jnp.fmod: the dividend's sign, fmod(x, 0) is 0
+__device__ __forceinline__ int32_t mr_fmod(int32_t a, int32_t b) {
+  return mr_trem(a, b == 0 ? 1 : b);
+}
+
 // A user monoid as the kernel's Op.  F::apply<D>(a, b, o) is the user's
-// combine over int32_t[D]; it declares no identity (min, bitwise_and and
-// mul each have another, and a user's may have none), so the element
-// carries `empty`: identity() is empty, and combine returns the other
-// side when one side is empty.  A zero-initialised T is a present row.
+// combine over F::T[D]; it declares no identity (min, bitwise_and and
+// mul each have another, and a user's may have none: a Welford merge at
+// count 0 divides by zero), so the element carries `empty`: identity()
+// is empty, and combine returns the other side when one side is empty,
+// never applying F to an empty span's zeros.  A zero-initialised T is a
+// present row.
 template <class F, int D_>
 struct MonoidOp {
   static constexpr int D = D_;
+  using V = typename F::T;
   static_assert(D >= 1 && D <= kMaxLanes, "1 to 8 value lanes");
   struct T {
-    int32_t v[D];
+    V v[D];
     int32_t empty;  // no row in the span
     int32_t head;   // a run head lies in the span
     int32_t ends;   // run ends in the span
@@ -99,14 +181,14 @@ struct MonoidOp {
   __device__ T identity() const {
     T t;
 #pragma unroll
-    for (int d = 0; d < D; ++d) t.v[d] = 0;
+    for (int d = 0; d < D; ++d) t.v[d] = V{};
     t.empty = 1;
     t.head = 0;
     t.ends = 0;
     return t;
   }
   __device__ T combine(const T& x, const T& y) const {
-    int32_t f[D];
+    V f[D];
     F::template apply<D>(x.v, y.v, f);
     // y's own value when a run starts in y or nothing precedes it; x's
     // when y is empty (then y.head is 0); else op(x, y)
@@ -143,16 +225,19 @@ constexpr int stage_bytes() {
 }
 
 // One tile of kTile rows a CTA, in tile-id order from lb.counter.  Op:
-// SegOp<D> (segreduce.cu) or MonoidOp<F, D>; its T holds v[Op::D], head
-// and ends, and a zero-initialised T with those set is one row.
+// SegOp<D, V> (segreduce.cu) or MonoidOp<F, D>; its T holds v[Op::D] of
+// Op::V, head and ends, and a zero-initialised T with those set is one
+// row.
 template <class Op, bool UNIT>
 __global__ void __launch_bounds__(kThreads)
     segreduce_kernel(const int32_t* k1, const int32_t* k2,
-                     const int32_t* vals, int n, Op op,
+                     const typename Op::V* vals, int n, Op op,
                      mr::LookBack<typename Op::T> lb, bool vec,
-                     int32_t* reduced, int32_t* end_csum) {
+                     typename Op::V* reduced, int32_t* end_csum) {
   constexpr int D = Op::D;
   using T = typename Op::T;
+  using V = typename Op::V;
+  static_assert(sizeof(V) == 4, "a value lane is 4 B");
   extern __shared__ __align__(16) uint8_t smem[];
   int32_t* k1_s = reinterpret_cast<int32_t*>(smem) + kHalo;
   int32_t* k2_s = k1_s + kTile + 2 * kHalo;
@@ -220,7 +305,7 @@ __global__ void __launch_bounds__(kThreads)
       if constexpr (UNIT)
         e.v[d] = 1;
       else
-        e.v[d] = static_cast<int32_t>(vw[(j & 3) * D + d]);
+        e.v[d] = from_word<V>(vw[(j & 3) * D + d]);
     }
     e.head = (heads >> j) & 1u;
     e.ends = (ends >> j) & 1u;
@@ -252,7 +337,7 @@ __global__ void __launch_bounds__(kThreads)
       run = op.combine(run, row(g + k, vw));
 #pragma unroll
       for (int d = 0; d < D; ++d)
-        vw[k * D + d] = static_cast<uint32_t>(run.v[d]);
+        vw[k * D + d] = to_word(run.v[d]);
       cw[k] = static_cast<uint32_t>(run.ends);
     }
     mr::stage_words<4>(k1_s + first + g, cw);
@@ -277,9 +362,9 @@ size_t scratch_bytes(int n) {
 }
 
 template <class Op, bool UNIT>
-int launch(const int32_t* k1, const int32_t* k2, const int32_t* vals, int n,
-           const Op& op, int32_t* reduced, int32_t* end_csum, void* scratch,
-           cudaStream_t stream) {
+int launch(const int32_t* k1, const int32_t* k2, const typename Op::V* vals,
+           int n, const Op& op, typename Op::V* reduced, int32_t* end_csum,
+           void* scratch, cudaStream_t stream) {
   using T = typename Op::T;
   const int tiles = num_tiles(n);
   cudaError_t err =
@@ -321,9 +406,10 @@ long long monoid_scratch_bytes(int n, int d) {
 }
 
 template <class F, int D = 1>
-int monoid_launch(const int32_t* k1, const int32_t* k2, const int32_t* vals,
-                  int n, int d, int32_t* reduced, int32_t* end_csum,
-                  void* scratch, cudaStream_t stream) {
+int monoid_launch(const int32_t* k1, const int32_t* k2,
+                  const typename F::T* vals, int n, int d,
+                  typename F::T* reduced, int32_t* end_csum, void* scratch,
+                  cudaStream_t stream) {
   if constexpr (D > kMaxLanes) {
     return cudaErrorInvalidValue;
   } else {
@@ -341,7 +427,8 @@ int monoid_launch(const int32_t* k1, const int32_t* k2, const int32_t* vals,
 
 // The C entries of a monoid library, for the combine struct F: the same
 // interface as segreduce.cu's mr_segreduce (unit must be 0; the op codes
-// are unused: the monoid is F), for the lane counts F takes.  F has
+// are unused: the monoid is F; vals and reduced are F::T), for the lane
+// counts F takes.  F has
 // internal linkage (an anonymous namespace), so the instantiations over
 // it, launch's static flag among them, are this library's own.
 #define MR_MONOID_ENTRIES(F)                                                 \
@@ -356,7 +443,7 @@ int monoid_launch(const int32_t* k1, const int32_t* k2, const int32_t* vals,
       return cudaErrorInvalidValue;                                          \
     return mr_segreduce_kernels::monoid_launch<F>(                           \
         static_cast<const int32_t*>(k1), static_cast<const int32_t*>(k2),    \
-        static_cast<const int32_t*>(vals), n, d,                             \
-        static_cast<int32_t*>(reduced), static_cast<int32_t*>(end_csum),     \
+        static_cast<const F::T*>(vals), n, d, static_cast<F::T*>(reduced),   \
+        static_cast<int32_t*>(end_csum),                                     \
         scratch, static_cast<cudaStream_t>(stream));                         \
   }

@@ -6,9 +6,10 @@ bits, values, payload [T, Q] int32, valid [T] bool, overflow [] int32)``
 ``reduce_op``: "sum" / "min" / "max", a tuple of those (one per value
 lane), or an associative + commutative callable on torch tensors.  On
 CUDA a callable is lowered (:mod:`..ops.monoid`) into the combine of a
-segmented-reduce kernel of its own when the engine is built, so a
-monoid the lowering cannot take raises before any wave, and its library
-is built with the path's others (``kernel_compat.sources_for``).
+segmented-reduce kernel of its own, typed by the value lanes the map
+emits (int32 or float32).  A monoid that lowers over neither raises
+when the engine is built; its library is loaded, through the compile
+ledger, once the first wave's map has emitted, before any reduce.
 
 Each wave, for each of the ``P`` partitions (:class:`..parallel.mesh.
 Partitions`), runs the JAX wave program's steps in order:
@@ -553,10 +554,13 @@ class DeviceEngine:
         self._pmap_dev: Optional[torch.Tensor] = None
         if config.partition_map:
             partition_buckets_for(config, self.n_dev)  # raises if P ∤ B
+        #: the dtype of the map's value lanes: None until a wave's map
+        #: emits them (a callable op's monoid library is typed by it)
+        self.value_dtype: Optional[torch.dtype] = None
         if (self.device.type == "cuda" and callable(config.reduce_op)
                 and not config.unit_values):
             # raises now for a monoid the kernel cannot take
-            _monoid.lower(config.reduce_op)
+            _monoid.check_lowers(config.reduce_op)
         self._tier_spec: Optional[TierSpecializer] = None
         #: (config key, row shape, dtype, k) of each wave program this
         #: engine acquired through the compile ledger
@@ -631,6 +635,8 @@ class DeviceEngine:
         for j in range(chunks.shape[0]):
             idx = first_index + j
             keys, vals, pay, valid, m_oflow = self.map_fn(chunks[j], idx, cfg)
+            if vals.dtype != self.value_dtype:
+                self._learn_value_dtype(cfg, vals.dtype)
             T = keys.shape[0]
             # chunks past n_real are padding: their records are masked
             live = idx < n_real
@@ -663,6 +669,18 @@ class DeviceEngine:
         local_oflow = (map_oflow + comb_oflow
                        + (local.n_unique - cfg.local_capacity).clamp(min=0))
         return local, local_oflow, map_oflow, comb_max, T
+
+    def _learn_value_dtype(self, cfg: EngineConfig,
+                           dtype: torch.dtype) -> None:
+        """Note *dtype*, the map's value lanes', and on CUDA load the
+        libraries of *cfg*'s path typed by it (a callable op's monoid
+        library) before any reduce: each fresh load is a compile-ledger
+        acquisition of its ``nvcc`` build.  The map's output names the
+        library, as ``jax.eval_shape`` of the map does in the JAX
+        engine, so it is loaded here and not with the wave program."""
+        self.value_dtype = dtype
+        if self.device.type == "cuda":
+            kc.load(kc.sources_for(cfg, self.device, dtype), observe=True)
 
     def _acc_zeros(self, cfg: EngineConfig, values: torch.Tensor,
                    payload: torch.Tensor) -> tuple:
@@ -842,8 +860,9 @@ class DeviceEngine:
         """The libraries a run of *cfg* launches: both tiers' under a
         tier policy."""
         cfgs = _tier_cfgs(cfg) if _is_tiered(cfg.sort_impl) else (cfg,)
-        return tuple(dict.fromkeys(n for c in cfgs
-                                   for n in kc.sources_for(c, self.device)))
+        return tuple(dict.fromkeys(
+            n for c in cfgs
+            for n in kc.sources_for(c, self.device, self.value_dtype)))
 
     # -- the compile ledger ------------------------------------------------
 
@@ -884,8 +903,10 @@ class DeviceEngine:
                  k: int, registry: Optional[dict] = None,
                  pending: Optional[list] = None) -> None:
         """The wave program of concrete *cfg* for waves of ``k * P`` rows
-        of *row_shape*: the libraries of its path loaded (on CUDA), once
-        per engine, through the compile ledger (``cached`` when another
+        of *row_shape*: the libraries of its path loaded (on CUDA; a
+        callable op's typed monoid library comes with the map's first
+        output, :meth:`_learn_value_dtype`), once per engine, through
+        the compile ledger (``cached`` when another
         engine of this process acquired the same program).  A run's wave
         loop passes the shape *registry* it read before the attempt and
         a *pending* list that takes ``(bucket, outcome)`` for the
@@ -921,7 +942,9 @@ class DeviceEngine:
         a partition a wave; default the auto split of a full wave)
         through the compile ledger: build and load the CUDA libraries of
         the config's path (both tiers' under a tier policy; one ``nvcc``
-        per source, in parallel), returning the seconds spent.  The
+        per source, in parallel), returning the seconds spent; a
+        callable op's monoid library only once a run has shown the map's
+        value dtype, which types it.  The
         counterpart of the JAX engine's AOT compile: nothing of a corpus
         is launched.  On the CPU there is nothing to build, and only the
         ledger's record is made."""

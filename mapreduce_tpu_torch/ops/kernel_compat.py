@@ -25,8 +25,9 @@ three pieces of glue:
   A user's callable monoid (``ops/monoid.py``) gets a library of its
   own, :func:`monoid_library`: a source generated into the build
   directory from its IR (the combine) and ``csrc/segreduce.cuh`` (the
-  kernel), named and keyed by the IR's hash, never by the callable's
-  name, and by the headers' bytes, so an edited template rebuilds.
+  kernel), named and keyed by the IR's typed hash (an int32 body and a
+  float32 body are two libraries), never by the callable's name, and by
+  the headers' bytes, so an edited template rebuilds.
   :func:`sources_for` names the libraries a config's path launches,
   :func:`is_built` says whether one needs no ``nvcc`` (loaded, or its
   hashed ``.so`` already in the build directory, the persistent cache,
@@ -380,6 +381,8 @@ def monoid_source(ir: "_monoid.MonoidIR") -> str:
             "user monoid's\n// combine (ops/monoid.py) in the segmented-"
             "reduce kernel (csrc/segreduce.cuh).\n"
             '#include "segreduce.cuh"\n\nnamespace {\n\n'
+            "// the value ops the lowering emits (mr_fmin, mr_floordiv, ...)\n"
+            "using namespace mr_segreduce_kernels;\n\n"
             + _monoid.emit_cuda(ir) + "\n}  // namespace\n\n"
             "MR_MONOID_ENTRIES(MrUserCombine)\n")
 
@@ -521,20 +524,27 @@ def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
     return dict(zip(_demangle(names), (usage[n] for n in names)))
 
 
-def sources_for(cfg, device=None) -> Tuple[str, ...]:
+def sources_for(cfg, device=None,
+                value_dtype: Optional[torch.dtype] = None
+                ) -> Tuple[str, ...]:
     """The libraries an engine config's path launches on CUDA:
-    ``tokenize`` and ``segreduce`` always, a callable ``reduce_op``'s
-    monoid library (:func:`monoid_library`; lowering it here raises for
-    a monoid the kernel cannot take) unless ``unit_values`` leaves the
-    op unused, and ``radix`` when every sort and the exchange plan run
-    on the radix kernels (``sort_impl == 'radix'``).  For an engine on
-    a CPU *device* (None: CUDA) the callable is not lowered and names no
+    ``tokenize`` and ``segreduce`` always, ``radix`` when every sort and
+    the exchange plan run on the radix kernels (``sort_impl ==
+    'radix'``), and a callable ``reduce_op``'s monoid library, typed by
+    *value_dtype*, the dtype of the value lanes the map emits
+    (:func:`monoid_library` of :func:`.monoid.lower`; lowering it here
+    raises for a monoid the kernel cannot take).  The monoid library is
+    named only where *value_dtype* is given, and never under
+    ``unit_values``, which leaves the op unused.  For an engine on a CPU
+    *device* (None: CUDA) the callable is not lowered and names no
     library: the CPU launches none, and runs every callable through the
     plain ladder."""
     names = ("tokenize", "segreduce")
     if (callable(cfg.reduce_op) and not cfg.unit_values
+            and value_dtype is not None
             and (device is None or torch.device(device).type == "cuda")):
-        names += (monoid_library(_monoid.lower(cfg.reduce_op)),)
+        names += (monoid_library(_monoid.lower(cfg.reduce_op,
+                                               value_dtype)),)
     return names + ("radix",) if cfg.sort_impl == "radix" else names
 
 

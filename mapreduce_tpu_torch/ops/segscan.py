@@ -14,21 +14,33 @@ the port's radix kernels ('radix', :mod:`.radix_sort`).
 The segmented reduce follows :mod:`.kernel_compat`'s one rule: sorted
 lanes on a CUDA device launch the hand-written kernel (the port of
 ``_segreduce_kernel``); lanes on the CPU run
-:func:`_segment_reduce_plain`.  The op picks the kernel:
-``csrc/segreduce.cu`` takes one op per value lane from {sum, min, max}
-over int32 (1-3 lanes), or counts run lengths (``unit_values``); a
-Python callable monoid on torch tensors is lowered by :mod:`.monoid`
-into the combine of a kernel of its own (``csrc/segreduce.cuh`` and a
-generated source, 1-8 lanes, launches counted as
-``segreduce_monoid``), as the TPU kernel traces any monoid into its
-body.  A callable outside the lowering's node set raises on CUDA before
-any launch; on the CPU it runs through the plain ladder.
+:func:`_segment_reduce_plain`.  Value lanes are int32 or float32
+(:data:`LANE_DTYPES`; any other dtype raises by name before a launch).
+The op picks the kernel: ``csrc/segreduce.cu`` takes one op per value
+lane from {sum, min, max} (3 lanes a launch; more lanes are split into
+launches of at most 3, the lanes being independent), or counts run
+lengths (``unit_values``); a Python callable monoid on torch tensors is
+lowered by :mod:`.monoid` into the combine of a kernel of its own
+(``csrc/segreduce.cuh`` and a generated source, 1-8 lanes, launches
+counted as ``segreduce_monoid``), as the TPU kernel traces any monoid
+into its body.  As the JAX wrapper does, the lanes are cast up front to
+the dtype the monoid returns (an int32 lane under a monoid that returns
+float32 is reduced as float32).  A callable outside the lowering's node
+set raises on CUDA before any launch; on the CPU it runs through the
+plain ladder (as its IR's plain evaluation where it lowers, so the
+plain version follows the kernel's rules: :func:`.monoid.plain_combine`).
+
+Float32 named ops follow ``jnp.add`` / ``jnp.minimum`` /
+``jnp.maximum``: the plain version is the JAX lax ladder step for step
+(bit-equal to it); min and max propagate NaN and order -0.0 below +0.0,
+so any association gives their bits, while the kernel's sums associate
+differently and round within ``gamma_n * sum|v|`` of the exact sum.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Sequence, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -41,6 +53,10 @@ SENTINEL = -1
 
 _OP_CODES = {"sum": 0, "min": 1, "max": 2}
 _INT32_MIN = -(2 ** 31)
+#: the value lane dtypes of the kernels and the plain named ops
+LANE_DTYPES = (torch.int32, torch.float32)
+#: the most value lanes a launch of the codes kernel takes
+CODE_LANES = 3
 
 ReduceOp = Union[str, Tuple[str, ...], Callable]
 
@@ -103,9 +119,30 @@ def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     return (((x & kc.MASK32) ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
+#: the float32 named ops, as the JAX package maps the names
+_FLOAT_OPS = {"sum": torch.add, "min": monoid.fmin, "max": monoid.fmax}
+
+
+def lane_dtype(vals_s: Sequence[torch.Tensor], kernel: str) -> torch.dtype:
+    """The one dtype of value lanes *vals_s*, int32 or float32; raises
+    ``ValueError`` naming any other (or a mix)."""
+    dtypes = sorted({str(v.dtype) for v in vals_s})
+    if len(dtypes) != 1 or vals_s[0].dtype not in LANE_DTYPES:
+        raise ValueError(f"{kernel} takes value lanes of one dtype, int32 "
+                         f"or float32, got {', '.join(dtypes)}")
+    return vals_s[0].dtype
+
+
+def _pack_lanes(vals_s: Sequence[torch.Tensor],
+                dtype: torch.dtype) -> torch.Tensor:
+    """The value lanes as one contiguous ``[N, D]`` tensor of *dtype*."""
+    return torch.stack([v.to(dtype) for v in vals_s], dim=-1).contiguous()
+
+
 def _segment_lane(op: str, seg: torch.Tensor, v: torch.Tensor):
-    """One value lane's inclusive segmented scan (sequential semantics,
-    int32 wraparound for sum).  *seg* is the run index of each row."""
+    """One int32 value lane's inclusive segmented scan (sequential
+    semantics, int32 wraparound for sum).  *seg* is the run index of each
+    row."""
     if op == "sum":
         cs = torch.cumsum(v.to(torch.int64), dim=0)
         # subtract the cumsum before each run's head
@@ -144,9 +181,16 @@ def _segment_reduce_plain(k1s: torch.Tensor, k2s: torch.Tensor,
     if ops is None:
         stacked = (torch.stack(list(vals_s), dim=-1) if len(vals_s) > 1
                    else vals_s[0])
-        scanned = _segmented_ladder(op, is_start, stacked)
+        # cast up front to the monoid's result dtype, as the JAX wrapper
+        combine, dtype = monoid.plain_combine(op, stacked)
+        scanned = _segmented_ladder(combine, is_start, stacked.to(dtype))
         return ([scanned[..., i] for i in range(len(vals_s))]
                 if len(vals_s) > 1 else [scanned]), end_csum
+    if lane_dtype(vals_s, "segreduce") == torch.float32:
+        # the JAX lax ladder step for step: a cumsum less each run's
+        # prefix would cancel catastrophically in float
+        return [_segmented_ladder(_FLOAT_OPS[o], is_start, v)
+                for o, v in zip(ops, vals_s)], end_csum
     # rows before the first head (only invalid rows) join run 0
     seg = torch.cumsum(is_start.to(torch.int64), dim=0)
     return [_segment_lane(o, seg, v) for o, v in zip(ops, vals_s)], end_csum
@@ -159,6 +203,8 @@ _SIGNATURES = {
                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                      + [ctypes.c_void_p] * 4),
 }
+#: the float32 lanes' entry: the same interface, vals and reduced float32
+_SIGNATURES["mr_segreduce_f32"] = _SIGNATURES["mr_segreduce"]
 #: a monoid library's entries: the same interface as ``mr_segreduce``
 _MONOID_SIGNATURES = {
     "mr_segreduce_monoid_scratch_bytes":
@@ -167,27 +213,19 @@ _MONOID_SIGNATURES = {
 }
 
 
-def _int32_lanes(vals_s: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The value lanes as one contiguous ``[N, D]`` int32 tensor."""
-    for v in vals_s:
-        if v.dtype != torch.int32:
-            raise ValueError(f"segreduce kernel takes int32 values, "
-                             f"got {v.dtype}")
-    return torch.stack(list(vals_s), dim=-1).contiguous()
-
-
 def _segment_reduce_monoid(k1s: torch.Tensor, k2s: torch.Tensor,
                            vals_s: Sequence[torch.Tensor], op: Callable):
     """Launch the monoid kernel of callable *op* (its library built on
-    first use).  The lowering and the lane check come first, so an op
-    the kernel cannot take raises before any launch."""
+    first use).  The lane check and the lowering come first, so an op
+    or a lane dtype the kernel cannot take raises before any launch."""
     dev = k1s.device
     N, D = k1s.shape[0], len(vals_s)
-    ir = monoid.lower(op)
+    ir = monoid.lower(op, lane_dtype(vals_s, "segreduce_monoid"))
     monoid.check_lanes(ir, D)
-    vals = _int32_lanes(vals_s)
+    dtype = monoid.torch_dtype(ir)
+    vals = _pack_lanes(vals_s, dtype)
     lib = kc.library(kc.monoid_library(ir), _MONOID_SIGNATURES)
-    reduced = torch.empty((N, D), dtype=torch.int32, device=dev)
+    reduced = torch.empty((N, D), dtype=dtype, device=dev)
     end_csum = torch.empty(N, dtype=torch.int32, device=dev)
     scratch = torch.empty(lib.mr_segreduce_monoid_scratch_bytes(N, D),
                           dtype=torch.uint8, device=dev)
@@ -199,40 +237,60 @@ def _segment_reduce_monoid(k1s: torch.Tensor, k2s: torch.Tensor,
     return [reduced[:, i] for i in range(D)], end_csum
 
 
+def _segment_reduce_codes(k1s: torch.Tensor, k2s: torch.Tensor,
+                          vals: Optional[torch.Tensor], codes: Sequence[int],
+                          unit_values: bool):
+    """One launch of ``csrc/segreduce.cu`` over 1-3 packed lanes *vals*
+    (``[N, D]`` int32 or float32; None in unit mode) under op *codes*:
+    the lanes and ``end_csum``."""
+    dev = k1s.device
+    N, D = k1s.shape[0], 1 if vals is None else vals.shape[1]
+    dtype = torch.int32 if vals is None else vals.dtype
+    lib = kc.library("segreduce", _SIGNATURES)
+    launch = (lib.mr_segreduce_f32 if dtype == torch.float32
+              else lib.mr_segreduce)
+    reduced = torch.empty((N, D), dtype=dtype, device=dev)
+    end_csum = torch.empty(N, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.mr_segreduce_scratch_bytes(N, D),
+                          dtype=torch.uint8, device=dev)
+    err = launch(
+        kc.ptr(k1s), kc.ptr(k2s), kc.ptr(vals) if vals is not None else None,
+        N, D, int(unit_values), *codes, *[0] * (CODE_LANES - len(codes)),
+        kc.ptr(reduced), kc.ptr(end_csum), kc.ptr(scratch), kc.stream(dev))
+    kc.check("segreduce", err)
+    kc.count_launch("segreduce")
+    return [reduced[:, i] for i in range(D)], end_csum
+
+
 def _segment_reduce_cuda(k1s: torch.Tensor, k2s: torch.Tensor,
                          vals_s: Sequence[torch.Tensor], op: ReduceOp,
                          unit_values: bool):
     """Launch the port of ``_segreduce_kernel``: ``csrc/segreduce.cu``
-    for op codes and unit mode, the monoid kernel of a callable *op*
+    for op codes (a launch for each group of at most 3 lanes: the
+    lanes are independent, and ``end_csum`` is the first group's) and
+    unit mode, the monoid kernel of a callable *op*
     (:func:`_segment_reduce_monoid`)."""
     dev = k1s.device
-    N = k1s.shape[0]
     kc.require(k1s, "segreduce", "k1", torch.int32, dev)
     kc.require(k2s, "segreduce", "k2", torch.int32, dev)
     if unit_values:
-        D, codes, vals = 1, [0, 0, 0], None
-    else:
-        ops = _lane_ops(op, len(vals_s))
-        if ops is None:
-            return _segment_reduce_monoid(k1s, k2s, vals_s, op)
-        D = len(ops)
-        if not 1 <= D <= 3:
-            raise ValueError(f"segreduce kernel takes 1-3 value lanes, "
-                             f"got {D}")
-        vals = _int32_lanes(vals_s)
-        codes = [_OP_CODES[o] for o in ops] + [0] * (3 - D)
-    reduced = torch.empty((N, D), dtype=torch.int32, device=dev)
-    end_csum = torch.empty(N, dtype=torch.int32, device=dev)
-    lib = kc.library("segreduce", _SIGNATURES)
-    scratch = torch.empty(lib.mr_segreduce_scratch_bytes(N, D),
-                          dtype=torch.uint8, device=dev)
-    err = lib.mr_segreduce(
-        kc.ptr(k1s), kc.ptr(k2s), kc.ptr(vals) if vals is not None else None,
-        N, D, int(unit_values), *codes, kc.ptr(reduced), kc.ptr(end_csum),
-        kc.ptr(scratch), kc.stream(dev))
-    kc.check("segreduce", err)
-    kc.count_launch("segreduce")
-    return [reduced[:, i] for i in range(D)], end_csum
+        return _segment_reduce_codes(k1s, k2s, None, [0], True)
+    ops = _lane_ops(op, len(vals_s))
+    if ops is None:
+        return _segment_reduce_monoid(k1s, k2s, vals_s, op)
+    if not ops:
+        raise ValueError("segreduce kernel takes at least one value lane")
+    dtype = lane_dtype(vals_s, "segreduce")
+    groups = [range(i, min(i + CODE_LANES, len(ops)))
+              for i in range(0, len(ops), CODE_LANES)]
+    lanes, end_csum = [], None
+    for g in groups:
+        got, csum = _segment_reduce_codes(
+            k1s, k2s, _pack_lanes([vals_s[i] for i in g], dtype),
+            [_OP_CODES[ops[i]] for i in g], False)
+        lanes += got
+        end_csum = csum if end_csum is None else end_csum
+    return lanes, end_csum
 
 
 def segment_reduce(k1s: torch.Tensor, k2s: torch.Tensor,

@@ -327,8 +327,8 @@ def test_callable_op_on_cuda_raises(dev):
     any launch; so do more lanes than the monoid kernel takes."""
     k = torch.zeros(4, dtype=torch.int32, device=dev)
     kc.reset_counts()
-    with pytest.raises(NotImplementedError, match="floordiv"):
-        segscan._segment_reduce_cuda(k, k, [k], lambda a, b: a // b, False)
+    with pytest.raises(NotImplementedError, match="gcd"):
+        segscan._segment_reduce_cuda(k, k, [k], torch.gcd, False)
     with pytest.raises(NotImplementedError, match="1 to 8"):
         segscan._segment_reduce_cuda(k, k, [k] * 9, torch.add, False)
     assert kc.LAUNCHES["segreduce_monoid"] == 0
@@ -436,6 +436,205 @@ def test_monoid_kernel_repeats_and_replays_bit_for_bit(dev, name):
     k1, k2, vals = k1.to(dev), k2.to(dev), [v.to(dev) for v in vals]
     _repeats_and_replays(
         lambda: segscan._segment_reduce_cuda(k1, k2, vals, op, False))
+
+
+#: typed shapes on the card: a tile and a row, runs across many tiles
+#: (the look-back chain), and phase 25's 852,072 rows (~9 rows a run)
+TYPED_SHAPES = [(2049, 256), (100_003, 3), (852_072, 95_000)]
+
+
+def _cuda_lanes(k1, k2, vals, dev):
+    return k1.to(dev), k2.to(dev), [v.to(dev) for v in vals]
+
+
+@pytest.mark.parametrize("n,key_range", TYPED_SHAPES)
+@pytest.mark.parametrize("name", sorted(monoids.TYPED_MONOIDS))
+def test_typed_monoid_kernel_within_its_bounds(dev, name, n, key_range):
+    """Each typed monoid's kernel (float32 lanes; int32 lanes kept or
+    cast up front) against the plain ladder and each run's float64 fold
+    (``monoids.hold``): exact lanes bit-equal, the others within their
+    bounds; the end count bit-equal; one monoid launch."""
+    op, lanes, _ = monoids.TYPED_MONOIDS[name]
+    k1, k2, vals = monoids.typed_lanes(name, n, key_range, seed=n + lanes)
+    want = segscan._segment_reduce_plain(k1, k2, vals, op, False)
+    kc.reset_counts()
+    got = segscan._segment_reduce_cuda(*_cuda_lanes(k1, k2, vals, dev), op,
+                                       False)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["segreduce_monoid"] == 1
+    assert kc.LAUNCHES["segreduce"] == 0
+    assert torch.equal(got[1].cpu(), want[1])
+    monoids.hold(name, k1, k2, vals, [g.cpu() for g in got[0]], want[0])
+
+
+@pytest.mark.parametrize("specials", [False, True])
+@pytest.mark.parametrize("n,key_range", TYPED_SHAPES)
+def test_float_codes_kernel_within_its_bounds(dev, n, key_range, specials):
+    """Float32 lanes under the codes (sum, min, max), each op alone on
+    its lane, and the callable ``fsum_min_max``: min and max bit-equal
+    to the plain version (NaN propagating, -0.0 below +0.0), sums within
+    ``gamma_n * sum|v|`` of the float64 fold, NaN where a run holds one,
+    a sum of zeros -0.0 only when every term is."""
+    k1, k2, vals = monoids.typed_lanes("fsum_min_max", n, key_range,
+                                       seed=n, specials=specials)
+    codes = monoids.TYPED_CODES["fsum_min_max"]
+    want = segscan._segment_reduce_plain(k1, k2, vals, codes, False)
+    dk1, dk2, dvals = _cuda_lanes(k1, k2, vals, dev)
+    kc.reset_counts()
+    runs = [segscan._segment_reduce_cuda(dk1, dk2, dvals, op, False)
+            for op in (codes, monoids.fsum_min_max)]
+    alone = [segscan._segment_reduce_cuda(dk1, dk2, [v], o, False)
+             for v, o in zip(dvals, codes)]
+    runs.append(([a[0][0] for a in alone], alone[0][1]))
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["segreduce"] == 4
+    assert kc.LAUNCHES["segreduce_monoid"] == 1
+    for got in runs:
+        assert torch.equal(got[1].cpu(), want[1])
+        monoids.hold("fsum_min_max", k1, k2, vals,
+                     [g.cpu() for g in got[0]], want[0])
+
+
+def test_float_codes_split_into_launches_of_three_lanes(dev):
+    """Six float lanes under per-lane codes: two launches of the codes
+    kernel, each group's lanes as the plain version's."""
+    k1, k2, vals = monoids.typed_lanes("fsum_min_max", 852_072, 95_000,
+                                       seed=5)
+    ops = monoids.TYPED_CODES["fsum_min_max"] * 2
+    want = segscan._segment_reduce_plain(k1, k2, vals * 2, ops, False)
+    dk1, dk2, dvals = _cuda_lanes(k1, k2, vals, dev)
+    kc.reset_counts()
+    got = segscan._segment_reduce_cuda(dk1, dk2, dvals * 2, ops, False)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["segreduce"] == 2
+    assert torch.equal(got[1].cpu(), want[1])
+    for lo in (0, 3):
+        monoids.hold("fsum_min_max", k1, k2, vals,
+                     [g.cpu() for g in got[0][lo:lo + 3]], want[0][lo:lo + 3])
+
+
+@pytest.mark.parametrize("name", sorted(monoids.TYPED_NODE_CASES))
+def test_typed_node_forms_on_runs_of_two(dev, name):
+    """The generated C++ of the typed nodes (float ``+ - * /``, ``sqrt``,
+    ``abs``, int32 ``//``, ``%``, ``fmod``, ``clamp``, casts, float
+    constants, float comparisons and ``where``) against the plain ladder
+    where a run's result is one ``op(x, y)``: bit for bit (``sqrt``
+    correctly rounded in both), but the lane through ``expf`` and
+    ``logf`` (CUDA's, within 2 ulp of torch's) within a relative 1e-6
+    and an absolute 1e-5 (a few ulp of its terms)."""
+    op, lanes, dtype = monoids.TYPED_NODE_CASES[name]
+    k1, k2, vals = _runs_of_two(300_007, seed=lanes, n_lanes=lanes)
+    if dtype == torch.float32:
+        rng = np.random.default_rng(lanes)
+        vals = [torch.from_numpy((rng.standard_normal(v.shape[0]) * 50)
+                                 .astype(np.float32)) for v in vals]
+    want = segscan._segment_reduce_plain(k1, k2, vals, op, False)
+    kc.reset_counts()
+    got = segscan._segment_reduce_cuda(*_cuda_lanes(k1, k2, vals, dev), op,
+                                       False)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES["segreduce_monoid"] == 1
+    assert torch.equal(got[1].cpu(), want[1])
+    _, _, is_end = segscan._run_flags(k1, k2)
+    approx = {"casts and float constants": {2}}.get(name, ())
+    for d, (g, w) in enumerate(zip(got[0], want[0])):
+        g, w = g.cpu()[is_end], w[is_end]
+        if d in approx:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-5)
+        else:
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_float_lane_dtypes_outside_the_kernels_raise_on_the_card(dev):
+    """float64 lanes and a float op the lowering refuses raise by name
+    before any launch on CUDA tensors."""
+    k = torch.zeros(4, dtype=torch.int32, device=dev)
+    v = torch.zeros(4, dtype=torch.float64, device=dev)
+    kc.reset_counts()
+    for op in ("sum", monoids.fsum_min_max):
+        with pytest.raises(ValueError, match="float64"):
+            segscan._segment_reduce_cuda(k, k, [v] * 3, op, False)
+    with pytest.raises(NotImplementedError, match="floordiv"):
+        segscan._segment_reduce_cuda(k, k, [v.float()],
+                                     lambda a, b: a // b, False)
+    assert not any(kc.LAUNCHES.values())
+
+
+def _float_map(chunk, chunk_index, cfg):
+    """Records from the chunk's values: keys (c % 23, c % 5), three
+    float32 lanes of both signs (each exact on any device: an integer
+    below 2**24 times a power of two), payload a function of the key."""
+    c = chunk.to(torch.int64)
+    k1 = (c % 23).to(torch.int32)
+    k2 = (c % 5).to(torch.int32)
+    f = torch.stack([((c * 7919) % 100003 - 50000).float() * 2.0 ** -10,
+                     (c % 1000 * 3).float() * -0.125,
+                     ((c * 104729) % 65521 - 30000).float() * 2.0 ** -6],
+                    dim=-1)
+    return (torch.stack([k1, k2], dim=-1), f, (k1 * 7 + k2)[:, None],
+            (c % 7) != 0, torch.zeros((), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("P,impl", [(1, "variadic"), (8, "radix")])
+def test_engine_float_lanes_on_the_card(dev, P, impl):
+    """A float32 map through ``DeviceEngine`` on the card under the codes
+    and the callable: keys, payload, valid and the min and max lanes as
+    the CPU engine's (the plain versions), the sums within ``2 gamma_n
+    sum|v|`` of its sums; no plain call on the card.  The engine learns
+    the lanes' dtype from its map: the callable's float32 library is
+    loaded through the compile ledger, its int32 one never."""
+    import dataclasses
+
+    from mapreduce_tpu_torch.engine import device_engine as tde
+    from mapreduce_tpu_torch.obs.compile import LEDGER
+    from mapreduce_tpu_torch.ops import monoid
+    from mapreduce_tpu_torch.parallel.mesh import Partitions
+
+    def seen(op, dtype):
+        name = f"nvcc:{kc.monoid_library(monoid.lower(op, dtype))}"
+        progs = LEDGER.snapshot().get("programs") or {}
+        return sum(v for k, v in progs.get(name, {}).items()
+                   if k in ("compiled", "persistent_hit", "cached"))
+
+    chunks = np.random.default_rng(25).integers(
+        0, 1 << 14, size=(4 * P, 4096)).astype(np.int32)
+    c = chunks.reshape(-1).astype(np.int64)
+    c = c[c % 7 != 0]
+    mag = np.zeros((23, 5))  # sum|v| and rows of each key, lane 0
+    np.add.at(mag, (c % 23, c % 5),
+              np.abs(((c * 7919) % 100003 - 50000) * 2.0 ** -10))
+    rows = np.zeros((23, 5))
+    np.add.at(rows, (c % 23, c % 5), 1)
+    for op in (monoids.TYPED_CODES["fsum_min_max"], monoids.fsum_min_max):
+        cfg = dataclasses.replace(
+            tde.EngineConfig(local_capacity=256, exchange_capacity=128,
+                             out_capacity=256, tile=64, tile_records=64),
+            reduce_op=op, sort_impl=impl)
+        want = tde.DeviceEngine(Partitions(P, "cpu"), _float_map,
+                                cfg).run(chunks)
+        kc.reset_counts()
+        types = (torch.int32, torch.float32) if callable(op) else ()
+        before = [seen(op, t) for t in types]
+        eng = tde.DeviceEngine(Partitions(P, "cuda"), _float_map, cfg)
+        got = eng.run(chunks)
+        assert eng.value_dtype == torch.float32
+        if types:
+            assert seen(op, torch.int32) == before[0]
+            assert seen(op, torch.float32) > before[1]
+        assert not any(kc.PLAIN_CALLS.values())
+        assert kc.LAUNCHES["segreduce_monoid" if callable(op)
+                           else "segreduce"] > 0
+        for f in ("keys", "payload", "valid"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        gv, wv = got.values.cpu(), want.values
+        assert torch.equal(gv[..., 1:].view(torch.int32),
+                           wv[..., 1:].view(torch.int32))
+        k = want.keys.reshape(-1, 2)[want.valid.reshape(-1)].long()
+        n = torch.from_numpy(rows)[k[:, 0], k[:, 1]]
+        bound = 2 * monoids.gamma(n) * torch.from_numpy(mag)[k[:, 0],
+                                                              k[:, 1]]
+        err = (gv[..., 0] - wv[..., 0]).reshape(-1)[want.valid.reshape(-1)]
+        assert bool((err.abs().double() <= bound).all())
 
 
 def test_launch_counters_count_kernel_launches(dev):

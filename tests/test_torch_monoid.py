@@ -6,7 +6,8 @@ against the callables themselves and the JAX package, bit for bit.
   monoid of ``testing/monoids.py`` and a few more node kinds; the C++
   text and the hash are deterministic, two bodies give two hashes and
   one body under two names one; an unsupported node raises
-  ``NotImplementedError`` naming it;
+  ``NotImplementedError`` naming it (the float32 nodes, division and
+  casts are held in ``test_torch_float_lanes.py``);
 * op level: the port's ``segment_reduce`` and ``sorted_unique_reduce``
   with each torch callable against ``_segment_reduce_pallas`` (interpret
   mode) and ``_segment_reduce_lax`` with its ``jnp`` twin (the affine
@@ -25,7 +26,6 @@ Inputs are numpy arrays from fixed seeds; every comparison is exact.
 """
 
 import dataclasses
-import operator
 
 import numpy as np
 import pytest
@@ -163,9 +163,9 @@ def test_emit_cuda_is_deterministic_and_keyed_by_the_body():
 
 
 @pytest.mark.parametrize("op,what", [
-    (lambda a, b: a // b, "floordiv"),
-    (lambda a, b: a / b, "truediv"),
-    (lambda a, b: a * 0.5, "0.5"),
+    (lambda a, b: torch.gcd(a, b), "gcd"),
+    (lambda a, b: a.sum(-1), "sum"),
+    (lambda a, b: a.to(torch.float64), "float64"),
     (lambda a, b: a.to(torch.int64), "outside the lowering"),
     (lambda a, b: a << 32, "shift by 32"),
     (lambda a, b: a if bool((a > b).all()) else b, "control flow"),
@@ -489,28 +489,34 @@ def test_wordspan_device_map_matches_jax_with_the_callable_and_the_codes():
 def test_sources_for_names_the_monoid_library():
     cfg = tde.EngineConfig(reduce_op=monoids.sum_min_or)
     name = kc.monoid_library(monoid.lower(monoids.sum_min_or))
+    i32 = torch.int32  # the map's value dtype types the library
     assert name.startswith("segreduce_monoid-")
-    assert kc.sources_for(cfg) == ("tokenize", "segreduce", name)
-    assert kc.sources_for(dataclasses.replace(cfg, sort_impl="radix")) == (
-        "tokenize", "segreduce", name, "radix")
+    assert kc.sources_for(cfg, None, i32) == ("tokenize", "segreduce", name)
+    assert kc.sources_for(dataclasses.replace(cfg, sort_impl="radix"),
+                          None, i32) == ("tokenize", "segreduce", name,
+                                         "radix")
     # unit values never use the op; codes need no library of their own
-    assert kc.sources_for(dataclasses.replace(cfg, unit_values=True)) == (
-        "tokenize", "segreduce")
+    assert kc.sources_for(dataclasses.replace(cfg, unit_values=True),
+                          None, i32) == ("tokenize", "segreduce")
     assert kc.sources_for(dataclasses.replace(
-        cfg, reduce_op=("sum", "min", "or"))) == ("tokenize", "segreduce")
-    assert kc.sources_for(cfg, torch.device("cuda")) == \
-        kc.sources_for(cfg, "cuda:0") == kc.sources_for(cfg)
+        cfg, reduce_op=("sum", "min", "or")), None, i32) == (
+        "tokenize", "segreduce")
+    assert kc.sources_for(cfg, torch.device("cuda"), i32) == \
+        kc.sources_for(cfg, "cuda:0", i32) == kc.sources_for(cfg, None, i32)
+    # with no value dtype yet, the typed library is not named
+    assert kc.sources_for(cfg) == ("tokenize", "segreduce")
     # the CPU launches no library: the callable is not lowered there
-    assert kc.sources_for(cfg, "cpu") == ("tokenize", "segreduce")
+    assert kc.sources_for(cfg, "cpu", i32) == ("tokenize", "segreduce")
     eng = tde.DeviceEngine(Partitions(1, "cpu"), _three_lane_map,
                            dataclasses.replace(cfg, sort_impl="tiered"))
     assert eng._libraries(eng.config) == ("tokenize", "segreduce")
-    with pytest.raises(NotImplementedError, match="floordiv"):
-        kc.sources_for(dataclasses.replace(cfg,
-                                           reduce_op=operator.floordiv))
+    with pytest.raises(NotImplementedError, match="gcd"):
+        kc.sources_for(dataclasses.replace(cfg, reduce_op=torch.gcd), None,
+                       i32)
+    with pytest.raises(NotImplementedError, match="gcd"):
+        monoid.check_lowers(torch.gcd)
     assert kc.sources_for(dataclasses.replace(
-        cfg, reduce_op=operator.floordiv), "cpu") == ("tokenize",
-                                                      "segreduce")
+        cfg, reduce_op=torch.gcd), "cpu", i32) == ("tokenize", "segreduce")
 
 
 def test_monoid_library_is_keyed_by_the_ir_and_the_headers(monkeypatch,
